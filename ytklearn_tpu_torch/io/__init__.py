@@ -1,0 +1,1 @@
+"""io of the port (see ytklearn_tpu_torch/__init__.py)."""

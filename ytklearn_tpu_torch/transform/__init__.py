@@ -1,0 +1,1 @@
+"""transform of the port (see ytklearn_tpu_torch/__init__.py)."""
