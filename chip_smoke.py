@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's GBDT online-serving path on the card, as a user would:
+Drives the port's two paths on the card, as a user would: GBDT online
+serving (slice 1) and int8 GBDT training (slice 2).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
-  2. builds the heap-walk kernel from ytklearn_tpu_torch/serve/csrc/ with
-     nvcc and prints the build time and ptxas' report;
+  2. builds the three kernel libraries (serve/csrc/heap_walk.cu and
+     gbdt/csrc/{hist,route}.cu) from the checkout, one nvcc each, all
+     started together, and prints each build's time and ptxas' report;
   3. holds the kernel against its plain PyTorch version and against the
      stacked rung, all on the card, with torch.equal (tolerance: exact) at
      (trees, depth, rows) = (13, 1, 1), (64, 10, 512), (500, 6, 1) and
@@ -25,7 +27,23 @@ Drives the port's GBDT online-serving path on the card, as a user would:
      ladder rung, holds the kernel against its plain version (torch.equal)
      and times the kernel (CUDA events, median of repeats), its plain
      version and the stacked rung beside the kernel's bound;
-  6. prints the `kernels` JSON line, the card line, and last the result
+  6. holds the training kernels K2 (hist_q), K4 (hist_gather_q) and K5
+     (route) against their plain PyTorch versions with torch.equal
+     (tolerance: exact, the sums are int32) at the shapes listed in
+     TRAIN_KERNEL_SHAPES;
+  7. trains a seeded Higgs-shaped synthetic (the torch twin of bench.py's
+     _gen_gbdt) at full width with bench.py's GBDT configuration on cuda
+     (TRAIN_ROWS rows, TRAIN_ROUNDS rounds, hist_precision="int8"), counts
+     the kernels' launches over that run only, asserts the train loss
+     falls below 0.65, and prints steady trees/s, test AUC and logloss,
+     launches and host syncs per tree; then traces two rounds of a second
+     run with torch.profiler for the device's idle share;
+  8. trains one small l2 configuration on cuda and on the CPU and requires
+     the trees' integer fields to be equal;
+  9. times each training kernel at the full-width shapes (CUDA events,
+     median of repeats) beside its bound, its plain version and one
+     scatter_add_ call;
+ 10. prints the `kernels` JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the result line;
@@ -35,6 +53,7 @@ without a CUDA device it exits 2 before importing the port.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -221,6 +240,32 @@ def post(port, payload):
         return json.loads(resp.read())
 
 
+def device_busy(prof, top_k):
+    """(busy ms, top device ops) of a torch.profiler trace. Busy time is
+    the union of the device events' intervals (kernels, copies, sets):
+    only events on the device count, since a CPU op's device time repeats
+    the kernels it launched, and kernels launched through ctypes have no
+    CPU op at all."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:top_k]
+    return busy_us / 1e3, top
+
+
+def fmt_top(top, width):
+    return ", ".join(f"{e.key[:width]} {e.self_device_time_total / 1e3:.3f} "
+                     f"ms x{e.count}" for e in top)
+
+
 def profile_requests(port, rows, card):
     """A separate traced run of one-row requests: device busy time (CUDA
     kernels and copies, from torch.profiler) against the client's wall
@@ -235,16 +280,12 @@ def profile_requests(port, rows, card):
             post(port, {"features": row})
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    busy_ms, top = device_busy(prof, 4)
     check(busy_ms > 0, "the profiler saw no device time")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     print(f"profile: {len(rows)} one-row requests (traced), wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.4f}; top device ops: "
-          + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms"
-                      f" x{e.count}" for e in top)
-          + f" [{card}]", flush=True)
+          f"{1 - busy_ms / wall_ms:.4f}; top device ops: {fmt_top(top, 40)} "
+          f"[{card}]", flush=True)
 
 
 # -- phases -------------------------------------------------------------------
@@ -441,6 +482,478 @@ def phase_timings(model, card):
     return out, max_err
 
 
+# -- training slice ------------------------------------------------------------
+
+#: bench.py's GBDT cell at its own size: 10,500,000 train rows, 500,000
+#: test rows and 40 trees on the synthetic (bench.py:306-317)
+TRAIN_ROWS = 10_500_000
+TEST_ROWS = 500_000
+TRAIN_ROUNDS = 40
+#: (F, n, B, N, bins dtype) for K2; (R, dead share) for K4; NW for K5
+HIST_SHAPES = ((28, 65536, 256, 1, "u8"), (28, 65536, 256, 64, "u8"),
+               (5, 49152, 16, 7, "i32"))
+GATHER_SHAPES = (1024, 262144)
+FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core rate (int32 adds bound below it)
+
+
+def gen_higgs_like(n, n_test, F, seed):
+    """Torch twin of bench.py::_gen_gbdt: a Higgs-shaped synthetic with a
+    planted nonlinear signal, drawn on the card from a seeded generator."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.data import GBDTData
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_all = n + n_test
+    X = torch.randn((n_all, F), generator=gen, device="cuda")
+    logit = (1.5 * X[:, 0] * X[:, 1] + torch.sin(X[:, 2] * 2)
+             + 0.8 * (X[:, 3] > 0.5) - 0.5 * X[:, 4] ** 2
+             + 0.3 * X[:, 5] * X[:, 6])
+    noise = torch.randn((n_all,), generator=gen, device="cuda")
+    y = (logit + noise * 0.5 > 0).to(torch.float32)
+    names = [f"f{i}" for i in range(F)]
+
+    def mk(lo, hi):
+        return GBDTData(X=X[lo:hi], y=y[lo:hi],
+                        weight=np.ones(hi - lo, np.float32), n_real=hi - lo,
+                        feature_names=names)
+
+    return mk(0, n), mk(n, n_all)
+
+
+def bench_params(rounds, data_path):
+    """bench.py::bench_gbdt's configuration (bench.py:320-339)."""
+    from ytklearn_tpu_torch.config.params import (
+        ApproximateSpec,
+        GBDTParams,
+        ModelParams,
+    )
+
+    return GBDTParams(
+        round_num=rounds, max_depth=60, max_leaf_cnt=255,
+        tree_grow_policy="loss", learning_rate=0.1,
+        min_child_hessian_sum=100.0, loss_function="sigmoid",
+        eval_metric=["auc", "logloss"],
+        approximate=[ApproximateSpec(type="sample_by_quantile", max_cnt=255)],
+        model=ModelParams(data_path=data_path, dump_freq=0),
+    )
+
+
+def kernel_counts():
+    from ytklearn_tpu_torch.gbdt import engine, hist, route
+
+    return {"hist_q": hist.hist_wave_q.launches,
+            "hist_gather_q": hist.hist_wave_gather.launches,
+            "route": route.route_wave.launches,
+            "host_syncs": engine.grow.host_syncs}
+
+
+def zero_kernel_counts():
+    from ytklearn_tpu_torch.gbdt import engine, hist, route
+
+    hist.hist_wave_q.launches = 0
+    hist.hist_wave_gather.launches = 0
+    route.route_wave.launches = 0
+    engine.grow.host_syncs = 0
+
+
+def rand_hist_inputs(gen, F, n, B, N, dtype, M=None):
+    """Bins, positions over 2N+1 nodes (a tenth dead), quantized grads at
+    +-127 and N wave ids (a quarter -2 pads when N > 2), on the card."""
+    import torch
+
+    M = M or 2 * N + 1
+    bins = torch.randint(0, B, (F, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bins = bins.to(torch.uint8) if dtype == "u8" else bins
+    pos = torch.randint(0, M, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[torch.rand((n,), generator=gen, device="cuda") < 0.1] = -1
+    gq = torch.randint(-127, 128, (n,), generator=gen, device="cuda").float()
+    hq = torch.randint(0, 128, (n,), generator=gen, device="cuda").float()
+    gq[:2] = torch.tensor([127.0, -127.0], device="cuda")
+    ids = torch.randperm(M, generator=gen, device="cuda")[:N].to(torch.int32)
+    if N > 2:
+        ids[torch.rand((N,), generator=gen, device="cuda") < 0.25] = -2
+    return bins, pos, gq, hq, ids, M
+
+
+def compacted(pos, gq, hq, ids, R, dead_share, gen):
+    """The engine's compaction of a wave's rows into R slots, with a share
+    of dead slots (pos_g = -1) at the end."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.hist import compact_indices
+
+    member = torch.isin(pos, ids[ids >= 0])
+    keep = int(R * (1 - dead_share))
+    rows = torch.nonzero(member).flatten()
+    rows = rows[torch.randperm(len(rows), generator=gen, device="cuda")[
+        :keep]].sort().values
+    mask = torch.zeros_like(member)
+    mask[rows] = True
+    idx, cnt = compact_indices(mask, R)
+    valid = torch.arange(R, device="cuda") < cnt
+    li = idx.long()
+    pg = torch.where(valid, pos[li], -1).to(torch.int32)
+    return idx, pg, gq[li].contiguous(), hq[li].contiguous()
+
+
+def phase_train_kernels(card):
+    """K2, K4 and K5 against their plain versions on the card, exact."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist, route
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    errs = {"hist_q": 0.0, "hist_gather_q": 0.0, "route": 0.0}
+
+    def cmp(name, got, want, what):
+        torch.cuda.synchronize()
+        err = float((got.long() - want.long()).abs().max()) if got.numel() \
+            else 0.0
+        errs[name] = max(errs[name], err)
+        ok = torch.equal(got, want)
+        print(f"kernel check {name} {what}, tolerance exact (torch.equal): "
+              f"{ok}, max_abs_err {err} [{card}]", flush=True)
+        check(ok, f"{name} disagrees with its plain version at {what}")
+
+    for F, n, B, N, dt in HIST_SHAPES:
+        bins, pos, gq, hq, ids, M = rand_hist_inputs(gen, F, n, B, N, dt)
+        got = hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M)
+        want = hist.hist_wave_q_plain(bins, pos, gq, hq, ids, B, M)
+        cmp("hist_q", got, want, f"(F, n, B, N) = ({F}, {n}, {B}, {N}) "
+            f"{dt} bins")
+    bins, pos, gq, hq, ids, M = rand_hist_inputs(
+        gen, 28, 1 << 20, 256, 64, "u8")
+    rows = bins.t().contiguous()
+    for R in GATHER_SHAPES:
+        idx, pg, gg, hg = compacted(pos, gq, hq, ids, R, 0.25, gen)
+        got = hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, 256,
+                                    max_nodes=M)
+        want = hist.hist_gather_q_plain(rows, idx, pg, gg, hg, ids, 256, M)
+        cmp("hist_gather_q", got, want, f"R = {R}, N = 64, a quarter of "
+            "the slots dead")
+    NW, n = 64, 1 << 20
+    nid = torch.randperm(M, generator=gen, device="cuda")[:NW].to(
+        torch.int32)
+    valid = torch.rand((NW,), generator=gen, device="cuda") < 0.75
+    feat = torch.randint(0, 28, (NW,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    feat[~valid] = -1
+    slot = torch.randint(0, 256, (NW,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lch = (M + 2 * torch.arange(NW, device="cuda")).to(torch.int32)
+    lo = torch.randint(0, 128, (NW,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    hi = lo + torch.randint(1, 128, (NW,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    args = (bins, pos, valid, nid, feat, slot, lch, lch + 1, lo, hi)
+    got = route.route_wave(*args[:8], lo=lo, hi=hi)
+    want = route.route_wave_plain(*args)
+    cmp("route", got, want, "NW = 64 over 2^20 rows, invalid slots, EFB "
+        "member ranges")
+    return errs
+
+
+def phase_train(tmp, card):
+    """The full-width int8 training run, the main path of slice 2."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    train, test = gen_higgs_like(TRAIN_ROWS, TEST_ROWS, N_FEATURES, SEED)
+    params = bench_params(TRAIN_ROUNDS, os.path.join(tmp, "train.model"))
+    trainer = GBDTTrainer(params, hist_precision="int8", device="cuda")
+    torch.cuda.synchronize()
+    zero_kernel_counts()  # count the main path's launches only
+    t0 = time.perf_counter()
+    res = trainer.train(train=train, test=test)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    losses = [r["train_loss"] for r in res.round_log]
+    trees = len(res.model.trees)
+    sync = trainer.sync_log
+    # bench.py:346-352: from the first sync at round >= 3 to the last
+    tail = [(r, t) for r, t in sync if r >= 3]
+    check(len(tail) >= 2, f"too few syncs for a steady window: {sync}")
+    (r0, t0s), (r1, t1s) = tail[0], tail[-1]
+    tps = (r1 - r0) / (t1s - t0s)
+    auc = res.test_metrics["auc"]
+    print(f"train: {TRAIN_ROWS} rows x {N_FEATURES} features, {TEST_ROWS} "
+          f"test rows, {trees} trees (loss policy, 255 leaves, wave "
+          f"{trainer.grow_spec.wave}, ladder {trainer.grow_spec.ladder}, "
+          f"int8) in {wall:.3f} s (preprocess "
+          f"{trainer.time_stats['preprocess']:.3f} s, rounds "
+          f"{trainer.time_stats['train']:.3f} s); steady {tps:.4f} trees/s "
+          f"(sync log, rounds {r0}..{r1}); train loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; test AUC {auc:.6f}, test logloss "
+          f"{res.test_loss:.6f} (EvalSet logloss "
+          f"{res.test_metrics['logloss']:.6f}) [{card}]", flush=True)
+    per_tree = {k: v / trees for k, v in counts.items()}
+    # the trainer reads one loss per round besides the engine's probes
+    syncs = (counts["host_syncs"] + len(sync)) / trees
+    print(f"train: launches per tree: hist_q {per_tree['hist_q']:.2f}, "
+          f"hist_gather_q {per_tree['hist_gather_q']:.2f}, route "
+          f"{per_tree['route']:.2f}; host syncs per tree {syncs:.2f} "
+          f"({counts['host_syncs']} phase probes + {len(sync)} loss reads "
+          f"over {trees} trees); wave log rows used per tree "
+          f"{(trainer.wave_log[..., 3] > 0).sum() / trees:.2f} [{card}]",
+          flush=True)
+    check(all(counts[k] > 0 for k in ("hist_q", "hist_gather_q", "route")),
+          f"the main path skipped a kernel: {counts}")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+          and res.train_loss < 0.65, f"train loss did not fall: {losses}")
+    check(0.5 < auc <= 1.0 and math.isfinite(res.test_loss),
+          f"test AUC {auc} / logloss {res.test_loss}")
+    return counts, trainer, res, tps
+
+
+def phase_train_profile(card):
+    """Two traced rounds of a second full-width run: device busy time
+    (kernels and copies) against the wall time of those rounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    class Traced(GBDTTrainer):
+        def _round(self, rnd, dd, spec, state):
+            if rnd == 1:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            out = super()._round(rnd, dd, spec, state)
+            if rnd == 2:
+                torch.cuda.synchronize()
+                self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+                self.prof.__exit__(None, None, None)
+            return out
+
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_p_")
+    try:
+        train, test = gen_higgs_like(TRAIN_ROWS, TEST_ROWS, N_FEATURES, SEED)
+        tr = Traced(bench_params(3, os.path.join(tmp, "p.model")),
+                    hist_precision="int8", device="cuda")
+        tr.train(train=train, test=test)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    busy_ms, top = device_busy(tr.prof, 6)
+    check(busy_ms > 0, "the profiler saw no device time in training")
+    idle = 1 - busy_ms / tr.wall_ms
+    print(f"train profile: 2 rounds (traced), wall {tr.wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share {idle:.4f}; top device "
+          f"ops: {fmt_top(top, 48)} [{card}]", flush=True)
+    return idle
+
+
+def phase_cpu_card_compare(card):
+    """One small l2 configuration on cuda and on the CPU: the same trees."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.config.params import (
+        ApproximateSpec,
+        GBDTParams,
+        ModelParams,
+    )
+    from ytklearn_tpu_torch.gbdt.data import GBDTData
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    rng = np.random.RandomState(SEED)
+    n, F = 65536, 8
+    X = rng.randn(n, F).astype(np.float32)
+    y = (1.5 * X[:, 0] * X[:, 1] + np.sin(2 * X[:, 2])
+         + rng.randn(n) * 0.3).astype(np.float32)
+    names = [f"f{i}" for i in range(F)]
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_c_")
+    models = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            p = GBDTParams(
+                round_num=5, max_depth=8, max_leaf_cnt=63,
+                tree_grow_policy="loss", learning_rate=0.1,
+                min_child_hessian_sum=10.0, loss_function="l2",
+                eval_metric=["rmse"],
+                approximate=[ApproximateSpec(max_cnt=255)],
+                model=ModelParams(data_path=os.path.join(tmp, dev),
+                                  dump_freq=0))
+            tr = GBDTTrainer(p, hist_precision="int8", device=dev,
+                             wave=16)
+            models[dev] = tr.train(GBDTData(X, y, np.ones(n, np.float32), n,
+                                            names)).model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = 0.0
+    for a, b in zip(models["cuda"].trees, models["cpu"].trees):
+        for f in ("feat", "left", "right", "slot", "sample_cnt", "split"):
+            check(getattr(a, f) == getattr(b, f),
+                  f"cuda and cpu trees differ in {f}")
+        la, lb = np.asarray(a.leaf_value), np.asarray(b.leaf_value)
+        rel = max(rel, float(np.max(np.abs(la - lb)
+                                    / np.maximum(np.abs(lb), 1e-30))))
+    nodes = sum(t.n_nodes() for t in models["cuda"].trees)
+    print(f"cpu/card: l2, {n} rows x {F} features, 5 trees ({nodes} nodes) "
+          f"on cuda and on the CPU: integer fields and split values equal; "
+          f"largest relative leaf difference {rel:.3e} [{card}]", flush=True)
+    return rel
+
+
+def bound_ms(nbytes, int_ops):
+    """The larger of: `nbytes` over HBM bandwidth, `int_ops` int32
+    operations over the CUDA-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sector_bytes(offsets):
+    """Bytes of the distinct 32-byte sectors that hold these byte offsets:
+    the device reads memory in whole sectors."""
+    import torch
+
+    return 32 * int(torch.unique(offsets // 32).numel())
+
+
+def hist_bound_ms(bins, gather, idx, pos, ids, M, B):
+    """K2/K4's bound from this call's own inputs. Bytes: pos read whole;
+    the sectors of gq, hq (and K4's idx) that hold a row of the wave, and
+    of bins those rows' bins (K2: each feature's, feature-major; K4: the
+    gathered rows' F bins, row-major); the (N, F, B, 3) int32 histogram
+    written once. Operations: three int32 adds per wave row and feature."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.hist import node_slots
+
+    eb = bins.element_size()
+    n, N = pos.shape[0], ids.shape[0]
+    _, ok = node_slots(pos, ids, M)
+    live = torch.nonzero(ok).flatten()
+    F = bins.shape[1] if gather else bins.shape[0]
+    nbytes = 4 * n + 12 * N * F * B
+    nbytes += (3 if gather else 2) * sector_bytes(live * 4)  # (idx,) gq, hq
+    if gather:
+        rows = idx[live].long()
+        nbytes += sector_bytes(((rows * F)[:, None]
+                                + torch.arange(F, device=rows.device)) * eb)
+    else:
+        nbytes += sum(sector_bytes((f * bins.shape[1] + live) * eb)
+                      for f in range(F))
+    return bound_ms(nbytes, 3 * F * live.numel())
+
+
+def route_bound_ms(bins_t, pos, valid, nid, feat):
+    """K5's bound from this call's own inputs. Bytes: every row's position
+    read and written (8 B a row), the slot table, and the sectors of bins
+    that hold the bin of a row's matching slot's feature (a row outside
+    the wave reads none). Operations: one id compare per row and slot."""
+    import torch
+
+    F, n = bins_t.shape
+    f_row = torch.full_like(pos, -1)
+    for i in range(nid.shape[0]):  # a later matching slot wins, as in K5
+        hit = (pos == nid[i]) & valid[i]
+        f_row = torch.where(hit, feat[i].clamp(0, F - 1), f_row)
+    rows = torch.nonzero(f_row >= 0).flatten()
+    nbytes = 8 * n + 32 * nid.shape[0] + sector_bytes(
+        (f_row[rows].long() * n + rows) * bins_t.element_size())
+    return bound_ms(nbytes, n * nid.shape[0])
+
+
+def flat_keys(bin_of, F, B, pos, gq, hq, ids, M):
+    """Flattened (slot, feature, bin, channel) keys and int32 values of
+    every (row, feature) update: the input of the one-call yardstick."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.hist import node_slots
+
+    slot, ok = node_slots(pos, ids, M)
+    rows = torch.nonzero(ok).flatten()
+    s = slot[rows]
+    f = torch.arange(F, device="cuda")
+    b = torch.stack([bin_of(fi, rows) for fi in range(F)], dim=1).long()
+    base = ((s[:, None] * F + f[None, :]) * B + b) * 3  # (rows, F)
+    keys = (base[..., None] + torch.arange(3, device="cuda")).flatten()
+    vals = torch.stack([gq[rows].int(), hq[rows].int(),
+                        torch.ones_like(rows, dtype=torch.int32)], dim=1)
+    vals = vals[:, None, :].expand(-1, F, -1).flatten().contiguous()
+    return keys, vals
+
+
+def phase_train_timings(trainer, card):
+    """Each training kernel at the full-width training shapes."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist, route
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    dd_bins = trainer.dev_inputs.bins_t  # (28, n_pad) u8 training bins
+    F, n = dd_bins.shape
+    B, M = trainer.grow_spec.B, trainer.grow_spec.max_nodes
+    N = trainer.grow_spec.wave
+    pos = torch.randint(0, 2 * N + 1, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    gq = torch.randint(-127, 128, (n,), generator=gen, device="cuda").float()
+    hq = torch.randint(0, 128, (n,), generator=gen, device="cuda").float()
+    ids = torch.arange(1, 2 * N + 1, 2, device="cuda", dtype=torch.int32)
+    out = {}
+
+    def run(name, fn, plain, lib, bound, iters):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{name} disagrees at the timing shape")
+        ms = cuda_ms(fn, iters=iters)
+        plain_ms = cuda_ms(plain, iters=1, repeats=3)
+        lib_ms = cuda_ms(lib, iters=3, repeats=3) if lib else None
+        out[name] = (ms, plain_ms, bound[0], bound[1], lib_ms)
+        print(f"timing: {name} {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"one scatter_add_ "
+              f"{'%.6f ms' % lib_ms if lib_ms is not None else 'none'}, "
+              f"bound {bound[0]:.6f} ms ({bound[1]}) [{card}]", flush=True)
+
+    # K2: one full-scan wave of N slots over every training row
+    args = (dd_bins, pos, gq, hq, ids, B)
+    keys, vals = flat_keys(lambda f, r: dd_bins[f, r], F, B, pos, gq, hq,
+                           ids, M)
+    flat = torch.zeros(N * F * B * 3, dtype=torch.int32, device="cuda")
+    run("hist_q", lambda: hist.hist_wave_q(*args, max_nodes=M),
+        lambda: hist.hist_wave_q_plain(*args, M),
+        lambda: flat.zero_().scatter_add_(0, keys, vals),
+        hist_bound_ms(dd_bins, False, None, pos, ids, M, B), iters=10)
+    del keys, vals
+    # K4: the first fused rung (n/64 rows) of the same wave
+    rows = dd_bins.t().contiguous()
+    R = -(-(n // 64) // 1024) * 1024
+    idx, pg, gg, hg = compacted(pos, gq, hq, ids, R, 0.05, gen)
+    keys, vals = flat_keys(lambda f, r: rows[idx[r].long(), f], F, B, pg,
+                           gg, hg, ids, M)
+    run("hist_gather_q",
+        lambda: hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, B,
+                                      max_nodes=M),
+        lambda: hist.hist_gather_q_plain(rows, idx, pg, gg, hg, ids, B, M),
+        lambda: flat.zero_().scatter_add_(0, keys, vals),
+        hist_bound_ms(rows, True, idx, pg, ids, M, B), iters=20)
+    del keys, vals, rows
+    # K5: one wave of N slots over every training row
+    valid = torch.ones(N, dtype=torch.bool, device="cuda")
+    nid = ids
+    feat = torch.randint(0, F, (N,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    slot = torch.randint(0, B, (N,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lch = (2 * N + 1 + 2 * torch.arange(N, device="cuda")).to(torch.int32)
+    lo = torch.zeros(N, dtype=torch.int32, device="cuda")
+    hi = torch.full((N,), B - 1, dtype=torch.int32, device="cuda")
+    rargs = (dd_bins, pos, valid, nid, feat, slot, lch, lch + 1)
+    run("route", lambda: route.route_wave(*rargs, lo=lo, hi=hi),
+        lambda: route.route_wave_plain(*rargs, lo, hi), None,
+        route_bound_ms(dd_bins, pos, valid, nid, feat), iters=20)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -452,16 +965,28 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ytklearn_tpu_torch.gbdt import hist, route
     from ytklearn_tpu_torch.serve import kernels
 
     print(sh([kernels.find_nvcc(), "--version"]).splitlines()[-1], flush=True)
     print(f"ninja: {shutil.which('ninja') or 'not found'} (not used: the "
-          "kernel is built by nvcc into a ctypes library)", flush=True)
+          "kernels are built by nvcc into ctypes libraries)", flush=True)
 
-    build = kernels.build_kernel()
-    print(f"build: heap_walk.cu in {build['seconds']:.3f} s: {build['cmd']}",
-          flush=True)
-    print(build["log"].strip(), flush=True)
+    # one nvcc per source, all started together
+    sources = {"heap_walk.cu": kernels.build_kernel,
+               "hist.cu": hist.build_kernel, "route.cu": route.build_kernel}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = {k: pool.submit(fn) for k, fn in sources.items()}
+        builds = {k: f.result() for k, f in builds.items()}
+    print(f"build: 3 libraries in {time.perf_counter() - t0:.3f} s (wall, "
+          f"in parallel) [{card}]", flush=True)
+    for name, build in builds.items():
+        print(f"build: {name} in {build['seconds']:.3f} s [{card}]: "
+              f"{build['cmd']}", flush=True)
+        print(build["log"].strip(), flush=True)
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_")
     try:
@@ -472,7 +997,7 @@ def main() -> int:
     times, timing_err = phase_timings(model, card)
     max_err = max(max_err, timing_err)
     ms, plain_ms, bound_ms, bound_by = times[LADDER[-1]]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "heap_walk",
         "route": "cuda",
         "source": "ytklearn_tpu_torch/serve/csrc/heap_walk.cu",
@@ -484,7 +1009,39 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    }]
+
+    errs = phase_train_kernels(card)
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_t_")
+    try:
+        counts, trainer, _res, _tps = phase_train(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ttimes = phase_train_timings(trainer, card)
+    del trainer
+    torch.cuda.empty_cache()
+    phase_train_profile(card)
+    phase_cpu_card_compare(card)
+    for name, src, line in (
+        ("hist_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:113"),
+        ("hist_gather_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:434"),
+        ("route", "route.cu", "ytklearn_tpu/gbdt/route.py:23"),
+    ):
+        ms, plain_ms, bound_ms, bound_by, lib_ms = ttimes[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"ytklearn_tpu_torch/gbdt/csrc/{src}",
+            "replaces": line,
+            "launches": counts[name],
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -77,6 +77,11 @@ def pytest_configure(config):
         "instrumented locks — the runtime pin of the ytklint "
         "lock-order / hold-time rules",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skipped without one",
+    )
 
 
 @pytest.fixture(autouse=True)

@@ -204,7 +204,9 @@ def test_heap_walk_refuses_feat_ids_past_the_row():
 def test_kernel_build_needs_nvcc(monkeypatch):
     """On a machine without nvcc the build raises; it never hands over to
     the plain version."""
-    monkeypatch.setattr(kernels.shutil, "which", lambda _name: None)
+    from ytklearn_tpu_torch import cuda_build
+
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda _name: None)
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build_kernel()

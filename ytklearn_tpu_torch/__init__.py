@@ -3,6 +3,8 @@
 It grows beside the JAX package, slice by slice, and imports neither JAX
 nor anything of ``ytklearn_tpu``. Ported so far: GBDT online serving
 (``serve/``, ``cli serve``), whose fused rung runs the hand-written
-heap-walk CUDA kernel. Entry points run on ``cuda`` unless the caller
+heap-walk CUDA kernel, and int8 GBDT training on the device engine
+(``gbdt/trainer.py``), whose histograms and routing run hand-written CUDA
+kernels (``gbdt/csrc/``). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``. See ROADMAP.md for what comes next.
 """

@@ -2,7 +2,7 @@
 
 Same names, types and defaults as the JAX package's registry
 (``ytklearn_tpu/config/knobs.py``), cut to the knobs the GBDT serving path
-reads. Every read goes through the typed accessors below, which re-read
+and the GBDT device-engine trainer read. Every read goes through the typed accessors below, which re-read
 ``os.environ`` on each call, so a test or an operator may set a knob at run
 time.
 
@@ -17,13 +17,13 @@ import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
-__all__ = ["Knob", "KNOBS", "get_str", "get_bool"]
+__all__ = ["Knob", "KNOBS", "get_str", "get_int", "get_float", "get_bool"]
 
 
 @dataclass(frozen=True)
 class Knob:
     name: str
-    type: str  # "str" | "bool"
+    type: str  # "str" | "int" | "float" | "bool"
     default: object  # parsed value returned when the env var is unset
     doc: str
 
@@ -48,6 +48,29 @@ _knob("YTK_SERVE_PRECISION", "str", "f64",
       "serving precision rung for the einsum scorers (`f64` | `bf16`); "
       "GBDT scores in f64 whatever it asks")
 
+# -- gbdt engine (same defaults as ytklearn_tpu/config/knobs.py:93-125) ----
+_knob("YTK_PARTITION", "bool", True,
+      "leaf-partitioned GBDT histogram phases (`0` turns them off)")
+_knob("YTK_NO_PARTITION", "bool", False,
+      "hard-disable leaf-partitioned histograms (wins over `YTK_PARTITION`)")
+_knob("YTK_LADDER", "str", None,
+      "comma-separated budget-ladder divisors for partitioned histogram "
+      "passes (default: `64,256` on cuda, `8,32` on the CPU)")
+_knob("YTK_FUSED", "bool", True,
+      "fused gather+histogram kernel for partitioned passes (`0` gathers "
+      "the rows first and runs the full-scan kernel on them)")
+_knob("YTK_FUSED_MAX_ROWS", "int", 1 << 18,
+      "max gathered rows per fused-kernel call")
+_knob("YTK_GOSS_A", "float", 1.0,
+      "GOSS top-gradient keep fraction per tree; a value < 1 asks for "
+      "GOSS, which is not ported yet and raises")
+_knob("YTK_GOSS_B", "float", 0.1,
+      "GOSS sample rate on the non-top remainder (active only when "
+      "`YTK_GOSS_A` < 1)")
+_knob("YTK_EFB", "bool", True,
+      "exclusive feature bundling at binning time; a plan with two or more "
+      "bundle candidates is not ported yet and raises")
+
 _FALSY = ("0", "false", "no", "off")
 
 
@@ -65,6 +88,18 @@ def get_str(name: str) -> Optional[str]:
     knob = _declared(name)
     raw = os.environ.get(name)
     return raw if raw not in (None, "") else knob.default
+
+
+def get_int(name: str) -> Optional[int]:
+    knob = _declared(name)
+    raw = os.environ.get(name)
+    return int(raw) if raw not in (None, "") else knob.default
+
+
+def get_float(name: str) -> Optional[float]:
+    knob = _declared(name)
+    raw = os.environ.get(name)
+    return float(raw) if raw not in (None, "") else knob.default
 
 
 def get_bool(name: str) -> bool:

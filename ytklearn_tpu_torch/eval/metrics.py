@@ -1,0 +1,113 @@
+"""Evaluation metrics as torch functions (``ytklearn_tpu/eval/metrics.py``).
+
+  bucketed AUC   predictions in [0, 1] map to `int(pred * slots)` clamped
+                 to [0, slots-1]; pair counts use the trapezoid
+                 `neg_i * (pos_above_i + 0.5 * pos_i)` (AucEvaluator.java)
+  rmse / mae     weighted pointwise means; zero-weight rows are masked
+                 before weighting
+  logloss        weighted mean of -(y log p + (1-y) log(1-p)); an addition
+                 of the port (the JAX EvalSet has none; its bench reports
+                 the sigmoid test loss under that name)
+
+Sums run in the dtype of the weights, as in the reference. The confusion
+matrix and mape/smape come with the rest of eval (ROADMAP.md 1.5).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+DEFAULT_AUC_SLOTS = 100000  # reference: data/Constants.java:47
+
+
+def auc_histogram(pred, y, weight, slots: int = DEFAULT_AUC_SLOTS):
+    """(slots, 2) histogram: [:, 0] = positive weight, [:, 1] = negative."""
+    idx = torch.clamp((pred * slots).to(torch.int32), 0, slots - 1).long()
+    is_pos = (y == 1.0).to(weight.dtype)
+    pos = torch.zeros(slots, dtype=weight.dtype, device=weight.device)
+    neg = torch.zeros_like(pos)
+    pos.index_add_(0, idx, weight * is_pos)
+    neg.index_add_(0, idx, weight * (1.0 - is_pos))
+    return torch.stack([pos, neg], dim=1)
+
+
+def auc_from_histogram(hist) -> torch.Tensor:
+    """Trapezoidal pair count over the slot histogram; 0.5 for data of one
+    class (no pairs)."""
+    pos, neg = hist[:, 0], hist[:, 1]
+    total_pos = torch.sum(pos)
+    pos_above = total_pos - torch.cumsum(pos, dim=0)
+    pair_sum = torch.sum(neg * (pos_above + 0.5 * pos))
+    denom = total_pos * torch.sum(neg)
+    return torch.where(
+        denom > 0, pair_sum / torch.where(denom > 0, denom,
+                                          torch.ones_like(denom)),
+        torch.full_like(denom, 0.5))
+
+
+def auc(pred, y, weight=None, slots: int = DEFAULT_AUC_SLOTS
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weighted, unweighted) AUC of binary predictions."""
+    w = torch.ones_like(pred) if weight is None else weight
+    weighted = auc_from_histogram(auc_histogram(pred, y, w, slots))
+    mask = (w != 0).to(pred.dtype)
+    unweighted = auc_from_histogram(auc_histogram(pred, y, mask, slots))
+    return weighted, unweighted
+
+
+def _logloss_row(y, p):
+    return -(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p))
+
+
+_POINTWISE_ROWS: Dict[str, Callable] = {
+    "rmse": lambda y, p: (y - p) * (y - p),
+    "mae": lambda y, p: torch.abs(y - p),
+    "logloss": _logloss_row,
+}
+
+
+def pointwise(pred, y, weight=None, kind: str = "rmse") -> torch.Tensor:
+    w = torch.ones_like(pred) if weight is None else weight
+    row = _POINTWISE_ROWS[kind](y, pred)
+    row = torch.where(w > 0, row, torch.zeros_like(row))
+    v = torch.sum(row * w) / torch.sum(w)
+    return torch.sqrt(v) if kind == "rmse" else v
+
+
+def _parse_metric(name: str) -> Tuple[str, Optional[float]]:
+    base, _, arg = name.strip().partition("@")
+    return base.lower(), (float(arg) if arg else None)
+
+
+def create_evaluator_fns(metric_names: Sequence[str]) -> Dict[str, Callable]:
+    fns: Dict[str, Callable] = {}
+    for name in metric_names:
+        base, arg = _parse_metric(name)
+        if base == "auc":
+            slots = int(arg) if arg else DEFAULT_AUC_SLOTS
+            fns[name] = lambda p, y, w, s=slots: auc(p, y, w, s)[0]
+        elif base in _POINTWISE_ROWS:
+            fns[name] = lambda p, y, w, k=base: pointwise(p, y, w, k)
+        elif base in ("mape", "smape", "confusion_matrix"):
+            raise NotImplementedError(
+                f"evaluate_metric {name!r} is not ported yet (ROADMAP.md "
+                "1.5, rest of the GBDT trainer)"
+            )
+        else:
+            raise ValueError(f"unknown evaluate_metric: {name!r}")
+    return fns
+
+
+class EvalSet:
+    """Run the configured metrics on (pred, y, weight) tensors."""
+
+    def __init__(self, metric_names: Sequence[str]):
+        self.metric_names = list(metric_names)
+        self.fns = create_evaluator_fns(metric_names)
+
+    def evaluate(self, pred, y, weight=None) -> Dict[str, float]:
+        w = (torch.ones(pred.shape[:1], dtype=torch.float32,
+                        device=pred.device) if weight is None else weight)
+        return {name: float(fn(pred, y, w)) for name, fn in self.fns.items()}

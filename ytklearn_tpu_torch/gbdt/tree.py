@@ -1,10 +1,11 @@
 """GBDT tree + model containers with the reference text format.
 
-The serving half of ``ytklearn_tpu/gbdt/tree.py`` (reference:
+The counterpart of ``ytklearn_tpu/gbdt/tree.py`` (reference:
 data/gbdt/Tree.java node regexes :47-48 and recursive dump :255+,
-GBDTModel.java dumpModel:63 / loadModel:79): parse, dump, depth, and the
-perfect-heap export the heap-walk kernel reads. Text I/O is byte for byte
-the JAX package's.
+GBDTModel.java dumpModel:63 / loadModel:79): parse, dump, depth, the
+perfect-heap export the heap-walk kernel reads, and the training half
+(the slot interval a grown split carries until its value conversion, and
+feature importance). Text I/O is byte for byte the JAX package's.
 
 Text format:
     base_prediction=<f>
@@ -51,6 +52,8 @@ class Tree:
     gain: List[float] = field(default_factory=lambda: [0.0])
     hess_sum: List[float] = field(default_factory=lambda: [0.0])
     sample_cnt: List[int] = field(default_factory=lambda: [0])
+    # train-time: split slot interval for value conversion
+    slot: List[int] = field(default_factory=lambda: [-1])
 
     def n_nodes(self) -> int:
         return len(self.feat)
@@ -71,6 +74,7 @@ class Tree:
             (self.gain, 0.0),
             (self.hess_sum, 0.0),
             (self.sample_cnt, 0),
+            (self.slot, -1),
         ):
             arr.append(d)
             arr.append(d)
@@ -203,6 +207,7 @@ class Tree:
         t.gain = [0.0] * n
         t.hess_sum = [0.0] * n
         t.sample_cnt = [0] * n
+        t.slot = [-1] * n
         for is_leaf, m in entries:
             nid = int(m.group(1))
             if is_leaf:
@@ -225,6 +230,16 @@ class Tree:
                     t.hess_sum[nid] = float(m.group(8))
                     t.sample_cnt[nid] = int(float(m.group(9)))
         return t
+
+
+    def feature_importance(self, acc: Dict[str, Tuple[int, float]]) -> None:
+        """Accumulate (split_count, gain_sum) per feature name (reference:
+        data/gbdt/Tree.featureImportance feeding GBDTModel:108-114)."""
+        for nid in range(self.n_nodes()):
+            if not self.is_leaf(nid):
+                name = self.feat_name[nid]
+                cnt, gain = acc.get(name, (0, 0.0))
+                acc[name] = (cnt + 1, gain + float(self.gain[nid]))
 
 
 def _jfloat(v: float) -> str:
@@ -273,3 +288,11 @@ class GBDTModel:
             raise ValueError(f"expected {tree_num} trees, found {len(blocks)}")
         m.trees = [Tree.parse(b) for b in blocks]
         return m
+
+    def feature_importance(self) -> Dict[str, Tuple[int, float]]:
+        """name -> (sum_split_count, sum_gain), gain-descending, name
+        ascending on ties (a deterministic dump order)."""
+        acc: Dict[str, Tuple[int, float]] = {}
+        for t in self.trees:
+            t.feature_importance(acc)
+        return dict(sorted(acc.items(), key=lambda kv: (-kv[1][1], kv[0])))

@@ -1,9 +1,10 @@
 """Storage seam: the local filesystem behind the reference `IFileSystem`
 surface (reference: fs/LocalFileSystem.java:39), cut to what model loading
-reads. Remote schemes are not ported yet."""
+and the trainer's dumps need. Remote schemes are not ported yet."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import IO
 
@@ -34,6 +35,24 @@ class LocalFileSystem:
             parent = os.path.dirname(os.path.abspath(path))
             os.makedirs(parent, exist_ok=True)
         return open(path, mode)
+
+    @contextlib.contextmanager
+    def atomic_open(self, path: str, mode: str = "w"):
+        """Write-then-replace: `path` keeps its old content or carries the
+        complete new content, never a half-written file (the serving
+        registry's fingerprint watcher may read it at any time). On error
+        the temp file is removed and `path` is untouched."""
+        tmp = f"{self._strip(path)}{TMP_MARKER}{os.getpid()}"
+        f = self.open(tmp, mode)
+        try:
+            yield f
+        except BaseException:
+            f.close()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+        f.close()
+        os.replace(tmp, self._strip(path))
 
 
 def create_filesystem(scheme: str = "local") -> LocalFileSystem:

@@ -13,26 +13,23 @@
                 only for tensors on the CPU
 
 The kernel is built at first use with nvcc into csrc/build/ (cached by
-source mtime) and bound through ctypes. A build or launch failure raises:
-nothing falls back to the plain version on a CUDA tensor.
+source mtime, ytklearn_tpu_torch/cuda_build.py) and bound through ctypes.
+A build or launch failure raises: nothing falls back to the plain version
+on a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
-import logging
 import os
-import shutil
-import subprocess
 import threading
-import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-log = logging.getLogger(__name__)
+from ..cuda_build import KernelLibrary, find_nvcc  # noqa: F401 (re-export)
 
 #: heap layout is 2^(depth+1)-1 slots per tree; deeper ensembles refuse the
 #: fused rung and serve on the stacked rung
@@ -242,11 +239,7 @@ def heap_walk(X, feat, split, dleft, leaf, depth: int,
             dleft.data_ptr(), leaf.data_ptr(), T, depth, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"heap_walk launch failed: CUDA error {rc} "
-            f"({lib.ytk_cuda_error_string(rc).decode()})"
-        )
+    _LIBRARY.check(rc, "heap_walk")
     with _count_lock:
         heap_walk.launches += 1
     return out
@@ -259,73 +252,21 @@ heap_walk.launches = 0
 # Kernel build: nvcc -> shared library with a C interface, loaded by ctypes
 # ---------------------------------------------------------------------------
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_SRC = os.path.join(_CSRC, "heap_walk.cu")
-_SO = os.path.join(_CSRC, "build", "libytk_heap_walk.so")
-NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+
+def _bind(lib) -> None:
+    lib.ytk_heap_walk_f64.restype = ctypes.c_int
+    lib.ytk_heap_walk_f64.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+
+
+_LIBRARY = KernelLibrary(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                 "heap_walk.cu"),
+    _bind,
 )
-
-_lock = threading.Lock()
-_lib = None
-
-
-def find_nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                     "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the heap-walk kernel is "
-        "built from csrc/heap_walk.cu at first use on a CUDA machine"
-    )
-
-
-def build_kernel() -> Dict[str, object]:
-    """Compile csrc/heap_walk.cu to csrc/build/ now. Returns the command,
-    its seconds and nvcc's log (ptxas registers/spills); raises with
-    nvcc's stderr when the build fails."""
-    os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, _SRC, "-o", tmp]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}) building {_SRC}:\n"
-            f"{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, _SO)
-    log.info("built %s in %.1f s", _SO, seconds)
-    return {"cmd": " ".join(cmd), "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
-
-
-def _load():
-    """The loaded kernel library, built first when missing or older than
-    its source. Serialised so concurrent first launches build once."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if not os.path.exists(_SO) or \
-                os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            build_kernel()
-        lib = ctypes.CDLL(_SO)
-        lib.ytk_heap_walk_f64.restype = ctypes.c_int
-        lib.ytk_heap_walk_f64.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.ytk_cuda_error_string.restype = ctypes.c_char_p
-        lib.ytk_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-        return _lib
+#: compile csrc/heap_walk.cu now: {cmd, seconds, log}; raises on failure
+build_kernel = _LIBRARY.build
+_load = _LIBRARY.load
