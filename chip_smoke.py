@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card, as a user would: GBDT online
-serving (slice 1) and int8 GBDT training (slice 2).
+Drives the port's paths on the card, as a user would: GBDT online serving
+on the fused rung (slice 1), int8 GBDT training (slice 2), and `cli train`
+with the bf16 histograms and the binned serving rung (slice 3).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
-  2. builds the three kernel libraries (serve/csrc/heap_walk.cu and
-     gbdt/csrc/{hist,route}.cu) from the checkout, one nvcc each, all
-     started together, and prints each build's time and ptxas' report;
+  2. builds the three kernel libraries (serve/csrc/heap_walk.cu: K6, K7;
+     gbdt/csrc/hist.cu: K1-K4; gbdt/csrc/route.cu: K5) from the checkout,
+     one nvcc each, all started together, and prints each build's time and
+     ptxas' report;
   3. holds the kernel against its plain PyTorch version and against the
      stacked rung, all on the card, with torch.equal (tolerance: exact) at
      (trees, depth, rows) = (13, 1, 1), (64, 10, 512), (500, 6, 1) and
@@ -30,7 +32,11 @@ serving (slice 1) and int8 GBDT training (slice 2).
   6. holds the training kernels K2 (hist_q), K4 (hist_gather_q) and K5
      (route) against their plain PyTorch versions with torch.equal
      (tolerance: exact, the sums are int32) at the shapes listed in
-     TRAIN_KERNEL_SHAPES;
+     HIST_SHAPES and GATHER_SHAPES; K1 (hist) and K3 (hist_gather) at bf16
+     and f32 at the same shapes (counts exact, g/h within rtol 1e-5 plus
+     1e-5 of the largest |sum|: float atomics add in any order); K7
+     (binned_walk) with torch.equal on uint8 and uint16 tables at every
+     rung of the 500-tree model;
   7. trains a seeded Higgs-shaped synthetic (the torch twin of bench.py's
      _gen_gbdt) at full width with bench.py's GBDT configuration on cuda
      (TRAIN_ROWS rows, TRAIN_ROUNDS rounds, hist_precision="int8"), counts
@@ -43,7 +49,21 @@ serving (slice 1) and int8 GBDT training (slice 2).
   9. times each training kernel at the full-width shapes (CUDA events,
      median of repeats) beside its bound, its plain version and one
      scatter_add_ call;
- 10. prints the `kernels` JSON line, the card line, and last the result
+ 10. writes 2^20 + 2^17 Higgs-shaped text lines and runs
+     `python -m ytklearn_tpu_torch.cli train gbdt experiment/higgs/
+     local_gbdt.conf` with --set overrides (paths, 20 rounds, max_depth 8;
+     full width: 28 features, 255 bins and leaves, bf16) in this process,
+     and requires 20 trees, the model and its sidecar, and launches of K1,
+     K3 and K5 only;
+ 11. serves that model on the binned rung (YTK_SERVE_BINNED=1, edges from
+     its sidecar): 200 one-row requests and one of 512 rows, every score
+     bit-equal to the port's CPU binned scorer, with K7's launches counted;
+     then, without the sidecar, thresholds mode bit-equal to the host tree
+     walk; times K7 at rung 512;
+ 12. trains the bench configuration of step 7 in bf16 (K1, K3, K5) and
+     times K1 and K3 at its shapes; then a small l2 bf16 run twice on the
+     card and once on the CPU, printing whether the card's trees repeat;
+ 13. prints the `kernels` JSON line, the card line, and last the result
      line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the result line;
@@ -363,7 +383,8 @@ def phase_slice(tmp, card):
     load_s = time.perf_counter() - t0
     info = entry.scorer.rung_info()
     print(f"slice: loaded {N_TREES} trees depth {DEPTH} x {N_FEATURES} "
-          f"features in {load_s:.3f} s, rung {json.dumps(info)}", flush=True)
+          f"features in {load_s:.3f} s, rung {json.dumps(info)} [{card}]",
+          flush=True)
     check(info["mode"] == "fused" and info["backend"] == "fused-cuda",
           f"not serving on the fused CUDA rung: {info}")
     check(entry.scorer.ladder == LADDER, f"ladder {entry.scorer.ladder}")
@@ -542,20 +563,34 @@ def bench_params(rounds, data_path):
 
 def kernel_counts():
     from ytklearn_tpu_torch.gbdt import engine, hist, route
+    from ytklearn_tpu_torch.serve import kernels
 
-    return {"hist_q": hist.hist_wave_q.launches,
+    return {"hist": hist.hist_wave.launches,
+            "hist_gather": hist.hist_wave_gather_mxu.launches,
+            "hist_q": hist.hist_wave_q.launches,
             "hist_gather_q": hist.hist_wave_gather.launches,
             "route": route.route_wave.launches,
+            "binned_walk": kernels.binned_walk.launches,
             "host_syncs": engine.grow.host_syncs}
 
 
 def zero_kernel_counts():
     from ytklearn_tpu_torch.gbdt import engine, hist, route
+    from ytklearn_tpu_torch.serve import kernels
 
+    hist.hist_wave.launches = 0
+    hist.hist_wave_gather_mxu.launches = 0
     hist.hist_wave_q.launches = 0
     hist.hist_wave_gather.launches = 0
     route.route_wave.launches = 0
+    kernels.binned_walk.launches = 0
     engine.grow.host_syncs = 0
+
+
+#: the histogram kernels each precision runs (full scan, gather)
+PRECISION_KERNELS = {"int8": ("hist_q", "hist_gather_q"),
+                     "bf16": ("hist", "hist_gather"),
+                     "f32": ("hist", "hist_gather")}
 
 
 def rand_hist_inputs(gen, F, n, B, N, dtype, M=None):
@@ -657,15 +692,16 @@ def phase_train_kernels(card):
     return errs
 
 
-def phase_train(tmp, card):
-    """The full-width int8 training run, the main path of slice 2."""
+def phase_train(tmp, card, precision="int8"):
+    """The full-width training run at one histogram precision: int8, the
+    main path of slice 2, or bf16, the JAX trainer's default."""
     import torch
 
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
 
     train, test = gen_higgs_like(TRAIN_ROWS, TEST_ROWS, N_FEATURES, SEED)
     params = bench_params(TRAIN_ROUNDS, os.path.join(tmp, "train.model"))
-    trainer = GBDTTrainer(params, hist_precision="int8", device="cuda")
+    trainer = GBDTTrainer(params, hist_precision=precision, device="cuda")
     torch.cuda.synchronize()
     zero_kernel_counts()  # count the main path's launches only
     t0 = time.perf_counter()
@@ -682,10 +718,10 @@ def phase_train(tmp, card):
     (r0, t0s), (r1, t1s) = tail[0], tail[-1]
     tps = (r1 - r0) / (t1s - t0s)
     auc = res.test_metrics["auc"]
-    print(f"train: {TRAIN_ROWS} rows x {N_FEATURES} features, {TEST_ROWS} "
-          f"test rows, {trees} trees (loss policy, 255 leaves, wave "
-          f"{trainer.grow_spec.wave}, ladder {trainer.grow_spec.ladder}, "
-          f"int8) in {wall:.3f} s (preprocess "
+    print(f"train {precision}: {TRAIN_ROWS} rows x {N_FEATURES} features, "
+          f"{TEST_ROWS} test rows, {trees} trees (loss policy, 255 leaves, "
+          f"wave {trainer.grow_spec.wave}, ladder {trainer.grow_spec.ladder}, "
+          f"{precision}) in {wall:.3f} s (preprocess "
           f"{trainer.time_stats['preprocess']:.3f} s, rounds "
           f"{trainer.time_stats['train']:.3f} s); steady {tps:.4f} trees/s "
           f"(sync log, rounds {r0}..{r1}); train loss {losses[0]:.6f} -> "
@@ -695,15 +731,19 @@ def phase_train(tmp, card):
     per_tree = {k: v / trees for k, v in counts.items()}
     # the trainer reads one loss per round besides the engine's probes
     syncs = (counts["host_syncs"] + len(sync)) / trees
-    print(f"train: launches per tree: hist_q {per_tree['hist_q']:.2f}, "
-          f"hist_gather_q {per_tree['hist_gather_q']:.2f}, route "
+    full, gather = PRECISION_KERNELS[precision]
+    print(f"train {precision}: launches per tree: {full} "
+          f"{per_tree[full]:.2f}, {gather} {per_tree[gather]:.2f}, route "
           f"{per_tree['route']:.2f}; host syncs per tree {syncs:.2f} "
           f"({counts['host_syncs']} phase probes + {len(sync)} loss reads "
           f"over {trees} trees); wave log rows used per tree "
           f"{(trainer.wave_log[..., 3] > 0).sum() / trees:.2f} [{card}]",
           flush=True)
-    check(all(counts[k] > 0 for k in ("hist_q", "hist_gather_q", "route")),
-          f"the main path skipped a kernel: {counts}")
+    other = [k for k in ("hist", "hist_gather", "hist_q", "hist_gather_q")
+             if k not in (full, gather)]
+    check(all(counts[k] > 0 for k in (full, gather, "route"))
+          and all(counts[k] == 0 for k in other),
+          f"the {precision} path did not run exactly its kernels: {counts}")
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0]
           and res.train_loss < 0.65, f"train loss did not fall: {losses}")
     check(0.5 < auc <= 1.0 and math.isfinite(res.test_loss),
@@ -863,12 +903,14 @@ def route_bound_ms(bins_t, pos, valid, nid, feat):
     return bound_ms(nbytes, n * nid.shape[0])
 
 
-def flat_keys(bin_of, F, B, pos, gq, hq, ids, M):
-    """Flattened (slot, feature, bin, channel) keys and int32 values of
-    every (row, feature) update: the input of the one-call yardstick."""
+def flat_keys(bin_of, F, B, pos, gq, hq, ids, M, bf16=None):
+    """Flattened (slot, feature, bin, channel) keys and the values of every
+    (row, feature) update: the input of the one-call yardstick. int32
+    values of quantized grads (bf16 None), else f32 values of g/h (rounded
+    to bf16 first when bf16)."""
     import torch
 
-    from ytklearn_tpu_torch.gbdt.hist import node_slots
+    from ytklearn_tpu_torch.gbdt.hist import node_slots, round_bf16
 
     slot, ok = node_slots(pos, ids, M)
     rows = torch.nonzero(ok).flatten()
@@ -877,8 +919,13 @@ def flat_keys(bin_of, F, B, pos, gq, hq, ids, M):
     b = torch.stack([bin_of(fi, rows) for fi in range(F)], dim=1).long()
     base = ((s[:, None] * F + f[None, :]) * B + b) * 3  # (rows, F)
     keys = (base[..., None] + torch.arange(3, device="cuda")).flatten()
-    vals = torch.stack([gq[rows].int(), hq[rows].int(),
-                        torch.ones_like(rows, dtype=torch.int32)], dim=1)
+    if bf16 is None:
+        gv, hv = gq[rows].int(), hq[rows].int()
+    else:
+        gv, hv = gq[rows], hq[rows]
+        if bf16:
+            gv, hv = round_bf16(gv), round_bf16(hv)
+    vals = torch.stack([gv, hv, torch.ones_like(gv)], dim=1)
     vals = vals[:, None, :].expand(-1, F, -1).flatten().contiguous()
     return keys, vals
 
@@ -953,6 +1000,594 @@ def phase_train_timings(trainer, card):
         route_bound_ms(dd_bins, pos, valid, nid, feat), iters=20)
     return out
 
+# -- slice 3: cli train, the f32/bf16 histograms, the binned rung -------------
+
+#: the text files `cli train` reads on the card (2^20 train, 2^17 test
+#: lines), its rounds and the depth that keeps its trees on the binned rung
+CLI_ROWS = 1 << 20
+CLI_TEST_ROWS = 1 << 17
+CLI_ROUNDS = 20
+CLI_DEPTH = 8
+CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "experiment", "higgs", "local_gbdt.conf")
+#: K1/K3 against their plain versions: float sums in two atomic orders
+HIST_RTOL = 1e-5
+
+
+def hist_err(got, want, what, name, card):
+    """Counts exact; g/h within rtol HIST_RTOL and HIST_RTOL of the largest
+    |sum|. Returns the largest absolute g/h error."""
+    import torch
+
+    torch.cuda.synchronize()
+    counts_ok = torch.equal(got[..., 2], want[..., 2])
+    scale = float(want[..., :2].abs().max()) if want.numel() else 0.0
+    diff = (got[..., :2] - want[..., :2]).abs()
+    err = float(diff.max()) if want.numel() else 0.0
+    ok = counts_ok and bool((diff <= HIST_RTOL * want[..., :2].abs()
+                             + HIST_RTOL * scale).all())
+    print(f"kernel check {name} {what}, tolerance counts exact, g/h rtol "
+          f"{HIST_RTOL} + {HIST_RTOL} x max|sum| ({scale:.6g}): counts exact "
+          f"{counts_ok}, within {ok}, max_abs_err {err} [{card}]", flush=True)
+    check(ok, f"{name} disagrees with its plain version at {what}")
+    return err
+
+
+def phase_float_kernels(card):
+    """K1 and K3 at bf16 and f32 against their plain versions on the card,
+    at the int8 checks' shapes."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    errs = {"hist": 0.0, "hist_gather": 0.0}
+    for F, n, B, N, dt in HIST_SHAPES:
+        bins, pos, _, _, ids, M = rand_hist_inputs(gen, F, n, B, N, dt)
+        g = torch.randn((n,), generator=gen, device="cuda") * 3
+        h = torch.rand((n,), generator=gen, device="cuda")
+        for bf16 in (True, False):
+            got = hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M,
+                                 use_bf16=bf16)
+            want = hist.hist_wave_plain(bins, pos, g, h, ids, B, M, bf16)
+            errs["hist"] = max(errs["hist"], hist_err(
+                got, want, f"(F, n, B, N) = ({F}, {n}, {B}, {N}) {dt} bins "
+                f"{'bf16' if bf16 else 'f32'}", "hist", card))
+    bins, pos, _, _, ids, M = rand_hist_inputs(gen, 28, 1 << 20, 256, 64,
+                                               "u8")
+    g = torch.randn((1 << 20,), generator=gen, device="cuda") * 3
+    h = torch.rand((1 << 20,), generator=gen, device="cuda")
+    rows = bins.t().contiguous()
+    for R in GATHER_SHAPES:
+        idx, pg, gg, hg = compacted(pos, g, h, ids, R, 0.25, gen)
+        for bf16 in (True, False):
+            got = hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, 256,
+                                        mode="mxu", max_nodes=M,
+                                        use_bf16=bf16)
+            want = hist.hist_gather_plain(rows, idx, pg, gg, hg, ids, 256, M,
+                                          bf16)
+            errs["hist_gather"] = max(errs["hist_gather"], hist_err(
+                got, want, f"R = {R}, N = 64, a quarter of the slots dead, "
+                f"{'bf16' if bf16 else 'f32'}", "hist_gather", card))
+    return errs
+
+
+def binned_tables(model):
+    """(vocab, heap, u8 edges table, u16 thresholds table) of a model: the
+    edges span its split values in 200 steps per feature; the thresholds
+    are its own split values (more than 254 on a feature of the 500-tree
+    model)."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.serve import kernels
+
+    used = sorted({t.feat_name[i] for t in model.trees
+                   for i in range(t.n_nodes()) if not t.is_leaf(i)})
+    vocab = {n: i for i, n in enumerate(used)}
+    heap, why = kernels.build_heap(model.trees, vocab)
+    check(heap is not None, why)
+    sv = split_values(model)
+    edges = {n: np.linspace(min(sv) - 1.0, max(sv) + 1.0, 200) for n in used}
+    u8, why = kernels.build_bin_table(model.trees, vocab, edges)
+    check(u8 is not None and u8.mode == "edges" and u8.sentinel == 255, why)
+    u16, why = kernels.build_bin_table(model.trees, vocab, None)
+    check(u16 is not None and u16.sentinel == 65535,
+          f"want a uint16 thresholds table: {why}")
+    return vocab, heap, u8, u16
+
+
+def binned_inputs(heap, table, X, device="cuda"):
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.serve import kernels
+
+    bins = torch.from_numpy(kernels.bin_rows(X, table)).to(device)
+    packed = torch.from_numpy(kernels.pack_heap_nodes(heap, table)).to(
+        device)
+    leaf = torch.from_numpy(np.ascontiguousarray(heap.leaf)).to(device)
+    return bins, packed, leaf
+
+
+def phase_binned_kernel(model, card):
+    """K7 against its plain version with torch.equal, on uint8 and uint16
+    tables, rows with missing values (the sentinel), at every ladder rung
+    of the seeded 500-tree model."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.serve import kernels
+
+    vocab, heap, u8, u16 = binned_tables(model)
+    rng = np.random.RandomState(SEED + 5)
+    max_err = 0.0
+    for table in (u8, u16):
+        for B in LADDER:
+            rows = random_rows(rng, B, list(vocab), split_values(model))
+            X = np.full((B, len(vocab)), np.nan)
+            for i, r in enumerate(rows):
+                for k, v in r.items():
+                    if k in vocab:
+                        X[i, vocab[k]] = v
+            bins, packed, leaf = binned_inputs(heap, table, X)
+            got = kernels.binned_walk(bins, packed, leaf, heap.depth,
+                                      table.sentinel,
+                                      max_feat=int(heap.feat.max()))
+            want = kernels.binned_walk_plain(bins, packed, leaf, heap.depth,
+                                             table.sentinel)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            print(f"kernel check binned_walk {table.mode} {table.dtype} "
+                  f"table, {heap.n_trees} trees depth {heap.depth}, rung {B} "
+                  f"({int((bins == table.sentinel).sum())} sentinel bins), "
+                  f"tolerance exact (torch.equal): {ok}, max_abs_err {err} "
+                  f"[{card}]", flush=True)
+            check(ok, f"binned_walk disagrees at rung {B} ({table.dtype})")
+    return max_err
+
+
+def write_ytk_text(path, X, y, rng):
+    """ytklearn text lines `1###label###f0:v,...`, 1% of them with one
+    feature left out (a missing value)."""
+    Xh = X.cpu().double().numpy()
+    yh = y.cpu().numpy().astype(int).tolist()
+    F = Xh.shape[1]
+    fmt = "1###%d###" + ",".join(f"f{j}:%.9g" for j in range(F)) + "\n"
+    blank = (rng.rand(len(Xh)) < 0.01).tolist()
+    with open(path, "w") as f:
+        for i, row in enumerate(Xh.tolist()):
+            if blank[i]:
+                j = rng.randint(F)
+                f.write(f"1###{yh[i]}###" + ",".join(
+                    f"f{k}:{row[k]:.9g}" for k in range(F) if k != j) + "\n")
+            else:
+                f.write(fmt % (yh[i], *row))
+
+
+class Recorder:
+    """Keeps each instance whose `method` runs, and that call's seconds."""
+
+    def __init__(self, cls, method):
+        self.cls, self.method, self.calls = cls, method, []
+
+    def __enter__(self):
+        orig = getattr(self.cls, self.method)
+        rec = self
+
+        def wrapped(obj, *a, **k):
+            t0 = time.perf_counter()
+            out = orig(obj, *a, **k)
+            rec.calls.append((obj, time.perf_counter() - t0))
+            return out
+
+        self.orig = orig
+        setattr(self.cls, self.method, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.orig)
+
+
+def phase_cli_train(tmp, card):
+    """`python -m ytklearn_tpu_torch.cli train gbdt <conf>` on the card, run
+    in this process (cli.main with the same arguments) so that the kernels'
+    counts can be read: the Higgs config at full width (F = 28, 255 bins,
+    255 leaves, loss policy, bf16) on 2^20 text lines."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch import cli
+    from ytklearn_tpu_torch.gbdt.data import GBDTIngest
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    train, test = gen_higgs_like(CLI_ROWS, CLI_TEST_ROWS, N_FEATURES,
+                                 SEED + 6)
+    rng = np.random.RandomState(SEED + 6)
+    t0 = time.perf_counter()
+    paths = {k: os.path.join(tmp, f"{k}.txt") for k in ("train", "test")}
+    write_ytk_text(paths["train"], train.X, train.y, rng)
+    write_ytk_text(paths["test"], test.X, test.y, rng)
+    del train, test
+    torch.cuda.empty_cache()
+    model = os.path.join(tmp, "cli", "gbdt.model")
+    argv = ["train", "gbdt", CONF,
+            "--set", f"data.train.data_path={paths['train']}",
+            "--set", f"data.test.data_path={paths['test']}",
+            "--set", f"model.data_path={model}",
+            "--set", f"model.feature_importance_path={model}.imp",
+            "--set", f"optimization.round_num={CLI_ROUNDS}",
+            "--set", f"optimization.max_depth={CLI_DEPTH}"]
+    print(f"cli train: wrote {CLI_ROWS} + {CLI_TEST_ROWS} text lines in "
+          f"{time.perf_counter() - t0:.3f} s (host) [{card}]; python -m "
+          f"ytklearn_tpu_torch.cli {' '.join(argv)}", flush=True)
+    out = io.StringIO()
+    zero_kernel_counts()  # count the main path's launches only
+    with Recorder(GBDTIngest, "load") as ingest, \
+            Recorder(GBDTTrainer, "train") as trained, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"cli train: rc {rc}, {wall:.3f} s [{card}]; {line}", flush=True)
+    res = json.loads(line)
+    trainer = trained.calls[0][0]
+    ts = trainer.time_stats
+    sync = [(r, t) for r, t in trainer.sync_log if r >= 3]
+    tps = (sync[-1][0] - sync[0][0]) / (sync[-1][1] - sync[0][1])
+    trees = res["trees"]
+    print(f"cli train: ingest {ingest.calls[0][1]:.3f} s (parse + fill, "
+          f"host), preprocess {ts['preprocess']:.3f} s, rounds "
+          f"{ts['train']:.3f} s, steady {tps:.4f} trees/s; precision "
+          f"{trainer.hist_precision}, test AUC "
+          f"{res['test_metrics']['auc']:.6f}, test loss "
+          f"{res['test_loss']:.6f}; launches per tree: hist "
+          f"{counts['hist'] / trees:.2f}, hist_gather "
+          f"{counts['hist_gather'] / trees:.2f}, route "
+          f"{counts['route'] / trees:.2f} (hist_q {counts['hist_q']}, "
+          f"hist_gather_q {counts['hist_gather_q']}) [{card}]", flush=True)
+    check(rc == 0 and trees == CLI_ROUNDS, f"cli train: rc {rc}, {res}")
+    check(os.path.exists(model) and os.path.exists(model + ".bins.json"),
+          "cli train wrote no model or no sidecar")
+    check(trainer.hist_precision == "bf16", "cli train did not run bf16")
+    check(all(counts[k] > 0 for k in ("hist", "hist_gather", "route"))
+          and counts["hist_q"] == 0 and counts["hist_gather_q"] == 0,
+          f"cli train did not run K1, K3 and K5 only: {counts}")
+    check(0.5 < res["test_metrics"]["auc"] <= 1.0
+          and res["train_loss"] < 0.69, f"cli train result {res}")
+    return counts, model, tps, res
+
+
+def serve_conf(model, tmp, name):
+    conf = os.path.join(tmp, f"{name}.conf")
+    with open(conf, "w") as f:
+        f.write(f'model {{ data_path = "{model}" }}\n'
+                "optimization { loss_function = sigmoid, round_num = 1000 }\n")
+    return conf
+
+
+def phase_serve_binned(tmp, model_path, card):
+    """The model `cli train` just wrote, served on the binned rung (what
+    `cli serve` starts, with YTK_SERVE_BINNED=1): edges mode from its
+    sidecar, every score bit-equal to the port's CPU binned scorer; then,
+    with the sidecar removed, thresholds mode bit-equal to the host tree
+    walk."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.serve import (
+        BatchPolicy,
+        CompiledScorer,
+        ModelRegistry,
+        ServeApp,
+        kernels,
+    )
+
+    with open(model_path) as f:
+        model = GBDTModel.loads(f.read())
+    names = [f"f{i}" for i in range(N_FEATURES)]
+    splits = split_values(model)
+    conf = serve_conf(model_path, tmp, "binned")
+    os.environ.pop("YTK_SERVE_FUSED", None)
+    os.environ["YTK_SERVE_BINNED"] = "1"
+    try:
+        registry = ModelRegistry(device="cuda")
+        entry = registry.load("default", "gbdt", hocon.load(conf))
+    finally:
+        os.environ.pop("YTK_SERVE_BINNED")
+    info = entry.scorer.rung_info()
+    print(f"serve binned: {len(model.trees)} trees of depth <= "
+          f"{max(t.max_depth() for t in model.trees)}, rung "
+          f"{json.dumps(info)} [{card}]", flush=True)
+    check((info["mode"], info["backend"], info.get("bin_mode")) ==
+          ("binned", "binned-cuda", "edges"), f"not binned on K7: {info}")
+    cpu = CompiledScorer(create_predictor("gbdt", conf), mode="binned",
+                         device="cpu")
+    app = ServeApp(registry, BatchPolicy(max_batch=512, max_wait_ms=2.0),
+                   host="127.0.0.1", port=0).start()
+    rng = np.random.RandomState(SEED + 7)
+    try:
+        kernels.binned_walk.launches = 0  # count the main path's only
+        lat = []
+        one_rows = random_rows(rng, 200, names, splits)
+        got = []
+        for row in one_rows:
+            t0 = time.perf_counter()
+            got += post(app.port, {"features": row})["scores"]
+            lat.append((time.perf_counter() - t0) * 1e3)
+        batch = random_rows(rng, 512, names, splits)
+        out = post(app.port, {"rows": batch})
+        launches = kernels.binned_walk.launches
+    finally:
+        app.stop(drain=True, timeout=30.0)
+    rows = one_rows + batch
+    got = np.asarray(got + out["scores"])
+    want = cpu.score_batch(rows)
+    p50 = statistics.median(lat)
+    print(f"serve binned: 200 one-row requests + one of 512 rows, every "
+          f"score bit-equal to the CPU binned scorer "
+          f"{np.array_equal(got, want)}; one-row p50 {p50:.4f} ms (client "
+          f"clock); binned_walk launches {launches} [{card}]", flush=True)
+    check(np.array_equal(got, want), "binned rung differs from the CPU's")
+    check(launches > 0, "the binned rung launched no binned_walk kernel")
+    side = model_path + ".bins.json"
+    os.rename(side, side + ".off")
+    try:
+        pred = create_predictor("gbdt", conf)
+        th = CompiledScorer(pred, mode="binned", device="cuda")
+        s = th.score_batch(rows)
+        ok = np.array_equal(s, pred.batch_scores(rows))
+    finally:
+        os.rename(side + ".off", side)
+    print(f"serve binned: without the sidecar, rung "
+          f"{json.dumps(th.rung_info())}, scores bit-equal to "
+          f"GBDTPredictor.batch_scores {ok} [{card}]", flush=True)
+    check(th.rung_info()["bin_mode"] == "thresholds" and ok,
+          "thresholds-mode binned scores differ from the host tree walk")
+    return launches, p50
+
+
+def phase_repro(card):
+    """The small l2 configuration in bf16, twice on the card and once on
+    the CPU: do the card's float atomics give the same trees run to run?"""
+    import numpy as np
+
+    from ytklearn_tpu_torch.config.params import (
+        ApproximateSpec,
+        GBDTParams,
+        ModelParams,
+    )
+    from ytklearn_tpu_torch.gbdt.data import GBDTData
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    rng = np.random.RandomState(SEED)
+    n, F = 65536, 8
+    X = rng.randn(n, F).astype(np.float32)
+    y = (1.5 * X[:, 0] * X[:, 1] + np.sin(2 * X[:, 2])
+         + rng.randn(n) * 0.3).astype(np.float32)
+    names = [f"f{i}" for i in range(F)]
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_r_")
+    runs = []
+    try:
+        for i, dev in enumerate(("cuda", "cuda", "cpu")):
+            p = GBDTParams(
+                round_num=5, max_depth=8, max_leaf_cnt=63,
+                tree_grow_policy="loss", learning_rate=0.1,
+                min_child_hessian_sum=10.0, loss_function="l2",
+                eval_metric=["rmse"],
+                approximate=[ApproximateSpec(max_cnt=255)],
+                model=ModelParams(data_path=os.path.join(tmp, str(i)),
+                                  dump_freq=0))
+            res = GBDTTrainer(p, hist_precision="bf16", device=dev,
+                              wave=16).train(
+                GBDTData(X, y, np.ones(n, np.float32), n, names))
+            runs.append(res)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def key(t):
+        return (t.feat, t.left, t.right, t.slot, t.sample_cnt, t.split)
+
+    def leaf_rel(xs, zs):
+        """Largest relative leaf difference over the trees of the same
+        structure."""
+        rel = 0.0
+        for x, z in zip(xs, zs):
+            if key(x) == key(z):
+                la, lz = np.asarray(x.leaf_value), np.asarray(z.leaf_value)
+                rel = max(rel, float(np.max(np.abs(la - lz)
+                                            / np.maximum(np.abs(lz), 1e-30))))
+        return rel
+
+    a, b, c = (r.model.trees for r in runs)
+    same_card = sum(key(x) == key(y) for x, y in zip(a, b))
+    same_leaves = sum(x.leaf_value == y.leaf_value for x, y in zip(a, b))
+    differ = sum(key(x) != key(z) for x, z in zip(a, c))
+    rel, rel_card = leaf_rel(a, c), leaf_rel(a, b)
+    losses = [np.asarray([r["train_loss"] for r in res.round_log])
+              for res in runs]
+    loss_rel = max(float(np.max(np.abs(la - losses[2]) / losses[2]))
+                   for la in losses[:2])
+    identical = same_card == same_leaves == len(a)
+    print(f"repro: l2 bf16, {n} rows x {F} features, {len(a)} trees, wave "
+          f"16: two card runs give identical trees {identical} (structure "
+          f"equal in {same_card}, leaf values equal in {same_leaves} of "
+          f"{len(a)} trees; largest relative leaf difference {rel_card:.3e}"
+          f"); {differ} of {len(a)} trees differ in structure between card "
+          f"and CPU; largest relative leaf difference card/CPU "
+          f"(same-structure trees) {rel:.3e}; largest relative train-loss "
+          f"difference {loss_rel:.3e} [{card}]", flush=True)
+    check(loss_rel <= 1e-4, f"bf16 card and CPU losses differ: {losses}")
+    return identical, differ, rel
+
+
+def phase_float_timings(trainer, card):
+    """K1 and K3 at the full-width bf16 training shapes: one 64-slot
+    full-scan wave over every training row, and the first fused rung."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    dd_bins = trainer.dev_inputs.bins_t  # (28, n_pad) u8 training bins
+    F, n = dd_bins.shape
+    B, M = trainer.grow_spec.B, trainer.grow_spec.max_nodes
+    N = trainer.grow_spec.wave
+    bf16 = trainer.grow_spec.use_bf16
+    pos = torch.randint(0, 2 * N + 1, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    g = torch.randn((n,), generator=gen, device="cuda") * 0.5
+    h = torch.rand((n,), generator=gen, device="cuda") * 0.25
+    ids = torch.arange(1, 2 * N + 1, 2, device="cuda", dtype=torch.int32)
+    flat = torch.zeros(N * F * B * 3, dtype=torch.float32, device="cuda")
+    out = {}
+
+    def run(name, fn, plain, lib, bound, iters):
+        hist_err(fn(), plain(), "at the timing shape", name, card)
+        ms = cuda_ms(fn, iters=iters)
+        plain_ms = cuda_ms(plain, iters=1, repeats=3)
+        lib_ms = cuda_ms(lib, iters=3, repeats=3)
+        out[name] = (ms, plain_ms, bound[0], bound[1], lib_ms)
+        print(f"timing: {name} ({'bf16' if bf16 else 'f32'}) {ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms, one f32 scatter_add_ {lib_ms:.6f} "
+              f"ms, bound {bound[0]:.6f} ms ({bound[1]}) [{card}]",
+              flush=True)
+
+    keys, vals = flat_keys(lambda f, r: dd_bins[f, r], F, B, pos, g, h, ids,
+                           M, bf16=bf16)
+    run("hist", lambda: hist.hist_wave(dd_bins, pos, g, h, ids, B,
+                                       max_nodes=M, use_bf16=bf16),
+        lambda: hist.hist_wave_plain(dd_bins, pos, g, h, ids, B, M, bf16),
+        lambda: flat.zero_().scatter_add_(0, keys, vals),
+        hist_bound_ms(dd_bins, False, None, pos, ids, M, B), iters=10)
+    del keys, vals
+    rows = dd_bins.t().contiguous()
+    R = -(-(n // 64) // 1024) * 1024
+    idx, pg, gg, hg = compacted(pos, g, h, ids, R, 0.05, gen)
+    keys, vals = flat_keys(lambda f, r: rows[idx[r].long(), f], F, B, pg,
+                           gg, hg, ids, M, bf16=bf16)
+    run("hist_gather",
+        lambda: hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, B,
+                                      mode="mxu", max_nodes=M,
+                                      use_bf16=bf16),
+        lambda: hist.hist_gather_plain(rows, idx, pg, gg, hg, ids, B, M,
+                                       bf16),
+        lambda: flat.zero_().scatter_add_(0, keys, vals),
+        hist_bound_ms(rows, True, idx, pg, ids, M, B), iters=20)
+    return out
+
+
+def binned_bound_ms(bins, packed, depth, LL):
+    """K7's bound from this call's inputs: the bins some row looks up (1 or
+    2 B each), each packed slot some row visits (4 B), each leaf some row
+    reaches (8 B), read once, and the scores written once; operations, the
+    compares and f64 adds, over the FP64 rate."""
+    import torch
+
+    from ytklearn_tpu_torch.serve import kernels
+
+    B, F = bins.shape
+    T, H = packed.shape
+    rows = torch.arange(B, device=bins.device)[:, None]
+    tids = torch.arange(T, device=bins.device)[None, :]
+    pos = torch.zeros((B, T), dtype=torch.long, device=bins.device)
+    slots, cells = [], []
+    bw = bins.long()
+    for _ in range(depth):
+        fv, rank1, dl = kernels.unpack_nodes(packed[tids, pos])
+        slots.append((tids * H + pos).flatten())
+        cells.append((rows * F + fv).flatten())
+        vv = bw[rows, fv]
+        go_left = torch.where(vv == (255 if bins.element_size() == 1
+                                     else 65535), dl > 0, vv < rank1)
+        pos = 2 * pos + 2 - go_left.long()
+
+    def distinct(parts):
+        return int(torch.unique(torch.cat(parts)).numel())
+
+    nbytes = (distinct(cells) * bins.element_size() + distinct(slots) * 4
+              + distinct([(tids * LL + pos - (LL - 1)).flatten()]) * 8
+              + B * 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B * T * (depth + 1) / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_binned_timing(served_model_path, model500, card):
+    """K7 at rung 512 on the model the binned rung served (the main path's
+    shape), and on the 500-tree model beside K6."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.gbdt.binning import bin_edges_path, \
+        load_bin_edges, model_text_digest
+    from ytklearn_tpu_torch.io.fs import LocalFileSystem
+    from ytklearn_tpu_torch.serve import kernels
+
+    with open(served_model_path) as f:
+        text = f.read()
+    served = GBDTModel.loads(text)
+    edges = load_bin_edges(LocalFileSystem(),
+                           bin_edges_path(served_model_path),
+                           model_text_digest(text))
+    rng = np.random.RandomState(SEED + 9)
+    out = {}
+    for label, model, table_of in (
+            ("served", served, lambda vocab, heap: kernels.build_bin_table(
+                served.trees, vocab, edges)[0]),
+            ("500-tree", model500, None)):
+        if table_of is None:
+            vocab, heap, table, _ = binned_tables(model)
+        else:
+            used = sorted({t.feat_name[i] for t in model.trees
+                           for i in range(t.n_nodes()) if not t.is_leaf(i)})
+            vocab = {n: i for i, n in enumerate(used)}
+            heap, why = kernels.build_heap(model.trees, vocab)
+            check(heap is not None, why)
+            table = table_of(vocab, heap)
+        B = LADDER[-1]
+        rows = random_rows(rng, B, list(vocab), split_values(model))
+        X = np.full((B, len(vocab)), np.nan)
+        for i, r in enumerate(rows):
+            for k, v in r.items():
+                if k in vocab:
+                    X[i, vocab[k]] = v
+        bins, packed, leaf = binned_inputs(heap, table, X)
+        mf = int(heap.feat.max())
+
+        def fn():
+            return kernels.binned_walk(bins, packed, leaf, heap.depth,
+                                       table.sentinel, max_feat=mf)
+
+        def plain():
+            return kernels.binned_walk_plain(bins, packed, leaf, heap.depth,
+                                             table.sentinel)
+
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"binned_walk disagrees ({label})")
+        ms = cuda_ms(fn, iters=50)
+        plain_ms = cuda_ms(plain, iters=3, repeats=5)
+        bound = binned_bound_ms(bins, packed, heap.depth, heap.leaf.shape[1])
+        out[label] = (ms, plain_ms, bound[0], bound[1])
+        print(f"timing: binned_walk rung {B}, {label} model "
+              f"({heap.feat.shape[0]} padded trees, depth {heap.depth}, "
+              f"{table.mode} {table.dtype} table): {ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}); no "
+              f"single PyTorch call computes it [{card}]", flush=True)
+    return out["served"]
+
+
 
 def main() -> int:
     import torch
@@ -1012,9 +1647,11 @@ def main() -> int:
     }]
 
     errs = phase_train_kernels(card)
+    errs.update(phase_float_kernels(card))
+    errs["binned_walk"] = phase_binned_kernel(model, card)
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_t_")
     try:
-        counts, trainer, _res, _tps = phase_train(tmp, card)
+        counts, trainer, res8, _tps = phase_train(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ttimes = phase_train_timings(trainer, card)
@@ -1022,10 +1659,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_profile(card)
     phase_cpu_card_compare(card)
+
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_cli_")
+    try:
+        cli_counts, cli_model, _cli_tps, _cli_res = phase_cli_train(tmp,
+                                                                    card)
+        k7_launches, _k7_p50 = phase_serve_binned(tmp, cli_model, card)
+        k7_time = phase_binned_timing(cli_model, model, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_b_")
+    try:
+        _c16, trainer, res16, _tps16 = phase_train(tmp, card, "bf16")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"train: test AUC bf16 {res16.test_metrics['auc']:.6f} beside "
+          f"int8 {res8.test_metrics['auc']:.6f}; logloss bf16 "
+          f"{res16.test_loss:.6f}, int8 {res8.test_loss:.6f} [{card}]",
+          flush=True)
+    ttimes.update(phase_float_timings(trainer, card))
+    del trainer
+    torch.cuda.empty_cache()
+    phase_repro(card)
+
+    launches_of = dict(counts)
+    launches_of.update({k: cli_counts[k] for k in ("hist", "hist_gather")})
     for name, src, line in (
         ("hist_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:113"),
         ("hist_gather_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:434"),
         ("route", "route.cu", "ytklearn_tpu/gbdt/route.py:23"),
+        ("hist", "hist.cu", "ytklearn_tpu/gbdt/hist.py:51"),
+        ("hist_gather", "hist.cu", "ytklearn_tpu/gbdt/hist.py:371"),
     ):
         ms, plain_ms, bound_ms, bound_by, lib_ms = ttimes[name]
         rows.append({
@@ -1033,7 +1698,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"ytklearn_tpu_torch/gbdt/csrc/{src}",
             "replaces": line,
-            "launches": counts[name],
+            "launches": launches_of[name],
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -1041,6 +1706,20 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+    ms, plain_ms, bound_ms, bound_by = k7_time
+    rows.append({
+        "name": "binned_walk",
+        "route": "cuda",
+        "source": "ytklearn_tpu_torch/serve/csrc/heap_walk.cu",
+        "replaces": "ytklearn_tpu/serve/kernels.py:439",
+        "launches": k7_launches,
+        "max_abs_err": errs["binned_walk"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The port's training kernels on the card, against their plain versions.
+"""The port's training and binned serving kernels on the card, against
+their plain versions, and one tiny `cli train` on cuda.
 
 Marked `cuda`: each test skips without a CUDA device. This file imports
 neither JAX nor the JAX package, so it runs on a machine with the card
@@ -6,11 +7,19 @@ and no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Kernel sums are int32 and the split scans run in a fixed order, so every
-comparison is exact (torch.equal), trees included.
+The int8 kernel sums (K2, K4) are int32, routing (K5) and the binned walk
+(K7) are exact, and the split scans run in a fixed order, so those
+comparisons are exact (torch.equal), int8 trees included. The f32/bf16
+histograms (K1, K3) add floats with atomics in an order that changes from
+run to run: counts are exact, g/h held at rtol 1e-5 with an absolute floor
+of 1e-5 of the largest |sum|.
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +33,9 @@ from ytklearn_tpu_torch.config.params import (
 from ytklearn_tpu_torch.gbdt import engine, hist, route
 from ytklearn_tpu_torch.gbdt.data import GBDTData
 from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+from ytklearn_tpu_torch.serve import kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +185,92 @@ def test_trainer_dump_on_the_card_equals_the_cpu(gen, tmp_path):
         with open(path) as f:
             text[dev] = f.read()
     assert text["cpu"] == text["cuda"]
+
+
+def _close(got, want):
+    assert torch.equal(got[..., 2], want[..., 2])
+    scale = float(want[..., :2].abs().max())
+    torch.testing.assert_close(got[..., :2], want[..., :2], rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("use_bf16", [True, False])
+@pytest.mark.parametrize("F,n,B,N,dtype,M", [
+    (28, 70000, 256, 1, "u8", 509), (28, 70000, 256, 64, "u8", 509),
+    (5, 49152, 16, 7, "i32", 31), (6, 777, 64, 33, "u8", 100),
+])
+def test_float_hist_kernels_match_plain(gen, use_bf16, F, n, B, N, dtype, M):
+    bins, pos, _, _, ids = _inputs(gen, F, n, B, N, dtype, M)
+    g = torch.randn((n,), generator=gen, device="cuda") * 3
+    h = torch.rand((n,), generator=gen, device="cuda")
+    before = hist.hist_wave.launches
+    got = hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M,
+                         use_bf16=use_bf16)
+    assert hist.hist_wave.launches == before + 1
+    _close(got, hist.hist_wave_plain(bins, pos, g, h, ids, B, M, use_bf16))
+    rows = bins.t().contiguous()
+    R = 4096
+    idx = torch.randint(0, n, (R,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pg = pos[idx.long()].clone()
+    pg[R // 2:] = -1
+    gg, hg = g[idx.long()].contiguous(), h[idx.long()].contiguous()
+    before = hist.hist_wave_gather_mxu.launches
+    got = hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, B, mode="mxu",
+                                max_nodes=M, use_bf16=use_bf16)
+    assert hist.hist_wave_gather_mxu.launches == before + 1
+    _close(got, hist.hist_gather_plain(rows, idx, pg, gg, hg, ids, B, M,
+                                       use_bf16))
+
+
+@pytest.mark.parametrize("dtype,sentinel", [(torch.uint8, 255),
+                                            (torch.uint16, 65535)])
+def test_binned_walk_matches_plain(gen, dtype, sentinel):
+    rng = np.random.RandomState(11)
+    T, depth, B, F = 64, 6, 700, 28
+    H, LL = (1 << (depth + 1)) - 1, 1 << depth
+    hi = 300 if dtype == torch.uint16 else 250
+    rank1 = rng.randint(0, hi + 1, size=(T, H))
+    rank1[:, -9:] = 0xFFFF  # pad slots: every non-missing row goes left
+    packed = (rng.randint(0, F, size=(T, H)) | (rank1 << 12)
+              | (rng.randint(0, 2, size=(T, H)) << 28)).astype(np.int32)
+    b = rng.randint(0, hi, size=(B, F))
+    b[rng.rand(B, F) < 0.1] = sentinel
+    bins = torch.from_numpy(b.astype(np.uint16 if dtype == torch.uint16
+                                     else np.uint8)).cuda()
+    packed_t = torch.from_numpy(packed).cuda()
+    leaf = torch.from_numpy(rng.randn(T, LL)).cuda()
+    before = kernels.binned_walk.launches
+    got = kernels.binned_walk(bins, packed_t, leaf, depth, sentinel,
+                              max_feat=F - 1)
+    assert kernels.binned_walk.launches == before + 1
+    assert torch.equal(got, kernels.binned_walk_plain(bins, packed_t, leaf,
+                                                      depth, sentinel))
+
+
+def test_cli_train_on_the_card(gen, tmp_path):
+    """python -m ytklearn_tpu_torch.cli train gbdt <conf> on cuda, bf16."""
+    rng = np.random.RandomState(2)
+    for name, n in (("train", 20000), ("test", 4000)):
+        X = rng.randn(n, 6)
+        y = (X[:, 0] * X[:, 1] + rng.randn(n) * 0.5 > 0).astype(int)
+        with open(tmp_path / f"{name}.txt", "w") as f:
+            for i in range(n):
+                feats = ",".join(f"f{j}:{X[i, j]:.6f}" for j in range(6))
+                f.write(f"1###{y[i]}###{feats}\n")
+    model = tmp_path / "gbdt.model"
+    cmd = [sys.executable, "-m", "ytklearn_tpu_torch.cli", "train", "gbdt",
+           "experiment/higgs/local_gbdt.conf",
+           "--set", f"data.train.data_path={tmp_path / 'train.txt'}",
+           "--set", f"data.test.data_path={tmp_path / 'test.txt'}",
+           "--set", "data.max_feature_dim=6",
+           "--set", f"model.data_path={model}",
+           "--set", f"model.feature_importance_path={tmp_path / 'imp'}",
+           "--set", "optimization.round_num=4",
+           "--set", "optimization.max_depth=8"]
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["trees"] == 4 and res["test_metrics"]["auc"] > 0.6
+    assert model.exists() and (tmp_path / "gbdt.model.bins.json").exists()

@@ -177,14 +177,6 @@ def test_duplicate_and_out_of_range_ids():
     assert not got[1].any() and not got[2].any() and not got[3].any()
 
 
-def test_mxu_histograms_are_not_ported():
-    t = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K1/K3"):
-        hist.hist_wave(t, t, t, t, t, 8)
-    with pytest.raises(NotImplementedError, match="K1/K3"):
-        hist.hist_wave_gather(t, t, t, t, t, t, 8, mode="mxu", max_nodes=1)
-
-
 def test_per_row_lengths_are_checked():
     """A bin matrix of another row count than pos (K2), or per-slot arrays
     of another length than idx (K4), raise before any kernel runs."""

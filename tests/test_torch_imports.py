@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _port_modules()
     for m in ("serve.kernels", "cli", "cuda_build", "eval.metrics",
               "gbdt.binning", "gbdt.data", "gbdt.engine", "gbdt.hist",
-              "gbdt.route", "gbdt.state", "gbdt.trainer"):
+              "gbdt.route", "gbdt.state", "gbdt.trainer", "io.fs",
+              "io.reader"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -199,10 +199,23 @@ def test_fused_refusals_match_jax(tmp_path, shape):
     assert np.array_equal(s, js.score_batch(rows))
 
 
-def test_binned_rung_refused(case):
-    _jpred, pred, _names, _ = case
-    with pytest.raises(NotImplementedError, match="binned"):
-        CompiledScorer(pred, ladder=LADDER, mode="binned", device="cpu")
+def test_binned_rung_refused(tmp_path):
+    """A model too deep for the heap layout refuses the binned rung as the
+    JAX scorer does: it serves stacked, and rung_info() names the
+    binned_to_stacked downgrade and its reason."""
+    path = _write(tmp_path, _deep_model(11))
+    cfg = {"model": {"data_path": str(path)},
+           "optimization": {"loss_function": "sigmoid"}}
+    scorer = CompiledScorer(create_predictor("gbdt", cfg), ladder=LADDER,
+                            mode="binned", device="cpu")
+    info = scorer.rung_info()
+    assert (info["requested"], info["mode"], info["downgraded"]) == \
+        ("binned", "stacked", True)
+    assert info["downgrade"] == "binned_to_stacked"
+    assert "depth 11 > heap cap 10" in info["reason"]
+    js = JaxScorer(jax_create_predictor("gbdt", cfg), ladder=LADDER,
+                   mode="binned")
+    assert js.rung_info()["mode"] == "stacked"
 
 
 def test_knobs_pick_the_rung(case, monkeypatch):

@@ -1,6 +1,17 @@
 """Command-line entry points of the port.
 
+  python -m ytklearn_tpu_torch.cli train gbdt <config_path> [options]
   python -m ytklearn_tpu_torch.cli serve <config_path> <model_name> [options]
+
+`train` is the reference's bin/local_optimizer.sh: it parses the HOCON
+config (with `--set key=value` overrides), loads data.train/test through
+GBDTIngest (optionally through a python `--transform` hook), trains on
+`--device` (default `cuda`) with the JAX CLI's defaults (bf16 histograms),
+dumps the model, its `.bins.json` sidecar and the feature importance file,
+and prints one JSON line (model, trees, train/test loss and metrics).
+Only `gbdt` trains; the other model names, resume and restarts, multi-
+process and multi-GPU runs, and the trace/profile planes raise
+NotImplementedError naming their ROADMAP.md item.
 
 `serve` loads the model into a ModelRegistry on `--device` (default
 `cuda`), warms every ladder rung, starts the HTTP app, and prints one JSON
@@ -28,8 +39,129 @@ MODEL_NAMES = (
     "gbhsdt",
     "gbdt",
 )
+GBST_NAMES = ("gbmlr", "gbsdt", "gbhmlr", "gbhsdt")
 #: registry name of the served model (the default target of /predict)
 SERVE_NAME = "default"
+
+
+def _setup_logging(verbose: bool) -> None:
+    logging.basicConfig(
+        level=logging.DEBUG if verbose else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        stream=sys.stderr,
+    )
+
+
+def _apply_overrides(cfg: dict, sets: List[str]) -> dict:
+    """--set key=value overrides (reference: TrainWorker.setCustomParam,
+    worker/TrainWorker.java:118-131). Values parse as JSON when possible,
+    else stay strings."""
+    from .config import hocon
+
+    for kv in sets or []:
+        key, sep, val = kv.partition("=")
+        if not sep:
+            raise SystemExit(f"--set expects key=value, got {kv!r}")
+        try:
+            parsed = json.loads(val)
+        except json.JSONDecodeError:
+            parsed = val
+        cfg = hocon.set_path(cfg, key.strip(), parsed)
+    return cfg
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def _refuse_unported(args) -> None:
+    """Every train option and model this port does not run yet raises by
+    its ROADMAP.md item, before anything loads."""
+    if args.model_name in GBST_NAMES:
+        raise _not_ported(f"training {args.model_name!r}", "1.10, GBST")
+    if args.model_name != "gbdt":
+        raise _not_ported(f"training {args.model_name!r}",
+                          "1.9, convex stack")
+    for bad, what, item in (
+        (args.max_restarts > 0, "--max-restarts",
+         "1.5, rest of the GBDT trainer"),
+        (args.resume == "auto", "--resume auto",
+         "1.5, rest of the GBDT trainer"),
+        (bool(args.coordinator), "multi-process training (--coordinator)",
+         "1.7, multi-GPU data-parallel GBDT"),
+        (args.devices > 1, "--devices > 1",
+         "1.7, multi-GPU data-parallel GBDT"),
+        (bool(args.trace_out), "--trace-out", "1.12, the obs planes"),
+        (args.profile is not None, "--profile", "1.12, the obs planes"),
+    ):
+        if bad:
+            raise _not_ported(what, item)
+
+
+def train_main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="ytklearn-tpu-torch-train",
+        description="Train a GBDT on the card from a HOCON config "
+        "(reference: bin/local_optimizer.sh + LocalTrainWorker)",
+    )
+    ap.add_argument("model_name", choices=MODEL_NAMES)
+    ap.add_argument("config_path")
+    ap.add_argument("--transform", action="store_true",
+                    help="enable the python line-transform hook")
+    ap.add_argument("--transform-script", default="bin/transform.py")
+    ap.add_argument("--device", default="cuda",
+                    help="device to train on: cuda (default) or cpu")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="GPUs to train on; more than one is not ported yet")
+    ap.add_argument("--max-restarts", type=int, default=0,
+                    help="retry a failed run from its last dump (not "
+                    "ported yet)")
+    ap.add_argument("--resume", default="never", choices=("never", "auto"),
+                    help="auto: resume from a complete dump (not ported yet)")
+    ap.add_argument("--coordinator", default="",
+                    help="host:port of a multi-process rendezvous (not "
+                    "ported yet)")
+    ap.add_argument("--set", action="append", dest="sets",
+                    metavar="KEY=VALUE", help="config override, repeatable")
+    ap.add_argument("--trace-out", default="",
+                    help="Chrome-trace output (not ported yet)")
+    ap.add_argument("--profile", nargs="?", const="", default=None,
+                    metavar="DIR", help="profiling plane (not ported yet)")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    _setup_logging(args.verbose)
+    _refuse_unported(args)
+
+    from .config import hocon
+
+    cfg = _apply_overrides(hocon.load(args.config_path), args.sets)
+    hook = None
+    if args.transform:
+        from .io.reader import load_transform_hook
+
+        hook = load_transform_hook(args.transform_script)
+    return _train_once(args.model_name, cfg, hook, args.device)
+
+
+def _train_once(name: str, cfg: dict, hook, device) -> int:
+    from .config.params import GBDTParams
+    from .gbdt.data import GBDTIngest
+    from .gbdt.trainer import GBDTTrainer
+    from .io.fs import create_filesystem
+
+    fs = create_filesystem(str(cfg.get("fs_scheme", "local")))
+    p = GBDTParams.from_config(cfg)
+    train, test = GBDTIngest(p, fs=fs, transform_hook=hook).load()
+    res = GBDTTrainer(p, device=device, fs=fs).train(train=train, test=test)
+    print(json.dumps({
+        "model": name,
+        "trees": len(res.model.trees),
+        "train_loss": res.train_loss,
+        "test_loss": res.test_loss,
+        "train_metrics": res.train_metrics,
+        "test_metrics": res.test_metrics,
+    }), flush=True)
+    return 0
 
 
 def serve_main(argv: Optional[List[str]] = None) -> int:
@@ -57,11 +189,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
                     help="device to score on: cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    logging.basicConfig(
-        level=logging.DEBUG if args.verbose else logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s",
-        stream=sys.stderr,
-    )
+    _setup_logging(args.verbose)
 
     from .config import hocon
     from .serve import BatchPolicy, ModelRegistry, ServeApp, parse_ladder
@@ -96,13 +224,15 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: python -m ytklearn_tpu_torch.cli serve ...")
+        print("usage: python -m ytklearn_tpu_torch.cli {train,serve} ...")
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
+    if cmd == "train":
+        return train_main(rest)
     if cmd == "serve":
         return serve_main(rest)
-    print(f"unknown command {cmd!r}; the port has: serve "
-          "(train/retrain/predict/convert come with their slices)",
+    print(f"unknown command {cmd!r}; the port has: train, serve "
+          "(retrain/predict/convert come with their slices)",
           file=sys.stderr)
     return 2
 

@@ -43,7 +43,8 @@ _knob("YTK_SERVE_FUSED", "bool", False,
       "serve GBDT through the fused heap-walk CUDA kernel (bit-identical "
       "to the stacked rung)")
 _knob("YTK_SERVE_BINNED", "bool", False,
-      "binned GBDT scoring rung; not ported yet, so the scorer refuses it")
+      "serve GBDT on the binned rung: rows binned once per batch, the "
+      "binned heap-walk CUDA kernel (wins over `YTK_SERVE_FUSED`)")
 _knob("YTK_SERVE_PRECISION", "str", "f64",
       "serving precision rung for the einsum scorers (`f64` | `bf16`); "
       "GBDT scores in f64 whatever it asks")

@@ -1,15 +1,16 @@
 """Typed GBDT parameters parsed from HOCON configs.
 
-The fields of ``ytklearn_tpu/config/params.py`` (``ModelParams``,
-``ApproximateSpec``, ``GBDTParams.from_config``) that the GBDT predictor
-and the device-engine trainer read, with the same config paths, defaults
-and ``???`` handling, so one config file drives both packages.
+The fields of ``ytklearn_tpu/config/params.py`` (``DelimParams``,
+``DataParams``, ``ModelParams``, ``ApproximateSpec``,
+``GBDTParams.from_config``) that the GBDT predictor, the ingest and the
+device-engine trainer read, with the same config paths, defaults and
+``???`` handling, so one config file drives both packages.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Tuple
 
 from .hocon import MISSING, get_path
 
@@ -28,6 +29,72 @@ def _opt(cfg: dict, path: str, default):
 
 def _opt_path(cfg: dict, path: str) -> str:
     return str(_opt(cfg, path, "") or "")
+
+
+def _as_paths(v) -> List[str]:
+    """data_path may be a single string or a list; comma-split like the
+    reference's multi-path handling. "???" placeholders drop out."""
+    if v is None or v is MISSING or v == "":
+        return []
+    if isinstance(v, (list, tuple)):
+        out: List[str] = []
+        for x in v:
+            out.extend(_as_paths(x))
+        return out
+    return [p for p in str(v).split(",") if p and p != "???"]
+
+
+@dataclass
+class DelimParams:
+    """reference: param/DataParams.java (delim block)."""
+
+    x_delim: str = "###"
+    y_delim: str = ","
+    features_delim: str = ","
+    feature_name_val_delim: str = ":"
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "DelimParams":
+        d = get_path(cfg, "data.delim", {}) or {}
+        return cls(
+            x_delim=d.get("x_delim", "###"),
+            y_delim=d.get("y_delim", ","),
+            features_delim=d.get("features_delim", ","),
+            feature_name_val_delim=d.get("feature_name_val_delim", ":"),
+        )
+
+
+@dataclass
+class DataParams:
+    train_paths: List[str] = field(default_factory=list)
+    train_max_error_tol: int = 0
+    test_paths: List[str] = field(default_factory=list)
+    test_max_error_tol: int = 0
+    delim: DelimParams = field(default_factory=DelimParams)
+    # ["0@0.1", "1@0.5"]: keep label 0 w.p. 0.1 (the convex ingest's)
+    y_sampling: List[Tuple[str, float]] = field(default_factory=list)
+    assigned: bool = False
+    unassigned_mode: str = "lines_avg"  # lines_avg | files_avg
+    max_feature_dim: int = -1  # GBDT only
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "DataParams":
+        ys = []
+        for s in _opt(cfg, "data.y_sampling", []) or []:
+            label, rate = str(s).split("@")
+            ys.append((label, float(rate)))
+        return cls(
+            train_paths=_as_paths(_opt(cfg, "data.train.data_path", "")),
+            train_max_error_tol=int(_opt(cfg, "data.train.max_error_tol", 0)),
+            test_paths=_as_paths(_opt(cfg, "data.test.data_path", "")),
+            test_max_error_tol=int(_opt(cfg, "data.test.max_error_tol", 0)),
+            delim=DelimParams.from_config(cfg),
+            y_sampling=ys,
+            assigned=bool(_opt(cfg, "data.assigned", False)),
+            unassigned_mode=str(_opt(cfg, "data.unassigned_mode",
+                                     "lines_avg")),
+            max_feature_dim=int(_opt(cfg, "data.max_feature_dim", -1)),
+        )
 
 
 @dataclass
@@ -87,6 +154,7 @@ class ApproximateSpec:
 class GBDTParams:
     fs_scheme: str = "local"
     gbdt_type: str = "gradient_boosting"  # gradient_boosting | random_forest
+    data: DataParams = field(default_factory=DataParams)
     model: ModelParams = field(default_factory=ModelParams)
 
     # optimization block
@@ -116,6 +184,7 @@ class GBDTParams:
     # feature block
     split_type: str = "mean"  # mean | median
     approximate: List[ApproximateSpec] = field(default_factory=list)
+    missing_value: str = "value"  # mean | quantile[@q] | value[@v]
 
     @classmethod
     def from_config(cls, cfg: dict) -> "GBDTParams":
@@ -131,6 +200,7 @@ class GBDTParams:
         return cls(
             fs_scheme=str(_opt(cfg, "fs_scheme", "local")),
             gbdt_type=str(_opt(cfg, "type", "gradient_boosting")),
+            data=DataParams.from_config(cfg),
             model=ModelParams.from_config(cfg),
             tree_maker=str(_opt(cfg, f"{o}.tree_maker", "data")),
             tree_grow_policy=str(_opt(cfg, f"{o}.tree_grow_policy", "level")),
@@ -161,6 +231,7 @@ class GBDTParams:
             eval_metric=list(_opt(cfg, f"{o}.eval_metric", ["auc"]) or []),
             split_type=str(_opt(cfg, "feature.split_type", "mean")),
             approximate=appr,
+            missing_value=str(_opt(cfg, "feature.missing_value", "value")),
         )
 
     @property

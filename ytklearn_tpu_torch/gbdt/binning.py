@@ -10,6 +10,8 @@ The counterpart of the device path of ``ytklearn_tpu/gbdt/binning.py``:
   efb_candidates       EFB's column filter (:560)
   bin_edges_path, model_text_digest, dump_bin_edges  the `.bins.json`
                        sidecar the trainer writes before the model (:371)
+  load_bin_edges       its reader, with the model-digest check (:411),
+                       for the binned serving rung
 
 A value maps to the NEAREST representative: i = first index with
 values[i] >= v; if i >= 1 and v < midpoint(values[i-1], values[i]) then
@@ -24,8 +26,9 @@ from __future__ import annotations
 
 import hashlib
 import json
+import logging
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +36,8 @@ import torch
 from ..config.params import ApproximateSpec, GBDTParams
 from .data import Array, to_tensor
 from .engine import ordered_cumsum
+
+log = logging.getLogger(__name__)
 
 #: EFB candidate pre-filter: a column this dense can never bundle usefully
 EFB_MAX_DENSITY = 0.5
@@ -271,3 +276,35 @@ def dump_bin_edges(fs, path: str, names: Sequence[str], bins: FeatureBins,
         payload["model_digest"] = model_digest
     with fs.atomic_open(path) as f:
         json.dump(payload, f)
+
+
+def load_bin_edges(fs, path: str, model_digest: Optional[str] = None
+                   ) -> Optional[Dict[str, np.ndarray]]:
+    """{feature name: sorted (cnt,) f64 edges}, or None when the sidecar is
+    missing or unreadable (serving then derives thresholds from the
+    ensemble). With the served model text's digest, a sidecar dumped for a
+    different model (the window a crash between the trainer's two writes
+    leaves) is rejected too."""
+    if not fs.exists(path):
+        return None
+    try:
+        with fs.open(path) as f:
+            payload = json.load(f)
+        if payload.get("schema") != BIN_EDGES_SCHEMA:
+            raise ValueError(f"not a bin-edges sidecar: {path}")
+        want = payload.get("model_digest")
+        if model_digest is not None and want is not None \
+                and want != model_digest:
+            log.warning("bin-edges sidecar %s was dumped for a different "
+                        "model (digest mismatch); serving falls back to "
+                        "ensemble-derived thresholds", path)
+            return None
+        return {
+            str(name): np.asarray(vals, np.float64)
+            for name, vals in payload["features"].items()
+        }
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        log.warning("bin-edges sidecar %s unreadable (%s: %s); serving falls "
+                    "back to ensemble-derived thresholds", path,
+                    type(e).__name__, e)
+        return None

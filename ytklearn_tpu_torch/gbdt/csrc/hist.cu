@@ -1,16 +1,25 @@
-// int8 GBDT histograms on Hopper: the full-scan kernel (K2) and the
-// gather kernel over a compacted row list (K4).
+// GBDT histograms on Hopper: the full-scan kernels (K1 f32/bf16, K2 int8)
+// and the gather kernels over a compacted row list (K3 f32/bf16, K4 int8).
 //
 // Replaces the JAX package's Pallas kernels
+//   K1  ytklearn_tpu/gbdt/hist.py::_hist_pallas          (pallas_call :93)
 //   K2  ytklearn_tpu/gbdt/hist.py::_hist_pallas_q        (pallas_call :158)
+//   K3  ytklearn_tpu/gbdt/hist.py::_hist_gather_pallas   (pallas_call :319)
 //   K4  ytklearn_tpu/gbdt/hist.py::_hist_gather_pallas_q (pallas_call :319)
-// Both compute, for each node slot s of the wave (node_ids[s] = a tree node
-// id, negative = pad), each feature f and bin b:
+// All four compute, for each node slot s of the wave (node_ids[s] = a tree
+// node id, negative = pad), each feature f and bin b:
 //   out[s, f, b, :] = sum over rows r with pos[r] == node_ids[s] and
-//                     bin(f, r) == b of (gq[r], hq[r], 1)
-// with gq/hq f32 integers in [-127, 127] (the caller's quantized gradients)
-// and int32 sums. Int32 addition is associative, so any order and any
-// atomics give the reference's exact sums.
+//                     bin(f, r) == b of (g[r], h[r], 1)
+// In int8 mode (K2/K4) g/h are f32 integers in [-127, 127] (the caller's
+// quantized gradients) summed in int32: int32 addition is associative, so
+// any order and any atomics give the reference's exact sums. In f32 mode
+// (K1/K3) g/h are summed as they are in f32; in bf16 mode each g and h is
+// first rounded to bf16 (round to nearest even, as jnp.astype(bfloat16)
+// does, hist.py:74-76 and :408-409) and widened back, and the sums stay
+// f32. Float sums depend on their order, and the atomics below add in an
+// order that changes from run to run: K1/K3 agree with the reference (the
+// MXU's own order) and with themselves only to a tolerance. The count
+// channel is an f32 sum of ones, exact below 2^24 rows per bin.
 //
 // The TPU kernels build node and bin one-hots and run them through the MXU;
 // a GPU needs none of that. Here every row adds its (g, h, 1) straight into
@@ -20,49 +29,70 @@
 //     costs one shared load and no scan of the wave's ids.
 //   * privatisation: a block owns a tile of ng slots x fg features of the
 //     (N, F, B, 3) histogram in shared memory and accumulates with shared
-//     atomics, then flushes the nonzero counters to global memory with
-//     atomicAdd. At the root wave (N = 1) every row hits the same F x B
-//     bins: plain global atomics would contend there.
+//     atomics (int32, or f32: native on sm_90), then flushes the nonzero
+//     counters to global memory with atomicAdd. At the root wave (N = 1)
+//     every row hits the same F x B bins: plain global atomics would
+//     contend there. A counter is 4 bytes in every mode, so one tile plan
+//     serves all four kernels.
 //   * grid: x = tile (fastest, so the blocks of one row chunk run together
 //     and share its pos/bins reads through L2), y = row chunk.
-// Bound: the bytes of bins, pos, gq and hq read once and the histogram
+// Bound: the bytes of bins, pos, g and h read once and the histogram
 // written once (memory), unless shared-atomic conflicts on skewed bins
 // dominate. A wave of many slots leaves few rows to each tile, so a warp
 // holds one or two rows of its tile at a time: their bins loads are
-// issued eight at a time, not one after another. K2 reads bins (F, n)
-// feature-major, so a warp's loads of one feature are coalesced; K4 reads
-// row-major (n_rows, F) bins through the index list (one row's features
-// are contiguous).
+// issued eight at a time, not one after another. The full-scan kernels read
+// bins (F, n) feature-major, so a warp's loads of one feature are
+// coalesced; the gather kernels read row-major (n_rows, F) bins through the
+// index list (one row's features are contiguous).
 //
 // Built by ytklearn_tpu_torch/cuda_build.py with nvcc for sm_90a; bound by
 // ctypes from ytklearn_tpu_torch/gbdt/hist.py.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 #include <limits.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int LOADS_IN_FLIGHT = 8;
 
-template <typename BinT, bool GATHER>
-__global__ void hist_q_kernel(
-    const BinT* __restrict__ bins,      // K2: (F, n) ; K4: (n_rows, F)
-    long long n_bins_rows,              // K2: n ; K4: n_rows (bounds idx)
-    const int32_t* __restrict__ idx,    // K4: (n,) row ids ; K2: unused
+// value modes: the int8-quantized kernels (K2/K4) and the float ones (K1/K3)
+enum ValMode { VAL_Q = 0, VAL_F32 = 1, VAL_BF16 = 2 };
+
+template <int MODE> struct Acc { typedef float T; };
+template <> struct Acc<VAL_Q> { typedef int32_t T; };
+
+template <int MODE>
+__device__ __forceinline__ typename Acc<MODE>::T to_acc(float v) {
+  if constexpr (MODE == VAL_Q) {
+    return (int32_t)v;  // f32 integers: truncation is exact
+  } else if constexpr (MODE == VAL_BF16) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+template <typename BinT, bool GATHER, int MODE>
+__global__ void hist_kernel(
+    const BinT* __restrict__ bins,      // full scan: (F, n) ; gather: (n_rows, F)
+    long long n_bins_rows,              // full scan: n ; gather: n_rows
+    const int32_t* __restrict__ idx,    // gather: (n,) row ids ; else unused
     const int32_t* __restrict__ pos,    // (n,) node id per row, -1 = dead
-    const float* __restrict__ gq,       // (n,)
-    const float* __restrict__ hq,       // (n,)
-    long long n,                        // rows scanned (K2: n ; K4: R)
+    const float* __restrict__ g,        // (n,)
+    const float* __restrict__ h,        // (n,)
+    long long n,                        // rows scanned (full scan: n ; gather: R)
     const int32_t* __restrict__ node_ids, int N,
     int M,                              // node ids < M (lookup table size)
     int F, int B, int fg, int ng, int n_ftiles,
     long long rows_per_chunk,
-    int32_t* __restrict__ out)          // (N, F, B, 3), zeroed by the caller
+    typename Acc<MODE>::T* __restrict__ out)  // (N, F, B, 3), zeroed by the caller
 {
+  typedef typename Acc<MODE>::T AccT;
   extern __shared__ int32_t smem[];
-  int32_t* lut = smem;                       // M entries
-  int32_t* hist = smem + ((M + 3) & ~3);     // ng * fg * B * 3 entries
+  int32_t* lut = smem;                                 // M entries
+  AccT* hist = (AccT*)(smem + ((M + 3) & ~3));         // ng * fg * B * 3
 
   const int ft = blockIdx.x % n_ftiles;
   const int nt = blockIdx.x / n_ftiles;
@@ -81,6 +111,7 @@ __global__ void hist_q_kernel(
   }
   __syncthreads();
 
+  const AccT one = 1;
   const long long r0 = (long long)blockIdx.y * rows_per_chunk;
   const long long r1 = min(n, r0 + rows_per_chunk);
   for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
@@ -93,9 +124,9 @@ __global__ void hist_q_kernel(
       row = idx[r];
       if (row < 0 || row >= n_bins_rows) continue;
     }
-    const int gv = (int)gq[r];  // f32 integers: truncation is exact
-    const int hv = (int)hq[r];
-    int32_t* hs = hist + (size_t)s * fg * B * 3;
+    const AccT gv = to_acc<MODE>(g[r]);
+    const AccT hv = to_acc<MODE>(h[r]);
+    AccT* hs = hist + (size_t)s * fg * B * 3;
     // a row's bins are LOADS_IN_FLIGHT independent global loads issued
     // before their atomics: one row's features do not wait on each other
     for (int fb = 0; fb < fcnt; fb += LOADS_IN_FLIGHT) {
@@ -110,19 +141,21 @@ __global__ void hist_q_kernel(
 #pragma unroll
       for (int k = 0; k < LOADS_IN_FLIGHT; ++k) {
         if ((unsigned)b[k] >= (unsigned)B) continue;
-        int32_t* c = hs + ((size_t)(fb + k) * B + b[k]) * 3;
+        AccT* c = hs + ((size_t)(fb + k) * B + b[k]) * 3;
         atomicAdd(c, gv);
         atomicAdd(c + 1, hv);
-        atomicAdd(c + 2, 1);
+        atomicAdd(c + 2, one);
       }
     }
   }
   __syncthreads();
 
+  // flush: a counter that is zero (+0 or -0) adds nothing to the zeroed
+  // output, so it is skipped
   const int per_slot = fg * B * 3;
   const int run = B * 3;
   for (int i = threadIdx.x; i < scnt * per_slot; i += blockDim.x) {
-    const int v = hist[i];
+    const AccT v = hist[i];
     if (v == 0) continue;
     const int sl = i / per_slot;
     const int rem = i - sl * per_slot;
@@ -133,30 +166,56 @@ __global__ void hist_q_kernel(
   }
 }
 
-template <typename BinT, bool GATHER>
+template <typename BinT, bool GATHER, int MODE>
 int launch(const void* bins, long long n_bins_rows, const int32_t* idx,
-           const int32_t* pos, const float* gq, const float* hq, long long n,
+           const int32_t* pos, const float* g, const float* h, long long n,
            const int32_t* node_ids, int N, int M, int F, int B, int fg,
            int ng, int n_ftiles, int n_tiles, int n_chunks,
            long long rows_per_chunk, int threads, int smem_bytes,
-           int32_t* out, cudaStream_t stream) {
-  auto kern = hist_q_kernel<BinT, GATHER>;
+           void* out, cudaStream_t stream) {
+  auto kern = hist_kernel<BinT, GATHER, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_tiles, n_chunks);
   kern<<<grid, threads, smem_bytes, stream>>>(
-      (const BinT*)bins, n_bins_rows, idx, pos, gq, hq, n, node_ids, N, M, F,
-      B, fg, ng, n_ftiles, rows_per_chunk, out);
+      (const BinT*)bins, n_bins_rows, idx, pos, g, h, n, node_ids, N, M, F,
+      B, fg, ng, n_ftiles, rows_per_chunk,
+      (typename Acc<MODE>::T*)out);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch(int bin_bytes, int gather, const void* bins,
+             long long n_bins_rows, const int32_t* idx, const int32_t* pos,
+             const float* g, const float* h, long long n,
+             const int32_t* node_ids, int N, int M, int F, int B, int fg,
+             int ng, int n_ftiles, int n_tiles, int n_chunks,
+             long long rows_per_chunk, int threads, int smem_bytes,
+             void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define YTK_ARGS bins, n_bins_rows, idx, pos, g, h, n, node_ids, N, M, F, \
+    B, fg, ng, n_ftiles, n_tiles, n_chunks, rows_per_chunk, threads,      \
+    smem_bytes, out, st
+  if (bin_bytes == 1) {
+    return gather ? launch<uint8_t, true, MODE>(YTK_ARGS)
+                  : launch<uint8_t, false, MODE>(YTK_ARGS);
+  }
+  if (bin_bytes == 4) {
+    return gather ? launch<int32_t, true, MODE>(YTK_ARGS)
+                  : launch<int32_t, false, MODE>(YTK_ARGS);
+  }
+#undef YTK_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// bin_bytes: 1 (uint8 bins) or 4 (int32 bins); gather: 0 = K2, 1 = K4.
-// Returns the cudaError_t of the launch (0 = launched).
+// int8 kernels: bin_bytes 1 (uint8 bins) or 4 (int32 bins); gather 0 = K2,
+// 1 = K4; out (N, F, B, 3) int32. Returns the cudaError_t of the launch
+// (0 = launched).
 int ytk_hist_q(int bin_bytes, int gather, const void* bins,
                long long n_bins_rows, const int32_t* idx, const int32_t* pos,
                const float* gq, const float* hq, long long n,
@@ -164,20 +223,30 @@ int ytk_hist_q(int bin_bytes, int gather, const void* bins,
                int ng, int n_ftiles, int n_tiles, int n_chunks,
                long long rows_per_chunk, int threads, int smem_bytes,
                int32_t* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define YTK_ARGS bins, n_bins_rows, idx, pos, gq, hq, n, node_ids, N, M, F, \
-    B, fg, ng, n_ftiles, n_tiles, n_chunks, rows_per_chunk, threads,        \
-    smem_bytes, out, st
-  if (bin_bytes == 1) {
-    return gather ? launch<uint8_t, true>(YTK_ARGS)
-                  : launch<uint8_t, false>(YTK_ARGS);
-  }
-  if (bin_bytes == 4) {
-    return gather ? launch<int32_t, true>(YTK_ARGS)
-                  : launch<int32_t, false>(YTK_ARGS);
-  }
-#undef YTK_ARGS
-  return (int)cudaErrorInvalidValue;
+  return dispatch<VAL_Q>(bin_bytes, gather, bins, n_bins_rows, idx, pos, gq,
+                         hq, n, node_ids, N, M, F, B, fg, ng, n_ftiles,
+                         n_tiles, n_chunks, rows_per_chunk, threads,
+                         smem_bytes, out, stream);
+}
+
+// float kernels: as ytk_hist_q with f32 g/h; use_bf16 rounds each g and h
+// to bf16 first; gather 0 = K1, 1 = K3; out (N, F, B, 3) float.
+int ytk_hist(int bin_bytes, int gather, int use_bf16, const void* bins,
+             long long n_bins_rows, const int32_t* idx, const int32_t* pos,
+             const float* g, const float* h, long long n,
+             const int32_t* node_ids, int N, int M, int F, int B, int fg,
+             int ng, int n_ftiles, int n_tiles, int n_chunks,
+             long long rows_per_chunk, int threads, int smem_bytes,
+             float* out, void* stream) {
+  return use_bf16
+      ? dispatch<VAL_BF16>(bin_bytes, gather, bins, n_bins_rows, idx, pos, g,
+                           h, n, node_ids, N, M, F, B, fg, ng, n_ftiles,
+                           n_tiles, n_chunks, rows_per_chunk, threads,
+                           smem_bytes, out, stream)
+      : dispatch<VAL_F32>(bin_bytes, gather, bins, n_bins_rows, idx, pos, g,
+                          h, n, node_ids, N, M, F, B, fg, ng, n_ftiles,
+                          n_tiles, n_chunks, rows_per_chunk, threads,
+                          smem_bytes, out, stream);
 }
 
 const char* ytk_cuda_error_string(int err) {

@@ -1,18 +1,33 @@
-"""The GBDT training data container (``ytklearn_tpu/gbdt/data.py:GBDTData``).
+"""GBDT data: the training container and the text ingest
+(``ytklearn_tpu/gbdt/data.py``, reference dataflow/GBDTCoreData.java and
+feature/gbdt/missing/*).
 
-X is a dense (n, F) float32 matrix with NaN marking a missing value, as a
-numpy array or as a torch tensor (which may already lie on the training
-device: a generator can make it there and skip the host copy). The text
-ingest (`GBDTIngest`) is not ported yet (ROADMAP.md 1.1, `cli train`).
+GBDTData: X is a dense (n, F) float32 matrix with NaN marking a missing
+value, as a numpy array or as a torch tensor (which may already lie on the
+training device: a generator can make it there and skip the host copy).
+
+GBDTIngest parses ytklearn text lines (`weight###label###name:val,...`)
+into that matrix and fills the missing values with the configured strategy
+(`value@v`, `mean`, `quantile@q`), the semantics of the reference's Python
+path: columns in the order features are first seen in the training data,
+the test data read through that frozen map (unseen features skipped),
+`max_feature_dim` overflow as an error line, `max_error_tol`. The native
+C++ parser of the JAX package (io/native.py) is not ported; its output is
+the Python path's.
 """
 
 from __future__ import annotations
 
+from array import array
 from dataclasses import dataclass
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..config.params import GBDTParams
+from ..io.fs import LocalFileSystem
+from ..io.reader import parse_line, shard_read_lines
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -33,6 +48,180 @@ class GBDTData:
     @property
     def n_features(self) -> int:
         return int(self.X.shape[1])
+
+
+class GBDTIngest:
+    """Parse ytklearn lines into the dense matrix; compute and apply the
+    missing-value fill (reference: FillMissingValue.java:49,61)."""
+
+    def __init__(self, params: GBDTParams, fs=None, transform_hook=None):
+        self.params = params
+        self.fs = fs or LocalFileSystem()
+        self.transform_hook = transform_hook
+        if params.data.max_feature_dim <= 0:
+            raise ValueError("gbdt requires data.max_feature_dim")
+        self.F = params.data.max_feature_dim
+        self.K = params.class_num if params.loss_function == "softmax" else 1
+
+    def _lines(self, paths):
+        """Raw lines, expanded through the python transform hook when one
+        is configured (reference: Jython transform, CoreData.java:298)."""
+        for raw in shard_read_lines(self.fs, self.params.data, paths):
+            if self.transform_hook is None:
+                yield raw
+            else:
+                yield from self.transform_hook(raw.encode())
+
+    def _parse(self, paths, max_error_tol: int,
+               fmap: Optional[Dict[str, int]] = None,
+               frozen: bool = False) -> GBDTData:
+        """fmap: feature name -> dense column, grown in first-seen order
+        while parsing train data, frozen for test data (the reference's
+        OnlineFeatureMap, GBDTCoreData.java:371-381: unseen test features
+        are skipped, train overflow past max_feature_dim is an error line).
+        A line that fails to parse counts toward max_error_tol and claims
+        no column; a duplicate feature keeps its last value.
+
+        The matrix is filled in one scatter at the end: the reference's
+        Python path (gbdt/data.py:238) value for value."""
+        delim = self.params.data.delim
+        if fmap is None:
+            fmap = {}
+        weights: List[float] = []
+        labels_all: list = []
+        counts: List[int] = []
+        cols, vals = array("q"), array("d")  # flat (column, value) pairs
+        errors = 0
+        for line in self._lines(paths):
+            s = line.strip()
+            if not s:
+                continue
+            try:
+                pl = parse_line(s, delim)
+                names = [name for name, _ in pl.feats]
+                fv = [v for _, v in pl.feats]
+                idxs = [fmap.get(name) for name in names]
+                staged: Dict[str, int] = {}
+                if None in idxs:
+                    idxs, fv, staged = self._claim(names, idxs, fv, fmap,
+                                                   frozen)
+                labels = pl.labels
+                if self.K > 1:
+                    if len(labels) == 1:
+                        c = int(labels[0])
+                        labels = [0.0] * self.K
+                        labels[c] = 1.0
+                    elif len(labels) != self.K:
+                        raise ValueError("label width mismatch")
+            except (ValueError, IndexError, OverflowError):
+                errors += 1
+                if errors > max_error_tol:
+                    raise
+                continue
+            fmap.update(staged)  # new names claim columns once a line is clean
+            weights.append(pl.weight)
+            labels_all.append(labels if self.K > 1 else labels[0])
+            counts.append(len(idxs))
+            cols.extend(idxs)
+            vals.extend(fv)
+
+        self._fmap = fmap
+        n = len(weights)
+        X = np.full((n, self.F), np.nan, np.float32)
+        if len(cols):
+            flat = (np.repeat(np.arange(n, dtype=np.int64), counts)
+                    * self.F + np.frombuffer(cols, np.int64))
+            # the last occurrence of a (row, column) pair wins, as the
+            # sequential stores of the reference's loop do
+            last = len(flat) - 1 - np.unique(flat[::-1], return_index=True)[1]
+            X.reshape(-1)[flat[last]] = np.frombuffer(vals, np.float64)[last]
+        weight = np.asarray(weights, np.float32)
+        y = np.asarray(labels_all, np.float32).reshape(
+            (n, self.K) if self.K > 1 else (n,))
+        return GBDTData(X=X, y=y, weight=weight, n_real=n,
+                        feature_names=self._names_from_fmap(fmap))
+
+    def _claim(self, names, idxs, fv, fmap, frozen):
+        """A line naming features fmap does not hold: test-only features
+        are dropped (frozen), new training features are staged in
+        first-seen order, and a column past max_feature_dim raises. Returns
+        the line's (columns, values, staged names)."""
+        staged: Dict[str, int] = {}
+        out_i: List[int] = []
+        out_v: List[float] = []
+        for name, idx, v in zip(names, idxs, fv):
+            if idx is None:
+                idx = staged.get(name)
+            if idx is None:
+                if frozen:
+                    continue  # test-only feature: ignored
+                idx = len(fmap) + len(staged)
+                if idx >= self.F:
+                    raise ValueError(
+                        f"max_feature_dim({self.F}) smaller than real "
+                        f"feature number in data set (feature {name!r})"
+                    )
+                staged[name] = idx
+            out_i.append(idx)
+            out_v.append(v)
+        return out_i, out_v, staged
+
+    def _names_from_fmap(self, fmap: Dict[str, int]) -> List[str]:
+        """index -> name; unclaimed dense columns keep numeric names."""
+        names = [str(i) for i in range(self.F)]
+        for name, idx in fmap.items():
+            names[idx] = name
+        return names
+
+    def compute_missing_fill(self, X: np.ndarray) -> np.ndarray:
+        """(F,) fill values of the configured strategy (reference:
+        ComputeMean.java:71, ComputeQuantile.java:72, ComputeValue):
+        `value[@v]` (v, default 0), `mean` (f64 mean of the present
+        values, 0 for an empty column), `quantile[@q]` (np.nanquantile,
+        q default 0.5, 0 for an empty column)."""
+        spec = self.params.missing_value
+        base, _, arg = str(spec).partition("@")
+        base = base.lower()
+        if base == "value":
+            v = float(arg) if arg else 0.0
+            return np.full((X.shape[1],), v, np.float32)
+        if base == "mean":
+            tot = np.nansum(X, axis=0, dtype=np.float64)
+            cnt = np.sum(~np.isnan(X), axis=0, dtype=np.int64)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                fill = np.where(cnt > 0, tot / np.maximum(cnt, 1), 0.0)
+            return fill.astype(np.float32)
+        if base == "quantile":
+            q = float(arg) if arg else 0.5
+            with np.errstate(invalid="ignore", all="ignore"):
+                fill = np.nanquantile(X, q, axis=0)
+            return np.nan_to_num(fill, nan=0.0).astype(np.float32)
+        raise ValueError(f"unknown missing_value strategy: {spec!r}")
+
+    def load(self) -> Tuple[GBDTData, Optional[GBDTData]]:
+        """(train, test or None): both parsed, filled with the training
+        data's fill values."""
+        p = self.params
+        train = self._parse(p.data.train_paths, p.data.train_max_error_tol)
+        if train.n_real == 0:
+            raise ValueError(
+                f"empty training data ({len(p.data.train_paths)} path(s))")
+        fill = self.compute_missing_fill(train.X)
+        train.missing_fill = fill
+        _apply_fill(train.X, fill)
+        test = None
+        if p.data.test_paths:
+            test = self._parse(p.data.test_paths, p.data.test_max_error_tol,
+                               fmap=self._fmap, frozen=True)
+            test.missing_fill = fill
+            _apply_fill(test.X, fill)
+        return train, test
+
+
+def _apply_fill(X: np.ndarray, fill: np.ndarray) -> None:
+    """In-place NaN -> per-feature fill (reference: FillMissingValue.java:49)."""
+    nan_rows, nan_cols = np.where(np.isnan(X))
+    X[nan_rows, nan_cols] = fill[nan_cols]
 
 
 def to_tensor(a: Array, dtype: torch.dtype, device) -> torch.Tensor:

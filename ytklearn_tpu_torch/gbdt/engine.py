@@ -5,9 +5,10 @@ Growth runs in WAVES of up to `spec.wave` node expansions:
      policy, by descending best gain for the loss policy;
   2. record the splits into fixed-size tree arrays, allocate children;
   3. route rows to the children (kernel K5, gbdt/route.py);
-  4. histogram the SMALLER child of each split (kernel K2 over all rows,
-     or K4 over the compacted rows of the wave in the partitioned phases)
-     and derive the sibling by subtraction from the parent's histogram;
+  4. histogram the SMALLER child of each split (a full-scan kernel over
+     all rows, or a gather kernel over the compacted rows of the wave in
+     the partitioned phases) and derive the sibling by subtraction from
+     the parent's histogram;
   5. enumerate the best split of every new child (split_kernel).
 
 The reference runs a whole tree as one XLA program (three
@@ -18,8 +19,14 @@ the reference's fixed shapes; every scatter that the reference runs with
 mode="drop" (index M = dropped) writes into an extra sink slot M that is
 sliced off.
 
-Float order. Histograms are exact int32 sums scaled to f32; the split scan
-then takes prefix sums and totals over the bins in f32. The port fixes
+Histogram modes (`spec.hist_mode`). "int8": per-tree int8 quantization,
+exact int32 sums scaled back to f32 (kernels K2 full scan, K4 gather).
+"mxu" (the reference's default): raw f32 gradients summed in f32, each
+row's g and h rounded to bf16 first when `spec.use_bf16` (kernels K1 full
+scan, K3 gather); sibling subtraction stays f32 on f32 histograms.
+
+Float order. The split scan takes prefix sums and totals over the bins in
+f32. The port fixes
 that order, the same on every device, so a tree grown on the card equals
 the one grown on the CPU bit for bit: `ordered_cumsum` (16-wide blocks
 scanned left to right, block totals scanned the same way, recursively) and
@@ -28,10 +35,14 @@ the order XLA's CPU backend gives a lone `jnp.cumsum` / `jnp.sum`, and the
 port's split_kernel equals the reference's bit for bit on the same
 histograms. Inside the reference's whole-tree program XLA fuses and
 reorders further, so there the f32 split statistics agree to about 1e-6
-relative; the tree structure, row counts and wave log agree exactly.
+relative; with int8 histograms the tree structure, row counts and wave log
+agree exactly. The f32/bf16 histograms themselves are order-dependent
+float sums (the kernels' atomics add in an order that changes from run to
+run), so in "mxu" mode trees agree with the reference, and across runs on
+the card, where no two candidate splits lie within that noise.
 
 Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-GOSS (`goss_a < 1`), EFB ranges, a mesh, and the f32/bf16 histograms.
+GOSS (`goss_a < 1`), EFB ranges and a mesh.
 """
 
 from __future__ import annotations
@@ -43,8 +54,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .hist import BMG_DEFAULT, BM_DEFAULT, compact_indices, hist_wave_gather, \
-    hist_wave_q
+from .hist import BMG_DEFAULT, BM_DEFAULT, compact_indices, hist_wave, \
+    hist_wave_gather, hist_wave_q
 from .route import route_wave
 
 BIG32 = 2 ** 31 - 1
@@ -214,9 +225,10 @@ def split_kernel(hist, feat_mask, cfg, ranges=None):
 @dataclass(frozen=True)
 class GrowSpec:
     """Static shape/config of one tree growth (the reference's GrowSpec;
-    `force_dense`, `use_bf16` and `fused_interpret` have no counterpart:
-    `bm` is the row unit of the budget rungs that gather their rows and
-    run K2, `bm_g` that of the fused rungs that run K4)."""
+    `force_dense` and `fused_interpret` have no counterpart: `bm` is the
+    row unit of the budget rungs that gather their rows and run the
+    full-scan kernel, `bm_g` that of the fused rungs that run the gather
+    kernel)."""
 
     F: int
     B: int
@@ -233,7 +245,8 @@ class GrowSpec:
     min_split_loss: float
     min_split_samples: float
     bm: int = BM_DEFAULT
-    hist_mode: str = "int8"  # only "int8" is ported
+    use_bf16: bool = True  # "mxu" mode: round g/h to bf16 per row
+    hist_mode: str = "int8"  # "int8" (K2/K4) | "mxu" (K1/K3)
     partition: bool = True
     ladder: Tuple[int, ...] = (8, 32)
     fused: bool = True
@@ -310,8 +323,9 @@ def _quantize(g, h, n: int):
 
 
 def _budget_rungs(spec: GrowSpec, n: int) -> List[Tuple[int, str]]:
-    """Ascending [(R, impl)] partition budgets: "fused" runs K4 on the
-    compacted rows, "gather" gathers them and runs K2."""
+    """Ascending [(R, impl)] partition budgets: "fused" runs the gather
+    kernel (K4 or K3) on the compacted rows, "gather" gathers them and runs
+    the full-scan kernel (K2 or K1)."""
     rungs: List[Tuple[int, str]] = []
     for div in spec.ladder:
         want = -(-n // div)
@@ -338,11 +352,8 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=()):
             f"GOSS (goss_a={spec.goss_a}) is ROADMAP.md 1.2 (GOSS and the "
             "sampling rates)"
         )
-    if spec.hist_mode != "int8":
-        raise NotImplementedError(
-            "hist_mode 'mxu' needs K1/K3: ROADMAP.md 1.1 (`cli train` with "
-            "K1 and K3)"
-        )
+    if spec.hist_mode not in ("int8", "mxu"):
+        raise ValueError(f"hist_mode must be int8|mxu, got {spec.hist_mode!r}")
     dev = bins_t.device
     M, NW, F, B = spec.max_nodes, spec.wave, spec.F, spec.B
     cfg = (spec.l1, spec.l2, spec.min_h, spec.max_abs)
@@ -362,15 +373,34 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=()):
         if B <= 256:
             bins_rows = bins_rows.to(torch.uint8)
 
-    gq, hq, inv = _quantize(g, h, n)
+    if spec.hist_mode == "int8":
+        G_, H_, inv = _quantize(g, h, n)
 
-    def hist_finish(partial):
-        return partial.to(f32) * inv
+        def hist_full(bt, pos_v, g_v, h_v, ids):
+            return hist_wave_q(bt, pos_v, g_v, h_v, ids, B,
+                               max_nodes=M).to(f32) * inv
+
+        def hist_gather(idx, pg, gg, hg, ids):
+            return hist_wave_gather(bins_rows, idx, pg, gg, hg, ids, B,
+                                    max_nodes=M).to(f32) * inv
+    else:
+        # raw f32 gradients: the kernels round each row's g/h to bf16 (when
+        # use_bf16) after the gather, as the reference does, and sum in f32
+        G_, H_ = g, h
+
+        def hist_full(bt, pos_v, g_v, h_v, ids):
+            return hist_wave(bt, pos_v, g_v, h_v, ids, B, max_nodes=M,
+                             use_bf16=spec.use_bf16)
+
+        def hist_gather(idx, pg, gg, hg, ids):
+            return hist_wave_gather(bins_rows, idx, pg, gg, hg, ids, B,
+                                    mode="mxu", max_nodes=M,
+                                    use_bf16=spec.use_bf16)
 
     def hist_call(pos_fit, ids):
-        """Full-scan histogram (K2): root, slow start, big-wave phases."""
-        return hist_finish(hist_wave_q(bins_t, pos_fit, gq, hq, ids, B,
-                                       max_nodes=M))
+        """Full-scan histogram (K2 or K1): root, slow start, big-wave
+        phases."""
+        return hist_full(bins_t, pos_fit, G_, H_, ids)
 
     def hist_budget(R: int, impl: str):
         """Histogram of the wave's rows only, compacted into a static
@@ -385,14 +415,11 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=()):
             valid = torch.arange(R, dtype=i32, device=dev) < cnt
             li = idx.long()
             pg = torch.where(valid, pos_fit[li], -1).to(i32)
-            gg, hg = gq[li], hq[li]
+            gg, hg = G_[li], H_[li]
             if impl == "fused":
-                part = hist_wave_gather(bins_rows, idx, pg, gg, hg, ids, B,
-                                        max_nodes=M)
-            else:
-                bt = bins_rows[li].t().contiguous()
-                part = hist_wave_q(bt, pg, gg, hg, ids, B, max_nodes=M)
-            return hist_finish(part)
+                return hist_gather(idx, pg, gg, hg, ids)
+            bt = bins_rows[li].t().contiguous()
+            return hist_full(bt, pg, gg, hg, ids)
 
         return call
 

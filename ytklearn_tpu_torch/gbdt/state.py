@@ -17,7 +17,7 @@ import torch
 from .binning import FeatureBins
 from .engine import GrowSpec, TreeArrays
 
-_DROPPED_SPEC_FIELDS = ("use_bf16", "force_dense", "fused_interpret")
+_DROPPED_SPEC_FIELDS = ("force_dense", "fused_interpret")
 
 
 def feature_bins_from_numpy(values, counts, max_bins: Optional[int] = None,

@@ -1,13 +1,16 @@
-"""GBDT boosting trainer: the device engine with int8 histograms.
+"""GBDT boosting trainer: the device engine.
 
 The counterpart of the device path of ``ytklearn_tpu/gbdt/trainer.py``
 (reference optimizer/GBDTOptimizer.java:174-530):
 
-    GBDTTrainer(params, hist_precision="int8", device=...)
+    GBDTTrainer(params, hist_precision="bf16"|"f32"|"int8", device=...)
         .train(train=GBDTData, test=GBDTData) -> GBDTResult
+    GBDTTrainer(params).train()  # loads data.train/test through GBDTIngest
 
 Per round: predictions -> (g, h) -> one tree grown by engine.grow on the
-device (kernels K2, K4 and K5) -> score and loss updates. Tree arrays
+device (histogram kernels K1/K3 in bf16 or f32, the JAX trainer's default
+bf16, or K2/K4 in int8; routing kernel K5) -> score and loss updates.
+Tree arrays
 stay in whole-run device buffers and are fetched once at the end (and at
 `dump_freq` checkpoints). Binning runs on the device too (sort + rank
 pick + compare-count, gbdt/binning.py). The model text, its `.bins.json`
@@ -16,12 +19,11 @@ byte for the same trees.
 
 Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
 versions). Not ported, each raising NotImplementedError with its
-ROADMAP.md item: f32/bf16 histograms and loading data from the config
-(1.1), GOSS and the row/feature sampling rates (1.2), EFB bundling (1.3),
-resume, softmax (K > 1), l1 with LAD refine, the other losses and the
-host engine (1.5), a mesh (1.7), and on CUDA trees of more nodes than
-K2/K4's shared-memory lookup holds (1.8). The quality sidecar is an
-obs-plane item (1.12).
+ROADMAP.md item: GOSS and the row/feature sampling rates (1.2), EFB
+bundling (1.3), resume, softmax (K > 1), l1 with LAD refine, the other
+losses and the host engine (1.5), a mesh (1.7), and on CUDA trees of more
+nodes than the histogram kernels' shared-memory lookup holds (1.8). The
+quality sidecar is an obs-plane item (1.12).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from .binning import (
     dump_bin_edges,
     model_text_digest,
 )
-from .data import GBDTData, to_tensor
+from .data import GBDTData, GBDTIngest, to_tensor
 from .engine import GrowSpec, grow, wave_log_rows
 from .hist import BM_DEFAULT, check_tile_fits
 from .tree import GBDTModel, Tree
@@ -100,6 +102,7 @@ class GBDTTrainer:
         fs=None,
         engine: str = "auto",
         wave: Optional[int] = None,
+        use_bf16_hist: bool = True,
         hist_precision: Optional[str] = None,  # bf16 | f32 | int8
         goss: Optional[Tuple[float, float]] = None,  # (a, b); a >= 1 = off
         efb: Optional[bool] = None,  # None = YTK_EFB knob
@@ -119,16 +122,13 @@ class GBDTTrainer:
                               "maker", "1.5, rest of the GBDT trainer")
         self.engine = "device"
         if hist_precision is None:
-            hist_precision = "bf16"  # the JAX trainer's default
+            hist_precision = "bf16" if use_bf16_hist else "f32"
         if hist_precision not in ("bf16", "f32", "int8"):
             raise ValueError(
                 f"hist_precision must be bf16|f32|int8, got {hist_precision!r}"
             )
-        if hist_precision != "int8":
-            raise _not_ported(
-                f"hist_precision={hist_precision!r} (kernels K1/K3)",
-                "1.1, `cli train` with K1 and K3; pass hist_precision='int8'")
         self.hist_precision = hist_precision
+        self.use_bf16_hist = hist_precision != "f32"
         self.K = p.num_tree_in_group
         if self.K > 1:
             raise _not_ported("softmax multiclass (K > 1 trees per round)",
@@ -180,7 +180,7 @@ class GBDTTrainer:
                              "max_leaf_cnt")
         M = min(caps)
         if self.device.type == "cuda":
-            check_tile_fits(B, M)  # K2/K4's shared-memory node lookup
+            check_tile_fits(B, M)  # the histogram kernels' node lookup
         NW = self.wave if self.wave is not None else 64
         NW = max(1, min(NW, (M + 1) // 2))
         partition = (not knobs.get_bool("YTK_NO_PARTITION")
@@ -198,7 +198,9 @@ class GBDTTrainer:
             min_h=p.min_child_hessian_sum, max_abs=p.max_abs_leaf_val,
             min_split_loss=p.min_split_loss,
             min_split_samples=float(p.min_split_samples),
-            hist_mode="int8", partition=partition, ladder=ladder,
+            use_bf16=self.use_bf16_hist,
+            hist_mode="int8" if self.hist_precision == "int8" else "mxu",
+            partition=partition, ladder=ladder,
             fused=knobs.get_bool("YTK_FUSED"),
             fused_max_rows=knobs.get_int("YTK_FUSED_MAX_ROWS"),
             goss_a=self.goss[0], goss_b=self.goss[1],
@@ -344,20 +346,22 @@ class GBDTTrainer:
 
     def train(self, train: Optional[GBDTData] = None,
               test: Optional[GBDTData] = None) -> GBDTResult:
-        if train is None:
-            raise _not_ported("loading data from the config (GBDTIngest)",
-                              "1.1, `cli train` with K1 and K3")
         p = self.params
         t0 = time.time()
         ts = self.time_stats = {}
+        if train is None:
+            train, test = GBDTIngest(p, self.fs).load()
+        ts["load"] = time.time() - t0
         dd = self._prep_device_inputs(train, test)
         self.dev_inputs = dd  # kept for a caller that times the kernels
-        ts["preprocess"] = time.time() - t0
+        ts["preprocess"] = time.time() - t0 - ts["load"]
         spec = self._grow_spec(dd.F, dd.B)
         self.grow_spec = spec
         base = self._base_score(train)
-        model = GBDTModel(base_prediction=float(base), num_tree_in_group=1,
-                          obj_name=self.loss.name)
+        # np.mean, as the reference takes it: a -0.0 base (sigmoid at 0.5)
+        # is dumped as 0.0
+        model = GBDTModel(base_prediction=float(np.mean(base)),
+                          num_tree_in_group=1, obj_name=self.loss.name)
         scores = torch.full((dd.n_score,), float(base), dtype=torch.float32,
                             device=self.device)
         scores_t = (torch.full((dd.nt_score,), float(base),

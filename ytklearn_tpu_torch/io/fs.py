@@ -1,12 +1,14 @@
 """Storage seam: the local filesystem behind the reference `IFileSystem`
-surface (reference: fs/LocalFileSystem.java:39), cut to what model loading
-and the trainer's dumps need. Remote schemes are not ported yet."""
+surface (reference: fs/LocalFileSystem.java:39), cut to what model loading,
+the GBDT ingest's line readers and the trainer's dumps need. Remote schemes
+are not ported yet."""
 
 from __future__ import annotations
 
 import contextlib
+import glob as _glob
 import os
-from typing import IO
+from typing import IO, Iterator, List, Sequence
 
 #: marker in the names an atomic writer uses before its replace; loaders
 #: skip such paths so a temp file left by a crashed writer is never parsed
@@ -53,6 +55,43 @@ class LocalFileSystem:
             raise
         f.close()
         os.replace(tmp, self._strip(path))
+
+    def recur_get_paths(self, paths: Sequence[str]) -> List[str]:
+        """Expand directories (recursively, files in sorted order) and
+        globs into a flat file list (reference: IFileSystem.recurGetPaths);
+        a path that matches nothing raises FileNotFoundError."""
+        out: List[str] = []
+        for p in paths:
+            p = self._strip(p)
+            if os.path.isdir(p):
+                for root, dirs, files in os.walk(p):
+                    dirs.sort()
+                    out.extend(os.path.join(root, f) for f in sorted(files))
+            elif os.path.exists(p):
+                out.append(p)
+            else:
+                hits = sorted(_glob.glob(p))
+                if not hits:
+                    raise FileNotFoundError(p)
+                out.extend(hits)
+        return out
+
+    def read_lines(self, paths: Sequence[str]) -> Iterator[str]:
+        """Every line of every file, files in sorted-path order, without the
+        trailing newline; streaming (one line held at a time)."""
+        for p in sorted(self.recur_get_paths(paths)):
+            with self.open(p) as f:
+                for line in f:
+                    yield line.rstrip("\n")
+
+    def select_read_lines(self, paths: Sequence[str], divisor: int,
+                          remainder: int) -> Iterator[str]:
+        """Line-modulo sharding: global line i is kept iff i % divisor ==
+        remainder (the `lines_avg` assignment, reference
+        dataflow/DataFlow.java:405)."""
+        for i, line in enumerate(self.read_lines(paths)):
+            if i % divisor == remainder:
+                yield line
 
 
 def create_filesystem(scheme: str = "local") -> LocalFileSystem:

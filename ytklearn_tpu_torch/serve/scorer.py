@@ -2,19 +2,31 @@
 
 Requests are padded up to the smallest rung of a batch-shape ladder
 (default 1/8/64/512, knob YTK_SERVE_LADDER); a batch larger than the top
-rung goes in top-rung chunks. Two GBDT rungs:
+rung goes in top-rung chunks. Three GBDT rungs:
 
   stacked   the node arrays of every tree stacked (T, N) and walked with
             torch gathers, `depth` steps over (B, T) frontiers; the sum is
             a sequential tree-ascending f64 fold, so scores are
             bit-identical to GBDTPredictor.batch_scores
   fused     (YTK_SERVE_FUSED=1) the perfect-heap layout walked by the
-            heap-walk CUDA kernel (serve/kernels.py), bit-identical too
+            heap-walk CUDA kernel K6 (serve/kernels.py), bit-identical too
+  binned    (YTK_SERVE_BINNED=1, the reference's _try_binned_gbdt) each
+            chunk binned once on the host against the model's bin table
+            (the `.bins.json` sidecar the trainer wrote, when it pairs with
+            the model text's digest: mode "edges"; else the ensemble's own
+            split values: mode "thresholds"), then the binned walk, CUDA
+            kernel K7, on packed heap nodes. Thresholds mode is bit-identical
+            to batch_scores; edges mode routes as the training bins did (a
+            row exactly on a split midpoint goes right, where the float
+            walk sends it left) and is bit-identical to the reference's
+            binned rung
 
 An ensemble the heap layout cannot take (deeper than 10, more than 4095
-features, no split features, K > 1) serves on the stacked rung, and
-rung_info() names the reason. A kernel that fails to build or launch
-raises. Warmup scores every rung once on the device.
+features, no split features, K > 1) or, for the binned rung, no bin table
+fitting uint16 serves on the stacked rung, and rung_info() names the
+downgrade (`fused_to_stacked`, `binned_to_stacked`) and its reason. A
+kernel that fails to build or launch raises. Warmup scores every rung
+once on the device.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import torch
 
 from ..config import knobs
 from ..device import resolve_device
+from ..gbdt.binning import bin_edges_path, load_bin_edges, model_text_digest
 from ..predict.trees import GBDTPredictor
 from ..transform.pipeline import TransformPipeline
 from . import kernels
@@ -84,11 +97,6 @@ class CompiledScorer:
         self.requested_mode = mode if mode is not None else resolve_mode()
         if self.requested_mode not in ("stacked", "fused", "binned"):
             raise ValueError(f"unknown serve mode {self.requested_mode!r}")
-        if self.requested_mode == "binned":
-            raise NotImplementedError(
-                "the binned GBDT rung is not ported yet (ROADMAP.md, binned "
-                "rung with K7); unset YTK_SERVE_BINNED"
-            )
         # YTK_SERVE_PRECISION picks the rung of the einsum scorers
         # (linear/FM/FFM, not ported); GBDT scores in f64 whatever it asks,
         # as in the JAX package, and rung_info() reports what runs
@@ -100,8 +108,11 @@ class CompiledScorer:
         if requested not in ("f64", "bf16"):
             raise ValueError(f"unknown serve precision {requested!r}")
         self.precision = "f64"
-        self.mode = "stacked"  # effective; the fused lowering may upgrade it
-        self.reason = ""  # why a requested fused rung serves stacked
+        self.mode = "stacked"  # effective; a kernel lowering may upgrade it
+        self.downgrade = ""  # e.g. binned_to_stacked, with its reason:
+        self.reason = ""  # why a requested kernel rung serves stacked
+        self.bin_mode: Optional[str] = None  # binned rung: edges|thresholds
+        self.bin_dtype: Optional[str] = None
         self._lower_gbdt()
         self.dim = len(self.vocab)
         self._fill = math.nan  # absent feature routes to the default child
@@ -121,8 +132,9 @@ class CompiledScorer:
 
     @property
     def backend(self) -> str:
-        if self.mode == "fused":
-            return "fused-cuda" if self.device.type == "cuda" else "fused-plain"
+        if self.mode in ("fused", "binned"):
+            where = "cuda" if self.device.type == "cuda" else "plain"
+            return f"{self.mode}-{where}"
         return "stacked-torch"
 
     def rung_info(self) -> Dict[str, object]:
@@ -136,7 +148,11 @@ class CompiledScorer:
             "downgraded": self.mode != self.requested_mode,
         }
         if self.reason:
+            info["downgrade"] = self.downgrade
             info["reason"] = self.reason
+        if self.bin_mode is not None:
+            info["bin_mode"] = self.bin_mode
+            info["bin_dtype"] = self.bin_dtype
         return info
 
     def featurize(self, rows: Sequence[Dict[str, float]]) -> np.ndarray:
@@ -167,12 +183,18 @@ class CompiledScorer:
     def score_tensor(self, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The effective rung on featurized rows already on the scorer's
         device: X (B, dim) f64 -> (scores, predictions) tensors, enqueued
-        on the current stream and not synchronised."""
+        on the current stream and not synchronised (the binned rung first
+        bins the rows on the host)."""
+        if self.mode == "binned":
+            return self._binned(X.cpu().numpy())
         return self._kernel(X)
 
     def _exec(self, chunk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """One padded rung on the device; the `.cpu()` copies synchronise."""
-        s, p = self.score_tensor(torch.from_numpy(chunk).to(self.device))
+        if self.mode == "binned":
+            s, p = self._binned(chunk)
+        else:
+            s, p = self.score_tensor(torch.from_numpy(chunk).to(self.device))
         return s.cpu().numpy(), p.cpu().numpy()
 
     def _run(self, rows) -> Tuple[np.ndarray, np.ndarray]:
@@ -276,11 +298,14 @@ class CompiledScorer:
         if self.requested_mode == "stacked":
             return
         if K != 1:
-            self._refuse_fused("multiclass ensemble (K > 1)")
+            self._refuse("multiclass ensemble (K > 1)")
             return
         heap, why = kernels.build_heap(trees, self.vocab)
         if heap is None:
-            self._refuse_fused(why)
+            self._refuse(why)
+            return
+        if self.requested_mode == "binned":
+            self._lower_binned(trees, heap, tail)
             return
         ht = kernels.heap_from_numpy(
             heap.feat, heap.split, heap.dleft, heap.leaf, heap.depth,
@@ -297,8 +322,47 @@ class CompiledScorer:
         self._kernel = fused
         self.mode = "fused"
 
-    def _refuse_fused(self, reason: str) -> None:
-        """The ensemble's shape rules the heap layout out: serve stacked and
-        say why (rung_info()['reason'])."""
+    def _lower_binned(self, trees, heap, tail) -> None:
+        """The binned rung on K7 (the reference's _try_binned_gbdt): the
+        sidecar's edges when they pair with the served model text, else
+        thresholds from the ensemble; rows binned once per chunk on the
+        host."""
+        pred = self.predictor
+        edges = None
+        data_path = pred.params.model.data_path
+        if data_path:
+            try:
+                with pred.fs.open(data_path) as f:
+                    digest = model_text_digest(f.read())
+            except OSError:
+                digest = None  # the sidecar's range checks still apply
+            edges = load_bin_edges(pred.fs, bin_edges_path(data_path),
+                                   model_digest=digest)
+        table, why = kernels.build_bin_table(trees, self.vocab, edges)
+        if table is None:
+            self._refuse(why)
+            return
+        packed = kernels.pack_heap_nodes(heap, table)
+        dev = self.device
+        packed_t = torch.from_numpy(packed).to(dev)
+        leaf_t = torch.from_numpy(np.ascontiguousarray(heap.leaf)).to(dev)
+        max_feat = int(heap.feat.max())
+        depth, sentinel = heap.depth, table.sentinel
+
+        def binned(chunk: np.ndarray):
+            bins = torch.from_numpy(kernels.bin_rows(chunk, table)).to(dev)
+            return tail(kernels.binned_walk(bins, packed_t, leaf_t, depth,
+                                            sentinel, max_feat=max_feat))
+
+        self._binned = binned
+        self.mode = "binned"
+        self.bin_mode = table.mode
+        self.bin_dtype = str(np.dtype(table.dtype))
+        self._bin_table = table  # introspection and tests
+
+    def _refuse(self, reason: str) -> None:
+        """The ensemble's shape rules the requested kernel rung out: serve
+        stacked and name the downgrade and its reason (rung_info())."""
+        self.downgrade = f"{self.requested_mode}_to_stacked"
         self.reason = reason
-        log.warning("fused rung refused, serving stacked: %s", reason)
+        log.warning("serve rung downgrade %s: %s", self.downgrade, reason)
