@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Drives the port's paths on the card, as a user would: GBDT online serving
-on the fused rung (slice 1), int8 GBDT training (slice 2), and `cli train`
-with the bf16 histograms and the binned serving rung (slice 3).
+on the fused rung (slice 1), int8 GBDT training (slice 2), `cli train`
+with the bf16 histograms and the binned serving rung (slice 3), and the
+histogram tuning tools with K8, the int8 one-hot histogram (slice 4).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
-  2. builds the three kernel libraries (serve/csrc/heap_walk.cu: K6, K7;
-     gbdt/csrc/hist.cu: K1-K4; gbdt/csrc/route.cu: K5) from the checkout,
-     one nvcc each, all started together, and prints each build's time and
-     ptxas' report;
+  2. builds the four kernel libraries (serve/csrc/heap_walk.cu: K6, K7;
+     gbdt/csrc/hist.cu: K1-K4; gbdt/csrc/route.cu: K5; gbdt/csrc/
+     hist_u8.cu: K8) from the checkout, one nvcc each, all started
+     together, and prints each build's time and ptxas' report;
   3. holds the kernel against its plain PyTorch version and against the
      stacked rung, all on the card, with torch.equal (tolerance: exact) at
      (trees, depth, rows) = (13, 1, 1), (64, 10, 512), (500, 6, 1) and
@@ -34,7 +35,9 @@ with the bf16 histograms and the binned serving rung (slice 3).
      (tolerance: exact, the sums are int32) at the shapes listed in
      HIST_SHAPES and GATHER_SHAPES; K1 (hist) and K3 (hist_gather) at bf16
      and f32 at the same shapes (counts exact, g/h within rtol 1e-5 plus
-     1e-5 of the largest |sum|: float atomics add in any order); K7
+     1e-5 of the largest |sum|: float atomics add in any order); each also
+     on a 64-slot wave with a duplicated id and pads, whose two slots must
+     get the same sums (K2/K4 exact, K1/K3 at that tolerance); K7
      (binned_walk) with torch.equal on uint8 and uint16 tables at every
      rung of the 500-tree model;
   7. trains a seeded Higgs-shaped synthetic (the torch twin of bench.py's
@@ -63,8 +66,20 @@ with the bf16 histograms and the binned serving rung (slice 3).
  12. trains the bench configuration of step 7 in bf16 (K1, K3, K5) and
      times K1 and K3 at its shapes; then a small l2 bf16 run twice on the
      card and once on the CPU, printing whether the card's trees repeat;
- 13. prints the `kernels` JSON line, the card line, and last the result
-     line {"ok": true, "device": {...}}.
+ 13. holds K8 (hist_q_u8) against its plain version with torch.equal at
+     N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on a wave
+     with a duplicated id and pads, and against K2 in K8's layout;
+ 14. runs the tuning tools in this process, the main path of slice 4:
+     tune_hist_kernel at the reference's size with its full variant list
+     (K2, K1 and K8 across launch shapes, then K8 == K2 with torch.equal;
+     K8's launches are counted over this run), micro_hist_gather at two
+     budgets (K4 == gather-then-K2, exact) and tune_gbdt cut to waves 32
+     and 64 in int8 at 2^21 rows and 6 trees;
+ 15. times K8 at the tune shape beside its bytes bound, its tensor-core
+     floor (mma_floor_ms), its plain version and one scatter_add_, then K8
+     and K2 on waves of 1 to 64 slots that hold every row;
+ 16. prints the `kernels` JSON line (eight kernels), the card line, and
+     last the result line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the result line;
 without a CUDA device it exits 2 before importing the port.
@@ -571,6 +586,7 @@ def kernel_counts():
             "hist_gather_q": hist.hist_wave_gather.launches,
             "route": route.route_wave.launches,
             "binned_walk": kernels.binned_walk.launches,
+            "hist_q_u8": hist.hist_q_u8.launches,
             "host_syncs": engine.grow.host_syncs}
 
 
@@ -584,6 +600,7 @@ def zero_kernel_counts():
     hist.hist_wave_gather.launches = 0
     route.route_wave.launches = 0
     kernels.binned_walk.launches = 0
+    hist.hist_q_u8.launches = 0
     engine.grow.host_syncs = 0
 
 
@@ -635,6 +652,22 @@ def compacted(pos, gq, hq, ids, R, dead_share, gen):
     return idx, pg, gq[li].contiguous(), hq[li].contiguous()
 
 
+def dup_ids(ids):
+    """The wave's ids with slot 1's id (made a real one) repeated in the
+    last slot and slot 0 a pad."""
+    ids[-1] = ids[1] = ids[1].clamp(min=0)
+    ids[0] = -2
+    return ids
+
+
+def dup_wave_inputs(gen):
+    """rand_hist_inputs' 64-slot wave over 2^20 rows with a duplicated id
+    (slots 1 and 63) and a pad."""
+    bins, pos, gq, hq, ids, M = rand_hist_inputs(gen, 28, 1 << 20, 256, 64,
+                                                 "u8")
+    return bins, pos, gq, hq, dup_ids(ids), M
+
+
 def phase_train_kernels(card):
     """K2, K4 and K5 against their plain versions on the card, exact."""
     import torch
@@ -670,6 +703,20 @@ def phase_train_kernels(card):
         want = hist.hist_gather_q_plain(rows, idx, pg, gg, hg, ids, 256, M)
         cmp("hist_gather_q", got, want, f"R = {R}, N = 64, a quarter of "
             "the slots dead")
+    bins, pos, gq, hq, ids, M = dup_wave_inputs(gen)
+    got = hist.hist_wave_q(bins, pos, gq, hq, ids, 256, max_nodes=M)
+    cmp("hist_q", got, hist.hist_wave_q_plain(bins, pos, gq, hq, ids, 256, M),
+        "a duplicated id (slots 1 and 63) and pads, N = 64")
+    check(torch.equal(got[1], got[63]) and bool(got[1].any()),
+          "hist_q: the duplicated id's slots differ")
+    rows = bins.t().contiguous()
+    idx, pg, gg, hg = compacted(pos, gq, hq, ids, 65536, 0.25, gen)
+    got = hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, 256, max_nodes=M)
+    cmp("hist_gather_q", got, hist.hist_gather_q_plain(rows, idx, pg, gg, hg,
+                                                       ids, 256, M),
+        "R = 65536, a duplicated id (slots 1 and 63) and pads, N = 64")
+    check(torch.equal(got[1], got[63]) and bool(got[1].any()),
+          "hist_gather_q: the duplicated id's slots differ")
     NW, n = 64, 1 << 20
     nid = torch.randperm(M, generator=gen, device="cuda")[:NW].to(
         torch.int32)
@@ -1069,6 +1116,27 @@ def phase_float_kernels(card):
             errs["hist_gather"] = max(errs["hist_gather"], hist_err(
                 got, want, f"R = {R}, N = 64, a quarter of the slots dead, "
                 f"{'bf16' if bf16 else 'f32'}", "hist_gather", card))
+    bins, pos, _, _, ids, M = dup_wave_inputs(gen)
+    rows = bins.t().contiguous()
+    idx, pg, gg, hg = compacted(pos, g, h, ids, 65536, 0.25, gen)
+    for bf16 in (True, False):
+        what = (f"a duplicated id (slots 1 and 63) and pads, N = 64, "
+                f"{'bf16' if bf16 else 'f32'}")
+        full = hist.hist_wave(bins, pos, g, h, ids, 256, max_nodes=M,
+                              use_bf16=bf16)
+        gath = hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, 256,
+                                     mode="mxu", max_nodes=M, use_bf16=bf16)
+        errs["hist"] = max(errs["hist"], hist_err(
+            full, hist.hist_wave_plain(bins, pos, g, h, ids, 256, M, bf16),
+            what, "hist", card))
+        errs["hist_gather"] = max(errs["hist_gather"], hist_err(
+            gath, hist.hist_gather_plain(rows, idx, pg, gg, hg, ids, 256, M,
+                                         bf16), "R = 65536, " + what,
+            "hist_gather", card))
+        hist_err(full[63], full[1], what + ": slot 63 against slot 1",
+                 "hist", card)
+        hist_err(gath[63], gath[1], what + ": slot 63 against slot 1",
+                 "hist_gather", card)
     return errs
 
 
@@ -1588,6 +1656,171 @@ def phase_binned_timing(served_model_path, model500, card):
     return out["served"]
 
 
+# -- slice 4: K8 and the histogram tuning tools --------------------------------
+
+#: published H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12
+#: K8 against its plain version: (N, fg, rows_per_block) at F = 28, B = 256
+#: over a ragged n
+U8_SHAPES = ((1, None, None), (7, 2, 4096), (32, None, None),
+             (64, 4, 20000))
+U8_ROWS = 200_003
+#: wave widths of the K8 / K2 comparison at the tune shape
+U8_WAVES = (1, 4, 8, 16, 32, 64)
+
+
+def mma_floor_ms(N, F, B, n):
+    """K8's tensor-core floor: the int8 operations of its padded product,
+    2 * 16 ceil(3N/16) * 8 ceil(B/8) * n * F, over the dense int8 rate."""
+    ops = 2 * 16 * -(-3 * N // 16) * 8 * -(-B // 8) * n * F
+    return ops / INT8_OPS_PER_S * 1e3
+
+
+def phase_u8_kernels(card):
+    """K8 against its plain version (exact) at the U8_SHAPES, on a wave
+    with a duplicated id and pads, and against K2 in K8's layout."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    err = 0.0
+    cases = [(N, fg, rows, False) for N, fg, rows in U8_SHAPES]
+    cases.append((64, None, None, True))
+    for N, fg, rows, dup in cases:
+        bins, pos, gq, hq, ids, M = rand_hist_inputs(
+            gen, N_FEATURES, U8_ROWS, 256, N, "u8")
+        if dup:
+            dup_ids(ids)
+        got = hist.hist_q_u8(bins, pos, gq, hq, ids, 256, fg=fg,
+                             rows_per_block=rows)
+        want = hist.hist_q_u8_plain(bins, pos, gq, hq, ids, 256)
+        k2 = hist.hist_wave_q(bins, pos, gq, hq, ids, 256, max_nodes=M)
+        torch.cuda.synchronize()
+        e = float((got.long() - want.long()).abs().max())
+        err = max(err, e)
+        ok = torch.equal(got, want)
+        same_k2 = torch.equal(got, k2.permute(1, 3, 0, 2).reshape(
+            N_FEATURES, 3 * N, 256))
+        what = (f"(N, F, n, B) = ({N}, {N_FEATURES}, {U8_ROWS}, 256), fg "
+                f"{fg or 'default'}, rows/block {rows or 'default'}"
+                + (", a duplicated id (slots 1 and 63) and pads" if dup
+                   else ""))
+        print(f"kernel check hist_q_u8 {what}, tolerance exact "
+              f"(torch.equal): {ok}, equals K2 permuted {same_k2}, "
+              f"max_abs_err {e} [{card}]", flush=True)
+        check(ok and same_k2, f"hist_q_u8 disagrees at {what}")
+        if dup:
+            check(all(torch.equal(got[:, c * N + 1], got[:, c * N + 63])
+                      for c in range(3)) and bool(got[:, 2 * N + 1].any()),
+                  "hist_q_u8: the duplicated id's slots differ")
+    print(f"phase u8 kernels: {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    return err
+
+
+def phase_tools(card):
+    """The tuning tools in this process, as `python -m
+    ytklearn_tpu_torch.scripts.<tool>` runs them: the main path of slice 4.
+    Every launch count is zeroed just before the tools and read just after
+    them: tune_hist_kernel runs K1, K2 and K8, micro_hist_gather K2 and K4,
+    tune_gbdt K2, K4 and K5."""
+    from ytklearn_tpu_torch.scripts import (
+        micro_hist_gather,
+        tune_gbdt,
+        tune_hist_kernel,
+    )
+
+    for name, mod, argv in (
+        ("tune_hist_kernel", tune_hist_kernel, []),
+        ("micro_hist_gather", micro_hist_gather, ["--divs", "8,64",
+                                                  "--repeats", "3"]),
+        ("tune_gbdt", tune_gbdt, ["--rows", str(1 << 21), "--trees", "6",
+                                  "--configs", "32:int8,64:int8"]),
+    ):
+        t0 = time.perf_counter()
+        if name == "tune_hist_kernel":
+            zero_kernel_counts()  # count the main path's launches only
+        rc = mod.main(argv)
+        print(f"phase tool {name} {' '.join(argv)}: rc {rc}, "
+              f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        check(rc == 0, f"{name} exited {rc}")
+    counts = kernel_counts()
+    ran = ("hist", "hist_q", "hist_gather_q", "route", "hist_q_u8")
+    print(f"tools: launches over the three tools: "
+          f"{', '.join(f'{k} {counts[k]}' for k in ran)} [{card}]",
+          flush=True)
+    check(all(counts[k] > 0 for k in ran),
+          f"the tools did not launch each of their kernels: {counts}")
+    return counts["hist_q_u8"]
+
+
+def phase_u8_timing(card):
+    """K8 at the reference's tune shape (its data): exact against its plain
+    version and K2, timed beside its bytes bound (hist_bound_ms, counted as
+    K2's), its tensor-core floor, its plain version and one scatter_add_."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+    from ytklearn_tpu_torch.scripts import tune_hist_kernel as tk
+
+    t0 = time.perf_counter()
+    n, F, B, N, M = tk.ROWS, tk.F, tk.B, tk.N, tk.SPREAD
+    bins, pos, _, _, gq, hq, ids = tk.make_data(n, torch.device("cuda"))
+
+    def fn():
+        return hist.hist_q_u8(bins, pos, gq, hq, ids, B)
+
+    def plain():
+        return hist.hist_q_u8_plain(bins, pos, gq, hq, ids, B)
+
+    got, want = fn(), plain()
+    k2 = hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M)
+    torch.cuda.synchronize()
+    err = float((got.long() - want.long()).abs().max())
+    ok = torch.equal(got, want)
+    same_k2 = torch.equal(got, k2.permute(1, 3, 0, 2).reshape(F, 3 * N, B))
+    print(f"kernel check hist_q_u8 at the tune shape (n, F, B, N) = ({n}, "
+          f"{F}, {B}, {N}), tolerance exact (torch.equal): {ok}, equals K2 "
+          f"permuted {same_k2}, max_abs_err {err} [{card}]", flush=True)
+    check(ok and same_k2, "hist_q_u8 disagrees at the tune shape")
+    del got, want, k2
+    keys, vals = flat_keys(lambda f, r: bins[f, r], F, B, pos, gq, hq, ids, M)
+    flat = torch.zeros(N * F * B * 3, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(fn, iters=5)
+    plain_ms = cuda_ms(plain, iters=1, repeats=3)
+    lib_ms = cuda_ms(lambda: flat.zero_().scatter_add_(0, keys, vals),
+                     iters=3, repeats=3)
+    del keys, vals
+    bound, bound_by = hist_bound_ms(bins, False, None, pos, ids, M, B)
+    floor = mma_floor_ms(N, F, B, n)
+    k2_ms = cuda_ms(lambda: hist.hist_wave_q(bins, pos, gq, hq, ids, B,
+                                             max_nodes=M), iters=5)
+    plan = hist.u8_plan(N, F, B, n, torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    print(f"timing: hist_q_u8 (default plan fg {plan['fg']}, "
+          f"{plan['rows_per_block']} rows a block, grid {plan['grid']}) "
+          f"{ms:.6f} ms, plain {plain_ms:.6f} ms, one scatter_add_ "
+          f"{lib_ms:.6f} ms, bound {bound:.6f} ms ({bound_by}), "
+          f"mma_floor_ms {floor:.6f}; K2 at the same inputs {k2_ms:.6f} ms "
+          f"[{card}]", flush=True)
+    # where, if anywhere, the one-hot product wins: K8 and K2 at their
+    # default plans on waves of N slots holding every row (the root wave
+    # at N = 1), positions folded from the tune data
+    for Nw in U8_WAVES:
+        pw = (pos % Nw).contiguous()
+        iw = torch.arange(Nw, dtype=torch.int32, device="cuda")
+        a = cuda_ms(lambda: hist.hist_q_u8(bins, pw, gq, hq, iw, B), iters=3)
+        b = cuda_ms(lambda: hist.hist_wave_q(bins, pw, gq, hq, iw, B,
+                                             max_nodes=Nw), iters=3)
+        print(f"timing: wave of {Nw} slots holding all {n} rows: hist_q_u8 "
+              f"{a:.6f} ms (mma_floor_ms {mma_floor_ms(Nw, F, B, n):.6f}), "
+              f"hist_q {b:.6f} ms, ratio {a / b:.3f} [{card}]", flush=True)
+    print(f"phase u8 timing: {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    return err, (ms, plain_ms, bound, bound_by, lib_ms)
+
 
 def main() -> int:
     import torch
@@ -1611,12 +1844,13 @@ def main() -> int:
 
     # one nvcc per source, all started together
     sources = {"heap_walk.cu": kernels.build_kernel,
-               "hist.cu": hist.build_kernel, "route.cu": route.build_kernel}
+               "hist.cu": hist.build_kernel, "route.cu": route.build_kernel,
+               "hist_u8.cu": hist.build_u8_kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = {k: pool.submit(fn) for k, fn in sources.items()}
         builds = {k: f.result() for k, f in builds.items()}
-    print(f"build: 3 libraries in {time.perf_counter() - t0:.3f} s (wall, "
+    print(f"build: {len(sources)} libraries in {time.perf_counter() - t0:.3f} s (wall, "
           f"in parallel) [{card}]", flush=True)
     for name, build in builds.items():
         print(f"build: {name} in {build['seconds']:.3f} s [{card}]: "
@@ -1683,14 +1917,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_repro(card)
 
+    errs["hist_q_u8"] = phase_u8_kernels(card)
+    u8_launches = phase_tools(card)
+    torch.cuda.empty_cache()
+    u8_err, ttimes["hist_q_u8"] = phase_u8_timing(card)
+    errs["hist_q_u8"] = max(errs["hist_q_u8"], u8_err)
     launches_of = dict(counts)
     launches_of.update({k: cli_counts[k] for k in ("hist", "hist_gather")})
+    launches_of["hist_q_u8"] = u8_launches
+
     for name, src, line in (
         ("hist_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:113"),
         ("hist_gather_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:434"),
         ("route", "route.cu", "ytklearn_tpu/gbdt/route.py:23"),
         ("hist", "hist.cu", "ytklearn_tpu/gbdt/hist.py:51"),
         ("hist_gather", "hist.cu", "ytklearn_tpu/gbdt/hist.py:371"),
+        ("hist_q_u8", "hist_u8.cu", "scripts/tune_hist_kernel.py:71"),
     ):
         ms, plain_ms, bound_ms, bound_by, lib_ms = ttimes[name]
         rows.append({

@@ -1,5 +1,5 @@
 """The port's training and binned serving kernels on the card, against
-their plain versions, and one tiny `cli train` on cuda.
+their plain versions, K8 against K2, and one tiny `cli train` on cuda.
 
 Marked `cuda`: each test skips without a CUDA device. This file imports
 neither JAX nor the JAX package, so it runs on a machine with the card
@@ -7,8 +7,8 @@ and no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The int8 kernel sums (K2, K4) are int32, routing (K5) and the binned walk
-(K7) are exact, and the split scans run in a fixed order, so those
+The int8 kernel sums (K2, K4, K8) are int32, routing (K5) and the binned
+walk (K7) are exact, and the split scans run in a fixed order, so those
 comparisons are exact (torch.equal), int8 trees included. The f32/bf16
 histograms (K1, K3) add floats with atomics in an order that changes from
 run to run: counts are exact, g/h held at rtol 1e-5 with an absolute floor
@@ -274,3 +274,114 @@ def test_cli_train_on_the_card(gen, tmp_path):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["trees"] == 4 and res["test_metrics"]["auc"] > 0.6
     assert model.exists() and (tmp_path / "gbdt.model.bins.json").exists()
+
+
+def _dup_ids(gen, N, M):
+    """N wave ids with a duplicated id (at slots 1 and N-1, or 0 and 1) and
+    a -2 pad."""
+    ids = torch.randperm(M, generator=gen, device="cuda")[:N].to(torch.int32)
+    if N >= 3:
+        ids[N - 1] = ids[1]
+        ids[0] = -2
+    elif N == 2:
+        ids[1] = ids[0]
+    return ids
+
+
+@pytest.mark.parametrize("N,F,n,B,fg,rows", [
+    (1, 28, 70001, 256, None, None), (7, 28, 70001, 256, 2, 4096),
+    (32, 28, 200003, 256, None, None), (32, 5, 99999, 256, 7, 1000),
+    (64, 28, 70001, 256, 4, None), (100, 6, 20000, 64, 1, 128),
+    (5, 3, 777, 16, 16, 33),
+])
+def test_hist_u8_matches_plain_and_k2(gen, N, F, n, B, fg, rows):
+    """K8 against its plain version and against K2 permuted to its layout,
+    exact, on a ragged n with a duplicated id and a pad."""
+    bins, pos, gq, hq, _ = _inputs(gen, F, n, B, 1, "u8", 2 * N + 5)
+    ids = _dup_ids(gen, N, 2 * N + 5)
+    before = hist.hist_q_u8.launches
+    got = hist.hist_q_u8(bins, pos, gq, hq, ids, B, fg=fg,
+                         rows_per_block=rows)
+    assert hist.hist_q_u8.launches == before + 1
+    assert got.shape == (F, 3 * N, B) and got.dtype == torch.int32
+    assert torch.equal(got, hist.hist_q_u8_plain(bins, pos, gq, hq, ids, B))
+    k2 = hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=2 * N + 5)
+    assert torch.equal(got, k2.permute(1, 3, 0, 2).reshape(F, 3 * N, B))
+    if N >= 3:
+        assert torch.equal(k2[1], k2[N - 1]) and k2[1].any()
+
+
+def test_hist_u8_refuses_bad_inputs(gen):
+    bins, pos, gq, hq, ids = _inputs(gen, 4, 1000, 16, 3, "u8", 9)
+    before = hist.hist_q_u8.launches
+    with pytest.raises(ValueError, match="uint8"):
+        hist.hist_q_u8(bins.int(), pos, gq, hq, ids, 16)
+    with pytest.raises(ValueError, match="256"):
+        hist.hist_q_u8(bins, pos, gq, hq, ids, 257)
+    with pytest.raises(ValueError, match="gq"):
+        hist.hist_q_u8(bins, pos, gq.double(), hq, ids, 16)
+    with pytest.raises(ValueError, match="fg"):
+        hist.hist_q_u8(bins, pos, gq, hq, ids, 16, fg=17)
+    assert hist.hist_q_u8.launches == before
+
+
+@pytest.mark.parametrize("use_bf16", [None, True, False])
+def test_duplicate_ids_on_the_card(gen, use_bf16):
+    """K1-K4 (use_bf16 None: the int8 K2/K4) with a duplicated id: each of
+    its slots gets the sums, as in the plain versions."""
+    F, n, B, M = 28, 70001, 256, 509
+    bins, pos, gq, hq, _ = _inputs(gen, F, n, B, 1, "u8", M)
+    ids = _dup_ids(gen, 64, M)
+    rows = bins.t().contiguous()
+    R = 4096
+    idx = torch.randint(0, n, (R,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pg = pos[idx.long()].clone()
+    pg[R // 2:] = -1
+    if use_bf16 is None:
+        g, h = gq, hq
+        full = hist.hist_wave_q(bins, pos, g, h, ids, B, max_nodes=M)
+        full_p = hist.hist_wave_q_plain(bins, pos, g, h, ids, B, M)
+        gath = hist.hist_wave_gather(rows, idx, pg, g[idx.long()].contiguous(),
+                                     h[idx.long()].contiguous(), ids, B,
+                                     max_nodes=M)
+        gath_p = hist.hist_gather_q_plain(rows, idx, pg, g[idx.long()],
+                                          h[idx.long()], ids, B, M)
+        assert torch.equal(full, full_p) and torch.equal(gath, gath_p)
+        assert torch.equal(full[1], full[63]) and torch.equal(gath[1],
+                                                              gath[63])
+    else:
+        g = torch.randn((n,), generator=gen, device="cuda") * 3
+        h = torch.rand((n,), generator=gen, device="cuda")
+        gg, hh = g[idx.long()].contiguous(), h[idx.long()].contiguous()
+        full = hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M,
+                              use_bf16=use_bf16)
+        _close(full, hist.hist_wave_plain(bins, pos, g, h, ids, B, M,
+                                          use_bf16))
+        gath = hist.hist_wave_gather(rows, idx, pg, gg, hh, ids, B,
+                                     mode="mxu", max_nodes=M,
+                                     use_bf16=use_bf16)
+        _close(gath, hist.hist_gather_plain(rows, idx, pg, gg, hh, ids, B, M,
+                                            use_bf16))
+        _close(full[63], full[1])
+        _close(gath[63], gath[1])
+    assert full[1].any() and not full[0].any()
+
+
+def test_explicit_plans_on_the_card(gen):
+    """K2 under launch shapes other than tile_plan's gives the same sums;
+    a plan that does not fit raises before any launch."""
+    F, n, B, N, M = 28, 70001, 256, 32, 65
+    bins, pos, gq, hq, ids = _inputs(gen, F, n, B, N, "u8", M)
+    want = hist.hist_wave_q_plain(bins, pos, gq, hq, ids, B, M)
+    for plan in ({"fg": 2, "ng": 32, "threads": 1024, "rows_per_chunk": 4096},
+                 {"fg": 7, "ng": 8, "threads": 512, "n_chunks": 3},
+                 {"fg": 28, "ng": 1, "threads": 256, "rows_per_chunk": n}):
+        got = hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M,
+                               plan=plan)
+        assert torch.equal(got, want), plan
+    before = hist.hist_wave_q.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M,
+                         plan={"fg": 28, "ng": 32, "rows_per_chunk": 4096})
+    assert hist.hist_wave_q.launches == before

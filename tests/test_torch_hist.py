@@ -160,21 +160,73 @@ def test_pad_inputs_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
-def test_duplicate_and_out_of_range_ids():
-    """A duplicated node id feeds only its lowest slot; ids at or past
-    max_nodes and negative ids match nothing."""
-    n, F, B = 512, 3, 16
-    bins, pos, gq, hq, _, _ = _case(n, F, B, 1, 9, np.uint8)
+def _dup_case(B):
+    """Duplicated id 2 (slots 0 and 1), a pad, an id past max_nodes (9) and
+    id 4, over rows whose positions lie in [-1, 4]."""
+    bins, pos, gq, hq, _, _ = _case(512, 3, B, 1, 9, np.uint8)
     pos = np.clip(pos, -1, 4).astype(np.int32)
     ids = np.asarray([2, 2, -2, 9, 4], np.int32)
+    return bins, pos, gq, hq, ids, 5
+
+
+def test_duplicate_and_out_of_range_ids(monkeypatch):
+    """A duplicated node id feeds each of its slots, as the reference's
+    one-hot does (the dense einsum and K2's Pallas body); ids at or past
+    max_nodes and negative ids match nothing."""
+    B = 16
+    bins, pos, gq, hq, ids, M = _dup_case(B)
+    want = np.asarray(jhist._hist_dense_q(
+        jnp.asarray(bins.astype(np.int32)), jnp.asarray(pos), jnp.asarray(gq),
+        jnp.asarray(hq), jnp.asarray(ids), B))
+    want = want.reshape(3, 3, 5, B).transpose(2, 0, 3, 1)
+    np.testing.assert_array_equal(
+        _k2_interpreted(monkeypatch, bins, pos, gq, hq, ids, B), want)
     got = hist.hist_wave_q(_t(bins), _t(pos), _t(gq), _t(hq), _t(ids), B,
-                           max_nodes=5).numpy()
-    one = lambda i: hist.hist_wave_q(  # noqa: E731
-        _t(bins), _t(pos), _t(gq), _t(hq), _t(np.asarray([i], np.int32)),
-        B, max_nodes=5).numpy()[0]
-    np.testing.assert_array_equal(got[0], one(2))
-    np.testing.assert_array_equal(got[4], one(4))
-    assert not got[1].any() and not got[2].any() and not got[3].any()
+                           max_nodes=M).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[1], got[0])
+    assert got[0].any() and got[4].any()
+    assert not got[2].any() and not got[3].any()
+
+
+@pytest.mark.parametrize("kernel", ["K1 bf16", "K1 f32", "K3 bf16", "K3 f32",
+                                    "K4"])
+def test_duplicate_ids_feed_every_slot(kernel):
+    """The same case for K1 (against the dense f32/bf16 einsum) and for the
+    gather kernels K3/K4 (against the reference's gather kernels under the
+    Pallas interpreter): counts and int8 sums exact, f32 sums at the
+    tolerance of test_torch_hist_float.py."""
+    from test_torch_hist_float import assert_hist_close
+
+    B = 16
+    bins, pos, gq, hq, ids, M = _dup_case(B)
+    g, h = gq / 37.0, hq / 53.0 + 0.1
+    bf16 = kernel.endswith("bf16")
+    if kernel.startswith("K1"):
+        want = np.asarray(jhist.hist_wave(
+            jnp.asarray(bins.astype(np.int32)), jnp.asarray(pos),
+            jnp.asarray(g), jnp.asarray(h), jnp.asarray(ids), B,
+            use_bf16=bf16, force_dense=True))
+        got = hist.hist_wave(_t(bins), _t(pos), _t(g), _t(h), _t(ids), B,
+                             max_nodes=M, use_bf16=bf16).numpy()
+    else:
+        q = kernel == "K4"
+        gv, hv = (gq, hq) if q else (g, h)
+        rows, idx, pg, gg, hg = _compacted(bins, pos, gv, hv, ids, 512)
+        want = np.asarray(jhist.hist_wave_gather(
+            *[jnp.asarray(a) for a in (rows, idx, pg, gg, hg, ids)], B,
+            mode="int8" if q else "mxu", use_bf16=bf16, bm_g=256,
+            interpret=True))
+        got = hist.hist_wave_gather(_t(rows), _t(idx), _t(pg), _t(gg),
+                                    _t(hg), _t(ids), B,
+                                    mode="int8" if q else "mxu",
+                                    max_nodes=M, use_bf16=bf16).numpy()
+    if kernel == "K4":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert_hist_close(got, want)
+    np.testing.assert_array_equal(got[1], got[0])
+    assert want[1].any() and not got[2].any() and not got[3].any()
 
 
 def test_per_row_lengths_are_checked():
@@ -227,3 +279,56 @@ def test_tile_plan_refuses_a_tile_past_shared_memory(B, M):
 def test_tile_plan_takes_the_largest_lookup_that_fits():
     plan = hist.tile_plan(64, 28, 256, 57_344, 1 << 20, sm_count=132)
     assert plan["smem"] <= hist.SMEM_MAX and plan["ng"] == 1
+
+
+@pytest.mark.parametrize("N,F,B,M,n", [
+    (1, 28, 256, 509, 4_194_304), (64, 28, 256, 509, 10_502_144),
+    (7, 5, 16, 31, 49_152), (3, 2, 8192, 7, 100), (100, 3, 1024, 4096, 5000),
+])
+def test_check_plan_accepts_tile_plan(N, F, B, M, n):
+    plan = hist.tile_plan(N, F, B, M, n, sm_count=132)
+    assert hist.check_plan(plan, N, F, B, M, n) == plan
+    short = {k: plan[k] for k in ("fg", "ng", "threads", "rows_per_chunk")}
+    assert hist.check_plan(short, N, F, B, M, n) == plan
+
+
+@pytest.mark.parametrize("bad,match", [
+    ({"n_ftiles": 27}, "does not cover the histogram"),
+    ({"n_tiles": 1}, "does not cover the histogram"),
+    ({"rows_per_chunk": 1000, "n_chunks": 3}, "does not cover the rows"),
+    ({"fg": 28, "ng": 64}, "shared memory"),
+    ({"smem": 1024}, "smem"),
+    ({"threads": 2048}, "threads"),
+    ({"threads": 100}, "threads"),
+    ({"fg": 0}, "must be >= 1"),
+    ({"bm": 8192}, "unknown fields"),
+    ({"rows_per_chunk": 1}, "chunks"),
+])
+def test_check_plan_refuses_before_any_launch(bad, match):
+    """A plan that does not cover the histogram or its rows, or does not fit
+    a block, raises ValueError, here and through the wrappers (whose
+    launch counts do not move)."""
+    N, F, B, M, n = 64, 28, 256, 509, 70_000
+    plan = hist.tile_plan(N, F, B, M, n, sm_count=132)
+    if "fg" in bad or "ng" in bad:  # a new tile: drop what the old implied
+        plan = {k: plan[k] for k in ("threads", "rows_per_chunk")}
+    plan.update(bad)
+    with pytest.raises(ValueError, match=match):
+        hist.check_plan(plan, N, F, B, M, n)
+    bins, pos, gq, hq, _, _ = _case(n, F, B, 1, 3, np.uint8)
+    ids = np.arange(N, dtype=np.int32)
+    before = hist.hist_wave_q.launches
+    with pytest.raises(ValueError, match=match):
+        hist.hist_wave_q(_t(bins), _t(pos), _t(gq), _t(hq), _t(ids), B,
+                         max_nodes=M, plan=plan)
+    assert hist.hist_wave_q.launches == before
+
+
+def test_explicit_plan_gives_the_same_sums_on_the_cpu():
+    bins, pos, gq, hq, ids, M = _case(3000, 5, 16, 7, 11, np.uint8)
+    want = hist.hist_wave_q(_t(bins), _t(pos), _t(gq), _t(hq), _t(ids), 16,
+                            max_nodes=M)
+    got = hist.hist_wave_q(_t(bins), _t(pos), _t(gq), _t(hq), _t(ids), 16,
+                           max_nodes=M, plan={"fg": 2, "ng": 3,
+                                              "n_chunks": 4})
+    assert torch.equal(got, want)

@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for m in ("serve.kernels", "cli", "cuda_build", "eval.metrics",
               "gbdt.binning", "gbdt.data", "gbdt.engine", "gbdt.hist",
               "gbdt.route", "gbdt.state", "gbdt.trainer", "io.fs",
-              "io.reader"):
+              "io.reader", "scripts.tune_hist_kernel", "scripts.tune_hist",
+              "scripts.micro_hist_gather", "scripts.tune_gbdt",
+              "scripts.time_hist"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

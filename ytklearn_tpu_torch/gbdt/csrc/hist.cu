@@ -10,6 +10,8 @@
 // node id, negative = pad), each feature f and bin b:
 //   out[s, f, b, :] = sum over rows r with pos[r] == node_ids[s] and
 //                     bin(f, r) == b of (g[r], h[r], 1)
+// so a duplicated id gets the same sums in each of its slots, as the
+// reference's one-hot P = (node_ids == pos) gives them.
 // In int8 mode (K2/K4) g/h are f32 integers in [-127, 127] (the caller's
 // quantized gradients) summed in int32: int32 addition is associative, so
 // any order and any atomics give the reference's exact sums. In f32 mode
@@ -26,7 +28,12 @@
 // the bins of its node:
 //   * pos -> slot: a lookup table over tree node ids in shared memory, built
 //     per block from node_ids (lowest slot wins a duplicate id), so a row
-//     costs one shared load and no scan of the wave's ids.
+//     costs one shared load and no scan of the wave's ids. After the row
+//     pass the same space holds each slot's next duplicate (the wave's id
+//     pairs compared once per block, spread over its threads), and the
+//     flush adds a counter of slot s to s and to each later slot of its
+//     id. A wave whose ids do not repeat (the engine's) pays that compare
+//     and a block-wide flag: nothing per row or per counter.
 //   * privatisation: a block owns a tile of ng slots x fg features of the
 //     (N, F, B, 3) histogram in shared memory and accumulates with shared
 //     atomics (int32, or f32: native on sm_90), then flushes the nonzero
@@ -85,14 +92,15 @@ __global__ void hist_kernel(
     long long n,                        // rows scanned (full scan: n ; gather: R)
     const int32_t* __restrict__ node_ids, int N,
     int M,                              // node ids < M (lookup table size)
+    int L,                              // lookup space: max(M, N), padded to 4
     int F, int B, int fg, int ng, int n_ftiles,
     long long rows_per_chunk,
     typename Acc<MODE>::T* __restrict__ out)  // (N, F, B, 3), zeroed by the caller
 {
   typedef typename Acc<MODE>::T AccT;
   extern __shared__ int32_t smem[];
-  int32_t* lut = smem;                                 // M entries
-  AccT* hist = (AccT*)(smem + ((M + 3) & ~3));         // ng * fg * B * 3
+  int32_t* lut = smem;                                 // M entries, then N
+  AccT* hist = (AccT*)(smem + L);                      // ng * fg * B * 3
 
   const int ft = blockIdx.x % n_ftiles;
   const int nt = blockIdx.x / n_ftiles;
@@ -150,6 +158,29 @@ __global__ void hist_kernel(
   }
   __syncthreads();
 
+  // the lookup is done with: its space now holds each slot's next slot of
+  // the same id (INT_MAX: none), from all (i, j > i) pairs of the wave's
+  // ids spread over the block. Only an id in [0, M) has rows
+  int32_t* next_dup = lut;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) next_dup[i] = INT_MAX;
+  __syncthreads();
+  int dup = 0;
+  // a 32-bit pair index: shared memory caps N near 58k, so N * N < 2^32,
+  // and a 64-bit division here cost the full-scan int8 kernel a quarter
+  // of its time on the card
+  const unsigned n_pairs = (unsigned)N * (unsigned)N;
+  for (unsigned p = threadIdx.x; p < n_pairs; p += blockDim.x) {
+    const int i = (int)(p / (unsigned)N);
+    const int j = (int)(p - (unsigned)i * (unsigned)N);
+    if (j <= i) continue;
+    const int id = node_ids[i];
+    if (id >= 0 && id < M && node_ids[j] == id) {
+      atomicMin(&next_dup[i], j);
+      dup = 1;
+    }
+  }
+  const bool any_dup = __syncthreads_or(dup);
+
   // flush: a counter that is zero (+0 or -0) adds nothing to the zeroed
   // output, so it is skipped
   const int per_slot = fg * B * 3;
@@ -162,7 +193,12 @@ __global__ void hist_kernel(
     const int fl = rem / run;
     if (fl >= fcnt) continue;
     const int within = rem - fl * run;
-    atomicAdd(out + ((size_t)(s0 + sl) * F + (f0 + fl)) * run + within, v);
+    const size_t col = (size_t)(f0 + fl) * run + within;
+    atomicAdd(out + (size_t)(s0 + sl) * F * run + col, v);
+    if (any_dup) {
+      for (int s = next_dup[s0 + sl]; s != INT_MAX; s = next_dup[s])
+        atomicAdd(out + (size_t)s * F * run + col, v);
+    }
   }
 }
 
@@ -173,14 +209,15 @@ int launch(const void* bins, long long n_bins_rows, const int32_t* idx,
            int ng, int n_ftiles, int n_tiles, int n_chunks,
            long long rows_per_chunk, int threads, int smem_bytes,
            void* out, cudaStream_t stream) {
+  const int L = ((M > N ? M : N) + 3) & ~3;
   auto kern = hist_kernel<BinT, GATHER, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_tiles, n_chunks);
   kern<<<grid, threads, smem_bytes, stream>>>(
-      (const BinT*)bins, n_bins_rows, idx, pos, g, h, n, node_ids, N, M, F,
-      B, fg, ng, n_ftiles, rows_per_chunk,
+      (const BinT*)bins, n_bins_rows, idx, pos, g, h, n, node_ids, N, M, L,
+      F, B, fg, ng, n_ftiles, rows_per_chunk,
       (typename Acc<MODE>::T*)out);
   return (int)cudaGetLastError();
 }

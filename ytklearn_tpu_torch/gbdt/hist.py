@@ -1,5 +1,5 @@
-"""GBDT histograms: the wrappers of kernels K1-K4, their plain versions,
-and the row compaction of the leaf-partitioned waves.
+"""GBDT histograms: the wrappers of kernels K1-K4 and K8, their plain
+versions, and the row compaction of the leaf-partitioned waves.
 
   hist_wave         (N, F, B, 3) f32 histograms of f32 or bf16-rounded
                     grads over all rows: kernel K1 (csrc/hist.cu), replacing
@@ -12,6 +12,12 @@ and the row compaction of the leaf-partitioned waves.
                     sums, replacing _hist_gather_pallas_q :434), mode "mxu"
                     hist_wave_gather_mxu, kernel K3 (f32 sums, replacing
                     _hist_gather_pallas :371)
+  hist_q_u8         K2's sums in the (F, 3N, B) layout of the reference's
+                    tuning variant, computed as an int8 one-hot matrix
+                    product on the tensor cores: kernel K8 (csrc/hist_u8.cu),
+                    replacing scripts/tune_hist_kernel.py::hist_q_u8 (:71)
+  check_plan        an explicit launch shape of K1-K4, checked and completed
+                    (the tuning tools pass one; the engine never does)
   compact_indices   order-preserving mask -> static (R,) index buffer
   pad_inputs        host transpose + row padding of a bin matrix
 
@@ -27,13 +33,15 @@ MXU agree to a tolerance, and counts exactly. The wrappers take the plain
 versions only for tensors on the CPU; on a CUDA tensor they launch the
 kernel or raise. `<wrapper>.launches` counts the kernel launches.
 
-Node ids: a row belongs to the wave slot s with node_ids[s] == pos[row];
-negative ids are pads and match nothing, pos = -1 rows are dead, and a
-duplicated id feeds only its lowest slot. Every id must be < `max_nodes`
+Node ids: a row belongs to every wave slot s with node_ids[s] == pos[row],
+as the reference's one-hot P = (node_ids == pos) has it: a duplicated id
+feeds each of its slots the same sums. Negative ids are pads and match
+nothing, pos = -1 rows are dead. For K1-K4 every id must be < `max_nodes`
 (the tree's node capacity, the kernel's lookup-table size), which every
-caller passes. The kernels keep the node lookup and one histogram tile in
-shared memory: on CUDA, a tree of more nodes than fit there (about 57k at
-256 bins) raises NotImplementedError (ROADMAP.md 1.8).
+caller passes; K8 compares ids with positions and takes no capacity. The
+kernels K1-K4 keep the node lookup and one histogram tile in shared
+memory: on CUDA, a tree of more nodes than fit there (about 57k at 256
+bins) raises NotImplementedError (ROADMAP.md 1.8).
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import ctypes
 import os
 import threading
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,22 +83,42 @@ def _pad_to(x: int, m: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def node_slots(pos: torch.Tensor, node_ids: torch.Tensor, max_nodes: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(slot per row as int64, bool mask of rows in the wave): the lookup
-    the kernels build in shared memory (lowest slot wins a duplicate)."""
+def node_slots(pos: torch.Tensor, node_ids: torch.Tensor,
+               max_nodes: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot per row as int64, bool mask of rows in the wave): each row's
+    lowest slot of its id, the lookup K1-K4 build in shared memory. Ids
+    and positions at or past `max_nodes` match nothing; with max_nodes None
+    (K8's rule) every id >= 0 may match."""
     N = node_ids.shape[0]
     dev = pos.device
     ids = node_ids.long()
+    p = pos.long()
+    if max_nodes is None:
+        if N == 0:
+            return torch.zeros_like(p), torch.zeros_like(p, dtype=torch.bool)
+        # a stable sort keeps equal ids in slot order: the leftmost match
+        # of a position is its id's lowest slot
+        key = torch.where(ids >= 0, ids, torch.iinfo(torch.int64).max)
+        skey, order = torch.sort(key, stable=True)
+        j = torch.searchsorted(skey, p).clamp_(max=N - 1)
+        return order[j], (p >= 0) & (skey[j] == p)
     in_range = (ids >= 0) & (ids < max_nodes)
     lut = torch.full((max_nodes + 1,), N, dtype=torch.long, device=dev)
     lut.scatter_reduce_(0, torch.where(in_range, ids, max_nodes),
                         torch.arange(N, device=dev), reduce="amin")
     lut[max_nodes] = N
-    p = pos.long()
     ok = (p >= 0) & (p < max_nodes)
     slot = lut[torch.where(ok, p, max_nodes)]
     return slot, ok & (slot < N)
+
+
+def _first_slots(node_ids: torch.Tensor) -> torch.Tensor:
+    """(N,) int64: the lowest slot holding each slot's id (the slot itself
+    for an id seen first there). No host sync."""
+    ids = node_ids.long()
+    if ids.numel() == 0:
+        return ids
+    return (ids[:, None] == ids[None, :]).to(torch.int32).argmax(dim=1)
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -100,10 +128,12 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _hist_plain(bin_of, pos, g, h, node_ids, F: int, B: int,
-                max_nodes: int, mode: str) -> torch.Tensor:
+                max_nodes: Optional[int], mode: str) -> torch.Tensor:
     """Shared body: `bin_of(f, rows)` -> int64 bins of feature f. mode
     "q": g/h are f32 integers summed exactly (int32 out); "f32" / "bf16":
-    f32 sums of g/h as given / rounded to bf16 (f32 out)."""
+    f32 sums of g/h as given / rounded to bf16 (f32 out). Each row adds
+    into its id's lowest slot; every later slot of the same id then takes
+    a copy of that slot's sums."""
     N = node_ids.shape[0]
     slot, ok = node_slots(pos, node_ids, max_nodes)
     rows = torch.nonzero(ok).flatten()
@@ -124,7 +154,7 @@ def _hist_plain(bin_of, pos, g, h, node_ids, F: int, B: int,
         key = (s * F + f) * B + b
         flat.index_add_(0, key[keep], vals[keep])
     out = flat.to(torch.int32) if mode == "q" else flat
-    return out.view(N, F, B, 3)
+    return out.view(N, F, B, 3)[_first_slots(node_ids)]
 
 
 def _val_mode(use_bf16: bool) -> str:
@@ -166,16 +196,38 @@ def hist_gather_q_plain(rows, idx, pos_g, gq, hq, node_ids, B: int,
                        gq, hq, node_ids, rows.shape[1], B, max_nodes, "q")
 
 
+def hist_q_u8_plain(bins_t, pos, gq, hq, node_ids, B: int) -> torch.Tensor:
+    """Plain PyTorch twin of K8: bins_t (F, n) u8, pos (n,) i32, gq/hq (n,)
+    f32 integers -> (F, 3N, B) int32 with rows [g*N | h*N | c*N], the
+    reference's layout; any id >= 0 matches (no node capacity)."""
+    F, N = bins_t.shape[0], node_ids.shape[0]
+    out = _hist_plain(lambda f, rows: bins_t[f, rows].long(), pos, gq, hq,
+                      node_ids, F, B, None, "q")
+    return out.permute(1, 3, 0, 2).reshape(F, 3 * N, B)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def check_tile_fits(B: int, max_nodes: int) -> None:
+def _lut_bytes(max_nodes: int, N: int) -> int:
+    """Shared bytes of K1-K4's node lookup; after the row pass the same
+    space holds each slot's next duplicate (N entries)."""
+    return _pad_to(max(max_nodes, N), 4) * 4
+
+
+def tile_bytes(N: int, ng: int, fg: int, B: int, max_nodes: int) -> int:
+    """Shared bytes of a K1-K4 block: the node lookup and a tile of `ng`
+    slots x `fg` features x B bins of three 4-byte counters."""
+    return _lut_bytes(max_nodes, N) + ng * fg * B * 3 * 4
+
+
+def check_tile_fits(B: int, max_nodes: int, N: int = 0) -> None:
     """Raise NotImplementedError when the lookup over `max_nodes` tree
     node ids and one slot x one feature of B bins do not fit one block's
     shared memory (at B = 256: more than 57,344 nodes)."""
-    need = _pad_to(max_nodes, 4) * 4 + B * 3 * 4
+    need = tile_bytes(N, 1, 1, B, max_nodes)
     if need > SMEM_MAX:
         raise NotImplementedError(
             f"a histogram tile of B={B} bins with a {max_nodes}-node lookup "
@@ -192,8 +244,8 @@ def tile_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int
     where a tile of one slot in 64 would skip 63 rows in 64. A tile that
     fits half an SM's shared memory runs two blocks of 512 threads per SM;
     a larger one (64 slots of 256 bins: 196 KB) one block of 1024."""
-    check_tile_fits(B, max_nodes)
-    lut_bytes = _pad_to(max_nodes, 4) * 4
+    check_tile_fits(B, max_nodes, N)
+    lut_bytes = _lut_bytes(max_nodes, N)
     pair = B * 3 * 4
     most = (SMEM_MAX - lut_bytes) // pair
     pairs = (SMEM_PER_BLOCK - lut_bytes) // pair
@@ -215,8 +267,70 @@ def tile_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int
     return {
         "fg": fg, "ng": ng, "n_ftiles": n_ftiles, "n_tiles": n_tiles,
         "n_chunks": n_chunks, "rows_per_chunk": rows_per_chunk,
-        "smem": lut_bytes + ng * fg * pair, "threads": threads,
+        "smem": tile_bytes(N, ng, fg, B, max_nodes), "threads": threads,
     }
+
+
+_PLAN_KEYS = ("fg", "ng", "threads", "rows_per_chunk", "n_chunks",
+              "n_ftiles", "n_tiles", "smem")
+
+
+def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int
+               ) -> dict:
+    """An explicit launch shape of K1-K4, checked before any launch and
+    completed: `plan` names `fg` and `ng` (features and slots of a block's
+    tile), `threads`, and `rows_per_chunk` or `n_chunks`. The fields that
+    tile_plan derives (n_ftiles, n_tiles, smem and the other of the two
+    chunk fields) may be given too, and must then be the ones the tile
+    implies, so tile_plan's output passes. Raises ValueError when the plan
+    does not cover the (N, F, B) histogram over n rows, or its tile needs
+    more shared memory than SMEM_MAX, or its threads do not make a block;
+    NotImplementedError as tile_plan when no tile fits at all."""
+    check_tile_fits(B, max_nodes, N)
+    unknown = sorted(set(plan) - set(_PLAN_KEYS))
+    if unknown:
+        raise ValueError(f"plan: unknown fields {unknown}; a plan names "
+                         f"{', '.join(_PLAN_KEYS)}")
+    fg, ng = int(plan.get("fg", 0)), int(plan.get("ng", 0))
+    threads = int(plan.get("threads", THREADS))
+    if fg < 1 or ng < 1:
+        raise ValueError(f"plan: fg ({fg}) and ng ({ng}) must be >= 1")
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"plan: threads ({threads}) must be a multiple of "
+                         "32 in [32, 1024]")
+    rpc, chunks = plan.get("rows_per_chunk"), plan.get("n_chunks")
+    if rpc is None and chunks is None:
+        raise ValueError("plan: give rows_per_chunk or n_chunks")
+    if rpc is None:
+        rpc = max(1, -(-n // max(1, int(chunks))))
+    rpc = int(rpc)
+    if rpc < 1:
+        raise ValueError(f"plan: rows_per_chunk ({rpc}) must be >= 1")
+    chunks = max(1, -(-n // rpc)) if chunks is None else int(chunks)
+    if chunks * rpc < n:
+        raise ValueError(f"plan does not cover the rows: {chunks} chunks of "
+                         f"{rpc} rows < n = {n}")
+    if not 1 <= chunks <= 65535:
+        raise ValueError(f"plan: {chunks} chunks, not in [1, 65535]")
+    n_ftiles = -(-F // fg)
+    n_tiles = n_ftiles * -(-N // ng)
+    for name, want in (("n_ftiles", n_ftiles), ("n_tiles", n_tiles)):
+        if name in plan and int(plan[name]) != want:
+            raise ValueError(
+                f"plan does not cover the histogram: {name} = {plan[name]}, "
+                f"but fg = {fg}, ng = {ng} over (N, F) = ({N}, {F}) make "
+                f"{want}")
+    smem = tile_bytes(N, ng, fg, B, max_nodes)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"plan's tile of {ng} slots x {fg} features x {B} bins needs "
+            f"{smem} bytes of shared memory, more than {SMEM_MAX}")
+    if int(plan.get("smem", smem)) < smem:
+        raise ValueError(f"plan: smem {plan['smem']} < the {smem} bytes "
+                         "its tile needs")
+    return {"fg": fg, "ng": ng, "n_ftiles": n_ftiles, "n_tiles": n_tiles,
+            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
+            "threads": threads}
 
 
 def _bind(lib) -> None:
@@ -254,9 +368,11 @@ def _check(name, t, dtypes, shape, dev):
 
 
 def _launch(gather: bool, mode: str, bins, n_bins_rows: int, idx, pos, g,
-            h, node_ids, B: int, max_nodes: int) -> torch.Tensor:
+            h, node_ids, B: int, max_nodes: int,
+            plan: Optional[dict] = None) -> torch.Tensor:
     """One launch of K1-K4. mode "q" (int32 sums: K2/K4), "f32" or "bf16"
-    (f32 sums: K1/K3)."""
+    (f32 sums: K1/K3); `plan` a launch shape from check_plan, else
+    tile_plan's."""
     dev = pos.device
     n = pos.shape[0]
     F = bins.shape[0] if not gather else bins.shape[1]
@@ -275,7 +391,8 @@ def _launch(gather: bool, mode: str, bins, n_bins_rows: int, idx, pos, g,
                       else torch.float32, device=dev)
     if n == 0 or N == 0 or F == 0:
         return out
-    plan = tile_plan(N, F, B, max_nodes, n, _sm_count(dev.index))
+    if plan is None:
+        plan = tile_plan(N, F, B, max_nodes, n, _sm_count(dev.index))
     lib = _LIBRARY.load()
     head = [bins.element_size(), int(gather)]
     if mode != "q":
@@ -319,8 +436,16 @@ def _count(wrapper) -> None:
         wrapper.launches += 1
 
 
+def _plan_of(plan, node_ids, F: int, B: int, max_nodes: int, n: int):
+    """An explicit plan checked before any launch (on the CPU too), or
+    None for tile_plan's."""
+    return None if plan is None else check_plan(
+        plan, node_ids.shape[0], F, B, max_nodes, n)
+
+
 def hist_wave(bins_t, pos, g, h, node_ids, B: int, *, max_nodes: int,
-              use_bf16: bool = True) -> torch.Tensor:
+              use_bf16: bool = True, plan: Optional[dict] = None
+              ) -> torch.Tensor:
     """(N, F, B, 3) f32 histograms for the nodes listed in `node_ids`.
 
     bins_t   (F, n) u8|i32 — transposed bin matrix
@@ -329,17 +454,20 @@ def hist_wave(bins_t, pos, g, h, node_ids, B: int, *, max_nodes: int,
                              when use_bf16 (the sums stay f32)
     node_ids (N,) i32      — node ids to histogram (-2 pads)
     max_nodes              — the tree's node capacity: every id < it
+    plan                   — a launch shape for check_plan (tuning tools)
     On the CPU: the plain version; on CUDA: kernel K1."""
     if bins_t.dim() != 2:
         raise ValueError(f"hist_wave: bins_t must be (F, n), got "
                          f"{tuple(bins_t.shape)}")
     _check_lengths("hist_wave", bins_t.shape[1], B, max_nodes, pos=pos, g=g,
                    h=h)
+    plan = _plan_of(plan, node_ids, bins_t.shape[0], B, max_nodes,
+                    bins_t.shape[1])
     if pos.device.type == "cpu":
         return hist_wave_plain(bins_t, pos, g, h, node_ids, B, max_nodes,
                                use_bf16)
     out = _launch(False, _val_mode(use_bf16), bins_t, bins_t.shape[1], None,
-                  pos, g, h, node_ids, B, max_nodes)
+                  pos, g, h, node_ids, B, max_nodes, plan)
     _count(hist_wave)
     return out
 
@@ -347,8 +475,8 @@ def hist_wave(bins_t, pos, g, h, node_ids, B: int, *, max_nodes: int,
 hist_wave.launches = 0
 
 
-def hist_wave_q(bins_t, pos, gq, hq, node_ids, B: int, *, max_nodes: int
-                ) -> torch.Tensor:
+def hist_wave_q(bins_t, pos, gq, hq, node_ids, B: int, *, max_nodes: int,
+                plan: Optional[dict] = None) -> torch.Tensor:
     """(N, F, B, 3) int32 histograms from int8-quantized grads.
 
     bins_t   (F, n) u8|i32 — transposed bin matrix
@@ -356,16 +484,19 @@ def hist_wave_q(bins_t, pos, gq, hq, node_ids, B: int, *, max_nodes: int
     gq, hq   (n,) f32      — quantized grad / hess, integers in [-127, 127]
     node_ids (N,) i32      — node ids to histogram (-2 pads)
     max_nodes              — the tree's node capacity: every id < it
+    plan                   — a launch shape for check_plan (tuning tools)
     On the CPU: the plain version; on CUDA: kernel K2."""
     if bins_t.dim() != 2:
         raise ValueError(f"hist_wave_q: bins_t must be (F, n), got "
                          f"{tuple(bins_t.shape)}")
     _check_lengths("hist_wave_q", bins_t.shape[1], B, max_nodes, pos=pos,
                    gq=gq, hq=hq)
+    plan = _plan_of(plan, node_ids, bins_t.shape[0], B, max_nodes,
+                    bins_t.shape[1])
     if pos.device.type == "cpu":
         return hist_wave_q_plain(bins_t, pos, gq, hq, node_ids, B, max_nodes)
     out = _launch(False, "q", bins_t, bins_t.shape[1], None, pos, gq, hq,
-                  node_ids, B, max_nodes)
+                  node_ids, B, max_nodes, plan)
     _count(hist_wave_q)
     return out
 
@@ -375,24 +506,29 @@ hist_wave_q.launches = 0
 
 def hist_wave_gather(rows, idx, pos_g, g, h, node_ids, B: int,
                      mode: str = "int8", *, max_nodes: int,
-                     use_bf16: bool = True) -> torch.Tensor:
+                     use_bf16: bool = True, plan: Optional[dict] = None
+                     ) -> torch.Tensor:
     """(N, F, B, 3) partial histograms over a compacted row subset:
     rows (n_rows, F) u8|i32 row-major, idx (R,) i32 row ids, pos_g (R,)
     i32 node per gathered row (-1 = dead slot), g/h (R,) f32 per gathered
     row. mode "int8": g/h quantized, int32 sums (kernel K4 on CUDA); mode
-    "mxu": hist_wave_gather_mxu (K3). On the CPU: the plain versions."""
+    "mxu": hist_wave_gather_mxu (K3). `plan`: a launch shape for
+    check_plan. On the CPU: the plain versions."""
     if mode == "mxu":
         return hist_wave_gather_mxu(rows, idx, pos_g, g, h, node_ids, B,
-                                    max_nodes=max_nodes, use_bf16=use_bf16)
+                                    max_nodes=max_nodes, use_bf16=use_bf16,
+                                    plan=plan)
     if mode != "int8":
         raise ValueError(f"hist_wave_gather: mode must be int8|mxu, got "
                          f"{mode!r}")
     _check_gather("hist_wave_gather", rows, idx, pos_g, g, h, B, max_nodes)
+    plan = _plan_of(plan, node_ids, rows.shape[1], B, max_nodes,
+                    idx.shape[0])
     if pos_g.device.type == "cpu":
         return hist_gather_q_plain(rows, idx, pos_g, g, h, node_ids, B,
                                    max_nodes)
     out = _launch(True, "q", rows, rows.shape[0], idx, pos_g, g, h,
-                  node_ids, B, max_nodes)
+                  node_ids, B, max_nodes, plan)
     _count(hist_wave_gather)
     return out
 
@@ -401,23 +537,171 @@ hist_wave_gather.launches = 0
 
 
 def hist_wave_gather_mxu(rows, idx, pos_g, g, h, node_ids, B: int, *,
-                         max_nodes: int, use_bf16: bool = True
-                         ) -> torch.Tensor:
+                         max_nodes: int, use_bf16: bool = True,
+                         plan: Optional[dict] = None) -> torch.Tensor:
     """(N, F, B, 3) f32 partial histograms over a compacted row subset
     (hist_wave_gather's inputs) with raw f32 g/h, rounded to bf16 per row
     when use_bf16. On the CPU: the plain version; on CUDA: kernel K3."""
     _check_gather("hist_wave_gather_mxu", rows, idx, pos_g, g, h, B,
                   max_nodes)
+    plan = _plan_of(plan, node_ids, rows.shape[1], B, max_nodes,
+                    idx.shape[0])
     if pos_g.device.type == "cpu":
         return hist_gather_plain(rows, idx, pos_g, g, h, node_ids, B,
                                  max_nodes, use_bf16)
     out = _launch(True, _val_mode(use_bf16), rows, rows.shape[0], idx, pos_g,
-                  g, h, node_ids, B, max_nodes)
+                  g, h, node_ids, B, max_nodes, plan)
     _count(hist_wave_gather_mxu)
     return out
 
 
 hist_wave_gather_mxu.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: the histogram as an int8 one-hot matrix product
+# ---------------------------------------------------------------------------
+
+#: K8's launch shape: a block stages U8_KT rows at a time (four 32-row
+#: steps of the m16n8k32 product), runs at most U8_WARPS warps, and each
+#: warp holds U8_TILES 16 x 8 int32 accumulator tiles in registers
+U8_KT = 128
+U8_WARPS = 16
+U8_TILES = 16
+#: rows at least in a block's chunk when the plan picks the chunk length
+U8_MIN_ROWS = 8192
+
+
+def _u8_warp_shape(MT: int) -> Tuple[int, int]:
+    """(m-tiles, n-tiles) of one warp's accumulator, the kernel's template
+    instances: a short PV column whole, else eight of its m-tiles."""
+    mtw = 1 if MT == 1 else 2 if MT == 2 else 4 if MT <= 4 else 8
+    return mtw, U8_TILES // mtw
+
+
+def u8_plan(N: int, F: int, B: int, n: int, sm_count: int,
+            fg: Optional[int] = None,
+            rows_per_block: Optional[int] = None) -> dict:
+    """Launch shape of K8. The (3N, B) product of one feature is MT x NT
+    tiles of 16 x 8 (MT = ceil(3N/16), NT = ceil(B/8)); a warp's task is
+    `mtw` x `ntw` of them, a feature has `tpf` tasks. A block runs `fg`
+    features x `tps` tasks (one warp each) over `rows_per_block` rows; a
+    feature's tasks that do not fit one block go to `n_slices` blocks.
+    fg None: as many whole features as fill U8_WARPS warps; rows_per_block
+    None: about four blocks per SM, each at least U8_MIN_ROWS rows. Raises
+    ValueError for an fg outside [1, U8_WARPS], a staging tile past
+    SMEM_MAX, or more than 65535 row chunks."""
+    MT, NT = max(1, -(-3 * N // 16)), -(-B // 8)
+    mtw, ntw = _u8_warp_shape(MT)
+    tpf = -(-MT // mtw) * -(-NT // ntw)
+    if fg is None:
+        fg = max(1, min(F, U8_WARPS // tpf))
+    fg = int(fg)
+    if not 1 <= fg <= U8_WARPS:
+        raise ValueError(f"hist_q_u8: fg ({fg}) must be in [1, {U8_WARPS}]: "
+                         f"a block runs a warp per feature at least and "
+                         f"{U8_WARPS} warps at most")
+    tps = min(tpf, max(1, U8_WARPS // fg))
+    n_slices = -(-tpf // tps)
+    n_fgroups = -(-F // fg)
+    smem = 4 * MT * 32 * 16 + U8_KT * 6 + _pad_to(4 * N, 16) + fg * U8_KT
+    if smem > SMEM_MAX:
+        raise ValueError(f"hist_q_u8: the PV fragments of {N} slots and the "
+                         f"bins of {fg} features need {smem} bytes of shared "
+                         f"memory, more than {SMEM_MAX}")
+    nx = n_fgroups * n_slices
+    if rows_per_block is None:
+        n_chunks = max(1, min(-(-4 * sm_count // nx),
+                              -(-n // U8_MIN_ROWS), 65535))
+        rows_per_block = _pad_to(max(1, -(-n // n_chunks)), U8_KT)
+    rows_per_block = int(rows_per_block)
+    if rows_per_block < 1:
+        raise ValueError(f"hist_q_u8: rows_per_block ({rows_per_block}) "
+                         "must be >= 1")
+    n_chunks = max(1, -(-n // rows_per_block))
+    if n_chunks > 65535:
+        raise ValueError(f"hist_q_u8: {n_chunks} row chunks of "
+                         f"{rows_per_block} rows, more than 65535")
+    return {"fg": fg, "tps": tps, "mtw": mtw, "ntw": ntw, "tpf": tpf,
+            "n_slices": n_slices, "n_fgroups": n_fgroups,
+            "threads": 32 * fg * tps, "smem": smem,
+            "rows_per_block": rows_per_block, "n_chunks": n_chunks,
+            "grid": (nx, n_chunks)}
+
+
+def _bind_u8(lib) -> None:
+    ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    lib.ytk_hist_q_u8.restype = ctypes.c_int
+    lib.ytk_hist_q_u8.argtypes = [vp, ll, vp, vp, vp, vp] + [ci] * 11 + [
+        ll, vp, vp]
+
+
+_U8_LIBRARY = KernelLibrary(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                 "hist_u8.cu"),
+    _bind_u8,
+)
+#: compile csrc/hist_u8.cu now: {cmd, seconds, log}; raises on failure
+build_u8_kernel = _U8_LIBRARY.build
+
+
+def hist_q_u8(bins_t, pos, gq, hq, node_ids, B: int, *,
+              fg: Optional[int] = None,
+              rows_per_block: Optional[int] = None) -> torch.Tensor:
+    """(F, 3N, B) int32 histograms with rows [g*N | h*N | c*N], the layout
+    of the reference's scripts/tune_hist_kernel.py::hist_q_u8; the same sums
+    as hist_wave_q, whose (N, F, B, 3) output is this one permuted.
+
+    bins_t   (F, n) u8 — transposed bin matrix (B <= 256: the reference
+                         compares bins with a uint8 iota, which wraps past
+                         255)
+    pos      (n,) i32  — tree-node id per row (-1 = skip)
+    gq, hq   (n,) f32  — quantized grad / hess, integers in [-127, 127]
+    node_ids (N,) i32  — node ids to histogram (negative = pad)
+    fg, rows_per_block — K8's launch shape (u8_plan; None: its default),
+                         checked on the CPU too
+    On the CPU: the plain version; on CUDA: kernel K8."""
+    if bins_t.dim() != 2 or bins_t.dtype != torch.uint8:
+        raise ValueError(f"hist_q_u8: bins_t must be an (F, n) uint8 tensor, "
+                         f"got {bins_t.dtype} {tuple(bins_t.shape)}")
+    if not 1 <= B <= 256:
+        raise ValueError(f"hist_q_u8: B ({B}) must be in [1, 256]: the "
+                         "reference's uint8 one-hot compare wraps past 255")
+    F, n = bins_t.shape
+    _check_lengths("hist_q_u8", n, B, 1, pos=pos, gq=gq, hq=hq)
+    N = node_ids.shape[0]
+    dev = pos.device
+    on_cpu = dev.type == "cpu"
+    plan = u8_plan(N, F, B, n, 1 if on_cpu else _sm_count(dev.index), fg,
+                   rows_per_block)
+    if on_cpu:
+        return hist_q_u8_plain(bins_t, pos, gq, hq, node_ids, B)
+    for name, t, dtypes, shape in (
+        ("bins_t", bins_t, (torch.uint8,), (F, n)),
+        ("pos", pos, (torch.int32,), (n,)),
+        ("gq", gq, (torch.float32,), (n,)),
+        ("hq", hq, (torch.float32,), (n,)),
+        ("node_ids", node_ids, (torch.int32,), (N,)),
+    ):
+        _check(name, t, dtypes, shape, dev)
+    out = torch.zeros((F, 3 * N, B), dtype=torch.int32, device=dev)
+    if n == 0 or N == 0 or F == 0:
+        return out
+    lib = _U8_LIBRARY.load()
+    with torch.cuda.device(dev):
+        rc = lib.ytk_hist_q_u8(
+            bins_t.data_ptr(), n, pos.data_ptr(), gq.data_ptr(),
+            hq.data_ptr(), node_ids.data_ptr(), N, F, B, plan["fg"],
+            plan["n_fgroups"], plan["tps"], plan["mtw"], plan["n_slices"],
+            plan["n_chunks"], plan["threads"], plan["smem"],
+            plan["rows_per_block"], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _U8_LIBRARY.check(rc, "hist_q_u8")
+    _count(hist_q_u8)
+    return out
+
+
+hist_q_u8.launches = 0
 
 
 # ---------------------------------------------------------------------------
