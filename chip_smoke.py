@@ -5,15 +5,17 @@
 
 Drives the port's paths on the card, as a user would: GBDT online serving
 on the fused rung (slice 1), int8 GBDT training (slice 2), `cli train`
-with the bf16 histograms and the binned serving rung (slice 3), and the
-histogram tuning tools with K8, the int8 one-hot histogram (slice 4).
+with the bf16 histograms and the binned serving rung (slice 3), the
+histogram tuning tools with K8, the int8 one-hot histogram (slice 4), and
+the redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
-  2. builds the four kernel libraries (serve/csrc/heap_walk.cu: K6, K7;
-     gbdt/csrc/hist.cu: K1-K4; gbdt/csrc/route.cu: K5; gbdt/csrc/
-     hist_u8.cu: K8) from the checkout, one nvcc each, all started
-     together, and prints each build's time and ptxas' report;
+  2. builds the five kernel libraries (serve/csrc/heap_walk.cu: K6, K7;
+     gbdt/csrc/hist.cu: K2, K4; gbdt/csrc/hist_float.cu: K1, K3;
+     gbdt/csrc/route.cu: K5; gbdt/csrc/hist_u8.cu: K8) from the checkout,
+     one nvcc each, all started together, and prints each build's time and
+     ptxas' report;
   3. holds the kernel against its plain PyTorch version and against the
      stacked rung, all on the card, with torch.equal (tolerance: exact) at
      (trees, depth, rows) = (13, 1, 1), (64, 10, 512), (500, 6, 1) and
@@ -63,9 +65,15 @@ histogram tuning tools with K8, the int8 one-hot histogram (slice 4).
      bit-equal to the port's CPU binned scorer, with K7's launches counted;
      then, without the sidecar, thresholds mode bit-equal to the host tree
      walk; times K7 at rung 512;
- 12. trains the bench configuration of step 7 in bf16 (K1, K3, K5) and
-     times K1 and K3 at its shapes; then a small l2 bf16 run twice on the
-     card and once on the CPU, printing whether the card's trees repeat;
+ 12. trains the bench configuration of step 7 in bf16 (K1, K3, K5),
+     prints its trees/s beside the figure PERF.md records for the kernels
+     before their redesign, and times K1 and K3 at its shapes; then, the
+     width phase of slice 5, K1 over every bench row and K3 at the first
+     fused rung (R = n/64) on waves of N = 1, 2, 8, 16, 32, 42 and 64
+     slots, each held against its plain version (counts exact, g/h at
+     HIST_RTOL) and then timed beside one scatter_add_ and its bound;
+     then a small l2 bf16 run twice on the card and once on the CPU,
+     printing whether the card's trees repeat;
  13. holds K8 (hist_q_u8) against its plain version with torch.equal at
      N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on a wave
      with a duplicated id and pads, and against K2 in K8's layout;
@@ -1554,6 +1562,82 @@ def phase_float_timings(trainer, card):
     return out
 
 
+#: the waves of the width phase, and bf16 bench trees/s with the kernels
+#: K1/K3 had before their redesign (PERF.md section 5, same cell, NVIDIA
+#: H100 80GB HBM3 at 700 W)
+FLOAT_WAVES = (1, 2, 8, 16, 32, 42, 64)
+BF16_TPS_BEFORE = 8.7082
+
+
+def phase_float_widths(trainer, card):
+    """K1 over every bench row and K3 at the first fused rung (R = n/64),
+    on waves of FLOAT_WAVES slots (positions over 2N+1 nodes, the wave the
+    odd ids), each held against its plain version first, then timed beside
+    one f32 scatter_add_ of the same sums and its bound, with the plan
+    float_plan took. Returns the largest g/h error."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    dd_bins = trainer.dev_inputs.bins_t
+    F, n = dd_bins.shape
+    B = trainer.grow_spec.B
+    rows = dd_bins.t().contiguous()
+    R = -(-(n // 64) // 1024) * 1024
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.randn((n,), generator=gen, device="cuda") * 0.5
+    h = torch.rand((n,), generator=gen, device="cuda") * 0.25
+    err = 0.0
+    for N in FLOAT_WAVES:
+        M = 2 * N + 1
+        pos = torch.randint(0, M, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        ids = torch.arange(1, M, 2, device="cuda", dtype=torch.int32)
+        idx, pg, gg, hg = compacted(pos, g, h, ids, R, 0.05, gen)
+        for name, fn, plain, keys_of, bound, plan, iters in (
+            ("hist", lambda: hist.hist_wave(dd_bins, pos, g, h, ids, B,
+                                            max_nodes=M),
+             lambda: hist.hist_wave_plain(dd_bins, pos, g, h, ids, B, M),
+             lambda: flat_keys(lambda f, r: dd_bins[f, r], F, B, pos, g, h,
+                               ids, M, bf16=True),
+             lambda: hist_bound_ms(dd_bins, False, None, pos, ids, M, B),
+             hist.float_plan(N, F, B, M, n, sm), 10),
+            ("hist_gather",
+             lambda: hist.hist_wave_gather_mxu(rows, idx, pg, gg, hg, ids, B,
+                                               max_nodes=M),
+             lambda: hist.hist_gather_plain(rows, idx, pg, gg, hg, ids, B,
+                                            M),
+             lambda: flat_keys(lambda f, r: rows[idx[r].long(), f], F, B,
+                               pg, gg, hg, ids, M, bf16=True),
+             lambda: hist_bound_ms(rows, True, idx, pg, ids, M, B),
+             hist.float_plan(N, F, B, M, R, sm, True), 50),
+        ):
+            what = (f"at the width phase's N = {N} "
+                    f"({'n' if name == 'hist' else 'R'} = "
+                    f"{n if name == 'hist' else R}), bf16")
+            err = max(err, hist_err(fn(), plain(), what, name, card))
+            ms = cuda_ms(fn, iters=iters)
+            keys, vals = keys_of()
+            flat = torch.zeros(N * F * B * 3, dtype=torch.float32,
+                               device="cuda")
+            lib_ms = cuda_ms(lambda: flat.zero_().scatter_add_(0, keys, vals),
+                             iters=3, repeats=3)
+            del keys, vals, flat
+            b_ms, b_by = bound()
+            print(f"width: {name} N = {N} {ms:.6f} ms, one f32 scatter_add_ "
+                  f"{lib_ms:.6f} ms (ratio {ms / lib_ms:.3f}), bound "
+                  f"{b_ms:.6f} ms ({b_by}), plan {plan['kind']} "
+                  f"{plan['ng']} x {plan['fg']}, {plan['n_tiles']} tiles x "
+                  f"{plan['n_chunks']} chunks of {plan['rows_per_chunk']} "
+                  f"rows, {plan['threads']} threads [{card}]", flush=True)
+        del idx, pg, gg, hg
+    print(f"phase float widths: {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    return err
+
+
 def binned_bound_ms(bins, packed, depth, LL):
     """K7's bound from this call's inputs: the bins some row looks up (1 or
     2 B each), each packed slot some row visits (4 B), each leaf some row
@@ -1844,7 +1928,9 @@ def main() -> int:
 
     # one nvcc per source, all started together
     sources = {"heap_walk.cu": kernels.build_kernel,
-               "hist.cu": hist.build_kernel, "route.cu": route.build_kernel,
+               "hist.cu": hist.build_kernel,
+               "hist_float.cu": hist.build_float_kernel,
+               "route.cu": route.build_kernel,
                "hist_u8.cu": hist.build_u8_kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -1905,14 +1991,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_b_")
     try:
-        _c16, trainer, res16, _tps16 = phase_train(tmp, card, "bf16")
+        _c16, trainer, res16, tps16 = phase_train(tmp, card, "bf16")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"train: test AUC bf16 {res16.test_metrics['auc']:.6f} beside "
           f"int8 {res8.test_metrics['auc']:.6f}; logloss bf16 "
           f"{res16.test_loss:.6f}, int8 {res8.test_loss:.6f} [{card}]",
           flush=True)
+    print(f"train bf16: steady {tps16:.4f} trees/s beside "
+          f"{BF16_TPS_BEFORE} trees/s before the K1/K3 redesign (PERF.md "
+          f"section 5, the same cell and card) [{card}]", flush=True)
     ttimes.update(phase_float_timings(trainer, card))
+    errs["hist"] = max(errs["hist"], phase_float_widths(trainer, card))
     del trainer
     torch.cuda.empty_cache()
     phase_repro(card)
@@ -1930,8 +2020,8 @@ def main() -> int:
         ("hist_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:113"),
         ("hist_gather_q", "hist.cu", "ytklearn_tpu/gbdt/hist.py:434"),
         ("route", "route.cu", "ytklearn_tpu/gbdt/route.py:23"),
-        ("hist", "hist.cu", "ytklearn_tpu/gbdt/hist.py:51"),
-        ("hist_gather", "hist.cu", "ytklearn_tpu/gbdt/hist.py:371"),
+        ("hist", "hist_float.cu", "ytklearn_tpu/gbdt/hist.py:51"),
+        ("hist_gather", "hist_float.cu", "ytklearn_tpu/gbdt/hist.py:371"),
         ("hist_q_u8", "hist_u8.cu", "scripts/tune_hist_kernel.py:71"),
     ):
         ms, plain_ms, bound_ms, bound_by, lib_ms = ttimes[name]

@@ -385,3 +385,144 @@ def test_explicit_plans_on_the_card(gen):
         hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M,
                          plan={"fg": 28, "ng": 32, "rows_per_chunk": 4096})
     assert hist.hist_wave_q.launches == before
+
+
+# -- K1/K3 (csrc/hist_float.cu): both kinds at the edges of their inputs ------
+
+#: the largest tree whose node lookup fits beside a 1 x 1 tile at B = 256
+CAP_256 = 57_344
+
+
+def _float_case(gen, F, n, B, N, M, dtype="u8", root=False, dup=False):
+    bins, pos, _, _, ids = _inputs(gen, F, n, B, N, dtype, M)
+    if root:  # the root wave: every live row in its one slot
+        ids[0] = 3
+        pos = torch.where(pos < 0, pos, 3).to(torch.int32)
+    if dup:
+        ids = _dup_ids(gen, N, M)
+    g = torch.randn((n,), generator=gen, device="cuda") * 3
+    h = torch.rand((n,), generator=gen, device="cuda")
+    return bins, pos, g, h, ids
+
+
+def _k1_plans(N, F, B, M):
+    """float_plan's, then each kind explicitly."""
+    ng, fg = hist._float_tile(N, F, B, M)
+    tile = {"ng": ng, "fg": fg, "rows_per_chunk": 8192, "threads": 1024}
+    return [None, {"kind": "red", "n_chunks": 97, "threads": 256},
+            dict(tile, kind="tile"), dict(tile, kind="auto")]
+
+
+@pytest.mark.parametrize("case", [
+    "root", "dense", "ragged_unaligned", "ragged_views", "int32_b1024",
+    "dup_wave", "cap",
+])
+@pytest.mark.parametrize("use_bf16", [True, False])
+def test_k1_kinds_match_plain(gen, case, use_bf16):
+    """K1 at float_plan's plan and at each kind: counts exact, g/h at
+    tolerance. Unaligned views and a ragged n take the one-row path; the
+    auto kind picks the tile on the dense wave (about 3/4 of the rows in
+    it) and red on the sparse ones (64 of 509 nodes)."""
+    F, n, B, N, M, dt = {
+        "root": (28, 70004, 256, 1, 9, "u8"),
+        "dense": (28, 70004, 256, 32, 33, "u8"),
+        "ragged_unaligned": (28, 70001, 256, 64, 509, "u8"),
+        "ragged_views": (6, 50003, 64, 7, 31, "u8"),
+        "int32_b1024": (3, 20000, 1024, 100, 4096, "i32"),
+        "dup_wave": (28, 70004, 256, 64, 509, "u8"),
+        "cap": (28, 70004, 256, 64, CAP_256, "u8"),
+    }[case]
+    bins, pos, g, h, ids = _float_case(gen, F, n, B, N, M, dt,
+                                       root=case == "root",
+                                       dup=case == "dup_wave")
+    if case == "ragged_unaligned":
+        # a bins_t view whose rows start one byte past an aligned address
+        big = torch.empty(F * n + 1, dtype=torch.uint8, device="cuda")
+        big[1:] = bins.flatten()
+        bins = big[1:].view(F, n)
+        assert bins.data_ptr() % 16 and bins.is_contiguous()
+    if case == "ragged_views":
+        # pos/g/h views 4 bytes past a 16-byte boundary
+        pos, g, h = (torch.cat([t[:1], t])[1:] for t in (pos, g, h))
+        assert g.data_ptr() % 16
+    want = hist.hist_wave_plain(bins, pos, g, h, ids, B, M, use_bf16)
+    assert want[..., 2].sum() > 0
+    for plan in _k1_plans(N, F, B, M):
+        before = hist.hist_wave.launches
+        got = hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M,
+                             use_bf16=use_bf16, plan=plan)
+        assert hist.hist_wave.launches == before + 1
+        _close(got, want)
+        if case == "dup_wave":
+            assert torch.equal(got[1], got[N - 1]) and got[1].any()
+            assert not got[0].any()  # the pad
+
+
+@pytest.mark.parametrize("case", ["f7_rows", "int32_b1024", "dup_wave",
+                                  "cap", "dead_and_out_of_range", "empty"])
+@pytest.mark.parametrize("use_bf16", [True, False])
+def test_k3_matches_plain(gen, case, use_bf16):
+    """K3 over gathered rows: F = 7 rows (a row is not whole 32-bit words),
+    int32 bins, a duplicated id and pads, the lookup at its cap, dead slots
+    (pos_g = -1) and row ids past the rows (they add nothing), R = 0."""
+    F, n, B, N, M, dt, R = {
+        "f7_rows": (7, 30001, 256, 5, 21, "u8", 4099),
+        "int32_b1024": (3, 20000, 1024, 100, 4096, "i32", 5000),
+        "dup_wave": (28, 70004, 256, 64, 509, "u8", 8192),
+        "cap": (28, 70004, 256, 64, CAP_256, "u8", 8192),
+        "dead_and_out_of_range": (28, 70004, 256, 64, 509, "u8", 4099),
+        "empty": (28, 1000, 256, 64, 509, "u8", 0),
+    }[case]
+    bins, pos, g, h, ids = _float_case(gen, F, n, B, N, M, dt,
+                                       dup=case == "dup_wave")
+    rows = bins.t().contiguous()
+    idx = torch.randint(0, n, (R,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pg = pos[idx.long()].clone()
+    pg[R // 2:] = -1
+    gg, hg = g[idx.long()].contiguous(), h[idx.long()].contiguous()
+    idx_k = idx.clone()
+    if case == "dead_and_out_of_range":
+        idx_k[:64:2] = n + 5  # past the rows: adds nothing
+        idx_k[1:64:2] = -3
+    live = (idx_k >= 0) & (idx_k < n)
+    want = hist.hist_gather_plain(rows, idx, torch.where(live, pg, -1), gg,
+                                  hg, ids, B, M, use_bf16)
+    for plan in (None, {"kind": "red", "rows_per_chunk": 64,
+                        "threads": 128}):
+        before = hist.hist_wave_gather_mxu.launches
+        got = hist.hist_wave_gather(rows, idx_k, pg, gg, hg, ids, B,
+                                    mode="mxu", max_nodes=M,
+                                    use_bf16=use_bf16, plan=plan)
+        assert got.shape == (N, F, B, 3)
+        assert hist.hist_wave_gather_mxu.launches == before + (R > 0)
+        _close(got, want)
+        if case == "dup_wave":
+            assert torch.equal(got[1], got[N - 1]) and got[1].any()
+    if R == 0:
+        assert not got.any()
+    else:
+        assert want[..., 2].sum() > 0
+
+
+def test_float_kernels_raise_on_a_bad_launch(gen, monkeypatch):
+    """An oversized explicit plan is refused before any launch; one that
+    gets past the checker makes the launch fail on the card, and the
+    wrapper raises: neither returns the plain version's sums."""
+    F, n, B, N, M = 28, 70004, 256, 32, 65
+    bins, pos, g, h, ids = _float_case(gen, F, n, B, N, M)
+    before = hist.hist_wave.launches
+    big = {"kind": "tile", "fg": 28, "ng": 32, "rows_per_chunk": 4096,
+           "threads": 1024}
+    with pytest.raises(ValueError, match="shared memory"):
+        hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M, plan=big)
+    # past the checker: the kernel asks for more shared memory than a block
+    # may have, so its launch fails
+    monkeypatch.setattr(hist, "check_float_plan",
+                        lambda plan, *a, **k: dict(plan))
+    plan = dict(big, n_ftiles=1, n_tiles=1, n_chunks=-(-n // 4096),
+                smem=hist.tile_bytes(N, 32, 28, B, M))
+    assert plan["smem"] > hist.SMEM_MAX
+    with pytest.raises(RuntimeError, match="hist launch failed"):
+        hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M, plan=plan)
+    assert hist.hist_wave.launches == before

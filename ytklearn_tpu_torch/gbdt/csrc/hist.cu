@@ -1,27 +1,19 @@
-// GBDT histograms on Hopper: the full-scan kernels (K1 f32/bf16, K2 int8)
-// and the gather kernels over a compacted row list (K3 f32/bf16, K4 int8).
+// GBDT int8 histograms on Hopper: the full-scan kernel (K2) and the gather
+// kernel over a compacted row list (K4). The f32/bf16 kernels K1 and K3 are
+// in hist_float.cu.
 //
 // Replaces the JAX package's Pallas kernels
-//   K1  ytklearn_tpu/gbdt/hist.py::_hist_pallas          (pallas_call :93)
 //   K2  ytklearn_tpu/gbdt/hist.py::_hist_pallas_q        (pallas_call :158)
-//   K3  ytklearn_tpu/gbdt/hist.py::_hist_gather_pallas   (pallas_call :319)
 //   K4  ytklearn_tpu/gbdt/hist.py::_hist_gather_pallas_q (pallas_call :319)
-// All four compute, for each node slot s of the wave (node_ids[s] = a tree
+// Both compute, for each node slot s of the wave (node_ids[s] = a tree
 // node id, negative = pad), each feature f and bin b:
 //   out[s, f, b, :] = sum over rows r with pos[r] == node_ids[s] and
 //                     bin(f, r) == b of (g[r], h[r], 1)
 // so a duplicated id gets the same sums in each of its slots, as the
 // reference's one-hot P = (node_ids == pos) gives them.
-// In int8 mode (K2/K4) g/h are f32 integers in [-127, 127] (the caller's
-// quantized gradients) summed in int32: int32 addition is associative, so
-// any order and any atomics give the reference's exact sums. In f32 mode
-// (K1/K3) g/h are summed as they are in f32; in bf16 mode each g and h is
-// first rounded to bf16 (round to nearest even, as jnp.astype(bfloat16)
-// does, hist.py:74-76 and :408-409) and widened back, and the sums stay
-// f32. Float sums depend on their order, and the atomics below add in an
-// order that changes from run to run: K1/K3 agree with the reference (the
-// MXU's own order) and with themselves only to a tolerance. The count
-// channel is an f32 sum of ones, exact below 2^24 rows per bin.
+// g/h are f32 integers in [-127, 127] (the caller's quantized gradients)
+// summed in int32: int32 addition is associative, so any order and any
+// atomics give the reference's exact sums.
 //
 // The TPU kernels build node and bin one-hots and run them through the MXU;
 // a GPU needs none of that. Here every row adds its (g, h, 1) straight into
@@ -36,11 +28,9 @@
 //     and a block-wide flag: nothing per row or per counter.
 //   * privatisation: a block owns a tile of ng slots x fg features of the
 //     (N, F, B, 3) histogram in shared memory and accumulates with shared
-//     atomics (int32, or f32: native on sm_90), then flushes the nonzero
-//     counters to global memory with atomicAdd. At the root wave (N = 1)
-//     every row hits the same F x B bins: plain global atomics would
-//     contend there. A counter is 4 bytes in every mode, so one tile plan
-//     serves all four kernels.
+//     atomics (int32), then flushes the nonzero counters to global memory
+//     with atomicAdd. At the root wave (N = 1) every row hits the same
+//     F x B bins: plain global atomics would contend there.
 //   * grid: x = tile (fastest, so the blocks of one row chunk run together
 //     and share its pos/bins reads through L2), y = row chunk.
 // Bound: the bytes of bins, pos, g and h read once and the histogram
@@ -55,7 +45,6 @@
 // Built by ytklearn_tpu_torch/cuda_build.py with nvcc for sm_90a; bound by
 // ctypes from ytklearn_tpu_torch/gbdt/hist.py.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -64,8 +53,8 @@ namespace {
 
 constexpr int LOADS_IN_FLIGHT = 8;
 
-// value modes: the int8-quantized kernels (K2/K4) and the float ones (K1/K3)
-enum ValMode { VAL_Q = 0, VAL_F32 = 1, VAL_BF16 = 2 };
+// value modes: the int8-quantized kernels (K2/K4)
+enum ValMode { VAL_Q = 0 };
 
 template <int MODE> struct Acc { typedef float T; };
 template <> struct Acc<VAL_Q> { typedef int32_t T; };
@@ -74,8 +63,6 @@ template <int MODE>
 __device__ __forceinline__ typename Acc<MODE>::T to_acc(float v) {
   if constexpr (MODE == VAL_Q) {
     return (int32_t)v;  // f32 integers: truncation is exact
-  } else if constexpr (MODE == VAL_BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
   } else {
     return v;
   }
@@ -264,26 +251,6 @@ int ytk_hist_q(int bin_bytes, int gather, const void* bins,
                          hq, n, node_ids, N, M, F, B, fg, ng, n_ftiles,
                          n_tiles, n_chunks, rows_per_chunk, threads,
                          smem_bytes, out, stream);
-}
-
-// float kernels: as ytk_hist_q with f32 g/h; use_bf16 rounds each g and h
-// to bf16 first; gather 0 = K1, 1 = K3; out (N, F, B, 3) float.
-int ytk_hist(int bin_bytes, int gather, int use_bf16, const void* bins,
-             long long n_bins_rows, const int32_t* idx, const int32_t* pos,
-             const float* g, const float* h, long long n,
-             const int32_t* node_ids, int N, int M, int F, int B, int fg,
-             int ng, int n_ftiles, int n_tiles, int n_chunks,
-             long long rows_per_chunk, int threads, int smem_bytes,
-             float* out, void* stream) {
-  return use_bf16
-      ? dispatch<VAL_BF16>(bin_bytes, gather, bins, n_bins_rows, idx, pos, g,
-                           h, n, node_ids, N, M, F, B, fg, ng, n_ftiles,
-                           n_tiles, n_chunks, rows_per_chunk, threads,
-                           smem_bytes, out, stream)
-      : dispatch<VAL_F32>(bin_bytes, gather, bins, n_bins_rows, idx, pos, g,
-                          h, n, node_ids, N, M, F, B, fg, ng, n_ftiles,
-                          n_tiles, n_chunks, rows_per_chunk, threads,
-                          smem_bytes, out, stream);
 }
 
 const char* ytk_cuda_error_string(int err) {

@@ -2,22 +2,27 @@
 versions, and the row compaction of the leaf-partitioned waves.
 
   hist_wave         (N, F, B, 3) f32 histograms of f32 or bf16-rounded
-                    grads over all rows: kernel K1 (csrc/hist.cu), replacing
-                    ytklearn_tpu/gbdt/hist.py::_hist_pallas (:51)
+                    grads over all rows: kernel K1 (csrc/hist_float.cu),
+                    replacing ytklearn_tpu/gbdt/hist.py::_hist_pallas (:51)
   hist_wave_q       (N, F, B, 3) int32 histograms of int8-quantized grads
                     over all rows: kernel K2 (csrc/hist.cu), replacing
                     ytklearn_tpu/gbdt/hist.py::_hist_pallas_q (:113)
   hist_wave_gather  the same over a compacted row list, gathering each
                     row's bins in the kernel: mode "int8" runs K4 (int32
                     sums, replacing _hist_gather_pallas_q :434), mode "mxu"
-                    hist_wave_gather_mxu, kernel K3 (f32 sums, replacing
-                    _hist_gather_pallas :371)
+                    hist_wave_gather_mxu, kernel K3 (csrc/hist_float.cu, f32
+                    sums, replacing _hist_gather_pallas :371)
   hist_q_u8         K2's sums in the (F, 3N, B) layout of the reference's
                     tuning variant, computed as an int8 one-hot matrix
                     product on the tensor cores: kernel K8 (csrc/hist_u8.cu),
                     replacing scripts/tune_hist_kernel.py::hist_q_u8 (:71)
-  check_plan        an explicit launch shape of K1-K4, checked and completed
-                    (the tuning tools pass one; the engine never does)
+  tile_plan,        K2/K4's launch shape (csrc/hist.cu) and an explicit one,
+  check_plan        checked and completed (the tuning tools pass one; the
+                    engine never does)
+  float_plan,       the same for K1/K3 (csrc/hist_float.cu): a shared-memory
+  check_float_plan  tile, one vector atomic a row and feature, or K1's
+                    "auto", which picks one of the two on the device by the
+                    wave's share of the rows
   compact_indices   order-preserving mask -> static (R,) index buffer
   pad_inputs        host transpose + row padding of a bin matrix
 
@@ -71,6 +76,8 @@ _NOT_PORTED_TILE = (
 #: shared memory one block of K1-K4 may use: two blocks per SM
 SMEM_PER_BLOCK = 112 * 1024
 SMEM_MAX = 227 * 1024
+#: an SM's shared memory, of which each resident block takes 1 KB besides
+SMEM_PER_SM = 228 * 1024
 THREADS = 512
 
 
@@ -333,22 +340,180 @@ def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int
             "threads": threads}
 
 
+# ---------------------------------------------------------------------------
+# K1/K3 launch shapes
+# ---------------------------------------------------------------------------
+
+#: K1/K3's kinds of launch (csrc/hist_float.cu): "tile", a block's ng slots
+#: x fg features in shared memory (K1 only); "red", one 16-byte vector
+#: atomic a row and feature into an L2-resident scratch, every row read
+#: once; "auto" (K1 only), a tile plan whose launch counts the wave's rows
+#: on the device and runs the tile or, when the wave holds few rows, red
+FLOAT_KINDS = ("tile", "red", "auto")
+#: the auto kind runs red when the wave's rows x F x RED_WEIGHT < n x the
+#: tiles: a tile pass over n rows costs about what RED_WEIGHT vector
+#: atomics a row and feature do (fitted on the card, PERF.md section 6)
+RED_WEIGHT = 1.7
+#: K1's tile plan: chunks of about TILE_ROWS rows (at least a wave of
+#: resident blocks), rounded to whole waves
+TILE_ROWS = 131072
+#: the red kind: one wave of resident blocks, at least RED_MIN_ROWS rows a
+#: block
+RED_MIN_ROWS = 512
+_FLOAT_PLAN_KEYS = ("kind",) + _PLAN_KEYS
+
+
+def _float_tile(N: int, F: int, B: int, max_nodes: int) -> Tuple[int, int]:
+    """(ng, fg) of K1's tile beside the lookup in SMEM_MAX: as many of the
+    wave's slots as fit with one feature (a slot tile skips the rows of
+    the other slots; measured dearer than a feature tile), then as many
+    features as fit, the tiles evenly filled."""
+    budget = SMEM_MAX - _lut_bytes(max_nodes, N)
+    pair = B * 3 * 4
+    st = -(-N // max(1, budget // pair))
+    ng = -(-N // st)
+    ft = -(-F // max(1, min(F, budget // (ng * pair))))
+    return ng, -(-F // ft)
+
+
+def _red_shape(N: int, max_nodes: int, n: int, sm_count: int
+               ) -> Tuple[int, int, int, int]:
+    """(chunks, rows a chunk, threads, shared bytes) of a red launch: one
+    wave of resident blocks of THREADS threads, the lookup their only
+    shared memory."""
+    smem = _lut_bytes(max_nodes, N)
+    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024)))
+    chunks = max(1, min(per_sm * sm_count, -(-n // RED_MIN_ROWS), 65535))
+    rpc = _pad_to(max(1, -(-n // chunks)), 4)
+    return max(1, -(-n // rpc)), rpc, THREADS, smem
+
+
+@lru_cache(maxsize=512)
+def _float_plan(N: int, F: int, B: int, max_nodes: int, n: int,
+                sm_count: int, gather: bool) -> Tuple[Tuple[str, object], ...]:
+    check_tile_fits(B, max_nodes, N)
+    ng, fg = _float_tile(N, F, B, max_nodes)
+    n_ftiles = -(-F // fg)
+    n_tiles = n_ftiles * -(-N // ng)
+    if gather or n_tiles >= F * RED_WEIGHT:  # red at any share of rows
+        chunks, rpc, threads, smem = _red_shape(N, max_nodes, n, sm_count)
+        return tuple({
+            "kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
+            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
+            "threads": threads}.items())
+    smem = tile_bytes(N, ng, fg, B, max_nodes)
+    threads, per_sm = ((THREADS, 2) if smem <= SMEM_PER_BLOCK
+                       else (2 * THREADS, 1))
+    resident = per_sm * sm_count
+    chunks = max(1, min(max(-(-n // TILE_ROWS), -(-resident // n_tiles)),
+                        -(-n // RED_MIN_ROWS), 65535))
+    if chunks * n_tiles > resident:  # whole waves of blocks
+        chunks = max(1, chunks * n_tiles // resident * resident // n_tiles)
+    rpc = _pad_to(max(1, -(-n // chunks)), 4)
+    return tuple({
+        "kind": "tile" if n_tiles == 1 else "auto", "fg": fg, "ng": ng,
+        "n_ftiles": n_ftiles, "n_tiles": n_tiles,
+        "n_chunks": max(1, -(-n // rpc)), "rows_per_chunk": rpc,
+        "smem": smem, "threads": threads}.items())
+
+
+def float_plan(N: int, F: int, B: int, max_nodes: int, n: int,
+               sm_count: int, gather: bool = False) -> dict:
+    """Launch shape of K1 (gather False: n rows scanned) or K3 (gather
+    True: n = R gathered rows). A K1 tile: a block owns `ng` slots x `fg`
+    features of the histogram in shared memory over a chunk of
+    `rows_per_chunk` rows (about TILE_ROWS, whole waves of blocks); the
+    tile holds the whole wave where it can. "tile" when one tile holds the
+    whole histogram (every row read once); "auto" when it takes more: the
+    launch picks tile or red on the device by the wave's rows; "red" when
+    the tiles are so many that red wins whatever the wave holds, and for
+    every K3 launch: no tile, one vector atomic a row and feature, one wave
+    of blocks. Raises NotImplementedError as check_tile_fits."""
+    return dict(_float_plan(N, F, B, max_nodes, n, sm_count, bool(gather)))
+
+
+def check_float_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
+                     n: int, gather: bool = False) -> dict:
+    """An explicit launch shape of K1 (gather False) or K3 (gather True),
+    checked before any launch and completed: `kind` ("tile", the default
+    for K1, "auto", or "red", K3's only kind), `threads`, and
+    `rows_per_chunk` or `n_chunks`; a tile or auto plan names `fg` and
+    `ng` (check_plan checks it; auto's red launch takes float_plan's red
+    shape). Derived fields (n_ftiles, n_tiles, smem, the other chunk
+    field) may be given and must then be the ones the plan implies, so
+    float_plan's output passes; a red plan adds every slot and feature, so
+    its fg and ng, if given, are F and N and its tile counts 1. Raises
+    ValueError when the plan does not cover the (N, F, B) histogram over n
+    rows, or needs more shared memory than SMEM_MAX, or its threads do not
+    make a block; NotImplementedError as check_tile_fits past the lookup's
+    cap."""
+    check_tile_fits(B, max_nodes, N)
+    unknown = sorted(set(plan) - set(_FLOAT_PLAN_KEYS))
+    if unknown:
+        raise ValueError(f"plan: unknown fields {unknown}; a plan names "
+                         f"{', '.join(_FLOAT_PLAN_KEYS)}")
+    kind = plan.get("kind", "red" if gather else "tile")
+    kinds = ("red",) if gather else FLOAT_KINDS
+    if kind not in kinds:
+        raise ValueError(f"plan: kind must be one of {kinds}, got {kind!r}")
+    rest = {k: v for k, v in plan.items() if k != "kind"}
+    if kind != "red":
+        return dict(check_plan(rest, N, F, B, max_nodes, n), kind=kind)
+    for name, want in (("fg", F), ("ng", N), ("n_ftiles", 1),
+                       ("n_tiles", 1)):
+        if name in rest and int(rest[name]) != want:
+            raise ValueError(f"plan does not cover the histogram: a red "
+                             f"plan adds every slot and feature, so {name} "
+                             f"is {want}, not {rest[name]}")
+    threads = int(rest.get("threads", THREADS))
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"plan: threads ({threads}) must be a multiple of "
+                         "32 in [32, 1024]")
+    rpc, chunks = rest.get("rows_per_chunk"), rest.get("n_chunks")
+    if rpc is None and chunks is None:
+        raise ValueError("plan: give rows_per_chunk or n_chunks")
+    rpc = max(1, -(-n // max(1, int(chunks)))) if rpc is None else int(rpc)
+    if rpc < 1:
+        raise ValueError(f"plan: rows_per_chunk ({rpc}) must be >= 1")
+    chunks = max(1, -(-n // rpc)) if chunks is None else int(chunks)
+    if chunks * rpc < n:
+        raise ValueError(f"plan does not cover the rows: {chunks} chunks of "
+                         f"{rpc} rows < n = {n}")
+    if not 1 <= chunks <= 65535:
+        raise ValueError(f"plan: {chunks} chunks, not in [1, 65535]")
+    smem = _lut_bytes(max_nodes, N)
+    if int(rest.get("smem", smem)) < smem:
+        raise ValueError(f"plan: smem {rest['smem']} < the {smem} bytes of "
+                         "its node lookup")
+    return {"kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
+            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
+            "threads": threads}
+
+
 def _bind(lib) -> None:
     ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     tail = [ci, ci, ci, ci, ci, ci, ci, ci, ci, ll, ci, ci, vp, vp]
     lib.ytk_hist_q.restype = ctypes.c_int
     lib.ytk_hist_q.argtypes = [ci, ci, vp, ll, vp, vp, vp, vp, ll, vp] + tail
-    lib.ytk_hist.restype = ctypes.c_int
-    lib.ytk_hist.argtypes = [ci, ci, ci, vp, ll, vp, vp, vp, vp, ll, vp] + tail
 
 
-_LIBRARY = KernelLibrary(
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                 "hist.cu"),
-    _bind,
-)
-#: compile csrc/hist.cu now: {cmd, seconds, log}; raises on failure
+def _bind_float(lib) -> None:
+    ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    lib.ytk_hist_float.restype = ctypes.c_int
+    lib.ytk_hist_float.argtypes = (
+        [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, vp] + [ci] * 9
+        + [ll, ci, ci, ci, ll, ci, ci, ll, vp, vp, vp])
+
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_LIBRARY = KernelLibrary(os.path.join(_CSRC, "hist.cu"), _bind)
+#: compile csrc/hist.cu (K2, K4) now: {cmd, seconds, log}; raises on failure
 build_kernel = _LIBRARY.build
+_FLOAT_LIBRARY = KernelLibrary(os.path.join(_CSRC, "hist_float.cu"),
+                               _bind_float)
+#: compile csrc/hist_float.cu (K1, K3) now: {cmd, seconds, log}; raises on
+#: failure
+build_float_kernel = _FLOAT_LIBRARY.build
 _count_lock = threading.Lock()
 
 
@@ -367,48 +532,109 @@ def _check(name, t, dtypes, shape, dev):
         )
 
 
-def _launch(gather: bool, mode: str, bins, n_bins_rows: int, idx, pos, g,
-            h, node_ids, B: int, max_nodes: int,
-            plan: Optional[dict] = None) -> torch.Tensor:
-    """One launch of K1-K4. mode "q" (int32 sums: K2/K4), "f32" or "bf16"
-    (f32 sums: K1/K3); `plan` a launch shape from check_plan, else
-    tile_plan's."""
-    dev = pos.device
-    n = pos.shape[0]
-    F = bins.shape[0] if not gather else bins.shape[1]
-    N = node_ids.shape[0]
+def _check_inputs(gather: bool, grad: str, bins, idx, pos, g, h, node_ids
+                  ) -> None:
+    dev, n, N = pos.device, pos.shape[0], node_ids.shape[0]
     for name, t, dtypes, shape in (
         ("pos", pos, (torch.int32,), (n,)),
-        ("g" if mode != "q" else "gq", g, (torch.float32,), (n,)),
-        ("h" if mode != "q" else "hq", h, (torch.float32,), (n,)),
+        (grad, g, (torch.float32,), (n,)),
+        ("h" if grad == "g" else "hq", h, (torch.float32,), (n,)),
         ("node_ids", node_ids, (torch.int32,), (N,)),
         ("bins", bins, (torch.uint8, torch.int32), tuple(bins.shape)),
     ):
         _check(name, t, dtypes, shape, dev)
     if gather:
         _check("idx", idx, (torch.int32,), (n,), dev)
-    out = torch.zeros((N, F, B, 3), dtype=torch.int32 if mode == "q"
-                      else torch.float32, device=dev)
+
+
+def _launch(gather: bool, bins, n_bins_rows: int, idx, pos, gq, hq,
+            node_ids, B: int, max_nodes: int,
+            plan: Optional[dict] = None) -> torch.Tensor:
+    """One launch of K2 (full scan) or K4 (gather): int32 sums; `plan` a
+    launch shape from check_plan, else tile_plan's."""
+    dev = pos.device
+    n = pos.shape[0]
+    F = bins.shape[0] if not gather else bins.shape[1]
+    N = node_ids.shape[0]
+    _check_inputs(gather, "gq", bins, idx, pos, gq, hq, node_ids)
+    out = torch.zeros((N, F, B, 3), dtype=torch.int32, device=dev)
     if n == 0 or N == 0 or F == 0:
         return out
     if plan is None:
         plan = tile_plan(N, F, B, max_nodes, n, _sm_count(dev.index))
     lib = _LIBRARY.load()
-    head = [bins.element_size(), int(gather)]
-    if mode != "q":
-        head.append(int(mode == "bf16"))
-    args = head + [
-        bins.data_ptr(), n_bins_rows, idx.data_ptr() if gather else None,
-        pos.data_ptr(), g.data_ptr(), h.data_ptr(), n, node_ids.data_ptr(),
-        N, max_nodes, F, B, plan["fg"], plan["ng"], plan["n_ftiles"],
-        plan["n_tiles"], plan["n_chunks"], plan["rows_per_chunk"],
-        plan["threads"], plan["smem"], out.data_ptr(),
+    args = [
+        bins.element_size(), int(gather), bins.data_ptr(), n_bins_rows,
+        idx.data_ptr() if gather else None, pos.data_ptr(), gq.data_ptr(),
+        hq.data_ptr(), n, node_ids.data_ptr(), N, max_nodes, F, B,
+        plan["fg"], plan["ng"], plan["n_ftiles"], plan["n_tiles"],
+        plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
+        plan["smem"], out.data_ptr(),
     ]
     with torch.cuda.device(dev):
-        fn = lib.ytk_hist_q if mode == "q" else lib.ytk_hist
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    name = "hist_gather" if gather else "hist"
-    _LIBRARY.check(rc, name + "_q" if mode == "q" else name)
+        rc = lib.ytk_hist_q(*args, torch.cuda.current_stream().cuda_stream)
+    _LIBRARY.check(rc, "hist_gather_q" if gather else "hist_q")
+    return out
+
+
+def _aligned(t: torch.Tensor, m: int) -> bool:
+    return t.data_ptr() % m == 0
+
+
+def _launch_float(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos,
+                  g, h, node_ids, B: int, max_nodes: int, use_bf16: bool,
+                  plan: Optional[dict] = None) -> torch.Tensor:
+    """One launch of K1 (full scan) or K3 (gather), counted on `wrapper`:
+    f32 sums of g/h (rounded to bf16 first when use_bf16); `plan` from
+    check_float_plan, else float_plan's. Rows go four at a time when
+    pos/g/h (and idx) are 16-byte aligned and the chunks are multiples of
+    four rows, and, for the full scan, every feature's row of bins starts
+    on a four-row boundary; otherwise one at a time."""
+    dev = pos.device
+    n = pos.shape[0]
+    F = bins.shape[1] if gather else bins.shape[0]
+    N = node_ids.shape[0]
+    _check_inputs(gather, "g", bins, idx, pos, g, h, node_ids)
+    if n == 0 or N == 0 or F == 0:
+        return torch.zeros((N, F, B, 3), dtype=torch.float32, device=dev)
+    if plan is None:
+        plan = float_plan(N, F, B, max_nodes, n, _sm_count(dev.index),
+                          gather)
+    eb = bins.element_size()
+    vec = plan["rows_per_chunk"] % 4 == 0 and all(
+        _aligned(t, 16) for t in ((pos, g, h, idx) if gather
+                                  else (pos, g, h)))
+    if not gather:
+        vec = vec and n % 4 == 0 and _aligned(bins, 4 * eb)
+    words = gather and eb == 1 and F % 4 == 0 and _aligned(bins, 4)
+    kind = plan["kind"]
+    # the kernels' scratch, zeroed by the launcher: (g, h, count, unused) a
+    # bin, 16-byte aligned, then the auto kind's count of the wave's rows
+    scratch = torch.empty(N * F * B * 4 + 4, dtype=torch.float32, device=dev)
+    out = torch.empty((N, F, B, 3), dtype=torch.float32, device=dev)
+    red_shape = _red_shape(N, max_nodes, n, _sm_count(dev.index))
+    # auto: red below this many rows of the wave (see RED_WEIGHT)
+    red_rows = int(n * plan["n_tiles"] // (F * RED_WEIGHT))
+    lib = _FLOAT_LIBRARY.load()
+    args = [
+        FLOAT_KINDS.index(kind), eb, int(gather), int(vec), int(use_bf16),
+        int(words), bins.data_ptr(), n_bins_rows,
+        idx.data_ptr() if gather else None, pos.data_ptr(), g.data_ptr(),
+        h.data_ptr(), n, node_ids.data_ptr(), N, max_nodes, F, B,
+        plan["fg"], plan["ng"], plan["n_ftiles"], plan["n_tiles"],
+        plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
+        plan["smem"], *red_shape, red_rows, out.data_ptr(),
+        scratch.data_ptr(),
+    ]
+    if dev.index == torch.cuda.current_device():
+        rc = lib.ytk_hist_float(*args,
+                                torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.ytk_hist_float(*args,
+                                    torch.cuda.current_stream().cuda_stream)
+    _FLOAT_LIBRARY.check(rc, "hist_gather" if gather else "hist")
+    _count(wrapper)
     return out
 
 
@@ -436,11 +662,12 @@ def _count(wrapper) -> None:
         wrapper.launches += 1
 
 
-def _plan_of(plan, node_ids, F: int, B: int, max_nodes: int, n: int):
+def _plan_of(plan, node_ids, F: int, B: int, max_nodes: int, n: int,
+             check=check_plan, **kw):
     """An explicit plan checked before any launch (on the CPU too), or
-    None for tile_plan's."""
-    return None if plan is None else check_plan(
-        plan, node_ids.shape[0], F, B, max_nodes, n)
+    None for the planner's."""
+    return None if plan is None else check(
+        plan, node_ids.shape[0], F, B, max_nodes, n, **kw)
 
 
 def hist_wave(bins_t, pos, g, h, node_ids, B: int, *, max_nodes: int,
@@ -454,7 +681,8 @@ def hist_wave(bins_t, pos, g, h, node_ids, B: int, *, max_nodes: int,
                              when use_bf16 (the sums stay f32)
     node_ids (N,) i32      — node ids to histogram (-2 pads)
     max_nodes              — the tree's node capacity: every id < it
-    plan                   — a launch shape for check_plan (tuning tools)
+    plan                   — a launch shape for check_float_plan (tuning
+                             tools)
     On the CPU: the plain version; on CUDA: kernel K1."""
     if bins_t.dim() != 2:
         raise ValueError(f"hist_wave: bins_t must be (F, n), got "
@@ -462,14 +690,12 @@ def hist_wave(bins_t, pos, g, h, node_ids, B: int, *, max_nodes: int,
     _check_lengths("hist_wave", bins_t.shape[1], B, max_nodes, pos=pos, g=g,
                    h=h)
     plan = _plan_of(plan, node_ids, bins_t.shape[0], B, max_nodes,
-                    bins_t.shape[1])
+                    bins_t.shape[1], check_float_plan)
     if pos.device.type == "cpu":
         return hist_wave_plain(bins_t, pos, g, h, node_ids, B, max_nodes,
                                use_bf16)
-    out = _launch(False, _val_mode(use_bf16), bins_t, bins_t.shape[1], None,
-                  pos, g, h, node_ids, B, max_nodes, plan)
-    _count(hist_wave)
-    return out
+    return _launch_float(hist_wave, False, bins_t, bins_t.shape[1], None,
+                         pos, g, h, node_ids, B, max_nodes, use_bf16, plan)
 
 
 hist_wave.launches = 0
@@ -495,7 +721,7 @@ def hist_wave_q(bins_t, pos, gq, hq, node_ids, B: int, *, max_nodes: int,
                     bins_t.shape[1])
     if pos.device.type == "cpu":
         return hist_wave_q_plain(bins_t, pos, gq, hq, node_ids, B, max_nodes)
-    out = _launch(False, "q", bins_t, bins_t.shape[1], None, pos, gq, hq,
+    out = _launch(False, bins_t, bins_t.shape[1], None, pos, gq, hq,
                   node_ids, B, max_nodes, plan)
     _count(hist_wave_q)
     return out
@@ -513,7 +739,8 @@ def hist_wave_gather(rows, idx, pos_g, g, h, node_ids, B: int,
     i32 node per gathered row (-1 = dead slot), g/h (R,) f32 per gathered
     row. mode "int8": g/h quantized, int32 sums (kernel K4 on CUDA); mode
     "mxu": hist_wave_gather_mxu (K3). `plan`: a launch shape for
-    check_plan. On the CPU: the plain versions."""
+    check_plan (int8) or check_float_plan (mxu). On the CPU: the plain
+    versions."""
     if mode == "mxu":
         return hist_wave_gather_mxu(rows, idx, pos_g, g, h, node_ids, B,
                                     max_nodes=max_nodes, use_bf16=use_bf16,
@@ -527,8 +754,8 @@ def hist_wave_gather(rows, idx, pos_g, g, h, node_ids, B: int,
     if pos_g.device.type == "cpu":
         return hist_gather_q_plain(rows, idx, pos_g, g, h, node_ids, B,
                                    max_nodes)
-    out = _launch(True, "q", rows, rows.shape[0], idx, pos_g, g, h,
-                  node_ids, B, max_nodes, plan)
+    out = _launch(True, rows, rows.shape[0], idx, pos_g, g, h, node_ids, B,
+                  max_nodes, plan)
     _count(hist_wave_gather)
     return out
 
@@ -541,18 +768,18 @@ def hist_wave_gather_mxu(rows, idx, pos_g, g, h, node_ids, B: int, *,
                          plan: Optional[dict] = None) -> torch.Tensor:
     """(N, F, B, 3) f32 partial histograms over a compacted row subset
     (hist_wave_gather's inputs) with raw f32 g/h, rounded to bf16 per row
-    when use_bf16. On the CPU: the plain version; on CUDA: kernel K3."""
+    when use_bf16; `plan` a launch shape for check_float_plan. On the CPU:
+    the plain version; on CUDA: kernel K3."""
     _check_gather("hist_wave_gather_mxu", rows, idx, pos_g, g, h, B,
                   max_nodes)
     plan = _plan_of(plan, node_ids, rows.shape[1], B, max_nodes,
-                    idx.shape[0])
+                    idx.shape[0], check_float_plan, gather=True)
     if pos_g.device.type == "cpu":
         return hist_gather_plain(rows, idx, pos_g, g, h, node_ids, B,
                                  max_nodes, use_bf16)
-    out = _launch(True, _val_mode(use_bf16), rows, rows.shape[0], idx, pos_g,
-                  g, h, node_ids, B, max_nodes, plan)
-    _count(hist_wave_gather_mxu)
-    return out
+    return _launch_float(hist_wave_gather_mxu, True, rows, rows.shape[0],
+                         idx, pos_g, g, h, node_ids, B, max_nodes, use_bf16,
+                         plan)
 
 
 hist_wave_gather_mxu.launches = 0

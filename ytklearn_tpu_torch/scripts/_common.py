@@ -85,9 +85,9 @@ def fmt_ms(ms: Optional[float]) -> str:
     return NOT_MEASURED if ms is None else f"{ms:.6f} ms"
 
 
-def k1k4_plans(fg: int, rows: int, N: int, F: int, B: int, M: int,
+def k2k4_plans(fg: int, rows: int, N: int, F: int, B: int, M: int,
                n: int) -> List[Tuple[Optional[dict], str, str]]:
-    """K1-K4 launch shapes of `fg` features a tile and `rows` rows a chunk,
+    """K2/K4 launch shapes of `fg` features a tile and `rows` rows a chunk,
     as (plan, label, why-not): the whole wave in one tile (ng = N, the
     reference's tile); when that does not fit shared memory, it with plan
     None and the bytes it would need, then the most slots that fit, spread
@@ -105,7 +105,7 @@ def k1k4_plans(fg: int, rows: int, N: int, F: int, B: int, M: int,
         return [(plan, _label(plan), "")]
     out = [(None, _label(whole), f"its tile needs {need} bytes of shared "
             f"memory, more than {hist.SMEM_MAX}")]
-    fit =[ng for ng in range(N - 1, 0, -1)
+    fit = [ng for ng in range(N - 1, 0, -1)
            if hist.tile_bytes(N, ng, fg, B, M) <= hist.SMEM_MAX]
     if fit:
         ng = -(-N // -(-N // fit[0]))  # the same tile count, evenly filled
@@ -114,6 +114,45 @@ def k1k4_plans(fg: int, rows: int, N: int, F: int, B: int, M: int,
     return out
 
 
+def k1_plans(fgs, chunk_rows, N: int, F: int, B: int, M: int, n: int,
+             sm_count: int) -> List[Tuple[Optional[dict], str, str]]:
+    """K1 launch shapes through check_float_plan, as (plan, label,
+    why-not): the red kind at 512 and 1024 threads (one wave of blocks),
+    then a tile of each of `fgs` features holding the most slots that fit
+    (spread evenly over the slot tiles) at each of `chunk_rows` rows a
+    chunk; a tile of fg features that does not fit even one slot is listed
+    with plan None."""
+    out = []
+    for threads in (hist.THREADS, 2 * hist.THREADS):
+        chunks = max(1, min(65535, sm_count * (2048 // threads)))
+        plan = hist.check_float_plan(
+            {"kind": "red", "threads": threads, "n_chunks": chunks}, N, F,
+            B, M, n)
+        out.append((plan, _label(plan), ""))
+    for fg in fgs:
+        fg = min(fg, F)
+        fit = [ng for ng in range(N, 0, -1)
+               if hist.tile_bytes(N, ng, fg, B, M) <= hist.SMEM_MAX]
+        if not fit:
+            need = hist.tile_bytes(N, 1, fg, B, M)
+            out.append((None, f"kind=tile fg={fg} ng=1", f"its tile needs "
+                        f"{need} bytes of shared memory, more than "
+                        f"{hist.SMEM_MAX}"))
+            continue
+        ng = -(-N // -(-N // fit[0]))  # the same tile count, evenly filled
+        big = hist.tile_bytes(N, ng, fg, B, M) > hist.SMEM_PER_BLOCK
+        for rows in chunk_rows:
+            plan = hist.check_float_plan(
+                {"kind": "tile", "fg": fg, "ng": ng, "rows_per_chunk": rows,
+                 "threads": 2 * hist.THREADS if big else hist.THREADS},
+                N, F, B, M, n)
+            out.append((plan, _label(plan), ""))
+    return out
+
+
 def _label(plan: dict) -> str:
-    return (f"fg={plan['fg']} ng={plan['ng']} threads={plan['threads']} "
+    head = f"kind={plan['kind']} " if "kind" in plan else ""
+    tile = "" if plan.get("kind") == "red" else \
+        f"fg={plan['fg']} ng={plan['ng']} "
+    return (f"{head}{tile}threads={plan['threads']} "
             f"rows/chunk={plan['rows_per_chunk']}")

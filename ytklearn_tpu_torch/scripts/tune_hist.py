@@ -3,11 +3,11 @@ counterpart of scripts/tune_hist.py and scripts/micro_hist_chain.py.
 
 For each wave of N in {16, 32, 42, 64} slots, positions are drawn over the
 wave's N nodes (tune_hist.py: every row is in the wave) and over 509 nodes
-(micro_hist_chain.py: most rows are skipped). K1 runs at tile_plan's
-default plan and at fg features a tile in {1, 2, 4, 7, 14, 28} x two chunk
-lengths (the whole wave a tile, or the most slots that fit). Every
-variant's counts are held equal to the default plan's (exact); exit 1 when
-one is not.
+(micro_hist_chain.py: most rows are skipped). K1 runs at float_plan's
+default plan, at the red kind (512 and 1024 threads), and at tiles of fg
+features in {1, 2, 4, 7, 14, 28} (the most slots that fit) x two chunk
+lengths, every plan through check_float_plan. Every variant's counts are
+held equal to the default plan's (exact); exit 1 when one is not.
 
     python -m ytklearn_tpu_torch.scripts.tune_hist [--rows N] [--chain K]
         [--repeats R] [--device cpu]
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..gbdt import hist
-from ._common import Timer, fmt_ms, k1k4_plans, parser, setup
+from ._common import Timer, fmt_ms, k1_plans, parser, setup
 
 F, B = 28, 256
 ROWS = 10_500_000
@@ -51,6 +51,8 @@ def main(argv=None) -> int:
     g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
     h = torch.from_numpy(np.abs(rng.randn(n)).astype(np.float32)).to(dev)
     timer = Timer(dev, args.repeats)
+    sm = 1 if dev.type == "cpu" else \
+        torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"tune_hist: n={n} F={F} B={B} u8 bins, K1 bf16, {args.chain} "
           f"chained launches a timing, device {dev} [{card}]", flush=True)
     ok = True
@@ -68,22 +70,19 @@ def main(argv=None) -> int:
 
             want = run()[..., 2]
             ms = timer.ms(run, chain=args.chain)
-            print(f"{head} default plan (tile_plan){'':24s} {fmt_ms(ms)}/pass "
-                  f"[{card}]", flush=True)
-            for rows in CHUNK_ROWS:
-                for fg in FGS:
-                    for plan, label, why in k1k4_plans(fg, rows, N, F, B, M,
-                                                       n):
-                        if plan is None:
-                            print(f"{head} {label:50s} does not fit: {why}; "
-                                  f"not launched [{card}]", flush=True)
-                            continue
-                        same = torch.equal(run(plan)[..., 2], want)
-                        ok &= same
-                        ms = timer.ms(lambda: run(plan), chain=args.chain)
-                        print(f"{head} {label:50s} {fmt_ms(ms)}/pass, counts "
-                              f"equal the default plan's {same} [{card}]",
-                              flush=True)
+            print(f"{head} default plan (float_plan){'':23s} "
+                  f"{fmt_ms(ms)}/pass [{card}]", flush=True)
+            for plan, label, why in k1_plans(FGS, CHUNK_ROWS, N, F, B, M, n,
+                                             sm):
+                if plan is None:
+                    print(f"{head} {label:56s} does not fit: {why}; not "
+                          f"launched [{card}]", flush=True)
+                    continue
+                same = torch.equal(run(plan)[..., 2], want)
+                ok &= same
+                ms = timer.ms(lambda: run(plan), chain=args.chain)
+                print(f"{head} {label:56s} {fmt_ms(ms)}/pass, counts equal "
+                      f"the default plan's {same} [{card}]", flush=True)
     return 0 if ok else 1
 
 

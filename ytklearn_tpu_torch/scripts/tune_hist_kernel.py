@@ -6,7 +6,8 @@ a 32-slot wave, seeded numpy data as the reference draws it.
     {1, 2, 4, 7, 14, 28} x two chunk lengths, each with the whole wave in a
     tile (the reference's tile) or, when that does not fit, the most slots
     that fit; then tile_plan's default;
-  * K1 (hist_wave, bf16) at the default plan and at two others;
+  * K1 (hist_wave, bf16) at float_plan's default plan, the red kind and
+    two tiles (2 and 7 features);
   * K8 (hist_q_u8, the int8 one-hot product on the tensor cores) across
     fg in {1, 2, 4, 7} x two row-chunk lengths, and its default;
   * the reference's spot check: K8 equals K2 (permuted to K8's layout),
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..gbdt import hist
-from ._common import Timer, fmt_ms, k1k4_plans, parser, setup
+from ._common import Timer, fmt_ms, k1_plans, k2k4_plans, parser, setup
 
 F, B, N = 28, 256, 32
 ROWS = 1280 * 8192
@@ -75,7 +76,7 @@ def main(argv=None) -> int:
     # --- K2 across tile plans ---------------------------------------------
     for rows in CHUNK_ROWS:
         for fg in K2_FG:
-            for plan, label, why in k1k4_plans(fg, rows, N, F, B, M, n):
+            for plan, label, why in k2k4_plans(fg, rows, N, F, B, M, n):
                 if plan is None:
                     print(f"{'K2 int8 ' + label:60s} does not fit: {why}; "
                           f"not launched [{card}]", flush=True)
@@ -86,11 +87,13 @@ def main(argv=None) -> int:
     line("K2 int8 default plan (tile_plan)", timer.ms(
         lambda: hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M)))
 
-    # --- K1 in bf16: the default plan and two others ----------------------
-    line("K1 bf16 default plan (tile_plan)", timer.ms(
+    # --- K1 in bf16: the default plan, the red kind and two tiles -------
+    line("K1 bf16 default plan (float_plan)", timer.ms(
         lambda: hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M)))
-    for fg in (2, 7):
-        plan, label, _ = k1k4_plans(fg, CHUNK_ROWS[-1], N, F, B, M, n)[-1]
+    sm = 1 if dev.type == "cpu" else \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = k1_plans((2, 7), CHUNK_ROWS[:1], N, F, B, M, n, sm)
+    for plan, label, _ in [plans[0]] + plans[2:]:
         line("K1 bf16 " + label, timer.ms(
             lambda: hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M,
                                    plan=plan)))
@@ -98,9 +101,7 @@ def main(argv=None) -> int:
     # --- K8: the int8 one-hot product, fg x rows per block ----------------
     shapes = [(fg, rows) for rows in K8_ROWS for fg in K8_FG] + [(None, None)]
     for fg, rows in shapes:
-        plan = hist.u8_plan(N, F, B, n, 1 if dev.type == "cpu" else
-                            torch.cuda.get_device_properties(dev)
-                            .multi_processor_count, fg, rows)
+        plan = hist.u8_plan(N, F, B, n, sm, fg, rows)
         label = (f"K8 u8-OH fg={plan['fg']} rows/block="
                  f"{plan['rows_per_block']} threads={plan['threads']} grid="
                  f"{plan['grid'][0]}x{plan['grid'][1]}"
