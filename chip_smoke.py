@@ -6,8 +6,9 @@
 Drives the port's paths on the card, as a user would: GBDT online serving
 on the fused rung (slice 1), int8 GBDT training (slice 2), `cli train`
 with the bf16 histograms and the binned serving rung (slice 3), the
-histogram tuning tools with K8, the int8 one-hot histogram (slice 4), and
-the redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5).
+histogram tuning tools with K8, the int8 one-hot histogram (slice 4), the
+redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5), and
+the redesigned int8 histograms K2 and K4 of int8 training (slice 6).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -46,14 +47,22 @@ the redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5).
      _gen_gbdt) at full width with bench.py's GBDT configuration on cuda
      (TRAIN_ROWS rows, TRAIN_ROUNDS rounds, hist_precision="int8"), counts
      the kernels' launches over that run only, asserts the train loss
-     falls below 0.65, and prints steady trees/s, test AUC and logloss,
-     launches and host syncs per tree; then traces two rounds of a second
+     falls below 0.65 and the test AUC and logloss to the digit
+     (INT8_TEST_METRICS), and prints steady trees/s, launches and host
+     syncs per tree; then traces two rounds of a second
      run with torch.profiler for the device's idle share;
   8. trains one small l2 configuration on cuda and on the CPU and requires
      the trees' integer fields to be equal;
   9. times each training kernel at the full-width shapes (CUDA events,
      median of repeats) beside its bound, its plain version and one
-     scatter_add_ call;
+     scatter_add_ call; then the int8 width phase of slice 6: K2 over every
+     bench row and K4 at its first fused rung (R = n/64) on waves of N = 1,
+     2, 8, 16, 32, 42 and 64 slots, each held against its plain version
+     with torch.equal and then timed beside one int32 scatter_add_ and its
+     bound, with the plan q_plan took; and the saturating cases: every
+     bench row in one node and bin at gq = -127, then +127, and hq = 127,
+     K2 at the root wave and a 64-slot wave (q_plan's plan, one chunk,
+     red) and K4 over every row gathered, each equal to the known sums;
  10. writes 2^20 + 2^17 Higgs-shaped text lines and runs
      `python -m ytklearn_tpu_torch.cli train gbdt experiment/higgs/
      local_gbdt.conf` with --set overrides (paths, 20 rounds, max_depth 8;
@@ -1055,6 +1064,169 @@ def phase_train_timings(trainer, card):
         route_bound_ms(dd_bins, pos, valid, nid, feat), iters=20)
     return out
 
+
+# -- slice 6: K2 and K4 redesigned (csrc/hist.cu) ----------------------------
+
+#: the waves of the int8 width phase (the float one's)
+Q_WAVES = (1, 2, 8, 16, 32, 42, 64)
+#: the int8 bench run's test AUC and logloss, to the digit: int8 sums are
+#: exact and the split scans run in a fixed order, so a histogram kernel
+#: that moves them is wrong
+INT8_TEST_METRICS = ("0.949614", "0.308781")
+
+
+def q_err(got, want, what, name, card):
+    """Hold an int8 histogram exactly to its plain version; print and
+    return the largest absolute difference (0 when equal)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got.long() - want.long()).abs().max()) if got.numel() \
+        else 0.0
+    ok = torch.equal(got, want)
+    print(f"kernel check {name} {what}, tolerance exact (torch.equal): {ok}, "
+          f"max_abs_err {err} [{card}]", flush=True)
+    check(ok, f"{name} disagrees with its plain version {what}")
+    return err
+
+
+def plan_text(plan):
+    return (f"{plan['kind']} {plan['ng']} x {plan['fg']}, {plan['n_tiles']} "
+            f"tiles x {plan['n_chunks']} chunks of {plan['rows_per_chunk']} "
+            f"rows, {plan['threads']} threads")
+
+
+def phase_q_widths(trainer, card):
+    """K2 over every bench row and K4 at its first fused rung (R = n/64), on
+    waves of Q_WAVES slots (positions over 2N+1 nodes, the wave the odd
+    ids, quantized grads at +-127), each held exactly to its plain version
+    first, then timed beside one int32 scatter_add_ of the same sums and
+    its bound, with the plan q_plan took. Returns the largest error."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    dd_bins = trainer.dev_inputs.bins_t
+    F, n = dd_bins.shape
+    B = trainer.grow_spec.B
+    rows = dd_bins.t().contiguous()
+    R = -(-(n // 64) // 1024) * 1024
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gq = torch.randint(-127, 128, (n,), generator=gen, device="cuda").float()
+    hq = torch.randint(0, 128, (n,), generator=gen, device="cuda").float()
+    err = 0.0
+    for N in Q_WAVES:
+        M = 2 * N + 1
+        pos = torch.randint(0, M, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        ids = torch.arange(1, M, 2, device="cuda", dtype=torch.int32)
+        idx, pg, gg, hg = compacted(pos, gq, hq, ids, R, 0.05, gen)
+        for name, fn, plain, keys_of, bound, plan, iters in (
+            ("hist_q", lambda: hist.hist_wave_q(dd_bins, pos, gq, hq, ids, B,
+                                                max_nodes=M),
+             lambda: hist.hist_wave_q_plain(dd_bins, pos, gq, hq, ids, B, M),
+             lambda: flat_keys(lambda f, r: dd_bins[f, r], F, B, pos, gq, hq,
+                               ids, M),
+             lambda: hist_bound_ms(dd_bins, False, None, pos, ids, M, B),
+             hist.q_plan(N, F, B, M, n, sm), 10),
+            ("hist_gather_q",
+             lambda: hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, B,
+                                           max_nodes=M),
+             lambda: hist.hist_gather_q_plain(rows, idx, pg, gg, hg, ids, B,
+                                              M),
+             lambda: flat_keys(lambda f, r: rows[idx[r].long(), f], F, B,
+                               pg, gg, hg, ids, M),
+             lambda: hist_bound_ms(rows, True, idx, pg, ids, M, B),
+             hist.q_plan(N, F, B, M, R, sm, True), 50),
+        ):
+            what = (f"at the int8 width phase's N = {N} "
+                    f"({'n' if name == 'hist_q' else 'R'} = "
+                    f"{n if name == 'hist_q' else R})")
+            err = max(err, q_err(fn(), plain(), what, name, card))
+            ms = cuda_ms(fn, iters=iters)
+            keys, vals = keys_of()
+            flat = torch.zeros(N * F * B * 3, dtype=torch.int32,
+                               device="cuda")
+            lib_ms = cuda_ms(lambda: flat.zero_().scatter_add_(0, keys, vals),
+                             iters=3, repeats=3)
+            del keys, vals, flat
+            b_ms, b_by = bound()
+            print(f"width q: {name} N = {N} {ms:.6f} ms, one int32 "
+                  f"scatter_add_ {lib_ms:.6f} ms (ratio {ms / lib_ms:.3f}), "
+                  f"bound {b_ms:.6f} ms ({b_by}), plan {plan_text(plan)} "
+                  f"[{card}]", flush=True)
+        del idx, pg, gg, hg
+    print(f"phase q widths: {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    return err
+
+
+def phase_q_saturating(n, card):
+    """The largest sums a lane of K2/K4 takes: every one of n rows in one
+    node and one bin at gq = -127, then +127, and hq = 127 (|sum| = 127 n,
+    within int32 at the bench's rows). K2 in the root wave and in a
+    64-slot wave at q_plan's plan, at the longest chunk (one chunk: one
+    block's tile takes every row) and at red; K4 over all n rows gathered,
+    at its plan and its longest chunk. Each exactly against the known sums
+    and the plain version."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    t0 = time.perf_counter()
+    F, B = N_FEATURES, 256
+    check(127 * n < 2 ** 31, f"{n} rows at 127 would wrap int32")
+    bins = torch.full((F, n), 17, dtype=torch.uint8, device="cuda")
+    pos = torch.full((n,), 5, dtype=torch.int32, device="cuda")
+    h = torch.full((n,), 127.0, device="cuda")
+    root = torch.tensor([5], dtype=torch.int32, device="cuda")
+    wave = torch.arange(64, dtype=torch.int32, device="cuda")
+    rows = bins.t().contiguous()
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    err = 0.0
+    for gv in (-127.0, 127.0):
+        g = torch.full((n,), gv, device="cuda")
+        sums = torch.tensor([int(gv) * n, 127 * n, n], dtype=torch.int32,
+                            device="cuda")
+        cases = []
+        for ids in (root, wave):
+            N = ids.shape[0]
+            ng, fg = hist._q_tile(N, F, B)
+            tile = {"ng": ng, "fg": fg, "threads": 1024}
+            for plan in (None, dict(tile, kind="tile", n_chunks=1),
+                         {"kind": "red", "n_chunks": 528}):
+                cases.append(("hist_q", ids, plan, lambda ids=ids, p=plan:
+                              hist.hist_wave_q(bins, pos, g, h, ids, B,
+                                               max_nodes=64, plan=p)))
+        for plan in (None, {"kind": "tile", "ng": 1, "fg": F,
+                            "n_chunks": 1}):
+            cases.append(("hist_gather_q", root, plan, lambda p=plan:
+                          hist.hist_wave_gather(rows, idx, pos, g, h, root,
+                                                B, max_nodes=64, plan=p)))
+        for name, ids, plan, fn in cases:
+            N = ids.shape[0]
+            want = torch.zeros((N, F, B, 3), dtype=torch.int32,
+                               device="cuda")
+            want[0 if N == 1 else 5, :, 17] = sums
+            got = fn()
+            shown = ("q_plan's " + plan_text(hist.q_plan(
+                N, F, B, 64, n, torch.cuda.get_device_properties(0)
+                .multi_processor_count, name == "hist_gather_q"))
+                if plan is None else str(plan))
+            what = (f"saturating: {n} rows in one node and bin, gq = "
+                    f"{gv:+.0f}, hq = 127, N = {N}, plan {shown}")
+            err = max(err, q_err(got, want, what, name, card))
+            if name == "hist_q" and plan is None:
+                check(torch.equal(got, hist.hist_wave_q_plain(
+                    bins, pos, g, h, ids, B, 64)),
+                      f"hist_q's plain version disagrees at {what}")
+        del g
+    print(f"phase q saturating: {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    return err
+
 # -- slice 3: cli train, the f32/bf16 histograms, the binned rung -------------
 
 #: the text files `cli train` reads on the card (2^20 train, 2^17 test
@@ -1974,8 +2146,19 @@ def main() -> int:
         counts, trainer, res8, _tps = phase_train(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    got = (f"{res8.test_metrics['auc']:.6f}", f"{res8.test_loss:.6f}")
+    print(f"train int8: test AUC and logloss {got}, expected "
+          f"{INT8_TEST_METRICS} [{card}]", flush=True)
+    check(got == INT8_TEST_METRICS,
+          f"int8 test AUC/logloss {got} moved from {INT8_TEST_METRICS}")
     ttimes = phase_train_timings(trainer, card)
+    q_width_err = phase_q_widths(trainer, card)
+    n_bench = trainer.dev_inputs.bins_t.shape[1]
     del trainer
+    torch.cuda.empty_cache()
+    q_sat_err = phase_q_saturating(n_bench, card)
+    errs["hist_q"] = max(errs["hist_q"], q_width_err, q_sat_err)
+    errs["hist_gather_q"] = max(errs["hist_gather_q"], q_width_err, q_sat_err)
     torch.cuda.empty_cache()
     phase_train_profile(card)
     phase_cpu_card_compare(card)

@@ -526,3 +526,191 @@ def test_float_kernels_raise_on_a_bad_launch(gen, monkeypatch):
     with pytest.raises(RuntimeError, match="hist launch failed"):
         hist.hist_wave(bins, pos, g, h, ids, B, max_nodes=M, plan=plan)
     assert hist.hist_wave.launches == before
+
+
+# -- K2/K4 (csrc/hist.cu): every kind at the edges of their inputs ------------
+
+
+def _q_plans(N, F, B, M, n):
+    """q_plan's, then each kind explicitly: a tile of the planner's shape
+    with short chunks (the atomic flush) and with one or two (the store
+    mode), auto, and red."""
+    ng, fg = hist._q_tile(N, F, B)
+    tile = {"ng": ng, "fg": fg, "threads": 1024}
+    few = max(4, hist._pad_to(-(-n // 2), 4))
+    return [None, {"kind": "red", "n_chunks": 97, "threads": 256},
+            dict(tile, kind="tile", rows_per_chunk=4096),
+            dict(tile, kind="tile", rows_per_chunk=few),
+            dict(tile, kind="auto", rows_per_chunk=few)]
+
+
+def _q_case(gen, case):
+    F, n, B, N, M, dt = {
+        "root": (28, 70004, 256, 1, 9, "u8"),
+        "n7": (28, 70004, 256, 7, 15, "u8"),
+        "n64": (28, 70004, 256, 64, 129, "u8"),
+        "sparse64": (28, 70004, 256, 64, 4096, "u8"),
+        "ragged_unaligned": (28, 70001, 256, 64, 509, "u8"),
+        "ragged_views": (6, 50003, 64, 7, 31, "u8"),
+        "int32_b1024": (3, 20000, 1024, 100, 4096, "i32"),
+        "dup_wave": (28, 70004, 256, 64, 509, "u8"),
+        "cap": (28, 70004, 256, 64, CAP_256, "u8"),
+    }[case]
+    bins, pos, gq, hq, ids = _inputs(gen, F, n, B, N, dt, M)
+    if case == "root":  # every live row in the one slot
+        ids[0] = 3
+        pos = torch.where(pos < 0, pos, 3).to(torch.int32)
+    if case == "dup_wave":
+        ids = _dup_ids(gen, N, M)
+    if case == "ragged_unaligned":
+        # a bins_t view whose rows start one byte past an aligned address
+        big = torch.empty(F * n + 1, dtype=torch.uint8, device="cuda")
+        big[1:] = bins.flatten()
+        bins = big[1:].view(F, n)
+        assert bins.data_ptr() % 16 and bins.is_contiguous()
+    if case == "ragged_views":
+        # pos/gq/hq views 4 bytes past a 16-byte boundary
+        pos, gq, hq = (torch.cat([t[:1], t])[1:] for t in (pos, gq, hq))
+        assert gq.data_ptr() % 16
+    return bins, pos, gq, hq, ids, B, M
+
+
+Q_CASES = ["root", "n7", "n64", "sparse64", "ragged_unaligned",
+           "ragged_views", "int32_b1024", "dup_wave", "cap"]
+
+
+@pytest.mark.parametrize("case", Q_CASES)
+def test_k2_kinds_match_plain(gen, case):
+    """K2 at q_plan's plan and at each kind, exact. Unaligned views and a
+    ragged n take the one-row path; auto picks the tile on the dense waves
+    and red on the sparse one (64 of 4096 nodes)."""
+    bins, pos, gq, hq, ids, B, M = _q_case(gen, case)
+    F, n, N = bins.shape[0], bins.shape[1], ids.shape[0]
+    want = hist.hist_wave_q_plain(bins, pos, gq, hq, ids, B, M)
+    assert want[..., 2].sum() > 0
+    for plan in _q_plans(N, F, B, M, n):
+        before = hist.hist_wave_q.launches
+        got = hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M,
+                               plan=plan)
+        assert hist.hist_wave_q.launches == before + 1
+        assert torch.equal(got, want), plan
+        if case == "dup_wave":
+            assert torch.equal(got[1], got[N - 1]) and got[1].any()
+            assert not got[0].any()  # the pad
+
+
+@pytest.mark.parametrize("case", Q_CASES[:4] + ["int32_b1024", "dup_wave",
+                                                "cap", "dead_and_out_of_range",
+                                                "f7_rows", "empty"])
+def test_k4_kinds_match_plain(gen, case):
+    """K4 over gathered rows at q_plan's plan and at each kind, exact: the
+    root wave, N = 7 and 64, a sparse wave, int32 bins, a duplicated id and
+    pads, the lookup at its cap, dead slots (pos_g = -1) and row ids past
+    the rows (they add nothing), F = 7 (a row is not whole 32-bit words),
+    R = 0."""
+    base = {"dead_and_out_of_range": "n64", "f7_rows": "n7",
+            "empty": "n64"}.get(case, case)
+    bins, pos, gq, hq, ids, B, M = _q_case(gen, base)
+    if case == "f7_rows":
+        bins = bins[:7].contiguous()
+    rows = bins.t().contiguous()
+    n, F, N = rows.shape[0], rows.shape[1], ids.shape[0]
+    R = {"empty": 0, "f7_rows": 4099, "dead_and_out_of_range": 4099}.get(
+        case, 8192)
+    idx = torch.randint(0, n, (R,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pg = pos[idx.long()].clone()
+    pg[R // 2:] = -1
+    gg, hg = gq[idx.long()].contiguous(), hq[idx.long()].contiguous()
+    idx_k = idx.clone()
+    if case == "dead_and_out_of_range":
+        idx_k[:64:2] = n + 5  # past the rows: adds nothing
+        idx_k[1:64:2] = -3
+    live = (idx_k >= 0) & (idx_k < n)
+    want = hist.hist_gather_q_plain(rows, idx, torch.where(live, pg, -1), gg,
+                                    hg, ids, B, M)
+    for plan in _q_plans(N, F, B, M, max(R, 1)):
+        before = hist.hist_wave_gather.launches
+        got = hist.hist_wave_gather(rows, idx_k, pg, gg, hg, ids, B,
+                                    max_nodes=M, plan=plan)
+        assert got.shape == (N, F, B, 3) and got.dtype == torch.int32
+        assert hist.hist_wave_gather.launches == before + (R > 0)
+        assert torch.equal(got, want), plan
+        if case == "dup_wave":
+            assert torch.equal(got[1], got[N - 1]) and got[1].any()
+    if R == 0:
+        assert not got.any()
+    else:
+        assert want[..., 2].sum() > 0
+
+
+#: the bench cell's padded training rows (chip_smoke.py)
+BENCH_ROWS = 10_502_144
+
+
+@pytest.mark.parametrize("gv", [-127.0, 127.0])
+def test_k2_k4_saturating_sums(gen, gv):
+    """Every row in one node and one bin at |g| = |h| = 127: the largest
+    sums a lane takes, over all 10.5M bench rows (1.33e9, within int32) in
+    the root wave and in a 64-slot wave, with the planner's chunks, the
+    longest chunk (one chunk: one block's tile takes every row), and red;
+    K4 over every row gathered, and over the longest chunk."""
+    n, F, B = BENCH_ROWS, 28, 256
+    bins = torch.full((F, n), 17, dtype=torch.uint8, device="cuda")
+    pos = torch.full((n,), 5, dtype=torch.int32, device="cuda")
+    g = torch.full((n,), gv, device="cuda")
+    h = torch.full((n,), 127.0, device="cuda")
+    sums = torch.tensor([int(gv) * n, 127 * n, n], dtype=torch.int32,
+                        device="cuda")
+    assert abs(int(gv)) * n < 2 ** 31  # within int32: no lane wraps
+    root = torch.tensor([5], dtype=torch.int32, device="cuda")
+    for ids in (root, torch.arange(64, dtype=torch.int32, device="cuda")):
+        N = ids.shape[0]
+        ng, fg = hist._q_tile(N, F, B)
+        tile = {"ng": ng, "fg": fg, "threads": 1024}
+        want = torch.zeros((N, F, B, 3), dtype=torch.int32, device="cuda")
+        want[0 if N == 1 else 5, :, 17] = sums
+        for plan in (None, dict(tile, kind="tile", n_chunks=1),
+                     dict(tile, kind="auto", rows_per_chunk=4096),
+                     {"kind": "red", "n_chunks": 528}):
+            got = hist.hist_wave_q(bins, pos, g, h, ids, B, max_nodes=64,
+                                   plan=plan)
+            assert torch.equal(got, want), (N, plan)
+    rows = bins.t().contiguous()
+    del bins
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    want = torch.zeros((1, F, B, 3), dtype=torch.int32, device="cuda")
+    want[0, :, 17] = sums
+    for plan in (None, {"kind": "tile", "ng": 1, "fg": 28, "n_chunks": 1}):
+        got = hist.hist_wave_gather(rows, idx, pos, g, h, root, B,
+                                    max_nodes=64, plan=plan)
+        assert torch.equal(got, want), plan
+
+
+def test_k2_k4_raise_on_a_bad_launch(gen, monkeypatch):
+    """An oversized explicit plan is refused before any launch; one that
+    gets past the checker makes the launch fail on the card, and the
+    wrapper raises: neither returns the plain version's sums."""
+    F, n, B, N, M = 28, 70004, 256, 32, 65
+    bins, pos, gq, hq, ids = _inputs(gen, F, n, B, N, "u8", M)
+    rows = bins.t().contiguous()
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    big = {"kind": "tile", "fg": 28, "ng": 32, "rows_per_chunk": 4096,
+           "threads": 1024}
+    before = (hist.hist_wave_q.launches, hist.hist_wave_gather.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M, plan=big)
+    # past the checker: the tile kernel asks for more shared memory than a
+    # block may have, so its launch fails
+    monkeypatch.setattr(hist, "check_q_plan",
+                        lambda plan, *a, **k: dict(plan))
+    plan = dict(big, n_ftiles=1, n_tiles=1, n_chunks=-(-n // 4096),
+                smem=hist.q_tile_bytes(32, 28, B))
+    assert plan["smem"] > hist.SMEM_MAX
+    with pytest.raises(RuntimeError, match="hist_q launch failed"):
+        hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M, plan=plan)
+    with pytest.raises(RuntimeError, match="hist_gather_q launch failed"):
+        hist.hist_wave_gather(rows, idx, pos, gq, hq, ids, B, max_nodes=M,
+                              plan=plan)
+    assert (hist.hist_wave_q.launches,
+            hist.hist_wave_gather.launches) == before

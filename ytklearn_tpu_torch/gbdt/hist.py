@@ -16,13 +16,17 @@ versions, and the row compaction of the leaf-partitioned waves.
                     tuning variant, computed as an int8 one-hot matrix
                     product on the tensor cores: kernel K8 (csrc/hist_u8.cu),
                     replacing scripts/tune_hist_kernel.py::hist_q_u8 (:71)
-  tile_plan,        K2/K4's launch shape (csrc/hist.cu) and an explicit one,
-  check_plan        checked and completed (the tuning tools pass one; the
-                    engine never does)
-  float_plan,       the same for K1/K3 (csrc/hist_float.cu): a shared-memory
-  check_float_plan  tile, one vector atomic a row and feature, or K1's
-                    "auto", which picks one of the two on the device by the
-                    wave's share of the rows
+  tile_plan,        a shared-memory tile's launch shape (K1's tile kind) and
+  check_plan        an explicit one, checked and completed (the tuning tools
+                    pass one; the engine never does)
+  float_plan,       K1/K3's launch shape (csrc/hist_float.cu): a
+  check_float_plan  shared-memory tile, one vector atomic a row and feature,
+                    or K1's "auto", which picks one of the two on the device
+                    by the wave's share of the rows
+  q_plan,           the same for K2/K4 (csrc/hist.cu): each row packed into
+  check_q_plan      one word first (K4: its bins gathered beside), then a
+                    tile, integer atomics straight into a scratch ("red"),
+                    or K2's "auto"; K4 a tile of one feature
   compact_indices   order-preserving mask -> static (R,) index buffer
   pad_inputs        host transpose + row padding of a bin matrix
 
@@ -219,13 +223,13 @@ def hist_q_u8_plain(bins_t, pos, gq, hq, node_ids, B: int) -> torch.Tensor:
 
 
 def _lut_bytes(max_nodes: int, N: int) -> int:
-    """Shared bytes of K1-K4's node lookup; after the row pass the same
-    space holds each slot's next duplicate (N entries)."""
+    """Shared bytes of K1-K4's node lookup over `max_nodes` ids (N entries
+    at least, padded to 4)."""
     return _pad_to(max(max_nodes, N), 4) * 4
 
 
 def tile_bytes(N: int, ng: int, fg: int, B: int, max_nodes: int) -> int:
-    """Shared bytes of a K1-K4 block: the node lookup and a tile of `ng`
+    """Shared bytes of a K1 tile block: the node lookup and a tile of `ng`
     slots x `fg` features x B bins of three 4-byte counters."""
     return _lut_bytes(max_nodes, N) + ng * fg * B * 3 * 4
 
@@ -245,7 +249,9 @@ def check_tile_fits(B: int, max_nodes: int, N: int = 0) -> None:
 
 def tile_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int
               ) -> dict:
-    """Launch shape of K1-K4. A block owns `ng` slots x `fg` features of
+    """A shared-memory tile's launch shape beside the node lookup (K1's
+    tile kind takes its tiles from float_plan; check_float_plan checks
+    them through check_plan). A block owns `ng` slots x `fg` features of
     the histogram in shared memory and scans one chunk of rows. Slots come
     first: a tile holding every slot of the wave uses every row it reads,
     where a tile of one slot in 64 would skip 63 rows in 64. A tile that
@@ -282,17 +288,19 @@ _PLAN_KEYS = ("fg", "ng", "threads", "rows_per_chunk", "n_chunks",
               "n_ftiles", "n_tiles", "smem")
 
 
-def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int
-               ) -> dict:
-    """An explicit launch shape of K1-K4, checked before any launch and
-    completed: `plan` names `fg` and `ng` (features and slots of a block's
-    tile), `threads`, and `rows_per_chunk` or `n_chunks`. The fields that
+def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int,
+               smem_of=None) -> dict:
+    """An explicit tile launch shape (the tile and auto kinds of K1, and of
+    K2/K4 through check_q_plan), checked before any launch and completed:
+    `plan` names `fg` and `ng` (features and slots of a block's tile),
+    `threads`, and `rows_per_chunk` or `n_chunks`. The fields that
     tile_plan derives (n_ftiles, n_tiles, smem and the other of the two
     chunk fields) may be given too, and must then be the ones the tile
     implies, so tile_plan's output passes. Raises ValueError when the plan
     does not cover the (N, F, B) histogram over n rows, or its tile needs
     more shared memory than SMEM_MAX, or its threads do not make a block;
-    NotImplementedError as tile_plan when no tile fits at all."""
+    NotImplementedError as tile_plan when no tile fits at all. `smem_of(ng,
+    fg)`: the tile's shared bytes (default tile_bytes', with the lookup)."""
     check_tile_fits(B, max_nodes, N)
     unknown = sorted(set(plan) - set(_PLAN_KEYS))
     if unknown:
@@ -327,7 +335,8 @@ def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int
                 f"plan does not cover the histogram: {name} = {plan[name]}, "
                 f"but fg = {fg}, ng = {ng} over (N, F) = ({N}, {F}) make "
                 f"{want}")
-    smem = tile_bytes(N, ng, fg, B, max_nodes)
+    smem = (smem_of(ng, fg) if smem_of
+            else tile_bytes(N, ng, fg, B, max_nodes))
     if smem > SMEM_MAX:
         raise ValueError(
             f"plan's tile of {ng} slots x {fg} features x {B} bins needs "
@@ -459,6 +468,18 @@ def check_float_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     rest = {k: v for k, v in plan.items() if k != "kind"}
     if kind != "red":
         return dict(check_plan(rest, N, F, B, max_nodes, n), kind=kind)
+    red = _check_red_fields(rest, N, F, n, _lut_bytes(max_nodes, N))
+    return {"kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
+            "n_chunks": red["n_chunks"],
+            "rows_per_chunk": red["rows_per_chunk"], "smem": red["smem"],
+            "threads": red["threads"]}
+
+
+def _check_red_fields(rest: dict, N: int, F: int, n: int, smem: int
+                      ) -> dict:
+    """A red plan's fields (K1, K3, K2, K4): every slot and feature in one
+    tile, threads that make a block, chunks that cover the n rows, and at
+    least `smem` shared bytes (the node lookup, or 0)."""
     for name, want in (("fg", F), ("ng", N), ("n_ftiles", 1),
                        ("n_tiles", 1)):
         if name in rest and int(rest[name]) != want:
@@ -481,20 +502,163 @@ def check_float_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
                          f"{rpc} rows < n = {n}")
     if not 1 <= chunks <= 65535:
         raise ValueError(f"plan: {chunks} chunks, not in [1, 65535]")
-    smem = _lut_bytes(max_nodes, N)
     if int(rest.get("smem", smem)) < smem:
         raise ValueError(f"plan: smem {rest['smem']} < the {smem} bytes of "
                          "its node lookup")
-    return {"kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
-            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
+    return {"n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
             "threads": threads}
+
+
+# ---------------------------------------------------------------------------
+# K2/K4 launch shapes
+# ---------------------------------------------------------------------------
+
+#: K2/K4's kinds of launch (csrc/hist.cu), each after a pack pass that
+#: writes one word a row (K4: and gathers the rows' bins): "tile", a block's
+#: ng slots x fg features in shared memory; "red", three int32 atomics a row
+#: and feature into an L2-resident scratch, every row read once; "auto", a
+#: tile plan whose pack pass counts the wave's rows on the device and runs
+#: the tile or, when the wave holds few rows, red
+Q_KINDS = ("tile", "red", "auto")
+#: the auto kind runs red when the wave's rows x F x Q_RED_WEIGHT < n x the
+#: tiles: a tile pass over n packed rows costs about what Q_RED_WEIGHT
+#: rows' integer atomics of one feature do (fitted on the card, PERF.md
+#: section 6)
+Q_RED_WEIGHT = 20.0
+#: a packed row word holds the row's slot in 16 bits (0xFFFF: not in the
+#: wave), so a wave has fewer slots; check_tile_fits' cap on the lookup
+#: keeps every wave below it
+Q_MAX_SLOTS = 0xFFFF
+#: a tile plan of at most this many chunks stores each item's tile whole
+#: into its chunk's partial sums (plain stores; the finish kernel adds the
+#: chunks up); more chunks flush with three atomics a nonzero bin into one
+#: scratch, so the finish reads no more than Q_STORE_CHUNKS partials a bin
+Q_STORE_CHUNKS = 8
+#: the exactness bounds of csrc/hist.cu. A packed word holds g and h as
+#: int8: |g|, |h| <= Q_MAX_ABS (engine._quantize's qmax at most). Every sum
+#: (a tile's g, h and count, the scratch, the output) is an int32 lane that
+#: wraps mod 2^32 as the reference's int32 sums do, so no chunk length or
+#: row count bounds a lane; over at most Q_MAX_ROWS rows at |g| = |h| =
+#: Q_MAX_ABS none wraps (engine._quantize shrinks qmax past it, so on its
+#: gradients none ever does).
+Q_MAX_ABS = 127
+Q_MAX_ROWS = (2 ** 31 - 1) // Q_MAX_ABS
+_Q_CELL_BYTES = 12
+
+
+def q_tile_bytes(ng: int, fg: int, B: int) -> int:
+    """Shared bytes of a K2 tile block: `ng` slots x `fg` features x B
+    bins of three int32 counters (the packed rows need no lookup)."""
+    return ng * fg * B * _Q_CELL_BYTES
+
+
+def _q_tile(N: int, F: int, B: int, gather: bool = False
+            ) -> Tuple[int, int]:
+    """(ng, fg) of a K2/K4 tile in SMEM_MAX: as many of the wave's slots as
+    fit with one feature, then (K2) as many features as fit, the tiles
+    evenly filled (_float_tile's rule without the lookup). K4 keeps one
+    feature a tile: its R rows make each extra pass cheap, and the smaller
+    tile flushes sooner (measured faster at N = 1-64, PERF.md section 6)."""
+    pair = B * _Q_CELL_BYTES
+    st = -(-N // max(1, SMEM_MAX // pair))
+    ng = -(-N // st)
+    if gather:
+        return ng, 1
+    ft = -(-F // max(1, min(F, SMEM_MAX // (ng * pair))))
+    return ng, -(-F // ft)
+
+
+def _q_red(N: int, F: int, chunks: int, rpc: int, threads: int) -> dict:
+    """A K2/K4 red plan: the red kernel reads the packed rows and needs no
+    shared memory (the pack pass holds the lookup)."""
+    return {"kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
+            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": 0,
+            "threads": threads}
+
+
+@lru_cache(maxsize=512)
+def _q_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
+            gather: bool) -> Tuple[Tuple[str, object], ...]:
+    check_tile_fits(B, max_nodes, N)
+    ng, fg = _q_tile(N, F, B, gather)
+    n_tiles = -(-F // fg) * -(-N // ng)
+    if n_tiles >= F * Q_RED_WEIGHT:  # red at any share of rows
+        chunks, rpc, threads, _ = _red_shape(N, max_nodes, n, sm_count)
+        return tuple(_q_red(N, F, chunks, rpc, threads).items())
+    smem = q_tile_bytes(ng, fg, B)
+    threads, per_sm = ((THREADS, 2) if smem <= SMEM_PER_BLOCK
+                       else (2 * THREADS, 1))
+    # one item a resident block where the tiles allow: each item's flush
+    # costs an atomic a counter, so chunks are as long as one wave makes
+    # them (the resident blocks past a whole number of chunks idle); K4's
+    # few rows take at most Q_STORE_CHUNKS, so its tiles store
+    chunks = max(1, min(per_sm * sm_count // n_tiles, -(-n // RED_MIN_ROWS),
+                        Q_STORE_CHUNKS if gather else 65535))
+    rpc = _pad_to(max(1, -(-n // chunks)), 4)
+    return tuple({
+        "kind": "tile" if n_tiles == 1 or gather else "auto", "fg": fg,
+        "ng": ng, "n_ftiles": -(-F // fg), "n_tiles": n_tiles,
+        "n_chunks": max(1, -(-n // rpc)), "rows_per_chunk": rpc,
+        "smem": smem, "threads": threads}.items())
+
+
+def q_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
+           gather: bool = False) -> dict:
+    """Launch shape of K2 (gather False: n rows scanned) or K4 (gather
+    True: n = R gathered rows). A pass packs each row into one word first
+    (its wave slot, g and h as int8; K4's gathers the rows' bins beside),
+    in the "pack shape", _red_shape's. A tile: a block owns `ng` slots x
+    `fg` features of the histogram in shared memory (every slot of the
+    wave first; K4 one feature) over a chunk of `rows_per_chunk` packed
+    rows, one item a resident block where it can (K4: at most
+    Q_STORE_CHUNKS chunks). "tile" when one tile holds the whole
+    histogram, and for K4, whose compacted rows are the wave's; "auto" for
+    K2 when it takes more: the launch picks tile or red on the device by
+    the wave's rows; "red" when the tiles are so many that red wins
+    whatever the wave holds: no tile, integer atomics a row and feature,
+    one wave of blocks. Raises NotImplementedError as check_tile_fits."""
+    return dict(_q_plan(N, F, B, max_nodes, n, sm_count, bool(gather)))
+
+
+def check_q_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
+                 n: int) -> dict:
+    """An explicit launch shape of K2 (n rows scanned) or K4 (n = R
+    gathered rows), checked before any launch and completed: `kind` ("tile", the default, "auto" or "red"), `threads`, and
+    `rows_per_chunk` or `n_chunks`; a tile or auto plan names `fg` and `ng`
+    (check_plan checks it, with q_tile_bytes' shared memory; the pack pass
+    and auto's red launch take the pack shape). Derived fields (n_ftiles,
+    n_tiles, smem, the other chunk field) may be given and must then be the
+    ones the plan implies, so q_plan's output passes; a red plan adds every
+    slot and feature, so its fg and ng, if given, are F and N and its tile
+    counts 1. Raises ValueError when the plan does not cover the (N, F, B)
+    histogram over n rows, or needs more shared memory than SMEM_MAX, or
+    its threads do not make a block; NotImplementedError as check_tile_fits
+    past the lookup's cap."""
+    check_tile_fits(B, max_nodes, N)  # and so N < Q_MAX_SLOTS
+    unknown = sorted(set(plan) - set(_FLOAT_PLAN_KEYS))
+    if unknown:
+        raise ValueError(f"plan: unknown fields {unknown}; a plan names "
+                         f"{', '.join(_FLOAT_PLAN_KEYS)}")
+    kind = plan.get("kind", "tile")
+    if kind not in Q_KINDS:
+        raise ValueError(f"plan: kind must be one of {Q_KINDS}, got "
+                         f"{kind!r}")
+    rest = {k: v for k, v in plan.items() if k != "kind"}
+    if kind != "red":
+        return dict(check_plan(rest, N, F, B, max_nodes, n,
+                               lambda ng, fg: q_tile_bytes(ng, fg, B)),
+                    kind=kind)
+    red = _check_red_fields(rest, N, F, n, 0)
+    return _q_red(N, F, red["n_chunks"], red["rows_per_chunk"],
+                  red["threads"])
 
 
 def _bind(lib) -> None:
     ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    tail = [ci, ci, ci, ci, ci, ci, ci, ci, ci, ll, ci, ci, vp, vp]
     lib.ytk_hist_q.restype = ctypes.c_int
-    lib.ytk_hist_q.argtypes = [ci, ci, vp, ll, vp, vp, vp, vp, ll, vp] + tail
+    lib.ytk_hist_q.argtypes = (
+        [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, ll, vp] + [ci] * 9
+        + [ll, ci, ci, ci, ll, ci, ci, ll, ci, vp, vp, vp])
 
 
 def _bind_float(lib) -> None:
@@ -547,38 +711,86 @@ def _check_inputs(gather: bool, grad: str, bins, idx, pos, g, h, node_ids
         _check("idx", idx, (torch.int32,), (n,), dev)
 
 
-def _launch(gather: bool, bins, n_bins_rows: int, idx, pos, gq, hq,
-            node_ids, B: int, max_nodes: int,
-            plan: Optional[dict] = None) -> torch.Tensor:
-    """One launch of K2 (full scan) or K4 (gather): int32 sums; `plan` a
-    launch shape from check_plan, else tile_plan's."""
-    dev = pos.device
-    n = pos.shape[0]
-    F = bins.shape[0] if not gather else bins.shape[1]
-    N = node_ids.shape[0]
-    _check_inputs(gather, "gq", bins, idx, pos, gq, hq, node_ids)
-    out = torch.zeros((N, F, B, 3), dtype=torch.int32, device=dev)
-    if n == 0 or N == 0 or F == 0:
-        return out
-    if plan is None:
-        plan = tile_plan(N, F, B, max_nodes, n, _sm_count(dev.index))
-    lib = _LIBRARY.load()
-    args = [
-        bins.element_size(), int(gather), bins.data_ptr(), n_bins_rows,
-        idx.data_ptr() if gather else None, pos.data_ptr(), gq.data_ptr(),
-        hq.data_ptr(), n, node_ids.data_ptr(), N, max_nodes, F, B,
-        plan["fg"], plan["ng"], plan["n_ftiles"], plan["n_tiles"],
-        plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
-        plan["smem"], out.data_ptr(),
-    ]
-    with torch.cuda.device(dev):
-        rc = lib.ytk_hist_q(*args, torch.cuda.current_stream().cuda_stream)
-    _LIBRARY.check(rc, "hist_gather_q" if gather else "hist_q")
-    return out
-
-
 def _aligned(t: torch.Tensor, m: int) -> bool:
     return t.data_ptr() % m == 0
+
+
+@lru_cache(maxsize=1024)
+def _q_shape(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
+             gather: bool, eb: int, plan: Tuple[Tuple[str, object], ...]
+             ) -> Tuple[int, ...]:
+    """What one K2/K4 launch derives from its shapes and plan: (n_pad, the
+    pack shape's 4 fields, n_store, red_rows, the scratch's int32
+    length)."""
+    p = dict(plan)
+    n_pad = _pad_to(n, 4) if gather else n
+    # the tile stores its chunks' partial sums when they are few
+    n_store = p["n_chunks"] if (p["kind"] != "red"
+                                and p["n_chunks"] <= Q_STORE_CHUNKS) else 0
+    # auto: red below this many rows of the wave (see Q_RED_WEIGHT)
+    red_rows = int(n * p["n_tiles"] // (F * Q_RED_WEIGHT))
+    # the kernels' scratch (csrc/hist.cu, ytk_hist_q): 16-byte (N, F, B)
+    # cells, 16 bytes holding auto's count of the wave's rows, the n_pad
+    # packed row words, (K4) the (F, n_pad) gathered bins, then the store
+    # mode's (n_store, N, F, B, 3) partial sums
+    scratch_len = ((N * F * B + 1) * 4 + n_pad
+                   + (F * n_pad * eb // 4 if gather else 0)
+                   + n_store * N * F * B * 3)
+    return (n_pad, *_red_shape(N, max_nodes, n, sm_count), n_store,
+            red_rows, scratch_len)
+
+
+def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
+              hq, node_ids, B: int, max_nodes: int,
+              plan: Optional[dict] = None) -> torch.Tensor:
+    """One launch of K2 (full scan) or K4 (gather), counted on `wrapper`:
+    int32 sums; `plan` from check_q_plan, else q_plan's. The pack pass takes
+    rows four at a time when pos/gq/hq (and idx) are 16-byte aligned; the
+    tile and red kernels when the chunks are multiples of four rows and
+    the scanned bins allow it: K4's gathered copy always, K2's bins when
+    every feature's row starts on a four-row boundary. Otherwise one row at
+    a time."""
+    dev = pos.device
+    n = pos.shape[0]
+    F = bins.shape[1] if gather else bins.shape[0]
+    N = node_ids.shape[0]
+    _check_inputs(gather, "gq", bins, idx, pos, gq, hq, node_ids)
+    if n == 0 or N == 0 or F == 0:
+        return torch.zeros((N, F, B, 3), dtype=torch.int32, device=dev)
+    sm = _sm_count(dev.index)
+    if plan is None:
+        plan = q_plan(N, F, B, max_nodes, n, sm, gather)
+    eb = bins.element_size()
+    (n_pad, pack_chunks, pack_rpc, pack_threads, pack_smem, n_store,
+     red_rows, scratch_len) = _q_shape(
+        N, F, B, max_nodes, n, sm, gather, eb, tuple(plan.items()))
+    pack_vec = all(_aligned(t, 16) for t in ((pos, gq, hq, idx) if gather
+                                             else (pos, gq, hq)))
+    scan_vec = plan["rows_per_chunk"] % 4 == 0 and (
+        gather or (n % 4 == 0 and _aligned(bins, 4 * eb)))
+    words = gather and eb == 1 and F % 4 == 0 and _aligned(bins, 4)
+    scratch = torch.empty(scratch_len, dtype=torch.int32, device=dev)
+    out = torch.empty((N, F, B, 3), dtype=torch.int32, device=dev)
+    lib = _LIBRARY.load()
+    args = (
+        Q_KINDS.index(plan["kind"]), eb, int(gather), int(pack_vec),
+        int(scan_vec), int(words), bins.data_ptr(), n_bins_rows,
+        idx.data_ptr() if gather else None, pos.data_ptr(), gq.data_ptr(),
+        hq.data_ptr(), n, n_pad, node_ids.data_ptr(), N, max_nodes, F, B,
+        plan["fg"], plan["ng"], plan["n_ftiles"], plan["n_tiles"],
+        plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
+        plan["smem"], pack_chunks, pack_rpc, pack_threads, pack_smem,
+        red_rows, n_store, out.data_ptr(), scratch.data_ptr(),
+    )
+    if dev.index == torch.cuda.current_device():
+        rc = lib.ytk_hist_q(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.ytk_hist_q(*args,
+                                torch.cuda.current_stream().cuda_stream)
+    _LIBRARY.check(rc, "hist_gather_q" if gather else "hist_q")
+    _count(wrapper)
+    return out
 
 
 def _launch_float(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos,
@@ -663,7 +875,7 @@ def _count(wrapper) -> None:
 
 
 def _plan_of(plan, node_ids, F: int, B: int, max_nodes: int, n: int,
-             check=check_plan, **kw):
+             check, **kw):
     """An explicit plan checked before any launch (on the CPU too), or
     None for the planner's."""
     return None if plan is None else check(
@@ -710,7 +922,7 @@ def hist_wave_q(bins_t, pos, gq, hq, node_ids, B: int, *, max_nodes: int,
     gq, hq   (n,) f32      — quantized grad / hess, integers in [-127, 127]
     node_ids (N,) i32      — node ids to histogram (-2 pads)
     max_nodes              — the tree's node capacity: every id < it
-    plan                   — a launch shape for check_plan (tuning tools)
+    plan                   — a launch shape for check_q_plan (tuning tools)
     On the CPU: the plain version; on CUDA: kernel K2."""
     if bins_t.dim() != 2:
         raise ValueError(f"hist_wave_q: bins_t must be (F, n), got "
@@ -718,13 +930,11 @@ def hist_wave_q(bins_t, pos, gq, hq, node_ids, B: int, *, max_nodes: int,
     _check_lengths("hist_wave_q", bins_t.shape[1], B, max_nodes, pos=pos,
                    gq=gq, hq=hq)
     plan = _plan_of(plan, node_ids, bins_t.shape[0], B, max_nodes,
-                    bins_t.shape[1])
+                    bins_t.shape[1], check_q_plan)
     if pos.device.type == "cpu":
         return hist_wave_q_plain(bins_t, pos, gq, hq, node_ids, B, max_nodes)
-    out = _launch(False, bins_t, bins_t.shape[1], None, pos, gq, hq,
-                  node_ids, B, max_nodes, plan)
-    _count(hist_wave_q)
-    return out
+    return _launch_q(hist_wave_q, False, bins_t, bins_t.shape[1], None, pos,
+                     gq, hq, node_ids, B, max_nodes, plan)
 
 
 hist_wave_q.launches = 0
@@ -739,7 +949,7 @@ def hist_wave_gather(rows, idx, pos_g, g, h, node_ids, B: int,
     i32 node per gathered row (-1 = dead slot), g/h (R,) f32 per gathered
     row. mode "int8": g/h quantized, int32 sums (kernel K4 on CUDA); mode
     "mxu": hist_wave_gather_mxu (K3). `plan`: a launch shape for
-    check_plan (int8) or check_float_plan (mxu). On the CPU: the plain
+    check_q_plan (int8) or check_float_plan (mxu). On the CPU: the plain
     versions."""
     if mode == "mxu":
         return hist_wave_gather_mxu(rows, idx, pos_g, g, h, node_ids, B,
@@ -750,14 +960,12 @@ def hist_wave_gather(rows, idx, pos_g, g, h, node_ids, B: int,
                          f"{mode!r}")
     _check_gather("hist_wave_gather", rows, idx, pos_g, g, h, B, max_nodes)
     plan = _plan_of(plan, node_ids, rows.shape[1], B, max_nodes,
-                    idx.shape[0])
+                    idx.shape[0], check_q_plan)
     if pos_g.device.type == "cpu":
         return hist_gather_q_plain(rows, idx, pos_g, g, h, node_ids, B,
                                    max_nodes)
-    out = _launch(True, rows, rows.shape[0], idx, pos_g, g, h, node_ids, B,
-                  max_nodes, plan)
-    _count(hist_wave_gather)
-    return out
+    return _launch_q(hist_wave_gather, True, rows, rows.shape[0], idx, pos_g,
+                     g, h, node_ids, B, max_nodes, plan)
 
 
 hist_wave_gather.launches = 0

@@ -1,5 +1,6 @@
 """What the tuning tools share: arguments, the card line, CUDA-event
-timing, the CPU's "not measured", and K1-K4 launch shapes that fit."""
+timing, the CPU's "not measured", and K1-K4 launch shapes that fit (K1
+through check_float_plan, K2/K4 through check_q_plan)."""
 
 from __future__ import annotations
 
@@ -87,31 +88,42 @@ def fmt_ms(ms: Optional[float]) -> str:
 
 def k2k4_plans(fg: int, rows: int, N: int, F: int, B: int, M: int,
                n: int) -> List[Tuple[Optional[dict], str, str]]:
-    """K2/K4 launch shapes of `fg` features a tile and `rows` rows a chunk,
-    as (plan, label, why-not): the whole wave in one tile (ng = N, the
-    reference's tile); when that does not fit shared memory, it with plan
-    None and the bytes it would need, then the most slots that fit, spread
-    evenly over the tiles. A tile past half an SM's shared memory runs one
-    block of 1024 threads an SM, as tile_plan's does."""
+    """K2/K4 tile plans of `fg` features a tile and `rows` rows a chunk,
+    through check_q_plan, as (plan, label, why-not): the whole wave in one
+    tile (ng = N, the reference's tile); when that does not fit shared
+    memory, it with plan None and the bytes it would need, then the most
+    slots that fit, spread evenly over the tiles. A tile past half an SM's
+    shared memory runs one block of 1024 threads an SM, as q_plan's
+    does."""
     def shape(ng):
-        big = hist.tile_bytes(N, ng, fg, B, M) > hist.SMEM_PER_BLOCK
-        return {"fg": fg, "ng": ng, "rows_per_chunk": rows,
+        big = hist.q_tile_bytes(ng, fg, B) > hist.SMEM_PER_BLOCK
+        return {"kind": "tile", "fg": fg, "ng": ng, "rows_per_chunk": rows,
                 "threads": 2 * hist.THREADS if big else hist.THREADS}
 
     whole = shape(N)
-    need = hist.tile_bytes(N, N, fg, B, M)
+    need = hist.q_tile_bytes(N, fg, B)
     if need <= hist.SMEM_MAX:
-        plan = hist.check_plan(whole, N, F, B, M, n)
-        return [(plan, _label(plan), "")]
-    out = [(None, _label(whole), f"its tile needs {need} bytes of shared "
-            f"memory, more than {hist.SMEM_MAX}")]
+        plan = hist.check_q_plan(whole, N, F, B, M, n)
+        return [(plan, plan_label(plan), "")]
+    out = [(None, plan_label(whole), f"its tile needs {need} bytes of "
+            f"shared memory, more than {hist.SMEM_MAX}")]
     fit = [ng for ng in range(N - 1, 0, -1)
-           if hist.tile_bytes(N, ng, fg, B, M) <= hist.SMEM_MAX]
+           if hist.q_tile_bytes(ng, fg, B) <= hist.SMEM_MAX]
     if fit:
         ng = -(-N // -(-N // fit[0]))  # the same tile count, evenly filled
-        plan = hist.check_plan(shape(ng), N, F, B, M, n)
-        out.append((plan, _label(plan), ""))
+        plan = hist.check_q_plan(shape(ng), N, F, B, M, n)
+        out.append((plan, plan_label(plan), ""))
     return out
+
+
+def k2k4_red_plans(N: int, F: int, B: int, M: int, n: int, sm_count: int
+                   ) -> List[dict]:
+    """K2/K4's red kind through check_q_plan at 512 and 1024 threads, one
+    wave of blocks."""
+    return [hist.check_q_plan(
+        {"kind": "red", "threads": threads,
+         "n_chunks": max(1, min(65535, sm_count * (2048 // threads)))},
+        N, F, B, M, n) for threads in (hist.THREADS, 2 * hist.THREADS)]
 
 
 def k1_plans(fgs, chunk_rows, N: int, F: int, B: int, M: int, n: int,
@@ -128,7 +140,7 @@ def k1_plans(fgs, chunk_rows, N: int, F: int, B: int, M: int, n: int,
         plan = hist.check_float_plan(
             {"kind": "red", "threads": threads, "n_chunks": chunks}, N, F,
             B, M, n)
-        out.append((plan, _label(plan), ""))
+        out.append((plan, plan_label(plan), ""))
     for fg in fgs:
         fg = min(fg, F)
         fit = [ng for ng in range(N, 0, -1)
@@ -146,11 +158,12 @@ def k1_plans(fgs, chunk_rows, N: int, F: int, B: int, M: int, n: int,
                 {"kind": "tile", "fg": fg, "ng": ng, "rows_per_chunk": rows,
                  "threads": 2 * hist.THREADS if big else hist.THREADS},
                 N, F, B, M, n)
-            out.append((plan, _label(plan), ""))
+            out.append((plan, plan_label(plan), ""))
     return out
 
 
-def _label(plan: dict) -> str:
+def plan_label(plan: dict) -> str:
+    """A plan's kind, tile, threads and chunk rows, for a tool's line."""
     head = f"kind={plan['kind']} " if "kind" in plan else ""
     tile = "" if plan.get("kind") == "red" else \
         f"fg={plan['fg']} ng={plan['ng']} "

@@ -7,9 +7,11 @@ A 64-slot wave with positions over 509 nodes; for each divisor div the
 budget is R = ceil(n / div) rounded up to the 1024-row unit. Each pass
 compacts the wave's rows into R slots (compact_indices, the per-row
 gathers of pos and grads), then either
-  fused     K4 over the compacted list (bins gathered in the kernel), or
+  fused     K4 over the compacted list at q_plan's plan (its pack pass
+            gathers the bins),
+  fused-red K4 at the red kind (check_q_plan), or
   gathered  index_select of the (R, F) rows, a transpose, and K2.
-The two passes' histograms must be equal (torch.equal); exit 1 when not.
+The passes' histograms must be equal (torch.equal); exit 1 when not.
 A third line times the compaction alone, which both passes include: a
 pass's time less it is the histogram path's own.
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from ..gbdt import hist
-from ._common import Timer, fmt_ms, parser, setup
+from ._common import Timer, fmt_ms, k2k4_red_plans, parser, setup
 
 F, B, N = 28, 256, 64
 SPREAD = 509
@@ -68,10 +70,13 @@ def main(argv=None) -> int:
         pg = torch.where(valid, pos[li], -1).to(torch.int32)
         return idx, li, pg, gq[li], hq[li]
 
-    def fused(R):
+    sm = 1 if dev.type == "cpu" else \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def fused(R, plan=None):
         idx, _, pg, gg, hg = compact(R)
         return hist.hist_wave_gather(rows, idx, pg, gg, hg, ids, B,
-                                     max_nodes=SPREAD)
+                                     max_nodes=SPREAD, plan=plan)
 
     def gathered(R):
         _, li, pg, gg, hg = compact(R)
@@ -86,15 +91,20 @@ def main(argv=None) -> int:
             print(f"div={div:4d} R={R:9d} >= n: no budget to test [{card}]",
                   flush=True)
             continue
-        same = torch.equal(fused(R), gathered(R))
-        ok &= same
+        red = k2k4_red_plans(N, F, B, SPREAD, R, sm)[0]
+        want = fused(R)
+        same = torch.equal(want, gathered(R))
+        same_red = torch.equal(fused(R, red), want)
+        ok &= same and same_red
         for name, fn in (("compact", compact), ("gathered", gathered),
-                         ("fused", fused)):
+                         ("fused", fused),
+                         ("fused-red", lambda R: fused(R, red))):
             ms = timer.ms(lambda: fn(R), chain=args.chain)
             print(f"{name:9s} div={div:4d} R={R:9d} {fmt_ms(ms)}/pass "
                   f"[{card}]", flush=True)
         print(f"          div={div:4d} R={R:9d} fused == gathered (exact): "
-              f"{same} [{card}]", flush=True)
+              f"{same}; fused-red == fused (exact): {same_red} [{card}]",
+              flush=True)
     return 0 if ok else 1
 
 

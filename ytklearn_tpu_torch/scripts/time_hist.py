@@ -10,10 +10,11 @@ training run's 10,502,144 padded rows), positions over 129 nodes, a
 64-slot wave of the odd ids, grads drawn from a seeded generator on the
 device. K2 (int8) and K1 (bf16) run one full-scan wave over every row;
 K4 (int8) and K3 (bf16) the first fused rung of it, R = n/64 rounded up to
-1024 rows. Times are CUDA events, the median of --repeats runs of 10 (K1,
-K2) or 50 (K3, K4) launches, with the card's name and power limit; with
---device cpu the plain versions run once and every time reads "not
-measured (cpu)".
+1024 rows, each at its planner's default plan (q_plan for K2/K4,
+float_plan for K1/K3), printed after the times. Times are CUDA events,
+the median of --repeats runs of 10 (K1, K2) or 50 (K3, K4) launches, with
+the card's name and power limit; with --device cpu the plain versions run
+once and every time reads "not measured (cpu)".
 """
 
 from __future__ import annotations
@@ -64,8 +65,17 @@ def main(argv=None) -> int:
             rows, idx, pg, g2, h2, ids, B, mode="mxu", max_nodes=M),
             chain=50),
     }
+    sm = 1 if dev.type == "cpu" else \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {"K2": hist.q_plan(N, F, B, M, n, sm),
+             "K1": hist.float_plan(N, F, B, M, n, sm),
+             "K4": hist.q_plan(N, F, B, M, R, sm, True),
+             "K3": hist.float_plan(N, F, B, M, R, sm, True)}
     print(f"time_hist: n={n} R={R} wave N={N}: "
           + ", ".join(f"{k} {fmt_ms(v)}" for k, v in out.items())
+          + "; plans " + ", ".join(
+              f"{k} {p['kind']} {p['ng']}x{p['fg']} {p['n_tiles']}x"
+              f"{p['n_chunks']}" for k, p in plans.items())
           + f" [{card}]", flush=True)
     return 0
 
