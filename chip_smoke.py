@@ -7,8 +7,10 @@ Drives the port's paths on the card, as a user would: GBDT online serving
 on the fused rung (slice 1), int8 GBDT training (slice 2), `cli train`
 with the bf16 histograms and the binned serving rung (slice 3), the
 histogram tuning tools with K8, the int8 one-hot histogram (slice 4), the
-redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5), and
-the redesigned int8 histograms K2 and K4 of int8 training (slice 6).
+redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5), the
+redesigned int8 histograms K2 and K4 of int8 training (slice 6), and K8
+redesigned on warpgroup tensor cores and K5, wave routing, redesigned
+(slice 7).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -42,7 +44,11 @@ the redesigned int8 histograms K2 and K4 of int8 training (slice 6).
      on a 64-slot wave with a duplicated id and pads, whose two slots must
      get the same sums (K2/K4 exact, K1/K3 at that tolerance); K7
      (binned_walk) with torch.equal on uint8 and uint16 tables at every
-     rung of the 500-tree model;
+     rung of the 500-tree model; then (slice 7) K5 on duplicated valid
+     ids (the later slot wins), a duplicated id whose later slot is
+     invalid, node ids above 57,344, ids spread past the direct map (the
+     sorted lookup, int64 fields), a misaligned pos[1:] with out separate
+     and aliased, and int32 bins, each with torch.equal;
   7. trains a seeded Higgs-shaped synthetic (the torch twin of bench.py's
      _gen_gbdt) at full width with bench.py's GBDT configuration on cuda
      (TRAIN_ROWS rows, TRAIN_ROUNDS rounds, hist_precision="int8"), counts
@@ -84,8 +90,9 @@ the redesigned int8 histograms K2 and K4 of int8 training (slice 6).
      then a small l2 bf16 run twice on the card and once on the CPU,
      printing whether the card's trees repeat;
  13. holds K8 (hist_q_u8) against its plain version with torch.equal at
-     N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on a wave
-     with a duplicated id and pads, and against K2 in K8's layout;
+     N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on waves
+     of 64 and 100 slots (3N > 256: two n-tiles) with a duplicated id and
+     pads, and against K2 in K8's layout;
  14. runs the tuning tools in this process, the main path of slice 4:
      tune_hist_kernel at the reference's size with its full variant list
      (K2, K1 and K8 across launch shapes, then K8 == K2 with torch.equal;
@@ -753,7 +760,70 @@ def phase_train_kernels(card):
     want = route.route_wave_plain(*args)
     cmp("route", got, want, "NW = 64 over 2^20 rows, invalid slots, EFB "
         "member ranges")
+    route_edge_cases(gen, cmp)
     return errs
+
+
+def route_edge_cases(gen, cmp):
+    """K5's lookup, row and store paths (slice 7), each against its plain
+    version: duplicated valid ids (the later slot wins), a duplicated id
+    whose later slot is invalid, node ids above K1-K4's 57,344 cap and a
+    wave wider than the direct map, a misaligned pos[1:] view, out
+    separate from and aliased to pos, int32 bins, int64 slot fields."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import route
+
+    NW, n, F = 64, (1 << 20) + 3, 28
+    for what, dup, base, spread, view, alias, i32, wide in (
+            ("duplicated valid ids", "valid", 0, 129, False, False, False,
+             False),
+            ("a duplicated id whose later slot is invalid", "invalid", 0,
+             129, False, True, False, False),
+            ("node ids above 57,344", None, 60000, 129, False, False, False,
+             False),
+            ("ids spread over 10^6 (the sorted lookup)", None, 60000,
+             10 ** 6, False, True, False, True),
+            ("a misaligned pos[1:], out separate", None, 0, 129, True,
+             False, False, False),
+            ("a misaligned pos[1:], out aliased", None, 0, 129, True, True,
+             False, False),
+            ("int32 bins, out aliased", None, 0, 129, False, True, True,
+             False)):
+        B = 1024 if i32 else 256
+        bins = torch.randint(0, B, (F, n), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        bins = bins if i32 else bins.to(torch.uint8)
+        ids = torch.randperm(spread, generator=gen, device="cuda")[:NW]
+        nid = (ids + base).to(torch.int32)
+        full = nid[torch.randint(0, NW, (n + 1,), generator=gen,
+                                 device="cuda")]
+        full[torch.rand((n + 1,), generator=gen, device="cuda") < 0.2] = -1
+        pos = full[1:] if view else full[:n].clone()
+        valid = torch.rand((NW,), generator=gen, device="cuda") < 0.8
+        if dup:
+            nid[NW - 1] = nid[1]
+            valid[1] = True
+            valid[NW - 1] = dup == "valid"
+        feat = torch.randint(-1, F + 1, (NW,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        slot = torch.randint(0, B, (NW,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        lch = (base + 2 * spread + 2 * torch.arange(NW, device="cuda")).to(
+            torch.int32)
+        lo = torch.randint(0, B // 4, (NW,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        hi = lo + B // 2
+        if wide:
+            feat, slot, lo, hi = (x.long() for x in (feat, slot, lo, hi))
+        want = route.route_wave_plain(bins, pos, valid, nid, feat, slot, lch,
+                                      lch + 1, lo, hi)
+        got = route.route_wave(bins, pos, valid, nid, feat, slot, lch,
+                               lch + 1, lo=lo, hi=hi,
+                               out=pos if alias else None)
+        check(not alias or got.data_ptr() == pos.data_ptr(),
+              f"route: out is not pos at {what}")
+        cmp("route", got, want, f"NW = {NW} over {n} rows, {what}")
 
 
 def phase_train(tmp, card, precision="int8"):
@@ -1944,6 +2014,7 @@ def phase_u8_kernels(card):
     err = 0.0
     cases = [(N, fg, rows, False) for N, fg, rows in U8_SHAPES]
     cases.append((64, None, None, True))
+    cases.append((100, None, None, True))  # 3N > 256: two n-tiles of PV
     for N, fg, rows, dup in cases:
         bins, pos, gq, hq, ids, M = rand_hist_inputs(
             gen, N_FEATURES, U8_ROWS, 256, N, "u8")
@@ -1961,14 +2032,14 @@ def phase_u8_kernels(card):
             N_FEATURES, 3 * N, 256))
         what = (f"(N, F, n, B) = ({N}, {N_FEATURES}, {U8_ROWS}, 256), fg "
                 f"{fg or 'default'}, rows/block {rows or 'default'}"
-                + (", a duplicated id (slots 1 and 63) and pads" if dup
-                   else ""))
+                + (f", a duplicated id (slots 1 and {N - 1}) and pads"
+                   if dup else ""))
         print(f"kernel check hist_q_u8 {what}, tolerance exact "
               f"(torch.equal): {ok}, equals K2 permuted {same_k2}, "
               f"max_abs_err {e} [{card}]", flush=True)
         check(ok and same_k2, f"hist_q_u8 disagrees at {what}")
         if dup:
-            check(all(torch.equal(got[:, c * N + 1], got[:, c * N + 63])
+            check(all(torch.equal(got[:, c * N + 1], got[:, c * N + N - 1])
                       for c in range(3)) and bool(got[:, 2 * N + 1].any()),
                   "hist_q_u8: the duplicated id's slots differ")
     print(f"phase u8 kernels: {time.perf_counter() - t0:.3f} s [{card}]",
@@ -2055,8 +2126,9 @@ def phase_u8_timing(card):
                                              max_nodes=M), iters=5)
     plan = hist.u8_plan(N, F, B, n, torch.cuda.get_device_properties(0)
                         .multi_processor_count)
-    print(f"timing: hist_q_u8 (default plan fg {plan['fg']}, "
-          f"{plan['rows_per_block']} rows a block, grid {plan['grid']}) "
+    print(f"timing: hist_q_u8 (default plan W {plan['W']}, fg "
+          f"{plan['fg']}, {plan['rows_per_block']} rows a chunk, "
+          f"{plan['items']} items over {plan['blocks']} blocks) "
           f"{ms:.6f} ms, plain {plain_ms:.6f} ms, one scatter_add_ "
           f"{lib_ms:.6f} ms, bound {bound:.6f} ms ({bound_by}), "
           f"mma_floor_ms {floor:.6f}; K2 at the same inputs {k2_ms:.6f} ms "

@@ -135,6 +135,70 @@ def test_route_kernel_matches_plain_in_place(gen, NW, dtype):
     assert got.data_ptr() == pos.data_ptr() and torch.equal(got, want)
 
 
+K5_CASES = {
+    # name: (F, n, B, NW, id base, id spread, dup, view, alias, i32, i64)
+    "dup_valid": (28, 100003, 256, 64, 0, 129, "valid", False, False,
+                  False, False),
+    "dup_later_invalid": (28, 100003, 256, 64, 0, 129, "invalid", False,
+                          True, False, False),
+    "ids_past_57344": (28, 100003, 256, 64, 60000, 129, None, False, False,
+                       False, False),
+    "sorted_lookup": (8, 100003, 256, 64, 60000, 10 ** 6, None, False, True,
+                      False, True),
+    "misaligned_out_separate": (8, 100003, 256, 64, 0, 129, None, True,
+                                False, False, False),
+    "misaligned_out_aliased": (8, 100003, 256, 64, 0, 129, None, True, True,
+                               False, False),
+    "i32_bins_aliased": (6, 100003, 1024, 17, 0, 39, None, False, True, True,
+                         False),
+    "empty_wave": (3, 1001, 16, 0, 0, 9, None, False, True, False, False),
+    "wide_wave": (4, 20003, 256, 3000, 0, 300000, "valid", False, False,
+                  False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_route_kernel_edge_cases(gen, case):
+    """K5's lookup (direct map, sorted ids), row (quads, the scalar path)
+    and store paths against its plain version, exact, one launch each."""
+    F, n, B, NW, base, spread, dup, view, alias, i32, i64 = K5_CASES[case]
+    bins = torch.randint(0, B, (F, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bins = bins if i32 else bins.to(torch.uint8)
+    nid = (torch.randperm(spread, generator=gen, device="cuda")[:NW]
+           + base).to(torch.int32)
+    full = nid[torch.randint(0, max(NW, 1), (n + 1,), generator=gen,
+                             device="cuda")] if NW else \
+        torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+    full[torch.rand((n + 1,), generator=gen, device="cuda") < 0.2] = -1
+    pos = full[1:] if view else full[:n].clone()
+    valid = torch.rand((NW,), generator=gen, device="cuda") < 0.8
+    if dup:
+        nid[NW - 1] = nid[1]
+        valid[1] = True
+        valid[NW - 1] = dup == "valid"
+    feat = torch.randint(-1, F + 1, (NW,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    slot = torch.randint(0, B, (NW,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lch = (base + 2 * spread + 2 * torch.arange(NW, device="cuda")).to(
+        torch.int32)
+    lo = torch.randint(0, B // 4, (NW,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    hi = lo + B // 2
+    if i64:
+        nid, feat, slot, lo, hi = (x.long() for x in (nid, feat, slot, lo,
+                                                       hi))
+    want = route.route_wave_plain(bins, pos, valid, nid, feat, slot, lch,
+                                  lch + 1, lo, hi)
+    before = route.route_wave.launches
+    got = route.route_wave(bins, pos, valid, nid, feat, slot, lch, lch + 1,
+                           lo=lo, hi=hi, out=pos if alias else None)
+    assert route.route_wave.launches == before + 1
+    assert (got.data_ptr() == pos.data_ptr()) == alias
+    assert torch.equal(got, want)
+
+
 def test_grow_on_the_card_equals_the_cpu(gen):
     rng = np.random.RandomState(3)
     n, F, B = 50000, 6, 64
@@ -293,6 +357,12 @@ def _dup_ids(gen, N, M):
     (32, 28, 200003, 256, None, None), (32, 5, 99999, 256, 7, 1000),
     (64, 28, 70001, 256, 4, None), (100, 6, 20000, 64, 1, 128),
     (5, 3, 777, 16, 16, 33),
+    # slice 7's wgmma kernel: 3N past 256 (two n-tiles, two PV regions in
+    # a round), an odd number of units a feature (rounds across features,
+    # an idle consumer in the last), every wgmma width, 16-byte bins
+    (100, 28, 70016, 256, None, None), (300, 3, 20000, 256, None, 4096),
+    (50, 5, 30001, 160, None, None), (21, 7, 65536, 256, None, None),
+    (42, 4, 65536, 256, 3, 8192), (85, 4, 65536, 1, None, None),
 ])
 def test_hist_u8_matches_plain_and_k2(gen, N, F, n, B, fg, rows):
     """K8 against its plain version and against K2 permuted to its layout,

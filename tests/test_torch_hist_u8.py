@@ -138,21 +138,24 @@ def test_hist_q_u8_refuses_bad_inputs():
                                     (32, 256, 7), (64, 256, None),
                                     (100, 64, 3), (600, 256, 1)])
 def test_u8_plan_covers_and_fits(N, B, fg):
-    """Every warp task of every feature has a warp; at most U8_WARPS warps
-    and SMEM_MAX bytes a block; the chunks cover the rows. A wave whose PV
-    fragments pass shared memory is refused by name."""
+    """Every feature's n-tiles (W rows of PV each) cover its 3N PV rows and
+    its m-groups its B bins; fg's feature groups cover F and the chunks the
+    rows; the ring fits SMEM_MAX and the accumulators U8_REGS; a persistent
+    grid of at most one block an SM. A wave past 256 PV rows (N = 600) is
+    cut into n-tiles rather than refused."""
     F, n = 28, 1280 * 8192
-    if N == 600:
-        with pytest.raises(ValueError, match="shared memory"):
-            hist.u8_plan(N, F, B, n, 132, fg)
-        return
     p = hist.u8_plan(N, F, B, n, 132, fg)
-    assert p["tps"] * p["n_slices"] >= p["tpf"]
+    assert p["W"] in hist.U8_WIDTHS
+    assert p["W"] * p["n_ntiles"] >= 3 * N > p["W"] * (p["n_ntiles"] - 1)
+    assert 64 * p["mtw"] * p["n_mgroups"] >= B
     assert p["fg"] * p["n_fgroups"] >= F
-    assert p["threads"] == 32 * p["fg"] * p["tps"] <= 32 * hist.U8_WARPS
-    assert p["mtw"] * p["ntw"] == hist.U8_TILES
-    MT, NT = -(-3 * N // 16), -(-B // 8)
-    assert p["tpf"] == -(-MT // p["mtw"]) * -(-NT // p["ntw"])
+    assert p["fg"] == (fg or p["fg"])
+    assert p["threads"] == hist.U8_THREADS
+    assert p["mtw"] * p["W"] // 2 + 16 * p["mtw"] <= hist.U8_REGS
     assert p["smem"] <= hist.SMEM_MAX
     assert p["rows_per_block"] * p["n_chunks"] >= n
-    assert p["grid"] == (p["n_fgroups"] * p["n_slices"], p["n_chunks"])
+    assert p["items"] == p["n_fgroups"] * p["n_chunks"]
+    assert p["blocks"] == min(p["items"], 132)
+    assert hist.check_u8_plan(dict(p), N, F, B, n) == p
+    if N == 600:
+        assert p["n_ntiles"] == 8 and p["regions"] == 2

@@ -216,6 +216,11 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     try:
         while app._serve_thread is not None and app._serve_thread.is_alive():
             app._serve_thread.join(timeout=1.0)
+        # the listener stops before the drain closes the models: exit only
+        # after it (an interpreter torn down under the drain's torch work
+        # aborts the process)
+        if app._drain_thread is not None:
+            app._drain_thread.join()
     except KeyboardInterrupt:
         app.stop(drain=True)
     return 0

@@ -997,78 +997,196 @@ hist_wave_gather_mxu.launches = 0
 # K8: the histogram as an int8 one-hot matrix product
 # ---------------------------------------------------------------------------
 
-#: K8's launch shape: a block stages U8_KT rows at a time (four 32-row
-#: steps of the m16n8k32 product), runs at most U8_WARPS warps, and each
-#: warp holds U8_TILES 16 x 8 int32 accumulator tiles in registers
-U8_KT = 128
-U8_WARPS = 16
-U8_TILES = 16
-#: rows at least in a block's chunk when the plan picks the chunk length
+#: K8's launch shape (csrc/hist_u8.cu): a block is one producer warpgroup
+#: and U8_CONSUMERS consumer warpgroups; the producer stages `kt` rows at a
+#: time (kt / 32 k-steps of the wgmma product; kt in U8_KTS, the longest
+#: whose ring holds U8_RING_MIN stages), u8_ahead(kt) stages ahead into
+#: u8_ahead(kt) + 1 staged slots of its own, and builds PV into a ring of
+#: at most U8_RING stages that the consumers read
+U8_KTS = (512, 256, 128)
+U8_CONSUMERS = 2
+U8_THREADS = 128 * (1 + U8_CONSUMERS)
+U8_RING = 4
+U8_RING_MIN = 3
+#: the kernel's wgmma widths: an n-tile holds 3N rows of PV rounded up to
+#: one of them, and 3N past the last is cut into n-tiles of at most it
+U8_WIDTHS = (32, 64, 96, 128, 192, 256)
+#: the (W, mtw, kt) instances csrc/hist_u8.cu compiles
+U8_INSTANCES = frozenset(
+    [(w, m, 512) for w in (32, 64, 96) for m in (1, 2)]
+    + [(128, 1, 512), (192, 1, 256), (192, 1, 128), (256, 1, 256),
+       (256, 1, 128)])
+#: 64-bin m-tiles a consumer holds: two where the accumulators (MTW x W / 2
+#: int32 a thread) and the two sets of A fragments (16 MTW) stay within
+#: U8_REGS
+U8_REGS = 144
+#: features an item may cover (the parent design's warps a block)
+U8_MAX_FG = 16
+#: rows at least in an item's chunk when the plan picks the chunk length
 U8_MIN_ROWS = 8192
+_U8_BARRIER_BYTES = 16
 
 
-def _u8_warp_shape(MT: int) -> Tuple[int, int]:
-    """(m-tiles, n-tiles) of one warp's accumulator, the kernel's template
-    instances: a short PV column whole, else eight of its m-tiles."""
-    mtw = 1 if MT == 1 else 2 if MT == 2 else 4 if MT <= 4 else 8
-    return mtw, U8_TILES // mtw
+def u8_ahead(kt: int) -> int:
+    """Stages K8's producer loads ahead: 1024 rows, two stages at least."""
+    return max(2, 1024 // kt)
+
+
+def _u8_tiles(N: int, B: int) -> Tuple[int, int, int, int]:
+    """(W, n-tiles, MTW, m-groups) of K8: the 3N PV rows cut into the
+    fewest n-tiles of at most U8_WIDTHS[-1] rows, each rounded up to a wgmma
+    width W; the ceil(B/64) m-tiles of 64 bins in groups of MTW."""
+    rows3 = 3 * max(N, 1)
+    n_ntiles = -(-rows3 // U8_WIDTHS[-1])
+    W = next(w for w in U8_WIDTHS if w * n_ntiles >= rows3)
+    MT = -(-B // 64)
+    mtw = 2 if MT >= 2 and 2 * W // 2 + 16 * 2 <= U8_REGS else 1
+    return W, n_ntiles, mtw, -(-MT // mtw)
+
+
+def _u8_stage_bytes(W: int, regions: int, kt: int) -> int:
+    """A ring stage: PV regions, the consumers' bins, two mbarriers."""
+    return regions * kt * W + U8_CONSUMERS * kt + _U8_BARRIER_BYTES
+
+
+def _u8_smem(W: int, regions: int, ring: int, kt: int) -> int:
+    """The ring, the staged slots (pos, gq, hq as f32 and g, h as int8 of
+    kt rows and the consumers' bins) and the tables of PV rows (two
+    regions of W rows x (id, channel))."""
+    return (ring * _u8_stage_bytes(W, regions, kt)
+            + (u8_ahead(kt) + 1) * kt * (14 + U8_CONSUMERS) + 2 * W * 5)
+
+
+def _u8_ring(W: int, regions: int, kt: int) -> int:
+    return min(U8_RING, (SMEM_MAX - _u8_smem(W, regions, 0, kt))
+               // _u8_stage_bytes(W, regions, kt))
+
+
+def _u8_chunks(n_fgroups: int, n: int, sm_count: int) -> int:
+    """Row chunks for a persistent grid of sm_count blocks over n_fgroups x
+    chunks equal items: the fewest whose makespan, ceil(items / blocks) /
+    chunks, is within 2% of the best over chunks of U8_MIN_ROWS rows or
+    more."""
+    top = max(1, n // U8_MIN_ROWS)
+
+    def span(c):
+        return -(-n_fgroups * c // sm_count) / c
+
+    best = min(span(c) for c in range(1, top + 1))
+    return next(c for c in range(1, top + 1) if span(c) <= best * 1.02)
+
+
+@lru_cache(maxsize=512)
+def _u8_plan(N: int, F: int, B: int, n: int, sm_count: int, fg: int,
+             rows_per_block: int) -> Tuple[Tuple[str, object], ...]:
+    W, n_ntiles, mtw, n_mgroups = _u8_tiles(N, B)
+    upf = n_ntiles * n_mgroups
+    if fg <= 0:  # the default: an item's units fill whole rounds
+        fg = 1 if upf % U8_CONSUMERS == 0 else min(max(F, 1), U8_CONSUMERS)
+    regions = min(U8_CONSUMERS, n_ntiles)
+    kt = next(k for k in U8_KTS
+              if _u8_ring(W, regions, k) >= (U8_RING_MIN if k > U8_KTS[-1]
+                                             else 2))
+    ring = _u8_ring(W, regions, kt)
+    n_fgroups = max(1, -(-F // fg))
+    if rows_per_block <= 0:
+        chunks = _u8_chunks(n_fgroups, n, sm_count)
+        rows_per_block = _pad_to(max(1, -(-n // chunks)), kt)
+    n_chunks = max(1, -(-n // rows_per_block))
+    items = n_fgroups * n_chunks
+    return tuple({
+        "W": W, "n_ntiles": n_ntiles, "mtw": mtw, "n_mgroups": n_mgroups,
+        "fg": fg, "n_fgroups": n_fgroups, "rows_per_block": rows_per_block,
+        "n_chunks": n_chunks, "items": items, "regions": regions,
+        "kt": kt, "ring": ring, "smem": _u8_smem(W, regions, ring, kt),
+        "threads": U8_THREADS, "blocks": max(1, min(items, sm_count)),
+    }.items())
 
 
 def u8_plan(N: int, F: int, B: int, n: int, sm_count: int,
             fg: Optional[int] = None,
             rows_per_block: Optional[int] = None) -> dict:
-    """Launch shape of K8. The (3N, B) product of one feature is MT x NT
-    tiles of 16 x 8 (MT = ceil(3N/16), NT = ceil(B/8)); a warp's task is
-    `mtw` x `ntw` of them, a feature has `tpf` tasks. A block runs `fg`
-    features x `tps` tasks (one warp each) over `rows_per_block` rows; a
-    feature's tasks that do not fit one block go to `n_slices` blocks.
-    fg None: as many whole features as fill U8_WARPS warps; rows_per_block
-    None: about four blocks per SM, each at least U8_MIN_ROWS rows. Raises
-    ValueError for an fg outside [1, U8_WARPS], a staging tile past
-    SMEM_MAX, or more than 65535 row chunks."""
-    MT, NT = max(1, -(-3 * N // 16)), -(-B // 8)
-    mtw, ntw = _u8_warp_shape(MT)
-    tpf = -(-MT // mtw) * -(-NT // ntw)
-    if fg is None:
-        fg = max(1, min(F, U8_WARPS // tpf))
-    fg = int(fg)
-    if not 1 <= fg <= U8_WARPS:
-        raise ValueError(f"hist_q_u8: fg ({fg}) must be in [1, {U8_WARPS}]: "
-                         f"a block runs a warp per feature at least and "
-                         f"{U8_WARPS} warps at most")
-    tps = min(tpf, max(1, U8_WARPS // fg))
-    n_slices = -(-tpf // tps)
-    n_fgroups = -(-F // fg)
-    smem = 4 * MT * 32 * 16 + U8_KT * 6 + _pad_to(4 * N, 16) + fg * U8_KT
-    if smem > SMEM_MAX:
-        raise ValueError(f"hist_q_u8: the PV fragments of {N} slots and the "
-                         f"bins of {fg} features need {smem} bytes of shared "
-                         f"memory, more than {SMEM_MAX}")
-    nx = n_fgroups * n_slices
-    if rows_per_block is None:
-        n_chunks = max(1, min(-(-4 * sm_count // nx),
-                              -(-n // U8_MIN_ROWS), 65535))
-        rows_per_block = _pad_to(max(1, -(-n // n_chunks)), U8_KT)
-    rows_per_block = int(rows_per_block)
-    if rows_per_block < 1:
+    """Launch shape of K8 (csrc/hist_u8.cu). The (3N, B) histogram of one
+    feature is cut into n-tiles of PV rows (`n_ntiles` of width `W`, a wgmma
+    width) x m-groups of `mtw` 64-bin m-tiles (`n_mgroups`): n_ntiles x
+    n_mgroups units, each one consumer warpgroup's accumulators. An item is
+    `fg` features (their units in rounds of U8_CONSUMERS, each round a pass
+    over the rows) x a chunk of `rows_per_block` rows; a persistent grid of
+    `blocks` (at most one an SM) walks the n_fgroups x n_chunks items.
+    fg None: one feature, or two when a feature's units are odd;
+    rows_per_block None: the chunks that balance the items over the SMs
+    best (_u8_chunks), a multiple of the stage's `kt` rows. The plan is
+    checked by
+    check_u8_plan, which raises ValueError for an fg outside [1,
+    U8_MAX_FG] or rows_per_block < 1."""
+    if fg is not None and not 1 <= int(fg) <= U8_MAX_FG:
+        raise ValueError(f"hist_q_u8: fg ({fg}) must be in [1, {U8_MAX_FG}]")
+    if rows_per_block is not None and int(rows_per_block) < 1:
         raise ValueError(f"hist_q_u8: rows_per_block ({rows_per_block}) "
                          "must be >= 1")
-    n_chunks = max(1, -(-n // rows_per_block))
-    if n_chunks > 65535:
-        raise ValueError(f"hist_q_u8: {n_chunks} row chunks of "
-                         f"{rows_per_block} rows, more than 65535")
-    return {"fg": fg, "tps": tps, "mtw": mtw, "ntw": ntw, "tpf": tpf,
-            "n_slices": n_slices, "n_fgroups": n_fgroups,
-            "threads": 32 * fg * tps, "smem": smem,
-            "rows_per_block": rows_per_block, "n_chunks": n_chunks,
-            "grid": (nx, n_chunks)}
+    return check_u8_plan(
+        dict(_u8_plan(N, F, B, n, max(1, sm_count), int(fg or 0),
+                      int(rows_per_block or 0))), N, F, B, n)
+
+
+def check_u8_plan(plan: dict, N: int, F: int, B: int, n: int) -> dict:
+    """Check a K8 launch shape before any launch (pure integer checks):
+    W a wgmma width and its n-tiles covering the 3N PV rows, its m-groups
+    covering the B bins (B <= 256), the accumulators and A fragments within
+    U8_REGS registers a thread, fg in [1, U8_MAX_FG] and its feature groups
+    covering F, chunks covering the n rows, the items and the grid in
+    range, the ring's shared memory within SMEM_MAX. Returns the plan;
+    raises ValueError naming what fails."""
+    W, nt, mtw, mg = (int(plan[k]) for k in ("W", "n_ntiles", "mtw",
+                                              "n_mgroups"))
+    fg, nfg = int(plan["fg"]), int(plan["n_fgroups"])
+    rpb, chunks = int(plan["rows_per_block"]), int(plan["n_chunks"])
+    if W not in U8_WIDTHS:
+        raise ValueError(f"u8 plan: W ({W}) is not one of {U8_WIDTHS}")
+    if nt < 1 or W * nt < 3 * N or W * (nt - 1) >= max(3 * N, 1):
+        raise ValueError(f"u8 plan: {nt} n-tiles of {W} rows do not cut "
+                         f"3N = {3 * N} PV rows")
+    if mtw not in (1, 2) or mg < 1 or 64 * mtw * mg < B             or 64 * mtw * (mg - 1) >= B or not 1 <= B <= 256:
+        raise ValueError(f"u8 plan: {mg} m-groups of {mtw} m-tiles do not "
+                         f"cover B = {B} bins in at most 256")
+    if mtw * W // 2 + 16 * mtw > U8_REGS:
+        raise ValueError(f"u8 plan: {mtw} m-tiles x W = {W} need "
+                         f"{mtw * W // 2} accumulator registers a thread, "
+                         f"past the budget of {U8_REGS}")
+    if not 1 <= fg <= U8_MAX_FG or nfg != max(1, -(-F // fg)):
+        raise ValueError(f"u8 plan: fg ({fg}) must be in [1, {U8_MAX_FG}] "
+                         f"and its {nfg} groups cover F = {F}")
+    if rpb < 1 or chunks != max(1, -(-n // rpb)):
+        raise ValueError(f"u8 plan: {chunks} chunks of {rpb} rows do not "
+                         f"cover n = {n}")
+    if int(plan["items"]) != nfg * chunks or nfg * chunks > 2 ** 31 - 1:
+        raise ValueError(f"u8 plan: items ({plan['items']}) must be "
+                         f"{nfg} x {chunks} and fit an int32")
+    if not 1 <= int(plan["blocks"]) <= min(int(plan["items"]), 2 ** 31 - 1):
+        raise ValueError(f"u8 plan: blocks ({plan['blocks']}) must be in "
+                         f"[1, items = {plan['items']}]")
+    regions, ring, kt = (int(plan[k]) for k in ("regions", "ring", "kt"))
+    if regions != min(U8_CONSUMERS, nt) or ring < 2:
+        raise ValueError(f"u8 plan: regions ({regions}) must be "
+                         f"{min(U8_CONSUMERS, nt)} and ring ({ring}) >= 2")
+    if (W, mtw, kt) not in U8_INSTANCES:
+        raise ValueError(f"u8 plan: (W, mtw, kt) = ({W}, {mtw}, {kt}) is not "
+                         "an instance of the kernel")
+    smem = _u8_smem(W, regions, ring, kt)
+    if int(plan["smem"]) != smem or smem > SMEM_MAX:
+        raise ValueError(f"u8 plan: {ring} stages of {regions} PV regions "
+                         f"of width {W} need {smem} bytes of shared memory "
+                         f"(plan: {plan['smem']}; at most {SMEM_MAX})")
+    if int(plan["threads"]) != U8_THREADS:
+        raise ValueError(f"u8 plan: threads must be {U8_THREADS}")
+    return plan
 
 
 def _bind_u8(lib) -> None:
     ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     lib.ytk_hist_q_u8.restype = ctypes.c_int
-    lib.ytk_hist_q_u8.argtypes = [vp, ll, vp, vp, vp, vp] + [ci] * 11 + [
-        ll, vp, vp]
+    lib.ytk_hist_q_u8.argtypes = [vp, ll, vp, vp, vp, vp] + [ci] * 10 + [
+        ll, ll] + [ci] * 6 + [vp, vp]
 
 
 _U8_LIBRARY = KernelLibrary(
@@ -1126,10 +1244,15 @@ def hist_q_u8(bins_t, pos, gq, hq, node_ids, B: int, *,
     with torch.cuda.device(dev):
         rc = lib.ytk_hist_q_u8(
             bins_t.data_ptr(), n, pos.data_ptr(), gq.data_ptr(),
-            hq.data_ptr(), node_ids.data_ptr(), N, F, B, plan["fg"],
-            plan["n_fgroups"], plan["tps"], plan["mtw"], plan["n_slices"],
-            plan["n_chunks"], plan["threads"], plan["smem"],
-            plan["rows_per_block"], out.data_ptr(),
+            hq.data_ptr(), node_ids.data_ptr(), N, F, B, plan["W"],
+            plan["mtw"], plan["kt"], plan["n_ntiles"], plan["n_mgroups"], plan["fg"],
+            plan["n_fgroups"], plan["n_chunks"], plan["rows_per_block"],
+            plan["regions"], plan["ring"],
+            int(all(_aligned(t, 16) for t in (pos, gq, hq))
+                and plan["rows_per_block"] % 4 == 0),
+            int(_aligned(bins_t, 16) and n % 16 == 0
+                and plan["rows_per_block"] % 16 == 0),
+            plan["blocks"], plan["smem"], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _U8_LIBRARY.check(rc, "hist_q_u8")
     _count(hist_q_u8)

@@ -1,6 +1,6 @@
-"""K1-K4 at chip_smoke.py's timing shapes, on one line: the quick A/B of
-two checkouts of the histogram kernels on one card. Run it from each
-checkout in turns (A, B, B, A) within one call:
+"""K1-K5 and K8 at chip_smoke.py's timing shapes, on one line: the quick
+A/B of two checkouts of the histogram and routing kernels on one card. Run
+it from each checkout in turns (A, B, B, A) within one call:
 
     python -m ytklearn_tpu_torch.scripts.time_hist [--rows N]
         [--repeats R] [--device cpu]
@@ -11,10 +11,16 @@ training run's 10,502,144 padded rows), positions over 129 nodes, a
 device. K2 (int8) and K1 (bf16) run one full-scan wave over every row;
 K4 (int8) and K3 (bf16) the first fused rung of it, R = n/64 rounded up to
 1024 rows, each at its planner's default plan (q_plan for K2/K4,
-float_plan for K1/K3), printed after the times. Times are CUDA events,
-the median of --repeats runs of 10 (K1, K2) or 50 (K3, K4) launches, with
-the card's name and power limit; with --device cpu the plain versions run
-once and every time reads "not measured (cpu)".
+float_plan for K1/K3), printed after the times. K5 routes every row by a
+64-slot wave of those ids (random features and split slots, children
+fresh ids) into a new tensor. K8 runs at the reference's tune shape
+(scripts/tune_hist_kernel.py: 10,485,760 rows, or --rows, a 32-slot wave
+over 64 nodes) at u8_plan's default plan. The script uses the wrappers'
+public signatures only, so a copy of it times an older checkout's
+kernels too. Times are CUDA events, the
+median of --repeats runs of 10 (K1, K2), 50 (K3, K4), 20 (K5) or 3 (K8)
+launches, with the card's name and power limit; with --device cpu the
+plain versions run once and every time reads "not measured (cpu)".
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import sys
 
 import torch
 
-from ..gbdt import hist
+from ..gbdt import hist, route
+from . import tune_hist_kernel as tk
 from ._common import Timer, fmt_ms, parser, setup
 
 F, B, N = 28, 256, 64
@@ -65,6 +72,19 @@ def main(argv=None) -> int:
             rows, idx, pg, g2, h2, ids, B, mode="mxu", max_nodes=M),
             chain=50),
     }
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    feat = torch.randint(0, F, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    slot = torch.randint(0, B, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lch = (M + 2 * torch.arange(N, device=dev)).to(torch.int32)
+    out["K5"] = timer.ms(lambda: route.route_wave(
+        bins, pos, valid, ids, feat, slot, lch, lch + 1), chain=20)
+    del rows, gg, hg, g2, h2, g, h
+    n8 = min(n, tk.ROWS)
+    ub, up, _, _, ug, uh, ui = tk.make_data(n8, dev)
+    out["K8"] = timer.ms(lambda: hist.hist_q_u8(ub, up, ug, uh, ui, tk.B),
+                         chain=3)
     sm = 1 if dev.type == "cpu" else \
         torch.cuda.get_device_properties(dev).multi_processor_count
     plans = {"K2": hist.q_plan(N, F, B, M, n, sm),
@@ -76,7 +96,7 @@ def main(argv=None) -> int:
           + "; plans " + ", ".join(
               f"{k} {p['kind']} {p['ng']}x{p['fg']} {p['n_tiles']}x"
               f"{p['n_chunks']}" for k, p in plans.items())
-          + f" [{card}]", flush=True)
+          + f"; K8 at n={n8}, N={tk.N} [{card}]", flush=True)
     return 0
 
 

@@ -10,8 +10,9 @@ a 32-slot wave, seeded numpy data as the reference draws it.
     to the default plan's (torch.equal);
   * K1 (hist_wave, bf16) at float_plan's default plan, the red kind and
     two tiles (2 and 7 features);
-  * K8 (hist_q_u8, the int8 one-hot product on the tensor cores) across
-    fg in {1, 2, 4, 7} x two row-chunk lengths, and its default;
+  * K8 (hist_q_u8, the int8 one-hot product on wgmma tensor cores)
+    across u8_plan's knobs, fg features an item in {1, 2, 4, 7} x two
+    row-chunk lengths, and its default;
   * the reference's spot check: K8 equals K2 (permuted to K8's layout),
     torch.equal. Exit 1 when it does not, or a K2 plan's sums differ.
 
@@ -125,8 +126,8 @@ def main(argv=None) -> int:
     for fg, rows in shapes:
         plan = hist.u8_plan(N, F, B, n, sm, fg, rows)
         label = (f"K8 u8-OH fg={plan['fg']} rows/block="
-                 f"{plan['rows_per_block']} threads={plan['threads']} grid="
-                 f"{plan['grid'][0]}x{plan['grid'][1]}"
+                 f"{plan['rows_per_block']} W={plan['W']} items="
+                 f"{plan['items']} blocks={plan['blocks']}"
                  + (" (default)" if fg is None else ""))
         line(label, timer.ms(
             lambda: hist.hist_q_u8(bins, pos, gq, hq, ids, B, fg=fg,

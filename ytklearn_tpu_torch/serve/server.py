@@ -64,6 +64,7 @@ class ServeApp:
         self._batchers_lock = threading.Lock()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._serve_thread: Optional[threading.Thread] = None
+        self._drain_thread: Optional[threading.Thread] = None
         self._started_at = time.time()
 
     def batcher_for(self, name: str) -> MicroBatcher:
@@ -237,9 +238,10 @@ class ServeApp:
 
         def _drain(signum, frame):
             log.info("serve: signal %d, draining", signum)
-            threading.Thread(
+            self._drain_thread = threading.Thread(
                 target=self.stop, kwargs={"drain": True}, daemon=True
-            ).start()
+            )
+            self._drain_thread.start()
 
         signal.signal(signal.SIGTERM, _drain)
         signal.signal(signal.SIGINT, _drain)
