@@ -8,9 +8,10 @@ on the fused rung (slice 1), int8 GBDT training (slice 2), `cli train`
 with the bf16 histograms and the binned serving rung (slice 3), the
 histogram tuning tools with K8, the int8 one-hot histogram (slice 4), the
 redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5), the
-redesigned int8 histograms K2 and K4 of int8 training (slice 6), and K8
+redesigned int8 histograms K2 and K4 of int8 training (slice 6), K8
 redesigned on warpgroup tensor cores and K5, wave routing, redesigned
-(slice 7).
+(slice 7), and the serving walks K6 and K7 redesigned as (row, tree)-
+parallel walks with an ordered fold per row (slice 8).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -19,10 +20,12 @@ redesigned on warpgroup tensor cores and K5, wave routing, redesigned
      gbdt/csrc/route.cu: K5; gbdt/csrc/hist_u8.cu: K8) from the checkout,
      one nvcc each, all started together, and prints each build's time and
      ptxas' report;
-  3. holds the kernel against its plain PyTorch version and against the
-     stacked rung, all on the card, with torch.equal (tolerance: exact) at
-     (trees, depth, rows) = (13, 1, 1), (64, 10, 512), (500, 6, 1) and
-     (500, 6, 512), on rows with NaN, +-inf and values exactly at splits;
+  3. holds K6 against its plain PyTorch version and against the stacked
+     rung, and K7 against its plain version on uint8 and uint16 bins of
+     the same rows, all on the card, with torch.equal (tolerance: exact)
+     at the (trees, depth, rows) of KERNEL_SHAPES (depth 1 to 10, every
+     ladder rung, a ragged row tile, T past one 512-tree chunk), on rows
+     with NaN, +-inf and values exactly at splits;
   4. writes a seeded 500-tree, depth-6, 28-feature sigmoid model and its
      config, serves it through ModelRegistry + ServeApp on cuda with
      YTK_SERVE_FUSED=1, POSTs 1, 7, 64, 512 and 600 rows plus a burst of 16
@@ -31,10 +34,14 @@ redesigned on warpgroup tensor cores and K5, wave routing, redesigned
      sigmoid); the kernel's launch count is zeroed just before these
      requests and read just after;
   5. times the one-row HTTP p50 latency, then traces 50 more one-row
-     requests with torch.profiler for the device's idle share, and, per
+     requests with torch.profiler for the device's idle share on the
+     fused rung, and, per
      ladder rung, holds the kernel against its plain version (torch.equal)
-     and times the kernel (CUDA events, median of repeats), its plain
-     version and the stacked rung beside the kernel's bound;
+     and times a call of the kernel, its plain version and the stacked
+     rung (CUDA events, median of repeats; the call is the kernels line's
+     `ms`, as for every kernel) beside the kernel's bound, and the
+     kernel's own device time (torch.profiler's events, the median of 50
+     launches; the line's `device_ms`);
   6. holds the training kernels K2 (hist_q), K4 (hist_gather_q) and K5
      (route) against their plain PyTorch versions with torch.equal
      (tolerance: exact, the sums are int32) at the shapes listed in
@@ -77,9 +84,12 @@ redesigned on warpgroup tensor cores and K5, wave routing, redesigned
      K3 and K5 only;
  11. serves that model on the binned rung (YTK_SERVE_BINNED=1, edges from
      its sidecar): 200 one-row requests and one of 512 rows, every score
-     bit-equal to the port's CPU binned scorer, with K7's launches counted;
-     then, without the sidecar, thresholds mode bit-equal to the host tree
-     walk; times K7 at rung 512;
+     bit-equal to the port's CPU binned scorer, with K7's launches counted,
+     the one-row p50 and, over 50 more traced requests, the binned rung's
+     idle share; then, without the sidecar, thresholds mode bit-equal to
+     the host tree walk; times K7 at every ladder rung on that model and
+     on the 500-tree model as K6 is timed, each held to its plain version
+     first;
  12. trains the bench configuration of step 7 in bf16 (K1, K3, K5),
      prints its trees/s beside the figure PERF.md records for the kernels
      before their redesign, and times K1 and K3 at its shapes; then, the
@@ -102,8 +112,9 @@ redesigned on warpgroup tensor cores and K5, wave routing, redesigned
  15. times K8 at the tune shape beside its bytes bound, its tensor-core
      floor (mma_floor_ms), its plain version and one scatter_add_, then K8
      and K2 on waves of 1 to 64 slots that hold every row;
- 16. prints the `kernels` JSON line (eight kernels), the card line, and
-     last the result line {"ok": true, "device": {...}}.
+ 16. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+     `device_ms`), the card line, and last the result line {"ok": true,
+     "device": {...}}.
 
 Any failure raises and the script exits non-zero without the result line;
 without a CUDA device it exits 2 before importing the port.
@@ -128,7 +139,12 @@ N_FEATURES = 28  # the Higgs width (experiment/higgs/local_gbdt.conf)
 N_TREES = 500  # scripts/serve_bench.py's GBDT serving width
 DEPTH = 6
 LADDER = (1, 8, 64, 512)  # the default serving ladder
-KERNEL_SHAPES = ((13, 1, 1), (64, 10, 512), (500, 6, 1), (500, 6, 512))
+#: (trees, depth, rows) of the walk checks: depth 1 to 10, every ladder
+#: rung and a ragged row tile, and T past one of the kernels' tree chunks
+#: (512 trees)
+KERNEL_SHAPES = ((13, 1, 1), (64, 10, 512), (500, 6, 1), (500, 6, 512),
+                 (40, 10, 8), (600, 6, 1), (600, 6, 513), (1100, 4, 64),
+                 (300, 8, 513))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 #: FP64 rate outside the tensor cores that the walk's compares and adds use
 HBM_BYTES_PER_S = 3.35e12
@@ -146,38 +162,6 @@ def sh(cmd):
 
 
 # -- model and rows -----------------------------------------------------------
-
-
-def random_model(rng, n_trees, depth, names, base):
-    """GBDTModel of `n_trees` trees of max depth exactly `depth` (the left
-    spine runs the whole way; other branches stop early at random), as
-    parsed back from its dump."""
-    from ytklearn_tpu_torch.gbdt.tree import GBDTModel, Tree
-
-    def tree():
-        t = Tree()
-
-        def grow(nid, d, spine):
-            if d >= depth or (not spine and rng.rand() < 0.2):
-                t.leaf_value[nid] = float(rng.randn() * 0.1)
-                return
-            t.feat[nid] = 0
-            t.feat_name[nid] = names[rng.randint(len(names))]
-            t.split[nid] = float(rng.randn())
-            t.default_left[nid] = bool(rng.rand() < 0.5)
-            left, right = t.add_children(nid)
-            grow(left, d + 1, spine)
-            grow(right, d + 1, False)
-
-        grow(0, 0, True)
-        return t
-
-    model = GBDTModel(base_prediction=base, num_tree_in_group=1,
-                      obj_name="sigmoid",
-                      trees=[tree() for _ in range(n_trees)])
-    # round-trip through the text format, whose values are f32 renderings:
-    # the served model is the parsed one
-    return GBDTModel.loads(model.dumps())
 
 
 def random_rows(rng, n, names, splits):
@@ -205,13 +189,16 @@ def random_rows(rng, n, names, splits):
 
 
 def write_model(tmp, model, name):
+    """The model file and its serving config; round_num above every
+    model's tree count, so the scorer serves the whole ensemble."""
     path = os.path.join(tmp, f"{name}.model")
     with open(path, "w") as f:
         f.write(model.dumps())
     conf = os.path.join(tmp, f"{name}.conf")
     with open(conf, "w") as f:
         f.write(f'model {{ data_path = "{path}" }}\n'
-                "optimization { loss_function = sigmoid, round_num = 1000 }\n")
+                "optimization { loss_function = sigmoid, "
+                "round_num = 100000 }\n")
     return conf
 
 
@@ -254,15 +241,18 @@ def walk_bound_ms(X, ht):
     same inputs (the last heap level is read only as leaves)."""
     import torch
 
+    from ytklearn_tpu_torch.serve.kernels import unpack_records
+
     B, F = X.shape
-    T, H = ht.feat.shape
+    feat, split, dleft = unpack_records(ht.nodes)
+    T, H = feat.shape
     LL = ht.leaf.shape[1]
     rows = torch.arange(B, device=X.device)[:, None]
     tids = torch.arange(T, device=X.device)[None, :]
     pos = torch.zeros((B, T), dtype=torch.long, device=X.device)
     slots, split_at, dleft_at, cells = [], [], [], []
     for _ in range(ht.depth):
-        f = ht.feat[tids, pos].long()
+        f = feat[tids, pos].long()
         v = X[rows, f]
         nan = torch.isnan(v)
         slot = tids * H + pos
@@ -270,8 +260,8 @@ def walk_bound_ms(X, ht):
         split_at.append(slot[~nan])
         dleft_at.append(slot[nan])
         cells.append((rows * F + f).flatten())
-        go_left = torch.where(nan, ht.dleft[tids, pos] > 0,
-                              v <= ht.split[tids, pos])
+        go_left = torch.where(nan, dleft[tids, pos] > 0,
+                              v <= split[tids, pos])
         pos = 2 * pos + 2 - go_left.long()
 
     def distinct(parts):
@@ -299,38 +289,19 @@ def post(port, payload):
         return json.loads(resp.read())
 
 
-def device_busy(prof, top_k):
-    """(busy ms, top device ops) of a torch.profiler trace. Busy time is
-    the union of the device events' intervals (kernels, copies, sets):
-    only events on the device count, since a CPU op's device time repeats
-    the kernels it launched, and kernels launched through ctypes have no
-    CPU op at all."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    ops = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:top_k]
-    return busy_us / 1e3, top
-
-
 def fmt_top(top, width):
     return ", ".join(f"{e.key[:width]} {e.self_device_time_total / 1e3:.3f} "
                      f"ms x{e.count}" for e in top)
 
 
-def profile_requests(port, rows, card):
-    """A separate traced run of one-row requests: device busy time (CUDA
-    kernels and copies, from torch.profiler) against the client's wall
-    time gives the device's idle share while serving."""
+def profile_requests(port, rows, card, rung):
+    """A separate traced run of one-row requests on a serving rung: device
+    busy time (CUDA kernels and copies, from torch.profiler) against the
+    client's wall time gives the device's idle share while serving."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ytklearn_tpu_torch.scripts._common import device_busy
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -341,7 +312,7 @@ def profile_requests(port, rows, card):
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = device_busy(prof, 4)
     check(busy_ms > 0, "the profiler saw no device time")
-    print(f"profile: {len(rows)} one-row requests (traced), wall "
+    print(f"profile: {rung} rung, {len(rows)} one-row requests (traced), wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.4f}; top device ops: {fmt_top(top, 40)} "
           f"[{card}]", flush=True)
@@ -350,16 +321,37 @@ def profile_requests(port, rows, card):
 # -- phases -------------------------------------------------------------------
 
 
+def k7_tables(model, vocab, heap):
+    """K7's two bin widths for a model: edges spanning its split values in
+    200 steps a feature (uint8) and in 400 (uint16)."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.serve import kernels
+
+    sv = split_values(model)
+    out = []
+    for steps, sentinel in ((200, 255), (400, 65535)):
+        edges = {n: np.linspace(min(sv) - 1.0, max(sv) + 1.0, steps)
+                 for n in vocab}
+        table, why = kernels.build_bin_table(model.trees, vocab, edges)
+        check(table is not None and table.sentinel == sentinel, why)
+        out.append(table)
+    return out
+
+
 def phase_kernel(tmp, card):
-    """K6 against its plain version and the stacked rung on the card."""
+    """K6 against its plain version and the stacked rung, and K7 against
+    its plain version on uint8 and uint16 bins of the same rows, on the
+    card at KERNEL_SHAPES. Returns the largest |kernel - plain| of each."""
     import numpy as np
     import torch
 
     from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.scripts.time_walk import random_model
     from ytklearn_tpu_torch.serve import CompiledScorer, kernels
 
     names = [f"f{i}" for i in range(N_FEATURES)]
-    max_err = 0.0
+    max_err = k7_err = 0.0
     for T, depth, B in KERNEL_SHAPES:
         rng = np.random.RandomState(SEED + T * 16 + depth)
         model = random_model(rng, T, depth, names, base=0.0)
@@ -378,10 +370,11 @@ def phase_kernel(tmp, card):
         ht = kernels.heap_from_numpy(heap.feat, heap.split, heap.dleft,
                                      heap.leaf, heap.depth, heap.n_trees,
                                      "cuda")
-        args = (X, ht.feat, ht.split, ht.dleft, ht.leaf, ht.depth)
-        k = kernels.heap_walk(*args, max_feat=ht.max_feat)
+        k = kernels.heap_walk(X, ht.nodes, ht.leaf, ht.depth,
+                              max_feat=ht.max_feat)
         torch.cuda.synchronize()
-        p = kernels.heap_walk_plain(*args)
+        p = kernels.heap_walk_plain(X, *kernels.unpack_records(ht.nodes),
+                                    ht.leaf, ht.depth)
         s_stacked, _ = stacked.score_tensor(X)
         s_fused, _ = fused.score_tensor(X)
         torch.cuda.synchronize()
@@ -396,7 +389,24 @@ def phase_kernel(tmp, card):
               f"fused rung==stacked rung {torch.equal(s_fused, s_stacked)}, "
               f"max_abs_err {err} [{card}]", flush=True)
         check(ok, f"heap walk disagrees at T={T} depth={depth} B={B}")
-    return max_err
+        Xh = fused.featurize(rows)
+        for table in k7_tables(model, fused.vocab, heap):
+            bins, packed, leaf = binned_inputs(heap, table, Xh)
+            kb = kernels.binned_walk(bins, packed, leaf, heap.depth,
+                                     table.sentinel,
+                                     max_feat=int(heap.feat.max()))
+            pb = kernels.binned_walk_plain(bins, packed, leaf, heap.depth,
+                                           table.sentinel)
+            torch.cuda.synchronize()
+            err = float((kb - pb).abs().max()) if B else 0.0
+            k7_err = max(k7_err, err)
+            print(f"kernel check binned_walk T={T} depth={depth} B={B} "
+                  f"{table.dtype} bins, tolerance exact (torch.equal): "
+                  f"{torch.equal(kb, pb)}, max_abs_err {err} [{card}]",
+                  flush=True)
+            check(torch.equal(kb, pb), f"binned walk disagrees at T={T} "
+                  f"depth={depth} B={B} ({table.dtype})")
+    return max_err, k7_err
 
 
 def phase_slice(tmp, card):
@@ -404,6 +414,7 @@ def phase_slice(tmp, card):
     import numpy as np
 
     from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.scripts.time_walk import random_model
     from ytklearn_tpu_torch.serve import (
         BatchPolicy,
         ModelRegistry,
@@ -481,18 +492,24 @@ def phase_slice(tmp, card):
         print(f"timing: HTTP /predict one-row p50 {p50:.4f} ms over "
               f"{len(lat)} sequential requests (client clock) [{card}]",
               flush=True)
-        profile_requests(app.port, random_rows(rng, 50, names, splits), card)
+        profile_requests(app.port, random_rows(rng, 50, names, splits), card,
+                         "fused")
     finally:
         app.stop(drain=True, timeout=30.0)
     return launches, model, p50
 
 
 def phase_timings(model, card):
-    """Per rung: kernel, plain walk and stacked rung on the card."""
+    """Per rung: kernel, plain walk and stacked rung on the card. A call's
+    time is CUDA events around 50 calls back to back, as every kernel's
+    `ms` (at a few microseconds of kernel the wrapper's host work sets
+    it); the kernel's own time beside it is the median of the profiler's
+    device events over 50 launches (time_walk.kernel_ms)."""
     import numpy as np
     import torch
 
     from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.scripts.time_walk import kernel_ms
     from ytklearn_tpu_torch.serve import CompiledScorer, kernels
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_t_")
@@ -515,9 +532,14 @@ def phase_timings(model, card):
     for B in LADDER:
         rows = random_rows(rng, B, names, split_values(model))
         X = torch.from_numpy(fused.featurize(rows)).cuda()
-        args = (X, ht.feat, ht.split, ht.dleft, ht.leaf, ht.depth)
-        k = kernels.heap_walk(*args, max_feat=ht.max_feat)
-        p = kernels.heap_walk_plain(*args)
+        plain = (X, *kernels.unpack_records(ht.nodes), ht.leaf, ht.depth)
+
+        def k6():
+            return kernels.heap_walk(X, ht.nodes, ht.leaf, ht.depth,
+                                     max_feat=ht.max_feat)
+
+        k = k6()
+        p = kernels.heap_walk_plain(*plain)
         torch.cuda.synchronize()
         err = float((k - p).abs().max())
         max_err = max(max_err, err)
@@ -525,17 +547,18 @@ def phase_timings(model, card):
               f"kernel==plain {torch.equal(k, p)}, max_abs_err {err} "
               f"[{card}]", flush=True)
         check(torch.equal(k, p), f"heap walk disagrees at rung {B}")
-        ms = cuda_ms(lambda: kernels.heap_walk(*args, max_feat=ht.max_feat),
-                     iters=50)
-        plain_ms = cuda_ms(lambda: kernels.heap_walk_plain(*args), iters=3,
+        ms = cuda_ms(k6, iters=50)
+        device_ms = kernel_ms(torch.device("cuda"), k6, 50)
+        plain_ms = cuda_ms(lambda: kernels.heap_walk_plain(*plain), iters=3,
                            repeats=5)
         stacked_ms = cuda_ms(lambda: stacked.score_tensor(X), iters=3,
                              repeats=5)
         fused_ms = cuda_ms(lambda: fused.score_tensor(X), iters=20)
         bound_ms, bound_by = walk_bound_ms(X, ht)
-        out[B] = (ms, plain_ms, bound_ms, bound_by)
-        print(f"timing: rung {B} ({ht.feat.shape[0]} padded trees, depth "
-              f"{ht.depth}): heap_walk kernel {ms:.6f} ms, plain walk "
+        out[B] = (ms, plain_ms, bound_ms, bound_by, device_ms)
+        print(f"timing: rung {B} ({ht.nodes.shape[0]} padded trees, depth "
+              f"{ht.depth}): heap_walk a call {ms:.6f} ms, kernel "
+              f"{device_ms:.6f} ms (device), plain walk "
               f"{plain_ms:.6f} ms, stacked rung {stacked_ms:.6f} ms, fused "
               f"rung with sigmoid {fused_ms:.6f} ms, bound {bound_ms:.6f} ms "
               f"({bound_by}) [{card}]", flush=True)
@@ -892,6 +915,7 @@ def phase_train_profile(card):
     from torch.profiler import ProfilerActivity, profile
 
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.scripts._common import device_busy
 
     class Traced(GBDTTrainer):
         def _round(self, rnd, dd, spec, state):
@@ -1645,6 +1669,8 @@ def phase_serve_binned(tmp, model_path, card):
         batch = random_rows(rng, 512, names, splits)
         out = post(app.port, {"rows": batch})
         launches = kernels.binned_walk.launches
+        profile_requests(app.port, random_rows(rng, 50, names, splits), card,
+                         "binned")
     finally:
         app.stop(drain=True, timeout=30.0)
     rows = one_rows + batch
@@ -1917,8 +1943,10 @@ def binned_bound_ms(bins, packed, depth, LL):
 
 
 def phase_binned_timing(served_model_path, model500, card):
-    """K7 at rung 512 on the model the binned rung served (the main path's
-    shape), and on the 500-tree model beside K6."""
+    """K7 at every ladder rung on the model the binned rung served (the
+    main path's shape), and on the 500-tree model beside K6, timed as K6
+    (a call's time, and the kernel's device time beside it); returns the
+    served model's rung 512, the kernels line's row."""
     import numpy as np
     import torch
 
@@ -1926,6 +1954,7 @@ def phase_binned_timing(served_model_path, model500, card):
     from ytklearn_tpu_torch.gbdt.binning import bin_edges_path, \
         load_bin_edges, model_text_digest
     from ytklearn_tpu_torch.io.fs import LocalFileSystem
+    from ytklearn_tpu_torch.scripts.time_walk import kernel_ms
     from ytklearn_tpu_torch.serve import kernels
 
     with open(served_model_path) as f:
@@ -1949,37 +1978,41 @@ def phase_binned_timing(served_model_path, model500, card):
             heap, why = kernels.build_heap(model.trees, vocab)
             check(heap is not None, why)
             table = table_of(vocab, heap)
-        B = LADDER[-1]
-        rows = random_rows(rng, B, list(vocab), split_values(model))
-        X = np.full((B, len(vocab)), np.nan)
-        for i, r in enumerate(rows):
-            for k, v in r.items():
-                if k in vocab:
-                    X[i, vocab[k]] = v
-        bins, packed, leaf = binned_inputs(heap, table, X)
-        mf = int(heap.feat.max())
+        for B in LADDER:
+            rows = random_rows(rng, B, list(vocab), split_values(model))
+            X = np.full((B, len(vocab)), np.nan)
+            for i, r in enumerate(rows):
+                for k, v in r.items():
+                    if k in vocab:
+                        X[i, vocab[k]] = v
+            bins, packed, leaf = binned_inputs(heap, table, X)
+            mf = int(heap.feat.max())
 
-        def fn():
-            return kernels.binned_walk(bins, packed, leaf, heap.depth,
-                                       table.sentinel, max_feat=mf)
+            def fn():
+                return kernels.binned_walk(bins, packed, leaf, heap.depth,
+                                           table.sentinel, max_feat=mf)
 
-        def plain():
-            return kernels.binned_walk_plain(bins, packed, leaf, heap.depth,
-                                             table.sentinel)
+            def plain():
+                return kernels.binned_walk_plain(bins, packed, leaf,
+                                                 heap.depth, table.sentinel)
 
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"binned_walk disagrees ({label})")
-        ms = cuda_ms(fn, iters=50)
-        plain_ms = cuda_ms(plain, iters=3, repeats=5)
-        bound = binned_bound_ms(bins, packed, heap.depth, heap.leaf.shape[1])
-        out[label] = (ms, plain_ms, bound[0], bound[1])
-        print(f"timing: binned_walk rung {B}, {label} model "
-              f"({heap.feat.shape[0]} padded trees, depth {heap.depth}, "
-              f"{table.mode} {table.dtype} table): {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}); no "
-              f"single PyTorch call computes it [{card}]", flush=True)
-    return out["served"]
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"binned_walk disagrees ({label}, rung {B})")
+            ms = cuda_ms(fn, iters=50)
+            device_ms = kernel_ms(torch.device("cuda"), fn, 50)
+            plain_ms = cuda_ms(plain, iters=3, repeats=5)
+            bound = binned_bound_ms(bins, packed, heap.depth,
+                                    heap.leaf.shape[1])
+            out[label, B] = (ms, plain_ms, bound[0], bound[1], device_ms)
+            print(f"timing: binned_walk rung {B}, {label} model "
+                  f"({heap.feat.shape[0]} padded trees, depth {heap.depth}, "
+                  f"{table.mode} {table.dtype} table): a call {ms:.6f} ms, "
+                  f"kernel {device_ms:.6f} ms (device), plain "
+                  f"{plain_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}); "
+                  f"no single PyTorch call computes it [{card}]", flush=True)
+    return out["served", LADDER[-1]]
 
 
 # -- slice 4: K8 and the histogram tuning tools --------------------------------
@@ -2189,13 +2222,13 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_")
     try:
-        max_err = phase_kernel(tmp, card)
+        max_err, k7_err = phase_kernel(tmp, card)
         launches, model, _p50 = phase_slice(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     times, timing_err = phase_timings(model, card)
     max_err = max(max_err, timing_err)
-    ms, plain_ms, bound_ms, bound_by = times[LADDER[-1]]
+    ms, plain_ms, bound_ms, bound_by, device_ms = times[LADDER[-1]]
     rows = [{
         "name": "heap_walk",
         "route": "cuda",
@@ -2208,11 +2241,12 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "device_ms": device_ms,
     }]
 
     errs = phase_train_kernels(card)
     errs.update(phase_float_kernels(card))
-    errs["binned_walk"] = phase_binned_kernel(model, card)
+    errs["binned_walk"] = max(k7_err, phase_binned_kernel(model, card))
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_t_")
     try:
         counts, trainer, res8, _tps = phase_train(tmp, card)
@@ -2293,7 +2327,7 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": lib_ms,
         })
-    ms, plain_ms, bound_ms, bound_by = k7_time
+    ms, plain_ms, bound_ms, bound_by, device_ms = k7_time
     rows.append({
         "name": "binned_walk",
         "route": "cuda",
@@ -2306,6 +2340,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "device_ms": device_ms,
     })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

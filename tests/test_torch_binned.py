@@ -173,28 +173,60 @@ def test_tables_rows_and_nodes_match_jax(models, which):
     assert (got == table.sentinel).any()
 
 
-@pytest.mark.parametrize("which", ["edges-u8", "thresholds-u16"])
+def _random_binned(which):
+    """Seeded packed heaps past the trained models' shapes: depth 10, and
+    more trees than one of the kernel's chunks; bins with the sentinel,
+    bin 0 and pad slots (rank 0xFFFF, dleft 1)."""
+    T, depth, dtype, sentinel = {
+        "heap-d10-u8": (16, 10, np.uint8, 255),
+        "heap-chunk-u16": (kernels.WALK_CHUNK_CAP + 8, 3, np.uint16, 65535),
+    }[which]
+    rng = np.random.RandomState(T + depth)
+    H, LL, Fb, B = (1 << (depth + 1)) - 1, 1 << depth, 5, 37
+    hi = 300 if dtype == np.uint16 else 250
+    feat = rng.randint(0, Fb, (T, H))
+    rank1 = rng.randint(0, hi + 1, (T, H))
+    dleft = rng.randint(0, 2, (T, H))
+    pad = rng.rand(T, H) < 0.25
+    feat[pad], rank1[pad], dleft[pad] = 0, 0xFFFF, 1
+    packed = (feat | (rank1 << kernels.FEAT_BITS)
+              | (dleft << (kernels.FEAT_BITS + kernels.RANK_BITS))
+              ).astype(np.int32)
+    leaf = rng.randn(T, LL)
+    leaf[-8:] = -0.0  # pad trees
+    bins = rng.randint(0, hi, (B, Fb))
+    bins[rng.rand(B, Fb) < 0.15] = sentinel
+    bins[rng.rand(B, Fb) < 0.1] = 0
+    return bins.astype(dtype), packed, leaf, depth, sentinel
+
+
+@pytest.mark.parametrize("which", ["edges-u8", "thresholds-u16",
+                                   "heap-d10-u8", "heap-chunk-u16"])
 def test_binned_walk_plain_matches_xla_and_pallas(models, which):
-    pred, _jpred, vocab, heap, _jheap, table, _ = _tables(models[which])
-    packed = kernels.pack_heap_nodes(heap, table)
-    scorer = CompiledScorer(pred, ladder=LADDER, device="cpu", warmup=False)
-    X = scorer.featurize(_rows(pred, vocab, np.random.RandomState(4), 40))
-    bins = kernels.bin_rows(X, table)
-    want = np.asarray(jk.make_binned_xla(packed, heap.leaf, heap.depth,
-                                         table.sentinel)(
+    if which.startswith("heap"):
+        bins, packed, leaf, depth, sentinel = _random_binned(which)
+    else:
+        pred, _jpred, vocab, heap, _jheap, table, _ = _tables(models[which])
+        packed = kernels.pack_heap_nodes(heap, table)
+        scorer = CompiledScorer(pred, ladder=LADDER, device="cpu",
+                                warmup=False)
+        X = scorer.featurize(_rows(pred, vocab, np.random.RandomState(4), 40))
+        bins = kernels.bin_rows(X, table)
+        leaf, depth, sentinel = heap.leaf, heap.depth, table.sentinel
+    want = np.asarray(jk.make_binned_xla(packed, leaf, depth, sentinel)(
         jnp.asarray(bins.astype(np.int32))))
     before = kernels.binned_walk.launches
     got = kernels.binned_walk(torch.from_numpy(bins), torch.from_numpy(packed),
-                              torch.from_numpy(heap.leaf), heap.depth,
-                              table.sentinel)
+                              torch.from_numpy(leaf), depth, sentinel)
     assert kernels.binned_walk.launches == before  # CPU: the plain version
     assert got.dtype == torch.float64
     assert np.array_equal(got.numpy(), want)
-    rank1 = (packed >> kernels.FEAT_BITS) & ((1 << kernels.RANK_BITS) - 1)
+    feat, rank1, dleft = (f.numpy().astype(np.int32) for f in
+                          kernels.unpack_nodes(torch.from_numpy(packed)))
     pallas = np.asarray(jk.binned_scores_pallas(
-        jnp.asarray(bins.astype(np.int32).T), jnp.asarray(heap.feat),
-        jnp.asarray(rank1), jnp.asarray(heap.dleft), jnp.asarray(heap.leaf),
-        heap.depth, table.sentinel, interpret=True))
+        jnp.asarray(bins.astype(np.int32).T), jnp.asarray(feat),
+        jnp.asarray(rank1), jnp.asarray(dleft), jnp.asarray(leaf),
+        depth, sentinel, interpret=True))
     assert np.array_equal(got.numpy(), pallas)
 
 

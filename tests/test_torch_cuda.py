@@ -1,5 +1,5 @@
-"""The port's training and binned serving kernels on the card, against
-their plain versions, K8 against K2, and one tiny `cli train` on cuda.
+"""The port's training and serving kernels on the card, against their
+plain versions, K8 against K2, and one tiny `cli train` on cuda.
 
 Marked `cuda`: each test skips without a CUDA device. This file imports
 neither JAX nor the JAX package, so it runs on a machine with the card
@@ -7,15 +7,18 @@ and no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The int8 kernel sums (K2, K4, K8) are int32, routing (K5) and the binned
-walk (K7) are exact, and the split scans run in a fixed order, so those
-comparisons are exact (torch.equal), int8 trees included. The f32/bf16
+The int8 kernel sums (K2, K4, K8) are int32, routing (K5) is exact, the
+walks (K6, K7) fold each row in tree order as their plain versions do,
+and the split scans run in a fixed order, so those comparisons are exact
+(torch.equal; the walks' sums bit for bit, signs of zero included), int8
+trees included. The f32/bf16
 histograms (K1, K3) add floats with atomics in an order that changes from
 run to run: counts are exact, g/h held at rtol 1e-5 with an absolute floor
 of 1e-5 of the largest |sum|.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -287,11 +290,131 @@ def test_float_hist_kernels_match_plain(gen, use_bf16, F, n, B, N, dtype, M):
                                        use_bf16))
 
 
-@pytest.mark.parametrize("dtype,sentinel", [(torch.uint8, 255),
-                                            (torch.uint16, 65535)])
-def test_binned_walk_matches_plain(gen, dtype, sentinel):
+# -- K6/K7 (serve/csrc/heap_walk.cu): every rung, depth 1-10, T past a chunk --
+
+#: (B, depth, T): every ladder rung and B = 513 (a ragged row tile), depth
+#: 1, 6 and 10, T from 8 to a few thousand trees, one past a chunk included
+WALK_GRID = [(B, depth, T) for B in (1, 8, 64, 512, 513)
+             for depth in (1, 6, 10)
+             for T in (8, 504, kernels.WALK_CHUNK_CAP + 1, 2600)]
+WALK_F = 28
+
+
+@functools.lru_cache(maxsize=4)
+def _walk_heap(T, depth):
+    """Seeded perfect-heap arrays: a quarter of the slots always-left pads,
+    the last quarter of the trees -0.0 pad trees, splits on a coarse grid
+    so rows land on them."""
+    rng = np.random.RandomState(T * 16 + depth)
+    H, LL = (1 << (depth + 1)) - 1, 1 << depth
+    feat = rng.randint(0, WALK_F, (T, H)).astype(np.int32)
+    split = np.round(rng.randn(T, H), 1)
+    dleft = rng.randint(0, 2, (T, H)).astype(np.int32)
+    pad = rng.rand(T, H) < 0.25
+    pad[T - T // 4:] = True
+    feat[pad], split[pad], dleft[pad] = 0, np.inf, 1
+    leaf = rng.randn(T, LL)
+    leaf[T - T // 4:] = -0.0
+    return feat, split, dleft, leaf
+
+
+def _walk_rows(rng, B, split):
+    """Rows with NaN, +-inf, -0.0 and values exactly at split thresholds."""
+    X = np.round(rng.randn(B, WALK_F), 1)
+    r = rng.rand(B, WALK_F)
+    X[r < 0.15] = np.nan
+    X[(r >= 0.15) & (r < 0.2)] = np.inf
+    X[(r >= 0.2) & (r < 0.25)] = -np.inf
+    at = (r >= 0.25) & (r < 0.45)
+    X[at] = rng.choice(split[np.isfinite(split)], size=int(at.sum()))
+    X[(r >= 0.45) & (r < 0.5)] = -0.0
+    return X
+
+
+def _same_bits(a, b):
+    """Equal values with equal signs of zero (torch.equal takes -0.0 ==
+    +0.0)."""
+    return torch.equal(a, b) and torch.equal(a.view(torch.int64),
+                                             b.view(torch.int64))
+
+
+def _k6_inputs(B, depth, T):
+    """K6's inputs on the card: rows, the heap's tensors (node records and
+    leaves) and heap_walk_plain's arguments, the three arrays taken from
+    the numpy heap itself."""
+    feat, split, dleft, leaf = _walk_heap(T, depth)
+    ht = kernels.heap_from_numpy(feat, split, dleft, leaf, depth, T, "cuda")
+    X = torch.from_numpy(_walk_rows(np.random.RandomState(B), B,
+                                    split)).cuda()
+    plain = (X, *(torch.from_numpy(a).cuda() for a in (feat, split, dleft)),
+             ht.leaf, depth)
+    return X, ht, plain
+
+
+@pytest.mark.parametrize("B,depth,T", WALK_GRID)
+def test_heap_walk_matches_plain(gen, B, depth, T):
+    """K6 at walk_plan's launch shape equals heap_walk_plain bit for bit."""
+    X, ht, plain = _k6_inputs(B, depth, T)
+    before = kernels.heap_walk.launches
+    got = kernels.heap_walk(X, ht.nodes, ht.leaf, depth,
+                            max_feat=ht.max_feat)
+    assert kernels.heap_walk.launches == before + 1
+    assert _same_bits(got, kernels.heap_walk_plain(*plain))
+
+
+@pytest.mark.parametrize("case", ["negzero", "cancel"])
+def test_heap_walk_signed_zero_sums(gen, case):
+    """Sums that must come out +0.0: every leaf -0.0 (each add a no-op on
+    the fold's +0.0 start), and trees in pairs whose leaves cancel (x then
+    -x at every pair's end); over two chunks, at a ragged row tile."""
+    B, depth, T = 513, 6, 2 * kernels.WALK_CHUNK_CAP + 2
+    feat, split, dleft, leaf = _walk_heap(T, depth)
+    if case == "negzero":
+        leaf = np.full_like(leaf, -0.0)
+    else:  # tree 2i+1 walks as tree 2i and adds its leaves negated
+        feat, split, dleft = (np.repeat(a[::2], 2, axis=0)
+                              for a in (feat, split, dleft))
+        leaf = np.repeat(leaf[::2], 2, axis=0)
+        leaf[1::2] *= -1.0
+    ht = kernels.heap_from_numpy(feat, split, dleft, leaf, depth, T, "cuda")
+    X = torch.from_numpy(_walk_rows(np.random.RandomState(3), B,
+                                    split)).cuda()
+    got = kernels.heap_walk(X, ht.nodes, ht.leaf, depth,
+                            max_feat=ht.max_feat)
+    want = kernels.heap_walk_plain(
+        X, *(torch.from_numpy(a).cuda() for a in (feat, split, dleft)),
+        ht.leaf, depth)
+    assert _same_bits(want, torch.zeros_like(want))  # +0.0 everywhere
+    assert _same_bits(got, want)
+
+
+def _k7_inputs(B, depth, T, dtype, sentinel, seed=11):
+    rng = np.random.RandomState(seed + B + depth + T)
+    feat, split, dleft, leaf = _walk_heap(T, depth)
+    hi = 300 if dtype == torch.uint16 else 250
+    rank1 = rng.randint(0, hi + 1, size=feat.shape).astype(np.int64)
+    rank1[~np.isfinite(split)] = 0xFFFF  # pads: non-missing rows go left
+    packed = (feat.astype(np.int64) | (rank1 << 12)
+              | (dleft.astype(np.int64) << 28)).astype(np.int32)
+    b = rng.randint(0, hi, size=(B, WALK_F))
+    b[rng.rand(B, WALK_F) < 0.1] = sentinel
+    b[rng.rand(B, WALK_F) < 0.1] = 0
+    bins = torch.from_numpy(b.astype(np.uint16 if dtype == torch.uint16
+                                     else np.uint8)).cuda()
+    return bins, torch.from_numpy(packed).cuda(), \
+        torch.from_numpy(leaf).cuda()
+
+
+#: the case this test held before the walk grid, with its own generator
+K7_ORIGINAL = (700, 6, 64)
+
+
+def _k7_original(dtype, sentinel):
+    """K7_ORIGINAL's inputs as the test first drew them: 64 real trees,
+    the last 9 slots of every tree pads, 10% missing bins."""
     rng = np.random.RandomState(11)
-    T, depth, B, F = 64, 6, 700, 28
+    B, depth, T = K7_ORIGINAL
+    F = WALK_F
     H, LL = (1 << (depth + 1)) - 1, 1 << depth
     hi = 300 if dtype == torch.uint16 else 250
     rank1 = rng.randint(0, hi + 1, size=(T, H))
@@ -302,14 +425,94 @@ def test_binned_walk_matches_plain(gen, dtype, sentinel):
     b[rng.rand(B, F) < 0.1] = sentinel
     bins = torch.from_numpy(b.astype(np.uint16 if dtype == torch.uint16
                                      else np.uint8)).cuda()
-    packed_t = torch.from_numpy(packed).cuda()
-    leaf = torch.from_numpy(rng.randn(T, LL)).cuda()
+    return bins, torch.from_numpy(packed).cuda(), \
+        torch.from_numpy(rng.randn(T, LL)).cuda()
+
+
+@pytest.mark.parametrize("B,depth,T", WALK_GRID + [K7_ORIGINAL])
+@pytest.mark.parametrize("dtype,sentinel", [(torch.uint8, 255),
+                                            (torch.uint16, 65535)])
+def test_binned_walk_matches_plain(gen, dtype, sentinel, B, depth, T):
+    """K7 at walk_plan's launch shape equals binned_walk_plain bit for bit,
+    on uint8 and uint16 bins with the sentinel and bin 0."""
+    if (B, depth, T) == K7_ORIGINAL:
+        bins, packed, leaf = _k7_original(dtype, sentinel)
+    else:
+        bins, packed, leaf = _k7_inputs(B, depth, T, dtype, sentinel)
     before = kernels.binned_walk.launches
-    got = kernels.binned_walk(bins, packed_t, leaf, depth, sentinel,
-                              max_feat=F - 1)
+    got = kernels.binned_walk(bins, packed, leaf, depth, sentinel,
+                              max_feat=WALK_F - 1)
     assert kernels.binned_walk.launches == before + 1
-    assert torch.equal(got, kernels.binned_walk_plain(bins, packed_t, leaf,
-                                                      depth, sentinel))
+    assert _same_bits(got, kernels.binned_walk_plain(bins, packed, leaf,
+                                                     depth, sentinel))
+
+
+@pytest.mark.parametrize("plan", [
+    {"rows": 1, "chunk": 1, "threads": 64},
+    {"rows": 3, "chunk": 7, "threads": 64},
+    {"rows": 4, "chunk": 64, "threads": 1024},
+    {"rows": 33, "chunk": 100, "threads": 96},
+    {"rows": 8, "chunk": 600, "threads": 160},
+])
+def test_walks_at_explicit_plans_match_plain(gen, plan):
+    """Launch shapes other than walk_plan's (one tree a chunk, a ragged
+    row tile, two fold warps, more walkers than pairs, a chunk past
+    WALK_CHUNK_CAP) give the same bits."""
+    B, depth, T = 70, 6, 600
+    X, ht, plain = _k6_inputs(B, depth, T)
+    got = kernels.heap_walk(X, ht.nodes, ht.leaf, depth,
+                            max_feat=ht.max_feat, plan=plan)
+    assert _same_bits(got, kernels.heap_walk_plain(*plain))
+    bins, packed, leaf = _k7_inputs(B, depth, T, torch.uint8, 255)
+    got = kernels.binned_walk(bins, packed, leaf, depth, 255,
+                              max_feat=WALK_F - 1, plan=plan)
+    assert _same_bits(got, kernels.binned_walk_plain(bins, packed, leaf,
+                                                     depth, 255))
+
+
+def test_heap_walk_needs_its_node_records(gen):
+    """On the card the kernel reads node_records, built on the host from
+    the three arrays and moved to the device once; a node table of another
+    layout, or records off 16-byte alignment, is refused before any
+    launch."""
+    X, ht, plain = _k6_inputs(64, 6, 504)
+    assert torch.equal(ht.nodes, kernels.node_records(*plain[1:4]))
+    before = kernels.heap_walk.launches
+    with pytest.raises(ValueError, match="nodes must be"):
+        kernels.heap_walk(X, plain[1], ht.leaf, 6, max_feat=ht.max_feat)
+    shifted = torch.empty(ht.nodes.numel() + 1, dtype=torch.int64,
+                          device="cuda")[1:].view(ht.nodes.shape)
+    shifted.copy_(ht.nodes)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.heap_walk(X, shifted, ht.leaf, 6, max_feat=ht.max_feat)
+    assert kernels.heap_walk.launches == before
+
+
+def test_walks_raise_on_a_bad_launch(gen, monkeypatch):
+    """A plan past shared memory is refused before any launch; one that
+    gets past the checker makes the launch fail on the card, and the
+    wrapper raises: neither returns the plain version's sums."""
+    B, depth, T = 512, 6, 4096
+    X, ht, _ = _k6_inputs(B, depth, T)
+    bins, packed, leaf = _k7_inputs(B, depth, T, torch.uint8, 255)
+    big = {"rows": 32, "chunk": 1024, "threads": 1024}
+    assert kernels.walk_smem(32, 1024, WALK_F, 8) > kernels.SMEM_MAX
+    k6 = (X, ht.nodes, ht.leaf, depth)
+    before = (kernels.heap_walk.launches, kernels.binned_walk.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.heap_walk(*k6, max_feat=ht.max_feat, plan=big)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.binned_walk(bins, packed, leaf, depth, 255,
+                            max_feat=WALK_F - 1, plan=big)
+    monkeypatch.setattr(kernels, "check_walk_plan",
+                        lambda plan, *a, **k: dict(plan))
+    with pytest.raises(RuntimeError, match="heap_walk launch failed"):
+        kernels.heap_walk(*k6, max_feat=ht.max_feat, plan=big)
+    with pytest.raises(RuntimeError, match="binned_walk launch failed"):
+        kernels.binned_walk(bins, packed, leaf, depth, 255,
+                            max_feat=WALK_F - 1, plan=big)
+    assert (kernels.heap_walk.launches,
+            kernels.binned_walk.launches) == before
 
 
 def test_cli_train_on_the_card(gen, tmp_path):

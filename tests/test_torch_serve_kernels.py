@@ -59,8 +59,13 @@ def _jax_fused(X, feat, split, dleft, leaf, depth):
 
 
 def _port(fn, X, ht):
-    out = fn(torch.from_numpy(X), ht.feat, ht.split, ht.dleft, ht.leaf,
-             ht.depth)
+    """The port's sums on CPU tensors: heap_walk on the node records,
+    heap_walk_plain on the three arrays unpacked from them."""
+    X = torch.from_numpy(X)
+    if fn is kernels.heap_walk_plain:
+        out = fn(X, *kernels.unpack_records(ht.nodes), ht.leaf, ht.depth)
+    else:
+        out = fn(X, ht.nodes, ht.leaf, ht.depth)
     assert out.dtype == torch.float64 and out.shape == (X.shape[0],)
     return out.numpy()
 
@@ -68,6 +73,8 @@ def _port(fn, X, ht):
 @pytest.mark.parametrize("T,depth,B,n_pad", [
     (8, 1, 5, 0), (16, 1, 33, 3), (8, 3, 17, 2), (8, 10, 9, 1),
     (24, 4, 70, 5),
+    # depth 10 over several trees, and T past one of the kernel's chunks
+    (24, 10, 13, 4), (kernels.WALK_CHUNK_CAP + 8, 2, 6, 8),
 ])
 def test_plain_walk_bit_equal_to_pallas_interpret(T, depth, B, n_pad):
     rng = np.random.RandomState(T * 100 + depth)
@@ -190,15 +197,16 @@ def test_heap_walk_refuses_feat_ids_past_the_row():
     ht = kernels.heap_from_numpy(feat, split, dleft, leaf, 3, 8, "cpu")
     assert ht.max_feat == 5
     X = torch.from_numpy(_rows(rng, 4, 5, split))
-    args = (X, ht.feat, ht.split, ht.dleft, ht.leaf, ht.depth)
+    args = (X, ht.nodes, ht.leaf, ht.depth)
     with pytest.raises(ValueError, match="past X's 5 columns"):
         kernels.heap_walk(*args, max_feat=ht.max_feat)
     with pytest.raises(ValueError, match="past X's 5 columns"):
         kernels.heap_walk(*args)
-    neg = ht.feat.clone()
+    neg, nsplit, ndleft = kernels.unpack_records(ht.nodes)
     neg[0, 0] = -1
     with pytest.raises(ValueError, match="< 0"):
-        kernels.heap_walk(X, neg, *args[2:])
+        kernels.heap_walk(X, kernels.node_records(neg, nsplit, ndleft),
+                          *args[2:])
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -1,4 +1,4 @@
-"""The histogram tuning tools (ytklearn_tpu_torch/scripts/) as a user runs
+"""The tuning and timing tools (ytklearn_tpu_torch/scripts/) as a user runs
 them: `python -m ytklearn_tpu_torch.scripts.<tool>`. With `--device cpu`
 and a small `--rows` each runs its control flow and spot checks on the
 plain versions, exits 0 and prints "not measured" in place of every time;
@@ -19,6 +19,7 @@ TOOLS = {
     "micro_hist_gather": ["--divs", "8,64"],
     "tune_gbdt": ["--trees", "2", "--configs", "32:int8,64:int8,32:bf16"],
     "time_hist": [],
+    "time_walk": ["--sweep", "--serve", "3"],
 }
 
 
@@ -46,6 +47,11 @@ def test_tool_runs_on_the_cpu_without_times(tool):
         assert sum(line.startswith("K8 ") for line in lines) == 9
     if tool == "micro_hist_gather":
         assert out.stdout.count("fused == gathered (exact): True") == 2
+    if tool == "time_walk":
+        assert "(exact: False)" not in out.stdout
+        assert "time_walk: rung 4096:" in out.stdout
+        assert sum(line.startswith("time_walk sweep:") for line in lines) > 0
+        assert sum(line.startswith("time_walk serve:") for line in lines) == 2
 
 
 @pytest.mark.parametrize("tool", sorted(TOOLS))

@@ -1,5 +1,5 @@
-"""The histogram tuning tools, one counterpart per tool of the reference's
-`scripts/`:
+"""The tuning and timing tools: one counterpart per histogram tool of the
+reference's `scripts/`, and the timers of two checkouts:
 
   tune_hist_kernel   K2, K1 and K8 across launch shapes at the Higgs tune
                      shape, and the spot check K8 == K2
@@ -11,8 +11,10 @@
                      (scripts/micro_hist_gather.py)
   tune_gbdt          the trainer's wave width x histogram precision in
                      trees/s (scripts/tune_gbdt.py)
-  time_hist          K1-K4 at chip_smoke.py's timing shapes on one line,
-                     to compare two checkouts in turns on one card
+  time_hist          K1-K5 and K8 at chip_smoke.py's timing shapes on one
+                     line, to compare two checkouts in turns on one card
+  time_walk          K6 and K7, the serving walks, at every ladder rung, for
+                     the same comparison (--sweep: launch shapes)
 
 Each runs as `python -m ytklearn_tpu_torch.scripts.<name>` on the card
 (the default device; without a GPU it raises), times with CUDA events and

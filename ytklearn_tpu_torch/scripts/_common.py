@@ -1,10 +1,12 @@
 """What the tuning tools share: arguments, the card line, CUDA-event
-timing, the CPU's "not measured", and K1-K4 launch shapes that fit (K1
-through check_float_plan, K2/K4 through check_q_plan)."""
+timing, the device's busy time in a torch.profiler trace, the CPU's "not
+measured", and K1-K4 launch shapes that fit (K1 through check_float_plan,
+K2/K4 through check_q_plan)."""
 
 from __future__ import annotations
 
 import argparse
+import math
 import statistics
 import subprocess
 from typing import Callable, List, Optional, Tuple
@@ -80,6 +82,28 @@ class Timer:
             e1.synchronize()
             times.append(e0.elapsed_time(e1) / chain)
         return statistics.median(times)
+
+
+def device_busy(prof, top_k: int = 0):
+    """(busy ms, top device ops) of a torch.profiler trace. Busy time is
+    the union of the device events' intervals (kernels, copies, sets):
+    only events on the device count, since a CPU op's device time repeats
+    the kernels it launched, and kernels launched through ctypes have no
+    CPU op at all. The top ops are the `top_k` with the most self device
+    time."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:top_k]
+    return busy_us / 1e3, top
 
 
 def fmt_ms(ms: Optional[float]) -> str:

@@ -4,14 +4,22 @@ two walk kernels.
   heap layout   every tree re-laid as a perfect heap (Tree.heap_arrays):
                 slot p's children are 2p+1 / 2p+2, so the fixed-depth walk
                 needs no child pointers and the leaf value lives in the
-                last heap level only
-  heap_walk     the CUDA kernel (csrc/heap_walk.cu), replacing the JAX
+                last heap level only; node_records packs a slot's split,
+                feat and dleft into one 16-byte record, K6's one node
+                table (HeapTensors.nodes; unpack_records gives the three
+                arrays back)
+  heap_walk     the CUDA kernel K6 (csrc/heap_walk.cu), replacing the JAX
                 package's Pallas body serve/kernels.py::_walk_block (float
-                mode, fused_scores). One thread per row, trees folded in
-                ascending order in f64: bit-identical to the stacked rung
-                and to GBDTPredictor.batch_scores
-  heap_walk_plain  the same function in plain PyTorch; the wrapper takes it
-                only for tensors on the CPU
+                mode, fused_scores). A block stages a tile of rows in shared
+                memory and walks (row, tree) pairs in parallel, a chunk of
+                trees at a time; one thread a row folds the leaf values in
+                ascending tree order in f64 (walk_plan picks the tile, the
+                chunk and the threads; check_walk_plan checks a given
+                plan): bit-identical to the stacked rung and to
+                GBDTPredictor.batch_scores
+  heap_walk_plain  the same function in plain PyTorch on the three arrays;
+                the wrapper takes it, on the unpacked records, only for
+                tensors on the CPU
   bin tables    BinTable: per-feature sorted edge values, the dumped
                 training representatives (`<model>.bins.json`, mode
                 "edges") or the ensemble's own split values (mode
@@ -23,10 +31,11 @@ two walk kernels.
                 in edges mode the compare reproduces the training bins'
                 nearest-representative routing (ytklearn_tpu/serve/
                 kernels.py:191-336, field for field)
-  binned_walk   the binned walk, CUDA kernel K7 (csrc/heap_walk.cu),
-                replacing the Pallas body's binned mode (binned_scores_pallas
-                :439); binned_walk_plain is its plain version (the
-                reference's make_binned_xla, :454)
+  binned_walk   the binned walk, CUDA kernel K7 (csrc/heap_walk.cu, K6's
+                template on bins and packed nodes), replacing the Pallas
+                body's binned mode (binned_scores_pallas :439);
+                binned_walk_plain is its plain version (the reference's
+                make_binned_xla, :454)
 
 The kernels are built at first use with nvcc into csrc/build/ (cached by
 source mtime, ytklearn_tpu_torch/cuda_build.py) and bound through ctypes.
@@ -37,6 +46,7 @@ on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 import logging
 import os
 import threading
@@ -130,23 +140,43 @@ def build_heap(
 
 @dataclass
 class HeapTensors:
-    """A HeapEnsemble's walk arrays as tensors on one device."""
+    """A HeapEnsemble's walk tables as tensors on one device: K6's node
+    records and the leaf values (unpack_records gives the plain version
+    its three arrays back)."""
 
-    feat: torch.Tensor  # (T, H) int32
-    split: torch.Tensor  # (T, H) float64
-    dleft: torch.Tensor  # (T, H) int32
+    nodes: torch.Tensor  # (T, H, 2) int64: node_records
     leaf: torch.Tensor  # (T, LL) float64
     depth: int
     n_trees: int
     max_feat: int  # largest feat id, read on the host when built; -1 if T == 0
 
 
+def node_records(feat, split, dleft) -> torch.Tensor:
+    """(T, H, 2) int64 node records of K6, one 16-byte record a heap slot:
+    the split's f64 bits, then feat in the low and dleft in the high 32
+    bits of the second word (little-endian: split f64, feat i32, dleft i32,
+    the kernel's int4 load). Built on the three (T, H) tensors' device."""
+    rec = torch.empty(tuple(feat.shape) + (2,), dtype=torch.int64,
+                      device=feat.device)
+    rec[..., 0] = split.to(torch.float64).contiguous().view(torch.int64)
+    rec[..., 1] = (feat.long() & 0xFFFFFFFF) | (dleft.long() << 32)
+    return rec
+
+
+def unpack_records(nodes: torch.Tensor):
+    """node_records' inverse: (feat int32, split float64, dleft int32),
+    each (T, H) and contiguous, on the records' device."""
+    return (nodes[..., 1].to(torch.int32),
+            nodes[..., 0].contiguous().view(torch.float64),
+            (nodes[..., 1] >> 32).to(torch.int32))
+
+
 def heap_from_numpy(feat, split, dleft, leaf, depth: int, n_trees: int,
                     device) -> HeapTensors:
     """numpy heap arrays (this package's HeapEnsemble or the JAX package's,
-    field for field) -> contiguous tensors on `device`. Checks the layout
-    the kernel assumes, so a malformed table fails here and not on the
-    card."""
+    field for field) -> K6's node records and the leaf values, contiguous
+    on `device`. Checks the layout the kernel assumes, so a malformed table
+    fails here and not on the card."""
     feat = np.asarray(feat)
     split = np.asarray(split)
     dleft = np.asarray(dleft)
@@ -167,11 +197,12 @@ def heap_from_numpy(feat, split, dleft, leaf, depth: int, n_trees: int,
         raise ValueError("feat ids must lie in [0, 4094]")
 
     def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a, dtype))
 
+    nodes = node_records(put(feat, np.int32), put(split, np.float64),
+                         put(dleft, np.int32))
     return HeapTensors(
-        feat=put(feat, np.int32), split=put(split, np.float64),
-        dleft=put(dleft, np.int32), leaf=put(leaf, np.float64),
+        nodes=nodes.to(device), leaf=put(leaf, np.float64).to(device),
         depth=int(depth), n_trees=int(n_trees),
         max_feat=int(feat.max()) if T else -1,
     )
@@ -356,23 +387,139 @@ def heap_walk_plain(X, feat, split, dleft, leaf, depth: int) -> torch.Tensor:
     return acc
 
 
+# ---------------------------------------------------------------------------
+# The kernels' launch shape
+# ---------------------------------------------------------------------------
+
+#: an H100 block's dynamic shared memory (227 KB)
+SMEM_MAX = 232448
+#: threads a block at most, and walk chains in flight a thread (the
+#: kernel's kUnroll)
+WALK_MAX_THREADS = 1024
+WALK_UNROLL = 4
+#: rows a tile at most: one fold warp
+WALK_MAX_ROWS = 32
+#: trees a chunk at most: each chunk's walks wait on a chain of `depth`
+#: node loads, so short chunks run slower (PERF.md, the design probes)
+WALK_CHUNK_CAP = 512
+
+
+def walk_smem(rows: int, chunk: int, F: int, bin_bytes: int) -> int:
+    """Shared bytes of a walk block: two chunk x rows f64 buffers of leaf
+    values, then the tile's rows of F elements (padded to 16 bytes)."""
+    return 16 * chunk * rows + -(-rows * F * bin_bytes // 16) * 16
+
+
+def _walk_args(B: int, T: int, depth: int, F: int, bin_bytes: int) -> None:
+    if B < 0 or T < 0 or F < 1 or not 1 <= depth <= HEAP_DEPTH_CAP \
+            or bin_bytes not in (1, 2, 8):
+        raise ValueError(
+            f"walk plan: B ({B}) and T ({T}) must be >= 0, F ({F}) >= 1, "
+            f"depth ({depth}) in [1, {HEAP_DEPTH_CAP}] and bin_bytes "
+            f"({bin_bytes}) 1, 2 or 8")
+
+
+def _derived(rows: int, chunk: int, B: int, T: int, F: int,
+             bin_bytes: int) -> dict:
+    return {"fold": -(-rows // 32) * 32, "blocks": -(-B // rows),
+            "n_chunks": -(-T // chunk),
+            "smem": walk_smem(rows, chunk, F, bin_bytes)}
+
+
+def walk_plan(B: int, T: int, depth: int, F: int, bin_bytes: int,
+              sm_count: int) -> dict:
+    """K6's (bin_bytes 8) or K7's (1, 2) launch shape for B rows of F
+    elements over T trees of `depth` (pure integer arithmetic):
+
+      rows      R rows a block: ceil(B / sm_count), so the row tiles
+                cover the SMs at rung 512 (4 rows, 128 blocks) and each
+                row of a smaller batch has a block of its own (rung 1: one
+                block walks every tree), at most WALK_MAX_ROWS and as many
+                as leave shared memory for a chunk
+      chunk     C trees a chunk: every tree up to WALK_CHUNK_CAP, fewer
+                where shared memory runs out
+      threads   one fold warp a 32 rows, and a walk thread for each of
+                the chunk's R x C pairs, within 1024 (past that a thread
+                keeps up to WALK_UNROLL chains in flight)
+      fold, blocks, n_chunks, smem   derived (check_walk_plan)"""
+    _walk_args(B, T, depth, F, bin_bytes)
+    if sm_count < 1:
+        raise ValueError(f"walk plan: sm_count ({sm_count}) must be >= 1")
+    rows = max(1, min(WALK_MAX_ROWS, -(-B // sm_count)))
+    while rows > 1 and walk_smem(rows, 1, F, bin_bytes) > SMEM_MAX:
+        rows -= 1
+    room = (SMEM_MAX - walk_smem(rows, 0, F, bin_bytes)) // (16 * rows)
+    chunk = max(1, min(T, WALK_CHUNK_CAP, room))
+    fold = -(-rows // 32) * 32
+    threads = fold + min(WALK_MAX_THREADS - fold, -(-rows * chunk // 32) * 32)
+    return check_walk_plan({"rows": rows, "chunk": chunk, "threads": threads},
+                           B, T, depth, F, bin_bytes)
+
+
+def check_walk_plan(plan: dict, B: int, T: int, depth: int, F: int,
+                    bin_bytes: int) -> dict:
+    """Check a walk launch shape before any launch (pure integer checks):
+    rows >= 1; chunk in [1, max(T, 1)]; threads a multiple of 32 within
+    1024, with at least one walk warp beside the fold warps; the grid of
+    row tiles within an int32; shared memory within SMEM_MAX. Derived keys
+    a plan gives (fold, blocks, n_chunks, smem) must match. Returns the
+    plan with every key; raises ValueError naming what fails."""
+    _walk_args(B, T, depth, F, bin_bytes)
+    rows, chunk, threads = (int(plan[k]) for k in ("rows", "chunk",
+                                                    "threads"))
+    if rows < 1 or not 1 <= chunk <= max(T, 1):
+        raise ValueError(f"walk plan: rows ({rows}) must be >= 1 and chunk "
+                         f"({chunk}) in [1, {max(T, 1)}]")
+    out = {"rows": rows, "chunk": chunk, "threads": threads,
+           **_derived(rows, chunk, B, T, F, bin_bytes)}
+    if threads % 32 or not out["fold"] + 32 <= threads <= WALK_MAX_THREADS:
+        raise ValueError(f"walk plan: threads ({threads}) must be a multiple "
+                         f"of 32 in [{out['fold'] + 32}, {WALK_MAX_THREADS}]"
+                         f" ({out['fold']} fold threads and a walk warp)")
+    if out["blocks"] > 2 ** 31 - 1 or rows * F * bin_bytes > 2 ** 31 - 1:
+        raise ValueError(f"walk plan: {out['blocks']} tiles of {rows} rows "
+                         "pass the grid's int32")
+    if out["smem"] > SMEM_MAX:
+        raise ValueError(f"walk plan: {rows} rows of {F} x {bin_bytes} bytes "
+                         f"and two {chunk}-tree buffers need {out['smem']} "
+                         f"bytes of shared memory, more than {SMEM_MAX}")
+    for k, v in out.items():
+        if k in plan and int(plan[k]) != v:
+            raise ValueError(f"walk plan: {k} ({plan[k]}) must be {v}")
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _default_plan(B: int, T: int, depth: int, F: int, bin_bytes: int,
+                  device_index: int) -> dict:
+    """walk_plan's launch shape on a card, cached: a server asks for the
+    few shapes of its ladder on every call, and the planner's Python is a
+    share of a call's host time. Read-only (the wrappers never change
+    it)."""
+    sm = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return walk_plan(B, T, depth, F, bin_bytes, sm)
+
+
 _count_lock = threading.Lock()
 
 
-def heap_walk(X, feat, split, dleft, leaf, depth: int,
-              max_feat: Optional[int] = None) -> torch.Tensor:
-    """heap_walk_plain's function. On CPU tensors it is the plain version;
-    on CUDA tensors it launches csrc/heap_walk.cu on the current stream
+def heap_walk(X, nodes, leaf, depth: int, max_feat: Optional[int] = None,
+              *, plan: Optional[dict] = None) -> torch.Tensor:
+    """heap_walk_plain's function on node records (HeapTensors.nodes). On
+    CPU tensors it is the plain version, on the unpacked records; on CUDA
+    tensors it launches K6 (csrc/heap_walk.cu) on the current stream
     (building it at first use) or raises. `heap_walk.launches` counts the
     kernel launches.
 
     Every feat id must index a column of X: the kernel does not bound its
     reads. `max_feat` is the largest id (HeapTensors.max_feat); without it
-    the ids are read back from the device, a synchronising check."""
+    the ids are read back from the device, a synchronising check. `plan`:
+    a launch shape for check_walk_plan (tests and tools; walk_plan's by
+    default), checked on the CPU too."""
     B, F = X.shape
-    T, H = feat.shape
+    T, H = nodes.shape[:2]
     if max_feat is None and T:
-        lo, hi = (int(v) for v in torch.aminmax(feat))
+        lo, hi = (int(v) for v in torch.aminmax(unpack_records(nodes)[0]))
         if lo < 0:
             raise ValueError(f"heap_walk: feat id {lo} < 0")
         max_feat = hi
@@ -380,8 +527,10 @@ def heap_walk(X, feat, split, dleft, leaf, depth: int,
         raise ValueError(
             f"heap_walk: feat id {max_feat} indexes past X's {F} columns"
         )
+    if plan is not None:
+        plan = check_walk_plan(plan, B, T, depth, F, 8)
     if X.device.type == "cpu":
-        return heap_walk_plain(X, feat, split, dleft, leaf, depth)
+        return heap_walk_plain(X, *unpack_records(nodes), leaf, depth)
     LL = leaf.shape[1]
     if not 1 <= depth <= HEAP_DEPTH_CAP or H != (1 << (depth + 1)) - 1 \
             or LL != 1 << depth:
@@ -389,9 +538,7 @@ def heap_walk(X, feat, split, dleft, leaf, depth: int,
                          f"match depth {depth}")
     for name, t, dtype, shape in (
         ("X", X, torch.float64, (B, F)),
-        ("feat", feat, torch.int32, (T, H)),
-        ("split", split, torch.float64, (T, H)),
-        ("dleft", dleft, torch.int32, (T, H)),
+        ("nodes", nodes, torch.int64, (T, H, 2)),
         ("leaf", leaf, torch.float64, (T, LL)),
     ):
         if t.device != X.device or t.dtype != dtype \
@@ -401,14 +548,19 @@ def heap_walk(X, feat, split, dleft, leaf, depth: int,
                 f"tensor on {X.device}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}"
             )
+    if nodes.data_ptr() % 16:
+        raise ValueError("heap_walk: nodes (node_records) must be 16-byte "
+                         "aligned: the kernel loads a record as one int4")
     out = torch.empty(B, dtype=torch.float64, device=X.device)
     if B == 0:
         return out
+    if plan is None:
+        plan = _default_plan(B, T, depth, F, 8, X.device.index)
     lib = _load()
     with torch.cuda.device(X.device):
         rc = lib.ytk_heap_walk_f64(
-            X.data_ptr(), B, F, feat.data_ptr(), split.data_ptr(),
-            dleft.data_ptr(), leaf.data_ptr(), T, depth, out.data_ptr(),
+            X.data_ptr(), B, F, nodes.data_ptr(), leaf.data_ptr(), T, depth,
+            plan["rows"], plan["chunk"], plan["threads"], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _LIBRARY.check(rc, "heap_walk")
@@ -458,7 +610,8 @@ _BIN_DTYPES = {torch.uint8: _U8_SENTINEL, torch.uint16: _U16_SENTINEL}
 
 
 def binned_walk(bins, packed, leaf, depth: int, sentinel: int,
-                max_feat: Optional[int] = None) -> torch.Tensor:
+                max_feat: Optional[int] = None, *,
+                plan: Optional[dict] = None) -> torch.Tensor:
     """binned_walk_plain's function. On CPU tensors it is the plain
     version; on CUDA tensors it launches K7 (csrc/heap_walk.cu) on the
     current stream (building it at first use) or raises.
@@ -466,7 +619,9 @@ def binned_walk(bins, packed, leaf, depth: int, sentinel: int,
 
     bins (B, F) uint8 (sentinel 255) or uint16 (sentinel 65535); every
     packed feat id must index a column of bins. `max_feat` is the largest
-    id; without it the ids are read back from the device (a sync)."""
+    id; without it the ids are read back from the device (a sync). `plan`:
+    a launch shape for check_walk_plan (walk_plan's by default), checked
+    on the CPU too."""
     B, F = bins.shape
     T, H = packed.shape
     if max_feat is None and T:
@@ -481,6 +636,8 @@ def binned_walk(bins, packed, leaf, depth: int, sentinel: int,
             f"binned_walk: bins must be uint8 (sentinel 255) or uint16 "
             f"(sentinel 65535), got {bins.dtype} with sentinel {sentinel}"
         )
+    if plan is not None:
+        plan = check_walk_plan(plan, B, T, depth, F, bins.element_size())
     if bins.device.type == "cpu":
         return binned_walk_plain(bins, packed, leaf, depth, sentinel)
     LL = leaf.shape[1]
@@ -503,11 +660,15 @@ def binned_walk(bins, packed, leaf, depth: int, sentinel: int,
     out = torch.empty(B, dtype=torch.float64, device=bins.device)
     if B == 0:
         return out
+    if plan is None:
+        plan = _default_plan(B, T, depth, F, bins.element_size(),
+                             bins.device.index)
     lib = _load()
     with torch.cuda.device(bins.device):
         rc = lib.ytk_binned_walk(
             bins.element_size(), bins.data_ptr(), B, F, packed.data_ptr(),
-            leaf.data_ptr(), T, depth, sentinel, out.data_ptr(),
+            leaf.data_ptr(), T, depth, sentinel, plan["rows"], plan["chunk"],
+            plan["threads"], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _LIBRARY.check(rc, "binned_walk")
@@ -525,16 +686,13 @@ binned_walk.launches = 0
 
 
 def _bind(lib) -> None:
-    lib.ytk_heap_walk_f64.restype = ctypes.c_int
-    lib.ytk_heap_walk_f64.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
     ci, vp = ctypes.c_int, ctypes.c_void_p
+    lib.ytk_heap_walk_f64.restype = ci
+    lib.ytk_heap_walk_f64.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci, ci, ci,
+                                      vp, vp]
     lib.ytk_binned_walk.restype = ci
-    lib.ytk_binned_walk.argtypes = [ci, vp, ci, ci, vp, vp, ci, ci, ci, vp,
-                                    vp]
+    lib.ytk_binned_walk.argtypes = [ci, vp, ci, ci, vp, vp, ci, ci, ci, ci,
+                                    ci, ci, vp, vp]
 
 
 _LIBRARY = KernelLibrary(

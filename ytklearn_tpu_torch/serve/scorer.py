@@ -313,10 +313,8 @@ class CompiledScorer:
         )
 
         def fused(X):
-            s = kernels.heap_walk(
-                X, ht.feat, ht.split, ht.dleft, ht.leaf, ht.depth,
-                max_feat=ht.max_feat,
-            )
+            s = kernels.heap_walk(X, ht.nodes, ht.leaf, ht.depth,
+                                  max_feat=ht.max_feat)
             return tail(s)
 
         self._kernel = fused
