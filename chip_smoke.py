@@ -10,8 +10,10 @@ histogram tuning tools with K8, the int8 one-hot histogram (slice 4), the
 redesigned bf16/f32 histograms K1 and K3 of `cli train` (slice 5), the
 redesigned int8 histograms K2 and K4 of int8 training (slice 6), K8
 redesigned on warpgroup tensor cores and K5, wave routing, redesigned
-(slice 7), and the serving walks K6 and K7 redesigned as (row, tree)-
-parallel walks with an ordered fold per row (slice 8).
+(slice 7), the serving walks K6 and K7 redesigned as (row, tree)-
+parallel walks with an ordered fold per row (slice 8), and GOSS, the
+sampling rates and EFB in training with bench.py's GBDT cell as the
+reference runs it, GOSS on, through scripts/bench_gbdt.py (slice 9).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -64,8 +66,27 @@ parallel walks with an ordered fold per row (slice 8).
      (INT8_TEST_METRICS), and prints steady trees/s, launches and host
      syncs per tree; then traces two rounds of a second
      run with torch.profiler for the device's idle share;
-  8. trains one small l2 configuration on cuda and on the CPU and requires
-     the trees' integer fields to be equal;
+  8. trains small l2 configurations on cuda and on the CPU and requires
+     the trees' integer fields and split values to be equal: int8; int8
+     with GOSS (0.2, 0.125) and instance and feature rates 0.8; int8 with
+     EFB on an exclusive one-hot block (slice 9); and requires
+     prng.uniform over the padded bench rows to be bit-equal on both;
+     then (slice 9, its main path) trains bench.py's cell as the reference
+     runs it, GOSS (0.2, 0.125) on, at full width in int8 with the counts
+     zeroed just before: the kept rows of every tree equal ceil(0.2 n) +
+     ceil(0.125 (n - ceil(0.2 n))), K2, K4 and K5 launch, K5 three times a
+     wave (fit rows, training rows, test rows), the train loss falls below
+     0.65, test AUC and logloss lie inside bench.py's synthetic band with
+     the GOSS headroom, and steady trees/s prints beside the GOSS-off
+     run's; the GOSS steps (the two stable sorts, the threefry draw, the
+     compaction and gather) are timed alone, and two GOSS rounds of a
+     second run are traced for the idle share; phase_efb trains 28 dense
+     and 300 one-hot columns over 2^20 rows with EFB (two bundles) and
+     holds each round's tree against `grow` on the unbundled matrix from
+     the same gradients, the bundled K2 and K1 histograms and K5 with the
+     members' real lo/hi (int32 and int64) against their plain versions;
+     and `python -m ytklearn_tpu_torch.scripts.bench_gbdt` runs once in a
+     fresh process, its JSON on a line of its own;
   9. times each training kernel at the full-width shapes (CUDA events,
      median of repeats) beside its bound, its plain version and one
      scatter_add_ call; then the int8 width phase of slice 6: K2 over every
@@ -98,7 +119,9 @@ parallel walks with an ordered fold per row (slice 8).
      slots, each held against its plain version (counts exact, g/h at
      HIST_RTOL) and then timed beside one scatter_add_ and its bound;
      then a small l2 bf16 run twice on the card and once on the CPU,
-     printing whether the card's trees repeat;
+     printing whether the card's trees repeat; and (slice 9) the bench
+     cell in bf16 with GOSS on at GOSS_BF16_ROUNDS trees (K1, K3 and K5
+     on the fit matrix);
  13. holds K8 (hist_q_u8) against its plain version with torch.equal at
      N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on waves
      of 64 and 100 slots (3N > 256: two n-tiles) with a duplicated id and
@@ -113,8 +136,8 @@ parallel walks with an ordered fold per row (slice 8).
      floor (mma_floor_ms), its plain version and one scatter_add_, then K8
      and K2 on waves of 1 to 64 slots that hold every row;
  16. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
-     `device_ms`), the card line, and last the result line {"ok": true,
-     "device": {...}}.
+     `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
+     card line, and last the result line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the result line;
 without a CUDA device it exits 2 before importing the port.
@@ -122,6 +145,7 @@ without a CUDA device it exits 2 before importing the port.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -572,55 +596,20 @@ def phase_timings(model, card):
 TRAIN_ROWS = 10_500_000
 TEST_ROWS = 500_000
 TRAIN_ROUNDS = 40
+#: bench.py's GOSS default (bench.py:286), and the trees of the bf16 run
+GOSS = (0.2, 0.125)
+GOSS_BF16_ROUNDS = 12
+#: phase_efb's sparse width: rows, one-hot columns beside the 28 dense
+#: ones, trees
+EFB_ROWS = 1 << 20
+EFB_ONEHOT = 300
+EFB_ROUNDS = 10
+REPO = os.path.dirname(os.path.abspath(__file__))
 #: (F, n, B, N, bins dtype) for K2; (R, dead share) for K4; NW for K5
 HIST_SHAPES = ((28, 65536, 256, 1, "u8"), (28, 65536, 256, 64, "u8"),
                (5, 49152, 16, 7, "i32"))
 GATHER_SHAPES = (1024, 262144)
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core rate (int32 adds bound below it)
-
-
-def gen_higgs_like(n, n_test, F, seed):
-    """Torch twin of bench.py::_gen_gbdt: a Higgs-shaped synthetic with a
-    planted nonlinear signal, drawn on the card from a seeded generator."""
-    import numpy as np
-    import torch
-
-    from ytklearn_tpu_torch.gbdt.data import GBDTData
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    n_all = n + n_test
-    X = torch.randn((n_all, F), generator=gen, device="cuda")
-    logit = (1.5 * X[:, 0] * X[:, 1] + torch.sin(X[:, 2] * 2)
-             + 0.8 * (X[:, 3] > 0.5) - 0.5 * X[:, 4] ** 2
-             + 0.3 * X[:, 5] * X[:, 6])
-    noise = torch.randn((n_all,), generator=gen, device="cuda")
-    y = (logit + noise * 0.5 > 0).to(torch.float32)
-    names = [f"f{i}" for i in range(F)]
-
-    def mk(lo, hi):
-        return GBDTData(X=X[lo:hi], y=y[lo:hi],
-                        weight=np.ones(hi - lo, np.float32), n_real=hi - lo,
-                        feature_names=names)
-
-    return mk(0, n), mk(n, n_all)
-
-
-def bench_params(rounds, data_path):
-    """bench.py::bench_gbdt's configuration (bench.py:320-339)."""
-    from ytklearn_tpu_torch.config.params import (
-        ApproximateSpec,
-        GBDTParams,
-        ModelParams,
-    )
-
-    return GBDTParams(
-        round_num=rounds, max_depth=60, max_leaf_cnt=255,
-        tree_grow_policy="loss", learning_rate=0.1,
-        min_child_hessian_sum=100.0, loss_function="sigmoid",
-        eval_metric=["auc", "logloss"],
-        approximate=[ApproximateSpec(type="sample_by_quantile", max_cnt=255)],
-        model=ModelParams(data_path=data_path, dump_freq=0),
-    )
 
 
 def kernel_counts():
@@ -849,20 +838,31 @@ def route_edge_cases(gen, cmp):
         cmp("route", got, want, f"NW = {NW} over {n} rows, {what}")
 
 
-def phase_train(tmp, card, precision="int8"):
+def phase_train(tmp, card, precision="int8", goss=(1.0, 0.0),
+                rounds=TRAIN_ROUNDS, recorder=None):
     """The full-width training run at one histogram precision: int8, the
-    main path of slice 2, or bf16, the JAX trainer's default."""
+    main path of slice 2, or bf16, the JAX trainer's default; GOSS off, or
+    (slice 9) bench.py's default (0.2, 0.125). K5 must run once a wave for
+    each routed row set: the training rows and the test rows, and under
+    GOSS the fit rows besides. A ShapeRecorder, if given, sees the
+    engine's K2, K4 and K5 calls of the run."""
     import torch
 
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.scripts.bench_gbdt import (
+        bench_params,
+        gen_higgs_like,
+    )
 
     train, test = gen_higgs_like(TRAIN_ROWS, TEST_ROWS, N_FEATURES, SEED)
-    params = bench_params(TRAIN_ROUNDS, os.path.join(tmp, "train.model"))
-    trainer = GBDTTrainer(params, hist_precision=precision, device="cuda")
+    params = bench_params(rounds, os.path.join(tmp, "train.model"))
+    trainer = GBDTTrainer(params, hist_precision=precision, device="cuda",
+                          goss=goss)
     torch.cuda.synchronize()
     zero_kernel_counts()  # count the main path's launches only
     t0 = time.perf_counter()
-    res = trainer.train(train=train, test=test)
+    with recorder or contextlib.nullcontext():
+        res = trainer.train(train=train, test=test)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_counts()
@@ -875,10 +875,12 @@ def phase_train(tmp, card, precision="int8"):
     (r0, t0s), (r1, t1s) = tail[0], tail[-1]
     tps = (r1 - r0) / (t1s - t0s)
     auc = res.test_metrics["auc"]
-    print(f"train {precision}: {TRAIN_ROWS} rows x {N_FEATURES} features, "
+    label = precision if goss[0] >= 1 else \
+        f"{precision} GOSS a={goss[0]:g} b={goss[1]:g}"
+    print(f"train {label}: {TRAIN_ROWS} rows x {N_FEATURES} features, "
           f"{TEST_ROWS} test rows, {trees} trees (loss policy, 255 leaves, "
           f"wave {trainer.grow_spec.wave}, ladder {trainer.grow_spec.ladder}, "
-          f"{precision}) in {wall:.3f} s (preprocess "
+          f"{label}) in {wall:.3f} s (preprocess "
           f"{trainer.time_stats['preprocess']:.3f} s, rounds "
           f"{trainer.time_stats['train']:.3f} s); steady {tps:.4f} trees/s "
           f"(sync log, rounds {r0}..{r1}); train loss {losses[0]:.6f} -> "
@@ -889,7 +891,7 @@ def phase_train(tmp, card, precision="int8"):
     # the trainer reads one loss per round besides the engine's probes
     syncs = (counts["host_syncs"] + len(sync)) / trees
     full, gather = PRECISION_KERNELS[precision]
-    print(f"train {precision}: launches per tree: {full} "
+    print(f"train {label}: launches per tree: {full} "
           f"{per_tree[full]:.2f}, {gather} {per_tree[gather]:.2f}, route "
           f"{per_tree['route']:.2f}; host syncs per tree {syncs:.2f} "
           f"({counts['host_syncs']} phase probes + {len(sync)} loss reads "
@@ -900,7 +902,16 @@ def phase_train(tmp, card, precision="int8"):
              if k not in (full, gather)]
     check(all(counts[k] > 0 for k in (full, gather, "route"))
           and all(counts[k] == 0 for k in other),
-          f"the {precision} path did not run exactly its kernels: {counts}")
+          f"the {label} path did not run exactly its kernels: {counts}")
+    # every histogram pass but each tree's root follows a wave's routing
+    waves = int((trainer.wave_log[..., 3] > 0).sum()) - trees
+    sets = 2 + (goss[0] < 1)
+    print(f"train {label}: route launches {counts['route']} over "
+          f"{waves} waves: {counts['route'] / waves:.4f} a wave, {sets} row "
+          f"sets [{card}]", flush=True)
+    check(counts["route"] == sets * waves,
+          f"route ran {counts['route']} times over {waves} waves, not "
+          f"{sets} a wave")
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0]
           and res.train_loss < 0.65, f"train loss did not fall: {losses}")
     check(0.5 < auc <= 1.0 and math.isfinite(res.test_loss),
@@ -908,14 +919,19 @@ def phase_train(tmp, card, precision="int8"):
     return counts, trainer, res, tps
 
 
-def phase_train_profile(card):
+def phase_train_profile(card, goss=(1.0, 0.0)):
     """Two traced rounds of a second full-width run: device busy time
-    (kernels and copies) against the wall time of those rounds."""
+    (kernels and copies) against the wall time of those rounds; GOSS off,
+    or (slice 9) bench.py's default."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
     from ytklearn_tpu_torch.scripts._common import device_busy
+    from ytklearn_tpu_torch.scripts.bench_gbdt import (
+        bench_params,
+        gen_higgs_like,
+    )
 
     class Traced(GBDTTrainer):
         def _round(self, rnd, dd, spec, state):
@@ -936,28 +952,45 @@ def phase_train_profile(card):
     try:
         train, test = gen_higgs_like(TRAIN_ROWS, TEST_ROWS, N_FEATURES, SEED)
         tr = Traced(bench_params(3, os.path.join(tmp, "p.model")),
-                    hist_precision="int8", device="cuda")
+                    hist_precision="int8", device="cuda", goss=goss)
         tr.train(train=train, test=test)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    busy_ms, top = device_busy(tr.prof, 6)
+    busy_ms, top = device_busy(tr.prof, 8 if goss[0] < 1 else 6)
     check(busy_ms > 0, "the profiler saw no device time in training")
     idle = 1 - busy_ms / tr.wall_ms
-    print(f"train profile: 2 rounds (traced), wall {tr.wall_ms:.3f} ms, "
+    what = "" if goss[0] >= 1 else f" GOSS a={goss[0]:g} b={goss[1]:g}"
+    print(f"train profile{what}: 2 rounds (traced), wall {tr.wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms, idle share {idle:.4f}; top device "
           f"ops: {fmt_top(top, 48)} [{card}]", flush=True)
     return idle
 
 
-def phase_cpu_card_compare(card):
-    """One small l2 configuration on cuda and on the CPU: the same trees."""
+def exclusive_block(rng, n, n_dense, n_onehot):
+    """(X, names): n_dense gaussian columns, then a one-hot block of
+    n_onehot mutually exclusive columns (one 1.0 a row), float32."""
     import numpy as np
+
+    X = np.zeros((n, n_dense + n_onehot), np.float32)
+    X[:, :n_dense] = rng.randn(n, n_dense)
+    X[np.arange(n), n_dense + rng.randint(0, n_onehot, n)] = 1.0
+    return X, [f"f{i}" for i in range(n_dense + n_onehot)]
+
+
+def phase_cpu_card_compare(card):
+    """Small l2 configurations on cuda and on the CPU: the same trees.
+    Plain int8; GOSS (0.2, 0.125) with instance and feature rates 0.8
+    (slice 9); EFB on an exclusive sparse block (slice 9). Then
+    prng.uniform over the bench rows, bit-equal on the card and the CPU."""
+    import numpy as np
+    import torch
 
     from ytklearn_tpu_torch.config.params import (
         ApproximateSpec,
         GBDTParams,
         ModelParams,
     )
+    from ytklearn_tpu_torch.gbdt import prng
     from ytklearn_tpu_torch.gbdt.data import GBDTData
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
 
@@ -967,37 +1000,520 @@ def phase_cpu_card_compare(card):
     y = (1.5 * X[:, 0] * X[:, 1] + np.sin(2 * X[:, 2])
          + rng.randn(n) * 0.3).astype(np.float32)
     names = [f"f{i}" for i in range(F)]
+    Xe, enames = exclusive_block(rng, n, 4, 60)
+    ye = (Xe[:, 0] * Xe[:, 1] + Xe[:, 4:24].sum(1) - Xe[:, 30:40].sum(1)
+          + rng.randn(n) * 0.3).astype(np.float32)
+    configs = (
+        ("int8", X, y, names, {}, {}),
+        ("int8 GOSS (0.2, 0.125), rates 0.8", X, y, names,
+         {"goss": (0.2, 0.125)},
+         {"instance_sample_rate": 0.8, "feature_sample_rate": 0.8}),
+        ("int8 EFB, 4 dense + 60 one-hot columns", Xe, ye, enames,
+         {"efb": True}, {}),
+    )
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_c_")
-    models = {}
+    rel = 0.0
     try:
-        for dev in ("cuda", "cpu"):
-            p = GBDTParams(
-                round_num=5, max_depth=8, max_leaf_cnt=63,
-                tree_grow_policy="loss", learning_rate=0.1,
-                min_child_hessian_sum=10.0, loss_function="l2",
-                eval_metric=["rmse"],
-                approximate=[ApproximateSpec(max_cnt=255)],
-                model=ModelParams(data_path=os.path.join(tmp, dev),
-                                  dump_freq=0))
-            tr = GBDTTrainer(p, hist_precision="int8", device=dev,
-                             wave=16)
-            models[dev] = tr.train(GBDTData(X, y, np.ones(n, np.float32), n,
-                                            names)).model
+        for what, Xc, yc, nc, ctor, over in configs:
+            models, plans = {}, {}
+            for dev in ("cuda", "cpu"):
+                p = GBDTParams(
+                    round_num=5, max_depth=8, max_leaf_cnt=63,
+                    tree_grow_policy="loss", learning_rate=0.1,
+                    min_child_hessian_sum=10.0, loss_function="l2",
+                    eval_metric=["rmse"],
+                    approximate=[ApproximateSpec(max_cnt=255)],
+                    model=ModelParams(data_path=os.path.join(tmp, dev),
+                                      dump_freq=0), **over)
+                tr = GBDTTrainer(p, hist_precision="int8", device=dev,
+                                 wave=16, **ctor)
+                models[dev] = tr.train(GBDTData(
+                    Xc, yc, np.ones(n, np.float32), n, nc)).model
+                plans[dev] = tr._efb_plan
+            check((plans["cuda"] is None) == ("EFB" not in what)
+                  and (plans["cuda"] is None
+                       or plans["cuda"].bundles == plans["cpu"].bundles),
+                  f"cpu/card {what}: EFB plans {plans}")
+            for a, b in zip(models["cuda"].trees, models["cpu"].trees):
+                for f in ("feat", "left", "right", "slot", "sample_cnt",
+                          "split"):
+                    check(getattr(a, f) == getattr(b, f),
+                          f"cuda and cpu trees differ in {f} ({what})")
+                la, lb = np.asarray(a.leaf_value), np.asarray(b.leaf_value)
+                rel = max(rel, float(np.max(np.abs(la - lb)
+                                            / np.maximum(np.abs(lb), 1e-30))))
+            nodes = sum(t.n_nodes() for t in models["cuda"].trees)
+            extra = "" if plans["cuda"] is None else \
+                f"; plan {plans['cuda'].summary()}"
+            print(f"cpu/card: l2 {what}, {n} rows x {Xc.shape[1]} features, "
+                  f"5 trees ({nodes} nodes, root rows "
+                  f"{models['cuda'].trees[0].sample_cnt[0]}) on cuda and on "
+                  f"the CPU: integer fields and split values equal; largest "
+                  f"relative leaf difference {rel:.3e}{extra} [{card}]",
+                  flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rel = 0.0
-    for a, b in zip(models["cuda"].trees, models["cpu"].trees):
-        for f in ("feat", "left", "right", "slot", "sample_cnt", "split"):
-            check(getattr(a, f) == getattr(b, f),
-                  f"cuda and cpu trees differ in {f}")
-        la, lb = np.asarray(a.leaf_value), np.asarray(b.leaf_value)
-        rel = max(rel, float(np.max(np.abs(la - lb)
-                                    / np.maximum(np.abs(lb), 1e-30))))
-    nodes = sum(t.n_nodes() for t in models["cuda"].trees)
-    print(f"cpu/card: l2, {n} rows x {F} features, 5 trees ({nodes} nodes) "
-          f"on cuda and on the CPU: integer fields and split values equal; "
-          f"largest relative leaf difference {rel:.3e} [{card}]", flush=True)
+    n_pad = -(-TRAIN_ROWS // 16384) * 16384
+    key = prng.fold_in(prng.PRNGKey(20170425), 7)
+    u_card = prng.uniform(key, n_pad, device="cuda").cpu()
+    u_cpu = prng.uniform(key, n_pad)
+    same = torch.equal(u_card.view(torch.int32), u_cpu.view(torch.int32))
+    print(f"cpu/card: prng.uniform over {n_pad} rows (the bench rows "
+          f"padded), bit-equal on cuda and on the CPU: {same} [{card}]",
+          flush=True)
+    check(same, "prng.uniform differs on the card and the CPU")
     return rel
+
+
+def goss_kept_rows(n_real, a, b):
+    """k_a + k_b of bench.py's GOSS cell from the real row count, the
+    formula of bench.py's docstring: ceil(a n) + ceil(b (n - ceil(a n)))."""
+    k_a = math.ceil(a * n_real)
+    return k_a + math.ceil(b * (n_real - k_a))
+
+
+def phase_train_goss(tmp, card, tps_off):
+    """Slice 9's main path: bench.py's GBDT cell as the reference runs it,
+    GOSS (0.2, 0.125) on, at full width in int8 (K2 over the fit matrix,
+    K4 over its rungs, K5 three times a wave); then the GOSS steps timed
+    alone on that run's last gradients."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import engine, prng
+    from ytklearn_tpu_torch.scripts.bench_gbdt import quality_band
+
+    a, b = GOSS
+    recorder = ShapeRecorder()
+    counts, trainer, res, tps = phase_train(tmp, card, "int8", goss=GOSS,
+                                            recorder=recorder)
+    kept = goss_kept_rows(TRAIN_ROWS, a, b)
+    wl = trainer.wave_log
+    per_tree = sorted(set(wl[:, 0, 4].tolist()))
+    roots = {t.sample_cnt[0] for t in res.model.trees}
+    print(f"train int8 GOSS: kept rows a tree {per_tree} (wave log), root "
+          f"counts {sorted(roots)}, formula ceil({a} n) + ceil({b} (n - "
+          f"ceil({a} n))) = {kept} at n = {TRAIN_ROWS}; fit matrix "
+          f"{int(wl[0, 0, 0])} rows [{card}]", flush=True)
+    check(per_tree == [kept] and roots == {kept},
+          f"GOSS kept {per_tree} / {roots} rows a tree, not {kept}")
+    auc, ll = res.test_metrics["auc"], res.test_loss
+    band = quality_band(auc, ll, False)
+    print(f"train int8 GOSS: test AUC {auc:.6f}, logloss {ll:.6f}, "
+          f"bench.py's synthetic band with the GOSS headroom: {band}; "
+          f"steady {tps:.4f} trees/s beside {tps_off:.4f} with GOSS off "
+          f"({tps / tps_off:.3f}x) [{card}]", flush=True)
+    check(band == "ok", f"GOSS run outside the band: {band}")
+
+    # the GOSS steps alone, on this run's last gradients (CUDA events)
+    dd, spec = trainer.dev_inputs, trainer.grow_spec
+    scores = trainer.final_scores[0]
+    g, h = trainer.loss.grad_hess(trainer.loss.predict(scores), dd.y)
+    g, h = g * dd.weight, h * dd.weight
+    key = prng.fold_in(prng.PRNGKey(20170425), TRAIN_ROUNDS)
+    n = dd.bins_t.shape[1]
+    absg = torch.where(dd.real_mask, g.abs(), -1.0)
+    u = prng.uniform(key, n, device="cuda")
+    keep = engine._top_rows(absg, kept)  # a kept set of GOSS's size
+    R_fit = int(wl[0, 0, 0])
+    idx, _ = engine.compact_indices(keep, R_fit)
+    steps = {
+        "sort |g|": lambda: torch.sort(absg, descending=True, stable=True),
+        "uniform draw": lambda: prng.uniform(key, n, device="cuda"),
+        "sort draws": lambda: torch.sort(u, descending=True, stable=True),
+        "compact + gather": lambda: (
+            engine.compact_indices(keep, R_fit),
+            dd.bins_t.index_select(1, idx.long()), g[idx.long()],
+            h[idx.long()]),
+        "goss_sample": lambda: engine.goss_sample(
+            spec, dd.bins_t, dd.real_mask, g, h, key),
+    }
+    tree_ms = 1e3 / tps
+    times = {k: cuda_ms(fn, 3) for k, fn in steps.items()}
+    print("train int8 GOSS: a tree's GOSS steps, CUDA events: " + ", ".join(
+        f"{k} {v:.6f} ms ({v / tree_ms:.4f} of a tree)"
+        for k, v in times.items()) + f"; a steady tree {tree_ms:.3f} ms "
+        f"[{card}]", flush=True)
+    del trainer, dd, scores, g, h, absg, u, keep, idx, steps
+    torch.cuda.empty_cache()
+    ktimes, kerrs = phase_goss_kernels(recorder, counts, spec, card)
+    return counts, tps, ktimes, kerrs
+
+
+class ShapeRecorder:
+    """While active, wraps the engine's K2, K4 and K5 wrappers: counts each
+    one's calls at each shape (rows, wave slots) and keeps a copy of the
+    first call's inputs at that shape. The launches stay the wrappers'
+    own."""
+
+    #: name, engine attribute, (rows, slots) of a call's arguments
+    KERNELS = (
+        ("hist_q", "hist_wave_q", lambda a: (a[0].shape[1], a[4].shape[0])),
+        ("hist_gather_q", "hist_wave_gather",
+         lambda a: (a[1].shape[0], a[5].shape[0])),
+        ("route", "route_wave", lambda a: (a[0].shape[1], a[3].shape[0])),
+    )
+
+    def __init__(self):
+        self.calls = {}  # (name, rows, N) -> [calls, args, kwargs]
+
+    def _wrap(self, name, fn, shape_of):
+        import torch
+
+        def call(*args, **kw):
+            key = (name,) + shape_of(args)
+            if key not in self.calls:
+                # the bins are never written; K5 writes its positions in
+                # place, so the rest is copied before the call
+                keep = [args[0]] + [a.clone() if torch.is_tensor(a) else a
+                                    for a in args[1:]]
+                kw_keep = {k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in kw.items() if k != "out"}
+                self.calls[key] = [0, keep, kw_keep]
+            self.calls[key][0] += 1
+            return fn(*args, **kw)
+
+        return call
+
+    def __enter__(self):
+        from ytklearn_tpu_torch.gbdt import engine
+
+        self.saved = {}
+        for name, attr, shape_of in self.KERNELS:
+            self.saved[attr] = getattr(engine, attr)
+            setattr(engine, attr, self._wrap(name, self.saved[attr],
+                                             shape_of))
+        return self
+
+    def __exit__(self, *exc):
+        from ytklearn_tpu_torch.gbdt import engine
+
+        for attr, fn in self.saved.items():
+            setattr(engine, attr, fn)
+
+
+def phase_goss_kernels(recorder, counts, spec, card):
+    """K2, K4 and K5 at every shape the GOSS bench run gave them, on that
+    run's own inputs (the first call at each shape): K2 over the fit matrix
+    (R_fit rows) at each wave width and over any gathered rung, K4 over the
+    fused rungs, K5 over the fit rows, the full training matrix and the
+    test rows. Each call is held exactly to its plain version (K5 also in
+    place, as the engine calls it), then timed beside its plain version,
+    one int32 scatter_add_ of the same sums (K2, K4) and its bound. The
+    calls at the shapes must add up to the run's launch counts. Returns
+    the kernels line's (ms, plain_ms, bound_ms, bound_by, library_ms) of
+    each kernel, each the mean per launch over the run's mix of shapes
+    (bound_by the side of the larger share of bound time), and each
+    kernel's largest error."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist, route
+
+    t0 = time.perf_counter()
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    F, B, M = spec.F, spec.B, spec.max_nodes
+    for name in ("hist_q", "hist_gather_q", "route"):
+        seen = sum(c for (k, _, _), (c, _, _) in recorder.calls.items()
+                   if k == name)
+        check(seen == counts[name], f"{name}: {seen} calls recorded at "
+              f"their shapes, {counts[name]} launches counted")
+    shapes = {"hist_q": [], "hist_gather_q": [], "route": []}
+    errs = dict.fromkeys(shapes, 0.0)
+    for (name, rows, N), (calls, args, kw) in sorted(
+            recorder.calls.items()):
+        if name == "hist_q":
+            bins, pos, gq, hq, ids, _ = args
+            fn, plain, keys_of = (
+                lambda: hist.hist_wave_q(*args, **kw),
+                lambda: hist.hist_wave_q_plain(bins, pos, gq, hq, ids, B, M),
+                lambda: flat_keys(lambda f, r: bins[f, r], F, B, pos, gq, hq,
+                                  ids, M))
+            bound = hist_bound_ms(bins, False, None, pos, ids, M, B)
+            what = (f"{rows} rows scanned, q_plan "
+                    f"{plan_text(hist.q_plan(N, F, B, M, rows, sm))}")
+        elif name == "hist_gather_q":
+            brows, idx, pg, gg, hg, ids, _ = args
+            fn, plain, keys_of = (
+                lambda: hist.hist_wave_gather(*args, **kw),
+                lambda: hist.hist_gather_q_plain(brows, idx, pg, gg, hg, ids,
+                                                 B, M),
+                lambda: flat_keys(lambda f, r: brows[idx[r].long(), f], F, B,
+                                  pg, gg, hg, ids, M))
+            bound = hist_bound_ms(brows, True, idx, pg, ids, M, B)
+            what = (f"R = {rows} gathered rows, q_plan "
+                    f"{plan_text(hist.q_plan(N, F, B, M, rows, sm, True))}")
+        else:
+            bins, pos, valid, nid, feat = args[:5]
+            fn, plain, keys_of = (
+                lambda: route.route_wave(*args, **kw),
+                lambda: route.route_wave_plain(*args, kw["lo"], kw["hi"]),
+                None)
+            bound = route_bound_ms(bins, pos, valid, nid, feat)
+            what = f"{rows} rows routed"
+        got, want = fn(), plain()
+        ok = torch.equal(got, want)
+        if name == "route":
+            inplace = pos.clone()
+            route.route_wave(bins, inplace, *args[2:], out=inplace, **kw)
+            ok = ok and torch.equal(inplace, want)
+            del inplace
+        torch.cuda.synchronize()
+        err = float((got.long() - want.long()).abs().max()) \
+            if got.numel() else 0.0
+        print(f"kernel check {name} at the GOSS run's shape N = {N}, {what} "
+              f"({calls} calls), tolerance exact (torch.equal): {ok}, "
+              f"max_abs_err {err} [{card}]", flush=True)
+        check(ok, f"{name} disagrees with its plain version at the GOSS "
+              f"run's shape N = {N}, {rows} rows")
+        errs[name] = max(errs[name], err)
+        del got, want
+        ms = cuda_ms(fn, iters=10)
+        plain_ms = cuda_ms(plain, iters=1, repeats=3)
+        lib_ms = None
+        if keys_of is not None:
+            keys, vals = keys_of()
+            flat = torch.zeros(N * F * B * 3, dtype=torch.int32,
+                               device="cuda")
+            lib_ms = cuda_ms(lambda: flat.zero_().scatter_add_(0, keys, vals),
+                             iters=3, repeats=3)
+            del keys, vals, flat
+        print(f"timing goss: {name} N = {N}, {rows} rows, {calls} calls: "
+              f"{ms:.6f} ms, plain {plain_ms:.6f} ms, one scatter_add_ "
+              f"{'%.6f ms' % lib_ms if lib_ms is not None else 'none'}, "
+              f"bound {bound[0]:.6f} ms ({bound[1]}) [{card}]", flush=True)
+        shapes[name].append({"calls": calls, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound[0], "bound_by": bound[1],
+                             "library_ms": lib_ms})
+    out = {}
+    for name, got in shapes.items():
+        n = sum(x["calls"] for x in got)
+
+        def mean(k):
+            return sum(x["calls"] * x[k] for x in got) / n
+
+        share = {}
+        for x in got:
+            share[x["bound_by"]] = (share.get(x["bound_by"], 0.0)
+                                    + x["calls"] * x["bound_ms"])
+        lib = None if name == "route" else mean("library_ms")
+        out[name] = (mean("ms"), mean("plain_ms"), mean("bound_ms"),
+                     max(share, key=share.get), lib)
+        print(f"timing goss: {name} over the run's {n} launches at "
+              f"{len(got)} shapes, a launch on average: {out[name][0]:.6f} "
+              f"ms, plain {out[name][1]:.6f} ms, bound {out[name][2]:.6f} ms "
+              f"({out[name][3]}), one scatter_add_ "
+              f"{'%.6f ms' % lib if lib is not None else 'none'} [{card}]",
+              flush=True)
+    recorder.calls.clear()
+    print(f"phase goss kernels: {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    return out, errs
+
+
+def phase_efb(card):
+    """EFB at a realistic sparse width on the card (slice 9): the 28 dense
+    Higgs-like features and a one-hot block of EFB_ONEHOT exclusive
+    columns over EFB_ROWS rows. The plan bundles the block into two
+    columns (a bundle holds at most B - 1 = 255 one-bin members). An int8
+    run with EFB trains EFB_ROUNDS trees; each round's tree must be the
+    tree `grow` makes from the same gradients on the unbundled matrix
+    (structure, counts, split values and feature names equal; leaves at
+    rtol 1e-4 with a floor of 1e-4 of the largest), or part from it only
+    where f32 order decides: at a node whose two choices' gains agree
+    within 1e-4, or where a child's hessian sits on min_child_hessian_sum.
+    The range correction adds f32 in another order than the unbundled
+    prefix sum (the reference's test_efb_lossless_on_exclusive_block says
+    the same), so neither whole runs nor model texts are compared byte for
+    byte. Then the bundled K2 and K1 histograms and K5 with the members'
+    real lo/hi are held against their plain versions."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import engine, hist, route, state
+    from ytklearn_tpu_torch.gbdt.data import GBDTData
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.scripts.bench_gbdt import bench_params
+
+    class Recording(GBDTTrainer):
+        def _round(self, rnd, dd, spec, st):
+            g, h = self.loss.grad_hess(self.loss.predict(st[0]), dd.y)
+            out = super()._round(rnd, dd, spec, st)
+            self.rounds.append((g * dd.weight, h * dd.weight, {
+                k: v[rnd].cpu().numpy() for k, v in out[2].items()}))
+            return out
+
+    rng = np.random.RandomState(SEED + 9)
+    n = EFB_ROWS
+    X, names = exclusive_block(rng, n, N_FEATURES, EFB_ONEHOT)
+    # each one-hot category shifts the logit by its own weight
+    w = (rng.randn(EFB_ONEHOT) * 2.0).astype(np.float32)
+    logit = (1.5 * X[:, 0] * X[:, 1] + np.sin(2 * X[:, 2])
+             + X[:, N_FEATURES:] @ w)
+    y = (logit + 0.5 * rng.randn(n) > 0).astype(np.float32)
+    data = GBDTData(torch.from_numpy(X).cuda(), torch.from_numpy(y).cuda(),
+                    np.ones(n, np.float32), n, names)
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_e_")
+    try:
+        tr = Recording(bench_params(EFB_ROUNDS, os.path.join(tmp, "e")),
+                       hist_precision="int8", device="cuda", efb=True)
+        tr.rounds = []
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        tr.train(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = kernel_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the same data unbundled: the inputs and spec the efb=False trainer
+    # would grow on
+    plain = GBDTTrainer(tr.params, hist_precision="int8", device="cuda",
+                        efb=False)
+    du = plain._prep_device_inputs(data, None)
+    spec_u = plain._grow_spec(du.F, du.B)
+    plan = tr._efb_plan
+    print(f"efb: {n} rows x {X.shape[1]} features -> "
+          f"{tr.dev_inputs.bins_t.shape[0]} columns ({plan.summary()}), "
+          f"{EFB_ROUNDS} trees int8 in {wall:.3f} s; launches hist_q "
+          f"{c['hist_q']}, hist_gather_q {c['hist_gather_q']}, route "
+          f"{c['route']} [{card}]", flush=True)
+    check(c["hist_q"] > 0 and c["hist_gather_q"] > 0 and c["route"] > 0,
+          f"efb: the kernels did not run: {c}")
+    check(len(plan.bundles) == 2 and plan.n_bundled_features == EFB_ONEHOT,
+          f"efb: the one-hot block did not bundle: {plan.summary()}")
+    bins_f, min_h = tr.dev_inputs.bins, tr.params.min_child_hessian_sum
+    rel, split_on, notes = 0.0, set(), []
+    for rnd, (g, h, arrays) in enumerate(tr.rounds):
+        a = tr._arrays_to_tree(arrays, bins_f, names)
+        tu, *_ = engine.grow(spec_u, du.bins_t, du.real_mask, g, h,
+                             torch.ones(du.F, dtype=torch.bool,
+                                        device="cuda"))
+        b = plain._arrays_to_tree(state.tree_arrays_to_numpy(tu), du.bins,
+                                  names)
+        split_on |= set(a.feat_name) & set(names[N_FEATURES:])
+        first = next((i for i in range(min(a.n_nodes(), b.n_nodes()))
+                      if (a.feat[i], a.slot[i], a.split[i], a.sample_cnt[i])
+                      != (b.feat[i], b.slot[i], b.split[i], b.sample_cnt[i])),
+                     None)
+        if first is None and a.n_nodes() == b.n_nodes():
+            check(a.feat_name == b.feat_name
+                  and a.default_left == b.default_left,
+                  f"efb: round {rnd}'s trees differ in names or defaults")
+            # leaves at rtol 1e-4 with a floor of 1e-4 of the largest: a
+            # member's side is the node total less the default side, so
+            # the f32 order's ulp of the total shows in small leaves
+            la, lb = np.asarray(a.leaf_value), np.asarray(b.leaf_value)
+            rel = max(rel, float(np.max(np.abs(la - lb) / (
+                np.abs(lb) + np.abs(lb).max()))))
+            continue
+        # where they part, the two choices must be apart only by f32 order:
+        # gains within 1e-4, or a child's hessian on the min_h boundary
+        i = first
+        check(i is not None and a.sample_cnt[i] == b.sample_cnt[i],
+              f"efb: round {rnd}'s trees differ in size only")
+        ga, gb = a.gain[i], b.gain[i]
+        tie = abs(ga - gb) <= 1e-4 * max(abs(ga), abs(gb))
+        edge = [t.hess_sum[c] for t in (a, b) for c in (t.left[i], t.right[i])
+                if t.left[i] >= 0 and abs(t.hess_sum[c] - min_h) <= 1e-4 * min_h]
+        notes.append(f"round {rnd} parts at node {i} ({a.sample_cnt[i]} rows:"
+                     f" {a.feat_name[i]} slot {a.slot[i]} gain {ga} against "
+                     f"{b.feat_name[i]} slot {b.slot[i]} gain {gb}"
+                     f"{', a child hessian ' + str(edge[0]) if edge else ''})")
+        check(tie or edge, f"efb: {notes[-1]} is not a float tie")
+    print(f"efb: {EFB_ROUNDS - len(notes)} of {EFB_ROUNDS} rounds' bundled "
+          f"trees equal the trees grown from their gradients on the "
+          f"unbundled matrix (structure, counts, split values, names; "
+          f"leaves: largest |a - b| / (|b| + max |b|) {rel:.3e}); "
+          f"{'; '.join(notes) or 'none parts'}; {len(split_on)} one-hot "
+          f"features split on [{card}]", flush=True)
+    check(rel <= 1e-4 and split_on and len(notes) < EFB_ROUNDS,
+          f"efb: leaves differ by {rel}, or no one-hot feature split")
+
+    # the bundled matrix through K2, K1 and K5 against the plain versions
+    dd = tr.dev_inputs
+    bins = dd.bins_t
+    F, nb = bins.shape
+    B = dd.B
+    M = 129
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    pos = torch.randint(-1, M, (nb,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    gq = torch.randint(-127, 128, (nb,), generator=gen, device="cuda").float()
+    hq = torch.randint(0, 128, (nb,), generator=gen, device="cuda").float()
+    ids = torch.randperm(M, generator=gen, device="cuda")[:64].to(
+        torch.int32)
+    err = {}
+    got = hist.hist_wave_q(bins, pos, gq, hq, ids, B, max_nodes=M)
+    want = hist.hist_wave_q_plain(bins, pos, gq, hq, ids, B, M)
+    err["hist_q"] = float((got.long() - want.long()).abs().max())
+    check(torch.equal(got, want), "efb: K2 on the bundled matrix disagrees")
+    g = torch.randn(nb, generator=gen, device="cuda")
+    hh = torch.rand(nb, generator=gen, device="cuda")
+    got = hist.hist_wave(bins, pos, g, hh, ids, B, max_nodes=M)
+    want = hist.hist_wave_plain(bins, pos, g, hh, ids, B, M)
+    e = hist_err(got, want, "the bundled matrix, N = 64, bf16", "hist",
+                 card)
+    err["hist"] = e
+    rlo, rhi = dd.ranges
+    U = len(plan.col_fid)
+    NW = 64
+    feat = torch.randint(U, F, (NW,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    slot_r = torch.zeros(NW, dtype=torch.int64, device="cuda")
+    for i in range(NW):  # a boundary inside a member of that bundle
+        b_ = int(feat[i]) - U
+        j = int(torch.randint(len(plan.bundles[b_]), (1,), generator=gen,
+                              device="cuda"))
+        slot_r[i] = plan.member_lo[b_][j] + int(
+            torch.randint(0, plan.member_hi[b_][j] - plan.member_lo[b_][j]
+                          + 1, (1,), generator=gen, device="cuda"))
+    lo = rlo[feat.long(), slot_r]
+    hi = rhi[feat.long(), slot_r]
+    slot = (lo - 1).to(torch.int32)
+    nid = torch.randperm(M, generator=gen, device="cuda")[:NW].to(
+        torch.int32)
+    valid = torch.rand(NW, generator=gen, device="cuda") < 0.9
+    lch = (M + 2 * torch.arange(NW, device="cuda")).to(torch.int32)
+    want = route.route_wave_plain(bins, pos, valid, nid, feat, slot, lch,
+                                  lch + 1, lo, hi)
+    err["route"] = 0.0
+    for what, (l_, h_) in (("int32", (lo, hi)),
+                           ("int64", (lo.long(), hi.long()))):
+        got = route.route_wave(bins, pos, valid, nid, feat, slot, lch,
+                               lch + 1, lo=l_, hi=h_)
+        ok = torch.equal(got, want)
+        moved = int(((want != pos) & (want % 2 == 0)).sum())
+        print(f"kernel check route on the bundled matrix, {NW} slots with "
+              f"the members' {what} lo/hi ({moved} rows sent right), "
+              f"tolerance exact (torch.equal): {ok} [{card}]", flush=True)
+        check(ok and moved > 0,
+              f"route with EFB lo/hi ({what}) disagrees with its plain "
+              "version")
+    print(f"kernel check hist_q on the bundled matrix ({F} x {nb}, N = 64), "
+          f"tolerance exact (torch.equal): True [{card}]", flush=True)
+    return err
+
+
+def phase_bench_script(card):
+    """scripts/bench_gbdt.py as a user runs it, in a fresh process: bench.py's
+    cell with its GOSS default; its JSON line is printed here."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ytklearn_tpu_torch.scripts.bench_gbdt"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"bench_gbdt exited {out.returncode}: {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"bench_gbdt: {wall:.3f} s (wall, a fresh process) [{card}]",
+          flush=True)
+    print(json.dumps(rec), flush=True)
+    check(rec["band"] == "ok" and rec["goss"] == "a=0.2,b=0.125"
+          and rec["goss_rows_per_tree"] == goss_kept_rows(TRAIN_ROWS, *GOSS),
+          f"bench_gbdt: {rec}")
+    return rec
 
 
 def bound_ms(nbytes, int_ops):
@@ -1546,6 +2062,7 @@ def phase_cli_train(tmp, card):
     from ytklearn_tpu_torch import cli
     from ytklearn_tpu_torch.gbdt.data import GBDTIngest
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.scripts.bench_gbdt import gen_higgs_like
 
     train, test = gen_higgs_like(CLI_ROWS, CLI_TEST_ROWS, N_FEATURES,
                                  SEED + 6)
@@ -2249,7 +2766,7 @@ def main() -> int:
     errs["binned_walk"] = max(k7_err, phase_binned_kernel(model, card))
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_t_")
     try:
-        counts, trainer, res8, _tps = phase_train(tmp, card)
+        _counts, trainer, res8, tps8 = phase_train(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     got = (f"{res8.test_metrics['auc']:.6f}", f"{res8.test_loss:.6f}")
@@ -2268,6 +2785,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_profile(card)
     phase_cpu_card_compare(card)
+
+    # slice 9: bench.py's cell with its GOSS default, EFB, the bench script
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_g_")
+    try:
+        goss_counts, _tps_goss, goss_times, goss_errs = phase_train_goss(
+            tmp, card, tps8)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the kernels line reads K2, K4 and K5 at the main path's own shapes
+    ttimes.update(goss_times)
+    for k, v in goss_errs.items():
+        errs[k] = max(errs[k], v)
+    torch.cuda.empty_cache()
+    phase_train_profile(card, GOSS)
+    efb_err = phase_efb(card)
+    for k, v in efb_err.items():
+        errs[k] = max(errs[k], v)
+    torch.cuda.empty_cache()
+    phase_bench_script(card)
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_cli_")
     try:
@@ -2290,6 +2826,17 @@ def main() -> int:
     print(f"train bf16: steady {tps16:.4f} trees/s beside "
           f"{BF16_TPS_BEFORE} trees/s before the K1/K3 redesign (PERF.md "
           f"section 5, the same cell and card) [{card}]", flush=True)
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_gb_")
+    try:
+        c16g, _t, _r, tps16g = phase_train(tmp, card, "bf16", goss=GOSS,
+                                           rounds=GOSS_BF16_ROUNDS)
+        del _t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"train bf16 GOSS: {GOSS_BF16_ROUNDS} trees, steady {tps16g:.4f} "
+          f"trees/s beside {tps16:.4f} with GOSS off over 40 [{card}]",
+          flush=True)
     ttimes.update(phase_float_timings(trainer, card))
     errs["hist"] = max(errs["hist"], phase_float_widths(trainer, card))
     del trainer
@@ -2301,7 +2848,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     u8_err, ttimes["hist_q_u8"] = phase_u8_timing(card)
     errs["hist_q_u8"] = max(errs["hist_q_u8"], u8_err)
-    launches_of = dict(counts)
+    # K2, K4 and K5 launch on slice 9's main path, the GOSS bench cell
+    launches_of = dict(goss_counts)
     launches_of.update({k: cli_counts[k] for k in ("hist", "hist_gather")})
     launches_of["hist_q_u8"] = u8_launches
 

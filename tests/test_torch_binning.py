@@ -100,6 +100,9 @@ def test_other_approximate_specs_are_not_ported():
 
 
 def test_efb_candidates_match_and_a_plan_raises():
+    """The candidate filter equals the reference's; where the reference
+    plans a bundle the port now plans the same one (it used to raise),
+    and on dense data neither plans."""
     rng = np.random.RandomState(2)
     n = 2000
     X = rng.randn(n, 4).astype(np.float32)
@@ -116,14 +119,19 @@ def test_efb_candidates_match_and_a_plan_raises():
     np.testing.assert_array_equal(
         binning.efb_candidates(nnz, mins, bins, n), want)
     assert want.tolist() == [1, 3]
-    assert jbin.build_bundle_plan(X.T, bins, 0, 32) is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.3"):
-        binning.check_no_efb_plan(torch.from_numpy(X.T.copy()), bins)
+    jplan = jbin.build_bundle_plan(X.T, bins, 0, 32)
+    plan = binning.build_bundle_plan(torch.from_numpy(X.T.copy()), bins, 0,
+                                     32)
+    assert jplan is not None and plan.bundles == jplan.bundles == [[1, 3]]
+    np.testing.assert_array_equal(plan.col_fid, jplan.col_fid)
+    assert (plan.member_lo, plan.member_hi) == (jplan.member_lo,
+                                                jplan.member_hi)
     dense = rng.randn(n, 4).astype(np.float32)
     dbins = binning.build_bins_maybe_device(
         torch.from_numpy(dense.T.copy()), None, pp)
     assert jbin.build_bundle_plan(dense.T, dbins, 0, 32) is None
-    binning.check_no_efb_plan(torch.from_numpy(dense.T.copy()), dbins)
+    assert binning.build_bundle_plan(torch.from_numpy(dense.T.copy()),
+                                     dbins, 0, 32) is None
 
 
 @pytest.mark.parametrize("split_type", ["mean", "median"])

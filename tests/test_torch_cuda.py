@@ -33,7 +33,7 @@ from ytklearn_tpu_torch.config.params import (
     GBDTParams,
     ModelParams,
 )
-from ytklearn_tpu_torch.gbdt import engine, hist, route
+from ytklearn_tpu_torch.gbdt import engine, hist, prng, route
 from ytklearn_tpu_torch.gbdt.data import GBDTData
 from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
 from ytklearn_tpu_torch.serve import kernels
@@ -252,6 +252,118 @@ def test_trainer_dump_on_the_card_equals_the_cpu(gen, tmp_path):
         with open(path) as f:
             text[dev] = f.read()
     assert text["cpu"] == text["cuda"]
+
+
+@pytest.mark.parametrize("goss", [(0.2, 0.125), (0.3, 0.0)])
+def test_grow_with_goss_on_the_card_equals_the_cpu(gen, goss):
+    """GOSS's stable sorts, threefry draw and compaction on the card: the
+    same fit rows, tree, positions and wave log as on the CPU."""
+    rng = np.random.RandomState(8)
+    n, F, B = 60000, 6, 64
+    bins = rng.randint(0, B, size=(F, n)).astype(np.uint8)
+    test = rng.randint(0, B, size=(F, 7000)).astype(np.uint8)
+    g = rng.randn(n).astype(np.float32)
+    g[rng.rand(n) < 0.1] = 2.5  # ties in |g|
+    h = np.ones(n, np.float32)
+    include = rng.rand(n) < 0.9
+    spec = engine.GrowSpec(
+        F=F, B=B, max_nodes=127, wave=16, policy="loss", max_depth=10,
+        max_leaves=64, lr=0.1, l1=0.0, l2=1.0, min_h=1.0, max_abs=0.0,
+        min_split_loss=0.0, min_split_samples=0.0, ladder=(4, 16), bm=128,
+        hist_mode="int8", goss_a=goss[0], goss_b=goss[1], goss_scale=0.95)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        out[dev] = engine.grow(spec, t(bins), t(include), t(g), t(h),
+                               torch.ones(F, dtype=torch.bool, device=dev),
+                               aux=(t(test),), key=prng.PRNGKey(77))
+    (tc, pc, ac, wc), (tg, pg, ag, wg) = out["cpu"], out["cuda"]
+    for a, b in zip(tc, tg):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(pc, pg.cpu()) and torch.equal(wc, wg.cpu())
+    assert len(ac) == len(ag) == 2
+    for a, b in zip(ac, ag):
+        assert torch.equal(a, b.cpu())
+    assert float(wg[0, 4]) < 0.5 * n
+
+
+def test_prng_uniform_on_the_card_equals_the_cpu(gen):
+    """The threefry twin's int32 ops give the same bits on both devices,
+    over more than 2^24 draws."""
+    key = prng.fold_in(prng.PRNGKey(20170425), 39)
+    for n in (1, 1000, (1 << 24) + 5):
+        a = prng.uniform(key, n, device="cuda").cpu()
+        assert torch.equal(a.view(torch.int32),
+                           prng.uniform(key, n).view(torch.int32))
+    assert torch.equal(prng.split(key.cuda(), 3).cpu(), prng.split(key, 3))
+
+
+@pytest.mark.parametrize("case", ["goss+rates", "efb", "goss+efb"])
+def test_trainer_sampling_and_efb_on_the_card_equal_the_cpu(gen, tmp_path,
+                                                           case):
+    """GOSS with the sample rates, EFB on a one-hot block, and both: the
+    dumped model on the card is the CPU's byte for byte (int8, l2)."""
+    rng = np.random.RandomState(6)
+    n, F_d, F_s = 40000, 5, 40
+    X = np.zeros((n, F_d + F_s), np.float32)
+    X[:, :F_d] = rng.randn(n, F_d)
+    X[np.arange(n), F_d + rng.randint(0, F_s, n)] = rng.rand(n) + 0.5
+    y = (X[:, 0] * X[:, 1] + X[:, F_d:F_d + 10].sum(1)
+         + rng.randn(n) * 0.5).astype(np.float32)
+    names = [f"f{i}" for i in range(F_d + F_s)]
+    over = {"instance_sample_rate": 0.8, "feature_sample_rate": 0.7} \
+        if case == "goss+rates" else {}
+    ctor = {"efb": "efb" in case}
+    if "goss" in case:
+        ctor["goss"] = (0.2, 0.125)
+    text = {}
+    for dev in ("cpu", "cuda"):
+        path = str(tmp_path / f"{dev}.model")
+        p = GBDTParams(round_num=4, max_depth=6, max_leaf_cnt=31,
+                       tree_grow_policy="loss", learning_rate=0.2,
+                       loss_function="l2", eval_metric=["rmse"],
+                       approximate=[ApproximateSpec(max_cnt=63)],
+                       model=ModelParams(data_path=path, dump_freq=0),
+                       **over)
+        tr = GBDTTrainer(p, hist_precision="int8", device=dev, wave=8,
+                         **ctor)
+        tr.train(GBDTData(X, y, np.ones(n, np.float32), n, names))
+        assert (tr._efb_plan is not None) == ("efb" in case)
+        with open(path) as f:
+            text[dev] = f.read()
+    assert text["cpu"] == text["cuda"]
+
+
+def test_route_with_efb_ranges_of_every_dtype(gen):
+    """K5 with real member lo/hi read from the range tables (int32), as
+    int64 and int16 views too, against its plain version."""
+    from ytklearn_tpu_torch.gbdt.binning import BundlePlan
+
+    plan = BundlePlan(n_features=6, col_fid=np.arange(2, dtype=np.int32),
+                      bundles=[[2, 3, 4, 5]], member_lo=[[1, 9, 10, 40]],
+                      member_hi=[[8, 9, 39, 200]])
+    rlo, rhi = (torch.from_numpy(r).cuda() for r in plan.range_tables(256))
+    n, NW, M = (1 << 20) + 3, 48, 97
+    bins = torch.randint(0, 256, (3, n), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.uint8)
+    pos = torch.randint(-1, M, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    feat = torch.full((NW,), 2, dtype=torch.int32, device="cuda")
+    slot_r = torch.randint(1, 201, (NW,), generator=gen, device="cuda")
+    lo, hi = rlo[feat.long(), slot_r], rhi[feat.long(), slot_r]
+    slot = torch.maximum(lo - 1, slot_r.to(torch.int32) - 3)
+    nid = torch.randperm(M, generator=gen, device="cuda")[:NW].to(
+        torch.int32)
+    valid = torch.ones(NW, dtype=torch.bool, device="cuda")
+    lch = (M + 2 * torch.arange(NW, device="cuda")).to(torch.int32)
+    want = route.route_wave_plain(bins, pos, valid, nid, feat, slot, lch,
+                                  lch + 1, lo, hi)
+    assert lo.dtype == torch.int32
+    for dt in (torch.int32, torch.int64, torch.int16):
+        got = route.route_wave(bins, pos, valid, nid, feat, slot, lch,
+                               lch + 1, lo=lo.to(dt), hi=hi.to(dt))
+        assert torch.equal(got, want), dt
+    assert bool(((want != pos) & (want % 2 == 0)).any())
 
 
 def _close(got, want):

@@ -269,25 +269,6 @@ def test_spec_conversion_maps_the_reference_paths():
     assert spec.fused and spec.bm == jengine.GrowSpec.bm
 
 
-@pytest.mark.parametrize("over,match", [
-    ({"goss_a": 0.5}, "ROADMAP.md 1.2"),
-])
-def test_unported_engine_features_raise(over, match):
-    spec = engine.GrowSpec(
-        F=2, B=8, max_nodes=7, wave=2, policy="loss", max_depth=3,
-        max_leaves=4, lr=0.1, l1=0.0, l2=1.0, min_h=1.0, max_abs=0.0,
-        min_split_loss=0.0, min_split_samples=0.0, **over)
-    z = torch.zeros(16)
-    with pytest.raises(NotImplementedError, match=match):
-        engine.grow(spec, torch.zeros(2, 16, dtype=torch.uint8),
-                    torch.ones(16, dtype=torch.bool), z, z,
-                    torch.ones(2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.3"):
-        engine.split_kernel(torch.zeros(1, 2, 8, 3),
-                            torch.ones(2, dtype=torch.bool),
-                            (0.0, 1.0, 1.0, 0.0), ranges=(0, 0))
-
-
 def test_gain_fns_match_jax():
     rng = np.random.RandomState(5)
     G = (rng.randn(1000) * 10).astype(np.float32)

@@ -306,22 +306,21 @@ def test_wave_log_and_spec(l2_run):
     assert ptr.time_stats["train"] > 0
 
 
+# (case number, params, constructor arguments, ROADMAP item); the numbers
+# keep each case the name it has always had (kw3-kw5, GOSS and the sample
+# rates, went when they were ported)
 _UNPORTED = [
-    ({}, {"engine": "host"}, "1.5"),
-    ({}, {"goss": (0.2, 0.1)}, "1.2"),
-    ({"instance_sample_rate": 0.5}, {}, "1.2"),
-    ({"feature_sample_rate": 0.5}, {}, "1.2"),
-    ({"loss_function": "l1"}, {}, "1.5"),
-    ({"loss_function": "huber"}, {}, "1.5"),
-    ({"loss_function": "softmax", "class_num": 3}, {}, "1.5"),
-    ({"tree_maker": "feature"}, {}, "1.5"),
-    ({}, {"mesh": object()}, "1.7"),
+    (2, {}, {"engine": "host"}, "1.5"),
+    (6, {"loss_function": "l1"}, {}, "1.5"),
+    (7, {"loss_function": "huber"}, {}, "1.5"),
+    (8, {"loss_function": "softmax", "class_num": 3}, {}, "1.5"),
+    (9, {"tree_maker": "feature"}, {}, "1.5"),
+    (10, {}, {"mesh": object()}, "1.7"),
 ]
 
 
-# stable ids: each case keeps the name it has always had
-@pytest.mark.parametrize("kw,ctor,match", _UNPORTED, ids=[
-    f"kw{i}-ctor{i}-{m}" for i, (_, _, m) in enumerate(_UNPORTED, start=2)])
+@pytest.mark.parametrize("kw,ctor,match", [c[1:] for c in _UNPORTED], ids=[
+    f"kw{i}-ctor{i}-{m}" for i, _, _, m in _UNPORTED])
 def test_unported_features_raise_by_name(kw, ctor, match):
     p = GBDTParams(approximate=[ApproximateSpec()], **kw)
     args = {"device": "cpu", "hist_precision": "int8"}
@@ -331,6 +330,9 @@ def test_unported_features_raise_by_name(kw, ctor, match):
 
 
 def test_resume_and_efb_raise(tmp_path):
+    """Resume still raises by its ROADMAP item; EFB, on by default, now
+    bundles two exclusive sparse columns and trains the trees an
+    unbundled run grows, dumped in original features."""
     p = GBDTParams(approximate=[ApproximateSpec()],
                    model=ModelParams(data_path=str(tmp_path / "m"),
                                      continue_train=True))
@@ -341,15 +343,26 @@ def test_resume_and_efb_raise(tmp_path):
     X[:, 0] = rng.randn(512)
     X[rng.rand(512) < 0.2, 1] = 1.0
     X[(X[:, 1] == 0) & (rng.rand(512) < 0.2), 2] = 3.0
-    y = (X[:, 0] > 0).astype(np.float32)
-    p = GBDTParams(approximate=[ApproximateSpec()], round_num=1,
-                   model=ModelParams(data_path=str(tmp_path / "m")))
+    y = (X[:, 0] > 0).astype(np.float32) + X[:, 1] - 0.5 * X[:, 2]
     data = GBDTData(X, y, np.ones(512, np.float32), 512, ["a", "b", "c"])
-    with pytest.raises(NotImplementedError, match="1.3"):
-        GBDTTrainer(p, device="cpu", hist_precision="int8").train(data)
-    res = GBDTTrainer(p, device="cpu", hist_precision="int8",
-                      efb=False).train(data)
-    assert len(res.model.trees) == 1
+    models = {}
+    for efb in (None, False):
+        p = GBDTParams(approximate=[ApproximateSpec()], round_num=2,
+                       loss_function="l2", min_child_hessian_sum=1.0,
+                       model=ModelParams(data_path=str(tmp_path / f"m{efb}")))
+        tr = GBDTTrainer(p, device="cpu", hist_precision="int8", efb=efb)
+        models[efb] = tr.train(data).model
+        if efb is None:
+            assert tr._efb_plan.bundles == [[1, 2]]
+            assert tr.dev_inputs.bins_t.shape[0] == 2
+            assert tr.time_stats["efb_cols_saved"] == 1.0
+    assert len(models[None].trees) == 2
+    for a, b in zip(models[None].trees, models[False].trees):
+        for f in ("feat", "feat_name", "left", "right", "slot", "split",
+                  "sample_cnt"):
+            assert getattr(a, f) == getattr(b, f), f
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5)
+    assert {"b", "c"} <= {n for t in models[None].trees for n in t.feat_name}
 
 
 def test_just_evaluate_grows_nothing(tmp_path):

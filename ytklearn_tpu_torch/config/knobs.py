@@ -63,14 +63,17 @@ _knob("YTK_FUSED", "bool", True,
 _knob("YTK_FUSED_MAX_ROWS", "int", 1 << 18,
       "max gathered rows per fused-kernel call")
 _knob("YTK_GOSS_A", "float", 1.0,
-      "GOSS top-gradient keep fraction per tree; a value < 1 asks for "
-      "GOSS, which is not ported yet and raises")
+      "GOSS top-gradient-magnitude keep fraction per tree; a value < 1 "
+      "enables gradient-based one-side sampling")
 _knob("YTK_GOSS_B", "float", 0.1,
-      "GOSS sample rate on the non-top remainder (active only when "
-      "`YTK_GOSS_A` < 1)")
+      "GOSS sample rate on the non-top remainder (sampled rows carry the "
+      "1/b gradient amplification); active only when `YTK_GOSS_A` < 1")
 _knob("YTK_EFB", "bool", True,
-      "exclusive feature bundling at binning time; a plan with two or more "
-      "bundle candidates is not ported yet and raises")
+      "exclusive feature bundling at binning time: merge mutually exclusive "
+      "sparse columns into offset-binned bundles (no-op when none exist)")
+_knob("YTK_EFB_CONFLICT", "int", 0,
+      "max conflicting rows tolerated per EFB bundle (0 = strictly "
+      "exclusive, lossless)")
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -83,6 +86,12 @@ def _declared(name: str) -> Knob:
             f"undeclared knob {name!r}: declare it in "
             "ytklearn_tpu_torch/config/knobs.py"
         ) from None
+
+
+def get_raw(name: str) -> Optional[str]:
+    """The raw env string, or None when unset."""
+    _declared(name)
+    return os.environ.get(name)
 
 
 def get_str(name: str) -> Optional[str]:

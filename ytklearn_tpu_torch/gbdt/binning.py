@@ -8,6 +8,10 @@ The counterpart of the device path of ``ytklearn_tpu/gbdt/binning.py``:
   bin_matrix_device    value -> nearest-representative bin, (F, n) (:824)
   bin_matrix           the same rule on a host (n, F) matrix (:854)
   efb_candidates       EFB's column filter (:560)
+  BundlePlan, plan_bundles, build_bundle_plan, bundle_bin_matrix_t
+                       exclusive feature bundling (:479-724): the greedy
+                       plan over exact conflict counts, the offset-binned
+                       bundle columns and the member range tables
   bin_edges_path, model_text_digest, dump_bin_edges  the `.bins.json`
                        sidecar the trainer writes before the model (:371)
   load_bin_edges       its reader, with the model-digest check (:411),
@@ -41,6 +45,9 @@ log = logging.getLogger(__name__)
 
 #: EFB candidate pre-filter: a column this dense can never bundle usefully
 EFB_MAX_DENSITY = 0.5
+#: skip EFB planning past this many candidate columns (the conflict matrix
+#: is O(C^2))
+EFB_MAX_CANDIDATES = 4096
 BIN_EDGES_SCHEMA = "ytk-bin-edges"
 
 
@@ -226,19 +233,186 @@ def efb_candidates(nnz: np.ndarray, mins: np.ndarray, bins: FeatureBins,
     return np.asarray(out, np.int64)
 
 
-def check_no_efb_plan(X_t: torch.Tensor, bins: FeatureBins) -> None:
-    """EFB bundling is not ported: raise when the reference could plan a
-    bundle (two or more candidate columns). On dense data the candidate
-    list is shorter and the reference plan is None, as here."""
+# ---------------------------------------------------------------------------
+# Exclusive feature bundling (EFB, LightGBM section 5)
+# ---------------------------------------------------------------------------
+#
+# A bundle column's bin 0 is the shared default (every member at its zero
+# value); member j's nonzero bins 1..B_j-1 land at [lo_j, lo_j + B_j - 2],
+# the lo offsets adding up the members' widths. Candidates have min >= 0
+# and a lowest representative of exactly 0, so original bin 0 is value 0
+# and the encoding inverts. A conflict row (two members nonzero) keeps the
+# higher-offset member's bin. With a conflict budget of 0 bundling is
+# lossless: split_kernel's `ranges` recover every original feature's
+# splits and `unbundle_split` maps a chosen (column, slot) back.
+
+
+@dataclass
+class BundlePlan:
+    """Column plan of an EFB-bundled bin matrix: the unbundled original
+    features first, in order (`col_fid[c]` = original fid), then one
+    column per bundle; `member_lo[b][k]`/`member_hi[b][k]` bound member
+    k's nonzero slots in bundle b's column. Plain numpy and lists, so a
+    plan read off the JAX package's BundlePlan carries over as is
+    (`gbdt.state.bundle_plan_from_fields`)."""
+
+    n_features: int
+    col_fid: np.ndarray  # (U,) i32
+    bundles: List[List[int]]  # each >= 2 original fids, offset order
+    member_lo: List[List[int]]
+    member_hi: List[List[int]]
+
+    @property
+    def n_cols(self) -> int:
+        return len(self.col_fid) + len(self.bundles)
+
+    @property
+    def n_bundled_features(self) -> int:
+        return sum(len(m) for m in self.bundles)
+
+    def bundle_width(self, b: int) -> int:
+        return self.member_hi[b][-1] + 1
+
+    def range_tables(self, B: int, F_pad: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """(range_lo, range_hi) (F_pad, B) int32 for split_kernel: plain
+        columns get [0, B-1]; a bundle column's slot s gets the member
+        range holding s; slots in no member range (bin 0, the tail) keep
+        [0, B-1], harmless since they are never a valid boundary."""
+        F_pad = F_pad or self.n_cols
+        rlo = np.zeros((F_pad, B), np.int32)
+        rhi = np.full((F_pad, B), B - 1, np.int32)
+        U = len(self.col_fid)
+        for b in range(len(self.bundles)):
+            for lo, hi in zip(self.member_lo[b], self.member_hi[b]):
+                rlo[U + b, lo:hi + 1] = lo
+                rhi[U + b, lo:hi + 1] = hi
+        return rlo, rhi
+
+    def member_of_slot(self, col: int, slot: int) -> Tuple[int, int]:
+        """(original fid, member lo) of the member whose nonzero range
+        holds `slot` in bundle column `col`."""
+        b = col - len(self.col_fid)
+        for fid, lo, hi in zip(self.bundles[b], self.member_lo[b],
+                               self.member_hi[b]):
+            if lo <= slot <= hi:
+                return fid, lo
+        raise ValueError(
+            f"slot {slot} of bundle column {col} is in no member range")
+
+    def unbundle_split(self, col: int, slot_l: int, slot_r: int
+                       ) -> Tuple[int, int, int]:
+        """A split (column, boundary interval [slot_l, slot_r]) -> (original
+        fid, slot_l, slot_r) of the original feature: slot s of member j
+        is original bin s - lo_j + 1, and a slot_l below j's range (the
+        lo - 1 default, or bin 0) is the original zero bin 0."""
+        U = len(self.col_fid)
+        if col < U:
+            return int(self.col_fid[col]), slot_l, slot_r
+        fid, lo = self.member_of_slot(col, slot_r)
+        return fid, (0 if slot_l < lo else slot_l - lo + 1), slot_r - lo + 1
+
+    def summary(self) -> str:
+        sizes = ",".join(str(len(m)) for m in self.bundles)
+        return (f"{self.n_bundled_features} of {self.n_features} features in "
+                f"{len(self.bundles)} bundle(s) [{sizes}]: "
+                f"{self.n_features} -> {self.n_cols} columns")
+
+
+def plan_bundles(cand: np.ndarray, conflicts: np.ndarray,
+                 bin_counts: np.ndarray, F: int, max_conflict: int,
+                 max_width: int) -> Optional[BundlePlan]:
+    """Greedy colouring over the candidates' conflict counts (LightGBM
+    Alg. 3): candidates by nonzero count (the diagonal) descending, ties
+    by fid, each into the first bundle whose total conflicts stay within
+    `max_conflict` and whose width (one shared default bin plus each
+    member's nonzero bins) fits `max_width`. One-member bundles stay
+    plain. None when nothing bundles."""
+    if len(cand) < 2:
+        return None
+    order = np.argsort(-np.diag(conflicts), kind="stable")
+    groups: List[List[int]] = []
+    g_conf: List[int] = []
+    g_width: List[int] = []
+    for ci in order:
+        w = int(bin_counts[cand[ci]]) - 1
+        for gi, members in enumerate(groups):
+            add = int(sum(conflicts[ci, m] for m in members))
+            if g_conf[gi] + add <= max_conflict \
+                    and g_width[gi] + w <= max_width:
+                members.append(int(ci))
+                g_conf[gi] += add
+                g_width[gi] += w
+                break
+        else:
+            groups.append([int(ci)])
+            g_conf.append(0)
+            g_width.append(1 + w)
+    bundles = sorted(sorted(int(cand[m]) for m in members)
+                     for members in groups if len(members) >= 2)
+    if not bundles:
+        return None
+    bundled = {f for members in bundles for f in members}
+    col_fid = np.asarray([f for f in range(F) if f not in bundled], np.int32)
+    member_lo: List[List[int]] = []
+    member_hi: List[List[int]] = []
+    for members in bundles:
+        lo_list, hi_list, off = [], [], 1  # bin 0: the shared default
+        for fid in members:
+            w = int(bin_counts[fid]) - 1
+            lo_list.append(off)
+            hi_list.append(off + w - 1)
+            off += w
+        member_lo.append(lo_list)
+        member_hi.append(hi_list)
+    return BundlePlan(n_features=F, col_fid=col_fid, bundles=bundles,
+                      member_lo=member_lo, member_hi=member_hi)
+
+
+def build_bundle_plan(X_t: torch.Tensor, bins: FeatureBins,
+                      max_conflict: int, max_width: int
+                      ) -> Optional[BundlePlan]:
+    """Plan EFB bundles from an (F, n) value tensor, on its device: the
+    nonzero counts, minima and the candidates' exact pairwise co-nonzero
+    counts (an f32 product over row chunks of at most 2^22, so every
+    count is exact: a budget of 0 sees every conflict). None when nothing
+    bundles."""
+    F, n = X_t.shape
     nnz = (X_t != 0).sum(dim=1).cpu().numpy().astype(np.int64)
     mins = torch.amin(X_t, dim=1).cpu().numpy()
-    cand = efb_candidates(nnz, mins, bins, X_t.shape[1])
-    if len(cand) >= 2:
-        raise NotImplementedError(
-            f"EFB: {len(cand)} sparse columns could bundle (features "
-            f"{cand[:8].tolist()}...); bundling is ROADMAP.md 1.3. Pass "
-            "efb=False (or YTK_EFB=0) to train unbundled"
-        )
+    cand = efb_candidates(nnz, mins, bins, n)
+    C = len(cand)
+    if C < 2 or C > EFB_MAX_CANDIDATES:
+        return None
+    Xc = X_t[torch.from_numpy(cand).to(X_t.device)]
+    chunk = min(1 << 22, max(8192, (1 << 26) // C))
+    conflicts = torch.zeros((C, C), dtype=torch.float64, device=X_t.device)
+    for i in range(0, n, chunk):
+        Z = (Xc[:, i:i + chunk] != 0).to(torch.float32)
+        conflicts += (Z @ Z.t()).to(torch.float64)
+    conflicts = np.rint(conflicts.cpu().numpy()).astype(np.int64)
+    return plan_bundles(cand, conflicts, bins.counts, F, max_conflict,
+                        max_width)
+
+
+def bundle_bin_matrix_t(bins_t: torch.Tensor, plan: BundlePlan
+                        ) -> torch.Tensor:
+    """A BundlePlan applied to an (F, n) bin tensor -> (n_cols, n) of its
+    dtype: member j's bin b > 0 encodes as lo_j + b - 1, all-default as 0,
+    and a conflict row keeps the highest-offset member's code (the
+    elementwise max)."""
+    parts = []
+    if len(plan.col_fid):
+        parts.append(bins_t[torch.from_numpy(
+            plan.col_fid.astype(np.int64)).to(bins_t.device)])
+    for b, members in enumerate(plan.bundles):
+        acc = None
+        for fid, lo in zip(members, plan.member_lo[b]):
+            bf = bins_t[fid].to(torch.int32)
+            enc = torch.where(bf > 0, lo + bf - 1, 0)
+            acc = enc if acc is None else torch.maximum(acc, enc)
+        parts.append(acc[None].to(bins_t.dtype))
+    return torch.cat(parts, dim=0)
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,17 @@ float sums (the kernels' atomics add in an order that changes from run to
 run), so in "mxu" mode trees agree with the reference, and across runs on
 the card, where no two candidate splits lie within that noise.
 
-Not ported (each raises NotImplementedError naming its ROADMAP.md item):
-GOSS (`goss_a < 1`), EFB ranges and a mesh.
+GOSS (`spec.goss_a < 1`, the reference's engine.py:486-543): per tree the
+top `goss_a` share of the included rows by |g| (a stable descending sort,
+so ties keep the lowest index as `jax.lax.top_k` does) and `goss_b` of the
+rest, drawn by the largest threefry uniforms (`gbdt.prng`, bit for bit
+`jax.random`), whose g and h are amplified by f32(1 / goss_b). The kept
+rows are compacted in order into a fit matrix that every histogram pass
+runs on; the full matrix rides along as `aux[0]` for the final leaf
+assignment. EFB (`ranges`): a bundled column's split boundary counts its
+member's default rows on the left (split_kernel's closed form) and routes
+only the member's own bins right (K5's `lo`/`hi`). A mesh is not ported
+(ROADMAP.md 1.7).
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import prng
 from .hist import BMG_DEFAULT, BM_DEFAULT, compact_indices, hist_wave, \
     hist_wave_gather, hist_wave_q
 from .route import route_wave
@@ -160,12 +170,14 @@ def split_kernel(hist, feat_mask, cfg, ranges=None):
     Returns per node: (loss_chg, flat_idx, slot_left, GL, HL, CL, GR, HR,
     CR): empty slots skipped, split interval [last nonempty, current],
     child-hessian guards, gain against the node's own; the first max wins
-    a tie, so the lowest (feature, slot) does (SplitInfo.needReplace)."""
-    if ranges is not None:
-        raise NotImplementedError(
-            "split_kernel: EFB member ranges are ROADMAP.md 1.3 (EFB "
-            "bundling)"
-        )
+    a tie, so the lowest (feature, slot) does (SplitInfo.needReplace).
+
+    ranges: optional (range_lo, range_hi) (F, B) integer tables of EFB
+    bundle columns (`BundlePlan.range_tables`): the member slot range that
+    holds slot s. A boundary inside member j counts j's default rows (node
+    total less j's nonzero-range sum) on the left, `lo - 1` stands for the
+    member's default bin, and has_prev looks only inside the member's
+    range or at that default bin. With [0, B-1] the correction is zero."""
     l1, l2, min_h, max_abs = cfg
     N, F, B, _ = hist.shape
     dev = hist.device
@@ -182,7 +194,27 @@ def split_kernel(hist, feat_mask, cfg, ranges=None):
     nonempty = C > 0
     ne = nonempty.to(torch.int32)
     ne_incl = torch.cumsum(ne, dim=-1, dtype=torch.int32)
-    has_prev = (ne_incl - ne) > 0
+    if ranges is None:
+        has_prev = (ne_incl - ne) > 0
+    else:
+        rlo = torch.as_tensor(ranges[0], device=dev).long()
+        rhi = torch.as_tensor(ranges[1], device=dev).long()
+        i_lo = rlo[None].expand(N, F, B)
+        i_hi = rhi[None].expand(N, F, B)
+
+        def at_hi(A):  # inclusive prefix at the member range's end
+            return torch.gather(A, 2, i_hi)
+
+        def at_lo_excl(A_incl, A):  # exclusive prefix at the range's start
+            return torch.gather(A_incl - A, 2, i_lo)
+
+        # the member's default rows fold into the left side
+        GL = GL + (Gt - at_hi(incl[..., 0]))
+        HL = HL + (Ht - at_hi(incl[..., 1]))
+        CL = CL + (Ct - at_hi(incl[..., 2]))
+        ne_in_range = (ne_incl - ne) - at_lo_excl(ne_incl, ne) > 0
+        dflt_cnt = Ct - (at_hi(incl[..., 2]) - at_lo_excl(incl[..., 2], C))
+        has_prev = ne_in_range | (dflt_cnt > 0)
     GR, HR, CR = Gt - GL, Ht - HL, Ct - CL
     valid = nonempty & has_prev & (HL >= min_h) & (HR >= min_h)
     valid = valid & feat_mask[None, :, None]
@@ -206,6 +238,9 @@ def split_kernel(hist, feat_mask, cfg, ranges=None):
     lastne = torch.cat(
         [torch.full((N, F, 1), -1, dtype=lastne_incl.dtype, device=dev),
          lastne_incl[:, :, :-1]], dim=2)
+    if ranges is not None:
+        # lo - 1: the member's default bin (the original feature's zero)
+        lastne = torch.maximum(lastne, (rlo - 1)[None])
     slot_left = torch.gather(lastne.reshape(N, F * B), 1, bcol)[:, 0]
 
     def pick(A):
@@ -338,32 +373,89 @@ def _budget_rungs(spec: GrowSpec, n: int) -> List[Tuple[int, str]]:
     return rungs
 
 
-def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=()):
+def _top_rows(score: torch.Tensor, k: int) -> torch.Tensor:
+    """(n,) bool: the k largest scores, ties to the lowest index (the
+    order of jax.lax.top_k), by a stable descending sort."""
+    idx = torch.sort(score, descending=True, stable=True).indices[:k]
+    mask = torch.zeros(score.shape, dtype=torch.bool, device=score.device)
+    mask[idx] = True
+    return mask
+
+
+def goss_sample(spec: GrowSpec, bins_t, include, g, h, key):
+    """GOSS's fit set (reference engine.py:486-543): the top k_a included
+    rows by |g|, then the k_b largest uniform draws of the other included
+    rows with g and h amplified by f32(1 / goss_b), compacted in row order
+    into R_fit columns (k_a + k_b rounded up to spec.bm, at most n). k_a
+    and k_b count over the real share `goss_scale` of the rows, on the
+    host. Returns (fit bins (F, R_fit), fit include, fit g, fit h, kept
+    count)."""
+    n_full = bins_t.shape[1]
+    dev = bins_t.device
+    n_eff = max(1, min(n_full, int(np.ceil(spec.goss_scale * n_full))))
+    k_a = max(1, min(n_eff, int(np.ceil(spec.goss_a * n_eff))))
+    k_b = 0
+    if spec.goss_b > 0.0:
+        k_b = min(n_eff - k_a, int(np.ceil(spec.goss_b * (n_eff - k_a))))
+    keep = _top_rows(torch.where(include, torch.abs(g), -1.0), k_a) & include
+    if k_b > 0:
+        u = prng.uniform(key, n_full, device=dev)
+        rest = include & ~keep
+        rmask = _top_rows(torch.where(rest, u, -1.0), k_b) & rest
+        amp = float(np.float32(1.0 / spec.goss_b))
+        g = torch.where(rmask, g * amp, g)
+        h = torch.where(rmask, h * amp, h)
+        keep = keep | rmask
+    R_fit = max(spec.bm, -(-(k_a + k_b) // spec.bm) * spec.bm)
+    R_fit = min(R_fit, n_full)
+    idx, kept = compact_indices(keep, R_fit)
+    valid = torch.arange(R_fit, dtype=torch.int32, device=dev) < kept
+    li = idx.long()
+    return (bins_t.index_select(1, li), valid,
+            torch.where(valid, g[li], 0.0), torch.where(valid, h[li], 0.0),
+            kept)
+
+
+def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
+         ranges=None):
     """Grow one tree.
 
     bins_t (F, n) u8|i32 transposed bin matrix, include (n,) bool rows
     that count, g/h (n,) f32 weighted gradients, feat_mask (F,) bool, aux:
     extra (F, n_aux) bin matrices (e.g. the test set) routed through the
-    same splits. Returns (TreeArrays, pos (n,), aux_pos, wave_log) where
-    the wave log (max_nodes+8, 5) f32 holds per histogram pass
-    [rows_scanned, rows_needed, splits, hist_width, rows_sampled]."""
-    if not spec.goss_a >= 1.0:
-        raise NotImplementedError(
-            f"GOSS (goss_a={spec.goss_a}) is ROADMAP.md 1.2 (GOSS and the "
-            "sampling rates)"
-        )
+    same splits. key: a `gbdt.prng` key for GOSS's remainder draw
+    (PRNGKey(0) by default). ranges: optional EFB (range_lo, range_hi)
+    (F, B) tables (see split_kernel). Returns (TreeArrays, pos (n,),
+    aux_pos, wave_log) where the wave log (max_nodes+8, 5) f32 holds per
+    histogram pass [rows_scanned, rows_needed, splits, hist_width,
+    rows_sampled]. With GOSS (0 < goss_a < 1) pos is the leaf assignment of
+    the compacted fit rows and the full matrix is routed as aux[0]: the
+    train rows' positions are aux_pos[0], the caller's sets aux_pos[1:]."""
     if spec.hist_mode not in ("int8", "mxu"):
         raise ValueError(f"hist_mode must be int8|mxu, got {spec.hist_mode!r}")
     dev = bins_t.device
     M, NW, F, B = spec.max_nodes, spec.wave, spec.F, spec.B
     cfg = (spec.l1, spec.l2, spec.min_h, spec.max_abs)
     _, node_value = make_gain_fns(*cfg)
-    n = bins_t.shape[1]
     i32, f32 = torch.int32, torch.float32
+    if ranges is not None:
+        ranges = tuple(torch.as_tensor(r, device=dev).to(i32)
+                       for r in ranges)
+        if ranges[0].shape != (F, B) or ranges[1].shape != (F, B):
+            raise ValueError(f"grow: ranges must be two ({F}, {B}) tables")
 
+    goss_rows = None
+    if 0.0 < spec.goss_a < 1.0:
+        aux = (bins_t,) + tuple(aux)
+        bins_t, include, g, h, kept = goss_sample(
+            spec, bins_t, include, g, h,
+            prng.PRNGKey(0) if key is None else key)
+        goss_rows = kept.to(f32)
+    n = bins_t.shape[1]
     pos = torch.zeros(n, dtype=i32, device=dev)
     aux_pos = [torch.zeros(bt.shape[1], dtype=i32, device=dev) for bt in aux]
-    goss_rows = include.sum(dtype=f32)
+    if goss_rows is None:
+        goss_rows = include.sum(dtype=f32)
 
     rungs = _budget_rungs(spec, n) if spec.partition else []
     bins_rows = None
@@ -446,7 +538,7 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=()):
     pool = torch.zeros((M + 1, F, B, 3), dtype=f32, device=dev)
     pool[0] = hist0[0]
 
-    out0 = split_kernel(hist0, feat_mask, cfg)
+    out0 = split_kernel(hist0, feat_mask, cfg, ranges)
     fr = _Frontier(
         chg=full(M1, float("-inf"), f32), flat=full(M1, 0, i32),
         slotl=full(M1, 0, i32), GL=full(M1, 0.0, f32), HL=full(M1, 0.0, f32),
@@ -525,8 +617,14 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=()):
         f_best = torch.div(fr.flat[nid], B, rounding_mode="floor")
         slot_r = fr.flat[nid] % B
         slot_l = fr.slotl[nid]
-        sel_lo = torch.zeros_like(f_best)
-        sel_hi = torch.full_like(f_best, B - 1)
+        if ranges is not None:
+            # the chosen slot's EFB member range: other members' rows stay
+            # on the default (left) side
+            sel_lo = ranges[0][f_best.long(), slot_r.long()]
+            sel_hi = ranges[1][f_best.long(), slot_r.long()]
+        else:
+            sel_lo = torch.zeros_like(f_best)
+            sel_hi = torch.full_like(f_best, B - 1)
         GLs, HLs, CLs = fr.GL[nid], fr.HL[nid], fr.CL[nid]
         GRs, HRs, CRs = fr.GR[nid], fr.HR[nid], fr.CR[nid]
         child_depth = tr.depth[nid] + 1
@@ -570,7 +668,7 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=()):
         child_ids = torch.cat([small, big]).long()
         child_ok = torch.cat([sel_ok, sel_ok])
         out = split_kernel(torch.cat([h_small, h_big], dim=0), feat_mask,
-                           cfg)
+                           cfg, ranges)
         cids = torch.where(child_ok, child_ids, M)
         fr.chg[scatter_id] = float("-inf")
         for arr, val in zip(fr[:9], out):

@@ -4,7 +4,9 @@ The port never imports the JAX package, so these functions take what a
 caller can read off it without JAX: numpy arrays and field dicts (e.g.
 ``dataclasses.asdict`` of its GrowSpec, ``TreeArrays._asdict()`` of its
 device tree after ``np.asarray``). The tests feed both packages the same
-bins, gradients and spec through them.
+bins, gradients and spec through them. The state a training run carries
+besides: the PRNG key (a uint32 pair, `gbdt.prng`'s int64 (2,) key holds
+it as is) and the EFB BundlePlan.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .binning import FeatureBins
+from .binning import BundlePlan, FeatureBins
 from .engine import GrowSpec, TreeArrays
 
 _DROPPED_SPEC_FIELDS = ("force_dense", "fused_interpret")
@@ -29,6 +31,18 @@ def feature_bins_from_numpy(values, counts, max_bins: Optional[int] = None,
         values=values, counts=counts,
         max_bins=int(values.shape[1] if max_bins is None else max_bins),
         exact=None if exact is None else np.asarray(exact, bool),
+    )
+
+
+def bundle_plan_from_fields(fields: Dict[str, object]) -> BundlePlan:
+    """The reference BundlePlan's fields (``dataclasses.asdict`` of it) ->
+    the port's BundlePlan: the same columns, bundles and member ranges."""
+    return BundlePlan(
+        n_features=int(fields["n_features"]),
+        col_fid=np.asarray(fields["col_fid"], np.int32),
+        bundles=[[int(f) for f in m] for m in fields["bundles"]],
+        member_lo=[[int(v) for v in m] for m in fields["member_lo"]],
+        member_hi=[[int(v) for v in m] for m in fields["member_hi"]],
     )
 
 

@@ -10,6 +10,15 @@ The counterpart of the device path of ``ytklearn_tpu/gbdt/trainer.py``
 Per round: predictions -> (g, h) -> one tree grown by engine.grow on the
 device (histogram kernels K1/K3 in bf16 or f32, the JAX trainer's default
 bf16, or K2/K4 in int8; routing kernel K5) -> score and loss updates.
+Each round's key is fold_in(PRNGKey(20170425), round), split into the
+feature, row and GOSS keys (gbdt.prng, bit for bit the JAX trainer's
+draws): `instance_sample_rate` and `feature_sample_rate` below 1 mask rows
+and columns, and GOSS (`goss=(a, b)`, a < 1) grows each tree on its
+sampled fit rows. EFB (`efb`, the `YTK_EFB` knob, on by default) bundles
+mutually exclusive sparse columns into offset-binned columns before the
+bin matrix reaches the device; the plan stays on the host, the engine
+takes its range tables and every grown tree is unbundled back to the
+original features before its value conversion.
 Tree arrays
 stay in whole-run device buffers and are fetched once at the end (and at
 `dump_freq` checkpoints). Binning runs on the device too (sort + rank
@@ -19,8 +28,7 @@ byte for the same trees.
 
 Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
 versions). Not ported, each raising NotImplementedError with its
-ROADMAP.md item: GOSS and the row/feature sampling rates (1.2), EFB
-bundling (1.3), resume, softmax (K > 1), l1 with LAD refine, the other
+ROADMAP.md item: resume, softmax (K > 1), l1 with LAD refine, the other
 losses and the host engine (1.5), a mesh (1.7), and on CUDA trees of more
 nodes than the histogram kernels' shared-memory lookup holds (1.8). The
 quality sidecar is an obs-plane item (1.12).
@@ -42,21 +50,27 @@ from ..device import resolve_device
 from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
 from ..losses import TRAINABLE, create_loss
+from . import prng
 from .binning import (
+    BundlePlan,
     FeatureBins,
     bin_edges_path,
     bin_matrix_device,
     build_bins_maybe_device,
-    check_no_efb_plan,
+    build_bundle_plan,
+    bundle_bin_matrix_t,
     dump_bin_edges,
     model_text_digest,
 )
 from .data import GBDTData, GBDTIngest, to_tensor
 from .engine import GrowSpec, grow, wave_log_rows
 from .hist import BM_DEFAULT, check_tile_fits
-from .tree import GBDTModel, Tree
+from .tree import GBDTModel, Tree, unbundle_tree
 
 log = logging.getLogger("ytklearn_tpu_torch.gbdt")
+
+#: the root of every run's key chain (the JAX trainer's, trainer.py:938)
+ROOT_SEED = 20170425
 
 _TREE_FIELDS = ("feat", "slot", "slot_r", "left", "right", "leaf", "gain",
                 "hess", "cnt")
@@ -76,12 +90,13 @@ class _DevInputs:
     weight: torch.Tensor
     real_mask: torch.Tensor
     n_score: int
-    F: int
+    F: int  # engine-visible columns (EFB-bundled when a plan exists)
     B: int  # bin axis padded to a power of two
     aux_bins: tuple  # () or (bins_t of the test set,)
     y_t: Optional[torch.Tensor]
     w_t: Optional[torch.Tensor]
     nt_score: int
+    ranges: Optional[tuple] = None  # EFB (range_lo, range_hi) (F, B) i32
 
 
 @dataclass
@@ -144,9 +159,6 @@ class GBDTTrainer:
         if p.model.continue_train:
             raise _not_ported("continue_train (resume)",
                               "1.5, rest of the GBDT trainer")
-        if p.instance_sample_rate < 1.0 or p.feature_sample_rate < 1.0:
-            raise _not_ported("instance/feature sample rates < 1",
-                              "1.2, GOSS and the sampling rates")
         self.wave = wave
         if goss is None:
             goss = (knobs.get_float("YTK_GOSS_A"),
@@ -156,11 +168,9 @@ class GBDTTrainer:
             raise ValueError(
                 f"goss=(a, b) needs 0 < a <= 1 and 0 <= b <= 1, got {goss!r}"
             )
-        if a < 1.0:
-            raise _not_ported(f"GOSS (goss_a={a})",
-                              "1.2, GOSS and the sampling rates")
         self.goss = (a, b)
         self.efb = knobs.get_bool("YTK_EFB") if efb is None else bool(efb)
+        self._efb_plan: Optional[BundlePlan] = None
         self._missing_fill = None
         self._bins_sidecar = None
         self.sync_log: List[Tuple[int, float]] = []
@@ -168,7 +178,8 @@ class GBDTTrainer:
 
     # -- spec and inputs ----------------------------------------------------
 
-    def _grow_spec(self, F: int, B: int) -> GrowSpec:
+    def _grow_spec(self, F: int, B: int, goss_scale: float = 1.0
+                   ) -> GrowSpec:
         p = self.params
         caps = []
         if p.max_leaf_cnt > 0:
@@ -186,11 +197,12 @@ class GBDTTrainer:
         partition = (not knobs.get_bool("YTK_NO_PARTITION")
                      and knobs.get_bool("YTK_PARTITION"))
         ladder_env = knobs.get_str("YTK_LADDER")
+        on_card = self.device.type == "cuda"
         if ladder_env:
             ladder = tuple(int(x) for x in ladder_env.split(",") if x.strip())
         else:
             # the reference's TPU ladder on the card, its CPU ladder here
-            ladder = (64, 256) if self.device.type == "cuda" else (8, 32)
+            ladder = (64, 256) if on_card else (8, 32)
         return GrowSpec(
             F=F, B=B, max_nodes=M, wave=NW, policy=p.tree_grow_policy,
             max_depth=p.max_depth, max_leaves=p.max_leaf_cnt,
@@ -198,12 +210,15 @@ class GBDTTrainer:
             min_h=p.min_child_hessian_sum, max_abs=p.max_abs_leaf_val,
             min_split_loss=p.min_split_loss,
             min_split_samples=float(p.min_split_samples),
+            # the row unit of gathered rungs and of GOSS's fit matrix: the
+            # reference's TPU unit on the card, its CPU unit here
+            bm=BM_DEFAULT if on_card else 128,
             use_bf16=self.use_bf16_hist,
             hist_mode="int8" if self.hist_precision == "int8" else "mxu",
             partition=partition, ladder=ladder,
             fused=knobs.get_bool("YTK_FUSED"),
             fused_max_rows=knobs.get_int("YTK_FUSED_MAX_ROWS"),
-            goss_a=self.goss[0], goss_b=self.goss[1],
+            goss_a=self.goss[0], goss_b=self.goss[1], goss_scale=goss_scale,
         )
 
     def _pad_rows(self, a, n_pad: int, dtype=torch.float32) -> torch.Tensor:
@@ -214,12 +229,15 @@ class GBDTTrainer:
         return to_tensor(X, torch.float32, self.device).t().contiguous()
 
     def _bin_rows(self, X_t: torch.Tensor, bins: FeatureBins, B: int):
-        """(F, n) raw values -> (F, n_pad) bins, rows zero-padded to a
-        multiple of 16384 before binning, as the reference does."""
+        """(F, n) raw values -> (F or bundled columns, n_pad) bins, rows
+        zero-padded to a multiple of 16384 before binning, as the
+        reference does."""
         n = X_t.shape[1]
         n_pad = -(-n // BM_DEFAULT) * BM_DEFAULT
         Xp = torch.nn.functional.pad(X_t, (0, n_pad - n)).contiguous()
         bins_t = bin_matrix_device(Xp, bins)
+        if self._efb_plan is not None:
+            bins_t = bundle_bin_matrix_t(bins_t, self._efb_plan)
         if B <= 256:
             bins_t = bins_t.to(torch.uint8)
         return bins_t, n_pad
@@ -233,8 +251,16 @@ class GBDTTrainer:
                                        train.feature_names)
         B_real = bins.max_bins
         B = max(8, 1 << (B_real - 1).bit_length())  # pad to a power of two
+        # EFB: bundles are capped at the padded bin width B, so the
+        # histogram shape never grows; the sidecar keeps the original edges
+        self._efb_plan = None
         if self.efb:
-            check_no_efb_plan(X_t, bins)
+            budget = knobs.get_int("YTK_EFB_CONFLICT")
+            self._efb_plan = build_bundle_plan(X_t, bins, budget, B)
+            if self._efb_plan is not None:
+                log.info("EFB: %s (conflict budget %d)",
+                         self._efb_plan.summary(), budget)
+        plan = self._efb_plan
         self._bins_sidecar = (list(train.feature_names or []), bins)
         bins_t, n_pad = self._bin_rows(X_t, bins, B)
         del X_t
@@ -249,10 +275,14 @@ class GBDTTrainer:
             w_t = self._pad_rows(test.weight, nt_pad)
         log.info("%d rows, %d features, %d bins (pad %d)", train.n_real,
                  train.n_features, B_real, B)
+        ranges = None
+        if plan is not None:
+            ranges = tuple(torch.from_numpy(r).to(self.device)
+                           for r in plan.range_tables(B))
         return _DevInputs(
             bins=bins, bins_t=bins_t, y=y, weight=weight, real_mask=real_mask,
-            n_score=n_pad, F=train.n_features, B=B, aux_bins=aux_bins,
-            y_t=y_t, w_t=w_t, nt_score=nt_pad,
+            n_score=n_pad, F=bins_t.shape[0], B=B, aux_bins=aux_bins,
+            y_t=y_t, w_t=w_t, nt_score=nt_pad, ranges=ranges,
         )
 
     def _base_score(self, train: GBDTData) -> np.float32:
@@ -286,16 +316,48 @@ class GBDTTrainer:
 
     # -- the round loop -----------------------------------------------------
 
+    def _sample_masks(self, rnd: int, dd: _DevInputs):
+        """This round's (include, feat_mask, GOSS key) from its key
+        fold_in(PRNGKey(ROOT_SEED), rnd) split into kf, ki, kg (reference
+        trainer.py:704-724). The keys stay on the CPU (no device sync);
+        the row draw runs on the device, the feature draw (over the
+        engine-visible, possibly bundled, columns) on the CPU. A round
+        that samples nothing derives no key."""
+        p = self.params
+        include = dd.real_mask
+        goss_on = 0.0 < self.goss[0] < 1.0
+        if (p.instance_sample_rate >= 1.0 and p.feature_sample_rate >= 1.0
+                and not goss_on):
+            return include, torch.ones(dd.F, dtype=torch.bool,
+                                       device=self.device), None
+        kf, ki, kg = prng.split(prng.fold_in(prng.PRNGKey(ROOT_SEED), rnd),
+                                3)
+        if p.instance_sample_rate < 1.0:
+            rate = float(np.float32(p.instance_sample_rate))
+            include = include & (prng.uniform(ki, dd.n_score,
+                                              device=self.device) <= rate)
+        if p.feature_sample_rate < 1.0:
+            rate = float(np.float32(p.feature_sample_rate))
+            fmask = prng.uniform(kf, dd.F) <= rate
+            fmask[0] |= ~fmask.any()
+            fmask = fmask.to(self.device)
+        else:
+            fmask = torch.ones(dd.F, dtype=torch.bool, device=self.device)
+        return include, fmask, prng.fold_in(kg, 0) if goss_on else None
+
     def _round(self, rnd: int, dd: _DevInputs, spec: GrowSpec, state):
         """grads -> one tree -> score and loss updates (reference
         trainer.py:697-767 with K = 1)."""
         scores, scores_t, bufs, loss_buf, tloss_buf = state
         preds = self.loss.predict(scores)
         g, h = self.loss.grad_hess(preds, dd.y)
-        fmask = torch.ones(dd.F, dtype=torch.bool, device=self.device)
+        include, fmask, key = self._sample_masks(rnd, dd)
         tr, pos, aux_pos, wlog = grow(
-            spec, dd.bins_t, dd.real_mask, g * dd.weight, h * dd.weight,
-            fmask, aux=dd.aux_bins)
+            spec, dd.bins_t, include, g * dd.weight, h * dd.weight,
+            fmask, aux=dd.aux_bins, key=key, ranges=dd.ranges)
+        if 0.0 < spec.goss_a < 1.0:
+            # grow fitted the sampled rows; the train rows come back first
+            pos, aux_pos = aux_pos[0], aux_pos[1:]
         leaf = tr.leaf
         scores = scores + leaf[pos.long()]
         if scores_t is not None:
@@ -355,7 +417,9 @@ class GBDTTrainer:
         dd = self._prep_device_inputs(train, test)
         self.dev_inputs = dd  # kept for a caller that times the kernels
         ts["preprocess"] = time.time() - t0 - ts["load"]
-        spec = self._grow_spec(dd.F, dd.B)
+        # GOSS sizes its counts on the real share of the padded rows
+        spec = self._grow_spec(dd.F, dd.B, goss_scale=min(
+            1.0, train.n_real / max(dd.n_score, 1)))
         self.grow_spec = spec
         base = self._base_score(train)
         # np.mean, as the reference takes it: a -0.0 base (sigmoid at 0.5)
@@ -376,10 +440,26 @@ class GBDTTrainer:
             rounds = p.round_num
         scores, scores_t, bufs, loss_buf, tloss_buf = state
         self.wave_log = bufs["wlog"].cpu().numpy()
+        self._sampling_stats(ts, spec, train.n_features)
         t_fin = time.time()
         out = self._finalize(model, dd, state, names, rounds)
         ts["finalize"] = time.time() - t_fin
         return out
+
+    def _sampling_stats(self, ts: Dict, spec: GrowSpec, F: int) -> None:
+        """GOSS's kept rows a tree (the wave log's column 4 at the root
+        pass, reference trainer.py:880-891) and the columns EFB saved."""
+        wl = self.wave_log
+        goss_on = 0.0 < spec.goss_a < 1.0
+        ts["goss"] = goss_on
+        if goss_on:
+            used = (wl[..., 3] > 0).any(axis=-1)
+            ts["goss_a"] = float(spec.goss_a)
+            ts["goss_b"] = float(spec.goss_b)
+            ts["goss_rows_per_tree"] = float(
+                (wl[:, 0, 4] * used).sum() / max(float(used.sum()), 1.0))
+        if self._efb_plan is not None:
+            ts["efb_cols_saved"] = float(F - self._efb_plan.n_cols)
 
     # -- trees and the dump ---------------------------------------------------
 
@@ -409,6 +489,10 @@ class GBDTTrainer:
         t.gain = [float(v) for v in d["gain"][:nn]]
         t.hess_sum = [float(v) for v in d["hess"][:nn]]
         t.sample_cnt = [int(round(float(v))) for v in d["cnt"][:nn]]
+        if self._efb_plan is not None:
+            # bundle columns and slots -> original features, before names
+            # and values: the dump reads as an unbundled run's
+            unbundle_tree(t, self._efb_plan)
         t.feat_name = [
             (names[f] if (names and 0 <= f < len(names)) else str(f))
             if f >= 0 else ""

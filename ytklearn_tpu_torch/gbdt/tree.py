@@ -242,6 +242,24 @@ class Tree:
                 acc[name] = (cnt + 1, gain + float(self.gain[nid]))
 
 
+def unbundle_tree(tree: Tree, plan) -> None:
+    """Rewrite, in place, a tree grown on an EFB-bundled bin matrix into
+    original feature space (the JAX package's tree.py:297): every inner
+    node's column and slot interval (`feat`, `slot`, `split`, still slot
+    space before the value conversion) go through
+    `plan.unbundle_split`, so the value conversion, the dump, feature
+    importance and serving see only original features. `plan` is a
+    gbdt.binning.BundlePlan."""
+    for nid in range(tree.n_nodes()):
+        if tree.is_leaf(nid):
+            continue
+        fid, slot_l, slot_r = plan.unbundle_split(
+            tree.feat[nid], tree.slot[nid], int(tree.split[nid]))
+        tree.feat[nid] = fid
+        tree.slot[nid] = slot_l
+        tree.split[nid] = float(slot_r)
+
+
 def _jfloat(v: float) -> str:
     """Java Float.toString-ish rendering (shortest round-trip of float32)."""
     return repr(float(np.float32(v)))

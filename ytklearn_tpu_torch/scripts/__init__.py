@@ -15,6 +15,11 @@ reference's `scripts/`, and the timers of two checkouts:
                      line, to compare two checkouts in turns on one card
   time_walk          K6 and K7, the serving walks, at every ladder rung, for
                      the same comparison (--sweep: launch shapes)
+  bench_gbdt         bench.py's GBDT cell as the reference runs it (GOSS on
+                     by default): steady trees/s, test AUC and logloss
+                     against bench.py's synthetic band, one JSON object a
+                     run; --repeats N runs it in N fresh processes and adds
+                     the medians (bench.py::bench_gbdt)
 
 Each runs as `python -m ytklearn_tpu_torch.scripts.<name>` on the card
 (the default device; without a GPU it raises), times with CUDA events and
