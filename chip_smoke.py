@@ -13,7 +13,10 @@ redesigned on warpgroup tensor cores and K5, wave routing, redesigned
 (slice 7), the serving walks K6 and K7 redesigned as (row, tree)-
 parallel walks with an ordered fold per row (slice 8), and GOSS, the
 sampling rates and EFB in training with bench.py's GBDT cell as the
-reference runs it, GOSS on, through scripts/bench_gbdt.py (slice 9).
+reference runs it, GOSS on, through scripts/bench_gbdt.py (slice 9), and
+the convex stack, `cli train` for linear, multiclass_linear, FM and FFM
+with bench.py's FM cell through scripts/bench_fm.py (slice 10; plain
+torch, no kernel of the port).
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -135,7 +138,20 @@ reference runs it, GOSS on, through scripts/bench_gbdt.py (slice 9).
  15. times K8 at the tune shape beside its bytes bound, its tensor-core
      floor (mma_floor_ms), its plain version and one scatter_add_, then K8
      and K2 on waves of 1 to 64 slots that hold every row;
- 16. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 16. (slice 10, its main path) writes seeded synthetic text files
+     (CONVEX_DATA: 2^17 lines for linear and FM, 2^15 for multiclass and
+     FFM) and runs `cli train` in this process for each of CONVEX_RUNS on
+     the card and on the CPU: linear with L1 (OWL-QN), linear grid,
+     multiclass_linear softmax K = 5, FM k = [1, 8], FFM over 8 fields,
+     linear HOAG; each card run has the CPU run's status and iterations,
+     its first 5 iterations' and final avg loss at rtol 1e-4 and test AUC
+     within 1e-4, and prints ingest seconds against training seconds; no
+     kernel wrapper's launch count moves; then scripts/bench_fm.py's cell
+     at its default size (2,000,000 rows, dim 2^18, rank 8): examples/s,
+     loss, peak memory, the idle share and top device ops of two traced
+     L-BFGS iterations, the loss falling over accepted iterations, and
+     whether two trainings dump byte-identical texts;
+ 17. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -2700,6 +2716,217 @@ def phase_u8_timing(card):
     return err, (ms, plain_ms, bound, bound_by, lib_ms)
 
 
+# -- slice 10: the convex stack ------------------------------------------------
+
+CONVEX_SEED = 1010
+#: (data, family, train lines, write_convex_case keywords)
+CONVEX_DATA = (
+    ("linear", "linear", 1 << 17, dict(vocab=50000, nnz=12)),
+    ("multiclass", "multiclass_linear", 1 << 15,
+     dict(vocab=200, nnz=10, K=5)),
+    ("fm", "fm", 1 << 17, dict(vocab=20000, nnz=16, k=8)),
+    ("ffm", "ffm", 1 << 15, dict(vocab=2000, nnz=12, n_fields=8, k=4)),
+)
+#: (run, data, l1, l2, max_iter, hyper block)
+CONVEX_RUNS = (
+    ("linear OWL-QN", "linear", 1e-5, 1e-4, 15, None),
+    ("linear grid", "linear", 0.0, 1e-4, 8,
+     {"switch_on": True, "mode": "grid", "grid": {"l2": [1e-4, 1e-3]}}),
+    ("multiclass_linear softmax K=5", "multiclass", 0.0, 0.01, 15, None),
+    ("fm k=[1,8]", "fm", 0.0, 1e-3, 12, None),
+    ("ffm 8 fields", "ffm", 0.0, 1e-3, 15, None),
+    ("linear hoag", "linear", 0.0, 1e-4, 8,
+     {"switch_on": True, "mode": "hoag",
+      "hoag": {"l2": [1e-3], "outer_iter": 2}}),
+)
+CONVEX_RTOL = 1e-4  # tests/test_torch_hoag_train.py's tolerances
+
+
+def convex_cli(cfg, family, device, tag, tmp):
+    """`cli train <family>` in this process -> (JSON line, TrainResult,
+    the trainer's time_stats)."""
+    import contextlib
+    import io
+
+    from ytklearn_tpu_torch import cli
+    from ytklearn_tpu_torch import train as ptrain
+
+    c = json.loads(json.dumps(cfg))
+    c["model"]["data_path"] = os.path.join(tmp, f"{tag}_{device}", "model")
+    conf = os.path.join(tmp, f"{tag}_{device}.conf")
+    with open(conf, "w") as f:
+        json.dump(c, f)
+    got = []
+    real = ptrain.HoagTrainer.train
+
+    def train(self, *a, **kw):
+        res = real(self, *a, **kw)
+        got.append((res, dict(self.time_stats)))
+        return res
+
+    ptrain.HoagTrainer.train = train
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["train", family, conf, "--device", device])
+    finally:
+        ptrain.HoagTrainer.train = real
+    check(rc == 0 and len(got) == 1, f"cli train {family} on {device}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), *got[0]
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count."""
+    from ytklearn_tpu_torch.gbdt import hist, route
+    from ytklearn_tpu_torch.serve import kernels
+
+    fns = (hist.hist_wave, hist.hist_wave_gather, hist.hist_wave_q,
+           hist.hist_wave_gather_mxu, hist.hist_q_u8, route.route_wave,
+           kernels.heap_walk, kernels.binned_walk)
+    return [f.launches for f in fns]
+
+
+def phase_convex_cli(card):
+    """Slice 10's main path: `cli train` for linear (OWL-QN, grid, HOAG),
+    multiclass_linear, FM and FFM on seeded synthetic files, on the card
+    and on the CPU; each card run held to its CPU run (status and
+    iterations equal, the first 5 iterations' and the final avg loss at
+    rtol 1e-4, test AUC within 1e-4). The path launches no kernel of the
+    port: every wrapper's count stays where it was."""
+    from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case
+
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_convex_")
+    try:
+        base = {}
+        lines = [(name, n) for name, _, n, _ in CONVEX_DATA]
+        for name, family, n, kw in CONVEX_DATA:
+            base[name] = (family, write_convex_case(
+                os.path.join(tmp, name), family, n, n // 8, CONVEX_SEED,
+                **kw))
+        before = launch_counts()
+        for i, (run, data, l1, l2, iters, hyper) in enumerate(CONVEX_RUNS):
+            family, cfg = base[data]
+            cfg = json.loads(json.dumps(cfg))
+            cfg["loss"]["evaluate_metric"] = ["auc"]
+            cfg["loss"]["regularization"] = {"l1": [l1], "l2": [l2]}
+            conv = cfg["optimization"]["line_search"]["lbfgs"]["convergence"]
+            conv["max_iter"], conv["eps"] = iters, 1e-7
+            if hyper:
+                cfg["hyper"] = hyper
+            tag = f"run{i}"
+            line, res, ts = convex_cli(cfg, family, "cuda", tag, tmp)
+            _, cres, cts = convex_cli(cfg, family, "cpu", tag, tmp)
+            auc, cauc = res.test_metrics["auc"], cres.test_metrics["auc"]
+            print(f"convex cli {run} ({family}, {dict(lines)[data]} "
+                  f"lines): n_iter {res.n_iter}, status {res.status}, "
+                  f"avg_loss {res.avg_loss:.6f} (cpu {cres.avg_loss:.6f}), "
+                  f"test AUC {auc:.6f} (cpu {cauc:.6f}); ingest "
+                  f"{ts['load']:.3f} s against training {ts['train']:.3f} s "
+                  f"(cpu: {cts['load']:.3f} s, {cts['train']:.3f} s) "
+                  f"[{card}]", flush=True)
+            check(line["model"] == family and line["n_iter"] == res.n_iter,
+                  f"{run}: JSON line {line}")
+            check((res.status, res.n_iter) == (cres.status, cres.n_iter),
+                  f"{run}: card {res.status}/{res.n_iter}, cpu "
+                  f"{cres.status}/{cres.n_iter}")
+            h = [r["avg_loss"] for r in res.history[:6]]
+            ch = [r["avg_loss"] for r in cres.history[:6]]
+            for a, b in zip(h + [res.avg_loss], ch + [cres.avg_loss]):
+                check(abs(a - b) <= CONVEX_RTOL * abs(b),
+                      f"{run}: avg loss card {h} {res.avg_loss}, cpu {ch} "
+                      f"{cres.avg_loss}")
+            check(abs(auc - cauc) <= 1e-4, f"{run}: AUC {auc} vs {cauc}")
+            check(math.isfinite(res.avg_loss) and res.n_iter >= 5
+                  and auc > 0.6, f"{run}: did not train ({res.status})")
+        check(launch_counts() == before,
+              "a kernel wrapper launched on the convex path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_bench_fm(card):
+    """scripts/bench_fm.py in this process at its default size (bench.py's
+    FM cell): examples/s and loss, the peak memory, two traced L-BFGS
+    iterations (idle share, top device ops), the loss falling over
+    accepted iterations, and whether two trainings dump byte-identical
+    model texts (the gather's backward accumulates on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ytklearn_tpu_torch.io.fs import LocalFileSystem
+    from ytklearn_tpu_torch.scripts import bench_fm
+    from ytklearn_tpu_torch.scripts._common import device_busy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    cell = bench_fm.Cell(bench_fm.cell_rows(), dev)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = bench_fm.measure(cell, card)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(json.dumps(rec), flush=True)
+    print(f"bench_fm: {rec['rows']} rows, row chunk {rec['row_chunk']}, "
+          f"{rec['fm_examples_per_sec']:.1f} examples/s, fm_loss "
+          f"{rec['fm_loss']:.6f}, {rec['n_iter']} iterations in "
+          f"{rec['seconds']:.6f} s; data and model set-up {setup_s:.3f} s "
+          f"(host); peak memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated) [{card}]", flush=True)
+    check(math.isfinite(rec["fm_loss"]) and rec["n_iter"] == 12,
+          f"bench_fm: {rec}")
+
+    class Trace:
+        """Profiles iterations 1 and 2 (from the callback after the first
+        evaluation to the one after the second iteration)."""
+
+        def __call__(self, it, st):
+            if it == 0:
+                torch.cuda.synchronize(dev)
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            elif it == 2:
+                torch.cuda.synchronize(dev)
+                self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+                self.prof.__exit__(None, None, None)
+            return False
+
+    tr = Trace()
+    cell.run(2, callback=tr)
+    busy_ms, top = device_busy(tr.prof, 8)
+    check(busy_ms > 0, "the profiler saw no device time in bench_fm")
+    print(f"bench_fm profile: 2 L-BFGS iterations (traced), wall "
+          f"{tr.wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / tr.wall_ms:.4f}; top device ops: "
+          f"{fmt_top(top, 48)} [{card}]", flush=True)
+
+    losses = []
+    runs = [cell.run(12, callback=lambda it, st: losses.append(
+        (st.loss, st.ls_status)) and False), cell.run(12)]
+    acc = [loss for loss, status in losses if status > 0]
+    check(all(b <= a for a, b in zip(acc, acc[1:])),
+          f"bench_fm: the loss rose over accepted iterations: {losses}")
+    fmap = {f"f{i}": i for i in range(bench_fm.DIM)}
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_fm_")
+    texts = []
+    try:
+        for i, res in enumerate(runs):
+            cell.model.params.model.data_path = os.path.join(tmp, f"m{i}")
+            cell.model.dump_model(LocalFileSystem(), res.w.cpu().numpy(),
+                                  None, fmap)
+            with open(os.path.join(tmp, f"m{i}", "model-00000"), "rb") as f:
+                texts.append(f.read())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same_w = torch.equal(runs[0].w, runs[1].w)
+    print(f"bench_fm repeat: two 12-iteration trainings give "
+          f"{'byte-identical' if texts[0] == texts[1] else 'different'} "
+          f"dumps ({len(texts[0])} bytes; weights "
+          f"{'bit-equal' if same_w else 'not bit-equal'}; losses "
+          f"{runs[0].loss!r}, {runs[1].loss!r}) [{card}]", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2848,6 +3075,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     u8_err, ttimes["hist_q_u8"] = phase_u8_timing(card)
     errs["hist_q_u8"] = max(errs["hist_q_u8"], u8_err)
+    torch.cuda.empty_cache()
+
+    # slice 10: the convex stack (no kernel of the port on its path)
+    t0 = time.perf_counter()
+    phase_convex_cli(card)
+    torch.cuda.empty_cache()
+    phase_bench_fm(card)
+    torch.cuda.empty_cache()
+    print(f"convex phases: {time.perf_counter() - t0:.3f} s (wall) [{card}]",
+          flush=True)
     # K2, K4 and K5 launch on slice 9's main path, the GOSS bench cell
     launches_of = dict(goss_counts)
     launches_of.update({k: cli_counts[k] for k in ("hist", "hist_gather")})

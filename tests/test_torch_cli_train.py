@@ -180,7 +180,8 @@ def test_unported_options_raise_by_item(extra, match):
         cli.main(["train", "gbdt", CONF] + extra)
 
 
-@pytest.mark.parametrize("name,match", [("linear", "1.9"), ("ffm", "1.9"),
+@pytest.mark.parametrize("name,match", [("gbmlr", "1.10"),
+                                        ("gbhsdt", "1.10"),
                                         ("gbsdt", "1.10")])
 def test_unported_models_raise_by_item(name, match):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {match}"):

@@ -14,7 +14,10 @@ and the split scans run in a fixed order, so those comparisons are exact
 trees included. The f32/bf16
 histograms (K1, K3) add floats with atomics in an order that changes from
 run to run: counts are exact, g/h held at rtol 1e-5 with an absolute floor
-of 1e-5 of the largest |sum|.
+of 1e-5 of the largest |sum|. The convex stack (plain torch, no kernel of
+its own) is held to its CPU run: FM/FFM loss and gradient at rtol 1e-5,
+five L-BFGS iterations with the same statuses, and `cli train` of each
+family with every evaluation on the card.
 """
 
 import dataclasses
@@ -1099,3 +1102,109 @@ def test_k2_k4_raise_on_a_bad_launch(gen, monkeypatch):
                               plan=plan)
     assert (hist.hist_wave_q.launches,
             hist.hist_wave_gather.launches) == before
+
+
+# -- the convex stack on the card (no kernel of its own: plain torch) ------
+
+def _convex_batch(family, n, dev, seed=3):
+    """A seeded FM/FFM batch and weights: (model, w, batch) on `dev`."""
+    from ytklearn_tpu_torch.config.params import CommonParams
+    from ytklearn_tpu_torch.models import FFMModel, FMModel
+
+    rng = np.random.RandomState(seed)
+    nf, width, F = 5000, 24, 6
+    idx = rng.randint(1, nf, (n, width)).astype(np.int32)
+    idx[:, 0] = 0
+    val = rng.rand(n, width).astype(np.float32)
+    y = rng.randint(0, 2, n).astype(np.float32)
+    wt = (rng.rand(n) + 0.5).astype(np.float32)
+    p = CommonParams(k=[1, 8])
+    if family == "fm":
+        model = FMModel(p, nf, device=dev)
+        arrays = (idx, val, y, wt)
+    else:
+        model = FFMModel(p, nf, F, device=dev)
+        arrays = (idx, val, rng.randint(0, F, (n, width)).astype(np.int32),
+                  y, wt)
+    w = (rng.randn(model.dim) * 0.1).astype(np.float32)
+    return (model, torch.from_numpy(w).to(dev),
+            tuple(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def _close(got, want, rtol=1e-5):
+    got = got.double().cpu().numpy()
+    want = want.double().cpu().numpy()
+    scale = float(np.max(np.abs(want))) if want.size else 0.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.parametrize("chunk", [None, 4096])
+@pytest.mark.parametrize("family", ["fm", "ffm"])
+def test_convex_loss_grad_card_matches_cpu(gen, family, chunk):
+    """FM/FFM loss and gradient on the card against the CPU, unchunked and
+    chunked: rtol 1e-5 (float32 sums in another order; the gather's
+    backward accumulates)."""
+    from ytklearn_tpu_torch.optimize.blocked import make_value_and_grad
+
+    n = 20000
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, w, batch = _convex_batch(family, n, dev)
+        loss, grad = make_value_and_grad(model.pure_loss, chunk)(w, *batch)
+        assert grad.device.type == dev
+        out[dev] = (loss, grad)
+    _close(out["cuda"][0], out["cpu"][0])
+    _close(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("mode", ["wolfe", "strong_wolfe"])
+def test_lbfgs_card_matches_cpu(gen, mode):
+    """Five L-BFGS iterations of FM with L1 (OWL-QN) on the card and on
+    the CPU: the same line-search statuses, losses at rtol 1e-4."""
+    from ytklearn_tpu_torch.optimize import LBFGSConfig, minimize_lbfgs
+
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        model, w, batch = _convex_batch("fm", 8192, dev)
+        l1, l2 = model.reg_vectors([1e-4, 1e-4], [1e-3, 1e-3])
+        rec = []
+        minimize_lbfgs(model.pure_loss, w, LBFGSConfig(max_iter=5,
+                                                       mode=mode),
+                       batch=batch, l1_vec=l1, l2_vec=l2, g_weight=8192.0,
+                       callback=lambda it, st: rec.append(
+                           (st.loss, st.ls_status, st.w.device.type))
+                       and False)
+        recs[dev] = rec
+    assert [r[1] for r in recs["cuda"]] == [r[1] for r in recs["cpu"]]
+    assert {r[2] for r in recs["cuda"]} == {"cuda"}
+    np.testing.assert_allclose([r[0] for r in recs["cuda"]],
+                               [r[0] for r in recs["cpu"]], rtol=1e-4)
+
+
+@pytest.mark.parametrize("family", ["linear", "multiclass_linear", "fm",
+                                    "ffm"])
+def test_convex_entry_points_stay_on_the_card(gen, family, tmp_path,
+                                              monkeypatch):
+    """`cli train <family>` on cuda: every loss, gradient and prediction
+    the run evaluates takes tensors on the card only."""
+    from ytklearn_tpu_torch import cli
+    from ytklearn_tpu_torch.models.base import ConvexModel
+    from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case
+
+    seen = set()
+    for name in ("pure_loss", "predicts"):
+        real = getattr(ConvexModel, name)
+
+        def wrapped(self, w, *batch, _real=real):
+            seen.update(t.device.type for t in (w,) + batch)
+            return _real(self, w, *batch)
+
+        monkeypatch.setattr(ConvexModel, name, wrapped)
+    cfg = write_convex_case(str(tmp_path), family, 3000, 500, 5,
+                            vocab=6000 if family == "linear" else 200,
+                            l2=0.01, max_iter=6)
+    conf = tmp_path / "c.conf"
+    conf.write_text(json.dumps(cfg))
+    assert cli.main(["train", family, str(conf)]) == 0
+    assert seen == {"cuda"}
+    assert (tmp_path / "model" / "model-00000").exists()

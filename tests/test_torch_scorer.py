@@ -264,6 +264,6 @@ def test_parse_ladder(monkeypatch):
 
 def test_unported_families_name_their_roadmap_item(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_predictor("linear", {"model": {"data_path": "x"}})
+        create_predictor("gbmlr", {"model": {"data_path": "x"}})
     with pytest.raises(ValueError, match="unknown model name"):
         create_predictor("nope", {"model": {"data_path": "x"}})

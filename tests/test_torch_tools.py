@@ -6,7 +6,8 @@ with no `--device` on a machine without a GPU it raises (exit non-zero)
 instead of timing the CPU. The bench cell (scripts/bench_gbdt.py) prints
 JSON: its fields and GOSS's kept rows are checked at a tiny size, and its
 GOSS resolution and quality band against bench.py's under the same
-environment."""
+environment. The FM cell (scripts/bench_fm.py) runs at 4096 rows and hands
+L-BFGS what bench.py::bench_fm hands it."""
 
 import json
 import os
@@ -145,3 +146,77 @@ def test_bench_gbdt_raises_without_a_gpu():
     out = _run("bench_gbdt", args=BENCH)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "trees_per_sec" not in out.stdout
+
+
+FM_ROWS = ["--rows", "4096"]
+
+
+def test_bench_fm_runs_on_the_cpu_and_repeats(tmp_path):
+    """bench.py's FM cell at 4096 rows: the fields, no rate on the CPU;
+    --repeats runs fresh processes and adds the medians."""
+    path = tmp_path / "fm.json"
+    out = _run("bench_fm", "--device", "cpu", "--repeats", "2", "--out",
+               str(path), args=FM_ROWS)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    runs = [json.loads(x) for x in lines[:2]]
+    summary = json.loads(lines[-1])
+    assert json.loads(path.read_text()) == summary
+    for rec in runs:
+        assert rec["fm_examples_per_sec"] == "not measured (cpu)"
+        assert (rec["rows"], rec["n_iter"], rec["card"]) == (4096, 12, "cpu")
+        assert 0.0 < rec["fm_loss"] < 0.69
+    assert summary["median"]["fm_examples_per_sec"] == "not measured (cpu)"
+
+
+def test_bench_fm_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the script would time it")
+    out = _run("bench_fm", args=FM_ROWS)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "fm_examples_per_sec" not in out.stdout
+
+
+def test_bench_fm_is_bench_py_cell(monkeypatch):
+    """The rows, labels, initial weights and row chunk bench.py::bench_fm
+    hands its minimize_lbfgs are the port's, exactly, and the losses at w0
+    and after the first two iterations agree at rtol 1e-4 (float32 sums
+    in another order; the JAX side in float32, as bench.py runs). The
+    cell has no regularization and starts at FM's zero-latent saddle, so
+    later iterations part by more (5e-4 at the third)."""
+    import dataclasses
+
+    import jax
+    import numpy as np
+
+    import bench
+    import ytklearn_tpu.optimize as jopt
+    from ytklearn_tpu_torch.scripts import bench_fm
+
+    n = 2048
+    seen = []
+    real = jopt.minimize_lbfgs
+
+    def capture(fn, w0, config, **kw):
+        losses = []
+        kw["callback"] = lambda it, st: losses.append(float(st.loss)) \
+            and False
+        res = real(fn, w0, dataclasses.replace(config, max_iter=2), **kw)
+        seen.append((np.asarray(w0), [np.asarray(a) for a in kw["batch"]],
+                     kw["row_chunk"], losses))
+        return res
+
+    monkeypatch.setattr(jopt, "minimize_lbfgs", capture)
+    monkeypatch.setenv("BENCH_FM_ROWS", str(n))
+    with jax.enable_x64(False):
+        bench.bench_fm()
+    w0, batch, chunk, jlosses = seen[0]
+    cell = bench_fm.Cell(n, torch.device("cpu"))
+    for a, b in zip(batch, bench_fm.make_data(n)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(w0, cell.w0.numpy())
+    assert chunk is None and cell.row_chunk is None
+    plosses = []
+    cell.run(2, callback=lambda it, st: plosses.append(st.loss) and False)
+    np.testing.assert_allclose(plosses, jlosses, rtol=1e-4)

@@ -4,14 +4,17 @@
   python -m ytklearn_tpu_torch.cli serve <config_path> <model_name> [options]
 
 `train` is the reference's bin/local_optimizer.sh: it parses the HOCON
-config (with `--set key=value` overrides), loads data.train/test through
-GBDTIngest (optionally through a python `--transform` hook), trains on
-`--device` (default `cuda`) with the JAX CLI's defaults (bf16 histograms),
-dumps the model, its `.bins.json` sidecar and the feature importance file,
-and prints one JSON line (model, trees, train/test loss and metrics).
-Only `gbdt` trains; the other model names, resume and restarts, multi-
-process and multi-GPU runs, and the trace/profile planes raise
-NotImplementedError naming their ROADMAP.md item.
+config (with `--set key=value` overrides) and trains on `--device`
+(default `cuda`), optionally through a python `--transform` line hook.
+`gbdt` loads data.train/test through GBDTIngest, trains with the JAX CLI's
+defaults (bf16 histograms), dumps the model, its `.bins.json` sidecar and
+the feature importance file, and prints one JSON line (model, trees,
+train/test loss and metrics). `linear`, `multiclass_linear`, `fm` and
+`ffm` train through HoagTrainer (L-BFGS/OWL-QN, grid and HOAG rounds),
+dump the model text and print one JSON line (model, n_iter, status,
+avg_loss, test_loss, train/test metrics). The GBST names, resume and
+restarts, multi-process and multi-GPU runs, and the trace/profile planes
+raise NotImplementedError naming their ROADMAP.md item.
 
 `serve` loads the model into a ModelRegistry on `--device` (default
 `cuda`), warms every ladder rung, starts the HTTP app, and prints one JSON
@@ -79,9 +82,6 @@ def _refuse_unported(args) -> None:
     its ROADMAP.md item, before anything loads."""
     if args.model_name in GBST_NAMES:
         raise _not_ported(f"training {args.model_name!r}", "1.10, GBST")
-    if args.model_name != "gbdt":
-        raise _not_ported(f"training {args.model_name!r}",
-                          "1.9, convex stack")
     for bad, what, item in (
         (args.max_restarts > 0, "--max-restarts",
          "1.5, rest of the GBDT trainer"),
@@ -101,7 +101,7 @@ def _refuse_unported(args) -> None:
 def train_main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="ytklearn-tpu-torch-train",
-        description="Train a GBDT on the card from a HOCON config "
+        description="Train a model on the card from a HOCON config "
         "(reference: bin/local_optimizer.sh + LocalTrainWorker)",
     )
     ap.add_argument("model_name", choices=MODEL_NAMES)
@@ -144,12 +144,30 @@ def train_main(argv: Optional[List[str]] = None) -> int:
 
 
 def _train_once(name: str, cfg: dict, hook, device) -> int:
-    from .config.params import GBDTParams
-    from .gbdt.data import GBDTIngest
-    from .gbdt.trainer import GBDTTrainer
     from .io.fs import create_filesystem
 
     fs = create_filesystem(str(cfg.get("fs_scheme", "local")))
+    if name != "gbdt":
+        from .config.params import CommonParams
+        from .train import HoagTrainer
+
+        res = HoagTrainer(CommonParams.from_config(cfg), name, fs=fs,
+                          transform_hook=hook, device=device).train()
+        print(json.dumps({
+            "model": name,
+            "n_iter": res.n_iter,
+            "status": res.status,
+            "avg_loss": res.avg_loss,
+            "test_loss": res.test_loss,
+            "train_metrics": res.train_metrics,
+            "test_metrics": res.test_metrics,
+        }), flush=True)
+        return 0
+
+    from .config.params import GBDTParams
+    from .gbdt.data import GBDTIngest
+    from .gbdt.trainer import GBDTTrainer
+
     p = GBDTParams.from_config(cfg)
     train, test = GBDTIngest(p, fs=fs, transform_hook=hook).load()
     res = GBDTTrainer(p, device=device, fs=fs).train(train=train, test=test)

@@ -1,8 +1,9 @@
 """Registry of the ``YTK_*`` environment knobs the port reads.
 
 Same names, types and defaults as the JAX package's registry
-(``ytklearn_tpu/config/knobs.py``), cut to the knobs the GBDT serving path
-and the GBDT device-engine trainer read. Every read goes through the typed accessors below, which re-read
+(``ytklearn_tpu/config/knobs.py``), cut to the knobs the GBDT serving path,
+the GBDT device-engine trainer and the convex families' blocked evaluation
+read. Every read goes through the typed accessors below, which re-read
 ``os.environ`` on each call, so a test or an operator may set a knob at run
 time.
 
@@ -48,6 +49,12 @@ _knob("YTK_SERVE_BINNED", "bool", False,
 _knob("YTK_SERVE_PRECISION", "str", "f64",
       "serving precision rung for the einsum scorers (`f64` | `bf16`); "
       "GBDT scores in f64 whatever it asks")
+
+# -- convex families (same defaults as ytklearn_tpu/config/knobs.py:86-90) --
+_knob("YTK_ROW_CHUNK", "int", None,
+      "fixed row chunk of the blocked convex loss/grad/score evaluation")
+_knob("YTK_CHUNK_BUDGET_MB", "int", 1024,
+      "score-intermediate memory budget that sizes the automatic row chunk")
 
 # -- gbdt engine (same defaults as ytklearn_tpu/config/knobs.py:93-125) ----
 _knob("YTK_PARTITION", "bool", True,

@@ -1,16 +1,17 @@
-"""Typed GBDT parameters parsed from HOCON configs.
+"""Typed parameters parsed from HOCON configs.
 
-The fields of ``ytklearn_tpu/config/params.py`` (``DelimParams``,
-``DataParams``, ``ModelParams``, ``ApproximateSpec``,
-``GBDTParams.from_config``) that the GBDT predictor, the ingest and the
-device-engine trainer read, with the same config paths, defaults and
-``???`` handling, so one config file drives both packages.
+The fields of ``ytklearn_tpu/config/params.py`` that the port reads, with
+the same config paths, defaults and ``???`` handling, so one config file
+drives both packages: ``GBDTParams`` (the GBDT predictor, ingest and
+device-engine trainer) and ``CommonParams`` (the convex families: linear,
+multiclass_linear, FM, FFM) with their blocks. The ``continual.*`` block
+comes with continual training (ROADMAP.md 1.11).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 from .hocon import MISSING, get_path
 
@@ -52,6 +53,7 @@ class DelimParams:
     y_delim: str = ","
     features_delim: str = ","
     feature_name_val_delim: str = ":"
+    field_delim: str = "@"  # FFM only
 
     @classmethod
     def from_config(cls, cfg: dict) -> "DelimParams":
@@ -61,6 +63,7 @@ class DelimParams:
             y_delim=d.get("y_delim", ","),
             features_delim=d.get("features_delim", ","),
             feature_name_val_delim=d.get("feature_name_val_delim", ":"),
+            field_delim=d.get("field_delim", "@"),
         )
 
 
@@ -98,20 +101,255 @@ class DataParams:
 
 
 @dataclass
+class FeatureHashParams:
+    """reference: param/FeatureHashParams.java:38."""
+
+    need_feature_hash: bool = False
+    bucket_size: int = 1_000_000
+    seed: int = 39916801
+    feature_prefix: str = "hash_"
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "FeatureHashParams":
+        b = "feature.feature_hash"
+        return cls(
+            need_feature_hash=bool(_opt(cfg, f"{b}.need_feature_hash",
+                                        False)),
+            bucket_size=int(_opt(cfg, f"{b}.bucket_size", 1_000_000)),
+            seed=int(_opt(cfg, f"{b}.seed", 39916801)),
+            feature_prefix=str(_opt(cfg, f"{b}.feature_prefix", "hash_")),
+        )
+
+
+@dataclass
+class TransformParams:
+    """Standardization / range scaling (param/TransformParams.java:41)."""
+
+    switch_on: bool = False
+    mode: str = "standardization"  # standardization | scale_range
+    scale_min: float = -1.0
+    scale_max: float = 1.0
+    include_features: List[str] = field(default_factory=list)
+    exclude_features: List[str] = field(default_factory=list)
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "TransformParams":
+        b = "feature.transform"
+        return cls(
+            switch_on=bool(_opt(cfg, f"{b}.switch_on", False)),
+            mode=str(_opt(cfg, f"{b}.mode", "standardization")),
+            scale_min=float(_opt(cfg, f"{b}.scale_range.min", -1.0)),
+            scale_max=float(_opt(cfg, f"{b}.scale_range.max", 1.0)),
+            include_features=list(
+                _opt(cfg, f"{b}.include_features", []) or []),
+            exclude_features=list(
+                _opt(cfg, f"{b}.exclude_features", []) or []),
+        )
+
+
+@dataclass
+class FeatureParams:
+    feature_hash: FeatureHashParams = field(default_factory=FeatureHashParams)
+    transform: TransformParams = field(default_factory=TransformParams)
+    filter_threshold: int = 0
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "FeatureParams":
+        return cls(
+            feature_hash=FeatureHashParams.from_config(cfg),
+            transform=TransformParams.from_config(cfg),
+            filter_threshold=int(_opt(cfg, "feature.filter_threshold", 0)),
+        )
+
+
+@dataclass
 class ModelParams:
+    """reference: param/ModelParams.java:38."""
+
     data_path: str = ""
+    delim: str = ","
+    need_dict: bool = False
+    dict_path: str = ""
     dump_freq: int = 50
+    need_bias: bool = True
+    bias_feature_name: str = "_bias_"
     continue_train: bool = False
+    field_dict_path: str = ""  # FFM
     feature_importance_path: str = ""  # GBDT
 
     @classmethod
     def from_config(cls, cfg: dict) -> "ModelParams":
         return cls(
             data_path=str(_req(cfg, "model.data_path")),
+            delim=str(_opt(cfg, "model.delim", ",")),
+            need_dict=bool(_opt(cfg, "model.need_dict", False)),
+            dict_path=_opt_path(cfg, "model.dict_path"),
             dump_freq=int(_opt(cfg, "model.dump_freq", 50)),
+            need_bias=bool(_opt(cfg, "model.need_bias", True)),
+            bias_feature_name=str(_opt(cfg, "model.bias_feature_name",
+                                       "_bias_")),
             continue_train=bool(_opt(cfg, "model.continue_train", False)),
+            field_dict_path=_opt_path(cfg, "model.field_dict_path"),
             feature_importance_path=_opt_path(
                 cfg, "model.feature_importance_path"),
+        )
+
+
+@dataclass
+class LossParams:
+    """reference: param/LossParams.java:41."""
+
+    loss_function: str = "sigmoid"
+    evaluate_metric: List[str] = field(default_factory=lambda: ["auc"])
+    just_evaluate: bool = False
+    l1: List[float] = field(default_factory=lambda: [0.0])
+    l2: List[float] = field(default_factory=lambda: [0.0])
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "LossParams":
+        return cls(
+            loss_function=str(_opt(cfg, "loss.loss_function", "sigmoid")),
+            evaluate_metric=list(
+                _opt(cfg, "loss.evaluate_metric", ["auc"]) or []),
+            just_evaluate=bool(_opt(cfg, "loss.just_evaluate", False)),
+            l1=[float(x) for x in _opt(cfg, "loss.regularization.l1", [0.0])],
+            l2=[float(x) for x in _opt(cfg, "loss.regularization.l2", [0.0])],
+        )
+
+
+@dataclass
+class LineSearchParams:
+    """reference: param/LineSearchParams.java:43."""
+
+    mode: str = "wolfe"  # sufficient_decrease | wolfe | strong_wolfe
+    step_decr: float = 0.5
+    step_incr: float = 2.1
+    max_iter: int = 55
+    min_step: float = 1e-16
+    max_step: float = 1e18
+    c1: float = 1e-4
+    c2: float = 0.9
+    lbfgs_m: int = 8
+    lbfgs_max_iter: int = 60
+    lbfgs_eps: float = 1e-3
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "LineSearchParams":
+        b = "optimization.line_search"
+        bt = f"{b}.backtracking"
+        return cls(
+            mode=str(_opt(cfg, f"{b}.mode", "wolfe")),
+            step_decr=float(_opt(cfg, f"{bt}.step_decr", 0.5)),
+            step_incr=float(_opt(cfg, f"{bt}.step_incr", 2.1)),
+            max_iter=int(_opt(cfg, f"{bt}.max_iter", 55)),
+            min_step=float(_opt(cfg, f"{bt}.min_step", 1e-16)),
+            max_step=float(_opt(cfg, f"{bt}.max_step", 1e18)),
+            c1=float(_opt(cfg, f"{bt}.c1", 1e-4)),
+            c2=float(_opt(cfg, f"{bt}.c2", 0.9)),
+            lbfgs_m=int(_opt(cfg, f"{b}.lbfgs.m", 8)),
+            lbfgs_max_iter=int(_opt(cfg, f"{b}.lbfgs.convergence.max_iter",
+                                    60)),
+            lbfgs_eps=float(_opt(cfg, f"{b}.lbfgs.convergence.eps", 1e-3)),
+        )
+
+
+@dataclass
+class HyperParams:
+    """reference: param/HyperParams.java:41 (grid and HOAG search)."""
+
+    switch_on: bool = False
+    restart: bool = False
+    mode: str = "hoag"  # hoag | grid
+    hoag_init_step: float = 1.0
+    hoag_step_decr_factor: float = 0.7
+    hoag_test_loss_reduce_limit: float = 1e-5
+    hoag_outer_iter: int = 10
+    hoag_l1: List[float] = field(default_factory=lambda: [0.0])
+    hoag_l2: List[float] = field(default_factory=lambda: [0.0])
+    grid_l1: List[float] = field(default_factory=list)
+    grid_l2: List[float] = field(default_factory=list)
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "HyperParams":
+        h = "hyper.hoag"
+        return cls(
+            switch_on=bool(_opt(cfg, "hyper.switch_on", False)),
+            restart=bool(_opt(cfg, "hyper.restart", False)),
+            mode=str(_opt(cfg, "hyper.mode", "hoag")),
+            hoag_init_step=float(_opt(cfg, f"{h}.init_step", 1.0)),
+            hoag_step_decr_factor=float(_opt(cfg, f"{h}.step_decr_factor",
+                                             0.7)),
+            hoag_test_loss_reduce_limit=float(
+                _opt(cfg, f"{h}.test_loss_reduce_limit", 1e-5)),
+            hoag_outer_iter=int(_opt(cfg, f"{h}.outer_iter", 10)),
+            hoag_l1=[float(x) for x in _opt(cfg, f"{h}.l1", [0.0])],
+            hoag_l2=[float(x) for x in _opt(cfg, f"{h}.l2", [0.0])],
+            grid_l1=[float(x) for x in _opt(cfg, "hyper.grid.l1", [])],
+            grid_l2=[float(x) for x in _opt(cfg, "hyper.grid.l2", [])],
+        )
+
+
+@dataclass
+class RandomParams:
+    """Latent-factor init (reference: param/RandomParams.java:40)."""
+
+    mode: str = "normal"  # normal | uniform
+    seed: int = 111111
+    normal_mean: float = 0.0
+    normal_std: float = 0.01
+    uniform_range_start: float = -0.01
+    uniform_range_end: float = 0.01
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "RandomParams":
+        return cls(
+            mode=str(_opt(cfg, "random.mode", "normal")),
+            seed=int(_opt(cfg, "random.seed", 111111)),
+            normal_mean=float(_opt(cfg, "random.normal.mean", 0.0)),
+            normal_std=float(_opt(cfg, "random.normal.std", 0.01)),
+            uniform_range_start=float(
+                _opt(cfg, "random.uniform.range_start", -0.01)),
+            uniform_range_end=float(
+                _opt(cfg, "random.uniform.range_end", 0.01)),
+        )
+
+
+@dataclass
+class CommonParams:
+    """The convex families' blocks (reference: param/CommonParams.java:
+    40-45) and the root-level scalars they read: `k` (an int for
+    multiclass_linear, [use_first_order, dim] for FM and FFM) and
+    `bias_need_latent_factor`."""
+
+    fs_scheme: str = "local"
+    verbose: bool = False
+    data: DataParams = field(default_factory=DataParams)
+    feature: FeatureParams = field(default_factory=FeatureParams)
+    model: ModelParams = field(default_factory=ModelParams)
+    loss: LossParams = field(default_factory=LossParams)
+    line_search: LineSearchParams = field(default_factory=LineSearchParams)
+    hyper: HyperParams = field(default_factory=HyperParams)
+    random: RandomParams = field(default_factory=RandomParams)
+    k: Any = None
+    bias_need_latent_factor: bool = False
+    raw: dict = field(default_factory=dict, repr=False)
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "CommonParams":
+        return cls(
+            fs_scheme=str(_opt(cfg, "fs_scheme", "local")),
+            verbose=bool(_opt(cfg, "verbose", False)),
+            data=DataParams.from_config(cfg),
+            feature=FeatureParams.from_config(cfg),
+            model=ModelParams.from_config(cfg),
+            loss=LossParams.from_config(cfg),
+            line_search=LineSearchParams.from_config(cfg),
+            hyper=HyperParams.from_config(cfg),
+            random=RandomParams.from_config(cfg),
+            k=_opt(cfg, "k", None),
+            bias_need_latent_factor=bool(
+                _opt(cfg, "bias_need_latent_factor", False)),
+            raw=cfg,
         )
 
 

@@ -3,14 +3,19 @@
   bucketed AUC   predictions in [0, 1] map to `int(pred * slots)` clamped
                  to [0, slots-1]; pair counts use the trapezoid
                  `neg_i * (pos_above_i + 0.5 * pos_i)` (AucEvaluator.java)
-  rmse / mae     weighted pointwise means; zero-weight rows are masked
+                 multiclass (pred (n, K)) is micro-averaged over the
+                 (sample, class) pairs
+  rmse / mae / mape / smape
+                 weighted pointwise means; zero-weight rows are masked
                  before weighting
+  confusion_matrix[@threshold]
+                 the (K, K) weighted count matrix (rows the true class);
+                 EvalSet reports its accuracy
   logloss        weighted mean of -(y log p + (1-y) log(1-p)); an addition
                  of the port (the JAX EvalSet has none; its bench reports
                  the sigmoid test loss under that name)
 
-Sums run in the dtype of the weights, as in the reference. The confusion
-matrix and mape/smape come with the rest of eval (ROADMAP.md 1.5).
+Sums run in the dtype of the weights, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,8 +54,15 @@ def auc_from_histogram(hist) -> torch.Tensor:
 
 def auc(pred, y, weight=None, slots: int = DEFAULT_AUC_SLOTS
         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(weighted, unweighted) AUC of binary predictions."""
-    w = torch.ones_like(pred) if weight is None else weight
+    """(weighted, unweighted) AUC; each (sample, class) pair of a (n, K)
+    prediction scores the binary event y[:, k] == 1, with the sample's
+    weight."""
+    w = torch.ones(pred.shape[:1], dtype=pred.dtype, device=pred.device) \
+        if weight is None else weight
+    if pred.ndim == 2:
+        K = pred.shape[1]
+        pred, y = pred.reshape(-1), y.reshape(-1)
+        w = torch.repeat_interleave(w, K)
     weighted = auc_from_histogram(auc_histogram(pred, y, w, slots))
     mask = (w != 0).to(pred.dtype)
     unweighted = auc_from_histogram(auc_histogram(pred, y, mask, slots))
@@ -64,6 +76,8 @@ def _logloss_row(y, p):
 _POINTWISE_ROWS: Dict[str, Callable] = {
     "rmse": lambda y, p: (y - p) * (y - p),
     "mae": lambda y, p: torch.abs(y - p),
+    "mape": lambda y, p: torch.abs((y - p) / y),
+    "smape": lambda y, p: torch.abs(y - p) / ((y + torch.abs(p)) / 2.0),
     "logloss": _logloss_row,
 }
 
@@ -76,12 +90,47 @@ def pointwise(pred, y, weight=None, kind: str = "rmse") -> torch.Tensor:
     return torch.sqrt(v) if kind == "rmse" else v
 
 
+def confusion_counts(pred, y, weight, K: int = 2, threshold: float = 0.5):
+    """(K, K) weighted counts, rows the true class, columns the predicted:
+    a binary pred in [0, 1] against `threshold`, a (n, K) pred by argmax
+    against the one-hot y's."""
+    if pred.ndim == 2:
+        t = torch.argmax(y, dim=-1)
+        p = torch.argmax(pred, dim=-1)
+    else:
+        t = y.to(torch.int64)
+        p = (pred >= threshold).to(torch.int64)
+    m = torch.zeros(K * K, dtype=weight.dtype, device=weight.device)
+    m.index_add_(0, t * K + p, weight)
+    return m.reshape(K, K)
+
+
+def confusion_matrix(pred, y, weight=None, K: int = 2,
+                     threshold: float = 0.5) -> Dict[str, torch.Tensor]:
+    """The matrix, per-class precision and recall, and the accuracy
+    (reference: ConfusionMatrixEvaluator)."""
+    w = torch.ones(pred.shape[:1], dtype=pred.dtype, device=pred.device) \
+        if weight is None else weight
+    m = confusion_counts(pred, y, w, K, threshold)
+    diag = torch.diagonal(m)
+    col = torch.sum(m, dim=0)
+    row = torch.sum(m, dim=1)
+    one = torch.ones_like(col)
+    return {
+        "matrix": m,
+        "precision": diag / torch.where(col == 0, one, col),
+        "recall": diag / torch.where(row == 0, one, row),
+        "accuracy": torch.sum(diag) / torch.sum(m),
+    }
+
+
 def _parse_metric(name: str) -> Tuple[str, Optional[float]]:
     base, _, arg = name.strip().partition("@")
     return base.lower(), (float(arg) if arg else None)
 
 
-def create_evaluator_fns(metric_names: Sequence[str]) -> Dict[str, Callable]:
+def create_evaluator_fns(metric_names: Sequence[str],
+                         K: int = 2) -> Dict[str, Callable]:
     fns: Dict[str, Callable] = {}
     for name in metric_names:
         base, arg = _parse_metric(name)
@@ -90,22 +139,22 @@ def create_evaluator_fns(metric_names: Sequence[str]) -> Dict[str, Callable]:
             fns[name] = lambda p, y, w, s=slots: auc(p, y, w, s)[0]
         elif base in _POINTWISE_ROWS:
             fns[name] = lambda p, y, w, k=base: pointwise(p, y, w, k)
-        elif base in ("mape", "smape", "confusion_matrix"):
-            raise NotImplementedError(
-                f"evaluate_metric {name!r} is not ported yet (ROADMAP.md "
-                "1.5, rest of the GBDT trainer)"
-            )
+        elif base == "confusion_matrix":
+            thr = arg if arg is not None else 0.5
+            fns[name] = lambda p, y, w, t=thr: confusion_matrix(
+                p, y, w, K, t)["accuracy"]
         else:
             raise ValueError(f"unknown evaluate_metric: {name!r}")
     return fns
 
 
 class EvalSet:
-    """Run the configured metrics on (pred, y, weight) tensors."""
+    """Run the configured metrics on (pred, y, weight) tensors; K classes
+    for the confusion matrix."""
 
-    def __init__(self, metric_names: Sequence[str]):
+    def __init__(self, metric_names: Sequence[str], K: int = 2):
         self.metric_names = list(metric_names)
-        self.fns = create_evaluator_fns(metric_names)
+        self.fns = create_evaluator_fns(metric_names, K)
 
     def evaluate(self, pred, y, weight=None) -> Dict[str, float]:
         w = (torch.ones(pred.shape[:1], dtype=torch.float32,

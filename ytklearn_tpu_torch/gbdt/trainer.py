@@ -49,7 +49,7 @@ from ..config.params import GBDTParams
 from ..device import resolve_device
 from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
-from ..losses import TRAINABLE, create_loss
+from ..losses import GBDT_TRAINABLE, create_loss
 from . import prng
 from .binning import (
     BundlePlan,
@@ -153,7 +153,7 @@ class GBDTTrainer:
         if self.loss.name == "l1":
             raise _not_ported("l1 loss with LAD leaf refinement",
                               "1.5, rest of the GBDT trainer")
-        if self.loss.name not in TRAINABLE:
+        if self.loss.name not in GBDT_TRAINABLE:
             raise _not_ported(f"training with loss {self.loss.name!r}",
                               "1.5, rest of the GBDT trainer")
         if p.model.continue_train:

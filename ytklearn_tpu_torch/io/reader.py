@@ -1,25 +1,43 @@
-"""Line parsing and the read plan of the text ingest
-(``ytklearn_tpu/io/reader.py``, reference dataflow/CoreData.java and
-DataFlow.java).
+"""The text ingest (``ytklearn_tpu/io/reader.py``, reference
+dataflow/CoreData.java and DataFlow.java).
 
   parse_line           `weight###label[,label...]###name:val,...` -> ParsedLine
   load_transform_hook  the user's python line-transform hook
   shard_plan           this process's read plan: (paths, divisor, remainder)
   shard_read_lines     this process's lines
+  FeatureStat, TransformNode  feature statistics and their standardization
+                       or range scaling (the sidecar's text format)
+  SparseDataset        padded ELL rows: (n, width) feature indices and
+                       values (and FFM's fields), labels and weights
+  DataIngest           the convex families' loadFlow: lines -> parse ->
+                       label expansion, hashing, y-sampling -> feature
+                       dict (count filter, sorted names, bias at 0) or a
+                       dict file -> transform stats and their sidecar ->
+                       ELL arrays
 
 The port runs one process, so every plan reads every line; the multi-process
 line and file shards come with multi-GPU training (ROADMAP.md 1.7). The
-convex families' DataIngest and its sparse ELL arrays come with the convex
-stack (ROADMAP.md 1.9).
+native parser of the JAX package is not ported (ROADMAP.md 1.15):
+`DataIngest.load` always takes the Python path, which gives the same
+arrays.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Sequence, Tuple
+import logging
+import math
+import random
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
+    Sequence, Tuple
 
-from ..config.params import DelimParams
+import numpy as np
+
+from ..config.params import CommonParams, DelimParams
+from .feature_hash import FeatureHash
 from .fs import LocalFileSystem
+
+log = logging.getLogger("ytklearn_tpu_torch.ingest")
 
 
 @dataclass
@@ -68,3 +86,396 @@ def shard_read_lines(fs, data_params, paths) -> Iterator[str]:
     if divisor == 1:
         return fs.read_lines(paths)
     return fs.select_read_lines(paths, divisor, remainder)
+
+
+# -- feature statistics and transforms --------------------------------------
+
+
+@dataclass
+class FeatureStat:
+    """Running (cnt, sum, sum2, min, max) (reference: CoreData.FeatureStat)."""
+
+    cnt: int = 0
+    sum: float = 0.0
+    sum2: float = 0.0
+    max: float = -math.inf
+    min: float = math.inf
+
+    def update(self, v: float) -> None:
+        self.cnt += 1
+        self.sum += v
+        self.sum2 += v * v
+        if v > self.max:
+            self.max = v
+        if v < self.min:
+            self.min = v
+
+
+@dataclass
+class TransformNode:
+    """Standardization or range scaling of one feature (reference:
+    CoreData.TransformNode; the sidecar's text format)."""
+
+    mode: str  # standardization | scale_range
+    mean: float = 0.0
+    stdvar: float = 0.0
+    max: float = 0.0
+    min: float = 0.0
+    range_max: float = 1.0
+    range_min: float = -1.0
+
+    def transform(self, val: float) -> float:
+        if self.mode == "standardization":
+            if self.stdvar < 1e-6:
+                return val
+            return (val - self.mean) / self.stdvar
+        if abs(self.max - self.min) < 1e-6:
+            return 1.0
+        return self.range_min + (self.range_max - self.range_min) * (
+            (val - self.min) / (self.max - self.min))
+
+    def __str__(self) -> str:  # a sidecar line's payload
+        return (f"mode={self.mode}, mean={self.mean}, stdvar={self.stdvar}, "
+                f"max={self.max}, min={self.min}, rangeMax={self.range_max}, "
+                f"rangeMin={self.range_min}")
+
+    @classmethod
+    def from_string(cls, s: str) -> "TransformNode":
+        info = [kv.split("=")[1].strip() for kv in s.split(",")]
+        return cls(mode=info[0].lower(), mean=float(info[1]),
+                   stdvar=float(info[2]), max=float(info[3]),
+                   min=float(info[4]), range_max=float(info[5]),
+                   range_min=float(info[6]))
+
+    @classmethod
+    def from_stat(cls, stat: FeatureStat, mode: str, range_max: float,
+                  range_min: float) -> "TransformNode":
+        mean = stat.sum / stat.cnt
+        mean2 = stat.sum2 / stat.cnt
+        return cls(mode=mode, mean=mean,
+                   stdvar=math.sqrt(max(mean2 - mean * mean, 0.0)),
+                   max=stat.max, min=stat.min, range_max=range_max,
+                   range_min=range_min)
+
+
+# -- the dataset ------------------------------------------------------------
+
+
+@dataclass
+class SparseDataset:
+    """Padded ELL rows on the host: idx[i, j], val[i, j] hold row i's j-th
+    (feature, value); padding slots are (0, 0.0) and add nothing. With
+    need_bias, every row's first slot is (0, 1.0): index 0 is the bias."""
+
+    idx: np.ndarray  # (n, width) int32
+    val: np.ndarray  # (n, width) float32
+    y: np.ndarray  # (n,) or (n, K) float32
+    weight: np.ndarray  # (n,) float32
+    n_real: int
+    dim: int  # feature dimension (dict size)
+    field: Optional[np.ndarray] = None  # (n, width) int32, FFM only
+
+    @property
+    def n(self) -> int:
+        return self.idx.shape[0]
+
+
+@dataclass
+class IngestResult:
+    train: SparseDataset
+    test: Optional[SparseDataset]
+    feature_map: Dict[str, int]  # name -> global index
+    transform_nodes: Dict[int, TransformNode] = field(default_factory=dict)
+    # label stats (reference: CoreData.globalSync y stats)
+    y_real_stat: Optional[np.ndarray] = None
+    y_weight_stat: Optional[np.ndarray] = None
+
+
+def _counts_from_rows(rows: Sequence[ParsedLine]) -> Dict[str, int]:
+    counts: Dict[str, int] = {}
+    for r in rows:
+        for name, _ in r.feats:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+class DataIngest:
+    """The convex families' ingest on one process (reference:
+    DataFlow.loadFlow)."""
+
+    def __init__(
+        self,
+        params: CommonParams,
+        fs=None,
+        n_labels: int = 1,
+        transform_hook: Optional[Callable[[bytes], List[str]]] = None,
+        field_map: Optional[Dict[str, int]] = None,
+    ):
+        self.params = params
+        self.fs = fs or LocalFileSystem()
+        self.n_labels = n_labels  # K for multiclass losses, else 1
+        self.transform_hook = transform_hook
+        # FFM: a feature's field is its name's prefix before field_delim,
+        # through the field dict; features of unknown fields drop
+        # (reference: FFMModelDataFlow.updateX)
+        self.field_map = field_map
+        fh = params.feature.feature_hash
+        self.hash = (FeatureHash(fh.bucket_size, fh.seed, fh.feature_prefix)
+                     if fh.need_feature_hash else None)
+        self.rng = random.Random(20170425)
+
+    # -- parsing --------------------------------------------------------
+
+    def _expand_labels(self, labels: List[float], line: str) -> List[float]:
+        K = self.n_labels
+        if K == 1:
+            return labels[:1]
+        if len(labels) == K:
+            return labels
+        if len(labels) == 1:
+            clazz = int(labels[0])
+            if clazz >= K:
+                raise ValueError(f"label must be in [0,{K-1}]: {line}")
+            out = [0.0] * K
+            out[clazz] = 1.0
+            return out
+        raise ValueError(f"label num must be {K} or 1: {line}")
+
+    def parse_rows(self, lines: Iterable[str], max_error_tol: int,
+                   is_train: bool) -> List[ParsedLine]:
+        delim = self.params.data.delim
+        ys = dict(self.params.data.y_sampling)
+        rows: List[ParsedLine] = []
+        errors = 0
+        for raw in lines:
+            if not raw.strip():
+                continue
+            for line in (self.transform_hook(raw.encode("utf-8"))
+                         if self.transform_hook else [raw]):
+                try:
+                    pl = parse_line(line, delim)
+                    pl.labels = self._expand_labels(pl.labels, line)
+                    if self.hash is not None:
+                        pl.feats = self.hash.hash_features(pl.feats)
+                    if is_train and ys:
+                        # label-dependent subsampling with inverse-
+                        # probability weights (reference: CoreData.yExtract);
+                        # a K-vector without an exact 1.0 is an error line
+                        label_idx = (pl.labels.index(1.0)
+                                     if len(pl.labels) > 1
+                                     else int(pl.labels[0]))
+                        rate = ys.get(str(label_idx))
+                        if rate is not None:
+                            pl.weight *= (1.0 / rate) if rate <= 1.0 else rate
+                            if self.rng.random() > rate:
+                                continue
+                except (ValueError, IndexError, OverflowError):
+                    errors += 1
+                    if errors > max_error_tol:
+                        raise
+                    continue
+                rows.append(pl)
+        return rows
+
+    # -- dict -----------------------------------------------------------
+
+    def finalize_feature_map(self, counts: Dict[str, int]) -> Dict[str, int]:
+        """Count filter (threshold), sorted names, bias at 0 (reference:
+        DataFlow.reduceFeature:294)."""
+        p = self.params
+        thr = p.feature.filter_threshold
+        names = sorted(n for n, c in counts.items() if c >= thr)
+        fmap: Dict[str, int] = {}
+        delta = 0
+        if p.model.need_bias:
+            fmap[p.model.bias_feature_name] = 0
+            delta = 1
+            if p.model.bias_feature_name in names:
+                names.remove(p.model.bias_feature_name)
+        for i, n in enumerate(names):
+            fmap[n] = i + delta
+        return fmap
+
+    def load_feature_map(self, dict_paths: Sequence[str]) -> Dict[str, int]:
+        """Bias at 0, then the dict files' lines in sorted-path order
+        (reference: DataFlow.loadDict:244)."""
+        names: List[str] = []
+        for path in sorted(self.fs.recur_get_paths(dict_paths)):
+            with self.fs.open(path) as f:
+                names.extend(line.strip() for line in f)
+        p = self.params
+        fmap: Dict[str, int] = {}
+        if p.model.need_bias:
+            fmap[p.model.bias_feature_name] = 0
+        for name in names:
+            if name and name not in fmap:
+                fmap[name] = len(fmap)
+        return fmap
+
+    def _resolve_feature_map(self, rows) -> Dict[str, int]:
+        """Load a dict when just_evaluate or continue_train finds the
+        model's, or need_dict names one; else build it from the counts."""
+        p = self.params
+        model_dict = p.model.data_path + "_dict"
+        if p.loss.just_evaluate and self.fs.exists(model_dict):
+            return self.load_feature_map([model_dict])
+        if p.model.need_dict and p.model.dict_path:
+            return self.load_feature_map([p.model.dict_path])
+        if p.model.continue_train and self.fs.exists(model_dict):
+            return self.load_feature_map([model_dict])
+        return self.finalize_feature_map(_counts_from_rows(rows))
+
+    # -- transform ------------------------------------------------------
+
+    def compute_transform_nodes(self, rows: Sequence[ParsedLine],
+                                fmap: Dict[str, int]
+                                ) -> Dict[int, TransformNode]:
+        """Stats over the training rows -> nodes of the chosen features
+        (include_features, else all but exclude_features; never the
+        bias)."""
+        t = self.params.feature.transform
+        if not t.switch_on:
+            return {}
+        stats: Dict[str, FeatureStat] = {}
+        for r in rows:
+            for name, v in r.feats:
+                s = stats.get(name)
+                if s is None:
+                    stats[name] = s = FeatureStat()
+                s.update(v)
+        include, exclude = set(t.include_features), set(t.exclude_features)
+        names = set(fmap) - {self.params.model.bias_feature_name}
+        chosen = include or (names - exclude if exclude else names)
+        nodes: Dict[int, TransformNode] = {}
+        for name in chosen:
+            if name in stats and name in fmap:
+                nodes[fmap[name]] = TransformNode.from_stat(
+                    stats[name], t.mode, t.scale_max, t.scale_min)
+        return nodes
+
+    def write_transform_sidecar(self, nodes: Dict[int, TransformNode],
+                                fmap: Dict[str, int]) -> None:
+        """`<model>_feature_transform_stat`, the reference's text format."""
+        if not nodes:
+            return
+        inv = {i: n for n, i in fmap.items()}
+        path = self.params.model.data_path + "_feature_transform_stat"
+        with self.fs.atomic_open(path) as f:
+            for i, node in sorted(nodes.items()):
+                f.write(f"{inv[i]}###{node}\n")
+
+    # -- materialization -------------------------------------------------
+
+    def to_dataset(self, rows: Sequence[ParsedLine], fmap: Dict[str, int],
+                   nodes: Optional[Dict[int, TransformNode]] = None
+                   ) -> SparseDataset:
+        """Rows -> padded ELL arrays: the bias first (field 0) when
+        need_bias, then each row's features in line order; features
+        outside the dict, or of an unknown field, drop."""
+        p = self.params
+        need_bias = p.model.need_bias
+        n = len(rows)
+        K = self.n_labels
+        fm = self.field_map
+        fdelim = p.data.delim.field_delim
+        row_of: List[int] = []
+        gis: List[int] = []
+        vals: List[float] = []
+        fis: List[int] = []
+        counts = np.zeros(n, np.int64)
+        for i, r in enumerate(rows):
+            c = 0
+            if need_bias:
+                row_of.append(i)
+                gis.append(0)
+                vals.append(1.0)
+                fis.append(0)
+                c = 1
+            for name, v in r.feats:
+                gi = fmap.get(name)
+                if gi is None:
+                    continue
+                fi = 0
+                if fm is not None:
+                    fi = fm.get(name.split(fdelim)[0], -1)
+                    if fi < 0:
+                        continue
+                row_of.append(i)
+                gis.append(gi)
+                vals.append(v)
+                fis.append(fi)
+                c += 1
+            counts[i] = c
+        width = max(int(counts.max()) if n else 0, 1)
+        flat_gi = np.asarray(gis, np.int64)
+        flat_v = np.asarray(vals, np.float64)
+        if nodes and len(flat_gi):
+            # the bias has no node (compute_transform_nodes skips it), so
+            # its replay is the identity
+            from ..transform.pipeline import TransformTable, apply_nodes
+
+            flat_v = apply_nodes(TransformTable.from_indexed(nodes, len(fmap)),
+                                 flat_gi, flat_v)
+        ri = np.asarray(row_of, np.int64)
+        start = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=start[1:])
+        jj = np.arange(len(ri)) - start[ri] if len(ri) else ri
+        idx = np.zeros((n, width), np.int32)
+        val = np.zeros((n, width), np.float32)
+        idx[ri, jj] = flat_gi
+        val[ri, jj] = flat_v
+        fld = None
+        if fm is not None:
+            fld = np.zeros((n, width), np.int32)
+            fld[ri, jj] = np.asarray(fis, np.int64)
+        if K > 1:
+            y = np.asarray([r.labels for r in rows],
+                           np.float32).reshape((n, K))
+        else:
+            y = np.asarray([r.labels[0] for r in rows], np.float32)
+        weight = np.asarray([r.weight for r in rows], np.float32)
+        return SparseDataset(idx, val, y, weight, n_real=n, dim=len(fmap),
+                             field=fld)
+
+    # -- the whole flow ---------------------------------------------------
+
+    def load(self) -> IngestResult:
+        """The loadFlow (reference: dataflow/DataFlow.java:468), on the
+        Python parser."""
+        p = self.params
+        log.info("convex ingest: the Python parser (the native parser is "
+                 "ROADMAP.md 1.15)")
+
+        def read(paths: Sequence[str]) -> Iterator[str]:
+            return shard_read_lines(self.fs, p.data, paths)
+
+        train_rows = self.parse_rows(read(p.data.train_paths),
+                                     p.data.train_max_error_tol,
+                                     is_train=True)
+        fmap = self._resolve_feature_map(train_rows)
+        nodes = self.compute_transform_nodes(train_rows, fmap)
+        if nodes:
+            self.write_transform_sidecar(nodes, fmap)
+        train = self.to_dataset(train_rows, fmap, nodes)
+        test = None
+        if p.data.test_paths:
+            test_rows = self.parse_rows(read(p.data.test_paths),
+                                        p.data.test_max_error_tol,
+                                        is_train=False)
+            test = self.to_dataset(test_rows, fmap, nodes)
+        K = max(self.n_labels, 2)
+        y_real = np.zeros(K, np.int64)
+        y_weight = np.zeros(K, np.float64)
+        for r in train_rows:
+            if len(r.labels) > 1:
+                if 1.0 not in r.labels:
+                    continue  # a soft K-vector label has no class slot
+                li = r.labels.index(1.0)
+            else:
+                li = int(r.labels[0])
+            if 0 <= li < K:
+                y_real[li] += 1
+                y_weight[li] += r.weight
+        return IngestResult(train=train, test=test, feature_map=fmap,
+                            transform_nodes=nodes, y_real_stat=y_real,
+                            y_weight_stat=y_weight)

@@ -3,7 +3,8 @@ are enough to serve `score/predict` on feature dicts (reference:
 predictor/OnlinePredictor.java:120-182).
 
 Per-sample scoring is host Python/numpy; `numpy_activation` is the host
-mirror of `Loss.predict`, so a single request never touches the device.
+mirror of `LossFunction.predict`, so a single request never touches the
+device.
 """
 
 from __future__ import annotations
@@ -11,10 +12,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..config import hocon
 from ..io.fs import LocalFileSystem, create_filesystem
-from ..losses import IDENTITY_LOSSES
+from ..losses import _POISSON_MAX_EXP, IDENTITY_LOSSES
 
 
 def _np_sigmoid(s):
@@ -23,13 +25,27 @@ def _np_sigmoid(s):
     return np.where(s >= 0.0, 1.0 / (1.0 + t), t / (1.0 + t))
 
 
+def _np_softmax(s):
+    s = np.asarray(s, np.float64)
+    e = np.exp(s - np.max(s, axis=-1, keepdims=True))
+    return e / np.sum(e, axis=-1, keepdims=True)
+
+
 def numpy_activation(loss):
-    """Host-numpy mirror of `loss.predict` for every loss the port serves."""
+    """Host mirror of `loss.predict` on float64 scores: numpy for every
+    loss but hsoftmax, whose heap walk runs the torch function on a CPU
+    tensor."""
     if loss.name == "sigmoid":
         return _np_sigmoid
     if loss.name in IDENTITY_LOSSES:
         return lambda s: s
-    raise NotImplementedError(f"no activation for loss {loss.name!r}")
+    if loss.name == "poisson":
+        return lambda s: np.exp(np.minimum(np.asarray(s, np.float64),
+                                           _POISSON_MAX_EXP))
+    if loss.name == "softmax":
+        return _np_softmax
+    return lambda s: loss.predict(
+        torch.as_tensor(np.asarray(s, np.float64))).numpy()
 
 
 class OnlinePredictor:
@@ -52,8 +68,11 @@ class OnlinePredictor:
     def scores(self, features: Dict[str, float]) -> List[float]:
         return [self.score(features)]
 
+    def _activation(self, s):
+        return numpy_activation(self.loss)(s)
+
     def predict(self, features: Dict[str, float]) -> float:
-        return float(numpy_activation(self.loss)(self.score(features)))
+        return float(self._activation(self.score(features)))
 
     def predicts(self, features: Dict[str, float]) -> List[float]:
         return [self.predict(features)]
@@ -65,4 +84,4 @@ class OnlinePredictor:
         return out if self.n_outputs > 1 else out[:, 0]
 
     def batch_predicts(self, rows) -> np.ndarray:
-        return np.asarray(numpy_activation(self.loss)(self.batch_scores(rows)))
+        return np.asarray(self._activation(self.batch_scores(rows)))

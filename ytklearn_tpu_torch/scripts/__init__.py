@@ -20,6 +20,11 @@ reference's `scripts/`, and the timers of two checkouts:
                      against bench.py's synthetic band, one JSON object a
                      run; --repeats N runs it in N fresh processes and adds
                      the medians (bench.py::bench_gbdt)
+  bench_fm           bench.py's FM cell: rank-8 FM, full-batch L-BFGS over
+                     2,000,000 Criteo-shaped rows; examples/s and the loss,
+                     --repeats N as bench_gbdt (bench.py::bench_fm)
+  convex_synth       seeded text files and configs of the convex families
+                     for the tests and chip_smoke.py (no command line)
 
 Each runs as `python -m ytklearn_tpu_torch.scripts.<name>` on the card
 (the default device; without a GPU it raises), times with CUDA events and

@@ -88,7 +88,7 @@ class CompiledScorer:
         if not isinstance(predictor, GBDTPredictor):
             raise TypeError(
                 f"no lowering for {type(predictor).__name__}: only GBDT is "
-                "ported (ROADMAP.md)"
+                "ported (ROADMAP.md 1.6, the rest of serving)"
             )
         self.device = resolve_device(device)
         self.predictor = predictor

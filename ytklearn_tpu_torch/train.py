@@ -1,0 +1,318 @@
+"""The convex families' training session (``ytklearn_tpu/train.py``;
+reference worker/TrainWorker.java:133-236, operation/HoagOperation.java
+:35-40 and the grid and HOAG rounds of optimizer/HoagOptimizer.java:
+457-902), on one device.
+
+Ingest parses the text into padded ELL arrays on the host, the model's
+batch goes to the device once, and L-BFGS runs there (optimize/lbfgs.py).
+Each iteration computes the test loss, and every fifth (and the first two)
+the configured metrics; `model.dump_freq` dumps on the way, the best round
+at the end. The multi-process collectives come with multi-GPU training
+(ROADMAP.md 1.7), the obs spans and the preemption guard with ROADMAP.md
+1.12 and 1.5.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .config.params import CommonParams
+from .device import resolve_device
+from .eval import EvalSet
+from .io.fs import LocalFileSystem
+from .io.reader import DataIngest, IngestResult
+from .models import FFMModel, FMModel, LinearModel, MulticlassLinearModel, \
+    load_field_dict
+from .optimize import LBFGSConfig, inv_hessian_vp, minimize_lbfgs
+from .optimize.blocked import make_rows, make_sum, make_value_and_grad
+
+log = logging.getLogger("ytklearn_tpu_torch.train")
+
+#: the families HoagTrainer trains
+CONVEX_NAMES = ("linear", "multiclass_linear", "fm", "ffm")
+
+
+@dataclass
+class TrainResult:
+    w: np.ndarray
+    loss: float  # regularized weighted-sum train loss
+    avg_loss: float
+    pure_loss: float
+    test_loss: Optional[float]
+    n_iter: int
+    status: str
+    train_metrics: Dict[str, float] = field(default_factory=dict)
+    test_metrics: Dict[str, float] = field(default_factory=dict)
+    best_l1: Optional[float] = None
+    best_l2: Optional[float] = None
+    history: List[Dict] = field(default_factory=list)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class HoagTrainer:
+    """Trainer of the convex families on `device` (cuda by default; it
+    raises without a GPU unless the caller passes "cpu")."""
+
+    def __init__(self, params: CommonParams, model_name: str = "linear",
+                 fs=None, transform_hook: Optional[Callable] = None,
+                 device=None):
+        if model_name not in CONVEX_NAMES:
+            raise ValueError(f"unknown model {model_name!r}")
+        self.params = params
+        self.model_name = model_name
+        self.fs = fs or LocalFileSystem()
+        self.transform_hook = transform_hook
+        self.device = resolve_device(device)
+        self._field_map: Optional[Dict[str, int]] = None
+        self.time_stats: Dict[str, float] = {}
+
+    def _ingest(self) -> IngestResult:
+        """The family's ingest (reference: DataFlowFactory.createDataFlow:
+        37-72): only the label width and FFM's field map differ."""
+        p = self.params
+        kwargs = {}
+        if self.model_name == "multiclass_linear":
+            kwargs["n_labels"] = int(p.k)
+        elif self.model_name == "ffm":
+            kwargs["field_map"] = self._fields()
+        return DataIngest(p, fs=self.fs, transform_hook=self.transform_hook,
+                          **kwargs).load()
+
+    def _fields(self) -> Dict[str, int]:
+        if self._field_map is None:
+            if not self.params.model.field_dict_path:
+                raise ValueError("ffm requires model.field_dict_path")
+            self._field_map = load_field_dict(
+                self.fs, self.params.model.field_dict_path)
+        return self._field_map
+
+    def _make_model(self, ingest: IngestResult):
+        dim, p, dev = ingest.train.dim, self.params, self.device
+        if self.model_name == "linear":
+            return LinearModel(p, dim, device=dev)
+        if self.model_name == "multiclass_linear":
+            return MulticlassLinearModel(p, dim, device=dev)
+        if self.model_name == "fm":
+            return FMModel(p, dim, device=dev)
+        # the field dict the ingest used, so n_fields matches ds.field
+        return FFMModel(p, dim, n_fields=len(self._fields()), device=dev)
+
+    def train(self, ingest: Optional[IngestResult] = None) -> TrainResult:
+        p = self.params
+        t0 = time.time()
+        ts = self.time_stats = {}
+        if ingest is None:
+            ingest = self._ingest()
+        ts["load"] = time.time() - t0
+        log.info("load flow done in %.1fs: %d train rows, dim %d",
+                 ts["load"], ingest.train.n_real, ingest.train.dim)
+        model = self._make_model(ingest)
+        train_b = model.device_batch(ingest.train)
+        test_b = model.device_batch(ingest.test) if ingest.test else None
+        g_weight = float(np.sum(ingest.train.weight))
+        g_weight_test = (float(np.sum(ingest.test.weight)) if ingest.test
+                         else 0.0)
+
+        # continue_train / just_evaluate warm start
+        w0 = None
+        if p.model.continue_train or p.loss.just_evaluate:
+            w0 = model.load_model(self.fs, ingest.feature_map)
+            if w0 is not None:
+                log.info("continue_train: loaded existing model")
+        if w0 is None:
+            w0 = model.init_weights()
+
+        eval_set = (EvalSet(p.loss.evaluate_metric,
+                            K=max(model.n_labels, 2))
+                    if p.loss.evaluate_metric else None)
+        # blocked evaluation: row chunks keep the per-row intermediates
+        # (FM/FFM latent gathers) from scaling peak memory with n
+        width = int(train_b[0].shape[1]) if train_b[0].ndim > 1 else 1
+        row_chunk = model.suggest_row_chunk(int(train_b[0].shape[0]), width)
+        if row_chunk is not None:
+            log.info("blocked evaluation: row chunk %d", row_chunk)
+        loss_sum = make_sum(model.pure_loss, row_chunk)
+        predicts = make_rows(model.predicts, row_chunk)
+
+        def precision(w, l2_vec):
+            if not hasattr(model, "precision"):
+                return None
+            with torch.no_grad():
+                return _host(model.precision(w, *train_b, l2_vec=l2_vec,
+                                             g_weight=g_weight))
+
+        def evaluate(w, sink: Dict) -> None:
+            if eval_set is None:
+                return
+            sink["train_metrics"] = eval_set.evaluate(
+                predicts(w, *train_b), train_b[-2], train_b[-1])
+            if test_b is not None:
+                sink["test_metrics"] = eval_set.evaluate(
+                    predicts(w, *test_b), test_b[-2], test_b[-1])
+
+        def test_avg(w) -> float:
+            return float(loss_sum(w, *test_b)) / max(g_weight_test, 1e-12)
+
+        # grid rounds, HOAG rounds or one round
+        hoag_mode = p.hyper.switch_on and p.hyper.mode == "hoag"
+        if p.hyper.switch_on and p.hyper.mode == "grid":
+            l1_grid = p.hyper.grid_l1 or [p.loss.l1[0]]
+            l2_grid = p.hyper.grid_l2 or [p.loss.l2[0]]
+            rounds = [(a, b) for a in l1_grid for b in l2_grid]
+        elif hoag_mode:
+            if test_b is None:
+                raise ValueError(
+                    "hyper.mode=hoag needs test data (data.test.data_path): "
+                    "the hypergradient is the test-loss gradient")
+            n_blocks = len(model.regular_blocks())
+            hoag_l1 = np.broadcast_to(np.atleast_1d(np.asarray(
+                p.hyper.hoag_l1, float)), (n_blocks,)).copy()
+            hoag_l2 = np.broadcast_to(np.atleast_1d(np.asarray(
+                p.hyper.hoag_l2, float)), (n_blocks,)).copy()
+            if p.hyper.hoag_outer_iter <= 0:
+                raise ValueError("hyper.hoag.outer_iter must be > 0, got "
+                                 f"{p.hyper.hoag_outer_iter}")
+            if not np.any(hoag_l2 > 0.0):
+                raise ValueError(
+                    "hyper.mode=hoag needs at least one positive "
+                    "hyper.hoag.l2 entry (the hypergradient steps log(l2); "
+                    "l2=0 blocks are held fixed)")
+            rounds = [(hoag_l1, hoag_l2)] * p.hyper.hoag_outer_iter
+            hoag_steps = np.full((n_blocks,), p.hyper.hoag_init_step)
+            hoag_grad_hist: List[np.ndarray] = []
+            hoag_delta_hist: List[float] = []
+            hoag_t_old = 0.0
+            test_vg = make_value_and_grad(model.pure_loss, row_chunk)
+        else:
+            if p.hyper.switch_on:
+                log.warning("unknown hyper.mode=%r (grid|hoag); running a "
+                            "single round at l1=%g l2=%g", p.hyper.mode,
+                            p.loss.l1[0], p.loss.l2[0])
+            rounds = [(p.loss.l1[0], p.loss.l2[0])]
+
+        cfg = LBFGSConfig.from_params(p.line_search)
+        best = None  # (test loss, result, l1, l2)
+        history: List[Dict] = []
+        # restart: every round starts from the initial w (a warm start
+        # included); else a round carries the previous round's solution
+        # (reference: HoagOptimizer.java:318,469)
+        carry_w = w0
+        for round_idx in range(len(rounds)):
+            l1, l2 = (hoag_l1, hoag_l2) if hoag_mode else rounds[round_idx]
+            l1_vec, l2_vec = model.reg_vectors(l1, l2)
+            start_w = w0 if p.hyper.restart else carry_w
+
+            def callback(it, state, _l1=l1, _l2=l2, _l2v=l2_vec):
+                rec = {"iter": it, "l1": _l1, "l2": _l2,
+                       "loss": state.loss,
+                       "avg_loss": state.loss / g_weight,
+                       "pure_loss": state.pure_loss}
+                if test_b is not None:
+                    rec["test_loss"] = test_avg(state.w)
+                if it % 5 == 0 or it <= 1:
+                    evaluate(state.w, rec)
+                history.append(rec)
+                log.info("[iter=%d] %.1fs train avg loss=%.6f%s", it,
+                         time.time() - t0, rec["avg_loss"],
+                         f" test avg loss={rec['test_loss']:.6f}"
+                         if "test_loss" in rec else "")
+                # periodic checkpoint (reference dump_freq block :647-660)
+                if (p.model.dump_freq > 0 and it > 0
+                        and it % p.model.dump_freq == 0):
+                    self._dump(model, state.w, ingest,
+                               precision(state.w, _l2v))
+                return bool(p.loss.just_evaluate)
+
+            res = minimize_lbfgs(
+                model.pure_loss,
+                torch.as_tensor(np.asarray(start_w, np.float32)).to(
+                    self.device),
+                cfg, batch=train_b, l1_vec=l1_vec, l2_vec=l2_vec,
+                g_weight=g_weight, callback=callback, row_chunk=row_chunk)
+            carry_w = _host(res.w)
+            # round selection: the test loss, else the pure train loss (the
+            # regularized one would always prefer the smallest penalty);
+            # HOAG keeps the last round
+            tl = (float(loss_sum(res.w, *test_b)) if test_b is not None
+                  else res.pure_loss)
+            if best is None or hoag_mode or tl < best[0]:
+                best = (tl, res, l1, l2)
+            if len(rounds) > 1:
+                log.info("[hyper l1=%s l2=%s] train loss %.6f test loss %s",
+                         np.asarray(l1), np.asarray(l2), res.loss / g_weight,
+                         tl / max(g_weight_test, 1e-12)
+                         if test_b is not None else "n/a")
+            if not hoag_mode:
+                continue
+            # HOAG's hypergradient step on log l2 (reference:
+            # HoagOptimizer.hyperHoagOptimization:813-902)
+            tl_avg = tl / max(g_weight_test, 1e-12)
+            gtest = test_vg(res.w, *test_b)[1] / g_weight_test
+            q = _host(inv_hessian_vp(res.state, gtest, cfg.m))
+            w_np = carry_w
+            grad_log_l2 = np.zeros_like(hoag_l2)
+            for r, (s, e) in enumerate(model.regular_blocks()):
+                if hoag_l2[r] > 0.0:
+                    grad_log_l2[r] = (-hoag_l2[r] * g_weight
+                                      * float(np.dot(w_np[s:e], q[s:e])))
+            hoag_delta_hist.append(tl_avg - hoag_t_old)
+            hoag_t_old = tl_avg
+            hoag_grad_hist.append(grad_log_l2)
+            # a hypergradient sign flip shrinks the step (:845-857)
+            if len(hoag_grad_hist) >= 2:
+                flip = hoag_grad_hist[-2] * grad_log_l2 < 0.0
+                hoag_steps = np.where(
+                    flip & (hoag_l2 > 0.0),
+                    hoag_steps * p.hyper.hoag_step_decr_factor, hoag_steps)
+            # stop when the last three |delta test loss| average stalls
+            # (:860-876)
+            if len(hoag_delta_hist) >= 3:
+                sumdelta = float(np.mean(np.abs(hoag_delta_hist[-3:])))
+                if sumdelta < p.hyper.hoag_test_loss_reduce_limit:
+                    log.info("[hoag] last 3 avg test loss delta %.3g < %g, "
+                             "exit! final l2: %s", sumdelta,
+                             p.hyper.hoag_test_loss_reduce_limit, hoag_l2)
+                    break
+            # a signed step on log l2 (:885-895)
+            upd = hoag_l2 > 0.0
+            logl2 = np.where(upd, np.log(np.where(upd, hoag_l2, 1.0)), 0.0)
+            logl2 = logl2 + np.where(-grad_log_l2 >= 0.0, hoag_steps,
+                                     -hoag_steps)
+            hoag_l2 = np.where(upd, np.exp(logl2), hoag_l2)
+            log.info("[hoag round %d] test avg loss %.6f hypergrad %s new "
+                     "l2 %s", round_idx, tl_avg, grad_log_l2, hoag_l2)
+
+        tl, res, bl1, bl2 = best
+        _, l2_vec = model.reg_vectors(bl1, bl2)
+        self._dump(model, res.w, ingest, precision(res.w, l2_vec))
+        out = TrainResult(
+            w=_host(res.w), loss=res.loss, avg_loss=res.loss / g_weight,
+            pure_loss=res.pure_loss,
+            test_loss=(tl / max(g_weight_test, 1e-12)
+                       if test_b is not None else None),
+            n_iter=res.n_iter, status=res.status, best_l1=bl1, best_l2=bl2,
+            history=history)
+        sink: Dict = {}
+        evaluate(res.w, sink)
+        out.train_metrics = sink.get("train_metrics", {})
+        out.test_metrics = sink.get("test_metrics", {})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        ts["train"] = time.time() - t0 - ts["load"]
+        log.info("training done: %s after %d iters, avg loss %.6f, metrics "
+                 "%s; load %.1fs, train %.1fs", res.status, res.n_iter,
+                 out.avg_loss, out.train_metrics, ts["load"], ts["train"])
+        return out
+
+    def _dump(self, model, w, ingest: IngestResult,
+              precision: Optional[np.ndarray]) -> None:
+        model.dump_model(self.fs, _host(w), precision, ingest.feature_map)

@@ -1,36 +1,145 @@
-"""Batched raw-feature assembly for serving.
+"""The one transform path of ingest, the predictors and serving
+(``ytklearn_tpu/transform/pipeline.py``).
 
-The identity mode of ``ytklearn_tpu/transform/pipeline.py::
-TransformPipeline`` (the one GBDT serving uses): request dicts scatter into
-a dense (B, dim) float64 matrix against the model vocab, unknown features
-drop, absent ones keep the fill (NaN routes a row to the split's default
-child). Hashing and transform-stat replay belong to the convex families
-and come with them (ROADMAP.md).
+  TransformTable, apply_nodes  the vectorized TransformNode replay, one
+                               implementation for the convex ingest
+                               (`DataIngest.to_dataset`) and the
+                               predictors (`prep_row`)
+  TransformPipeline            `prep_row`: a predictor's bias drop, murmur
+                               hashing and replay of one feature dict;
+                               `featurize`: request dicts scattered into a
+                               dense (B, dim) float64 matrix against the
+                               model vocab (the identity mode GBDT serving
+                               uses)
+
+Replay semantics, bit for bit the scalar `TransformNode.transform`:
+standardization `(val - mean) / stdvar` unless `stdvar < 1e-6`
+(identity); scale_range `rmin + (rmax - rmin) * ((val - min) / (max -
+min))`, or 1.0 when `|max - min| < 1e-6`; for the predictors only
+(`nodeless_zero`), a feature without a stat node maps to 0.0 when the
+transform is on (ContinuousOnlinePredictor.transform:135-143). The hashing
+and replay of the serving rungs of the convex families come with their
+lowerings (ROADMAP.md 1.6).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["TransformPipeline"]
+__all__ = ["TransformTable", "apply_nodes", "TransformPipeline"]
+
+
+@dataclass
+class TransformTable:
+    """TransformNode fields as dense lookup arrays: one row a global
+    feature index (`from_indexed`), or a row a node after a row-0 "no
+    node" sentinel (`from_named`)."""
+
+    has: np.ndarray  # bool: a stat node exists for this row
+    is_std: np.ndarray  # bool: mode == standardization
+    mean: np.ndarray
+    std: np.ndarray
+    mn: np.ndarray
+    mx: np.ndarray
+    rmin: np.ndarray
+    rmax: np.ndarray
+
+    @classmethod
+    def zeros(cls, dim: int) -> "TransformTable":
+        z = np.zeros(dim)
+        return cls(has=np.zeros(dim, bool), is_std=np.zeros(dim, bool),
+                   mean=z.copy(), std=z.copy(), mn=z.copy(), mx=z.copy(),
+                   rmin=z.copy(), rmax=z.copy())
+
+    def set_node(self, i: int, node) -> None:
+        self.has[i] = True
+        self.is_std[i] = node.mode == "standardization"
+        self.mean[i], self.std[i] = node.mean, node.stdvar
+        self.mn[i], self.mx[i] = node.min, node.max
+        self.rmin[i], self.rmax[i] = node.range_min, node.range_max
+
+    @classmethod
+    def from_indexed(cls, nodes: Dict[int, object],
+                     dim: int) -> "TransformTable":
+        t = cls.zeros(dim)
+        for g, node in nodes.items():
+            t.set_node(g, node)
+        return t
+
+    @classmethod
+    def from_named(cls, nodes: Dict[str, object]
+                   ) -> Tuple["TransformTable", Dict[str, int]]:
+        t = cls.zeros(len(nodes) + 1)
+        index: Dict[str, int] = {}
+        for i, (name, node) in enumerate(nodes.items(), start=1):
+            index[name] = i
+            t.set_node(i, node)
+        return t, index
+
+
+def apply_nodes(table: TransformTable, gi: np.ndarray, val: np.ndarray,
+                nodeless_zero: bool = False) -> np.ndarray:
+    """The vectorized TransformNode replay: `gi` indexes rows of `table`,
+    `val` is float64; returns float64."""
+    h = table.has[gi]
+    stdv = table.std[gi]
+    std_ok = table.is_std[gi] & (stdv >= 1e-6)
+    val = np.where(h & std_ok,
+                   (val - table.mean[gi]) / np.where(stdv == 0, 1, stdv),
+                   val)
+    span = table.mx[gi] - table.mn[gi]
+    small = np.abs(span) < 1e-6
+    # a * (b / c), the scalar transform's association
+    scaled = np.where(
+        small, 1.0,
+        table.rmin[gi] + (table.rmax[gi] - table.rmin[gi])
+        * ((val - table.mn[gi]) / np.where(small, 1, span)))
+    val = np.where(h & ~table.is_std[gi], scaled, val)
+    if nodeless_zero:
+        val = np.where(h, val, 0.0)
+    return val
 
 
 class TransformPipeline:
-    """Batched raw-features front door for one loaded model."""
+    """The raw-features front door of one loaded model."""
 
-    def __init__(self, *, vocab: Dict[str, int], dim: int, fill: float):
+    def __init__(self, *, vocab: Optional[Dict[str, int]] = None,
+                 dim: int = 0, fill: float = 0.0,
+                 bias_name: Optional[str] = None, feature_hash=None,
+                 nodes: Optional[Dict[str, object]] = None,
+                 transform_on: bool = False):
         self.vocab = vocab
         self.dim = dim
         self.fill = fill
+        self.bias_name = bias_name
+        self.feature_hash = feature_hash
+        self.transform_on = transform_on
+        self._table, self._index = TransformTable.from_named(
+            dict(nodes or {}))
 
     @classmethod
     def for_identity(
         cls, vocab: Dict[str, int], dim: int, fill: float
     ) -> "TransformPipeline":
         return cls(vocab=vocab, dim=dim, fill=fill)
+
+    def prep_row(self, features: Dict[str, float]) -> List[Tuple[str, float]]:
+        """Bias removal, hashing when configured, and the replay of one
+        feature dict (a convex predictor's `_prep`)."""
+        items = [(n, v) for n, v in features.items() if n != self.bias_name]
+        if self.feature_hash is not None:
+            items = self.feature_hash.hash_features(items)
+        if not self.transform_on or not items:
+            return items
+        idx = np.fromiter((self._index.get(n, 0) for n, _ in items),
+                          np.int64, len(items))
+        vals = np.fromiter((v for _, v in items), np.float64, len(items))
+        out = apply_nodes(self._table, idx, vals, nodeless_zero=True)
+        return [(items[i][0], float(out[i])) for i in range(len(items))]
 
     def featurize(self, rows: Sequence[Dict[str, float]]) -> np.ndarray:
         """Request dicts -> dense (B, dim) float64 in one batched stage."""
