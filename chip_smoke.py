@@ -16,15 +16,19 @@ sampling rates and EFB in training with bench.py's GBDT cell as the
 reference runs it, GOSS on, through scripts/bench_gbdt.py (slice 9), and
 the convex stack, `cli train` for linear, multiclass_linear, FM and FFM
 with bench.py's FM cell through scripts/bench_fm.py (slice 10; plain
-torch, no kernel of the port).
+torch, no kernel of the port), and GBDT training from text as the
+reference runs it (slice 11, no new kernel): the native C++ parser for
+both ingests, softmax with K trees a round, l1 with the approximate LAD
+refine, the other losses, the host samplers and continue_train. Every
+phase prints its wall time, and the run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
   2. builds the five kernel libraries (serve/csrc/heap_walk.cu: K6, K7;
      gbdt/csrc/hist.cu: K2, K4; gbdt/csrc/hist_float.cu: K1, K3;
      gbdt/csrc/route.cu: K5; gbdt/csrc/hist_u8.cu: K8) from the checkout,
-     one nvcc each, all started together, and prints each build's time and
-     ptxas' report;
+     one nvcc each, and the host text parser (io/csrc/ytk_parse.cpp, g++),
+     all started together, and prints each build's time and ptxas' report;
   3. holds K6 against its plain PyTorch version and against the stacked
      rung, and K7 against its plain version on uint8 and uint16 bins of
      the same rows, all on the card, with torch.equal (tolerance: exact)
@@ -74,7 +78,15 @@ torch, no kernel of the port).
      with GOSS (0.2, 0.125) and instance and feature rates 0.8; int8 with
      EFB on an exclusive one-hot block (slice 9); and requires
      prng.uniform over the padded bench rows to be bit-equal on both;
-     then (slice 9, its main path) trains bench.py's cell as the reference
+     then (slice 11) the int8 objectives at 2^16 rows, card against CPU
+     with the kernels' counts zeroed just before (K2, K4 and K5 must
+     launch, K1 and K3 not): softmax K = 7 on Covertype-shaped rows
+     (round 0's trees equal, every tree equal to the CPU's engine.grow on
+     the card's gradients, masks and key, losses at rtol 1e-4: softmax's
+     exp may round apart), l1 with the approximate LAD (every tree and
+     leaf equal), and continue_train (3 + 3 rounds of l2: the card's
+     resumed text equals its uninterrupted 6-round text byte for byte,
+     its trees the CPU's); then (slice 9, its main path) trains bench.py's cell as the reference
      runs it, GOSS (0.2, 0.125) on, at full width in int8 with the counts
      zeroed just before: the kept rows of every tree equal ceil(0.2 n) +
      ceil(0.125 (n - ceil(0.2 n))), K2, K4 and K5 launch, K5 three times a
@@ -104,8 +116,9 @@ torch, no kernel of the port).
      `python -m ytklearn_tpu_torch.cli train gbdt experiment/higgs/
      local_gbdt.conf` with --set overrides (paths, 20 rounds, max_depth 8;
      full width: 28 features, 255 bins and leaves, bf16) in this process,
-     and requires 20 trees, the model and its sidecar, and launches of K1,
-     K3 and K5 only;
+     and requires 20 trees, the model and its sidecar, launches of K1, K3
+     and K5 only, and (slice 11) the native parser, its ingest seconds
+     printed beside the Python parser's 34.689 s (PERF.md section 5);
  11. serves that model on the binned rung (YTK_SERVE_BINNED=1, edges from
      its sidecar): 200 one-row requests and one of 512 rows, every score
      bit-equal to the port's CPU binned scorer, with K7's launches counted,
@@ -124,7 +137,21 @@ torch, no kernel of the port).
      then a small l2 bf16 run twice on the card and once on the CPU,
      printing whether the card's trees repeat; and (slice 9) the bench
      cell in bf16 with GOSS on at GOSS_BF16_ROUNDS trees (K1, K3 and K5
-     on the fit matrix);
+     on the fit matrix); then (slice 11, its main path) `cli train gbdt`
+     with softmax, class_num 7, on 2^19 + 2^16 Covertype-shaped text
+     lines (54 features: 10 integer measurements, one-hot groups of 4 and
+     40; scripts/covertype_synth.py) with the Higgs config's trees, 10
+     rounds = 70 trees, the counts zeroed just before: rc 0, 70 trees, the
+     native parser, K1, K3 and K5 launched (K2 and K4 not), each held
+     at every shape that run launched it, on the run's own inputs (a
+     ShapeRecorder; K1 and K3 over the EFB-bundled columns to the float64
+     sums of the same values at HIST_RTOL, counts exact and equal to
+     their plain versions', whose f32 error is printed beside; K5 to its
+     plain version with torch.equal, in place too, with the bundles'
+     member ranges; the recorded calls equal to the launch counts), the
+     dumped model's stacked-rung scores of every test row bit-equal to
+     predict/trees.py's host walk on the first 2048, and test accuracy
+     above SOFTMAX_ACC_FLOOR;
  13. holds K8 (hist_q_u8) against its plain version with torch.equal at
      N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on waves
      of 64 and 100 slots (3N > 256: two n-tiles) with a duplicated id and
@@ -143,7 +170,8 @@ torch, no kernel of the port).
      FFM) and runs `cli train` in this process for each of CONVEX_RUNS on
      the card and on the CPU: linear with L1 (OWL-QN), linear grid,
      multiclass_linear softmax K = 5, FM k = [1, 8], FFM over 8 fields,
-     linear HOAG; each card run has the CPU run's status and iterations,
+     linear HOAG, each parsed by the native parser (slice 11); each card
+     run has the CPU run's status and iterations,
      its first 5 iterations' and final avg loss at rtol 1e-4 and test AUC
      within 1e-4, and prints ingest seconds against training seconds; no
      kernel wrapper's launch count moves; then scripts/bench_fm.py's cell
@@ -175,6 +203,7 @@ import time
 import urllib.request
 
 SEED = 20261016
+T_START = time.perf_counter()
 N_FEATURES = 28  # the Higgs width (experiment/higgs/local_gbdt.conf)
 N_TREES = 500  # scripts/serve_bench.py's GBDT serving width
 DEPTH = 6
@@ -1156,20 +1185,29 @@ def phase_train_goss(tmp, card, tps_off):
 
 
 class ShapeRecorder:
-    """While active, wraps the engine's K2, K4 and K5 wrappers: counts each
-    one's calls at each shape (rows, wave slots) and keeps a copy of the
-    first call's inputs at that shape. The launches stay the wrappers'
-    own."""
+    """While active, wraps the engine's histogram wrappers of one precision
+    (int8: K2 and K4; bf16/f32: K1 and K3) and K5: counts each one's calls
+    at each shape (rows, wave slots) and keeps a copy of the first call's
+    inputs at that shape. The launches stay the wrappers' own."""
 
     #: name, engine attribute, (rows, slots) of a call's arguments
-    KERNELS = (
-        ("hist_q", "hist_wave_q", lambda a: (a[0].shape[1], a[4].shape[0])),
-        ("hist_gather_q", "hist_wave_gather",
-         lambda a: (a[1].shape[0], a[5].shape[0])),
-        ("route", "route_wave", lambda a: (a[0].shape[1], a[3].shape[0])),
-    )
+    ROUTE = ("route", "route_wave", lambda a: (a[0].shape[1], a[3].shape[0]))
+    KERNELS = {
+        "int8": (
+            ("hist_q", "hist_wave_q",
+             lambda a: (a[0].shape[1], a[4].shape[0])),
+            ("hist_gather_q", "hist_wave_gather",
+             lambda a: (a[1].shape[0], a[5].shape[0])),
+            ROUTE),
+        "float": (
+            ("hist", "hist_wave", lambda a: (a[0].shape[1], a[4].shape[0])),
+            ("hist_gather", "hist_wave_gather",
+             lambda a: (a[1].shape[0], a[5].shape[0])),
+            ROUTE),
+    }
 
-    def __init__(self):
+    def __init__(self, precision="int8"):
+        self.kernels = self.KERNELS[precision]
         self.calls = {}  # (name, rows, N) -> [calls, args, kwargs]
 
     def _wrap(self, name, fn, shape_of):
@@ -1194,7 +1232,7 @@ class ShapeRecorder:
         from ytklearn_tpu_torch.gbdt import engine
 
         self.saved = {}
-        for name, attr, shape_of in self.KERNELS:
+        for name, attr, shape_of in self.kernels:
             self.saved[attr] = getattr(engine, attr)
             setattr(engine, attr, self._wrap(name, self.saved[attr],
                                              shape_of))
@@ -1861,6 +1899,9 @@ CLI_ROWS = 1 << 20
 CLI_TEST_ROWS = 1 << 17
 CLI_ROUNDS = 20
 CLI_DEPTH = 8
+#: cli train's ingest of the same 2^20 + 2^17 lines with the Python parser
+#: (PERF.md section 5; NVIDIA H100 80GB HBM3, 700.00 W)
+CLI_INGEST_PYTHON_S = 34.689
 CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "experiment", "higgs", "local_gbdt.conf")
 #: K1/K3 against their plain versions: float sums in two atomic orders
@@ -1883,6 +1924,52 @@ def hist_err(got, want, what, name, card):
           f"{HIST_RTOL} + {HIST_RTOL} x max|sum| ({scale:.6g}): counts exact "
           f"{counts_ok}, within {ok}, max_abs_err {err} [{card}]", flush=True)
     check(ok, f"{name} disagrees with its plain version at {what}")
+    return err
+
+
+def exact_float_hist(bin_of, F, B, pos, g, h, ids, M, bf16):
+    """The (N, F, B, 3) sums of K1/K3's (bf16-rounded) f32 values, added
+    in float64 (each id's lowest slot; the engine's waves hold no
+    duplicated id): the yardstick where a bin takes most of a wave's rows
+    and an f32 sum in any order rounds off."""
+    import torch
+
+    keys, vals = flat_keys(bin_of, F, B, pos, g, h, ids, M, bf16=bf16)
+    N = ids.shape[0]
+    out = torch.zeros(N * F * B * 3, dtype=torch.float64, device="cuda")
+    return out.scatter_add_(0, keys, vals.double()).view(N, F, B, 3)
+
+
+def exact_err(got, want, exact, what, name, card):
+    """K1/K3 (got) against the exact sums of the same values: counts equal
+    to the plain version's (want) and the exact ones; each g/h sum within
+    HIST_RTOL of the exact sum plus HIST_RTOL of the largest, hist_err's
+    tolerance. The plain version's own distance from the exact sums is
+    printed beside: it adds a bin's rows one at a time into one f32 cell,
+    so a bin that takes most of a wave's rows drifts by up to half an ulp
+    a row, where the kernel's chunked sums do not. Returns the largest
+    |got - want| of g/h."""
+    import torch
+
+    torch.cuda.synchronize()
+    counts_ok = torch.equal(got[..., 2], want[..., 2]) and torch.equal(
+        got[..., 2].double(), exact[..., 2])
+    e = exact[..., :2]
+    scale = float(e.abs().max()) if e.numel() else 0.0
+    d_k = (got[..., :2].double() - e).abs()
+    d_p = (want[..., :2].double() - e).abs()
+    ok = counts_ok and bool((d_k <= HIST_RTOL * e.abs()
+                             + HIST_RTOL * scale).all())
+    err = float((got[..., :2] - want[..., :2]).abs().max()) \
+        if got.numel() else 0.0
+    print(f"kernel check {name} {what}, against the float64 sums of the same "
+          f"values, tolerance counts exact, g/h rtol {HIST_RTOL} + "
+          f"{HIST_RTOL} x max|sum| ({scale:.6g}): counts exact {counts_ok}, "
+          f"within {ok}; max error of the kernel "
+          f"{float(d_k.max()) if d_k.numel() else 0.0:.6g}, of the plain "
+          f"version {float(d_p.max()) if d_p.numel() else 0.0:.6g}, "
+          f"max_abs_err (kernel - plain) {err} [{card}]", flush=True)
+    check(ok, f"{name} disagrees with the exact sums at {what}")
     return err
 
 
@@ -2118,6 +2205,13 @@ def phase_cli_train(tmp, card):
     sync = [(r, t) for r, t in trainer.sync_log if r >= 3]
     tps = (sync[-1][0] - sync[0][0]) / (sync[-1][1] - sync[0][1])
     trees = res["trees"]
+    print(f"cli train: parser {ts.get('parser')}; ingest "
+          f"{ingest.calls[0][1]:.3f} s (parse + fill, host) beside "
+          f"{CLI_INGEST_PYTHON_S} s with the Python parser (PERF.md section "
+          f"5) [{card}]", flush=True)
+    check(ts.get("parser") == "native",
+          f"cli train parsed with the {ts.get('parser')} parser, not the "
+          "native one (g++ is on this machine: nvcc needs it)")
     print(f"cli train: ingest {ingest.calls[0][1]:.3f} s (parse + fill, "
           f"host), preprocess {ts['preprocess']:.3f} s, rounds "
           f"{ts['train']:.3f} s, steady {tps:.4f} trees/s; precision "
@@ -2817,8 +2911,12 @@ def phase_convex_cli(card):
             line, res, ts = convex_cli(cfg, family, "cuda", tag, tmp)
             _, cres, cts = convex_cli(cfg, family, "cpu", tag, tmp)
             auc, cauc = res.test_metrics["auc"], cres.test_metrics["auc"]
+            check(ts.get("parser") == cts.get("parser") == "native",
+                  f"{run}: parsers {ts.get('parser')}/{cts.get('parser')}, "
+                  "not native")
             print(f"convex cli {run} ({family}, {dict(lines)[data]} "
-                  f"lines): n_iter {res.n_iter}, status {res.status}, "
+                  f"lines, {ts['parser']} parser): n_iter {res.n_iter}, "
+                  f"status {res.status}, "
                   f"avg_loss {res.avg_loss:.6f} (cpu {cres.avg_loss:.6f}), "
                   f"test AUC {auc:.6f} (cpu {cauc:.6f}); ingest "
                   f"{ts['load']:.3f} s against training {ts['train']:.3f} s "
@@ -2927,6 +3025,406 @@ def phase_bench_fm(card):
     return rec
 
 
+# -- slice 11: softmax, l1 with the approximate LAD, continue_train, the
+# native parser ---------------------------------------------------------------
+
+SOFTMAX_ROWS = 1 << 19
+SOFTMAX_TEST_ROWS = 1 << 16
+SOFTMAX_ROUNDS = 10
+SOFTMAX_K = 7
+SOFTMAX_SEED = 20261017
+#: the test accuracy the card's softmax run must pass: the same
+#: configuration and generator on 2^16 + 2^14 lines reached 0.6420 on the
+#: CPU (PERF.md section 6); more training rows only help
+SOFTMAX_ACC_FLOOR = 0.60
+#: rows of the host tree walk the stacked rung's scores are held to
+SOFTMAX_HOST_ROWS = 2048
+OBJ_ROWS = 1 << 16
+N_FEATURES_L1 = 28  # the Higgs width, for the l1 and resume runs
+OBJ_RTOL = 1e-4  # losses of a run through exp (tests/test_torch_gbdt_objectives.py)
+
+
+def text_rows(path):
+    """ytklearn lines -> feature dicts, as a client would send them."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            feats = line.rstrip("\n").split("###")[2]
+            rows.append({k: float(v) for k, v in
+                         (kv.split(":") for kv in feats.split(","))})
+    return rows
+
+
+def phase_softmax_cli(card):
+    """`cli train gbdt` with softmax (K = 7 trees a round) on Covertype-
+    shaped text at full width: the Higgs config's trees (255 leaves, loss
+    policy, 255 bins, lr 0.1, bf16) over 2^19 + 2^16 lines of 54 features,
+    10 rounds; K1, K3 and K5 at every shape the run launched them against
+    their plain versions (softmax_kernels); the dumped model's stacked-rung
+    scores against the host tree walk, and its test accuracy. Returns the
+    kernels' largest errors."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch import cli
+    from ytklearn_tpu_torch.gbdt.data import GBDTIngest
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.predict.trees import GBDTPredictor
+    from ytklearn_tpu_torch.scripts.covertype_synth import N_FEATURES, \
+        write_split
+    from ytklearn_tpu_torch.serve.scorer import CompiledScorer
+
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_sm_")
+    try:
+        t0 = time.perf_counter()
+        train, test, ytest = write_split(tmp, SOFTMAX_ROWS,
+                                         SOFTMAX_TEST_ROWS, SOFTMAX_SEED)
+        wrote = time.perf_counter() - t0
+        model = os.path.join(tmp, "softmax.model")
+        argv = ["train", "gbdt", CONF,
+                "--set", f"data.train.data_path={train}",
+                "--set", f"data.test.data_path={test}",
+                "--set", f"data.max_feature_dim={N_FEATURES}",
+                "--set", f"model.data_path={model}",
+                "--set", f"model.feature_importance_path={model}.imp",
+                "--set", "optimization.loss_function=softmax",
+                "--set", f"optimization.class_num={SOFTMAX_K}",
+                "--set", f"optimization.round_num={SOFTMAX_ROUNDS}",
+                "--set", 'optimization.eval_metric=["confusion_matrix"]']
+        print(f"softmax cli: wrote {SOFTMAX_ROWS} + {SOFTMAX_TEST_ROWS} "
+              f"Covertype-shaped lines in {wrote:.3f} s (host) [{card}]; "
+              f"python -m ytklearn_tpu_torch.cli {' '.join(argv)}",
+              flush=True)
+        out = io.StringIO()
+        shapes = ShapeRecorder("float")
+        zero_kernel_counts()  # count this path's launches only
+        with Recorder(GBDTIngest, "load") as ingest, \
+                Recorder(GBDTTrainer, "train") as trained, shapes, \
+                contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        trainer = trained.calls[0][0]
+        ts = trainer.time_stats
+        trees = res["trees"]
+        plan = trainer._efb_plan
+        print(f"softmax cli: rc {rc}, {wall:.3f} s [{card}]; {trees} trees "
+              f"({SOFTMAX_K} a round), parser {ts.get('parser')}, ingest "
+              f"{ingest.calls[0][1]:.3f} s, preprocess "
+              f"{ts['preprocess']:.3f} s, rounds {ts['train']:.3f} s, steady "
+              f"{ts.get('trees_per_sec_steady', float('nan')):.4f} trees/s; "
+              f"train loss {res['train_loss']:.6f}, test loss "
+              f"{res['test_loss']:.6f}, test accuracy "
+              f"{res['test_metrics']['confusion_matrix']:.6f}; EFB "
+              f"{plan.summary() if plan is not None else 'none'}; launches "
+              f"per tree: hist {counts['hist'] / max(trees, 1):.2f}, "
+              f"hist_gather {counts['hist_gather'] / max(trees, 1):.2f}, "
+              f"route {counts['route'] / max(trees, 1):.2f} [{card}]",
+              flush=True)
+        check(rc == 0 and trees == SOFTMAX_ROUNDS * SOFTMAX_K,
+              f"softmax cli: rc {rc}, {res}")
+        check(ts.get("parser") == "native",
+              f"softmax cli parsed with the {ts.get('parser')} parser")
+        check(trainer.hist_precision == "bf16", "softmax cli is not bf16")
+        check(all(counts[k] > 0 for k in ("hist", "hist_gather", "route"))
+              and counts["hist_q"] == 0 and counts["hist_gather_q"] == 0,
+              f"softmax cli did not run K1, K3 and K5 only: {counts}")
+        check(res["train_loss"] < math.log(SOFTMAX_K),
+              f"softmax cli did not learn: {res}")
+        errs = softmax_kernels(shapes, counts, card)
+        # the dump on the stacked rung, held to the host tree walk
+        pred = GBDTPredictor({"model": {"data_path": model}, "optimization": {
+            "loss_function": "softmax", "class_num": SOFTMAX_K,
+            "round_num": SOFTMAX_ROUNDS}})
+        rows = text_rows(test)
+        scorer = CompiledScorer(pred, mode="stacked", device="cuda")
+        t0 = time.perf_counter()
+        scores = scorer.score_batch(rows)
+        t_stacked = time.perf_counter() - t0
+        want = pred.batch_scores(rows[:SOFTMAX_HOST_ROWS])
+        same = np.array_equal(scores[:SOFTMAX_HOST_ROWS], want)
+        acc = float((np.argmax(scores, axis=1) == ytest).mean())
+        print(f"softmax cli: the dump's stacked-rung scores of "
+              f"{SOFTMAX_TEST_ROWS} test rows ({scores.shape}) in "
+              f"{t_stacked:.3f} s; bit-equal to predict/trees.py on the first "
+              f"{SOFTMAX_HOST_ROWS}: {same}; test accuracy {acc:.6f} (floor "
+              f"{SOFTMAX_ACC_FLOOR}, from a CPU run) [{card}]", flush=True)
+        check(scores.shape == (SOFTMAX_TEST_ROWS, SOFTMAX_K) and same,
+              "the stacked rung's softmax scores differ from the host walk")
+        check(acc > SOFTMAX_ACC_FLOOR,
+              f"softmax test accuracy {acc} under {SOFTMAX_ACC_FLOOR}")
+        return errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def softmax_kernels(recorder, counts, card):
+    """K1, K3 and K5 at every shape the softmax `cli train` gave them, on
+    that run's own inputs (the first call at each shape): K1 over the
+    EFB-bundled training matrix at each wave width, K3 over the fused
+    rungs, K5 over the training and the test rows with the bundles' member
+    ranges. The calls at the shapes must add up to the run's launch
+    counts. K1 and K3 are held to the float64 sums of the same values at
+    hist_err's tolerance, counts exact and equal to their plain versions'
+    (exact_err: round 0's equal hessians in one bin take the plain
+    version's f32 cell off by hundreds); K5 exactly, also in place.
+    Returns each kernel's largest error against its plain version."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist, route
+
+    t0 = time.perf_counter()
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"hist": 0.0, "hist_gather": 0.0, "route": 0.0}
+    for name in errs:
+        seen = sum(c for (k, _, _), (c, _, _) in recorder.calls.items()
+                   if k == name)
+        check(seen == counts[name], f"softmax cli: {name}: {seen} calls "
+              f"recorded at their shapes, {counts[name]} launches counted")
+    for (name, rows, N), (calls, args, kw) in sorted(recorder.calls.items()):
+        what = f"at the softmax run's shape N = {N}, {rows} rows ({calls} calls)"
+        if name == "route":
+            bins, pos = args[:2]
+            got = route.route_wave(*args, **kw)
+            want = route.route_wave_plain(*args, kw["lo"], kw["hi"])
+            inplace = pos.clone()
+            route.route_wave(bins, inplace, *args[2:], out=inplace, **kw)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want) and torch.equal(inplace, want)
+            err = float((got.long() - want.long()).abs().max()) \
+                if got.numel() else 0.0
+            print(f"kernel check route {what}, with EFB member ranges, "
+                  f"tolerance exact (torch.equal, also in place): {ok}, "
+                  f"max_abs_err {err} [{card}]", flush=True)
+            check(ok, f"route disagrees with its plain version {what}")
+        elif name == "hist":
+            bins, pos, g, h, ids, B = args
+            F, M, bf16 = bins.shape[0], kw["max_nodes"], kw["use_bf16"]
+            plan = hist.float_plan(N, F, B, M, rows, sm)
+            err = exact_err(
+                hist.hist_wave(*args, **kw),
+                hist.hist_wave_plain(bins, pos, g, h, ids, B, M, bf16),
+                exact_float_hist(lambda f, r: bins[f, r], F, B, pos, g, h,
+                                 ids, M, bf16),
+                f"{what}, F = {F}, plan {plan_text(plan)}", name, card)
+        else:
+            brows, idx, pg, gg, hg, ids, B = args
+            F, M, bf16 = brows.shape[1], kw["max_nodes"], kw["use_bf16"]
+            plan = hist.float_plan(N, F, B, M, rows, sm, True)
+            err = exact_err(
+                hist.hist_wave_gather(*args, **kw),
+                hist.hist_gather_plain(brows, idx, pg, gg, hg, ids, B, M,
+                                       bf16),
+                exact_float_hist(lambda f, r: brows[idx[r].long(), f], F, B,
+                                 pg, gg, hg, ids, M, bf16),
+                f"{what}, F = {F}, plan {plan_text(plan)}", name, card)
+        errs[name] = max(errs[name], err)
+    print(f"softmax cli: {len(recorder.calls)} shapes of K1, K3 and K5 held "
+          f"to their plain versions (K1 and K3 also to the exact sums) in "
+          f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    recorder.calls.clear()
+    return errs
+
+
+def recording_trainer():
+    """A GBDTTrainer that keeps, for every tree, its weighted gradients on
+    the CPU, the round's masks, its GOSS key and its arrays."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    class Recording(GBDTTrainer):
+        def _round(self, rnd, dd, spec, st):
+            gs, hs = self.loss.grad_hess(self.loss.predict(st[0]), dd.y)
+            include, fmask = self._sample_masks(rnd, dd)
+            out = super()._round(rnd, dd, spec, st)
+            live = dd.weight > 0
+            for grp in range(self.K):
+                g = gs[:, grp] if self.K > 1 else gs
+                h = hs[:, grp] if self.K > 1 else hs
+                t = rnd * self.K + grp
+                self.trees.append((
+                    torch.where(live, g * dd.weight, 0.0).cpu(),
+                    torch.where(live, h * dd.weight, 0.0).cpu(),
+                    include.cpu(), fmask.cpu(), self._goss_key(rnd, grp),
+                    {k: v[t].cpu() for k, v in out[2].items()}))
+            return out
+
+    return Recording
+
+
+def phase_objectives_int8(card):
+    """Slice 11's objectives in int8 (K2, K4, K5) on the card against the
+    CPU at 2^16 rows: softmax K = 7 on Covertype-shaped rows, l1 with the
+    approximate LAD refine, and continue_train (3 + 3 rounds of l2).
+    softmax goes through exp, which the card and the CPU may round apart
+    in the last ulp: round 0's trees are held exactly, every later tree
+    through the CPU's engine.grow fed the card's gradients, masks and key,
+    the losses at OBJ_RTOL. l1's sign gradient and its LAD medians (unit
+    weights) are exact: every tree and every leaf equal. The resumed card
+    text equals the card's uninterrupted 6-round text byte for byte, and
+    its trees the CPU's resumed ones."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.config.params import (
+        ApproximateSpec,
+        GBDTParams,
+        ModelParams,
+    )
+    from ytklearn_tpu_torch.gbdt import engine
+    from ytklearn_tpu_torch.gbdt.data import GBDTData
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.scripts.covertype_synth import (
+        N_FEATURES,
+        N_NUMERIC,
+        N_WILD,
+        covertype_like,
+    )
+
+    n = OBJ_ROWS
+    num, wild, soil, label = covertype_like(n, SOFTMAX_SEED + 1)
+    Xs = np.zeros((n, N_FEATURES), np.float32)
+    Xs[:, :N_NUMERIC] = num
+    Xs[np.arange(n), N_NUMERIC + wild] = 1.0
+    Xs[np.arange(n), N_NUMERIC + N_WILD + soil] = 1.0
+    Ys = np.eye(SOFTMAX_K, dtype=np.float32)[label]
+    snames = [f"f{j}" for j in range(N_FEATURES)]
+    rng = np.random.RandomState(SEED + 11)
+    Xr = rng.randn(n, N_FEATURES_L1).astype(np.float32)
+    yr = (1.5 * Xr[:, 0] * Xr[:, 1] + np.sin(2 * Xr[:, 2])
+          + np.abs(Xr[:, 3]) + rng.laplace(0, 0.3, n)).astype(np.float32)
+    rnames = [f"f{j}" for j in range(N_FEATURES_L1)]
+    w = np.ones(n, np.float32)
+    Recording = recording_trainer()
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_o_")
+
+    def params(path, rounds, resume=False, **kw):
+        return GBDTParams(
+            round_num=rounds, max_depth=8, max_leaf_cnt=63,
+            tree_grow_policy="loss", learning_rate=0.1,
+            min_child_hessian_sum=10.0, eval_metric=[],
+            approximate=[ApproximateSpec(max_cnt=255)],
+            model=ModelParams(data_path=os.path.join(tmp, path),
+                              dump_freq=0, continue_train=resume), **kw)
+
+    def int_fields(a, b, what):
+        for f in ("feat", "left", "right", "slot", "sample_cnt", "split"):
+            check(getattr(a, f) == getattr(b, f),
+                  f"{what}: cuda and cpu trees differ in {f}")
+
+    zero_kernel_counts()
+    try:
+        # softmax
+        t0 = time.perf_counter()
+        tc = Recording(params("sm_cuda", 3, loss_function="softmax",
+                              class_num=SOFTMAX_K),
+                       hist_precision="int8", device="cuda")
+        tc.trees = []
+        rc = tc.train(GBDTData(Xs, Ys, w, n, snames))
+        rp = GBDTTrainer(params("sm_cpu", 3, loss_function="softmax",
+                                class_num=SOFTMAX_K),
+                         hist_precision="int8", device="cpu").train(
+            GBDTData(Xs, Ys, w, n, snames))
+        check(len(rc.model.trees) == len(rp.model.trees) == 3 * SOFTMAX_K,
+              "softmax: tree counts")
+        for a, b in zip(rc.model.trees[:SOFTMAX_K],
+                        rp.model.trees[:SOFTMAX_K]):
+            int_fields(a, b, "softmax round 0")
+        dd = tc.dev_inputs
+        bins_t = dd.bins_t.cpu()
+        ranges = None if dd.ranges is None else tuple(
+            r.cpu() for r in dd.ranges)
+        for t, (g, h, inc, fm, key, got) in enumerate(tc.trees):
+            tr, *_ = engine.grow(tc.grow_spec, bins_t, inc, g, h, fm,
+                                 key=key, ranges=ranges)
+            for f in ("feat", "slot", "slot_r", "left", "right", "cnt",
+                      "n_nodes"):
+                check(torch.equal(getattr(tr, f), got[f]),
+                      f"softmax tree {t}: the CPU's grow on the card's "
+                      f"gradients differs in {f}")
+        lc = [r["train_loss"] for r in rc.round_log]
+        lp = [r["train_loss"] for r in rp.round_log]
+        check(all(abs(a - b) <= OBJ_RTOL * abs(b) for a, b in zip(lc, lp)),
+              f"softmax losses card {lc}, cpu {lp}")
+        print(f"objectives int8: softmax K = {SOFTMAX_K}, {n} rows x "
+              f"{N_FEATURES} features, {len(rc.model.trees)} trees on cuda "
+              f"and on the CPU: round 0 equal, every tree equal to the CPU's "
+              f"grow on the card's gradients; train losses card {lc}, cpu "
+              f"{lp}; {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        # l1, the approximate LAD refine
+        t0 = time.perf_counter()
+        rc = GBDTTrainer(params("l1_cuda", 4, loss_function="l1"),
+                         hist_precision="int8", device="cuda").train(
+            GBDTData(Xr, yr, w, n, rnames))
+        rp = GBDTTrainer(params("l1_cpu", 4, loss_function="l1"),
+                         hist_precision="int8", device="cpu").train(
+            GBDTData(Xr, yr, w, n, rnames))
+        for a, b in zip(rc.model.trees, rp.model.trees):
+            int_fields(a, b, "l1")
+            leaves = [i for i in range(a.n_nodes()) if a.is_leaf(i)]
+            check([a.leaf_value[i] for i in leaves]
+                  == [b.leaf_value[i] for i in leaves],
+                  "l1: the card's LAD leaves differ from the CPU's")
+        lc = [r["train_loss"] for r in rc.round_log]
+        print(f"objectives int8: l1 with the approximate LAD refine, {n} "
+              f"rows x {N_FEATURES_L1} features, 4 trees on cuda and on the "
+              f"CPU: every tree and leaf equal; train losses {lc}; "
+              f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        check(lc[-1] < lc[0], f"l1 did not learn: {lc}")
+        # continue_train
+        t0 = time.perf_counter()
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            for path, rounds, resume in ((f"r_{dev}", 3, False),
+                                         (f"r_{dev}", 6, True),
+                                         (f"whole_{dev}", 6, False)):
+                if dev == "cpu" and path.startswith("whole"):
+                    continue
+                GBDTTrainer(params(path, rounds, resume, loss_function="l2"),
+                            hist_precision="int8", device=dev).train(
+                    GBDTData(Xr, yr, w, n, rnames))
+                with open(os.path.join(tmp, path)) as f:
+                    texts[path] = f.read()
+        check(texts["r_cuda"] == texts["whole_cuda"],
+              "continue_train: the card's 3 + 3 text differs from its "
+              "uninterrupted 6-round text")
+        mc, mp = (GBDTModel.loads(texts["r_cuda"]),
+                  GBDTModel.loads(texts["r_cpu"]))
+        for a, b in zip(mc.trees, mp.trees):
+            int_fields(a, b, "continue_train")
+        print(f"objectives int8: continue_train, 3 + 3 rounds of l2 on {n} "
+              f"rows: the card's resumed text equals its uninterrupted "
+              f"6-round text byte for byte; its trees equal the CPU's resumed "
+              f"ones (texts identical: {texts['r_cuda'] == texts['r_cpu']}); "
+              f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = kernel_counts()
+    print(f"objectives int8: launches {counts} [{card}]", flush=True)
+    check(all(counts[k] > 0 for k in ("hist_q", "hist_gather_q", "route"))
+          and counts["hist"] == 0 and counts["hist_gather"] == 0,
+          f"the int8 objectives did not run K2, K4 and K5 only: {counts}")
+    return counts
+
+
+
+def timed(name, fn, *args, **kw):
+    """Run one phase, print its wall time; return what it returns."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {name}: {time.perf_counter() - t0:.3f} s (wall)",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2947,8 +3445,19 @@ def main() -> int:
     print(f"ninja: {shutil.which('ninja') or 'not found'} (not used: the "
           "kernels are built by nvcc into ctypes libraries)", flush=True)
 
-    # one nvcc per source, all started together
-    sources = {"heap_walk.cu": kernels.build_kernel,
+    from ytklearn_tpu_torch.io import native
+
+    def build_parser():
+        """The host text parser (g++), built beside the kernels."""
+        t0 = time.perf_counter()
+        ok = native.native_available()
+        return {"cmd": " ".join(["g++", *native.GXX_FLAGS, "ytk_parse.cpp"]),
+                "seconds": time.perf_counter() - t0,
+                "log": f"native parser available: {ok}"}
+
+    # one nvcc per source (and g++ for the parser), all started together
+    sources = {"ytk_parse.cpp": build_parser,
+               "heap_walk.cu": kernels.build_kernel,
                "hist.cu": hist.build_kernel,
                "hist_float.cu": hist.build_float_kernel,
                "route.cu": route.build_kernel,
@@ -2966,11 +3475,11 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_")
     try:
-        max_err, k7_err = phase_kernel(tmp, card)
-        launches, model, _p50 = phase_slice(tmp, card)
+        max_err, k7_err = timed("kernel", phase_kernel, tmp, card)
+        launches, model, _p50 = timed("slice", phase_slice, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    times, timing_err = phase_timings(model, card)
+    times, timing_err = timed("timings", phase_timings, model, card)
     max_err = max(max_err, timing_err)
     ms, plain_ms, bound_ms, bound_by, device_ms = times[LADDER[-1]]
     rows = [{
@@ -2988,12 +3497,14 @@ def main() -> int:
         "device_ms": device_ms,
     }]
 
-    errs = phase_train_kernels(card)
-    errs.update(phase_float_kernels(card))
-    errs["binned_walk"] = max(k7_err, phase_binned_kernel(model, card))
+    errs = timed("train_kernels", phase_train_kernels, card)
+    errs.update(timed("float_kernels", phase_float_kernels, card))
+    errs["binned_walk"] = max(k7_err, timed("binned_kernel",
+                                            phase_binned_kernel, model,
+                                            card))
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_t_")
     try:
-        _counts, trainer, res8, tps8 = phase_train(tmp, card)
+        _counts, trainer, res8, tps8 = timed("train", phase_train, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     got = (f"{res8.test_metrics['auc']:.6f}", f"{res8.test_loss:.6f}")
@@ -3001,23 +3512,26 @@ def main() -> int:
           f"{INT8_TEST_METRICS} [{card}]", flush=True)
     check(got == INT8_TEST_METRICS,
           f"int8 test AUC/logloss {got} moved from {INT8_TEST_METRICS}")
-    ttimes = phase_train_timings(trainer, card)
-    q_width_err = phase_q_widths(trainer, card)
+    ttimes = timed("train_timings", phase_train_timings, trainer, card)
+    q_width_err = timed("q_widths", phase_q_widths, trainer, card)
     n_bench = trainer.dev_inputs.bins_t.shape[1]
     del trainer
     torch.cuda.empty_cache()
-    q_sat_err = phase_q_saturating(n_bench, card)
+    q_sat_err = timed("q_saturating", phase_q_saturating, n_bench, card)
     errs["hist_q"] = max(errs["hist_q"], q_width_err, q_sat_err)
     errs["hist_gather_q"] = max(errs["hist_gather_q"], q_width_err, q_sat_err)
     torch.cuda.empty_cache()
-    phase_train_profile(card)
-    phase_cpu_card_compare(card)
+    timed("train_profile", phase_train_profile, card)
+    timed("cpu_card_compare", phase_cpu_card_compare, card)
+    # slice 11: softmax, l1 and continue_train in int8, card against CPU
+    timed("objectives_int8", phase_objectives_int8, card)
+    torch.cuda.empty_cache()
 
     # slice 9: bench.py's cell with its GOSS default, EFB, the bench script
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_g_")
     try:
-        goss_counts, _tps_goss, goss_times, goss_errs = phase_train_goss(
-            tmp, card, tps8)
+        goss_counts, _tps_goss, goss_times, goss_errs = timed(
+            "train_goss", phase_train_goss, tmp, card, tps8)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # the kernels line reads K2, K4 and K5 at the main path's own shapes
@@ -3025,25 +3539,28 @@ def main() -> int:
     for k, v in goss_errs.items():
         errs[k] = max(errs[k], v)
     torch.cuda.empty_cache()
-    phase_train_profile(card, GOSS)
-    efb_err = phase_efb(card)
+    timed("train_profile_goss", phase_train_profile, card, GOSS)
+    efb_err = timed("efb", phase_efb, card)
     for k, v in efb_err.items():
         errs[k] = max(errs[k], v)
     torch.cuda.empty_cache()
-    phase_bench_script(card)
+    timed("bench_script", phase_bench_script, card)
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_cli_")
     try:
-        cli_counts, cli_model, _cli_tps, _cli_res = phase_cli_train(tmp,
-                                                                    card)
-        k7_launches, _k7_p50 = phase_serve_binned(tmp, cli_model, card)
-        k7_time = phase_binned_timing(cli_model, model, card)
+        cli_counts, cli_model, _cli_tps, _cli_res = timed(
+            "cli_train", phase_cli_train, tmp, card)
+        k7_launches, _k7_p50 = timed("serve_binned", phase_serve_binned,
+                                     tmp, cli_model, card)
+        k7_time = timed("binned_timing", phase_binned_timing, cli_model,
+                        model, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_b_")
     try:
-        _c16, trainer, res16, tps16 = phase_train(tmp, card, "bf16")
+        _c16, trainer, res16, tps16 = timed("train_bf16", phase_train,
+                                            tmp, card, "bf16")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"train: test AUC bf16 {res16.test_metrics['auc']:.6f} beside "
@@ -3055,8 +3572,9 @@ def main() -> int:
           f"section 5, the same cell and card) [{card}]", flush=True)
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_gb_")
     try:
-        c16g, _t, _r, tps16g = phase_train(tmp, card, "bf16", goss=GOSS,
-                                           rounds=GOSS_BF16_ROUNDS)
+        c16g, _t, _r, tps16g = timed("train_bf16_goss", phase_train, tmp,
+                                     card, "bf16", goss=GOSS,
+                                     rounds=GOSS_BF16_ROUNDS)
         del _t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3064,24 +3582,31 @@ def main() -> int:
     print(f"train bf16 GOSS: {GOSS_BF16_ROUNDS} trees, steady {tps16g:.4f} "
           f"trees/s beside {tps16:.4f} with GOSS off over 40 [{card}]",
           flush=True)
-    ttimes.update(phase_float_timings(trainer, card))
-    errs["hist"] = max(errs["hist"], phase_float_widths(trainer, card))
+    ttimes.update(timed("float_timings", phase_float_timings, trainer,
+                        card))
+    errs["hist"] = max(errs["hist"], timed("float_widths",
+                                           phase_float_widths, trainer,
+                                           card))
     del trainer
     torch.cuda.empty_cache()
-    phase_repro(card)
-
-    errs["hist_q_u8"] = phase_u8_kernels(card)
-    u8_launches = phase_tools(card)
+    timed("repro", phase_repro, card)
+    # slice 11: softmax through cli train at full width (K1, K3, K5)
+    for k, v in timed("softmax_cli", phase_softmax_cli, card).items():
+        errs[k] = max(errs[k], v)
     torch.cuda.empty_cache()
-    u8_err, ttimes["hist_q_u8"] = phase_u8_timing(card)
+
+    errs["hist_q_u8"] = timed("u8_kernels", phase_u8_kernels, card)
+    u8_launches = timed("tools", phase_tools, card)
+    torch.cuda.empty_cache()
+    u8_err, ttimes["hist_q_u8"] = timed("u8_timing", phase_u8_timing, card)
     errs["hist_q_u8"] = max(errs["hist_q_u8"], u8_err)
     torch.cuda.empty_cache()
 
     # slice 10: the convex stack (no kernel of the port on its path)
     t0 = time.perf_counter()
-    phase_convex_cli(card)
+    timed("convex_cli", phase_convex_cli, card)
     torch.cuda.empty_cache()
-    phase_bench_fm(card)
+    timed("bench_fm", phase_bench_fm, card)
     torch.cuda.empty_cache()
     print(f"convex phases: {time.perf_counter() - t0:.3f} s (wall) [{card}]",
           flush=True)
@@ -3128,6 +3653,8 @@ def main() -> int:
         "device_ms": device_ms,
     })
     print(json.dumps({"kernels": rows}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.3f} s in all, the "
+          f"kernel builds included (wall) [{card}]", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

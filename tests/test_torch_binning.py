@@ -1,7 +1,9 @@
 """The port's device binning and bin-edge sidecar against the JAX package.
 
 Both sides bin the same seeded columns: `build_bins_maybe_device` with the
-single sample_by_quantile spec (uniform and weighted), `bin_matrix_device`
+single sample_by_quantile spec (uniform and weighted), the host samplers
+of every other config (`build_bins`: each kind, per-column specs by name
+and glob, the sketch path above YTK_SKETCH_ROWS), `bin_matrix_device`
 (NaN, values above the last representative, values exactly at
 midpoints), the host `bin_matrix`, EFB's candidate filter, and the
 `.bins.json` sidecar. Every comparison is exact.
@@ -91,12 +93,106 @@ def test_bin_matrix_device_matches_jax_with_nan_overrange_and_midpoints():
         binning.bin_matrix(Xq[:300], bins), jbin.bin_matrix(Xq[:300], bins))
 
 
+def _both_specs(specs):
+    return (JParams(approximate=[JSpec(**k) for k in specs]),
+            GBDTParams(approximate=[ApproximateSpec(**k) for k in specs]))
+
+
+def _assert_same_bins(got, want):
+    np.testing.assert_array_equal(got.values, want.values)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.max_bins == want.max_bins
+    if want.exact is not None:
+        np.testing.assert_array_equal(got.exact, want.exact)
+
+
 def test_other_approximate_specs_are_not_ported():
-    for spec in ([ApproximateSpec(type="sample_by_cnt")],
-                 [ApproximateSpec(), ApproximateSpec(cols="f1")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md 1.5"):
-            binning.build_bins_maybe_device(
-                torch.zeros(2, 10), None, GBDTParams(approximate=spec))
+    """The configs the port used to refuse (another sampler, two specs)
+    now bin on the host exactly as the reference's build_bins_maybe_device
+    falls back to its build_bins."""
+    X = _matrix(n=2000, seed=4)
+    w = np.random.RandomState(2).rand(2000).astype(np.float32) + 0.1
+    for specs in ([{"type": "sample_by_cnt", "max_cnt": 16}],
+                  [{"max_cnt": 16}, {"cols": "f1", "type": "no_sample"}]):
+        jp, pp = _both_specs(specs)
+        names = [f"f{i}" for i in range(6)]
+        want = jbin.build_bins_maybe_device(X, jnp.asarray(X.T), w, jp,
+                                            names)
+        got = binning.build_bins_maybe_device(
+            torch.from_numpy(X.T.copy()), torch.from_numpy(w), pp, names)
+        _assert_same_bins(got, want)
+
+
+SAMPLERS = [
+    {"type": "no_sample"},
+    {"type": "sample_by_cnt", "max_cnt": 20},
+    {"type": "sample_by_cnt", "max_cnt": 5000},
+    {"type": "sample_by_rate", "sample_rate": 0.3, "min_cnt": 10},
+    {"type": "sample_by_rate", "sample_rate": 0.3, "min_cnt": 100000},
+    {"type": "sample_by_precision", "dot_precision": 1},
+    {"type": "sample_by_precision", "dot_precision": 2, "use_log": True},
+    {"type": "sample_by_precision", "dot_precision": 3,
+     "use_min_max": True},
+    {"type": "sample_by_precision", "dot_precision": 2, "use_log": True,
+     "use_min_max": True},
+    {"type": "sample_by_quantile", "max_cnt": 16},
+    {"type": "sample_by_quantile", "max_cnt": 40, "use_sample_weight": True,
+     "alpha": 0.5},
+]
+
+
+@pytest.mark.parametrize("spec", SAMPLERS, ids=[
+    "-".join(str(v) for v in s.values()) for s in SAMPLERS])
+def test_host_samplers_match_jax(spec):
+    """build_bins with one spec of each kind, bit for bit: the values,
+    counts, exact flags and the RandomState draws in column order."""
+    X = _matrix(n=2500, seed=5)
+    X[:, 1] = np.nan_to_num(X[:, 1])  # the samplers see filled columns
+    w = np.random.RandomState(3).rand(2500).astype(np.float32) * 2
+    jp, pp = _both_specs([spec])
+    want = jbin.build_bins(X, w, jp)
+    got = binning.build_bins(X, w, pp)
+    _assert_same_bins(got, want)
+
+
+def test_per_column_specs_by_name_and_glob():
+    X = _matrix(n=2500, seed=6)
+    X[:, 1] = np.nan_to_num(X[:, 1])
+    names = ["age", "a_1", "a_2", "z", "b", "c"]
+    specs = [{"cols": "default", "type": "sample_by_quantile",
+              "max_cnt": 12},
+             {"cols": "a_*", "type": "sample_by_cnt", "max_cnt": 9},
+             {"cols": "z, b", "type": "sample_by_precision",
+              "dot_precision": 1}]
+    jp, pp = _both_specs(specs)
+    w = np.ones(2500, np.float32)
+    want = jbin.build_bins(X, w, jp, names)
+    got = binning.build_bins(X, w, pp, names)
+    _assert_same_bins(got, want)
+    assert [binning._spec_for(i, n, pp.approximate).type
+            for i, n in enumerate(names)] == [
+        "sample_by_quantile", "sample_by_cnt", "sample_by_cnt",
+        "sample_by_precision", "sample_by_precision", "sample_by_quantile"]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_quantile_sketch_path_above_sketch_rows(monkeypatch, weighted):
+    """Past YTK_SKETCH_ROWS rows sample_by_quantile streams through the
+    weighted sketch (the reference's module constant SKETCH_ROWS, the
+    port's knob read at each call): the same candidates and exact flags."""
+    X = _matrix(n=6000, seed=7)
+    X[:, 1] = np.nan_to_num(X[:, 1])
+    w = np.random.RandomState(4).rand(6000).astype(np.float32) + 0.5
+    spec = {"type": "sample_by_quantile", "max_cnt": 20}
+    if weighted:
+        spec.update(use_sample_weight=True, alpha=0.7)
+    jp, pp = _both_specs([spec])
+    monkeypatch.setattr(jbin, "SKETCH_ROWS", 1000)
+    monkeypatch.setenv("YTK_SKETCH_ROWS", "1000")
+    want = jbin.build_bins(X, w, jp)
+    got = binning.build_bins(X, w, pp)
+    _assert_same_bins(got, want)
+    assert got.exact[2] and got.exact[3] and not got.exact[0]
 
 
 def test_efb_candidates_match_and_a_plan_raises():

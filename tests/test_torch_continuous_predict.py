@@ -13,7 +13,10 @@ sample from one seeded RandomState each at rtol 1e-6, multiclass softmax
 and hsoftmax predictions and softmax losses at rtol 1e-6. The JAX ingest
 takes its Python path (`DataIngest._load_python`), whose transform stats
 the port equals. A sidecar whose digest names another model text is
-refused.
+refused. The port's ingest takes its Python path too: its `load` parses
+natively, in float32, whose transform stats differ from the Python path's
+in the last digits (tests/test_torch_native_ingest.py holds the native
+paths together).
 """
 
 import copy
@@ -97,8 +100,8 @@ def cases(tmp_path_factory):
             if fields is not None:
                 kw["field_map"] = fields
             ing = Ingest(p, **kw)
-            # the JAX ingest's Python path, whose stats the port equals
-            ing = ing._load_python() if pkg == "jax" else ing.load()
+            # both Python paths: the port's equals the JAX package's
+            ing = ing._load_python()
             m = _model(family, pkg, p, ing.train.dim, len(fields or {}))
             if w is None:
                 rng = np.random.RandomState(4)

@@ -1,6 +1,8 @@
 """The port's convex ingest (ytklearn_tpu_torch/io/reader.py::DataIngest,
-io/feature_hash.py, transform/) against the JAX package's Python path
-(`DataIngest._load_python`) on the same seeded text files.
+io/feature_hash.py, transform/) on its Python parser against the JAX
+package's Python path (`DataIngest._load_python` on both sides; the native
+paths are held together in tests/test_torch_native_ingest.py) on the same
+seeded text files.
 
 Tolerance: exact. Every ELL array (idx, val, field), label, weight and
 label statistic is array_equal, the feature and field maps equal, the
@@ -86,9 +88,9 @@ def _set(cfg, key, val):
 
 
 def _ingest(cls, pcls, cfg, family):
-    """The port's DataIngest.load, or the JAX package's Python path (its
-    `load` takes the native parser once a process has loaded it, whatever
-    YTK_NO_NATIVE says later)."""
+    """Either package's Python path (the JAX package's `load` takes the
+    native parser once a process has loaded it, whatever YTK_NO_NATIVE
+    says later; the port's reads the knob at every call)."""
     p = pcls.from_config(cfg)
     kw = {}
     if family == "multiclass_linear":
@@ -97,7 +99,7 @@ def _ingest(cls, pcls, cfg, family):
         kw["field_map"] = load_field_dict(LocalFileSystem(),
                                           p.model.field_dict_path)
     ing = cls(p, **kw)
-    return ing._load_python() if cls is JIngest else ing.load()
+    return ing._load_python()
 
 
 @pytest.fixture(scope="module")

@@ -11,10 +11,11 @@ The int8 kernel sums (K2, K4, K8) are int32, routing (K5) is exact, the
 walks (K6, K7) fold each row in tree order as their plain versions do,
 and the split scans run in a fixed order, so those comparisons are exact
 (torch.equal; the walks' sums bit for bit, signs of zero included), int8
-trees included. The f32/bf16
-histograms (K1, K3) add floats with atomics in an order that changes from
-run to run: counts are exact, g/h held at rtol 1e-5 with an absolute floor
-of 1e-5 of the largest |sum|. The convex stack (plain torch, no kernel of
+trees included, and so are l1's LAD leaves at unit and integer weights
+(at fractional weights a leaf may move one cell of the rank grid). The
+f32/bf16 histograms (K1, K3) add floats with atomics in an order that
+changes from run to run: counts are exact, g/h held at rtol 1e-5 with an
+absolute floor of 1e-5 of the largest |sum|. The convex stack (plain torch, no kernel of
 its own) is held to its CPU run: FM/FFM loss and gradient at rtol 1e-5,
 five L-BFGS iterations with the same statuses, and `cli train` of each
 family with every evaluation on the card.
@@ -38,7 +39,7 @@ from ytklearn_tpu_torch.config.params import (
 )
 from ytklearn_tpu_torch.gbdt import engine, hist, prng, route
 from ytklearn_tpu_torch.gbdt.data import GBDTData
-from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+from ytklearn_tpu_torch.gbdt.trainer import LAD_Q, GBDTTrainer, _lad_refine
 from ytklearn_tpu_torch.serve import kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -335,6 +336,60 @@ def test_trainer_sampling_and_efb_on_the_card_equal_the_cpu(gen, tmp_path,
         with open(path) as f:
             text[dev] = f.read()
     assert text["cpu"] == text["cuda"]
+
+
+@pytest.mark.parametrize("n", [1500, 200000])  # the grid holds every row; not
+@pytest.mark.parametrize("weights", ["unit", "int", "frac"])
+def test_lad_refine_on_the_card_equals_the_cpu(gen, n, weights):
+    """l1's approximate LAD refine on cuda against the CPU, on one grown
+    tree, its positions, the labels, scores and weights, padding rows
+    included. Unit and integer weights sum exactly (below 2^24), so the
+    leaves are the CPU's bit for bit. Fractional weights add in atomic
+    order on the card: a leaf is the CPU's, or one cell of the rank grid
+    away where its running weight lies within rounding of half its total
+    (rare: at least nine leaves in ten equal)."""
+    rng = np.random.RandomState(7)
+    X = rng.randn(n, 5).astype(np.float32)
+    y = (X[:, 0] * 1.5 + np.abs(X[:, 1]) + 0.1 * rng.randn(n)).astype(
+        np.float32)
+    w = {"unit": np.ones(n), "int": rng.randint(1, 4, n),
+         "frac": 0.5 + rng.rand(n)}[weights].astype(np.float32)
+    n_pad = -(-n // 16384) * 16384
+    bins = rng.randint(0, 16, size=(5, n_pad)).astype(np.uint8)
+    bins[0, :n] = np.clip((X[:, 0] * 3 + 8).astype(int), 0, 15)
+    yp, wp = np.pad(y, (0, n_pad - n)), np.pad(w, (0, n_pad - n))
+    real = np.arange(n_pad) < n
+    scores = np.pad((0.3 * rng.randn(n)).astype(np.float32), (0, n_pad - n))
+    g = (np.sign(scores - yp) * wp).astype(np.float32)
+    spec = engine.GrowSpec(F=5, B=16, max_nodes=63, wave=8, policy="loss",
+                           max_depth=6, max_leaves=32, lr=0.3, l1=0.0,
+                           l2=1.0, min_h=1e-6, max_abs=0.0,
+                           min_split_loss=0.0, min_split_samples=0.0,
+                           hist_mode="int8", ladder=(8, 32))
+    t = torch.from_numpy
+    tr, pos, _, _ = engine.grow(spec, t(bins), t(real), t(g), t(wp.copy()),
+                                torch.ones(5, dtype=torch.bool))
+    args = (t(yp), t(scores), t(wp), t(real))
+    want = _lad_refine(tr, pos, *args, 0.3)
+    got = _lad_refine(type(tr)(*(a.cuda() for a in tr)), pos.cuda(),
+                      *(a.cuda() for a in args), 0.3).cpu()
+    is_leaf = (tr.feat == -1) & (torch.arange(63) < tr.n_nodes)
+    assert int(is_leaf.sum()) >= 16
+    assert not torch.equal(want[is_leaf], tr.leaf[is_leaf])
+    if weights != "frac":
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(got[~is_leaf], want[~is_leaf])
+    assert float((got[is_leaf] == want[is_leaf]).float().mean()) >= 0.9
+    # the grid of LAD_Q residuals at evenly spaced ranks, times lr
+    rs = torch.sort((args[0] - args[1])[args[3]]).values
+    i = torch.arange(LAD_Q, dtype=torch.int64)
+    grid = rs[i * (n - 1) // (LAD_Q - 1)] * 0.3
+    for a, b in zip(got[is_leaf].tolist(), want[is_leaf].tolist()):
+        ca = torch.nonzero(grid == a).flatten()
+        cb = torch.nonzero(grid == b).flatten()
+        assert len(ca) and len(cb)
+        assert int((ca[:, None] - cb[None, :]).abs().min()) <= 1, (a, b)
 
 
 def test_route_with_efb_ranges_of_every_dtype(gen):

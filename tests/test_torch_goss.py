@@ -259,7 +259,8 @@ class _Recording(GBDTTrainer):
 
     def _round(self, rnd, dd, spec, st):
         g, h = self.loss.grad_hess(self.loss.predict(st[0]), dd.y)
-        include, fmask, key = self._sample_masks(rnd, dd)
+        include, fmask = self._sample_masks(rnd, dd)
+        key = self._goss_key(rnd, 0)
         out = super()._round(rnd, dd, spec, st)
         tree = {k: v[rnd].numpy() for k, v in out[2].items()}
         self.rounds.append(((g * dd.weight).numpy(), (h * dd.weight).numpy(),

@@ -1,4 +1,6 @@
-"""The port's GBDT text ingest against the JAX package's (its Python path).
+"""The port's GBDT text ingest against the JAX package's, on the Python
+parser of both (YTK_NO_NATIVE=1 for the port; the native paths are held
+together in tests/test_torch_native_ingest.py).
 
 Both read the same seeded ytklearn-format files (`weight###label###name:val,
 ...`, dense and Higgs-like) written by the test, through the same config,
@@ -71,6 +73,7 @@ def _cfg(files, missing, **data):
 
 def _load_both(cfg, monkeypatch):
     monkeypatch.setattr(jnative, "native_available", lambda: False)
+    monkeypatch.setenv("YTK_NO_NATIVE", "1")
     want = JIngest(JParams.from_config(cfg)).load()
     got = GBDTIngest(GBDTParams.from_config(cfg)).load()
     return want, got
@@ -115,6 +118,7 @@ def test_error_tolerance_and_feature_overflow(files, monkeypatch):
     """Past max_error_tol the bad line raises; a line that would claim a
     column past max_feature_dim is an error line too."""
     monkeypatch.setattr(jnative, "native_available", lambda: False)
+    monkeypatch.setenv("YTK_NO_NATIVE", "1")
     cfg = _cfg(files, "value@0")
     cfg["data"]["train"]["max_error_tol"] = 0
     for ingest in (JIngest(JParams.from_config(cfg)),

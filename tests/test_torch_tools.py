@@ -220,3 +220,27 @@ def test_bench_fm_is_bench_py_cell(monkeypatch):
     plosses = []
     cell.run(2, callback=lambda it, st: plosses.append(st.loss) and False)
     np.testing.assert_allclose(plosses, jlosses, rtol=1e-4)
+
+
+def test_covertype_synth_writes_the_shape(tmp_path):
+    """scripts/covertype_synth.py: 54 features a row (10 integer
+    measurements and one column of each one-hot group named), 7 classes,
+    the split's test labels returned; the same seed, the same text."""
+    from ytklearn_tpu_torch.scripts import covertype_synth as cs
+
+    assert subprocess.run(
+        [sys.executable, "-m", "ytklearn_tpu_torch.scripts.covertype_synth",
+         str(tmp_path / "a"), "--rows", "600", "--test-rows", "200",
+         "--seed", "5"], cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+        timeout=120).returncode == 0
+    train, test, ytest = cs.write_split(str(tmp_path / "b"), 600, 200, 5)
+    assert open(train).read() == (tmp_path / "a" / "train.txt").read_text()
+    lines = open(test).read().splitlines()
+    assert len(lines) == 200 == len(ytest)
+    for line, y in zip(lines, ytest):
+        w, label, feats = line.split("###")
+        names = [kv.split(":")[0] for kv in feats.split(",")]
+        assert w == "1" and int(label) == y and 0 <= y < cs.K
+        assert names[:10] == [f"f{j}" for j in range(10)]
+        assert 10 <= int(names[10][1:]) < 14 <= int(names[11][1:]) < 54
+    assert len(set(ytest.tolist())) >= 4  # the classes overlap and mix

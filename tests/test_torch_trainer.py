@@ -308,12 +308,12 @@ def test_wave_log_and_spec(l2_run):
 
 # (case number, params, constructor arguments, ROADMAP item); the numbers
 # keep each case the name it has always had (kw3-kw5, GOSS and the sample
-# rates, went when they were ported)
+# rates, went when they were ported; kw6 was l1 and is now precise LAD,
+# which the reference's engine="auto" sends to its host engine; kw7 and kw8,
+# huber and softmax, train now: test_lifted_refusals_train_as_the_reference)
 _UNPORTED = [
     (2, {}, {"engine": "host"}, "1.5"),
-    (6, {"loss_function": "l1"}, {}, "1.5"),
-    (7, {"loss_function": "huber"}, {}, "1.5"),
-    (8, {"loss_function": "softmax", "class_num": 3}, {}, "1.5"),
+    (6, {"loss_function": "l1", "lad_refine_appr": False}, {}, "1.5"),
     (9, {"tree_maker": "feature"}, {}, "1.5"),
     (10, {}, {"mesh": object()}, "1.7"),
 ]
@@ -329,15 +329,51 @@ def test_unported_features_raise_by_name(kw, ctor, match):
         GBDTTrainer(p, **args)
 
 
+_LIFTED = [
+    (6, {"loss_function": "l1"}),
+    (7, {"loss_function": "huber", "min_child_hessian_sum": 0.0}),
+    (8, {"loss_function": "softmax", "class_num": 3}),
+]
+
+
+@pytest.mark.parametrize("kw", [c[1] for c in _LIFTED], ids=[
+    f"kw{i}-{c['loss_function']}" for i, c in _LIFTED])
+def test_lifted_refusals_train_as_the_reference(tmp_path, kw):
+    """The refusals this trainer lifted (l1 with the approximate LAD,
+    huber, softmax) train the JAX trainer's trees on this file's data."""
+    X, y = _data("l2" if kw["loss_function"] != "softmax" else "sigmoid")
+    n = 2048
+    if kw["loss_function"] == "softmax":
+        y = np.eye(3, dtype=np.float32)[(X[:, 0] > 0).astype(int)
+                                        + (X[:, 1] > 0.5)]
+    w = np.ones(n, np.float32)
+    fields = _fields("l2", round_num=3, **{k: v for k, v in kw.items()})
+    fields["eval_metric"] = []
+    jp = JParams(approximate=[JSpec(max_cnt=31)],
+                 model=JModelParams(data_path=str(tmp_path / "j"),
+                                    dump_freq=0), **fields)
+    pp = GBDTParams(approximate=[ApproximateSpec(max_cnt=31)],
+                    model=ModelParams(data_path=str(tmp_path / "p"),
+                                      dump_freq=0), **fields)
+    jres = JTrainer(jp, engine="device", hist_precision="int8",
+                    wave=4).train(JData(X[:n], y[:n], w, n, NAMES))
+    pres = GBDTTrainer(pp, device="cpu", hist_precision="int8",
+                       wave=4).train(GBDTData(X[:n], y[:n], w, n, NAMES))
+    K = pp.num_tree_in_group
+    assert len(pres.model.trees) == len(jres.model.trees) == 3 * K
+    for a, b in list(zip(pres.model.trees, jres.model.trees))[:K]:
+        for f in ("feat", "feat_name", "left", "right", "slot",
+                  "sample_cnt", "split"):
+            assert getattr(a, f) == getattr(b, f), f
+    np.testing.assert_allclose(_losses(pres, "train_loss"),
+                               _losses(jres, "train_loss"), rtol=1e-4)
+
+
 def test_resume_and_efb_raise(tmp_path):
-    """Resume still raises by its ROADMAP item; EFB, on by default, now
-    bundles two exclusive sparse columns and trains the trees an
-    unbundled run grows, dumped in original features."""
-    p = GBDTParams(approximate=[ApproximateSpec()],
-                   model=ModelParams(data_path=str(tmp_path / "m"),
-                                     continue_train=True))
-    with pytest.raises(NotImplementedError, match="1.5"):
-        GBDTTrainer(p, device="cpu", hist_precision="int8")
+    """Resume, which used to raise, now continues a dump (2 + 1 rounds
+    equal 3 uninterrupted, byte for byte); EFB, on by default, bundles two
+    exclusive sparse columns and trains the trees an unbundled run grows,
+    dumped in original features."""
     rng = np.random.RandomState(0)
     X = np.zeros((512, 3), np.float32)
     X[:, 0] = rng.randn(512)
@@ -363,6 +399,16 @@ def test_resume_and_efb_raise(tmp_path):
             assert getattr(a, f) == getattr(b, f), f
         np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5)
     assert {"b", "c"} <= {n for t in models[None].trees for n in t.feat_name}
+    texts = []
+    for rounds, resume, name in ((2, False, "r"), (3, True, "r"),
+                                 (3, False, "whole")):
+        p = GBDTParams(approximate=[ApproximateSpec()], round_num=rounds,
+                       loss_function="l2", min_child_hessian_sum=1.0,
+                       model=ModelParams(data_path=str(tmp_path / name),
+                                         continue_train=resume))
+        GBDTTrainer(p, device="cpu", hist_precision="int8").train(data)
+        texts.append((tmp_path / name).read_text())
+    assert texts[1] == texts[2] != texts[0]
 
 
 def test_just_evaluate_grows_nothing(tmp_path):

@@ -6,15 +6,19 @@
 `train` is the reference's bin/local_optimizer.sh: it parses the HOCON
 config (with `--set key=value` overrides) and trains on `--device`
 (default `cuda`), optionally through a python `--transform` line hook.
-`gbdt` loads data.train/test through GBDTIngest, trains with the JAX CLI's
-defaults (bf16 histograms), dumps the model, its `.bins.json` sidecar and
-the feature importance file, and prints one JSON line (model, trees,
-train/test loss and metrics). `linear`, `multiclass_linear`, `fm` and
+`gbdt` loads data.train/test through GBDTIngest (the native C++ parser
+unless YTK_NO_NATIVE, a transform hook or a multi-char delimiter sends it
+to the Python one), trains with the JAX CLI's defaults (bf16 histograms;
+every scalar loss, softmax with K trees a round, l1 with the approximate
+LAD refine, any feature.approximate spec, model.continue_train), dumps the
+model, its `.bins.json` sidecar and the feature importance file, and
+prints one JSON line (model, trees, train/test loss and metrics). `linear`, `multiclass_linear`, `fm` and
 `ffm` train through HoagTrainer (L-BFGS/OWL-QN, grid and HOAG rounds),
 dump the model text and print one JSON line (model, n_iter, status,
-avg_loss, test_loss, train/test metrics). The GBST names, resume and
-restarts, multi-process and multi-GPU runs, and the trace/profile planes
-raise NotImplementedError naming their ROADMAP.md item.
+avg_loss, test_loss, train/test metrics). The GBST names, `--resume auto`
+and `--max-restarts`, multi-process and multi-GPU runs, and the
+trace/profile planes raise NotImplementedError naming their ROADMAP.md
+item.
 
 `serve` loads the model into a ModelRegistry on `--device` (default
 `cuda`), warms every ladder rung, starts the HTTP app, and prints one JSON
@@ -84,9 +88,9 @@ def _refuse_unported(args) -> None:
         raise _not_ported(f"training {args.model_name!r}", "1.10, GBST")
     for bad, what, item in (
         (args.max_restarts > 0, "--max-restarts",
-         "1.5, rest of the GBDT trainer"),
+         "1.5, the host engine and resilience"),
         (args.resume == "auto", "--resume auto",
-         "1.5, rest of the GBDT trainer"),
+         "1.5, the host engine and resilience"),
         (bool(args.coordinator), "multi-process training (--coordinator)",
          "1.7, multi-GPU data-parallel GBDT"),
         (args.devices > 1, "--devices > 1",
@@ -165,12 +169,12 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
         return 0
 
     from .config.params import GBDTParams
-    from .gbdt.data import GBDTIngest
     from .gbdt.trainer import GBDTTrainer
 
-    p = GBDTParams.from_config(cfg)
-    train, test = GBDTIngest(p, fs=fs, transform_hook=hook).load()
-    res = GBDTTrainer(p, device=device, fs=fs).train(train=train, test=test)
+    # the trainer loads data.train/test through GBDTIngest and records the
+    # parser and the load's seconds in its time_stats
+    res = GBDTTrainer(GBDTParams.from_config(cfg), device=device, fs=fs,
+                      transform_hook=hook).train()
     print(json.dumps({
         "model": name,
         "trees": len(res.model.trees),

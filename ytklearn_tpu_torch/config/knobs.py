@@ -2,8 +2,8 @@
 
 Same names, types and defaults as the JAX package's registry
 (``ytklearn_tpu/config/knobs.py``), cut to the knobs the GBDT serving path,
-the GBDT device-engine trainer and the convex families' blocked evaluation
-read. Every read goes through the typed accessors below, which re-read
+the GBDT device-engine trainer, the convex families' blocked evaluation,
+the text ingest and the host binning read. Every read goes through the typed accessors below, which re-read
 ``os.environ`` on each call, so a test or an operator may set a knob at run
 time.
 
@@ -81,6 +81,14 @@ _knob("YTK_EFB", "bool", True,
 _knob("YTK_EFB_CONFLICT", "int", 0,
       "max conflicting rows tolerated per EFB bundle (0 = strictly "
       "exclusive, lossless)")
+
+# -- ingest and host binning (same defaults as ytklearn_tpu/config/knobs.py:
+# 79-83; the port reads YTK_NO_NATIVE at every dispatch, not once) --------
+_knob("YTK_NO_NATIVE", "bool", False,
+      "disable the native C++ text parser (the Python parser runs)")
+_knob("YTK_SKETCH_ROWS", "int", 1 << 25,
+      "rows above which host quantile binning streams through the weighted "
+      "quantile sketch instead of the full-sort path")
 
 _FALSY = ("0", "false", "no", "off")
 

@@ -3,8 +3,15 @@
 The counterpart of the device path of ``ytklearn_tpu/gbdt/binning.py``:
 
   FeatureBins          per-feature sorted representative values (:45)
+  _sample_feature, _spec_for, build_bins  the host samplers (:82-171):
+                       no_sample, sample_by_cnt, sample_by_rate,
+                       sample_by_precision and sample_by_quantile (through
+                       gbdt/quantile_sketch.py above YTK_SKETCH_ROWS
+                       rows), each column's spec by name or glob, numpy's
+                       RandomState(20170425) over the columns in order
   quantile_bins_device sample_by_quantile with one sort per feature (:725)
-  build_bins_maybe_device  the single-quantile-spec bin builder (:789)
+  build_bins_maybe_device  the single-quantile-spec bin builder on the
+                       device, else build_bins on the host (:789)
   bin_matrix_device    value -> nearest-representative bin, (F, n) (:824)
   bin_matrix           the same rule on a host (n, F) matrix (:854)
   efb_candidates       EFB's column filter (:560)
@@ -22,12 +29,13 @@ values[i] >= v; if i >= 1 and v < midpoint(values[i-1], values[i]) then
 i - 1 (a value exactly at a midpoint rounds up); NaN and values above the
 last representative go to the last bin. The midpoint compare runs in f32.
 
-Only the single `sample_by_quantile` spec is ported; any other sampler
-raises NotImplementedError (ROADMAP.md 1.5, the host samplers).
+The multi-process bin merges (merge_bins_multihost, build_bins_global) come
+with multi-GPU training (ROADMAP.md 1.7).
 """
 
 from __future__ import annotations
 
+import fnmatch
 import hashlib
 import json
 import logging
@@ -37,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import knobs
 from ..config.params import ApproximateSpec, GBDTParams
 from .data import Array, to_tensor
 from .engine import ordered_cumsum
@@ -94,6 +103,111 @@ def _to_feature_bins(per_feature: List[np.ndarray]) -> FeatureBins:
     return FeatureBins(values=values, counts=counts, max_bins=max_bins)
 
 
+def _sample_feature(col: np.ndarray, weight: np.ndarray,
+                    spec: ApproximateSpec, rng: np.random.RandomState
+                    ) -> Tuple[np.ndarray, bool]:
+    """One column's sorted candidate values and whether they are every
+    distinct value (reference gbdt/binning.py:82, the samplers of
+    feature/gbdt/approximate/sampler/*)."""
+    kind = spec.type
+    if kind == "no_sample":
+        return np.unique(col), True
+    if kind == "sample_by_cnt":
+        vals = np.unique(col)
+        if len(vals) > spec.max_cnt:
+            picks = rng.choice(len(col), size=spec.max_cnt, replace=False)
+            return np.unique(col[picks]), False
+        return vals, True
+    if kind == "sample_by_rate":
+        vals = np.unique(col)
+        if len(vals) > spec.min_cnt:
+            mask = rng.rand(len(col)) <= spec.sample_rate
+            if mask.any():
+                return np.unique(col[mask]), False
+        return vals, True
+    if kind == "sample_by_precision":
+        x = col.astype(np.float64)
+        lo = hi = None
+        if spec.use_min_max:
+            lo, hi = float(x.min()), float(x.max())
+            x = (x - lo) / (hi - lo) if hi > lo else np.zeros_like(x)
+        if spec.use_log:
+            x = np.sign(x) * np.log1p(np.abs(x))
+        r = np.unique(np.round(x, spec.dot_precision))
+        # invert the normalisation chain (reference: Sampler.reverse)
+        if spec.use_log:
+            r = np.sign(r) * np.expm1(np.abs(r))
+        if spec.use_min_max and lo is not None and hi > lo:
+            r = r * (hi - lo) + lo
+        return np.unique(r.astype(np.float32)), False
+    if kind == "sample_by_quantile":
+        w = (np.power(np.maximum(weight, 0.0), spec.alpha)
+             if spec.use_sample_weight else np.ones_like(col))
+        if len(col) > knobs.get_int("YTK_SKETCH_ROWS"):
+            # the streaming sketch holds O(b log(n / chunk)) entries where
+            # the full sort below holds about four copies of the column
+            from .quantile_sketch import WeightedQuantileSketch
+
+            sk = WeightedQuantileSketch(b=max(4 * spec.max_cnt, 256))
+            cs = 1 << 22
+            for i in range(0, len(col), cs):
+                sk.push(col[i: i + cs], w[i: i + cs])
+            summ = sk.summary()
+            if sk.is_exact and summ.size <= spec.max_cnt:
+                return summ.value.astype(np.float32), True
+            return summ.query_values(spec.max_cnt), False
+        vals = np.unique(col)
+        if len(vals) <= spec.max_cnt:
+            return vals, True
+        order = np.argsort(col, kind="stable")
+        sv, sw = col[order], w[order]
+        cw = np.cumsum(sw)
+        # max_cnt evenly spaced weighted ranks (the sketch's query points)
+        ranks = (np.arange(1, spec.max_cnt + 1) / spec.max_cnt) * cw[-1]
+        pos = np.searchsorted(cw, ranks, side="left").clip(0, len(sv) - 1)
+        return np.unique(sv[pos]), False
+    raise ValueError(f"unknown sampler type: {kind!r}")
+
+
+def _spec_for(fid: int, name: str, specs: Sequence[ApproximateSpec]
+              ) -> ApproximateSpec:
+    """A column's spec: the first whose `cols` (a comma list of names or
+    globs) matches its name, else the `default` one, else the first
+    (reference: SampleManager's sampler assignment)."""
+    default = None
+    for s in specs:
+        if s.cols == "default":
+            default = s
+            continue
+        for pat in str(s.cols).split(","):
+            pat = pat.strip()
+            if pat and (pat == name or fnmatch.fnmatch(name, pat)):
+                return s
+    return default or specs[0]
+
+
+def build_bins(X: np.ndarray, weight: np.ndarray, params: GBDTParams,
+               feature_names: Optional[Sequence[str]] = None,
+               seed: int = 20170425) -> FeatureBins:
+    """Each column's sampler on the host, one RandomState over the columns
+    in order; bins padded to a common width (reference :171)."""
+    rng = np.random.RandomState(seed)
+    F = X.shape[1]
+    names = feature_names or [str(i) for i in range(F)]
+    per_feature: List[np.ndarray] = []
+    exact = np.zeros((F,), bool)
+    for f in range(F):
+        spec = _spec_for(f, names[f], params.approximate)
+        vals, exact[f] = _sample_feature(X[:, f], weight, spec, rng)
+        vals = vals.astype(np.float32)
+        if len(vals) == 0:
+            vals = np.zeros((1,), np.float32)
+        per_feature.append(np.sort(vals))
+    out = _to_feature_bins(per_feature)
+    out.exact = exact
+    return out
+
+
 def _weight_tensor(weight: Optional[Array], device) -> Optional[torch.Tensor]:
     return None if weight is None else to_tensor(weight, torch.float32, device)
 
@@ -141,19 +255,19 @@ def quantile_bins_device(
 
 def build_bins_maybe_device(
     X_t: torch.Tensor, weight: Optional[Array], params: GBDTParams,
-    feature_names: Optional[Sequence[str]] = None,
+    feature_names: Optional[Sequence[str]] = None, seed: int = 20170425,
 ) -> FeatureBins:
-    """Bins for a single sample_by_quantile spec, built on X_t's device.
-    Features whose distinct count fits max_cnt keep every distinct value
-    (NaNs collapse into one, as np.unique does)."""
+    """Bins of the (F, n) values X_t: one sample_by_quantile spec for every
+    column runs on X_t's device, where features whose distinct count fits
+    max_cnt keep every distinct value (NaNs collapse into one, as np.unique
+    does); any other config runs `build_bins` on the host (reference
+    :789-823)."""
     specs = params.approximate
     if len(specs) != 1 or specs[0].type != "sample_by_quantile":
-        raise NotImplementedError(
-            "only a single feature.approximate spec of type "
-            "sample_by_quantile is ported (got "
-            f"{[s.type for s in specs]}); the host samplers come with "
-            "ROADMAP.md 1.5 (rest of the GBDT trainer)"
-        )
+        w = (weight.detach().cpu().numpy() if isinstance(weight, torch.Tensor)
+             else weight)
+        return build_bins(X_t.cpu().numpy().T, w, params, feature_names,
+                          seed)
     spec = specs[0]
     cand, distinct = quantile_bins_device(X_t, weight, spec)
     per_feature: List[np.ndarray] = []

@@ -11,13 +11,19 @@ into that matrix and fills the missing values with the configured strategy
 (`value@v`, `mean`, `quantile@q`), the semantics of the reference's Python
 path: columns in the order features are first seen in the training data,
 the test data read through that frozen map (unseen features skipped),
-`max_feature_dim` overflow as an error line, `max_error_tol`. The native
-C++ parser of the JAX package (io/native.py) is not ported; its output is
-the Python path's.
+`max_feature_dim` overflow as an error line, `max_error_tol`. `_parse`
+dispatches to the native C++ parser (io/native.py, `_parse_native`: a
+columnar parse and a vectorised assembly of the matrix) unless a python
+transform hook is set, a delimiter is one it does not take, or
+YTK_NO_NATIVE is on at that call; `_parse_python` is the Python parser.
+Both give the same rows, errors and columns; the native path parses
+values as float32, as the JAX package's native path does. `parser` names
+the one the last `_parse` ran.
 """
 
 from __future__ import annotations
 
+import logging
 from array import array
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Union
@@ -26,8 +32,11 @@ import numpy as np
 import torch
 
 from ..config.params import GBDTParams
+from ..io import native
 from ..io.fs import LocalFileSystem
-from ..io.reader import parse_line, shard_read_lines
+from ..io.reader import parse_line, shard_plan, shard_read_lines
+
+log = logging.getLogger("ytklearn_tpu_torch.ingest")
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -62,6 +71,7 @@ class GBDTIngest:
             raise ValueError("gbdt requires data.max_feature_dim")
         self.F = params.data.max_feature_dim
         self.K = params.class_num if params.loss_function == "softmax" else 1
+        self.parser: Optional[str] = None  # native | python, the last parse
 
     def _lines(self, paths):
         """Raw lines, expanded through the python transform hook when one
@@ -80,10 +90,131 @@ class GBDTIngest:
         OnlineFeatureMap, GBDTCoreData.java:371-381: unseen test features
         are skipped, train overflow past max_feature_dim is an error line).
         A line that fails to parse counts toward max_error_tol and claims
-        no column; a duplicate feature keeps its last value.
+        no column; a duplicate feature keeps its last value. Dispatches to
+        the native parser when it can run (reference gbdt/data.py:90)."""
+        fast = native.use_native(self.params.data.delim, self.transform_hook)
+        self.parser = "native" if fast else "python"
+        log.info("gbdt ingest: the %s parser", self.parser)
+        if fast:
+            return self._parse_native(paths, max_error_tol, fmap, frozen)
+        return self._parse_python(paths, max_error_tol, fmap, frozen)
 
-        The matrix is filled in one scatter at the end: the reference's
-        Python path (gbdt/data.py:238) value for value."""
+    def _parse_native(self, paths, max_error_tol: int,
+                      fmap: Optional[Dict[str, int]] = None,
+                      frozen: bool = False) -> GBDTData:
+        """Columnar native parse -> vectorised dense-matrix assembly
+        (reference gbdt/data.py:112-237)."""
+        dp = self.params.data
+        paths, divisor, remainder = shard_plan(self.fs, dp, paths)
+        d = dp.delim
+        blk = native.parse_paths(
+            self.fs, paths, d.x_delim, d.y_delim, d.features_delim,
+            d.feature_name_val_delim, divisor=divisor, remainder=remainder)
+        n_errors = blk.n_errors
+        bad, y_all = native.expand_labels_columnar(blk.label_ptr, blk.labels,
+                                                   blk.n, self.K)
+        n_errors += int(bad.sum())
+        keep = ~bad
+        # name -> column, continuing fmap; a bad-label row claims no column
+        # (the Python path stages names until a whole line validates), and
+        # names go in by first-seen (row, position) order over kept rows
+        if fmap is None:
+            fmap = {}
+        rows_all = np.repeat(np.arange(blk.n), np.diff(blk.row_ptr))
+        kept_feat = keep[rows_all]
+        col_of_local = np.full(len(blk.names), -1, np.int64)
+        unknown = []
+        for lid, name in enumerate(blk.names):
+            idx = fmap.get(name)
+            if idx is not None:
+                col_of_local[lid] = idx
+            else:
+                unknown.append(lid)
+        if unknown and not frozen:
+            unk_mask = np.zeros(len(blk.names), bool)
+            unk_mask[np.asarray(unknown, np.int64)] = True
+            sel = kept_feat & unk_mask[blk.feat_ids]
+            u_rows = rows_all[sel]
+            u_ids = blk.feat_ids[sel]
+            present = np.unique(u_ids)
+            if len(fmap) + len(present) <= self.F:
+                # everything fits: global first-seen order, vectorised
+                first_idx = np.full(len(blk.names), np.iinfo(np.int64).max)
+                np.minimum.at(first_idx, u_ids, np.arange(len(u_ids)))
+                for lid in present[np.argsort(first_idx[present],
+                                              kind="stable")]:
+                    fmap[blk.names[lid]] = len(fmap)
+                    col_of_local[lid] = fmap[blk.names[lid]]
+            else:
+                n_errors, keep = self._claim_rows(
+                    blk, u_rows, u_ids, col_of_local, fmap, keep, n_errors,
+                    max_error_tol)
+                kept_feat = keep[rows_all]
+        if n_errors > max_error_tol:
+            raise ValueError(f"data error lines ({n_errors}) exceed "
+                             f"max_error_tol ({max_error_tol})")
+        self._fmap = fmap
+        # the last in-row occurrence of a (row, column) pair wins, as the
+        # Python path's sequential stores do
+        new_row = np.cumsum(keep) - 1
+        n = int(keep.sum())
+        X = np.full((n, self.F), np.nan, np.float32)
+        cols = col_of_local[blk.feat_ids]
+        m = kept_feat & (cols >= 0)
+        r = new_row[rows_all[m]]
+        c = cols[m]
+        v = blk.feat_vals[m]
+        flat = r * np.int64(self.F) + c
+        last = len(flat) - 1 - np.unique(flat[::-1], return_index=True)[1]
+        X[r[last], c[last]] = v[last]
+        return GBDTData(X=X, y=y_all[keep],
+                        weight=blk.weights[keep].astype(np.float32),
+                        n_real=n, feature_names=self._names_from_fmap(fmap))
+
+    def _claim_rows(self, blk, u_rows, u_ids, col_of_local, fmap, keep,
+                    n_errors, max_error_tol):
+        """max_feature_dim overflow, row by row as the Python path: a row
+        whose new names would pass it is an error line that claims no
+        column (later rows may still claim its other names). Returns
+        (n_errors, keep)."""
+        bad_cap = np.zeros(blk.n, bool)
+        last_name = ""
+        boundaries = np.flatnonzero(np.diff(u_rows)) + 1
+        for g in np.split(np.arange(len(u_rows)), boundaries):
+            if len(g) == 0:
+                continue
+            staged: List[int] = []
+            seen = set()
+            ok = True
+            for occ in g:
+                lid = int(u_ids[occ])
+                if col_of_local[lid] >= 0 or lid in seen:
+                    continue
+                if len(fmap) + len(staged) >= self.F:
+                    ok = False
+                    last_name = blk.names[lid]
+                    break
+                seen.add(lid)
+                staged.append(lid)
+            if ok:
+                for lid in staged:
+                    fmap[blk.names[lid]] = len(fmap)
+                    col_of_local[lid] = fmap[blk.names[lid]]
+            else:
+                bad_cap[u_rows[g[0]]] = True
+        n_errors += int(bad_cap.sum())
+        if n_errors > max_error_tol:
+            raise ValueError(
+                f"max_feature_dim({self.F}) smaller than real feature "
+                f"number in data set (feature {last_name!r})")
+        return n_errors, keep & ~bad_cap
+
+    def _parse_python(self, paths, max_error_tol: int,
+                      fmap: Optional[Dict[str, int]] = None,
+                      frozen: bool = False) -> GBDTData:
+        """The Python parser (also the transform-hook path). The matrix is
+        filled in one scatter at the end: the reference's Python path
+        (gbdt/data.py:238) value for value."""
         delim = self.params.data.delim
         if fmap is None:
             fmap = {}

@@ -7,31 +7,44 @@ The counterpart of the device path of ``ytklearn_tpu/gbdt/trainer.py``
         .train(train=GBDTData, test=GBDTData) -> GBDTResult
     GBDTTrainer(params).train()  # loads data.train/test through GBDTIngest
 
-Per round: predictions -> (g, h) -> one tree grown by engine.grow on the
-device (histogram kernels K1/K3 in bf16 or f32, the JAX trainer's default
-bf16, or K2/K4 in int8; routing kernel K5) -> score and loss updates.
-Each round's key is fold_in(PRNGKey(20170425), round), split into the
-feature, row and GOSS keys (gbdt.prng, bit for bit the JAX trainer's
-draws): `instance_sample_rate` and `feature_sample_rate` below 1 mask rows
-and columns, and GOSS (`goss=(a, b)`, a < 1) grows each tree on its
-sampled fit rows. EFB (`efb`, the `YTK_EFB` knob, on by default) bundles
-mutually exclusive sparse columns into offset-binned columns before the
-bin matrix reaches the device; the plan stays on the host, the engine
-takes its range tables and every grown tree is unbundled back to the
-original features before its value conversion.
-Tree arrays
-stay in whole-run device buffers and are fetched once at the end (and at
-`dump_freq` checkpoints). Binning runs on the device too (sort + rank
-pick + compare-count, gbdt/binning.py). The model text, its `.bins.json`
-sidecar and the feature importance file are the JAX trainer's, byte for
-byte for the same trees.
+Per round: predictions -> (g, h) -> K trees grown by engine.grow on the
+device, one a class group (K = class_num under softmax, else 1; histogram
+kernels K1/K3 in bf16 or f32, the JAX trainer's default bf16, or K2/K4 in
+int8; routing kernel K5) -> score and loss updates. Each round's key is
+fold_in(PRNGKey(20170425), round), split into the feature, row and GOSS
+keys (gbdt.prng, bit for bit the JAX trainer's draws), drawn once a round:
+`instance_sample_rate` and `feature_sample_rate` below 1 mask rows and
+columns, and GOSS (`goss=(a, b)`, a < 1) grows each group's tree on its
+sampled fit rows with the key fold_in(kg, group). Under l1 every tree's
+leaves are refined to lr times the weighted median of the residual y -
+score over the leaf's rows, on a rank grid of 4096 sorted residuals
+(`_lad_refine`, the reference's approximate LAD, `lad_refine_appr`).
+EFB (`efb`, the `YTK_EFB` knob, on by default) bundles mutually exclusive
+sparse columns into offset-binned columns before the bin matrix reaches
+the device; the plan stays on the host, the engine takes its range tables
+and every grown tree is unbundled back to the original features before its
+value conversion. `model.continue_train` resumes from the dumped model:
+its split names resolve against this run's columns, its trees are replayed
+on the (pre-bundle) bin matrix into the starting scores, and training
+starts at round len(trees) // K.
+Tree arrays stay in whole-run device buffers (round_num * K trees) and are
+fetched once at the end (and at `dump_freq` checkpoints). Binning runs on
+the device for one sample_by_quantile spec, on the host for any other
+(gbdt/binning.py). The model text, its `.bins.json` sidecar and the feature
+importance file are the JAX trainer's, byte for byte for the same trees.
+
+The weighted gradients of rows of weight 0 (the padding rows among them)
+are 0: the reference multiplies, which leaves NaN where a loss's gradient
+is infinite at the padding rows' label 0 (mape), and NaN reaches every
+histogram.
 
 Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
 versions). Not ported, each raising NotImplementedError with its
-ROADMAP.md item: resume, softmax (K > 1), l1 with LAD refine, the other
-losses and the host engine (1.5), a mesh (1.7), and on CUDA trees of more
-nodes than the histogram kernels' shared-memory lookup holds (1.8). The
-quality sidecar is an obs-plane item (1.12).
+ROADMAP.md item: the host engine (`engine="host"`, and what the reference's
+`engine="auto"` sends there: precise LAD, `lad_refine_appr = false`, and
+the feature-parallel maker, `tree_maker = "feature"`; 1.5), a mesh (1.7),
+and on CUDA trees of more nodes than the histogram kernels' shared-memory
+lookup holds (1.8). The quality sidecar is an obs-plane item (1.12).
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
 from ..losses import GBDT_TRAINABLE, create_loss
 from . import prng
+from .engine import GrowSpec, grow, ordered_cumsum, wave_log_rows
 from .binning import (
     BundlePlan,
     FeatureBins,
@@ -63,7 +77,6 @@ from .binning import (
     model_text_digest,
 )
 from .data import GBDTData, GBDTIngest, to_tensor
-from .engine import GrowSpec, grow, wave_log_rows
 from .hist import BM_DEFAULT, check_tile_fits
 from .tree import GBDTModel, Tree, unbundle_tree
 
@@ -71,9 +84,15 @@ log = logging.getLogger("ytklearn_tpu_torch.gbdt")
 
 #: the root of every run's key chain (the JAX trainer's, trainer.py:938)
 ROOT_SEED = 20170425
+#: rank-grid resolution of the approximate LAD refine (trainer.py:1914)
+LAD_Q = 4096
 
 _TREE_FIELDS = ("feat", "slot", "slot_r", "left", "right", "leaf", "gain",
                 "hess", "cnt")
+
+
+#: the ROADMAP.md item of what this trainer still refuses
+HOST_ITEM = "1.5, the host engine and resilience"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -97,6 +116,9 @@ class _DevInputs:
     w_t: Optional[torch.Tensor]
     nt_score: int
     ranges: Optional[tuple] = None  # EFB (range_lo, range_hi) (F, B) i32
+    # continue_train with EFB: the pre-bundle (F, n_pad) bins of the train
+    # (and test) rows for the score replay, freed right after it
+    replay_bins: Optional[list] = None
 
 
 @dataclass
@@ -122,19 +144,32 @@ class GBDTTrainer:
         goss: Optional[Tuple[float, float]] = None,  # (a, b); a >= 1 = off
         efb: Optional[bool] = None,  # None = YTK_EFB knob
         mesh=None,
+        transform_hook=None,
     ):
         self.params = params
         self.device = resolve_device(device)
         self.fs = fs or LocalFileSystem()
+        self.transform_hook = transform_hook  # for train() without data
         p = params
         if mesh is not None:
             raise _not_ported("multi-GPU training (mesh)",
                               "1.7, multi-GPU data-parallel GBDT")
         if engine not in ("auto", "device", "host"):
             raise ValueError(f"engine must be auto|device|host, got {engine!r}")
+        self.K = p.num_tree_in_group
+        if engine == "auto":
+            # the reference's rule (trainer.py:198-209): precise LAD and the
+            # feature-parallel maker run on the host engine
+            precise_lad = (p.loss_function == "l1" and self.K == 1
+                           and not p.lad_refine_appr)
+            if precise_lad:
+                raise _not_ported("precise LAD leaf refinement "
+                                  "(lad_refine_appr = false, the host "
+                                  "engine)", HOST_ITEM)
+            engine = "host" if p.tree_maker == "feature" else "device"
         if engine == "host" or p.tree_maker == "feature":
             raise _not_ported("the host engine and the feature-parallel "
-                              "maker", "1.5, rest of the GBDT trainer")
+                              "maker", HOST_ITEM)
         self.engine = "device"
         if hist_precision is None:
             hist_precision = "bf16" if use_bf16_hist else "f32"
@@ -144,21 +179,19 @@ class GBDTTrainer:
             )
         self.hist_precision = hist_precision
         self.use_bf16_hist = hist_precision != "f32"
-        self.K = p.num_tree_in_group
-        if self.K > 1:
-            raise _not_ported("softmax multiclass (K > 1 trees per round)",
-                              "1.5, rest of the GBDT trainer")
         self.loss = create_loss(p.loss_function,
                                 {"sigmoid_zmax": p.sigmoid_zmax})
-        if self.loss.name == "l1":
-            raise _not_ported("l1 loss with LAD leaf refinement",
-                              "1.5, rest of the GBDT trainer")
-        if self.loss.name not in GBDT_TRAINABLE:
-            raise _not_ported(f"training with loss {self.loss.name!r}",
-                              "1.5, rest of the GBDT trainer")
-        if p.model.continue_train:
-            raise _not_ported("continue_train (resume)",
-                              "1.5, rest of the GBDT trainer")
+        if self.loss.name not in GBDT_TRAINABLE or (
+                self.loss.is_multiclass and self.K < 2):
+            raise ValueError(
+                f"loss {self.loss.name!r} (class_num {p.class_num}) cannot "
+                "train a GBDT: the trainer takes the scalar losses and "
+                "softmax with class_num > 1")
+        self.refine_lad = self.loss.name == "l1" and self.K == 1
+        if self.refine_lad and not p.lad_refine_appr:
+            log.warning("lad_refine_appr=false asks for the precise refine, "
+                        "which only the host engine runs; the device "
+                        "engine refines on the approximate rank grid")
         self.wave = wave
         if goss is None:
             goss = (knobs.get_float("YTK_GOSS_A"),
@@ -223,24 +256,29 @@ class GBDTTrainer:
 
     def _pad_rows(self, a, n_pad: int, dtype=torch.float32) -> torch.Tensor:
         t = to_tensor(a, dtype, self.device)
-        return torch.nn.functional.pad(t, (0, n_pad - t.shape[0]))
+        # rows are the first axis: (n,) weights, (n,) or (n, K) labels
+        pad = (0, 0) * (t.dim() - 1) + (0, n_pad - t.shape[0])
+        return torch.nn.functional.pad(t, pad)
 
     def _transposed(self, X) -> torch.Tensor:
         return to_tensor(X, torch.float32, self.device).t().contiguous()
 
-    def _bin_rows(self, X_t: torch.Tensor, bins: FeatureBins, B: int):
+    def _bin_rows(self, X_t: torch.Tensor, bins: FeatureBins, B: int,
+                  keep_raw: bool = False):
         """(F, n) raw values -> (F or bundled columns, n_pad) bins, rows
         zero-padded to a multiple of 16384 before binning, as the
-        reference does."""
+        reference does; with keep_raw also the pre-bundle (F, n_pad) bins
+        (None without an EFB plan)."""
         n = X_t.shape[1]
         n_pad = -(-n // BM_DEFAULT) * BM_DEFAULT
         Xp = torch.nn.functional.pad(X_t, (0, n_pad - n)).contiguous()
-        bins_t = bin_matrix_device(Xp, bins)
+        bins_t = raw = bin_matrix_device(Xp, bins)
         if self._efb_plan is not None:
-            bins_t = bundle_bin_matrix_t(bins_t, self._efb_plan)
+            bins_t = bundle_bin_matrix_t(raw, self._efb_plan)
         if B <= 256:
             bins_t = bins_t.to(torch.uint8)
-        return bins_t, n_pad
+        keep = keep_raw and self._efb_plan is not None
+        return bins_t, n_pad, raw if keep else None
 
     def _prep_device_inputs(self, train: GBDTData, test: Optional[GBDTData]
                             ) -> _DevInputs:
@@ -262,15 +300,22 @@ class GBDTTrainer:
                          self._efb_plan.summary(), budget)
         plan = self._efb_plan
         self._bins_sidecar = (list(train.feature_names or []), bins)
-        bins_t, n_pad = self._bin_rows(X_t, bins, B)
+        # a resumed model's trees split on original features: with EFB its
+        # score replay walks the pre-bundle matrices (trainer.py:462, :508)
+        resume = p.model.continue_train
+        bins_t, n_pad, raw = self._bin_rows(X_t, bins, B, keep_raw=resume)
         del X_t
+        replay = [raw] if raw is not None else None
         y = self._pad_rows(train.y, n_pad)
         weight = self._pad_rows(train.weight, n_pad)
         real_mask = torch.arange(n_pad, device=self.device) < train.n
         aux_bins, y_t, w_t, nt_pad = (), None, None, 0
         if test is not None:
-            bt, nt_pad = self._bin_rows(self._transposed(test.X), bins, B)
+            bt, nt_pad, raw_t = self._bin_rows(self._transposed(test.X), bins,
+                                               B, keep_raw=resume)
             aux_bins = (bt,)
+            if replay is not None:
+                replay.append(raw_t)
             y_t = self._pad_rows(test.y, nt_pad)
             w_t = self._pad_rows(test.weight, nt_pad)
         log.info("%d rows, %d features, %d bins (pad %d)", train.n_real,
@@ -283,16 +328,121 @@ class GBDTTrainer:
             bins=bins, bins_t=bins_t, y=y, weight=weight, real_mask=real_mask,
             n_score=n_pad, F=bins_t.shape[0], B=B, aux_bins=aux_bins,
             y_t=y_t, w_t=w_t, nt_score=nt_pad, ranges=ranges,
+            replay_bins=replay,
         )
 
-    def _base_score(self, train: GBDTData) -> np.float32:
+    def _base_score(self, train: GBDTData) -> np.ndarray:
+        """The starting score: pred2score of the weighted label mean (per
+        class under softmax) or of uniform_base_prediction (reference
+        trainer.py:1211-1246)."""
         p = self.params
         if p.sample_dependent_base_prediction:
             # in the arrays' own dtype, as the reference averages
-            mean = float(np.average(_host(train.y)[: train.n_real],
-                                    weights=_host(train.weight)[: train.n_real]))
-            return np.float32(self.loss.pred2score(mean))
+            y = _host(train.y)[: train.n_real]
+            w = _host(train.weight)[: train.n_real]
+            if self.K > 1:
+                mean = np.average(y, axis=0, weights=w)
+                return np.asarray(self.loss.pred2score(mean), np.float32)
+            return np.float32(self.loss.pred2score(
+                float(np.average(y, weights=w))))
         return np.float32(self.loss.pred2score(p.uniform_base_prediction))
+
+    def _init_scores(self, model: GBDTModel, dd: _DevInputs, base
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Base scores, (n,) or (n, K), plus a resumed model's trees
+        replayed tree by tree on the train and test bins (reference
+        trainer.py:605-643); the pre-bundle replay matrices go after."""
+        K = self.K
+        base_t = torch.as_tensor(np.asarray(base, np.float32),
+                                 device=self.device)
+
+        def full(n):
+            return base_t.expand((n, K) if K > 1 else (n,)).clone()
+
+        scores = full(dd.n_score)
+        scores_t = full(dd.nt_score) if dd.y_t is not None else None
+        if model.trees:
+            if dd.replay_bins is not None:
+                sets = list(dd.replay_bins)
+            else:
+                sets = [dd.bins_t] + list(dd.aux_bins[:1])
+            for i, t in enumerate(model.trees):
+                add = self._tree_scores_from_raw(t, dd.bins, sets[0])
+                if K > 1:
+                    scores[:, i % K] += add
+                else:
+                    scores = scores + add
+                if scores_t is not None:
+                    add_t = self._tree_scores_from_raw(t, dd.bins, sets[1])
+                    if K > 1:
+                        scores_t[:, i % K] += add_t
+                    else:
+                        scores_t = scores_t + add_t
+            del sets
+        dd.replay_bins = None  # free the pre-bundle matrices
+        return scores, scores_t
+
+    def _tree_scores_from_raw(self, tree: Tree, bins: FeatureBins,
+                              bins_t: torch.Tensor) -> torch.Tensor:
+        """A converted (value-space) tree's leaf value for every column of
+        the (F, n) bin matrix: each split's slot re-derived from its value
+        (the last representative <= the split), then a fixed-depth walk in
+        which leaves hold (reference trainer.py:1754)."""
+        nn = tree.n_nodes()
+        slot = np.full(nn, -1, np.int32)
+        for nid in range(nn):
+            if tree.is_leaf(nid):
+                continue
+            fid = tree.feat[nid]
+            v = bins.values[fid, : int(bins.counts[fid])]
+            slot[nid] = int(np.searchsorted(v, tree.split[nid],
+                                            side="right")) - 1
+        dev = bins_t.device
+
+        def t32(a, dt=torch.int32):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+        feat, slot_t = t32(tree.feat), t32(slot)
+        left, right = t32(tree.left), t32(tree.right)
+        leaf = t32(np.asarray(tree.leaf_value, np.float32), torch.float32)
+        node = torch.zeros(bins_t.shape[1], dtype=torch.long, device=dev)
+        for _ in range(max(tree.max_depth(), 1)):
+            f = feat[node]
+            b = bins_t.gather(0, f.clamp_min(0).long()[None])[0].to(
+                torch.int32)
+            nxt = torch.where(b <= slot_t[node], left[node], right[node])
+            node = torch.where(f < 0, node, nxt.long())
+        return leaf[node]
+
+    def _load_resume_model(self, model: GBDTModel, names
+                           ) -> Tuple[GBDTModel, int]:
+        """continue_train: the dumped model at model.data_path, its split
+        names resolved against this run's columns (an unknown name raises:
+        resuming on different data), and the round to start at,
+        len(trees) // K (reference trainer.py:269-312). No dump: a fresh
+        run."""
+        p = self.params
+        if not p.model.continue_train or not self.fs.exists(
+                p.model.data_path):
+            return model, 0
+        with self.fs.open(p.model.data_path) as f:
+            model = GBDTModel.loads(f.read())
+        if names:
+            index = {n: i for i, n in enumerate(names)}
+            for t in model.trees:
+                for nid in range(t.n_nodes()):
+                    if t.is_leaf(nid):
+                        continue
+                    fid = index.get(t.feat_name[nid])
+                    if fid is not None:
+                        t.feat[nid] = fid
+                    elif not t.feat_name[nid].isdigit():
+                        raise ValueError(
+                            f"continue_train: dumped split feature "
+                            f"{t.feat_name[nid]!r} is not in this run's "
+                            "feature set (resuming on different data?)")
+        log.info("continue_train: loaded %d trees", len(model.trees))
+        return model, len(model.trees) // self.K
 
     def _make_tree_bufs(self, M: int):
         """Whole-run tree buffers, written on the device, fetched once."""
@@ -316,22 +466,29 @@ class GBDTTrainer:
 
     # -- the round loop -----------------------------------------------------
 
+    def _round_keys(self, rnd: int):
+        """kf, ki, kg: this round's key fold_in(PRNGKey(ROOT_SEED), rnd)
+        split in three (reference trainer.py:704). They stay on the CPU."""
+        return prng.split(prng.fold_in(prng.PRNGKey(ROOT_SEED), rnd), 3)
+
+    def _goss_key(self, rnd: int, grp: int):
+        """Group `grp`'s GOSS key fold_in(kg, grp), or None with GOSS off."""
+        if not 0.0 < self.goss[0] < 1.0:
+            return None
+        return prng.fold_in(self._round_keys(rnd)[2], grp)
+
     def _sample_masks(self, rnd: int, dd: _DevInputs):
-        """This round's (include, feat_mask, GOSS key) from its key
-        fold_in(PRNGKey(ROOT_SEED), rnd) split into kf, ki, kg (reference
-        trainer.py:704-724). The keys stay on the CPU (no device sync);
-        the row draw runs on the device, the feature draw (over the
-        engine-visible, possibly bundled, columns) on the CPU. A round
-        that samples nothing derives no key."""
+        """This round's (include, feat_mask), drawn once for the round's K
+        trees (reference trainer.py:704-724). The row draw runs on the
+        device, the feature draw (over the engine-visible, possibly
+        bundled, columns) on the CPU. A round that samples no rows or
+        features derives no key."""
         p = self.params
         include = dd.real_mask
-        goss_on = 0.0 < self.goss[0] < 1.0
-        if (p.instance_sample_rate >= 1.0 and p.feature_sample_rate >= 1.0
-                and not goss_on):
+        if p.instance_sample_rate >= 1.0 and p.feature_sample_rate >= 1.0:
             return include, torch.ones(dd.F, dtype=torch.bool,
-                                       device=self.device), None
-        kf, ki, kg = prng.split(prng.fold_in(prng.PRNGKey(ROOT_SEED), rnd),
-                                3)
+                                       device=self.device)
+        kf, ki, _ = self._round_keys(rnd)
         if p.instance_sample_rate < 1.0:
             rate = float(np.float32(p.instance_sample_rate))
             include = include & (prng.uniform(ki, dd.n_score,
@@ -343,43 +500,57 @@ class GBDTTrainer:
             fmask = fmask.to(self.device)
         else:
             fmask = torch.ones(dd.F, dtype=torch.bool, device=self.device)
-        return include, fmask, prng.fold_in(kg, 0) if goss_on else None
+        return include, fmask
 
     def _round(self, rnd: int, dd: _DevInputs, spec: GrowSpec, state):
-        """grads -> one tree -> score and loss updates (reference
-        trainer.py:697-767 with K = 1)."""
+        """grads -> K trees, one a class group on its column of g and h ->
+        score and loss updates (reference trainer.py:697-770)."""
         scores, scores_t, bufs, loss_buf, tloss_buf = state
-        preds = self.loss.predict(scores)
-        g, h = self.loss.grad_hess(preds, dd.y)
-        include, fmask, key = self._sample_masks(rnd, dd)
-        tr, pos, aux_pos, wlog = grow(
-            spec, dd.bins_t, include, g * dd.weight, h * dd.weight,
-            fmask, aux=dd.aux_bins, key=key, ranges=dd.ranges)
-        if 0.0 < spec.goss_a < 1.0:
-            # grow fitted the sampled rows; the train rows come back first
-            pos, aux_pos = aux_pos[0], aux_pos[1:]
-        leaf = tr.leaf
-        scores = scores + leaf[pos.long()]
-        if scores_t is not None:
-            scores_t = scores_t + leaf[aux_pos[0].long()]
-        for name in _TREE_FIELDS:
-            bufs[name][rnd] = getattr(tr, name)
-        bufs["n_nodes"][rnd] = tr.n_nodes
-        bufs["wlog"][rnd] = wlog
+        K = self.K
+        gs, hs = self.loss.grad_hess(self.loss.predict(scores), dd.y)
+        include, fmask = self._sample_masks(rnd, dd)
+        live = dd.weight > 0
+        for grp in range(K):
+            g = gs[:, grp] if K > 1 else gs
+            h = hs[:, grp] if K > 1 else hs
+            tr, pos, aux_pos, wlog = grow(
+                spec, dd.bins_t, include,
+                torch.where(live, g * dd.weight, 0.0),
+                torch.where(live, h * dd.weight, 0.0), fmask,
+                aux=dd.aux_bins, key=self._goss_key(rnd, grp),
+                ranges=dd.ranges)
+            if 0.0 < spec.goss_a < 1.0:
+                # grow fitted the sampled rows; the train rows come back first
+                pos, aux_pos = aux_pos[0], aux_pos[1:]
+            if self.refine_lad:
+                tr = tr._replace(leaf=_lad_refine(
+                    tr, pos, dd.y, scores, dd.weight, dd.real_mask,
+                    self.params.learning_rate))
+            # in place: the round's gradients are taken already
+            (scores[:, grp] if K > 1 else scores).add_(tr.leaf[pos.long()])
+            if scores_t is not None:
+                (scores_t[:, grp] if K > 1 else scores_t).add_(
+                    tr.leaf[aux_pos[0].long()])
+            t_idx = rnd * K + grp
+            for name in _TREE_FIELDS:
+                bufs[name][t_idx] = getattr(tr, name)
+            bufs["n_nodes"][t_idx] = tr.n_nodes
+            bufs["wlog"][t_idx] = wlog
         loss_buf[rnd] = _wavg_loss(self.loss, scores, dd.y, dd.weight)
         if scores_t is not None:
             tloss_buf[rnd] = _wavg_loss(self.loss, scores_t, dd.y_t, dd.w_t)
         return scores, scores_t, bufs, loss_buf, tloss_buf
 
-    def _run_rounds(self, dd, spec, state, model, names, t0: float):
+    def _run_rounds(self, dd, spec, state, model, names, t0: float,
+                    start: int = 0):
         """Every round ends in host reads already (one per wave), so the
         loss of a sync round is read right away; `sync_log` holds
         (round, seconds since train() began) at each sync."""
         p = self.params
-        sync_every = max(1, p.round_num // 20)
+        sync_every = max(1, (p.round_num - start) // 20)
         self.sync_log = []
         t_train0 = time.time()
-        for rnd in range(p.round_num):
+        for rnd in range(start, p.round_num):
             state = self._round(rnd, dd, spec, state)
             if (rnd + 1) % sync_every == 0 or rnd == p.round_num - 1:
                 tl = float(state[3][rnd])
@@ -390,7 +561,8 @@ class GBDTTrainer:
                 log.info(msg)
             if p.model.dump_freq > 0 and (rnd + 1) % p.model.dump_freq == 0:
                 self._append_trees_from_bufs(model, state[2], dd.bins, names,
-                                             len(model.trees), rnd + 1)
+                                             len(model.trees),
+                                             (rnd + 1) * self.K)
                 self._dump_model(model)
         ts = self.time_stats
         ts["train"] = time.time() - t_train0
@@ -400,6 +572,7 @@ class GBDTTrainer:
                       else self.sync_log[0])
             r1, s1 = self.sync_log[-1]
             if r1 > r0:
+                # trees, not rounds: K trees a round under softmax
                 ts["trees_per_sec_steady"] = (r1 - r0) * self.K / max(
                     s1 - s0, 1e-9)
         return state
@@ -412,7 +585,9 @@ class GBDTTrainer:
         t0 = time.time()
         ts = self.time_stats = {}
         if train is None:
-            train, test = GBDTIngest(p, self.fs).load()
+            ingest = GBDTIngest(p, self.fs, transform_hook=self.transform_hook)
+            train, test = ingest.load()
+            ts["parser"] = ingest.parser
         ts["load"] = time.time() - t0
         dd = self._prep_device_inputs(train, test)
         self.dev_inputs = dd  # kept for a caller that times the kernels
@@ -425,24 +600,22 @@ class GBDTTrainer:
         # np.mean, as the reference takes it: a -0.0 base (sigmoid at 0.5)
         # is dumped as 0.0
         model = GBDTModel(base_prediction=float(np.mean(base)),
-                          num_tree_in_group=1, obj_name=self.loss.name)
-        scores = torch.full((dd.n_score,), float(base), dtype=torch.float32,
-                            device=self.device)
-        scores_t = (torch.full((dd.nt_score,), float(base),
-                               dtype=torch.float32, device=self.device)
-                    if dd.y_t is not None else None)
+                          num_tree_in_group=self.K, obj_name=self.loss.name)
+        names = train.feature_names
+        model, start = self._load_resume_model(model, names)
+        scores, scores_t = self._init_scores(model, dd, base)
         bufs, loss_buf, tloss_buf = self._make_tree_bufs(spec.max_nodes)
         state = (scores, scores_t, bufs, loss_buf, tloss_buf)
-        names = train.feature_names
-        rounds = 0
+        rounds = start
         if not p.just_evaluate:
-            state = self._run_rounds(dd, spec, state, model, names, t0)
+            state = self._run_rounds(dd, spec, state, model, names, t0,
+                                     start)
             rounds = p.round_num
         scores, scores_t, bufs, loss_buf, tloss_buf = state
         self.wave_log = bufs["wlog"].cpu().numpy()
         self._sampling_stats(ts, spec, train.n_features)
         t_fin = time.time()
-        out = self._finalize(model, dd, state, names, rounds)
+        out = self._finalize(model, dd, state, names, start, rounds)
         ts["finalize"] = time.time() - t_fin
         return out
 
@@ -467,11 +640,12 @@ class GBDTTrainer:
                                 bins: FeatureBins, names, have: int,
                                 want: int) -> None:
         """Convert device tree buffers [have, want) into host Trees (one
-        device->host fetch)."""
+        device->host fetch). The buffers are indexed by round * K + group,
+        so a resumed run's loaded trees leave their slots unused."""
         if want <= have:
             return
-        host = {k: v[have:want].cpu().numpy() for k, v in bufs.items()
-                if k != "wlog"}
+        host = {k: v[have:want].cpu().numpy()
+                for k, v in bufs.items() if k != "wlog"}
         for i in range(want - have):
             model.trees.append(self._arrays_to_tree(
                 {k: v[i] for k, v in host.items()}, bins, names))
@@ -539,12 +713,12 @@ class GBDTTrainer:
                 for name, (cnt, gain) in imp.items():
                     f.write(f"{name}\t{cnt}\t{gain}\n")
 
-    def _finalize(self, model, dd: _DevInputs, state, names, rounds: int
-                  ) -> GBDTResult:
+    def _finalize(self, model, dd: _DevInputs, state, names, start: int,
+                  rounds: int) -> GBDTResult:
         p = self.params
         scores, scores_t, bufs, loss_buf, tloss_buf = state
         self._append_trees_from_bufs(model, bufs, dd.bins, names,
-                                     len(model.trees), rounds)
+                                     len(model.trees), rounds * self.K)
         if not p.just_evaluate:
             self._dump_model(model)
         res = GBDTResult(
@@ -555,13 +729,13 @@ class GBDTTrainer:
         )
         loss_np = loss_buf.cpu().numpy()
         tloss_np = tloss_buf.cpu().numpy()
-        for rnd in range(rounds):
+        for rnd in range(start, rounds):
             rec = {"round": rnd, "train_loss": float(loss_np[rnd])}
             if scores_t is not None:
                 rec["test_loss"] = float(tloss_np[rnd])
             res.round_log.append(rec)
         if p.eval_metric:
-            ev = EvalSet(p.eval_metric)
+            ev = EvalSet(p.eval_metric, K=max(self.K, 2))
             res.train_metrics = ev.evaluate(self.loss.predict(scores), dd.y,
                                             dd.weight)
             if scores_t is not None:
@@ -572,9 +746,49 @@ class GBDTTrainer:
 
 
 def _wavg_loss(loss, scores, y, weight) -> torch.Tensor:
-    per = torch.where(weight > 0, loss.loss(scores, y),
-                      torch.zeros_like(scores))
+    per = loss.loss(scores, y)
+    per = torch.where(weight > 0, per, torch.zeros_like(per))
     return torch.sum(weight * per) / torch.clamp_min(torch.sum(weight), 1e-12)
+
+
+def _lad_refine(tr, pos, y, scores, weight, real_mask, lr) -> torch.Tensor:
+    """The tree's leaves refined to lr * the weighted median of the residual
+    y - score over each leaf's rows (the approximate LAD of reference
+    trainer.py:1917-1950, TreeRefiner.java's GK mode): one sort of the
+    valid residuals, a grid of LAD_Q of them at evenly spaced ranks, each
+    row's grid cell (the last grid value <= its residual), a (M, LAD_Q)
+    weight histogram, its prefix sums, and each leaf's first cell at or
+    above half its weight; exact when the grid holds every row. A leaf
+    without weight keeps its value. The prefix sums run in XLA CPU's order
+    (ordered_cumsum). Unit and integer weights sum exactly (below 2^24), so
+    the card's index_add_ equals the CPU's; fractional weights add in
+    atomic order on the card and may differ from the CPU in the last ulp
+    of a cell, which can move a median by one grid cell."""
+    M = tr.leaf.shape[0]
+    dev = tr.leaf.device
+    r = y - scores
+    valid = real_mask & (weight > 0)
+    rs = torch.sort(torch.where(valid, r, 3.4e38)).values
+    nv = int(valid.sum())
+    # ranks i * (nv - 1) // (Q - 1), without the product overflowing int32
+    i = torch.arange(LAD_Q, dtype=torch.int64, device=dev)
+    span = max(nv - 1, 0)
+    base, rem = span // (LAD_Q - 1), span % (LAD_Q - 1)
+    grid = rs[i * base + (i * rem) // (LAD_Q - 1)]
+    qi = torch.clamp(torch.searchsorted(grid, r.contiguous(), right=True) - 1,
+                     0, LAD_Q - 1)
+    flat = pos.long() * LAD_Q + qi
+    w = torch.where(valid, weight, 0.0)
+    hist = torch.zeros(M * LAD_Q, dtype=torch.float32, device=dev)
+    hist.index_add_(0, flat, w)
+    cw = ordered_cumsum(hist.view(M, LAD_Q), dim=1)
+    tot = cw[:, -1]
+    # the first cell at or above half: argmax's first maximum, on int32
+    # (CUDA's argmax takes no bool)
+    first = torch.argmax((cw >= 0.5 * tot[:, None]).to(torch.int32), dim=1)
+    med = grid[first]
+    is_leaf = (tr.feat == -1) & (torch.arange(M, device=dev) < tr.n_nodes)
+    return torch.where(is_leaf & (tot > 0), med * lr, tr.leaf)
 
 
 def _host(a) -> np.ndarray:

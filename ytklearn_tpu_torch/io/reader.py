@@ -15,11 +15,16 @@ dataflow/CoreData.java and DataFlow.java).
                        dict file -> transform stats and their sidecar ->
                        ELL arrays
 
+`DataIngest.load` dispatches to `_load_fast`, the columnar pipeline over
+the native C++ parser (io/native.py), unless a python transform hook is
+set, a delimiter is one the parser does not take, or YTK_NO_NATIVE is on
+at that call; `_load_python` is the Python parser's pipeline. Both give
+the same rows, dict, labels and rng draws; the native parser reads values
+as float32 (the Python one as float64), so transform stats and hashed
+sums may differ in their last digits, as in the JAX package.
+
 The port runs one process, so every plan reads every line; the multi-process
-line and file shards come with multi-GPU training (ROADMAP.md 1.7). The
-native parser of the JAX package is not ported (ROADMAP.md 1.15):
-`DataIngest.load` always takes the Python path, which gives the same
-arrays.
+line and file shards come with multi-GPU training (ROADMAP.md 1.7).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
 import numpy as np
 
 from ..config.params import CommonParams, DelimParams
+from . import native
 from .feature_hash import FeatureHash
 from .fs import LocalFileSystem
 
@@ -189,6 +195,20 @@ class IngestResult:
     # label stats (reference: CoreData.globalSync y stats)
     y_real_stat: Optional[np.ndarray] = None
     y_weight_stat: Optional[np.ndarray] = None
+    parser: Optional[str] = None  # native | python
+
+
+@dataclass
+class _Cols:
+    """Columnar rows from the native parser after label expansion, hashing
+    and y-sampling: the fast path's List[ParsedLine]."""
+
+    weight: np.ndarray  # (n,) f32
+    y: np.ndarray  # (n,) or (n, K) f32
+    occ_row: np.ndarray  # (nnz,) i64 row of each feature occurrence
+    occ_name: np.ndarray  # (nnz,) i64 -> names
+    occ_val: np.ndarray  # (nnz,) f64
+    names: List[str]
 
 
 def _counts_from_rows(rows: Sequence[ParsedLine]) -> Dict[str, int]:
@@ -312,9 +332,10 @@ class DataIngest:
                 fmap[name] = len(fmap)
         return fmap
 
-    def _resolve_feature_map(self, rows) -> Dict[str, int]:
+    def _resolve_feature_map(self, counts_fn) -> Dict[str, int]:
         """Load a dict when just_evaluate or continue_train finds the
-        model's, or need_dict names one; else build it from the counts."""
+        model's, or need_dict names one; else build it from the counts
+        that counts_fn() returns."""
         p = self.params
         model_dict = p.model.data_path + "_dict"
         if p.loss.just_evaluate and self.fs.exists(model_dict):
@@ -323,18 +344,15 @@ class DataIngest:
             return self.load_feature_map([p.model.dict_path])
         if p.model.continue_train and self.fs.exists(model_dict):
             return self.load_feature_map([model_dict])
-        return self.finalize_feature_map(_counts_from_rows(rows))
+        return self.finalize_feature_map(counts_fn())
 
     # -- transform ------------------------------------------------------
 
     def compute_transform_nodes(self, rows: Sequence[ParsedLine],
                                 fmap: Dict[str, int]
                                 ) -> Dict[int, TransformNode]:
-        """Stats over the training rows -> nodes of the chosen features
-        (include_features, else all but exclude_features; never the
-        bias)."""
-        t = self.params.feature.transform
-        if not t.switch_on:
+        """Stats over the training rows -> nodes (nodes_from_stats)."""
+        if not self.params.feature.transform.switch_on:
             return {}
         stats: Dict[str, FeatureStat] = {}
         for r in rows:
@@ -343,8 +361,16 @@ class DataIngest:
                 if s is None:
                     stats[name] = s = FeatureStat()
                 s.update(v)
+        return self.nodes_from_stats(stats, fmap)
+
+    def nodes_from_stats(self, stats: Dict[str, FeatureStat],
+                         fmap: Dict[str, int]) -> Dict[int, TransformNode]:
+        """Nodes of the chosen features (include_features, else all but
+        exclude_features; never the bias)."""
+        p = self.params
+        t = p.feature.transform
         include, exclude = set(t.include_features), set(t.exclude_features)
-        names = set(fmap) - {self.params.model.bias_feature_name}
+        names = set(fmap) - {p.model.bias_feature_name}
         chosen = include or (names - exclude if exclude else names)
         nodes: Dict[int, TransformNode] = {}
         for name in chosen:
@@ -440,11 +466,15 @@ class DataIngest:
     # -- the whole flow ---------------------------------------------------
 
     def load(self) -> IngestResult:
-        """The loadFlow (reference: dataflow/DataFlow.java:468), on the
-        Python parser."""
+        """The loadFlow (reference: dataflow/DataFlow.java:468): the native
+        parser's columnar pipeline when it can run, else the Python one."""
+        fast = native.use_native(self.params.data.delim, self.transform_hook)
+        log.info("convex ingest: the %s parser",
+                 "native" if fast else "python")
+        return self._load_fast() if fast else self._load_python()
+
+    def _load_python(self) -> IngestResult:
         p = self.params
-        log.info("convex ingest: the Python parser (the native parser is "
-                 "ROADMAP.md 1.15)")
 
         def read(paths: Sequence[str]) -> Iterator[str]:
             return shard_read_lines(self.fs, p.data, paths)
@@ -452,7 +482,8 @@ class DataIngest:
         train_rows = self.parse_rows(read(p.data.train_paths),
                                      p.data.train_max_error_tol,
                                      is_train=True)
-        fmap = self._resolve_feature_map(train_rows)
+        fmap = self._resolve_feature_map(
+            lambda: _counts_from_rows(train_rows))
         nodes = self.compute_transform_nodes(train_rows, fmap)
         if nodes:
             self.write_transform_sidecar(nodes, fmap)
@@ -478,4 +509,188 @@ class DataIngest:
                 y_weight[li] += r.weight
         return IngestResult(train=train, test=test, feature_map=fmap,
                             transform_nodes=nodes, y_real_stat=y_real,
-                            y_weight_stat=y_weight)
+                            y_weight_stat=y_weight, parser="python")
+
+    # -- the columnar path over the native parser --------------------------
+
+    def _parse_cols(self, paths, max_error_tol: int, is_train: bool
+                    ) -> _Cols:
+        """Native parse + vectorised label expansion, hashing and
+        y-sampling (reference io/reader.py:701). Rows and occurrences come
+        back in input order: the Python path's rows, errors, dict order and
+        rng draws."""
+        p = self.params
+        d = p.data.delim
+        paths2, divisor, remainder = shard_plan(self.fs, p.data, paths)
+        blk = native.parse_paths(
+            self.fs, paths2, d.x_delim, d.y_delim, d.features_delim,
+            d.feature_name_val_delim, divisor=divisor, remainder=remainder)
+        n_errors = blk.n_errors
+        n = blk.n
+        K = self.n_labels
+        bad, y = native.expand_labels_columnar(blk.label_ptr, blk.labels, n,
+                                               K)
+        occ_row = np.repeat(np.arange(n), np.diff(blk.row_ptr))
+        occ_name = blk.feat_ids.astype(np.int64)
+        occ_val = blk.feat_vals.astype(np.float64)
+        names: List[str] = blk.names
+        if self.hash is not None and len(names):
+            # hash each raw name once, then sum each row's signed values
+            # per hashed name in first-occurrence order (hash_features)
+            uniq: Dict[str, int] = {}
+            hid_of = np.empty(len(names), np.int64)
+            sign_of = np.empty(len(names), np.float64)
+            for i, nm in enumerate(names):
+                hn, sg = self.hash.hash_name(nm)
+                hid_of[i] = uniq.setdefault(hn, len(uniq))
+                sign_of[i] = sg
+            signed = occ_val * sign_of[occ_name]
+            hids = hid_of[occ_name]
+            key = occ_row * np.int64(len(uniq)) + hids
+            _, first_ix, inv = np.unique(key, return_index=True,
+                                         return_inverse=True)
+            sums = np.bincount(inv, weights=signed)
+            order = np.argsort(first_ix, kind="stable")
+            sel = first_ix[order]
+            occ_row = occ_row[sel]
+            occ_name = hids[sel]
+            occ_val = sums[order]
+            names = list(uniq)
+        keep = ~bad
+        weight = blk.weights.astype(np.float64)
+        if is_train and p.data.y_sampling:
+            # label-dependent subsampling (CoreData.yExtract): one
+            # rng.random() a kept row whose label has a rate, in row order,
+            # as the Python path draws
+            ys = {k: float(v) for k, v in dict(p.data.y_sampling).items()}
+            if K == 1:
+                lidx = np.trunc(y).astype(np.int64)
+            else:
+                has1 = (y == 1.0).any(axis=1)
+                lidx = np.argmax(y == 1.0, axis=1)
+                # a K-vector without an exact 1.0 is an error line, as the
+                # Python path's labels.index(1.0) raise
+                n_errors += int((keep & ~has1).sum())
+                keep &= has1
+            for i in np.flatnonzero(keep):
+                rate = ys.get(str(int(lidx[i])))
+                if rate is None:
+                    continue
+                weight[i] *= (1.0 / rate) if rate <= 1.0 else rate
+                if self.rng.random() > rate:
+                    keep[i] = False
+        if n_errors > max_error_tol:
+            raise ValueError(f"data error lines ({n_errors}) exceed "
+                             f"max_error_tol ({max_error_tol})")
+        new_row = np.cumsum(keep) - 1
+        occ_keep = keep[occ_row]
+        return _Cols(weight=weight[keep].astype(np.float32), y=y[keep],
+                     occ_row=new_row[occ_row[occ_keep]],
+                     occ_name=occ_name[occ_keep],
+                     occ_val=occ_val[occ_keep], names=names)
+
+    def _cols_to_dataset(self, cols: _Cols, fmap: Dict[str, int],
+                         nodes: Optional[Dict[int, TransformNode]] = None
+                         ) -> SparseDataset:
+        """Vectorised to_dataset: dict and field filtering, the value
+        transform, padded-ELL assembly (reference io/reader.py:799)."""
+        p = self.params
+        need_bias = p.model.need_bias
+        n = len(cols.weight)
+        gi_of = np.asarray([fmap.get(nm, -1) for nm in cols.names], np.int64)
+        gi = gi_of[cols.occ_name] if len(cols.occ_name) \
+            else np.zeros(0, np.int64)
+        keep = gi >= 0
+        f = None
+        if self.field_map is not None:
+            fdelim = p.data.delim.field_delim
+            fid_of = np.asarray([self.field_map.get(nm.split(fdelim)[0], -1)
+                                 for nm in cols.names], np.int64)
+            f = fid_of[cols.occ_name] if len(cols.occ_name) \
+                else np.zeros(0, np.int64)
+            keep &= f >= 0
+            f = f[keep]
+        occ_row = cols.occ_row[keep]
+        gi = gi[keep]
+        val = cols.occ_val[keep].astype(np.float64)
+        if nodes and len(gi):
+            from ..transform.pipeline import TransformTable, apply_nodes
+
+            val = apply_nodes(TransformTable.from_indexed(nodes, len(fmap)),
+                              gi, val)
+        cnt = np.bincount(occ_row, minlength=n) if n \
+            else np.zeros(0, np.int64)
+        delta = 1 if need_bias else 0
+        width = max((int(cnt.max()) if n and len(cnt) else 0) + delta, 1)
+        idx = np.zeros((n, width), np.int32)
+        vmat = np.zeros((n, width), np.float32)
+        fmat = (np.zeros((n, width), np.int32)
+                if self.field_map is not None else None)
+        if need_bias and n:
+            vmat[:, 0] = 1.0  # bias index 0, field 0
+        rp = np.zeros(n + 1, np.int64)
+        np.cumsum(cnt, out=rp[1:])
+        j = np.arange(len(occ_row)) - rp[occ_row] + delta
+        idx[occ_row, j] = gi
+        vmat[occ_row, j] = val
+        if fmat is not None:
+            fmat[occ_row, j] = f
+        y = cols.y if self.n_labels > 1 else cols.y.reshape(-1)
+        return SparseDataset(idx, vmat, y.astype(np.float32), cols.weight,
+                             n_real=n, dim=len(fmap), field=fmat)
+
+    def _load_fast(self) -> IngestResult:
+        """The loadFlow over the native parser (reference io/reader.py:859):
+        the same pipeline and results as _load_python, vectorised."""
+        p = self.params
+        train = self._parse_cols(p.data.train_paths,
+                                 p.data.train_max_error_tol, is_train=True)
+
+        def counts() -> Dict[str, int]:
+            c = np.bincount(train.occ_name, minlength=len(train.names))
+            return {nm: int(c[i]) for i, nm in enumerate(train.names)
+                    if c[i] > 0}
+
+        fmap = self._resolve_feature_map(counts)
+        nodes: Dict[int, TransformNode] = {}
+        if p.feature.transform.switch_on:
+            nn = len(train.names)
+            cnt = np.bincount(train.occ_name, minlength=nn).astype(np.int64)
+            s1 = np.bincount(train.occ_name, weights=train.occ_val,
+                             minlength=nn)
+            s2 = np.bincount(train.occ_name, weights=train.occ_val ** 2,
+                             minlength=nn)
+            mn = np.full(nn, math.inf)
+            mx = np.full(nn, -math.inf)
+            if len(train.occ_name):
+                np.minimum.at(mn, train.occ_name, train.occ_val)
+                np.maximum.at(mx, train.occ_name, train.occ_val)
+            stats = {nm: FeatureStat(cnt=int(cnt[i]), sum=float(s1[i]),
+                                     sum2=float(s2[i]), max=float(mx[i]),
+                                     min=float(mn[i]))
+                     for i, nm in enumerate(train.names) if cnt[i] > 0}
+            nodes = self.nodes_from_stats(stats, fmap)
+            if nodes:
+                self.write_transform_sidecar(nodes, fmap)
+        train_ds = self._cols_to_dataset(train, fmap, nodes)
+        test_ds = None
+        if p.data.test_paths:
+            test = self._parse_cols(p.data.test_paths,
+                                    p.data.test_max_error_tol,
+                                    is_train=False)
+            test_ds = self._cols_to_dataset(test, fmap, nodes)
+        K = max(self.n_labels, 2)
+        y_real = np.zeros(K, np.int64)
+        y_weight = np.zeros(K, np.float64)
+        if self.n_labels == 1:
+            li = np.trunc(train.y).astype(np.int64)
+            valid = (li >= 0) & (li < K)
+        else:
+            has1 = (train.y == 1.0).any(axis=1)
+            li = np.argmax(train.y == 1.0, axis=1)
+            valid = has1 & (li >= 0) & (li < K)
+        np.add.at(y_real, li[valid], 1)
+        np.add.at(y_weight, li[valid], train.weight[valid].astype(np.float64))
+        return IngestResult(train=train_ds, test=test_ds, feature_map=fmap,
+                            transform_nodes=nodes, y_real_stat=y_real,
+                            y_weight_stat=y_weight, parser="native")

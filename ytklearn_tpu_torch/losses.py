@@ -19,7 +19,10 @@ losses are in {0, 1}; the margin losses map them to +-1 as the reference
 does.
 
 The convex families train with every loss; the GBDT trainer trains with
-`GBDT_TRAINABLE` only (the rest is ROADMAP.md 1.5).
+`GBDT_TRAINABLE`: every scalar loss, and softmax with K > 1 trees a round.
+The other multiclass losses cannot grow a GBDT (one tree a round on a
+K-wide score): the JAX package's trainer fails on them with a shape
+error, and the port refuses them with a ValueError.
 """
 
 from __future__ import annotations
@@ -40,7 +43,10 @@ IDENTITY_LOSSES = (
     "multiclass_hinge", "multiclass_l2_hinge", "multiclass_smooth_hinge",
 )
 #: losses the GBDT device trainer trains with
-GBDT_TRAINABLE = ("sigmoid", "l2")
+GBDT_TRAINABLE = (
+    "sigmoid", "l2", "l1", "huber", "poisson", "mape", "inv_mape", "smape",
+    "hinge", "l2_hinge", "smooth_hinge", "exponential", "softmax",
+)
 
 
 def _softplus(x):

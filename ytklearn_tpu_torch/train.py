@@ -73,7 +73,7 @@ class HoagTrainer:
         self.transform_hook = transform_hook
         self.device = resolve_device(device)
         self._field_map: Optional[Dict[str, int]] = None
-        self.time_stats: Dict[str, float] = {}
+        self.time_stats: Dict[str, object] = {}
 
     def _ingest(self) -> IngestResult:
         """The family's ingest (reference: DataFlowFactory.createDataFlow:
@@ -113,8 +113,10 @@ class HoagTrainer:
         if ingest is None:
             ingest = self._ingest()
         ts["load"] = time.time() - t0
-        log.info("load flow done in %.1fs: %d train rows, dim %d",
-                 ts["load"], ingest.train.n_real, ingest.train.dim)
+        ts["parser"] = ingest.parser
+        log.info("load flow done in %.1fs (%s parser): %d train rows, dim %d",
+                 ts["load"], ingest.parser, ingest.train.n_real,
+                 ingest.train.dim)
         model = self._make_model(ingest)
         train_b = model.device_batch(ingest.train)
         test_b = model.device_batch(ingest.test) if ingest.test else None
