@@ -19,8 +19,10 @@ with bench.py's FM cell through scripts/bench_fm.py (slice 10; plain
 torch, no kernel of the port), and GBDT training from text as the
 reference runs it (slice 11, no new kernel): the native C++ parser for
 both ingests, softmax with K trees a round, l1 with the approximate LAD
-refine, the other losses, the host samplers and continue_train. Every
-phase prints its wall time, and the run its total.
+refine, the other losses, the host samplers and continue_train, and
+GBST through `cli train` and `cli serve` for every family (slice 12,
+plain torch, no new kernel). Every phase prints its wall time, and the
+run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -179,7 +181,23 @@ phase prints its wall time, and the run its total.
      loss, peak memory, the idle share and top device ops of two traced
      L-BFGS iterations, the loss falling over accepted iterations, and
      whether two trainings dump byte-identical texts;
- 17. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 17. (slice 12, its main path) keeps those convex models, writes the FM
+     case's data again at 2^17 + 2^14 and 2^15 + 2^12 lines and runs
+     `cli train` in this process for each of GBST_RUNS (gbmlr K = 8, 5
+     trees; gbsdt, gbhmlr, gbhsdt K = 8, 3 trees; a random_forest run; a
+     continue_train run, 3 + 2 trees; lr 0.3, rates 0.8) at GBST_ITERS
+     L-BFGS iterations a tree on the card: trees, seconds a tree, ingest
+     against training, test AUC above 0.6, gbmlr's CPU run printed
+     beside; then each again at GBST_HELD_ITERS on the card and the CPU,
+     held together (statuses and iterations equal, losses at rtol 1e-4,
+     AUC within 1e-4); then serves linear, multiclass_linear, FM, FFM,
+     gbmlr and gbhsdt on cuda (ModelRegistry + ServeApp, what `cli serve`
+     starts) at f64 and bf16: 200 one-row requests (p50, p99) and one of
+     64 rows, f64 scores at rtol 1e-10 of the host predictor, bf16
+     predictions inside the 0.1 band; then one `cli serve` process for
+     gbmlr answers 64 rows and drains on SIGTERM; no kernel wrapper's
+     launch count moves on either phase;
+ 18. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -194,6 +212,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1945,10 +1964,9 @@ def exact_err(got, want, exact, what, name, card):
     to the plain version's (want) and the exact ones; each g/h sum within
     HIST_RTOL of the exact sum plus HIST_RTOL of the largest, hist_err's
     tolerance. The plain version's own distance from the exact sums is
-    printed beside: it adds a bin's rows one at a time into one f32 cell,
-    so a bin that takes most of a wave's rows drifts by up to half an ulp
-    a row, where the kernel's chunked sums do not. Returns the largest
-    |got - want| of g/h."""
+    printed beside: it accumulates in float64 and rounds once (an f32
+    cell adding a bin's rows one at a time drifts by hundreds at the
+    softmax root wave). Returns the largest |got - want| of g/h."""
     import torch
 
     torch.cuda.synchronize()
@@ -2880,66 +2898,70 @@ def launch_counts():
     return [f.launches for f in fns]
 
 
-def phase_convex_cli(card):
+def phase_convex_cli(card, tmp):
     """Slice 10's main path: `cli train` for linear (OWL-QN, grid, HOAG),
     multiclass_linear, FM and FFM on seeded synthetic files, on the card
     and on the CPU; each card run held to its CPU run (status and
     iterations equal, the first 5 iterations' and the final avg loss at
     rtol 1e-4, test AUC within 1e-4). The path launches no kernel of the
-    port: every wrapper's count stays where it was."""
+    port: every wrapper's count stays where it was. Returns the card
+    configs of the first run of each family (their dumps stay in `tmp`
+    for phase_serve_families)."""
     from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case
 
-    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_convex_")
-    try:
-        base = {}
-        lines = [(name, n) for name, _, n, _ in CONVEX_DATA]
-        for name, family, n, kw in CONVEX_DATA:
-            base[name] = (family, write_convex_case(
-                os.path.join(tmp, name), family, n, n // 8, CONVEX_SEED,
-                **kw))
-        before = launch_counts()
-        for i, (run, data, l1, l2, iters, hyper) in enumerate(CONVEX_RUNS):
-            family, cfg = base[data]
-            cfg = json.loads(json.dumps(cfg))
-            cfg["loss"]["evaluate_metric"] = ["auc"]
-            cfg["loss"]["regularization"] = {"l1": [l1], "l2": [l2]}
-            conv = cfg["optimization"]["line_search"]["lbfgs"]["convergence"]
-            conv["max_iter"], conv["eps"] = iters, 1e-7
-            if hyper:
-                cfg["hyper"] = hyper
-            tag = f"run{i}"
-            line, res, ts = convex_cli(cfg, family, "cuda", tag, tmp)
-            _, cres, cts = convex_cli(cfg, family, "cpu", tag, tmp)
-            auc, cauc = res.test_metrics["auc"], cres.test_metrics["auc"]
-            check(ts.get("parser") == cts.get("parser") == "native",
-                  f"{run}: parsers {ts.get('parser')}/{cts.get('parser')}, "
-                  "not native")
-            print(f"convex cli {run} ({family}, {dict(lines)[data]} "
-                  f"lines, {ts['parser']} parser): n_iter {res.n_iter}, "
-                  f"status {res.status}, "
-                  f"avg_loss {res.avg_loss:.6f} (cpu {cres.avg_loss:.6f}), "
-                  f"test AUC {auc:.6f} (cpu {cauc:.6f}); ingest "
-                  f"{ts['load']:.3f} s against training {ts['train']:.3f} s "
-                  f"(cpu: {cts['load']:.3f} s, {cts['train']:.3f} s) "
-                  f"[{card}]", flush=True)
-            check(line["model"] == family and line["n_iter"] == res.n_iter,
-                  f"{run}: JSON line {line}")
-            check((res.status, res.n_iter) == (cres.status, cres.n_iter),
-                  f"{run}: card {res.status}/{res.n_iter}, cpu "
-                  f"{cres.status}/{cres.n_iter}")
-            h = [r["avg_loss"] for r in res.history[:6]]
-            ch = [r["avg_loss"] for r in cres.history[:6]]
-            for a, b in zip(h + [res.avg_loss], ch + [cres.avg_loss]):
-                check(abs(a - b) <= CONVEX_RTOL * abs(b),
-                      f"{run}: avg loss card {h} {res.avg_loss}, cpu {ch} "
-                      f"{cres.avg_loss}")
-            check(abs(auc - cauc) <= 1e-4, f"{run}: AUC {auc} vs {cauc}")
-            check(math.isfinite(res.avg_loss) and res.n_iter >= 5
-                  and auc > 0.6, f"{run}: did not train ({res.status})")
-        check(launch_counts() == before,
-              "a kernel wrapper launched on the convex path")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    models = {}
+    base = {}
+    lines = [(name, n) for name, _, n, _ in CONVEX_DATA]
+    for name, family, n, kw in CONVEX_DATA:
+        base[name] = (family, write_convex_case(
+            os.path.join(tmp, name), family, n, n // 8, CONVEX_SEED,
+            **kw))
+    before = launch_counts()
+    for i, (run, data, l1, l2, iters, hyper) in enumerate(CONVEX_RUNS):
+        family, cfg = base[data]
+        cfg = json.loads(json.dumps(cfg))
+        cfg["loss"]["evaluate_metric"] = ["auc"]
+        cfg["loss"]["regularization"] = {"l1": [l1], "l2": [l2]}
+        conv = cfg["optimization"]["line_search"]["lbfgs"]["convergence"]
+        conv["max_iter"], conv["eps"] = iters, 1e-7
+        if hyper:
+            cfg["hyper"] = hyper
+        tag = f"run{i}"
+        line, res, ts = convex_cli(cfg, family, "cuda", tag, tmp)
+        _, cres, cts = convex_cli(cfg, family, "cpu", tag, tmp)
+        if family not in models:
+            models[family] = json.loads(json.dumps(cfg))
+            models[family]["model"]["data_path"] = os.path.join(
+                tmp, f"{tag}_cuda", "model")
+        auc, cauc = res.test_metrics["auc"], cres.test_metrics["auc"]
+        check(ts.get("parser") == cts.get("parser") == "native",
+              f"{run}: parsers {ts.get('parser')}/{cts.get('parser')}, "
+              "not native")
+        print(f"convex cli {run} ({family}, {dict(lines)[data]} "
+              f"lines, {ts['parser']} parser): n_iter {res.n_iter}, "
+              f"status {res.status}, "
+              f"avg_loss {res.avg_loss:.6f} (cpu {cres.avg_loss:.6f}), "
+              f"test AUC {auc:.6f} (cpu {cauc:.6f}); ingest "
+              f"{ts['load']:.3f} s against training {ts['train']:.3f} s "
+              f"(cpu: {cts['load']:.3f} s, {cts['train']:.3f} s) "
+              f"[{card}]", flush=True)
+        check(line["model"] == family and line["n_iter"] == res.n_iter,
+              f"{run}: JSON line {line}")
+        check((res.status, res.n_iter) == (cres.status, cres.n_iter),
+              f"{run}: card {res.status}/{res.n_iter}, cpu "
+              f"{cres.status}/{cres.n_iter}")
+        h = [r["avg_loss"] for r in res.history[:6]]
+        ch = [r["avg_loss"] for r in cres.history[:6]]
+        for a, b in zip(h + [res.avg_loss], ch + [cres.avg_loss]):
+            check(abs(a - b) <= CONVEX_RTOL * abs(b),
+                  f"{run}: avg loss card {h} {res.avg_loss}, cpu {ch} "
+                  f"{cres.avg_loss}")
+        check(abs(auc - cauc) <= 1e-4, f"{run}: AUC {auc} vs {cauc}")
+        check(math.isfinite(res.avg_loss) and res.n_iter >= 5
+              and auc > 0.6, f"{run}: did not train ({res.status})")
+    check(launch_counts() == before,
+          "a kernel wrapper launched on the convex path")
+    return models
 
 
 def phase_bench_fm(card):
@@ -3172,8 +3194,8 @@ def softmax_kernels(recorder, counts, card):
     ranges. The calls at the shapes must add up to the run's launch
     counts. K1 and K3 are held to the float64 sums of the same values at
     hist_err's tolerance, counts exact and equal to their plain versions'
-    (exact_err: round 0's equal hessians in one bin take the plain
-    version's f32 cell off by hundreds); K5 exactly, also in place.
+    (exact_err), and to their plain versions (float64 sums rounded once)
+    at hist_err's tolerance; K5 exactly, also in place.
     Returns each kernel's largest error against its plain version."""
     import torch
 
@@ -3207,23 +3229,27 @@ def softmax_kernels(recorder, counts, card):
             bins, pos, g, h, ids, B = args
             F, M, bf16 = bins.shape[0], kw["max_nodes"], kw["use_bf16"]
             plan = hist.float_plan(N, F, B, M, rows, sm)
+            got = hist.hist_wave(*args, **kw)
+            want = hist.hist_wave_plain(bins, pos, g, h, ids, B, M, bf16)
+            where = f"{what}, F = {F}, plan {plan_text(plan)}"
             err = exact_err(
-                hist.hist_wave(*args, **kw),
-                hist.hist_wave_plain(bins, pos, g, h, ids, B, M, bf16),
+                got, want,
                 exact_float_hist(lambda f, r: bins[f, r], F, B, pos, g, h,
-                                 ids, M, bf16),
-                f"{what}, F = {F}, plan {plan_text(plan)}", name, card)
+                                 ids, M, bf16), where, name, card)
+            hist_err(got, want, where, name, card)
         else:
             brows, idx, pg, gg, hg, ids, B = args
             F, M, bf16 = brows.shape[1], kw["max_nodes"], kw["use_bf16"]
             plan = hist.float_plan(N, F, B, M, rows, sm, True)
+            got = hist.hist_wave_gather(*args, **kw)
+            want = hist.hist_gather_plain(brows, idx, pg, gg, hg, ids, B, M,
+                                          bf16)
+            where = f"{what}, F = {F}, plan {plan_text(plan)}"
             err = exact_err(
-                hist.hist_wave_gather(*args, **kw),
-                hist.hist_gather_plain(brows, idx, pg, gg, hg, ids, B, M,
-                                       bf16),
+                got, want,
                 exact_float_hist(lambda f, r: brows[idx[r].long(), f], F, B,
-                                 pg, gg, hg, ids, M, bf16),
-                f"{what}, F = {F}, plan {plan_text(plan)}", name, card)
+                                 pg, gg, hg, ids, M, bf16), where, name, card)
+            hist_err(got, want, where, name, card)
         errs[name] = max(errs[name], err)
     print(f"softmax cli: {len(recorder.calls)} shapes of K1, K3 and K5 held "
           f"to their plain versions (K1 and K3 also to the exact sums) in "
@@ -3416,6 +3442,283 @@ def phase_objectives_int8(card):
 
 
 
+# -- slice 12: GBST training and serving every family --------------------------
+
+#: GBST on the FM case's data (CONVEX_DATA "fm": convex_synth binary lines,
+#: vocab 20000, 16 non-zeros a row, CONVEX_SEED): (lines, test lines)
+GBST_DATA = {"big": (1 << 17, 1 << 14), "small": (1 << 15, 1 << 12)}
+GBST_SHAPE = dict(vocab=20000, nnz=16, l2=1e-3)
+#: (run, variant, data, trees, extra config, continue_train trees)
+GBST_RUNS = (
+    ("gbmlr", "gbmlr", "big", 5, {}, 0),
+    ("gbsdt", "gbsdt", "small", 3, {}, 0),
+    ("gbhmlr", "gbhmlr", "small", 3, {}, 0),
+    ("gbhsdt", "gbhsdt", "small", 3, {}, 0),
+    ("gbsdt random_forest", "gbsdt", "small", 3,
+     {"type": "random_forest"}, 0),
+    ("gbhmlr continue_train 3 + 2", "gbhmlr", "small", 3, {}, 2),
+)
+GBST_ITERS = 15  # L-BFGS iterations a tree on the main path
+#: iterations a tree where a card run is held to its CPU run: L-BFGS on
+#: the soft mixture is chaotic in f32 sum order past about that many
+#: (PERF.md section 6), so the main path's 15 are printed beside
+#: the CPU's and held only to the sanity bounds
+GBST_HELD_ITERS = 6
+GBST_RTOL = 1e-4  # tests/test_torch_gbst.py's tolerances
+
+
+def gbst_cli(cfg, variant, device, tag, tmp, iters, more=0):
+    """`cli train <variant>` in this process, then with `more` > 0 again
+    with continue_train to `more` more trees -> (the last run's JSON
+    line, BoostResult and time_stats, the config it ran)."""
+    import contextlib
+    import io
+
+    from ytklearn_tpu_torch import boost, cli
+
+    c = json.loads(json.dumps(cfg))
+    c["model"]["data_path"] = os.path.join(tmp, f"{tag}_{device}_{iters}",
+                                           "model")
+    c["optimization"]["line_search"]["lbfgs"]["convergence"][
+        "max_iter"] = iters
+    conf = os.path.join(tmp, f"{tag}_{device}_{iters}.conf")
+    got = []
+    real = boost.GBSTTrainer.train
+
+    def train(self, *a, **kw):
+        res = real(self, *a, **kw)
+        got.append((res, dict(self.time_stats)))
+        return res
+
+    boost.GBSTTrainer.train = train
+    try:
+        for cont in ([False, True] if more else [False]):
+            if cont:
+                c["model"]["continue_train"] = True
+                c["tree_num"] += more
+            with open(conf, "w") as f:
+                json.dump(c, f)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["train", variant, conf, "--device", device])
+            check(rc == 0, f"cli train {variant} on {device}")
+    finally:
+        boost.GBSTTrainer.train = real
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return line, *got[-1], c
+
+
+def gbst_line(run, who, res, ts, card):
+    secs = ts.get("trees") or [0.0]
+    print(f"gbst cli {run} on {who}: {res.n_trees} trees, per-tree fit "
+          f"avg loss {[round(v, 6) for v in res.per_tree_loss]}, iterations "
+          f"{res.per_tree_iter}, statuses {res.per_tree_status}, train "
+          f"{res.train_loss:.6f}, test {res.test_loss:.6f}, test AUC "
+          f"{res.test_metrics['auc']:.6f}; {statistics.median(secs):.3f} s "
+          f"a tree (median of {len(secs)}), ingest {ts['load']:.3f} s "
+          f"({ts['parser']} parser) against training {ts['train']:.3f} s "
+          f"[{card}]", flush=True)
+
+
+def gbst_held(run, res, cres):
+    """A card run against its CPU run: statuses and iterations a tree
+    equal, per-tree fit and final losses at GBST_RTOL, test AUC within
+    1e-4 and above 0.6."""
+    check((res.per_tree_status, res.per_tree_iter) ==
+          (cres.per_tree_status, cres.per_tree_iter),
+          f"{run}: card {res.per_tree_status}/{res.per_tree_iter}, cpu "
+          f"{cres.per_tree_status}/{cres.per_tree_iter}")
+    for a, b in zip(res.per_tree_loss + [res.train_loss, res.test_loss],
+                    cres.per_tree_loss + [cres.train_loss, cres.test_loss]):
+        check(abs(a - b) <= GBST_RTOL * abs(b),
+              f"{run}: losses card {res.per_tree_loss} {res.train_loss} "
+              f"{res.test_loss}, cpu {cres.per_tree_loss} "
+              f"{cres.train_loss} {cres.test_loss}")
+    auc, cauc = res.test_metrics["auc"], cres.test_metrics["auc"]
+    check(abs(auc - cauc) <= 1e-4 and auc > 0.6,
+          f"{run}: test AUC {auc} vs cpu {cauc}")
+
+
+def phase_gbst_cli(card, tmp):
+    """Slice 12's main path: `cli train` for gbmlr (K = 8, 5 trees, 2^17 +
+    2^14 lines: dim 20001 x 15 weights, a (rows, 17, 15) gather a pass),
+    gbsdt, gbhmlr and gbhsdt (K = 8, 3 trees, 2^15 + 2^12 lines), a
+    random_forest run and a continue_train run (3 + 2 trees), each at
+    learning_rate 0.3, instance and feature rates 0.8 and GBST_ITERS
+    L-BFGS iterations a tree on the card: trees, seconds a tree, ingest
+    against training, test AUC above 0.6; gbmlr's CPU run at the same
+    iterations printed beside it. Each run again at GBST_HELD_ITERS, card
+    held to CPU (gbst_held). No kernel wrapper's count moves. Returns the
+    card's gbmlr and gbhsdt configs (their dumps stay in `tmp`)."""
+    from ytklearn_tpu_torch.scripts.convex_synth import write_gbst_case
+
+    data = {}
+    for name, (n, n_test) in GBST_DATA.items():
+        data[name] = write_gbst_case(os.path.join(tmp, f"data_{name}"), n,
+                                     n_test, CONVEX_SEED, K=8,
+                                     learning_rate=0.3,
+                                     instance_sample_rate=0.8,
+                                     feature_sample_rate=0.8, **GBST_SHAPE)
+    before = launch_counts()
+    served = {}
+    for i, (run, variant, dname, trees, extra, more) in enumerate(GBST_RUNS):
+        cfg = json.loads(json.dumps(data[dname]))
+        cfg.update(extra, tree_num=trees)
+        cfg["loss"]["evaluate_metric"] = ["auc"]
+        cfg["optimization"]["line_search"]["lbfgs"]["convergence"][
+            "eps"] = 1e-7
+        tag = f"gbst{i}"
+        line, res, ts, used = gbst_cli(cfg, variant, "cuda", tag, tmp,
+                                       GBST_ITERS, more)
+        gbst_line(f"{run} ({GBST_DATA[dname][0]} lines)", "cuda", res, ts,
+                  card)
+        check(line["model"] == variant and res.n_trees == trees + more
+              and len(res.per_tree_loss) == (more or trees)
+              and ts["parser"] == "native" and all(
+                  math.isfinite(v) for v in res.per_tree_loss)
+              and res.test_metrics["auc"] > 0.6,
+              f"{run}: did not train ({line})")
+        if run in ("gbmlr", "gbhsdt"):
+            served[variant] = used
+        if run == "gbmlr":
+            _, cres, cts, _ = gbst_cli(cfg, variant, "cpu", tag, tmp,
+                                       GBST_ITERS, more)
+            gbst_line(run, "cpu", cres, cts, card)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                res.per_tree_loss + [res.train_loss, res.test_loss],
+                cres.per_tree_loss + [cres.train_loss, cres.test_loss]))
+            print(f"gbst cli {run}: at {GBST_ITERS} iterations a tree the "
+                  f"card's losses lie {rel:.3g} (largest relative) from "
+                  f"the CPU's, AUC {res.test_metrics['auc']:.6f} against "
+                  f"{cres.test_metrics['auc']:.6f}: not held (L-BFGS on "
+                  f"the mixture is chaotic in f32 sum order); held at "
+                  f"{GBST_HELD_ITERS} below [{card}]", flush=True)
+        _, hres, _, _ = gbst_cli(cfg, variant, "cuda", tag, tmp,
+                                 GBST_HELD_ITERS, more)
+        _, hcres, _, _ = gbst_cli(cfg, variant, "cpu", tag, tmp,
+                                  GBST_HELD_ITERS, more)
+        gbst_held(run, hres, hcres)
+        print(f"gbst cli {run} at {GBST_HELD_ITERS} iterations a tree: "
+              f"card {hres.per_tree_loss} {hres.test_loss:.6f} AUC "
+              f"{hres.test_metrics['auc']:.6f}, cpu {hcres.per_tree_loss} "
+              f"{hcres.test_loss:.6f} AUC {hcres.test_metrics['auc']:.6f}: "
+              f"held (statuses, iterations, losses at rtol {GBST_RTOL}, "
+              f"AUC within 1e-4) [{card}]", flush=True)
+    check(launch_counts() == before,
+          "a kernel wrapper launched on the GBST path")
+    return served
+
+
+def phase_serve_families(card, models):
+    """`cli serve`'s path (ModelRegistry + ServeApp, as in
+    phase_serve_binned) for every family `cli train` writes but GBDT:
+    linear, multiclass_linear, FM and FFM as phase_convex_cli trained them
+    on the card, gbmlr and gbhsdt as phase_gbst_cli did. At each rung
+    (YTK_SERVE_PRECISION f64 and bf16): 200 one-row requests (p50 and p99
+    of the client's clock) and one of 64 rows, from the model's test
+    lines. f64: every score equal to the host predictor's at rtol 1e-10,
+    atol 1e-12; bf16 (the einsum families; GBST serves f64 at either):
+    predictions within the reference's 0.1 band of the host's, the rung
+    named in rung_info. Then one `cli serve` process (gbmlr, f64) answers
+    a 64-row /predict equal to the host, and drains on SIGTERM. No kernel
+    wrapper's count moves."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.serve import BatchPolicy, ModelRegistry, ServeApp
+
+    before = launch_counts()
+    for family, cfg in models.items():
+        pred = create_predictor(family, cfg)
+        rows = text_rows(cfg["data"]["test"]["data_path"])[:264]
+        want_s = pred.batch_scores(rows)
+        want_p = pred.batch_predicts(rows)
+        for precision in ("f64", "bf16"):
+            os.environ["YTK_SERVE_PRECISION"] = precision
+            try:
+                registry = ModelRegistry(device="cuda")
+                entry = registry.load("default", family, cfg)
+            finally:
+                os.environ.pop("YTK_SERVE_PRECISION")
+            info = entry.scorer.rung_info()
+            served = ("bf16" if precision == "bf16"
+                      and family in ("linear", "multiclass_linear", "fm",
+                                     "ffm") else "f64")
+            check((info["mode"], info["precision"], info["downgraded"]) ==
+                  ("stacked", served, False), f"{family}: rung {info}")
+            app = ServeApp(registry, BatchPolicy(max_batch=512,
+                                                 max_wait_ms=2.0),
+                           host="127.0.0.1", port=0).start()
+            try:
+                lat, got_s, got_p = [], [], []
+                for row in rows[:200]:
+                    t0 = time.perf_counter()
+                    out = post(app.port, {"features": row})
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    got_s += out["scores"]
+                    got_p += out["predictions"]
+                out = post(app.port, {"rows": rows[200:264]})
+            finally:
+                app.stop(drain=True, timeout=30.0)
+                registry.close()
+            got_s = np.asarray(got_s + out["scores"], np.float64)
+            got_p = np.asarray(got_p + out["predictions"], np.float64)
+            if served == "f64":
+                ok = bool(np.all(np.abs(got_s - want_s)
+                                 <= 1e-12 + 1e-10 * np.abs(want_s)))
+                band = float(np.max(np.abs(got_p - want_p)))
+                what = "every score at rtol 1e-10, atol 1e-12"
+            else:
+                band = float(np.max(np.abs(got_p - want_p)))
+                ok = 0.0 < band < 0.1
+                what = "predictions inside the 0.1 band"
+            lat.sort()
+            p50 = statistics.median(lat)
+            p99 = lat[int(0.99 * (len(lat) - 1))]
+            print(f"serve {family} ({precision} requested, {served} "
+                  f"served): 200 one-row requests + one of 64 rows, "
+                  f"{what} of the host predictor: {ok}, max |prediction "
+                  f"diff| {band:.6g}; one-row p50 {p50:.4f} ms, p99 "
+                  f"{p99:.4f} ms (client clock) [{card}]", flush=True)
+            check(ok, f"serve {family} at {precision}: scores off the host "
+                  "predictor's")
+    # the CLI itself, in its own process
+    family, cfg = "gbmlr", models["gbmlr"]
+    conf = os.path.join(os.path.dirname(cfg["model"]["data_path"]),
+                        "serve.conf")
+    with open(conf, "w") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    env.pop("YTK_SERVE_PRECISION", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ytklearn_tpu_torch.cli", "serve", conf,
+         family, "--host", "127.0.0.1", "--port", "0", "--device",
+         "cuda"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        banner = json.loads(proc.stdout.readline() or "{}")
+        check(banner.get("model") == family, f"cli serve banner {banner}")
+        rows = text_rows(cfg["data"]["test"]["data_path"])[:64]
+        out = post(banner["port"], {"rows": rows})
+        want = create_predictor(family, cfg).batch_scores(rows)
+        ok = bool(np.all(np.abs(np.asarray(out["scores"]) - want)
+                         <= 1e-12 + 1e-10 * np.abs(want)))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"cli serve {family}: banner rung {json.dumps(banner['rung'])}, "
+          f"64 rows equal to the host predictor at rtol 1e-10: {ok}, "
+          f"SIGTERM exit {rc} [{card}]", flush=True)
+    check(ok and rc == 0, f"cli serve {family}: scores {ok}, exit {rc}")
+    check(launch_counts() == before,
+          "a kernel wrapper launched while serving the non-GBDT families")
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -3602,14 +3905,28 @@ def main() -> int:
     errs["hist_q_u8"] = max(errs["hist_q_u8"], u8_err)
     torch.cuda.empty_cache()
 
-    # slice 10: the convex stack (no kernel of the port on its path)
+    # slice 10: the convex stack (no kernel of the port on its path); its
+    # models stay for slice 12's serving phase
     t0 = time.perf_counter()
-    timed("convex_cli", phase_convex_cli, card)
-    torch.cuda.empty_cache()
-    timed("bench_fm", phase_bench_fm, card)
-    torch.cuda.empty_cache()
-    print(f"convex phases: {time.perf_counter() - t0:.3f} s (wall) [{card}]",
-          flush=True)
+    ctmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_convex_")
+    try:
+        served = timed("convex_cli", phase_convex_cli, card, ctmp)
+        torch.cuda.empty_cache()
+        timed("bench_fm", phase_bench_fm, card)
+        torch.cuda.empty_cache()
+        print(f"convex phases: {time.perf_counter() - t0:.3f} s (wall) "
+              f"[{card}]", flush=True)
+        # slice 12: GBST through cli train, then cli serve for every
+        # family but GBDT (no kernel of the port on either path)
+        t0 = time.perf_counter()
+        served.update(timed("gbst_cli", phase_gbst_cli, card, ctmp))
+        torch.cuda.empty_cache()
+        timed("serve_families", phase_serve_families, card, served)
+        torch.cuda.empty_cache()
+        print(f"slice 12 phases: {time.perf_counter() - t0:.3f} s (wall) "
+              f"[{card}]", flush=True)
+    finally:
+        shutil.rmtree(ctmp, ignore_errors=True)
     # K2, K4 and K5 launch on slice 9's main path, the GOSS bench cell
     launches_of = dict(goss_counts)
     launches_of.update({k: cli_counts[k] for k in ("hist", "hist_gather")})

@@ -32,6 +32,7 @@ from ytklearn_tpu_torch import cli
 from ytklearn_tpu_torch.gbdt import trainer as ptrainer
 from ytklearn_tpu_torch.gbdt.binning import model_text_digest
 from ytklearn_tpu_torch.predict import create_predictor
+from ytklearn_tpu_torch.scripts.convex_synth import write_gbst_case
 from test_torch_engine import split_margins
 
 CONF = "experiment/higgs/local_gbdt.conf"
@@ -180,12 +181,28 @@ def test_unported_options_raise_by_item(extra, match):
         cli.main(["train", "gbdt", CONF] + extra)
 
 
-@pytest.mark.parametrize("name,match", [("gbmlr", "1.10"),
-                                        ("gbhsdt", "1.10"),
-                                        ("gbsdt", "1.10")])
-def test_unported_models_raise_by_item(name, match):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {match}"):
-        cli.main(["train", name, CONF, "--device", "cpu"])
+@pytest.mark.parametrize("name,item", [("gbmlr", "1.10"),
+                                       ("gbhsdt", "1.10"),
+                                       ("gbsdt", "1.10")])
+def test_unported_models_raise_by_item(name, item, tmp_path):
+    """The GBST names, refused until ROADMAP.md item 1.10 ported them, now
+    train: one tree on the CPU through `cli train`, its JSON line and its
+    dump."""
+    cfg = write_gbst_case(str(tmp_path), 300, 100, 3, K=4, tree_num=1,
+                          vocab=60, max_iter=3)
+    conf = tmp_path / "gbst.conf"
+    conf.write_text(json.dumps(cfg))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["train", name, str(conf), "--device", "cpu"]) == 0
+    line = _json_line(buf.getvalue())
+    assert (line["model"], line["trees"]) == (name, 1)
+    assert np.isfinite(line["train_loss"]) and np.isfinite(line["test_loss"])
+    model = cfg["model"]["data_path"]
+    with open(f"{model}/tree-00000/model-00000") as f:
+        assert f.readline() == "k:4\n"
+    with open(f"{model}/tree-info") as f:
+        assert "finished_tree_num:1\n" in f.read()
 
 
 def test_default_device_needs_cuda(runs, monkeypatch):

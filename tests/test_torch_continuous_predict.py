@@ -178,3 +178,37 @@ def test_stale_sidecar_digest_is_refused(cases, tmp_path):
     cfg["model"]["data_path"] = dst
     with pytest.raises(ValueError, match="digest mismatch"):
         create_predictor("linear", cfg)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_scorer_featurize_is_prep_row_on_hashed_and_transformed_models(
+        name, cases):
+    """The serving rung's batched featurize (bias drop, murmur hashing with
+    signed collisions summed, the transform replay, the bias column) holds
+    each row's prep_row items at their vocab columns, exactly; its f64
+    scores equal the host predictor's and the JAX CompiledScorer's at
+    rtol 1e-10, atol 1e-12 (tests/test_serve_scorer.py's bounds)."""
+    from ytklearn_tpu.serve import CompiledScorer as JaxScorer
+    from ytklearn_tpu_torch.serve import CompiledScorer
+
+    c = cases[name]
+    pp = create_predictor(c["family"], c["cfgs"]["port"])
+    scorer = CompiledScorer(pp, ladder=(1, 8, 64), precision="f64",
+                            device="cpu")
+    rows = c["rows"]
+    X = scorer.featurize(rows)
+    for i, r in enumerate(rows):
+        want = np.zeros(scorer.dim)
+        for n, v in pp._prep(r):
+            if n in scorer.vocab:
+                want[scorer.vocab[n]] += v
+        if scorer._bias_col is not None:
+            want[scorer._bias_col] = 1.0
+        np.testing.assert_array_equal(X[i], want)
+    s = scorer.score_batch(rows)
+    np.testing.assert_allclose(s, pp.batch_scores(rows), rtol=1e-10,
+                               atol=1e-12)
+    jp = jcreate(c["family"], c["cfgs"]["port"])
+    np.testing.assert_allclose(
+        s, JaxScorer(jp, ladder=(1, 8, 64), precision="f64").score_batch(
+            rows), rtol=1e-10, atol=1e-12)

@@ -18,7 +18,10 @@ changes from run to run: counts are exact, g/h held at rtol 1e-5 with an
 absolute floor of 1e-5 of the largest |sum|. The convex stack (plain torch, no kernel of
 its own) is held to its CPU run: FM/FFM loss and gradient at rtol 1e-5,
 five L-BFGS iterations with the same statuses, and `cli train` of each
-family with every evaluation on the card.
+family with every evaluation on the card. GBST training and every
+family's serving lowering (plain torch too) are held to their CPU runs:
+GBST at tests/test_torch_gbst.py's bounds, the f64 rung at rtol 1e-10,
+the bf16 rung within torch_bf16_bound.py's stated bound.
 """
 
 import dataclasses
@@ -1263,3 +1266,130 @@ def test_convex_entry_points_stay_on_the_card(gen, family, tmp_path,
     assert cli.main(["train", family, str(conf)]) == 0
     assert seen == {"cuda"}
     assert (tmp_path / "model" / "model-00000").exists()
+
+
+# -- GBST and the serving lowerings on the card (plain torch) -----------------
+
+@pytest.mark.parametrize("variant", ["gbmlr", "gbsdt", "gbhmlr", "gbhsdt"])
+def test_gbst_fit_card_matches_cpu(gen, variant, tmp_path, monkeypatch):
+    """GBSTTrainer on cuda against the CPU: 3 trees of 6 L-BFGS iterations
+    (tests/test_torch_gbst.py's setting; past about 6 the fits are chaotic
+    in f32 sum order), rates 0.8: the same statuses and iterations a tree,
+    per-tree and final losses at rtol 1e-4, test AUC within 1e-4; every
+    loss the card run evaluates takes tensors on the card."""
+    from ytklearn_tpu_torch.boost import GBSTTrainer
+    from ytklearn_tpu_torch.config.params import CommonParams
+    from ytklearn_tpu_torch.models.gbst import GBSTModel
+    from ytklearn_tpu_torch.scripts.convex_synth import write_gbst_case
+
+    seen = set()
+    real = GBSTModel.pure_loss
+
+    def wrapped(self, w, *batch):
+        seen.update(t.device.type for t in (w,) + batch)
+        return real(self, w, *batch)
+
+    monkeypatch.setattr(GBSTModel, "pure_loss", wrapped)
+    cfg = write_gbst_case(str(tmp_path), 1 << 13, 1 << 10, 5, K=8,
+                          tree_num=3, instance_sample_rate=0.8,
+                          feature_sample_rate=0.8, vocab=2000, nnz=16,
+                          l2=1e-3, max_iter=6)
+    cfg["loss"]["evaluate_metric"] = ["auc"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg["model"]["data_path"] = str(tmp_path / dev / "model")
+        seen.clear()
+        out[dev] = GBSTTrainer(CommonParams.from_config(cfg), variant,
+                               device=dev).train()
+        assert seen == {dev}
+    c, p = out["cuda"], out["cpu"]
+    assert (c.per_tree_status, c.per_tree_iter) == \
+        (p.per_tree_status, p.per_tree_iter)
+    np.testing.assert_allclose(c.per_tree_loss + [c.train_loss, c.test_loss],
+                               p.per_tree_loss + [p.train_loss, p.test_loss],
+                               rtol=1e-4)
+    assert abs(c.test_metrics["auc"] - p.test_metrics["auc"]) <= 1e-4
+
+
+FAMILIES = ["linear", "multiclass_linear", "fm", "ffm", "gbmlr", "gbsdt",
+            "gbhmlr", "gbhsdt"]
+
+
+@functools.lru_cache(maxsize=None)
+def _served_model(family, root):
+    """A small model of `family` trained on the CPU by `cli train`, and its
+    config and test rows."""
+    from ytklearn_tpu_torch import cli
+    from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case, \
+        write_gbst_case
+
+    d = os.path.join(root, family)
+    if family.startswith("gb"):
+        cfg = write_gbst_case(d, 2000, 200, 9, K=4, tree_num=2, vocab=300,
+                              max_iter=5)
+    else:
+        kw = {"linear": dict(vocab=300), "fm": dict(vocab=300, k=4),
+              "multiclass_linear": dict(vocab=100, K=4),
+              "ffm": dict(vocab=200, n_fields=4, k=3)}[family]
+        cfg = write_convex_case(d, family, 2000, 200, 9, max_iter=5, **kw)
+    conf = os.path.join(d, "model.conf")
+    with open(conf, "w") as f:
+        json.dump(cfg, f)
+    assert cli.main(["train", family, conf, "--device", "cpu"]) == 0
+    rows = []
+    with open(cfg["data"]["test"]["data_path"]) as f:
+        for line in f:
+            feats = line.rstrip("\n").split("###")[2]
+            rows.append({k: float(v) for k, v in
+                         (kv.split(":") for kv in feats.split(","))})
+    return json.dumps(cfg), rows
+
+
+@pytest.mark.parametrize("precision", ["f64", "bf16"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_lowering_rungs_card_match_cpu(gen, family, precision,
+                                       tmp_path_factory):
+    """Each family's lowering on the card against the CPU at both rungs:
+    f64 scores at rtol 1e-10, atol 1e-12 (f64 sums in another order);
+    bf16 (the einsum families) within torch_bf16_bound.py's stated bound
+    of f32 sums in another order, an f32 result and not a bf16 one; GBST
+    serves f64 at either."""
+    from torch_bf16_bound import bf16_bound, bf16_round
+    from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.serve import CompiledScorer
+
+    cfg, rows = _served_model(family, str(tmp_path_factory.getbasetemp()))
+    pred = create_predictor(family, json.loads(cfg))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sc = CompiledScorer(pred, ladder=(1, 8, 64), precision=precision,
+                            device=dev)
+        out[dev] = (sc, sc.score_batch(rows))
+    sc, card = out["cuda"]
+    cpu = out["cpu"][1]
+    served = "bf16" if precision == "bf16" and not family.startswith("gb") \
+        else "f64"
+    assert sc.rung_info()["precision"] == served
+    if served == "f64":
+        np.testing.assert_allclose(card, cpu, rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(card, pred.batch_scores(rows),
+                                   rtol=1e-10, atol=1e-12)
+        return
+    bound = bf16_bound(family, pred, sc, sc.featurize(rows))
+    if family == "multiclass_linear":
+        card, cpu = card[:, :-1], cpu[:, :-1]
+    assert np.all(np.abs(card - cpu) <= bound)
+    assert np.any(card != bf16_round(card))
+
+
+def test_bf16_rung_refuses_tf32(gen, monkeypatch, tmp_path_factory):
+    """TF32 products would round the bf16 operands' products: the bf16
+    rung refuses to lower while it is on."""
+    from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.serve import CompiledScorer
+
+    cfg, _ = _served_model("fm", str(tmp_path_factory.getbasetemp()))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        CompiledScorer(create_predictor("fm", json.loads(cfg)),
+                       precision="bf16", device="cuda")

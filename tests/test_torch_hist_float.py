@@ -151,3 +151,89 @@ def test_gather_modes_and_lengths_are_checked():
     with pytest.raises(ValueError, match="g must have shape"):
         hist.hist_wave(_t(bins), _t(pos), _t(g[:512]), _t(h), _t(ids), 16,
                        max_nodes=M)
+
+
+# -- the plain version's accumulation at large n ------------------------------
+# All 2^19 rows in one node and one bin sum into one f32 cell. A sequential
+# f32 accumulation (index_add_ into f32) drifts: past 2^16 its ulp exceeds
+# the bits of 0.2001953125 (bf16(0.2) = 205 / 1024), so every add rounds.
+# The plain version accumulates in float64 and rounds once; every input is
+# a bf16 value here, so the float64 sums are exact and the plain version
+# must equal them rounded to f32. XLA's blocked dot (`_hist_dense`) holds
+# to the same sums at rtol 1e-6.
+
+N_BIG = 1 << 19
+H_TIE = np.float32(0.2)  # bf16 rounds it to 0.2001953125
+
+
+def _big_case(random: bool):
+    """F = 2, B = 4, one node (id 0): every row in bin 1 with g = -0.3 and
+    h = 0.2 (bf16-rounded), or random bins, bf16 g/h and dead rows."""
+    rng = np.random.RandomState(7)
+    if random:
+        bins = rng.randint(0, 4, size=(2, N_BIG)).astype(np.uint8)
+        pos = np.where(rng.rand(N_BIG) < 0.1, -1, 0).astype(np.int32)
+        g = rng.randn(N_BIG).astype(np.float32)
+        h = (rng.rand(N_BIG) + 0.1).astype(np.float32)
+    else:
+        bins = np.ones((2, N_BIG), np.uint8)
+        pos = np.zeros(N_BIG, np.int32)
+        g = np.full(N_BIG, -0.3, np.float32)
+        h = np.full(N_BIG, H_TIE, np.float32)
+    g = hist.round_bf16(_t(g)).numpy()
+    h = hist.round_bf16(_t(h)).numpy()
+    return bins, pos, g, h, np.zeros(1, np.int32)
+
+
+def _f64_sums(bins, pos, g, h):
+    """(1, F, B, 3): the exact sums (bf16 inputs, float64 accumulation)
+    rounded once to f32."""
+    F, B = bins.shape[0], 4
+    live = pos == 0
+    out = np.zeros((1, F, B, 3), np.float64)
+    for f in range(F):
+        b = bins[f, live].astype(np.int64)
+        for c, v in enumerate((g[live], h[live], np.ones(live.sum()))):
+            out[0, f, :, c] = np.bincount(b, weights=v.astype(np.float64),
+                                          minlength=B)
+    return out.astype(np.float32)
+
+
+def _dense(bins, pos, g, h, ids):
+    out = jhist._hist_dense(jnp.asarray(bins.astype(np.int32)),
+                            jnp.asarray(pos), jnp.asarray(g), jnp.asarray(h),
+                            jnp.asarray(ids), 4, use_bf16=True)
+    return np.transpose(np.asarray(out).reshape(2, 3, 1, 4), (2, 0, 3, 1))
+
+
+def test_sequential_f32_accumulation_drifts_from_hist_dense():
+    """What the float64 accumulation repairs: the one-bin case summed the
+    way the plain version did before, index_add_ into one f32 cell, lands
+    far from the exact sums, where `_hist_dense` stays within 1e-6."""
+    bins, pos, g, h, ids = _big_case(random=False)
+    exact = _f64_sums(bins, pos, g, h)[0, 0, 1, 1]
+    assert exact == np.float32(N_BIG * 205 / 1024)  # 104960, exact
+    cell = torch.zeros((1,), dtype=torch.float32)
+    cell.index_add_(0, torch.zeros(N_BIG, dtype=torch.long), _t(h))
+    assert abs(float(cell[0]) - exact) > 1e-3 * exact
+    np.testing.assert_allclose(_dense(bins, pos, g, h, ids)[0, 0, 1, 1],
+                               exact, rtol=1e-6)
+
+
+@pytest.mark.parametrize("random", [False, True])
+@pytest.mark.parametrize("use_bf16", [True, False])
+@pytest.mark.parametrize("path", ["wave", "gather"])
+def test_plain_sums_are_float64_rounded_once(path, use_bf16, random):
+    bins, pos, g, h, ids = _big_case(random)
+    if path == "wave":
+        got = hist.hist_wave(_t(bins), _t(pos), _t(g), _t(h), _t(ids), 4,
+                             max_nodes=1, use_bf16=use_bf16)
+    else:
+        rows, idx, pg, gg, hg = _compacted(bins, pos, g, h, ids, N_BIG)
+        got = hist.hist_wave_gather(_t(rows), _t(idx), _t(pg), _t(gg),
+                                    _t(hg), _t(ids), 4, mode="mxu",
+                                    max_nodes=1, use_bf16=use_bf16)
+    want = _f64_sums(bins, pos, g, h)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_allclose(got.numpy(), _dense(bins, pos, g, h, ids),
+                               rtol=1e-6)

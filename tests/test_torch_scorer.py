@@ -1,22 +1,31 @@
 """The port's CompiledScorer (device="cpu") against the JAX CompiledScorer.
 
-Same model text, same request rows: the port's stacked and fused rungs
-must return raw scores bit-equal to the JAX stacked rung, the JAX fused
-rung under the Pallas interpreter, and GBDTPredictor.batch_scores.
+GBDT: same model text, same request rows: the port's stacked and fused
+rungs must return raw scores bit-equal to the JAX stacked rung, the JAX
+fused rung under the Pallas interpreter, and GBDTPredictor.batch_scores.
 Activated predictions go through torch.sigmoid versus jax.nn.sigmoid,
 which may differ in the last ulp, so they are held at rtol=1e-14.
+
+Every other family `cli train` writes (linear, multiclass_linear, FM,
+FFM, the four GBST variants; tests/serve_models.py writes the model
+files and each package loads them itself): the f64 rung against the
+port's host predictor and the JAX scorer at the reference's bounds, the
+bf16 rung against the JAX bf16 rung within torch_bf16_bound.py's stated
+bound.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from serve_models import build_gbdt, request_rows
+from serve_models import build_ffm, build_fm, build_gbdt, build_gbst, \
+    build_linear, build_multiclass, request_rows
+from torch_bf16_bound import bf16_bound, bf16_round
 from ytklearn_tpu.gbdt.tree import GBDTModel as JModel
 from ytklearn_tpu.gbdt.tree import Tree as JTree
 from ytklearn_tpu.predict import create_predictor as jax_create_predictor
 from ytklearn_tpu.serve import CompiledScorer as JaxScorer
-from ytklearn_tpu_torch.predict import create_predictor
+from ytklearn_tpu_torch.predict import GBSTPredictor, create_predictor
 from ytklearn_tpu_torch.serve import CompiledScorer, parse_ladder
 
 LADDER = (4, 32)
@@ -263,7 +272,152 @@ def test_parse_ladder(monkeypatch):
 
 
 def test_unported_families_name_their_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_predictor("gbmlr", {"model": {"data_path": "x"}})
+    """gbmlr, refused until ROADMAP.md item 1.10 ported it, now loads as a
+    GBSTPredictor and serves; an unknown name still raises."""
+    jpred, _names = build_gbst(tmp_path, "gbmlr")
+    pred = create_predictor("gbmlr", jpred.config)
+    assert isinstance(pred, GBSTPredictor)
+    assert (pred.K, pred.n_trees, pred.stride) == (4, 2, 7)
     with pytest.raises(ValueError, match="unknown model name"):
         create_predictor("nope", {"model": {"data_path": "x"}})
+
+
+# -- every family cli train writes --------------------------------------------
+# The f64 rung against the port's host predictor and the JAX CompiledScorer
+# (x64 on, as the suite's conftest sets it) at the JAX package's own bounds
+# (tests/test_serve_scorer.py:26-42): scores rtol 1e-10, atol 1e-12 (f64
+# sums in another order than the host loop), predictions rtol 1e-9.
+
+FAMILY_BUILDERS = {
+    "linear": build_linear,
+    "multiclass_linear": build_multiclass,
+    "fm": build_fm,
+    "ffm": build_ffm,
+    "gbmlr": lambda t: build_gbst(t, "gbmlr"),
+    "gbsdt": lambda t: build_gbst(t, "gbsdt"),
+    "gbhmlr": lambda t: build_gbst(t, "gbhmlr", K=8, n_trees=3),
+    "gbhsdt": lambda t: build_gbst(t, "gbhsdt", K=8, n_trees=3),
+}
+FAMILY_LADDER = (1, 4, 16)
+
+
+def _family(tmp_path, family, **cfg):
+    jpred, names = FAMILY_BUILDERS[family](tmp_path)
+    if cfg:
+        from ytklearn_tpu.predict import create_predictor as jcreate
+        jpred = jcreate(family, {**jpred.config, **cfg})
+    return jpred, create_predictor(family, jpred.config), names
+
+
+@pytest.mark.parametrize("n", [1, 5, 23, 40])
+@pytest.mark.parametrize("family", list(FAMILY_BUILDERS))
+def test_family_f64_rung_matches_host_and_jax(tmp_path, family, n):
+    jpred, pred, names = _family(tmp_path, family)
+    rows = request_rows(n, np.random.RandomState(20 + n), names)
+    scorer = CompiledScorer(pred, ladder=FAMILY_LADDER, precision="f64",
+                            device="cpu")
+    info = scorer.rung_info()
+    assert (info["mode"], info["precision"], info["downgraded"]) == \
+        ("stacked", "f64", False)
+    s, p = scorer.score_and_predict(rows)
+    host = pred.batch_scores(rows)
+    assert s.shape == host.shape == np.asarray(jpred.batch_scores(rows)).shape
+    np.testing.assert_allclose(s, host, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(host, jpred.batch_scores(rows), rtol=1e-10,
+                               atol=1e-12)
+    js, jp = JaxScorer(jpred, ladder=FAMILY_LADDER,
+                       precision="f64").score_and_predict(rows)
+    np.testing.assert_allclose(s, js, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(p, pred.batch_predicts(rows), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(p, jp, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("family", ["gbmlr", "gbsdt", "gbhmlr", "gbhsdt"])
+def test_gbst_host_predictor_matches_jax(tmp_path, family):
+    """score/predict/predict_leaf row by row against the JAX predictor,
+    with random_forest's divide and a fleet-wide binned knob that is no
+    downgrade for GBST."""
+    for typ in ("gradient_boosting", "random_forest"):
+        jpred, pred, names = _family(tmp_path / typ, family, type=typ)
+        rows = request_rows(15, np.random.RandomState(5), names)
+        for r in rows:
+            np.testing.assert_allclose(pred.score(r), jpred.score(r),
+                                       rtol=1e-12, atol=1e-14)
+            np.testing.assert_allclose(pred.predict(r), jpred.predict(r),
+                                       rtol=1e-12, atol=1e-14)
+            assert pred.predict_leaf(r) == jpred.predict_leaf(r)
+        scorer = CompiledScorer(pred, ladder=FAMILY_LADDER, mode="binned",
+                                device="cpu")
+        info = scorer.rung_info()
+        assert (info["requested"], info["mode"], info["downgraded"]) == \
+            ("stacked", "stacked", False)
+        np.testing.assert_allclose(scorer.score_batch(rows),
+                                   jpred.batch_scores(rows), rtol=1e-10,
+                                   atol=1e-12)
+
+
+# -- the bf16 rung --------------------------------------------------------------
+# The stated bound of torch_bf16_bound.py: the port and the JAX rung differ
+# only in the order of their f32 sums, plus, for FFM, XLA squaring the bf16
+# X in f32 where the JAX source and the port round X * X to bf16.
+
+CONVEX = ["linear", "multiclass_linear", "fm", "ffm"]
+
+
+@pytest.mark.parametrize("family", CONVEX)
+def test_bf16_rung_matches_jax_within_the_stated_bound(tmp_path, family):
+    jpred, pred, names = _family(tmp_path, family)
+    rows = request_rows(32, np.random.RandomState(9), names,
+                        extra_unknown=False)
+    s16 = CompiledScorer(pred, ladder=(32,), precision="bf16", device="cpu")
+    s64 = CompiledScorer(pred, ladder=(32,), precision="f64", device="cpu")
+    assert s16.rung_info()["precision"] == "bf16"
+    got, p16 = s16.score_and_predict(rows)
+    js = JaxScorer(jpred, ladder=(32,), precision="bf16")
+    want = js.score_batch(rows)
+    bound = bf16_bound(family, pred, s16, s16.featurize(rows),
+                       xla_square=True)
+    if family == "multiclass_linear":  # the implicit class is 0 in both
+        assert np.all(got[:, -1] == 0.0) and np.all(want[:, -1] == 0.0)
+        got, want = got[:, :-1], want[:, :-1]
+    assert np.all(np.abs(got - want) <= bound)
+    # an f32 result, not a bf16 one
+    assert np.any(got != bf16_round(got))
+    # the reference's band against the f64 rung (tests/test_serve_kernels
+    # .py: test_bf16_band_per_family)
+    band = float(np.max(np.abs(p16 - s64.predict_batch(rows))))
+    assert 0.0 < band < 0.1
+
+
+@pytest.mark.parametrize("family", ["gbmlr", "gbhsdt"])
+def test_gbst_serves_f64_whatever_the_precision_knob(tmp_path, family,
+                                                      monkeypatch):
+    jpred, pred, names = _family(tmp_path, family)
+    monkeypatch.setenv("YTK_SERVE_PRECISION", "bf16")
+    scorer = CompiledScorer(pred, ladder=FAMILY_LADDER, device="cpu")
+    assert scorer.rung_info()["precision"] == "f64"
+    rows = request_rows(9, np.random.RandomState(2), names)
+    np.testing.assert_allclose(scorer.score_batch(rows),
+                               pred.batch_scores(rows), rtol=1e-10,
+                               atol=1e-12)
+
+
+def test_featurize_is_prep_row_row_by_row(tmp_path):
+    """The full stage's dense rows hold each row's prep_row items at their
+    vocab columns (the bias column at 1, absent features 0), for a model
+    without hashing or transform; hashed and transformed models:
+    tests/test_torch_continuous_predict.py."""
+    _jpred, pred, names = _family(tmp_path, "fm")
+    rows = request_rows(30, np.random.RandomState(4), names) + [
+        {"_bias_": 5.0, "c1": 2.0}, {}, {"unknown": "x", "c0": 1.5}]
+    scorer = CompiledScorer(pred, ladder=FAMILY_LADDER, device="cpu")
+    X = scorer.featurize(rows)
+    for i, r in enumerate(rows):
+        want = np.zeros(scorer.dim)
+        for n, v in pred._prep({k: v for k, v in r.items()
+                                if k != "unknown"}):
+            if n in scorer.vocab:
+                want[scorer.vocab[n]] += v
+        want[scorer._bias_col] = 1.0
+        assert np.array_equal(X[i], want)

@@ -4,7 +4,8 @@ The app serves a build_gbdt fixture at port 0 on device="cpu" through the
 fused rung (the heap walk's plain version on CPU tensors). Scores must
 equal the JAX GBDTPredictor.batch_scores bit for bit, and a /predict
 response must carry the keys the JAX ServeApp answers the same request
-with.
+with. `cli serve` also serves an FM and a gbmlr model that `cli train`
+wrote, at both precision rungs.
 """
 
 import json
@@ -253,3 +254,64 @@ def test_cli_serve_without_device_raises_on_a_cpu_only_box(tmp_path):
     out, err = proc.communicate(timeout=60)
     assert proc.returncode != 0 and out == ""
     assert "no CUDA device" in err
+
+
+@pytest.mark.parametrize("family,extra", [
+    ("fm", {"k": [1, 3]}),
+    ("gbmlr", {"k": 4, "tree_num": 2, "learning_rate": 0.3}),
+])
+def test_cli_serve_trained_family(tmp_path, family, extra):
+    """`cli train` a small FM and gbmlr model on the CPU, `cli serve` each
+    (the stacked rung at f64 even under YTK_SERVE_BINNED; bf16 for FM
+    names itself in the banner), and /predict's scores equal the host
+    predictor's at rtol 1e-10, atol 1e-12 (f64 sums in another order)."""
+    from ytklearn_tpu_torch import cli
+    from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case
+
+    cfg = write_convex_case(str(tmp_path), "fm", 400, 50, 11, vocab=60,
+                            nnz=6, max_iter=4)
+    cfg.update(extra)
+    conf = tmp_path / "model.conf"
+    conf.write_text(json.dumps(cfg))
+    assert cli.main(["train", family, str(conf), "--device", "cpu"]) == 0
+    pred = create_predictor(family, cfg)
+    rng = np.random.RandomState(3)
+    rows = [{f"f{j}": float(rng.rand()) for j in rng.choice(60, 6)}
+            for _ in range(7)] + [{}, {"unknown": 1.0, "f3": 2.0}]
+    for precision in ("f64", "bf16"):
+        env = dict(os.environ, PYTHONPATH=REPO, YTK_SERVE_BINNED="1",
+                   YTK_SERVE_PRECISION=precision)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ytklearn_tpu_torch.cli", "serve",
+             str(conf), family, "--host", "127.0.0.1", "--port", "0",
+             "--ladder", "4,32", "--device", "cpu"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            banner = json.loads(proc.stdout.readline())
+            rung = banner["rung"]
+            assert (banner["model"], rung["mode"], rung["downgraded"]) == \
+                (family, "stacked", False)
+            served = "bf16" if family == "fm" and precision == "bf16" \
+                else "f64"
+            assert rung["precision"] == served
+            status, out = _http("POST", banner["port"], "/predict",
+                                {"rows": rows})
+            assert status == 200
+            if served == "f64":
+                np.testing.assert_allclose(out["scores"],
+                                           pred.batch_scores(rows),
+                                           rtol=1e-10, atol=1e-12)
+                np.testing.assert_allclose(out["predictions"],
+                                           pred.batch_predicts(rows),
+                                           rtol=1e-9, atol=1e-12)
+            else:  # the reference's bf16 band on predictions
+                assert np.max(np.abs(np.asarray(out["predictions"])
+                                     - pred.batch_predicts(rows))) < 0.1
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=30) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()

@@ -1,6 +1,6 @@
 """Command-line entry points of the port.
 
-  python -m ytklearn_tpu_torch.cli train gbdt <config_path> [options]
+  python -m ytklearn_tpu_torch.cli train <model_name> <config_path> [options]
   python -m ytklearn_tpu_torch.cli serve <config_path> <model_name> [options]
 
 `train` is the reference's bin/local_optimizer.sh: it parses the HOCON
@@ -15,14 +15,19 @@ model, its `.bins.json` sidecar and the feature importance file, and
 prints one JSON line (model, trees, train/test loss and metrics). `linear`, `multiclass_linear`, `fm` and
 `ffm` train through HoagTrainer (L-BFGS/OWL-QN, grid and HOAG rounds),
 dump the model text and print one JSON line (model, n_iter, status,
-avg_loss, test_loss, train/test metrics). The GBST names, `--resume auto`
-and `--max-restarts`, multi-process and multi-GPU runs, and the
-trace/profile planes raise NotImplementedError naming their ROADMAP.md
-item.
+avg_loss, test_loss, train/test metrics). `gbmlr`, `gbsdt`, `gbhmlr` and
+`gbhsdt` load through DataIngest and train through GBSTTrainer (one L-BFGS
+fit a tree, gradient_boosting or random_forest, continue_train from the
+tree dumps), dump each tree and print one JSON line (model, trees,
+train/test loss and metrics). `--resume auto` and `--max-restarts`,
+multi-process and multi-GPU runs, and the trace/profile planes raise
+NotImplementedError naming their ROADMAP.md item.
 
-`serve` loads the model into a ModelRegistry on `--device` (default
-`cuda`), warms every ladder rung, starts the HTTP app, and prints one JSON
-banner line with the bound port on stdout. SIGTERM drains and exits 0.
+`serve` loads any family `train` writes into a ModelRegistry on
+`--device` (default `cuda`), warms every ladder rung, starts the HTTP
+app, and prints one JSON banner line with the bound port and the rung
+(its precision: YTK_SERVE_PRECISION) on stdout. SIGTERM drains and exits
+0.
 The other subcommands of the JAX package's CLI come with their slices
 (ROADMAP.md).
 """
@@ -82,10 +87,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _refuse_unported(args) -> None:
-    """Every train option and model this port does not run yet raises by
-    its ROADMAP.md item, before anything loads."""
-    if args.model_name in GBST_NAMES:
-        raise _not_ported(f"training {args.model_name!r}", "1.10, GBST")
+    """Every train option this port does not run yet raises by its
+    ROADMAP.md item, before anything loads."""
     for bad, what, item in (
         (args.max_restarts > 0, "--max-restarts",
          "1.5, the host engine and resilience"),
@@ -151,6 +154,21 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
     from .io.fs import create_filesystem
 
     fs = create_filesystem(str(cfg.get("fs_scheme", "local")))
+    if name in GBST_NAMES:
+        from .boost import GBSTTrainer
+        from .config.params import CommonParams
+
+        res = GBSTTrainer(CommonParams.from_config(cfg), name, fs=fs,
+                          transform_hook=hook, device=device).train()
+        print(json.dumps({
+            "model": name,
+            "trees": res.n_trees,
+            "train_loss": res.train_loss,
+            "test_loss": res.test_loss,
+            "train_metrics": res.train_metrics,
+            "test_metrics": res.test_metrics,
+        }), flush=True)
+        return 0
     if name != "gbdt":
         from .config.params import CommonParams
         from .train import HoagTrainer

@@ -48,7 +48,11 @@ _knob("YTK_SERVE_BINNED", "bool", False,
       "binned heap-walk CUDA kernel (wins over `YTK_SERVE_FUSED`)")
 _knob("YTK_SERVE_PRECISION", "str", "f64",
       "serving precision rung for the einsum scorers (`f64` | `bf16`); "
-      "GBDT scores in f64 whatever it asks")
+      "GBDT and GBST score in f64 whatever it asks")
+_knob("YTK_TRANSFORM_CACHE", "int", 1_000_000,
+      "bound on the serve-time feature-hash resolution cache (raw name -> "
+      "scoring column and murmur sign, per loaded model); past it new "
+      "names compute uncached")
 
 # -- convex families (same defaults as ytklearn_tpu/config/knobs.py:86-90) --
 _knob("YTK_ROW_CHUNK", "int", None,

@@ -316,10 +316,12 @@ class RandomParams:
 
 @dataclass
 class CommonParams:
-    """The convex families' blocks (reference: param/CommonParams.java:
-    40-45) and the root-level scalars they read: `k` (an int for
-    multiclass_linear, [use_first_order, dim] for FM and FFM) and
-    `bias_need_latent_factor`."""
+    """The convex and GBST families' blocks (reference:
+    param/CommonParams.java:40-45) and the root-level scalars they read:
+    `k` (an int for multiclass_linear and GBST, [use_first_order, dim] for
+    FM and FFM), `bias_need_latent_factor`, and GBST's `tree_num`,
+    `learning_rate`, `type` (as `gbst_type`), `leaf_random_init_range`,
+    the per-tree sample rates and `uniform_base_prediction`."""
 
     fs_scheme: str = "local"
     verbose: bool = False
@@ -332,6 +334,14 @@ class CommonParams:
     random: RandomParams = field(default_factory=RandomParams)
     k: Any = None
     bias_need_latent_factor: bool = False
+    instance_sample_rate: float = 1.0
+    feature_sample_rate: float = 1.0
+    uniform_base_prediction: float = 0.5
+    tree_num: int = 1
+    learning_rate: float = 1.0
+    gbst_type: str = "gradient_boosting"  # gradient_boosting | random_forest
+    leaf_random_init_range: List[float] = field(
+        default_factory=lambda: [-2.0, 2.0])
     raw: dict = field(default_factory=dict, repr=False)
 
     @classmethod
@@ -349,6 +359,17 @@ class CommonParams:
             k=_opt(cfg, "k", None),
             bias_need_latent_factor=bool(
                 _opt(cfg, "bias_need_latent_factor", False)),
+            instance_sample_rate=float(_opt(cfg, "instance_sample_rate",
+                                            1.0)),
+            feature_sample_rate=float(_opt(cfg, "feature_sample_rate", 1.0)),
+            uniform_base_prediction=float(
+                _opt(cfg, "uniform_base_prediction", 0.5)),
+            tree_num=int(_opt(cfg, "tree_num", 1)),
+            learning_rate=float(_opt(cfg, "learning_rate", 1.0)),
+            gbst_type=str(_opt(cfg, "type", "gradient_boosting")),
+            leaf_random_init_range=[
+                float(x) for x in _opt(cfg, "leaf_random_init_range",
+                                       [-2.0, 2.0])],
             raw=cfg,
         )
 

@@ -6,13 +6,15 @@ once: CoreData is blocked storage (dataflow/CoreData.java:51-52) and every
 convex optimizer walks its blocks. Here the loss and its gradient are row
 sums, so a loop over row chunks adds them up with peak memory O(chunk x
 per-row cost); chunking changes only the f32 sum order. A chunk is never
-padded: the last one is shorter. The mesh variants come with multi-GPU
-training (ROADMAP.md 1.7).
+padded: the last one is shorter. Batch entries that are not row-aligned
+(GBST's per-feature gate mask) pass whole into every chunk, as
+`row_mask` marks them. The mesh variants come with multi-GPU training
+(ROADMAP.md 1.7).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -33,13 +35,18 @@ def value_and_grad(fn: Callable) -> Callable:
     return run
 
 
-def _chunks(batch, chunk: int):
-    n = batch[0].shape[0]
+def _chunks(batch, chunk: int, row_mask: Optional[Sequence[bool]] = None):
+    """Row chunks of `batch`; entries that `row_mask` marks False (not
+    row-aligned) go whole into every chunk."""
+    mask = (True,) * len(batch) if row_mask is None else tuple(row_mask)
+    n = next(a for a, r in zip(batch, mask) if r).shape[0]
     for s in range(0, n, chunk):
-        yield tuple(a[s:s + chunk] for a in batch)
+        yield tuple(a[s:s + chunk] if r else a for a, r in zip(batch, mask))
 
 
-def chunked_value_and_grad(fn: Callable, chunk: int) -> Callable:
+def chunked_value_and_grad(fn: Callable, chunk: int,
+                           row_mask: Optional[Sequence[bool]] = None
+                           ) -> Callable:
     """(w, *batch) -> (sum loss, sum grad) over row chunks; `fn` returns a
     weighted sum (not a mean), so chunk sums compose."""
     vg = value_and_grad(fn)
@@ -47,7 +54,7 @@ def chunked_value_and_grad(fn: Callable, chunk: int) -> Callable:
     def run(w, *batch):
         loss = torch.zeros((), dtype=w.dtype, device=w.device)
         grad = torch.zeros_like(w)
-        for ch in _chunks(batch, chunk):
+        for ch in _chunks(batch, chunk, row_mask):
             l, g = vg(w, *ch)
             loss = loss + l
             grad = grad + g
@@ -56,26 +63,29 @@ def chunked_value_and_grad(fn: Callable, chunk: int) -> Callable:
     return run
 
 
-def chunked_sum(fn: Callable, chunk: int) -> Callable:
+def chunked_sum(fn: Callable, chunk: int,
+                row_mask: Optional[Sequence[bool]] = None) -> Callable:
     """(w, *batch) -> sum loss over row chunks, no gradient."""
 
     def run(w, *batch):
         loss = torch.zeros((), dtype=w.dtype, device=w.device)
         with torch.no_grad():
-            for ch in _chunks(batch, chunk):
+            for ch in _chunks(batch, chunk, row_mask):
                 loss = loss + fn(w, *ch)
         return loss
 
     return run
 
 
-def blocked_rows(fn: Callable, chunk: int) -> Callable:
+def blocked_rows(fn: Callable, chunk: int,
+                 row_mask: Optional[Sequence[bool]] = None) -> Callable:
     """Per-row outputs fn(w, *batch) -> (n, ...) over row chunks,
     concatenated."""
 
     def run(w, *batch):
         with torch.no_grad():
-            return torch.cat([fn(w, *ch) for ch in _chunks(batch, chunk)])
+            return torch.cat([fn(w, *ch)
+                              for ch in _chunks(batch, chunk, row_mask)])
 
     return run
 
@@ -88,17 +98,18 @@ def _no_grad(fn: Callable) -> Callable:
     return run
 
 
-def make_value_and_grad(fn, chunk=None):
+def make_value_and_grad(fn, chunk=None, row_mask=None):
     return value_and_grad(fn) if chunk is None \
-        else chunked_value_and_grad(fn, chunk)
+        else chunked_value_and_grad(fn, chunk, row_mask)
 
 
-def make_sum(fn, chunk=None):
-    return _no_grad(fn) if chunk is None else chunked_sum(fn, chunk)
+def make_sum(fn, chunk=None, row_mask=None):
+    return _no_grad(fn) if chunk is None else chunked_sum(fn, chunk, row_mask)
 
 
-def make_rows(fn, chunk=None):
-    return _no_grad(fn) if chunk is None else blocked_rows(fn, chunk)
+def make_rows(fn, chunk=None, row_mask=None):
+    return _no_grad(fn) if chunk is None \
+        else blocked_rows(fn, chunk, row_mask)
 
 
 def pow2_floor(x: int) -> int:

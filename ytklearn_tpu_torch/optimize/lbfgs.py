@@ -268,6 +268,7 @@ def minimize_lbfgs(
     g_weight: float = 1.0,
     callback: Optional[Callable[[int, LBFGSState], bool]] = None,
     row_chunk: Optional[int] = None,
+    row_mask: Optional[Tuple[bool, ...]] = None,
 ) -> LBFGSResult:
     """L-BFGS/OWL-QN from w0 (a float32 tensor on the device the batch is
     on) to convergence, max_iter, a failed line search or a non-finite
@@ -275,7 +276,8 @@ def minimize_lbfgs(
 
     pure_loss_fn(w, *batch) returns the weighted-sum data loss. row_chunk
     evaluates loss and gradient over row chunks of that size
-    (optimize/blocked.py). callback(it, state) runs on the host once an
+    (optimize/blocked.py); row_mask marks the batch entries that are
+    row-aligned (the others go whole into every chunk). callback(it, state) runs on the host once an
     iteration (and with it = 0 before the first); returning True stops.
     """
     w0 = torch.as_tensor(w0)
@@ -285,7 +287,7 @@ def minimize_lbfgs(
     reg = Reg(l1_vec=zeros if l1_vec is None else l1_vec.to(dev, dtype),
               l2_vec=zeros if l2_vec is None else l2_vec.to(dev, dtype),
               g_weight=torch.tensor(g_weight, dtype=dtype, device=dev))
-    solver = _Solver(make_value_and_grad(pure_loss_fn, row_chunk), config,
+    solver = _Solver(make_value_and_grad(pure_loss_fn, row_chunk, row_mask), config,
                      has_l1, reg, batch)
     pure, loss, g = solver.loss_grad(w0)
     vals = torch.stack([pure, loss, torch.linalg.norm(w0),

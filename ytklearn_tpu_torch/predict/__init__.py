@@ -1,8 +1,7 @@
 """Predictor side-stack (reference: predictor/OnlinePredictorFactory.java:32-80).
 
-`create_predictor(model_name, config)` serves "gbdt" and the convex
-families; the GBST names raise NotImplementedError naming their ROADMAP.md
-item (1.10).
+`create_predictor(model_name, config)` serves every family `cli train`
+writes: the convex ones, the four GBST variants and "gbdt".
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from .continuous import (
     LinearPredictor,
     MulticlassLinearPredictor,
 )
-from .trees import GBDTPredictor
+from .trees import GBDTPredictor, GBSTPredictor
 
 __all__ = [
     "OnlinePredictor",
@@ -25,6 +24,7 @@ __all__ = [
     "FMPredictor",
     "FFMPredictor",
     "GBDTPredictor",
+    "GBSTPredictor",
     "create_predictor",
     "numpy_activation",
 ]
@@ -45,8 +45,5 @@ def create_predictor(model_name: str, config, fs=None) -> OnlinePredictor:
     if name in _PREDICTORS:
         return _PREDICTORS[name](config, fs)
     if name in _GBST:
-        raise NotImplementedError(
-            f"{model_name!r} predictor is not ported yet (ROADMAP.md 1.10, "
-            "GBST)"
-        )
+        return GBSTPredictor(name, config, fs)
     raise ValueError(f"unknown model name {model_name!r}")

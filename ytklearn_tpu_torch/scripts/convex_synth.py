@@ -3,6 +3,10 @@ reference's text format (`weight###label###name:val,...`).
 
     write_convex_case(dirpath, family, n_train, n_test, seed, **shape)
         -> config dict for `cli train <family>` (HOCON keys as a dict)
+    write_gbst_case(dirpath, n_train, n_test, seed, K=..., tree_num=...,
+                    **shape)
+        -> config dict for `cli train <gbmlr|gbsdt|gbhmlr|gbhsdt>` on the
+           binary data of `write_convex_case`
 
 Rows draw `nnz` distinct feature names from a vocabulary of `vocab`
 (`f<j>`; FFM's are `<field>@f<j>`, the field dict in `fields.dict`), values
@@ -110,4 +114,23 @@ def write_convex_case(dirpath: str, family: str, n_train: int, n_test: int,
         cfg["model"]["field_dict_path"] = fd
     if hyper:
         cfg["hyper"] = hyper
+    return cfg
+
+
+def write_gbst_case(dirpath: str, n_train: int, n_test: int, seed: int,
+                    K: int = 4, tree_num: int = 3, learning_rate: float = 0.3,
+                    instance_sample_rate: float = 1.0,
+                    feature_sample_rate: float = 1.0,
+                    gbst_type: str = "gradient_boosting", **shape) -> dict:
+    """The binary data of `write_convex_case` and a GBST config: K experts,
+    `tree_num` trees at `learning_rate`, the per-tree sample rates and the
+    boosting type; `shape` goes to `write_convex_case` (vocab, nnz, l1, l2,
+    max_iter, ...)."""
+    cfg = write_convex_case(dirpath, "linear", n_train, n_test, seed,
+                            **shape)
+    cfg.update({"k": K, "tree_num": tree_num,
+                "learning_rate": learning_rate,
+                "instance_sample_rate": instance_sample_rate,
+                "feature_sample_rate": feature_sample_rate,
+                "type": gbst_type})
     return cfg

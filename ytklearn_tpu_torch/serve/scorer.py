@@ -1,8 +1,31 @@
-"""CompiledScorer — lower a loaded GBDT predictor into batch scoring on a device.
+"""CompiledScorer — lower a loaded predictor into batch scoring on a device.
 
 Requests are padded up to the smallest rung of a batch-shape ladder
 (default 1/8/64/512, knob YTK_SERVE_LADDER); a batch larger than the top
-rung goes in top-rung chunks. Three GBDT rungs:
+rung goes in top-rung chunks. The lowering per family (the JAX package's
+serve/scorer.py), model maps to dense tensors, request dicts to rows:
+
+  linear            score = X @ w (the bias a column at x = 1)
+  multiclass_linear scores = [X @ W, 0]
+  fm                X w + 1/2 sum_k [(X V)^2 - X^2 V^2]; the bias a column
+                    at x = 1 whatever the first-order flag
+  ffm               the field-aware pairs through a (B, F, F, k) field-block
+                    einsum, less each feature's self-interaction: the host's
+                    sum over p < q in closed form
+  gbmlr/gbsdt/...   every tree's gates (and experts) in one product, the
+                    softmax or heap-sigmoid gating, the trees folded into z
+                    in order; random_forest divides by T
+  gbdt              three rungs, below
+
+The einsum families take YTK_SERVE_PRECISION: "f64" computes in
+torch.float64; "bf16" is the JAX package's preferred_element_type=f32
+contract, operands rounded to bf16 and their products summed in f32 (f32
+matmuls with TF32 off, so bf16 x bf16 products are exact and only the f32
+sums round), the result carried on in f64. GBDT and GBST score in f64
+whatever it asks, as in the JAX package, and rung_info() reports the
+precision that runs.
+
+Three GBDT rungs:
 
   stacked   the node arrays of every tree stacked (T, N) and walked with
             torch gathers, `depth` steps over (B, T) frontiers; the sum is
@@ -24,9 +47,12 @@ rung goes in top-rung chunks. Three GBDT rungs:
 An ensemble the heap layout cannot take (deeper than 10, more than 4095
 features, no split features, K > 1) or, for the binned rung, no bin table
 fitting uint16 serves on the stacked rung, and rung_info() names the
-downgrade (`fused_to_stacked`, `binned_to_stacked`) and its reason. A
-kernel that fails to build or launch raises. Warmup scores every rung
-once on the device.
+downgrade (`fused_to_stacked`, `binned_to_stacked`) and its reason. The
+fused and binned rungs are GBDT walks: the other families serve stacked
+and count no downgrade. A kernel that fails to build or launch raises.
+Warmup scores every rung once on the device. Featurization is the shared
+TransformPipeline: identity assembly with a NaN fill for GBDT; bias drop,
+hashing, vocab assembly and the transform replay for the rest.
 """
 
 from __future__ import annotations
@@ -41,7 +67,13 @@ import torch
 from ..config import knobs
 from ..device import resolve_device
 from ..gbdt.binning import bin_edges_path, load_bin_edges, model_text_digest
-from ..predict.trees import GBDTPredictor
+from ..predict.continuous import (
+    FFMPredictor,
+    FMPredictor,
+    LinearPredictor,
+    MulticlassLinearPredictor,
+)
+from ..predict.trees import GBDTPredictor, GBSTPredictor
 from ..transform.pipeline import TransformPipeline
 from . import kernels
 
@@ -72,24 +104,25 @@ def resolve_mode() -> str:
     return "stacked"
 
 
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    """`a` rounded to bf16 and carried as f32: an operand of the bf16
+    rung's f32 products."""
+    return a.to(torch.bfloat16).float()
+
+
 class CompiledScorer:
-    """Batch scorer for one loaded GBDT model on one device; thread-safe
-    after construction (scoring reads only immutable tensors)."""
+    """Batch scorer for one loaded model on one device; thread-safe after
+    construction (scoring reads only immutable tensors)."""
 
     def __init__(
         self,
-        predictor: GBDTPredictor,
+        predictor,
         ladder: Optional[Sequence[int]] = None,
         warmup: bool = True,
         mode: Optional[str] = None,
         precision: Optional[str] = None,
         device=None,
     ):
-        if not isinstance(predictor, GBDTPredictor):
-            raise TypeError(
-                f"no lowering for {type(predictor).__name__}: only GBDT is "
-                "ported (ROADMAP.md 1.6, the rest of serving)"
-            )
         self.device = resolve_device(device)
         self.predictor = predictor
         self.ladder = tuple(sorted(set(ladder))) if ladder else parse_ladder()
@@ -97,28 +130,35 @@ class CompiledScorer:
         self.requested_mode = mode if mode is not None else resolve_mode()
         if self.requested_mode not in ("stacked", "fused", "binned"):
             raise ValueError(f"unknown serve mode {self.requested_mode!r}")
-        # YTK_SERVE_PRECISION picks the rung of the einsum scorers
-        # (linear/FM/FFM, not ported); GBDT scores in f64 whatever it asks,
-        # as in the JAX package, and rung_info() reports what runs
-        requested = (
+        self.precision = (
             precision
             if precision is not None
             else (knobs.get_str("YTK_SERVE_PRECISION") or "f64")
         )
-        if requested not in ("f64", "bf16"):
-            raise ValueError(f"unknown serve precision {requested!r}")
-        self.precision = "f64"
+        if self.precision not in ("f64", "bf16"):
+            raise ValueError(f"unknown serve precision {self.precision!r}")
         self.mode = "stacked"  # effective; a kernel lowering may upgrade it
         self.downgrade = ""  # e.g. binned_to_stacked, with its reason:
         self.reason = ""  # why a requested kernel rung serves stacked
         self.bin_mode: Optional[str] = None  # binned rung: edges|thresholds
         self.bin_dtype: Optional[str] = None
-        self._lower_gbdt()
-        self.dim = len(self.vocab)
-        self._fill = math.nan  # absent feature routes to the default child
-        self._pipeline = TransformPipeline.for_identity(
-            self.vocab, self.dim, fill=self._fill
-        )
+        self._fill = 0.0  # an absent feature's value; NaN for gbdt
+        self._bias_col: Optional[int] = None
+        self._lower()
+        self.dim = len(self.vocab) + (self._bias_col is not None)
+        if isinstance(predictor, GBDTPredictor):
+            self._pipeline = TransformPipeline.for_identity(
+                self.vocab, self.dim, fill=self._fill
+            )
+        else:
+            pp = predictor.params
+            self._pipeline = TransformPipeline(
+                vocab=self.vocab, dim=self.dim, bias_col=self._bias_col,
+                fill=self._fill, bias_name=pp.model.bias_feature_name,
+                feature_hash=predictor.feature_hash,
+                nodes=predictor.transform_nodes,
+                transform_on=pp.feature.transform.switch_on,
+            )
         if warmup:
             self.warmup()
 
@@ -156,7 +196,9 @@ class CompiledScorer:
         return info
 
     def featurize(self, rows: Sequence[Dict[str, float]]) -> np.ndarray:
-        """Request dicts -> dense (B, dim) float64, NaN for absent features."""
+        """Request dicts -> dense (B, dim) float64: raw values with NaN for
+        absent features (gbdt), else what each row's `prep_row` gives, 0
+        for absent features and 1 in the bias column."""
         return self._pipeline.featurize(rows)
 
     def score_batch(self, rows: Sequence[Dict[str, float]]) -> np.ndarray:
@@ -221,8 +263,241 @@ class CompiledScorer:
 
     # -- lowering ---------------------------------------------------------
 
+    def _lower(self) -> None:
+        pred = self.predictor
+        if isinstance(pred, GBDTPredictor):
+            self._lower_gbdt()
+            return
+        # fused and binned are GBDT walks: a fleet-wide YTK_SERVE_BINNED=1
+        # is no downgrade for the other families
+        self.requested_mode = "stacked"
+        if isinstance(pred, GBSTPredictor):
+            self._lower_gbst()
+            return
+        lower = {
+            LinearPredictor: self._lower_linear,
+            MulticlassLinearPredictor: self._lower_multiclass,
+            FMPredictor: self._lower_fm,
+            FFMPredictor: self._lower_ffm,
+        }.get(type(pred))
+        if lower is None:
+            raise TypeError(f"no lowering for {type(pred).__name__}")
+        if (self.precision == "bf16" and self.device.type == "cuda"
+                and torch.backends.cuda.matmul.allow_tf32):
+            raise RuntimeError(
+                "the bf16 rung sums exact bf16 products in f32: turn TF32 "
+                "off (torch.backends.cuda.matmul.allow_tf32 = False)")
+        lower()
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _continuous_vocab(self, names) -> None:
+        """The vocab of the non-GBDT families, and the bias column when the
+        model has a bias row."""
+        pred = self.predictor
+        bias_name = pred.params.model.bias_feature_name
+        self.vocab = {n: i for i, n in enumerate(sorted(names))}
+        if pred.params.model.need_bias and bias_name in pred.model_map:
+            self._bias_col = len(self.vocab)
+
+    def _dense(self, width: int, row_of) -> np.ndarray:
+        """(D, width) float64: `row_of(name)` at each vocab column, and at
+        the bias column for the bias's row."""
+        pred = self.predictor
+        D = len(self.vocab) + (self._bias_col is not None)
+        A = np.zeros((D, width), np.float64)
+        for n, j in self.vocab.items():
+            A[j] = row_of(n)
+        if self._bias_col is not None:
+            A[self._bias_col] = row_of(pred.params.model.bias_feature_name)
+        return A
+
+    def _latent_row(self, name: str, width: int) -> np.ndarray:
+        """An FM/FFM model row as [first order, `width` latent weights]:
+        the first order 0 when the model has none, but the bias's (it adds
+        its weight at x = 1 whatever the flag, FMOnlinePredictor)."""
+        pred = self.predictor
+        r = pred.model_map[name]
+        keep = (pred.need_first_order
+                or name == pred.params.model.bias_feature_name)
+        return np.concatenate([[r[0] if keep else 0.0], r[1:1 + width]])
+
+    def _names(self):
+        bias_name = self.predictor.params.model.bias_feature_name
+        return [n for n in self.predictor.model_map if n != bias_name]
+
+    def _lower_linear(self) -> None:
+        pred = self.predictor
+        self._continuous_vocab(self._names())
+        w = self._dense(1, lambda n: pred.model_map[n][0])[:, 0]
+        act = pred.loss.predict
+        if self.precision == "bf16":
+            w16 = _bf16(self._tensor(w))
+
+            def kernel(X):
+                s = (_bf16(X) @ w16).double()
+                return s, act(s)
+        else:
+            w64 = self._tensor(w)
+
+            def kernel(X):
+                s = X @ w64
+                return s, act(s)
+
+        self._kernel = kernel
+
+    def _lower_multiclass(self) -> None:
+        pred = self.predictor
+        self._continuous_vocab(self._names())
+        W = self._dense(pred.K - 1, lambda n: pred.model_map[n])
+        act = pred.loss.predict
+        W = self._tensor(W)
+        if self.precision == "bf16":
+            W, cast = _bf16(W), _bf16
+        else:
+            cast = lambda X: X  # noqa: E731
+
+        def kernel(X):
+            s = (cast(X) @ W).double()
+            # the implicit K-th class at 0
+            s = torch.cat([s, torch.zeros_like(s[:, :1])], dim=-1)
+            return s, act(s)
+
+        self._kernel = kernel
+
+    def _lower_fm(self) -> None:
+        pred = self.predictor
+        self._continuous_vocab(self._names())
+        k = pred.sok
+        A = self._dense(1 + k, lambda n: self._latent_row(n, k))
+        w, V = A[:, 0], A[:, 1:]
+        act = pred.loss.predict
+        if self.precision == "bf16":
+            w16, V16 = _bf16(self._tensor(w)), _bf16(self._tensor(V))
+            V216 = _bf16(self._tensor(V * V))
+
+            def kernel(X):
+                X16 = X.to(torch.bfloat16)
+                S = X16.float() @ V16
+                S2 = (X16 * X16).float() @ V216  # the square is a bf16 value
+                wx = X16.float() @ w16
+                s = (wx + 0.5 * torch.sum(S * S - S2, dim=-1)).double()
+                return s, act(s)
+        else:
+            w64, V64, VV = (self._tensor(a) for a in (w, V, V * V))
+
+            def kernel(X):
+                S = X @ V64
+                S2 = (X * X) @ VV
+                s = X @ w64 + 0.5 * torch.sum(S * S - S2, dim=-1)
+                return s, act(s)
+
+        self._kernel = kernel
+
+    def _lower_ffm(self) -> None:
+        pred = self.predictor
+        # features of an unknown field drop at serve time too
+        self._continuous_vocab(n for n in self._names()
+                               if pred._field_of(n) >= 0)
+        k, F = pred.sok, pred.n_fields
+        A = self._dense(1 + F * k, lambda n: self._latent_row(n, F * k))
+        D = A.shape[0]
+        w, V = A[:, 0], A[:, 1:].reshape(D, F, k)
+        field_idx = np.zeros(D, np.int64)
+        for n, j in self.vocab.items():
+            field_idx[j] = pred._field_of(n)
+        # the bias rides as (field 0, x = 1), as in the ingest
+        M = np.zeros((D, F), np.float64)
+        M[np.arange(D), field_idx] = 1.0
+        # each feature's self-interaction |V_d[f_d]|^2, taken off once so
+        # the closed form is the host's sum over p < q
+        Vs = V[np.arange(D), field_idx]
+        sn = np.einsum("dk,dk->d", Vs, Vs)
+        # T[b, a, f, k] = sum_d X[b, d] M[d, a] V[d, f, k]: one product
+        # against the (D, F*F*k) field blocks (M is one-hot, so M V is V
+        # placed in its field's block, exactly, at either precision)
+        MV = (M[:, :, None, None] * V[:, None, :, :]).reshape(D, F * F * k)
+        act = pred.loss.predict
+        if self.precision == "bf16":
+            w16, MV16, sn16 = (_bf16(self._tensor(a)) for a in (w, MV, sn))
+
+            def kernel(X):
+                B = X.shape[0]
+                X16 = X.to(torch.bfloat16)
+                wx = X16.float() @ w16
+                T = (X16.float() @ MV16).reshape(B, F, F, k)
+                Q = torch.einsum("bafk,bfak->b", T, T)
+                diag = (X16 * X16).float() @ sn16  # the square: bf16
+                s = (wx + 0.5 * (Q - diag)).double()
+                return s, act(s)
+        else:
+            w64, MV64, sn64 = (self._tensor(a) for a in (w, MV, sn))
+
+            def kernel(X):
+                B = X.shape[0]
+                T = (X @ MV64).reshape(B, F, F, k)
+                Q = torch.einsum("bafk,bfak->b", T, T)
+                s = X @ w64 + 0.5 * (Q - (X * X) @ sn64)
+                return s, act(s)
+
+        self._kernel = kernel
+
+    def _lower_gbst(self) -> None:
+        """Every tree's gates (and experts) in one f64 product, the gating
+        batched over trees, then the trees folded into z in order (the
+        reference's fori_loop); f64 whatever the precision knob."""
+        pred = self.predictor
+        self.precision = "f64"
+        K, T, S = pred.K, pred.n_trees, pred.stride
+        bias_name = pred.params.model.bias_feature_name
+        has_bias = pred.params.model.need_bias
+        names = {n for tmap in pred.tree_maps for n in tmap}
+        if has_bias:
+            names.discard(bias_name)
+        self.vocab = {n: i for i, n in enumerate(sorted(names))}
+        self._bias_col = len(self.vocab) if has_bias else None
+        D = len(self.vocab) + has_bias
+        W = np.zeros((D, T, S), np.float64)
+        for ti, tmap in enumerate(pred.tree_maps):
+            for n, r in tmap.items():
+                if has_bias and n == bias_name:
+                    W[self._bias_col, ti] = r
+                elif n in self.vocab:
+                    W[self.vocab[n], ti] = r
+        Wt = self._tensor(W.reshape(D, -1))
+        leaves = self._tensor(np.stack(pred.leaves) if pred.leaves
+                              else np.zeros((0, K)))
+        hier, scalar = pred.hier, pred.scalar_leaves
+        lr, base, is_rf = pred.lr, pred.base_score, pred.is_rf
+        act = pred.loss.predict
+        from ..models.gbst import heap_leaf_probs
+
+        def kernel(X):
+            B = X.shape[0]
+            G = (X @ Wt).reshape(B, T, S)
+            gate_in = G[..., :K - 1]
+            experts = leaves[None] if scalar else G[..., K - 1:]
+            if hier:
+                pi = heap_leaf_probs(torch.sigmoid(gate_in))
+            else:
+                pi = torch.softmax(torch.cat(
+                    [gate_in, torch.zeros_like(gate_in[..., :1])], dim=-1),
+                    dim=-1)
+            fx = torch.sum(pi * experts, dim=-1)  # (B, T)
+            z = torch.full((B,), base, dtype=torch.float64, device=X.device)
+            for t in range(T):
+                z = z + lr * fx[:, t]
+            if is_rf:
+                z = z / max(T, 1)
+            return z, act(z)
+
+        self._kernel = kernel
+
     def _lower_gbdt(self) -> None:
         pred = self.predictor
+        self.precision = "f64"
+        self._fill = math.nan  # an absent feature routes to the default
         model = pred.model
         K = pred.K
         T = pred.use_rounds * K

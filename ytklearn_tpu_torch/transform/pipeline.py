@@ -7,28 +7,32 @@
                                predictors (`prep_row`)
   TransformPipeline            `prep_row`: a predictor's bias drop, murmur
                                hashing and replay of one feature dict;
-                               `featurize`: request dicts scattered into a
-                               dense (B, dim) float64 matrix against the
-                               model vocab (the identity mode GBDT serving
-                               uses)
+                               `featurize`: request dicts into a dense
+                               (B, dim) float64 matrix against the model
+                               vocab in one batched stage, the same drop,
+                               hashing (signed collisions summed) and
+                               replay, and the bias column at 1.0; or, in
+                               the identity mode GBDT serving uses, raw
+                               values with a missing fill
 
 Replay semantics, bit for bit the scalar `TransformNode.transform`:
 standardization `(val - mean) / stdvar` unless `stdvar < 1e-6`
 (identity); scale_range `rmin + (rmax - rmin) * ((val - min) / (max -
 min))`, or 1.0 when `|max - min| < 1e-6`; for the predictors only
 (`nodeless_zero`), a feature without a stat node maps to 0.0 when the
-transform is on (ContinuousOnlinePredictor.transform:135-143). The hashing
-and replay of the serving rungs of the convex families come with their
-lowerings (ROADMAP.md 1.6).
+transform is on (ContinuousOnlinePredictor.transform:135-143).
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..config import knobs
 
 __all__ = ["TransformTable", "apply_nodes", "TransformPipeline"]
 
@@ -80,6 +84,18 @@ class TransformTable:
             t.set_node(i, node)
         return t, index
 
+    @classmethod
+    def from_vocab(cls, nodes: Dict[str, object], vocab: Dict[str, int],
+                   dim: int) -> "TransformTable":
+        """A row a scoring column (the serve layout); names outside the
+        vocab drop before the replay."""
+        t = cls.zeros(max(dim, 1))
+        for name, node in nodes.items():
+            col = vocab.get(name)
+            if col is not None:
+                t.set_node(col, node)
+        return t
+
 
 def apply_nodes(table: TransformTable, gi: np.ndarray, val: np.ndarray,
                 nodeless_zero: bool = False) -> np.ndarray:
@@ -105,27 +121,39 @@ def apply_nodes(table: TransformTable, gi: np.ndarray, val: np.ndarray,
 
 
 class TransformPipeline:
-    """The raw-features front door of one loaded model."""
+    """The raw-features front door of one loaded model: the full stage of
+    the convex and GBST families, or the identity assembly of GBDT."""
 
     def __init__(self, *, vocab: Optional[Dict[str, int]] = None,
-                 dim: int = 0, fill: float = 0.0,
-                 bias_name: Optional[str] = None, feature_hash=None,
+                 dim: int = 0, bias_col: Optional[int] = None,
+                 fill: float = 0.0, bias_name: Optional[str] = None,
+                 feature_hash=None,
                  nodes: Optional[Dict[str, object]] = None,
-                 transform_on: bool = False):
+                 transform_on: bool = False, identity: bool = False):
         self.vocab = vocab
         self.dim = dim
+        self.bias_col = bias_col
         self.fill = fill
         self.bias_name = bias_name
         self.feature_hash = feature_hash
         self.transform_on = transform_on
-        self._table, self._index = TransformTable.from_named(
-            dict(nodes or {}))
+        self.identity = identity
+        nodes = dict(nodes or {})
+        self._table, self._index = TransformTable.from_named(nodes)
+        self._col_table = (TransformTable.from_vocab(nodes, vocab, dim)
+                           if vocab is not None and not identity else None)
+        # raw name -> (column, murmur sign), bounded (YTK_TRANSFORM_CACHE):
+        # past the bound new names compute uncached
+        self._hash_cache: Dict[str, Tuple[int, float]] = {}
+        self._hash_cache_cap = max(
+            int(knobs.get_int("YTK_TRANSFORM_CACHE")), 0)
+        self._hash_lock = threading.Lock()
 
     @classmethod
     def for_identity(
         cls, vocab: Dict[str, int], dim: int, fill: float
     ) -> "TransformPipeline":
-        return cls(vocab=vocab, dim=dim, fill=fill)
+        return cls(vocab=vocab, dim=dim, fill=fill, identity=True)
 
     def prep_row(self, features: Dict[str, float]) -> List[Tuple[str, float]]:
         """Bias removal, hashing when configured, and the replay of one
@@ -141,8 +169,33 @@ class TransformPipeline:
         out = apply_nodes(self._table, idx, vals, nodeless_zero=True)
         return [(items[i][0], float(out[i])) for i in range(len(items))]
 
+    def _resolve_hashed(self, keys: Sequence[str]
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Raw names -> (vocab column or -1, murmur sign), cached."""
+        cache, vocab, fh = self._hash_cache, self.vocab, self.feature_hash
+        cols = np.empty(len(keys), np.int64)
+        signs = np.empty(len(keys), np.float64)
+        misses: Dict[str, Tuple[int, float]] = {}
+        for i, name in enumerate(keys):
+            hit = cache.get(name)
+            if hit is None:
+                if name == self.bias_name:
+                    hit = (-1, 1.0)
+                else:
+                    hashed, sign = fh.hash_name(name)
+                    hit = (vocab.get(hashed, -1), sign)
+                misses[name] = hit
+            cols[i], signs[i] = hit
+        if misses:
+            with self._hash_lock:
+                room = self._hash_cache_cap - len(cache)
+                if room > 0:
+                    cache.update(itertools.islice(misses.items(), room))
+        return cols, signs
+
     def featurize(self, rows: Sequence[Dict[str, float]]) -> np.ndarray:
-        """Request dicts -> dense (B, dim) float64 in one batched stage."""
+        """Request dicts -> dense (B, dim) float64 in one batched stage,
+        row by row what `prep_row` gives, scattered against the vocab."""
         B = len(rows)
         X = np.full((B, self.dim), self.fill, np.float64)
         keys: List[str] = []
@@ -153,11 +206,14 @@ class TransformPipeline:
             ke(fmap.keys())
             ve(fmap.values())
             la(len(fmap))
-        if not keys:
-            return X
-        jj = np.fromiter(
-            map(self.vocab.get, keys, itertools.repeat(-1)), np.int64, len(keys)
-        )
+        hashing = self.feature_hash is not None and not self.identity
+        if hashing and keys:
+            jj, signs = self._resolve_hashed(keys)
+        else:
+            # the bias name has no vocab column (it rides bias_col), so
+            # the lookup drops it as prep_row does
+            jj = np.fromiter(map(self.vocab.get, keys, itertools.repeat(-1)),
+                             np.int64, len(keys))
         m = jj >= 0  # unknown features drop, as in the host walk
         try:
             vv = np.asarray(vals, np.float64)
@@ -168,5 +224,18 @@ class TransformPipeline:
                 [float(v) if k else 0.0 for v, k in zip(vals, m)], np.float64
             )
         ii = np.repeat(np.arange(B), lens)
-        X[ii[m], jj[m]] = vv[m]
+        ii, jj, vv = ii[m], jj[m], vv[m]
+        if hashing and len(ii):
+            # collisions add their signed values in request order: the
+            # additions of hash_features' dict, in its order (fill is 0.0)
+            np.add.at(X, (ii, jj), vv * signs[m])
+            flat = np.unique(ii * np.int64(self.dim) + jj)
+            ii, jj = flat // self.dim, flat % self.dim
+        else:
+            X[ii, jj] = vv
+        if self.transform_on and not self.identity and len(ii):
+            X[ii, jj] = apply_nodes(self._col_table, jj, X[ii, jj],
+                                    nodeless_zero=True)
+        if self.bias_col is not None:
+            X[:, self.bias_col] = 1.0
         return X
