@@ -21,8 +21,9 @@ reference runs it (slice 11, no new kernel): the native C++ parser for
 both ingests, softmax with K trees a round, l1 with the approximate LAD
 refine, the other losses, the host samplers and continue_train, and
 GBST through `cli train` and `cli serve` for every family (slice 12,
-plain torch, no new kernel). Every phase prints its wall time, and the
-run its total.
+plain torch, no new kernel), and the host GBDT engine and resilience
+(slice 13, plain torch, no new kernel). Every phase prints its wall
+time, and the run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -197,7 +198,27 @@ run its total.
      predictions inside the 0.1 band; then one `cli serve` process for
      gbmlr answers 64 rows and drains on SIGTERM; no kernel wrapper's
      launch count moves on either phase;
- 18. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 18. (slice 13, its main path) after the binned serving phases, trains
+     the host engine through `cli train gbdt` in this process over the
+     same 2^20 + 2^17 text lines (HOST_RUNS: level-wise sigmoid with
+     `tree_maker = "feature"`, 20 trees, train loss below 0.65 and test
+     AUC above HOST_AUC_FLOOR, bench.py's band printed; loss-wise l1 with
+     `lad_refine_appr = false`, 10 trees, the loss falling every round):
+     seconds and host syncs a tree, ingest and host binning against the
+     rounds; then both at HOST_SMALL lines on cuda twice and on the CPU,
+     whose dumps must be byte-identical; no kernel wrapper's count moves.
+     Then the chaos drill (`phase_resilience`): the device engine at 2^20
+     Higgs rows and 20 rounds, int8 and bf16, SIGTERM at the RES_CUT-th
+     loss read (exit 143 at the next round start) and continue_train
+     (int8 byte-identical to the uninterrupted run, bf16 completing with
+     its node values apart counted); the host engine's kill -9 (chaos
+     kind `kill` at round 1's first dump commit) in a `cli train`
+     subprocess, exit 137, then `--resume auto` byte-identical;
+     `io.read:oserror:0.3:1` over the native ingest (faults retried, no
+     give-up, the dataset equal); FM and gbmlr SIGTERM at their first
+     dump (exit 143) then `--resume auto` (rc 0); `--max-restarts 1`
+     after one injected `error` at a dump commit, ending byte-identical;
+ 19. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -3719,6 +3740,402 @@ def phase_serve_families(card, models):
           "a kernel wrapper launched while serving the non-GBDT families")
 
 
+# -- slice 13: the host engine and resilience -----------------------------------
+
+#: (run, trees, optimization overrides): the host engine's two full-width
+#: `cli train gbdt` runs on the Higgs config (F = 28, 255 bins, 255
+#: leaves, lr 0.1, min_child_hessian_sum 100) over phase_cli_train's text
+HOST_RUNS = (
+    ("level sigmoid feature", 20,
+     {"tree_maker": "feature", "tree_grow_policy": "level"}),
+    ("loss l1 precise", 10,
+     {"loss_function": "l1", "lad_refine_appr": False,
+      "tree_grow_policy": "loss"}),
+)
+#: the level-wise run's test AUC floor (see phase_host_engine)
+HOST_AUC_FLOOR = 0.9
+#: card against CPU: text lines and trees a run
+HOST_SMALL = (1 << 16, 1 << 13)
+HOST_SMALL_TREES = 3
+RES_ROWS = 1 << 20  # the device engine's resume runs (Higgs rows)
+RES_ROUNDS = 20
+RES_CUT = 10  # the sync read that draws the SIGTERM (first draw < rate)
+
+
+def host_cli(conf_args, device, tag, tmp, extra=(), sets=()):
+    """`cli train gbdt` in this process -> (rc, JSON line or None, the
+    last GBDTTrainer that ran, with its GBDTResult as `.result`, ingest
+    seconds, model path)."""
+    import contextlib
+    import io
+
+    from ytklearn_tpu_torch import cli
+    from ytklearn_tpu_torch.gbdt.data import GBDTIngest
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    real = GBDTTrainer.train
+
+    def train(self, *a, **kw):
+        self.result = real(self, *a, **kw)
+        return self.result
+
+    model = os.path.join(tmp, tag, "gbdt.model")
+    argv = (["train", "gbdt", CONF] + list(conf_args)
+            + ["--set", f"model.data_path={model}",
+               "--set", f"model.feature_importance_path={model}.imp"]
+            + [a for kv in sets for a in ("--set", kv)]
+            + ["--device", device] + list(extra))
+    buf = io.StringIO()
+    GBDTTrainer.train = train
+    try:
+        with Recorder(GBDTIngest, "load") as ingest, \
+                Recorder(GBDTTrainer, "train") as trained, \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        GBDTTrainer.train = real
+    lines = buf.getvalue().strip().splitlines()
+    line = json.loads(lines[-1]) if rc == 0 and lines else None
+    trainer = trained.calls[-1][0] if trained.calls else None
+    secs = ingest.calls[-1][1] if ingest.calls else float("nan")
+    return rc, line, trainer, secs, model
+
+
+def opt_sets(over):
+    return [f"optimization.{k}={json.dumps(v)}" for k, v in over.items()]
+
+
+def text_of(path):
+    with open(path) as f:
+        return f.read()
+
+
+def phase_host_engine(card, paths, tmp):
+    """The host engine through `cli train gbdt` on the card: HOST_RUNS at
+    full width over phase_cli_train's 2^20 + 2^17 Higgs lines, then both
+    policies at HOST_SMALL lines on cuda twice and on the CPU, whose dumps
+    must be byte-identical. No kernel wrapper launches on this phase."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.scripts.bench_gbdt import (
+        gen_higgs_like,
+        quality_band,
+    )
+
+    before = launch_counts()
+    data = ["--set", f"data.train.data_path={paths['train']}",
+            "--set", f"data.test.data_path={paths['test']}"]
+    for run, trees, over in HOST_RUNS:
+        t0 = time.perf_counter()
+        rc, res, tr, ingest_s, _m = host_cli(
+            data, "cuda", run.replace(" ", "_"), tmp,
+            sets=opt_sets(dict(over, round_num=trees)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0 and res["trees"] == trees and tr.engine == "host",
+              f"host engine {run}: rc {rc}, {res}")
+        ts = tr.time_stats
+        secs = tr.tree_seconds
+        print(f"host engine {run}: {trees} trees on {CLI_ROWS} rows x "
+              f"{N_FEATURES} features in {wall:.3f} s (wall); ingest "
+              f"{ingest_s:.3f} s (parse + fill, host), preprocess "
+              f"{ts['preprocess']:.3f} s (host binning), rounds "
+              f"{ts['train']:.3f} s; {statistics.mean(secs):.4f} s a tree "
+              f"(min {min(secs):.4f}, max {max(secs):.4f}), "
+              f"{tr.host_syncs / trees:.1f} host syncs a tree; train loss "
+              f"{res['train_loss']:.6f}, test loss {res['test_loss']:.6f}, "
+              f"test metrics {res['test_metrics']} [{card}]", flush=True)
+        if over.get("loss_function") == "l1":
+            losses = [r["train_loss"] for r in tr.result.round_log]
+            check(all(b < a for a, b in zip(losses, losses[1:])),
+                  f"host engine l1: the loss did not fall every round: "
+                  f"{losses}")
+            print(f"host engine {run}: train loss by round {losses} "
+                  f"[{card}]", flush=True)
+        else:
+            # bench.py's band is its 40-tree cell's; 20 level-wise trees at
+            # lr 0.1 sit below it (0.9327 at 2^17 rows on the CPU), so the
+            # run is held to HOST_AUC_FLOOR and the band's verdict printed
+            auc = res["test_metrics"]["auc"]
+            band = quality_band(auc, res["test_loss"], False)
+            print(f"host engine {run}: bench.py's synthetic band: {band} "
+                  f"[{card}]", flush=True)
+            check(res["train_loss"] < 0.65 and auc > HOST_AUC_FLOOR,
+                  f"host engine {run}: train loss {res['train_loss']}, "
+                  f"test AUC {auc}")
+    # card against CPU, and a second card run, at HOST_SMALL lines
+    n, nt = HOST_SMALL
+    train, test = gen_higgs_like(n, nt, N_FEATURES, SEED + 13,
+                                 device="cuda")
+    rng = np.random.RandomState(SEED + 13)
+    small = {k: os.path.join(tmp, f"small_{k}.txt") for k in ("train", "test")}
+    write_ytk_text(small["train"], train.X, train.y, rng)
+    write_ytk_text(small["test"], test.X, test.y, rng)
+    del train, test
+    sdata = ["--set", f"data.train.data_path={small['train']}",
+             "--set", f"data.test.data_path={small['test']}"]
+    texts = {}
+    for run, _trees, over in HOST_RUNS:
+        for who in ("cuda", "cuda2", "cpu"):
+            dev = who.rstrip("2")
+            t0 = time.perf_counter()
+            rc, res, tr, _s, model = host_cli(
+                sdata, dev, f"small_{run.replace(' ', '_')}_{who}", tmp,
+                sets=opt_sets(dict(over, round_num=HOST_SMALL_TREES)))
+            check(rc == 0, f"host engine small {run} on {who}: rc {rc}")
+            texts[(run, who)] = text_of(model)
+            print(f"host engine small {run} on {who}: {HOST_SMALL_TREES} "
+                  f"trees on {n} rows in {time.perf_counter() - t0:.3f} s "
+                  f"(wall), {statistics.mean(tr.tree_seconds):.4f} s a tree,"
+                  f" {tr.host_syncs / HOST_SMALL_TREES:.1f} host syncs a "
+                  f"tree [{card}]", flush=True)
+        same_cpu = texts[(run, "cuda")] == texts[(run, "cpu")]
+        same_card = texts[(run, "cuda")] == texts[(run, "cuda2")]
+        print(f"host engine small {run}: card dump byte-identical to the "
+              f"CPU's: {same_cpu}; to a second card run: {same_card} "
+              f"({len(texts[(run, 'cuda')])} bytes) [{card}]", flush=True)
+        check(same_cpu and same_card,
+              f"host engine small {run}: the card's dumps differ")
+    after = launch_counts()
+    print(f"host engine: kernel launches {before} before the phase, "
+          f"{after} after [{card}]", flush=True)
+    check(after == before, "a kernel wrapper launched on the host engine")
+    return small
+
+
+@contextlib.contextmanager
+def chaos(spec):
+    """YTK_CHAOS armed for this process, with fresh per-site call counts
+    and counters."""
+    from ytklearn_tpu_torch import resilience
+
+    resilience.reset_chaos()
+    resilience.reset_counters()
+    os.environ["YTK_CHAOS"] = spec
+    try:
+        yield
+    finally:
+        os.environ.pop("YTK_CHAOS", None)
+        resilience.reset_chaos()
+
+
+CHAOS_RATE = 0.05
+
+
+def first_draw_seed(site, n, upto=40):
+    """A chaos seed at CHAOS_RATE whose draw n at `site` fires and whose
+    other draws up to `upto` pass."""
+    from ytklearn_tpu_torch.resilience import site_draw
+
+    return next(s for s in range(1 << 20)
+                if site_draw(s, site, n) < CHAOS_RATE
+                and all(site_draw(s, site, k) >= CHAOS_RATE
+                        for k in range(1, upto + 1) if k != n))
+
+
+def node_values_apart(a, b):
+    """Node values (leaf, gain, hessian) that differ between two model
+    texts of the same tree count, and the trees whose structure differs."""
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+
+    ma, mb = GBDTModel.loads(a), GBDTModel.loads(b)
+    vals = total = shape = 0
+    for x, y in zip(ma.trees, mb.trees):
+        if (x.feat_name, x.left, x.split) != (y.feat_name, y.left, y.split):
+            shape += 1
+            continue
+        for f in ("leaf_value", "gain", "hess_sum"):
+            total += len(getattr(x, f))
+            vals += sum(u != v for u, v in zip(getattr(x, f), getattr(y, f)))
+    return vals, total, shape
+
+
+def phase_resilience(card, small):
+    """scripts/chaos_drill.py's steps on the card: the device engine's
+    SIGTERM and resume at int8 (byte-identical) and at bf16 (completes;
+    node values apart counted), the host engine's kill -9 in a `cli train`
+    subprocess and `--resume auto` (byte-identical), transient read faults
+    over the native ingest, FM and gbmlr preempted and resumed, and
+    `--max-restarts 1` after one injected error."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch import resilience
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.config.params import GBDTParams
+    from ytklearn_tpu_torch.gbdt.data import GBDTIngest
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.resilience import Preempted
+    from ytklearn_tpu_torch.scripts.bench_gbdt import (
+        bench_params,
+        gen_higgs_like,
+    )
+    from ytklearn_tpu_torch.scripts.convex_synth import (
+        write_convex_case,
+        write_gbst_case,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_res_")
+    try:
+        # the device engine: baseline, SIGTERM at the RES_CUT-th sync, resume
+        train, test = gen_higgs_like(RES_ROWS, RES_ROWS >> 3, N_FEATURES,
+                                     SEED + 14, device="cuda")
+        cut_seed = first_draw_seed("gbdt.sync", RES_CUT)
+        for prec in ("int8", "bf16"):
+            def run_dev(tag, resume=False):
+                p = bench_params(RES_ROUNDS, os.path.join(tmp, f"{prec}_{tag}"))
+                p.model.continue_train = resume
+                t0 = time.perf_counter()
+                res = GBDTTrainer(p, hist_precision=prec,
+                                  device="cuda").train(train=train, test=test)
+                torch.cuda.synchronize()
+                return res, time.perf_counter() - t0
+
+            _r, t_whole = run_dev("whole")
+            with chaos(f"gbdt.sync:sigterm:{CHAOS_RATE}:{cut_seed}"):
+                try:
+                    run_dev("cut")
+                    check(False, f"{prec}: the SIGTERM did not preempt")
+                except Preempted as e:
+                    code = e.exit_code
+            cut_text = text_of(os.path.join(tmp, f"{prec}_cut"))
+            done = len(GBDTModel.loads(cut_text).trees)
+            res, t_resume = run_dev("cut", resume=True)
+            whole = text_of(os.path.join(tmp, f"{prec}_whole"))
+            resumed = text_of(os.path.join(tmp, f"{prec}_cut"))
+            apart, total, shape = node_values_apart(resumed, whole)
+            print(f"resilience {prec}: device engine, {RES_ROWS} Higgs rows,"
+                  f" {RES_ROUNDS} rounds: SIGTERM at sync {RES_CUT} -> exit "
+                  f"{code} with {done} trees dumped; resume "
+                  f"{t_resume:.3f} s beside {t_whole:.3f} s uninterrupted; "
+                  f"resumed text byte-identical: {resumed == whole}; node "
+                  f"values apart {apart} of {total}, trees of another shape "
+                  f"{shape} [{card}]", flush=True)
+            check(code == 143 and 0 < done < RES_ROUNDS
+                  and len(res.model.trees) == RES_ROUNDS,
+                  f"{prec} preemption: exit {code}, {done} trees")
+            if prec == "int8":
+                check(resumed == whole, "int8: the resumed dump differs from "
+                      "the uninterrupted run's")
+        del train, test
+        torch.cuda.empty_cache()
+        # the host engine: kill -9 in a subprocess, then --resume auto
+        data = ["--set", f"data.train.data_path={small['train']}",
+                "--set", f"data.test.data_path={small['test']}"]
+        run, _t, over = HOST_RUNS[0]
+        sets = opt_sets(dict(over, round_num=HOST_SMALL_TREES))
+        rc, _l, _tr, _s, base = host_cli(data, "cuda", "k9_whole", tmp,
+                                         sets=sets)
+        check(rc == 0, "host engine baseline")
+        # commits a round: sidecar, model, importance; draw 4 is round 1's
+        # sidecar, after round 0's model is on disk
+        kill_seed = first_draw_seed("io.dump", 4)
+        model = os.path.join(tmp, "k9", "gbdt.model")
+        argv = ([sys.executable, "-m", "ytklearn_tpu_torch.cli", "train",
+                 "gbdt", CONF] + data + [a for kv in sets + [
+                     f"model.data_path={model}", "model.dump_freq=1",
+                     f"model.feature_importance_path={model}.imp"]
+                     for a in ("--set", kv)] + ["--device", "cuda"])
+        env = dict(os.environ,
+                   YTK_CHAOS=f"io.dump:kill:{CHAOS_RATE}:{kill_seed}",
+                   PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                              cwd=REPO, timeout=300)
+        t_kill = time.perf_counter() - t0
+        check(proc.returncode == 137 and os.path.exists(model),
+              f"kill -9 stand-in: rc {proc.returncode}, "
+              f"{proc.stderr[-1500:]}")
+        killed = len(GBDTModel.loads(text_of(model)).trees)
+        rc, _l, _tr, _s, _m = host_cli(
+            data, "cuda", "k9", tmp, extra=["--resume", "auto"],
+            sets=sets + ["model.dump_freq=1"])
+        same = text_of(model) == text_of(base)
+        print(f"resilience host engine ({run}, {HOST_SMALL[0]} lines): "
+              f"kill -9 at io.dump draw 4 -> exit {proc.returncode} after "
+              f"{t_kill:.3f} s with {killed} trees on disk; --resume auto "
+              f"rc {rc}, dump byte-identical to the uninterrupted run: "
+              f"{same} [{card}]", flush=True)
+        check(rc == 0 and same, "host engine kill -9 resume")
+        # transient read faults over the native ingest
+        conf = hocon.load(CONF)
+        for k, v in (("data.train.data_path", small["train"]),
+                     ("data.test.data_path", small["test"])):
+            conf = hocon.set_path(conf, k, v)
+        p = GBDTParams.from_config(conf)
+        resilience.reset_counters()
+        t0 = time.perf_counter()
+        clean, clean_t = GBDTIngest(p).load()
+        t_clean = time.perf_counter() - t0
+        with chaos("io.read:oserror:0.3:1"):
+            t0 = time.perf_counter()
+            ing = GBDTIngest(p)
+            faulted, faulted_t = ing.load()
+            t_fault = time.perf_counter() - t0
+        snap = resilience.counters()
+        equal = all(np.array_equal(np.asarray(a), np.asarray(b),
+                                   equal_nan=True)
+                    for a, b in ((faulted.X, clean.X), (faulted.y, clean.y),
+                                 (faulted_t.X, clean_t.X)))
+        print(f"resilience ingest: io.read:oserror:0.3:1 over the "
+              f"{ing.parser} parser: {snap.get('chaos.injected', 0)} faults "
+              f"injected, {snap.get('io.retry.attempts', 0)} retries, "
+              f"{snap.get('io.retry.giveup', 0)} give-ups; dataset equal: "
+              f"{equal}; {t_fault:.3f} s beside {t_clean:.3f} s unfaulted "
+              f"(host) [{card}]", flush=True)
+        check(ing.parser == "native" and equal
+              and snap.get("chaos.injected", 0) >= 1
+              and "io.retry.giveup" not in snap, "transient ingest faults")
+        # FM and gbmlr: SIGTERM at the first dump commit, then resume
+        cases = {
+            "fm": write_convex_case(os.path.join(tmp, "fm"), "fm", 1 << 14,
+                                    1 << 11, CONVEX_SEED + 13, vocab=20000,
+                                    nnz=16, k=8, l2=1e-3, max_iter=6),
+            "gbmlr": write_gbst_case(os.path.join(tmp, "gbmlr"), 1 << 14,
+                                     1 << 11, CONVEX_SEED + 14, K=4,
+                                     tree_num=3, max_iter=4, **GBST_SHAPE),
+        }
+        for family, cfg in cases.items():
+            cfg["model"]["dump_freq"] = 1
+            cfg["model"]["data_path"] = os.path.join(tmp, family, "model")
+            conf_path = os.path.join(tmp, f"{family}.conf")
+            with open(conf_path, "w") as f:
+                json.dump(cfg, f)
+            from ytklearn_tpu_torch import cli
+
+            with chaos("io.dump:sigterm:1:0"), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                rc1 = cli.main(["train", family, conf_path, "--device",
+                                "cuda"])
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc2 = cli.main(["train", family, conf_path, "--device",
+                                "cuda", "--resume", "auto"])
+            print(f"resilience {family}: SIGTERM at the first dump -> exit "
+                  f"{rc1}; --resume auto -> rc {rc2} in "
+                  f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+            check(rc1 == 143 and rc2 == 0, f"{family} preempt/resume")
+        # --max-restarts 1 after one injected error (round 1's model commit)
+        err_seed = first_draw_seed("io.dump", 5)
+        with chaos(f"io.dump:error:{CHAOS_RATE}:{err_seed}"):
+            rc, _l, _tr, _s, model = host_cli(
+                data, "cuda", "restart", tmp, extra=["--max-restarts", "1"],
+                sets=sets + ["model.dump_freq=1"])
+            injected = resilience.counters().get("chaos.injected.io.dump")
+        same = rc == 0 and text_of(model) == text_of(base)
+        print(f"resilience --max-restarts 1: one injected error at io.dump "
+              f"draw 5 ({injected} injected in all) -> rc {rc}, dump "
+              f"byte-identical to the uninterrupted run: {same} [{card}]",
+              flush=True)
+        check(same, "--max-restarts did not recover")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -3857,6 +4274,17 @@ def main() -> int:
                                      tmp, cli_model, card)
         k7_time = timed("binned_timing", phase_binned_timing, cli_model,
                         model, card)
+        torch.cuda.empty_cache()
+        # slice 13: the host engine over the same text, then resilience
+        t0 = time.perf_counter()
+        small = timed("host_engine", phase_host_engine, card,
+                      {k: os.path.join(tmp, f"{k}.txt")
+                       for k in ("train", "test")}, tmp)
+        torch.cuda.empty_cache()
+        timed("resilience", phase_resilience, card, small)
+        torch.cuda.empty_cache()
+        print(f"slice 13 phases: {time.perf_counter() - t0:.3f} s (wall) "
+              f"[{card}]", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -176,7 +176,20 @@ def test_jax_predictor_scores_the_port_dump(runs):
     (["--trace-out", "t.json"], "1.12"),
     (["--profile"], "1.12"),
 ])
-def test_unported_options_raise_by_item(extra, match):
+def test_unported_options_raise_by_item(extra, match, runs):
+    """The 1.7 and 1.12 options raise by their item. The two that item 1.5
+    lifted train one round on the CPU and return 0: `--max-restarts 1` with
+    nothing failing, `--resume auto` with no model there (a cold start)."""
+    if match == "1.5":
+        tag = extra[0].strip("-")
+        args = _args(runs["tmp"], tag) + [
+            "--set", "optimization.round_num=1", "--device", "cpu"] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["train"] + args) == 0
+        assert _json_line(buf.getvalue())["trees"] == 1
+        assert (runs["tmp"] / tag / "gbdt.model").exists()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {match}"):
         cli.main(["train", "gbdt", CONF] + extra)
 

@@ -1393,3 +1393,56 @@ def test_bf16_rung_refuses_tf32(gen, monkeypatch, tmp_path_factory):
     with pytest.raises(RuntimeError, match="TF32"):
         CompiledScorer(create_predictor("fm", json.loads(cfg)),
                        precision="bf16", device="cuda")
+
+
+# -- the host engine (plain torch, no kernel of its own) ----------------------
+
+
+def test_host_histogram_card_equals_cpu(gen):
+    """The host engine's float64-rounded-once histogram: the card's atomic
+    float64 adds give the CPU's f32 sums exactly."""
+    from ytklearn_tpu_torch.gbdt import host_engine
+
+    rng = np.random.RandomState(5)
+    n, F, B, nodes = 1 << 18, 28, 256, 8
+    bins = torch.from_numpy(rng.randint(0, B, (F, n)).astype(np.int32))
+    pos = torch.from_numpy(rng.randint(-1, nodes, n).astype(np.int32))
+    g = torch.from_numpy(rng.randn(n).astype(np.float32))
+    h = torch.from_numpy(rng.rand(n).astype(np.float32))
+    want = host_engine.hist_kernel(bins, pos, g, h, nodes, B)
+    got = host_engine.hist_kernel(bins.cuda(), pos.cuda(), g.cuda(), h.cuda(),
+                                  nodes, B)
+    assert torch.equal(got.cpu(), want)
+    mask = pos == 3
+    assert torch.equal(host_engine.node_hist_kernel(
+        bins.cuda(), mask.cuda(), g.cuda(), h.cuda(), B).cpu(),
+        host_engine.node_hist_kernel(bins, mask, g, h, B))
+
+
+@pytest.mark.parametrize("policy,loss", [("level", "sigmoid"),
+                                         ("loss", "l1")])
+def test_host_engine_tree_card_equals_cpu(gen, policy, loss, tmp_path):
+    """A host-engine run on cuda dumps the CPU run's model text byte for
+    byte (level-wise sigmoid through the feature maker, loss-wise l1 with
+    the precise LAD refine)."""
+    rng = np.random.RandomState(11)
+    n, F = 20000, 8
+    X = rng.randn(n, F).astype(np.float32)
+    s = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] - 0.3 * X[:, 3]
+    y = ((rng.rand(n) < 1 / (1 + np.exp(-s))) if loss == "sigmoid"
+         else s + 0.3 * rng.laplace(size=n)).astype(np.float32)
+    texts = []
+    for dev in ("cuda", "cpu"):
+        p = GBDTParams(
+            approximate=[ApproximateSpec(max_cnt=64)],
+            model=ModelParams(data_path=str(tmp_path / dev), dump_freq=0),
+            round_num=3, max_depth=-1, max_leaf_cnt=31, learning_rate=0.1,
+            min_child_hessian_sum=1.0, tree_grow_policy=policy,
+            loss_function=loss, lad_refine_appr=False, tree_maker="feature",
+            eval_metric=[])
+        tr = GBDTTrainer(p, device=dev)
+        assert tr.engine == "host"
+        tr.train(GBDTData(X, y, np.ones(n, np.float32), n,
+                          [f"f{i}" for i in range(F)]))
+        texts.append((tmp_path / dev).read_text())
+    assert texts[0] == texts[1]

@@ -133,3 +133,45 @@ def test_continue_train_without_a_dump_starts_fresh(tmp_path):
     res = GBDTTrainer(p, device="cpu", hist_precision="int8").train(
         GBDTData(*data, len(data[0]), ["a", "b", "c", "d"]))
     assert len(res.model.trees) == 2
+
+
+def _ulps(pt: str, jt: str):
+    """{(tree, node): f32 ulps apart} of the node values (leaf, gain and
+    hessian) where the two model texts differ; their integer fields and
+    split values must be equal."""
+    out = {}
+    pm, jm = JModel.loads(pt), JModel.loads(jt)
+    assert len(pm.trees) == len(jm.trees)
+    for t, (a, b) in enumerate(zip(pm.trees, jm.trees)):
+        assert (a.feat_name, a.left, a.split, a.sample_cnt) == \
+            (b.feat_name, b.left, b.split, b.sample_cnt)
+        for f in ("leaf_value", "gain", "hess_sum"):
+            x = np.asarray(getattr(a, f), np.float32).view(np.int32)
+            y = np.asarray(getattr(b, f), np.float32).view(np.int32)
+            for nid in np.nonzero(x != y)[0]:
+                out[(t, f, int(nid))] = abs(int(x[nid]) - int(y[nid]))
+    return out
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "efb"])
+def test_resume_divergence_is_the_uninterrupted_runs(tmp_path, sparse):
+    """The int8 resumed text sits a few f32 ulps from the reference's in
+    some node values. The port's uninterrupted text differs from the
+    reference's uninterrupted text in exactly the same node values, by the
+    same ulps: the resume adds nothing of its own, the divergence is the
+    int8 split statistics' f32 order (ROADMAP.md §3, allowed)."""
+    data = _resume_data(sparse)
+    texts = {}
+    for who, cls in (("jax", JTrainer), ("port", GBDTTrainer)):
+        path = tmp_path / f"{who}.model"
+        _run(cls, tmp_path, path, 3, False, data, None)
+        _run(cls, tmp_path, path, 6, True, data, None)
+        texts[who] = path.read_text()
+        whole = tmp_path / f"{who}_whole.model"
+        _run(cls, tmp_path, whole, 6, False, data, None)
+        texts[who + "_whole"] = whole.read_text()
+        # each package's resumed text is its own uninterrupted text
+        assert texts[who] == texts[who + "_whole"]
+    resumed = _ulps(texts["port"], texts["jax"])
+    whole = _ulps(texts["port_whole"], texts["jax_whole"])
+    assert resumed == whole

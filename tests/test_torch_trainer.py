@@ -308,13 +308,11 @@ def test_wave_log_and_spec(l2_run):
 
 # (case number, params, constructor arguments, ROADMAP item); the numbers
 # keep each case the name it has always had (kw3-kw5, GOSS and the sample
-# rates, went when they were ported; kw6 was l1 and is now precise LAD,
-# which the reference's engine="auto" sends to its host engine; kw7 and kw8,
-# huber and softmax, train now: test_lifted_refusals_train_as_the_reference)
+# rates, went when they were ported; kw7 and kw8, huber and softmax, train
+# now: test_lifted_refusals_train_as_the_reference; kw2, kw6 and kw9, the
+# host engine, precise LAD and the feature maker, train on the host engine:
+# test_host_engine_refusals_train_as_the_reference)
 _UNPORTED = [
-    (2, {}, {"engine": "host"}, "1.5"),
-    (6, {"loss_function": "l1", "lad_refine_appr": False}, {}, "1.5"),
-    (9, {"tree_maker": "feature"}, {}, "1.5"),
     (10, {}, {"mesh": object()}, "1.7"),
 ]
 
@@ -327,6 +325,45 @@ def test_unported_features_raise_by_name(kw, ctor, match):
     args.update(ctor)
     with pytest.raises(NotImplementedError, match=match):
         GBDTTrainer(p, **args)
+
+
+_HOST_LIFTED = [
+    (2, {}, {"engine": "host"}),
+    (6, {"loss_function": "l1", "lad_refine_appr": False}, {}),
+    (9, {"tree_maker": "feature"}, {}),
+]
+
+
+@pytest.mark.parametrize("kw,ctor", [c[1:] for c in _HOST_LIFTED], ids=[
+    f"kw{i}-ctor{i}-1.5" for i, _, _ in _HOST_LIFTED])
+def test_host_engine_refusals_train_as_the_reference(tmp_path, kw, ctor):
+    """The refusals of ROADMAP.md 1.5 (the host engine, and what
+    engine="auto" sends there: precise LAD and the feature maker) train the
+    JAX host engine's trees on this file's data (tests/
+    test_torch_host_engine.py holds the engine case by case)."""
+    X, y = _data("l2")
+    n = 2048
+    w = np.ones(n, np.float32)
+    fields = _fields("l2", round_num=2, **kw)
+    fields["eval_metric"] = []
+    res = {}
+    for who, pcls, spec, mcls, tcls, dcls, extra in (
+            ("j", JParams, JSpec, JModelParams, JTrainer, JData, {}),
+            ("p", GBDTParams, ApproximateSpec, ModelParams, GBDTTrainer,
+             GBDTData, {"device": "cpu"})):
+        p = pcls(approximate=[spec(max_cnt=31)],
+                 model=mcls(data_path=str(tmp_path / who), dump_freq=0),
+                 **fields)
+        tr = tcls(p, **ctor, **extra)
+        assert tr.engine == "host"
+        res[who] = tr.train(dcls(X[:n], y[:n], w, n, NAMES))
+    assert len(res["p"].model.trees) == len(res["j"].model.trees) == 2
+    for a, b in zip(res["p"].model.trees, res["j"].model.trees):
+        for f in ("feat", "feat_name", "left", "right", "slot",
+                  "sample_cnt", "split"):
+            assert getattr(a, f) == getattr(b, f), f
+    np.testing.assert_allclose(_losses(res["p"], "train_loss"),
+                               _losses(res["j"], "train_loss"), rtol=1e-5)
 
 
 _LIFTED = [

@@ -7,9 +7,13 @@ learning rate (GBMLRDataFlow.accumulate:540). Before each fit the trainer
 draws the tree's Bernoulli instance and feature masks and re-inits the
 weights; after it, it dumps the tree and the tree-info file, so the dump
 trail is the checkpoint `continue_train` resumes from. gradient_boosting
-and random_forest; `loss.just_evaluate` stops after the first fit. The
-multi-process streams and the preemption guard come with ROADMAP.md 1.7
-and 1.5.
+and random_forest; `loss.just_evaluate` stops after the first fit.
+`train()` runs under the preemption guard (resilience/preempt.py): a
+SIGTERM or SIGINT is deferred to the next tree boundary, where every
+finished tree is on disk already, and `Preempted` is raised; the relaunch
+(`--resume auto`) continues at the last finished tree and ends with the
+uninterrupted run's trees. The multi-process streams come with ROADMAP.md
+1.7.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .io.reader import DataIngest, IngestResult
 from .models.gbst import GBSTModel
 from .optimize import LBFGSConfig, minimize_lbfgs
 from .optimize.blocked import make_rows
+from .resilience import trainer_guard
 
 log = logging.getLogger("ytklearn_tpu_torch.boost")
 
@@ -68,7 +73,13 @@ class GBSTTrainer:
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    _guard = None  # PreemptionGuard while train() runs
+
     def train(self, ingest: Optional[IngestResult] = None) -> BoostResult:
+        with trainer_guard(self):
+            return self._train(ingest)
+
+    def _train(self, ingest: Optional[IngestResult]) -> BoostResult:
         p = self.params
         t0 = time.time()
         ts = self.time_stats = {}
@@ -137,6 +148,11 @@ class GBSTTrainer:
         ts["trees"] = tree_secs
 
         for tree in range(finished, p.tree_num):
+            if self._guard is not None and self._guard.triggered:
+                # trees [0, tree) and the tree-info are on disk: the dump
+                # trail is the checkpoint (reference boost.py:169-175)
+                self._guard.preempt(p.model.data_path, family=self.variant,
+                                    trees=tree)
             t_tree = time.time()
             # the tree's Bernoulli masks (reference randomNextSample)
             inst = (rng_inst.rand(ds.n) <= p.instance_sample_rate).astype(

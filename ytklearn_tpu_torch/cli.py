@@ -19,9 +19,17 @@ avg_loss, test_loss, train/test metrics). `gbmlr`, `gbsdt`, `gbhmlr` and
 `gbhsdt` load through DataIngest and train through GBSTTrainer (one L-BFGS
 fit a tree, gradient_boosting or random_forest, continue_train from the
 tree dumps), dump each tree and print one JSON line (model, trees,
-train/test loss and metrics). `--resume auto` and `--max-restarts`,
-multi-process and multi-GPU runs, and the trace/profile planes raise
-NotImplementedError naming their ROADMAP.md item.
+train/test loss and metrics). `--resume auto` sets model.continue_train
+when model.data_path holds a dump (the atomic dumps make it the newest
+complete checkpoint) and cold-starts otherwise; `--max-restarts N`
+re-enters training with continue_train after a failed attempt, up to N
+times. A preempted run (SIGTERM/SIGINT, deferred to the trainer's next
+boundary, which dumps first) exits 128 + signum and is never retried; a
+CUDA error that poisons the process's context (an illegal address, a
+device-side assert) is re-raised at once, since an in-process restart
+could only fail again. Multi-process and multi-GPU runs and the
+trace/profile planes raise NotImplementedError naming their ROADMAP.md
+item.
 
 `serve` loads any family `train` writes into a ModelRegistry on
 `--device` (default `cuda`), warms every ladder rung, starts the HTTP
@@ -86,14 +94,32 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
+#: messages of the CUDA errors that leave the context unusable: every later
+#: call in the process fails too, so a restart in the process cannot help
+STICKY_CUDA_ERRORS = (
+    "illegal memory access",
+    "an illegal address",
+    "device-side assert",
+    "misaligned address",
+    "illegal instruction",
+    "unspecified launch failure",
+    "invalid program counter",
+    "hardware stack error",
+    "launch timed out",
+    "uncorrectable ECC error",
+)
+
+
+def is_sticky_cuda_error(exc: BaseException) -> bool:
+    """True for an error whose CUDA context cannot recover in-process."""
+    text = str(exc)
+    return "CUDA" in text and any(m in text for m in STICKY_CUDA_ERRORS)
+
+
 def _refuse_unported(args) -> None:
     """Every train option this port does not run yet raises by its
     ROADMAP.md item, before anything loads."""
     for bad, what, item in (
-        (args.max_restarts > 0, "--max-restarts",
-         "1.5, the host engine and resilience"),
-        (args.resume == "auto", "--resume auto",
-         "1.5, the host engine and resilience"),
         (bool(args.coordinator), "multi-process training (--coordinator)",
          "1.7, multi-GPU data-parallel GBDT"),
         (args.devices > 1, "--devices > 1",
@@ -121,10 +147,12 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--devices", type=int, default=0,
                     help="GPUs to train on; more than one is not ported yet")
     ap.add_argument("--max-restarts", type=int, default=0,
-                    help="retry a failed run from its last dump (not "
-                    "ported yet)")
+                    help="on a failed attempt, restart training in this "
+                    "process from the last dump (model.continue_train), "
+                    "up to N times")
     ap.add_argument("--resume", default="never", choices=("never", "auto"),
-                    help="auto: resume from a complete dump (not ported yet)")
+                    help="auto: resume from the dump at model.data_path "
+                    "when there is one, else start cold")
     ap.add_argument("--coordinator", default="",
                     help="host:port of a multi-process rendezvous (not "
                     "ported yet)")
@@ -147,7 +175,38 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         from .io.reader import load_transform_hook
 
         hook = load_transform_hook(args.transform_script)
-    return _train_once(args.model_name, cfg, hook, args.device)
+    log = logging.getLogger("ytklearn_tpu_torch.cli")
+    if args.resume == "auto":
+        from .io.fs import create_filesystem
+
+        fs = create_filesystem(str(cfg.get("fs_scheme", "local")))
+        path = hocon.get_path(cfg, "model.data_path")
+        if path and fs.exists(str(path)):
+            cfg = hocon.set_path(cfg, "model.continue_train", True)
+            log.info("--resume auto: checkpoint found at %s; resuming", path)
+        else:
+            log.info("--resume auto: no checkpoint at %s; cold start", path)
+    from .resilience import Preempted
+
+    restarts = max(args.max_restarts, 0)
+    for attempt in range(restarts + 1):
+        try:
+            return _train_once(args.model_name, cfg, hook, args.device)
+        except Preempted as e:
+            # not a failure: the checkpoint is on disk, and a restart here
+            # would eat the grace period; the relaunch resumes it
+            log.warning("%s; exiting %d", e, e.exit_code)
+            return e.exit_code
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:
+            if attempt >= restarts or is_sticky_cuda_error(e):
+                raise
+            log.exception("training attempt %d/%d failed; restarting with "
+                          "model.continue_train=true", attempt + 1,
+                          restarts + 1)
+            cfg = hocon.set_path(cfg, "model.continue_train", True)
+    return 1  # unreachable
 
 
 def _train_once(name: str, cfg: dict, hook, device) -> int:

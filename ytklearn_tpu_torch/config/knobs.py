@@ -3,7 +3,8 @@
 Same names, types and defaults as the JAX package's registry
 (``ytklearn_tpu/config/knobs.py``), cut to the knobs the GBDT serving path,
 the GBDT device-engine trainer, the convex families' blocked evaluation,
-the text ingest and the host binning read. Every read goes through the typed accessors below, which re-read
+the text ingest, the host binning and the resilience layer read. Every
+read goes through the typed accessors below, which re-read
 ``os.environ`` on each call, so a test or an operator may set a knob at run
 time.
 
@@ -93,6 +94,24 @@ _knob("YTK_NO_NATIVE", "bool", False,
 _knob("YTK_SKETCH_ROWS", "int", 1 << 25,
       "rows above which host quantile binning streams through the weighted "
       "quantile sketch instead of the full-sort path")
+
+# -- resilience (same defaults as ytklearn_tpu/config/knobs.py:243-256) -----
+_knob("YTK_CHAOS", "str", None,
+      "deterministic fault injection spec `site:kind:rate:seed[,...]` "
+      "(kinds: oserror|error|sigterm|kill); counter-based draws make "
+      "every injected fault reproducible")
+_knob("YTK_RETRY_MAX", "int", 4,
+      "attempt budget per `resilience.retry` site (1 = no retries)")
+_knob("YTK_RETRY_BASE_S", "float", 0.05,
+      "first-retry backoff in seconds (doubles per attempt, "
+      "deterministically jittered into [0.5, 1.0)x)")
+_knob("YTK_RETRY_MAX_S", "float", 2.0,
+      "backoff ceiling in seconds for the retry exponential")
+_knob("YTK_PREEMPT", "bool", True,
+      "preemption guard in trainers: SIGTERM/SIGINT deferred to the next "
+      "round/iteration boundary, emergency checkpoint, exit 128+signum "
+      "(`--resume auto` re-enters training); `0` keeps raw signal "
+      "semantics")
 
 _FALSY = ("0", "false", "no", "off")
 

@@ -159,8 +159,11 @@ def _sample_feature(col: np.ndarray, weight: np.ndarray,
         vals = np.unique(col)
         if len(vals) <= spec.max_cnt:
             return vals, True
-        order = np.argsort(col, kind="stable")
-        sv, sw = col[order], w[order]
+        if spec.use_sample_weight:
+            order = np.argsort(col, kind="stable")
+            sv, sw = col[order], w[order]
+        else:  # equal weights: the stable order's values are the sort's
+            sv, sw = np.sort(col), w
         cw = np.cumsum(sw)
         # max_cnt evenly spaced weighted ranks (the sketch's query points)
         ranks = (np.arange(1, spec.max_cnt + 1) / spec.max_cnt) * cw[-1]

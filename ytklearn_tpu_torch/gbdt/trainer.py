@@ -1,4 +1,4 @@
-"""GBDT boosting trainer: the device engine.
+"""GBDT boosting trainer: the device engine, and the host engine's entry.
 
 The counterpart of the device path of ``ytklearn_tpu/gbdt/trainer.py``
 (reference optimizer/GBDTOptimizer.java:174-530):
@@ -38,13 +38,24 @@ are 0: the reference multiplies, which leaves NaN where a loss's gradient
 is infinite at the padding rows' label 0 (mape), and NaN reaches every
 histogram.
 
+`engine="host"`, and what the reference's `engine="auto"` sends there
+(precise LAD, `lad_refine_appr = false` under l1, and `tree_maker =
+"feature"`), train on the host engine (gbdt/host_engine.py).
+
+`train()` runs under the preemption guard (resilience/preempt.py): a
+SIGTERM or SIGINT is deferred to the next round start of either engine,
+where the finished rounds' trees are dumped through the atomic dump and
+`Preempted` is raised; `continue_train` (`--resume auto`) then re-enters
+at that round, and the device engine's result equals the uninterrupted
+run's byte for byte. A sync round's loss read is the `gbdt.sync` chaos
+site.
+
 Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
 versions). Not ported, each raising NotImplementedError with its
-ROADMAP.md item: the host engine (`engine="host"`, and what the reference's
-`engine="auto"` sends there: precise LAD, `lad_refine_appr = false`, and
-the feature-parallel maker, `tree_maker = "feature"`; 1.5), a mesh (1.7),
-and on CUDA trees of more nodes than the histogram kernels' shared-memory
-lookup holds (1.8). The quality sidecar is an obs-plane item (1.12).
+ROADMAP.md item: a mesh (1.7, with the column-sharded feature-parallel
+maker), and on CUDA trees of more nodes than the histogram kernels'
+shared-memory lookup holds (1.8). The quality sidecar is an obs-plane
+item (1.12).
 """
 
 from __future__ import annotations
@@ -63,8 +74,10 @@ from ..device import resolve_device
 from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
 from ..losses import GBDT_TRAINABLE, create_loss
+from ..resilience import chaos_point, trainer_guard
 from . import prng
-from .engine import GrowSpec, grow, ordered_cumsum, wave_log_rows
+from .engine import GrowSpec, grow, make_gain_fns, ordered_cumsum, \
+    wave_log_rows
 from .binning import (
     BundlePlan,
     FeatureBins,
@@ -78,6 +91,7 @@ from .binning import (
 )
 from .data import GBDTData, GBDTIngest, to_tensor
 from .hist import BM_DEFAULT, check_tile_fits
+from .host_engine import HostEngine
 from .tree import GBDTModel, Tree, unbundle_tree
 
 log = logging.getLogger("ytklearn_tpu_torch.gbdt")
@@ -89,10 +103,6 @@ LAD_Q = 4096
 
 _TREE_FIELDS = ("feat", "slot", "slot_r", "left", "right", "leaf", "gain",
                 "hess", "cnt")
-
-
-#: the ROADMAP.md item of what this trainer still refuses
-HOST_ITEM = "1.5, the host engine and resilience"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -131,7 +141,9 @@ class GBDTResult:
     round_log: List[Dict] = field(default_factory=list)
 
 
-class GBDTTrainer:
+class GBDTTrainer(HostEngine):
+    _guard = None  # PreemptionGuard while train() runs
+
     def __init__(
         self,
         params: GBDTParams,
@@ -162,15 +174,9 @@ class GBDTTrainer:
             # feature-parallel maker run on the host engine
             precise_lad = (p.loss_function == "l1" and self.K == 1
                            and not p.lad_refine_appr)
-            if precise_lad:
-                raise _not_ported("precise LAD leaf refinement "
-                                  "(lad_refine_appr = false, the host "
-                                  "engine)", HOST_ITEM)
-            engine = "host" if p.tree_maker == "feature" else "device"
-        if engine == "host" or p.tree_maker == "feature":
-            raise _not_ported("the host engine and the feature-parallel "
-                              "maker", HOST_ITEM)
-        self.engine = "device"
+            engine = ("host" if precise_lad or p.tree_maker == "feature"
+                      else "device")
+        self.engine = engine
         if hist_precision is None:
             hist_precision = "bf16" if use_bf16_hist else "f32"
         if hist_precision not in ("bf16", "f32", "int8"):
@@ -187,8 +193,9 @@ class GBDTTrainer:
                 f"loss {self.loss.name!r} (class_num {p.class_num}) cannot "
                 "train a GBDT: the trainer takes the scalar losses and "
                 "softmax with class_num > 1")
+        _gain, self.node_value_fn = make_gain_fns(*self._cfg())
         self.refine_lad = self.loss.name == "l1" and self.K == 1
-        if self.refine_lad and not p.lad_refine_appr:
+        if self.refine_lad and not p.lad_refine_appr and engine == "device":
             log.warning("lad_refine_appr=false asks for the precise refine, "
                         "which only the host engine runs; the device "
                         "engine refines on the approximate rank grid")
@@ -202,12 +209,24 @@ class GBDTTrainer:
                 f"goss=(a, b) needs 0 < a <= 1 and 0 <= b <= 1, got {goss!r}"
             )
         self.goss = (a, b)
+        if a < 1.0 and engine == "host":
+            log.warning("GOSS (goss_a=%.3f) is a device-engine feature; the "
+                        "host engine trains unsampled", a)
         self.efb = knobs.get_bool("YTK_EFB") if efb is None else bool(efb)
+        if self.efb and engine == "host":
+            # a warning only when asked for: the knob is on by default
+            (log.warning if efb else log.info)(
+                "EFB is a device-engine feature; the host engine trains on "
+                "the unbundled bin matrix")
         self._efb_plan: Optional[BundlePlan] = None
         self._missing_fill = None
         self._bins_sidecar = None
         self.sync_log: List[Tuple[int, float]] = []
         self.time_stats: Dict[str, float] = {}
+
+    def _cfg(self):
+        p = self.params
+        return (p.l1, p.l2, p.min_child_hessian_sum, p.max_abs_leaf_val)
 
     # -- spec and inputs ----------------------------------------------------
 
@@ -551,19 +570,28 @@ class GBDTTrainer:
         self.sync_log = []
         t_train0 = time.time()
         for rnd in range(start, p.round_num):
+            if self._guard is not None and self._guard.triggered:
+                # the round start is the safe preemption point: the dump
+                # holds exactly the finished rounds, and the resumed run
+                # re-enters at `rnd` (every round's key is round-indexed)
+                self._preempt_checkpoint(model, state[2], dd.bins, names,
+                                         rnd)
             state = self._round(rnd, dd, spec, state)
+            if p.model.dump_freq > 0 and (rnd + 1) % p.model.dump_freq == 0:
+                self._append_trees_from_bufs(model, state[2], dd.bins, names,
+                                             len(model.trees),
+                                             (rnd + 1) * self.K)
+                self._dump_model(model)
             if (rnd + 1) % sync_every == 0 or rnd == p.round_num - 1:
+                # after the round's dump, as the reference's lagged read
+                # of the round before comes after that round's dump
+                chaos_point("gbdt.sync")
                 tl = float(state[3][rnd])
                 self.sync_log.append((rnd, time.time() - t0))
                 msg = f"[round={rnd}] {time.time() - t0:.1f}s train loss={tl:.6f}"
                 if state[1] is not None:
                     msg += f" test loss={float(state[4][rnd]):.6f}"
                 log.info(msg)
-            if p.model.dump_freq > 0 and (rnd + 1) % p.model.dump_freq == 0:
-                self._append_trees_from_bufs(model, state[2], dd.bins, names,
-                                             len(model.trees),
-                                             (rnd + 1) * self.K)
-                self._dump_model(model)
         ts = self.time_stats
         ts["train"] = time.time() - t_train0
         if self.sync_log:
@@ -577,10 +605,30 @@ class GBDTTrainer:
                     s1 - s0, 1e-9)
         return state
 
+    def _preempt_checkpoint(self, model, bufs, bins, names, rnd: int
+                            ) -> None:
+        """Emergency checkpoint at round start `rnd`: the finished rounds'
+        trees from the buffers, dumped, then Preempted (reference
+        trainer.py:1143)."""
+        self._append_trees_from_bufs(model, bufs, bins, names,
+                                     len(model.trees), rnd * self.K)
+        self._dump_model(model)
+        self._guard.preempt(self.params.model.data_path, family="gbdt",
+                            rounds=rnd, trees=len(model.trees))
+
     # -- entry --------------------------------------------------------------
 
     def train(self, train: Optional[GBDTData] = None,
               test: Optional[GBDTData] = None) -> GBDTResult:
+        """Train on the engine chosen at construction, under the preemption
+        guard."""
+        with trainer_guard(self):
+            if self.engine == "device":
+                return self._train_device(train, test)
+            return self._train_host(train, test)
+
+    def _train_device(self, train: Optional[GBDTData],
+                      test: Optional[GBDTData]) -> GBDTResult:
         p = self.params
         t0 = time.time()
         ts = self.time_stats = {}

@@ -1,7 +1,8 @@
 """Storage seam: the local filesystem behind the reference `IFileSystem`
 surface (reference: fs/LocalFileSystem.java:39), cut to what model loading,
-the GBDT ingest's line readers and the trainer's dumps need. Remote schemes
-are not ported yet."""
+the GBDT ingest's line readers and the trainer's dumps need, with the
+resilience layer's `io.read` and `io.dump` seams. Remote schemes are not
+ported yet."""
 
 from __future__ import annotations
 
@@ -43,8 +44,14 @@ class LocalFileSystem:
         """Write-then-replace: `path` keeps its old content or carries the
         complete new content, never a half-written file (the serving
         registry's fingerprint watcher may read it at any time). On error
-        the temp file is removed and `path` is untouched."""
-        tmp = f"{self._strip(path)}{TMP_MARKER}{os.getpid()}"
+        the temp file is removed and `path` is untouched. The commit (the
+        replace) is the `io.dump` retry and chaos site: a transient fault
+        there costs a backoff, not the checkpoint, and a commit that gives
+        up leaves no temp file behind."""
+        from ..resilience import chaos_point, retry_call
+
+        dst = self._strip(path)
+        tmp = f"{dst}{TMP_MARKER}{os.getpid()}"
         f = self.open(tmp, mode)
         try:
             yield f
@@ -54,7 +61,17 @@ class LocalFileSystem:
                 os.unlink(tmp)
             raise
         f.close()
-        os.replace(tmp, self._strip(path))
+
+        def commit():
+            chaos_point("io.dump")
+            os.replace(tmp, dst)
+
+        try:
+            retry_call(commit, site="io.dump")
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
 
     def recur_get_paths(self, paths: Sequence[str]) -> List[str]:
         """Expand directories (recursively, files in sorted order) and
@@ -78,11 +95,20 @@ class LocalFileSystem:
 
     def read_lines(self, paths: Sequence[str]) -> Iterator[str]:
         """Every line of every file, files in sorted-path order, without the
-        trailing newline; streaming (one line held at a time)."""
+        trailing newline; streaming (one line held at a time). Each file
+        is read under the `io.read` retry and chaos site: a transient
+        fault, at the open or mid-read, reopens that file and skips the
+        lines already yielded (resilience.retry_lines)."""
+        from ..resilience import chaos_point, retry_lines
+
         for p in sorted(self.recur_get_paths(paths)):
-            with self.open(p) as f:
-                for line in f:
-                    yield line.rstrip("\n")
+
+            def open_file(path=p):
+                chaos_point("io.read")
+                return self.open(path)
+
+            for line in retry_lines(open_file, site="io.read"):
+                yield line.rstrip("\n")
 
     def select_read_lines(self, paths: Sequence[str], divisor: int,
                           remainder: int) -> Iterator[str]:

@@ -198,9 +198,17 @@ def parse_paths(fs, paths: Sequence[str], x_delim: str = "###",
     across files: file k starts at global line sum(lines of files < k)."""
     blocks: List[ParsedBlock] = []
     line0 = 0
+    from ..resilience import chaos_point, retry_call
+
     for p in sorted(fs.recur_get_paths(paths)):
-        with fs.open(p, "rb") as f:
-            b = f.read()
+        # the `io.read` retry and chaos seam of read_lines: a transient
+        # fault rereads this one file
+        def read(path=p) -> bytes:
+            chaos_point("io.read")
+            with fs.open(path, "rb") as f:
+                return f.read()
+
+        b = retry_call(read, site="io.read")
         if not b:
             continue
         if not b.endswith(b"\n"):

@@ -7,9 +7,12 @@ Ingest parses the text into padded ELL arrays on the host, the model's
 batch goes to the device once, and L-BFGS runs there (optimize/lbfgs.py).
 Each iteration computes the test loss, and every fifth (and the first two)
 the configured metrics; `model.dump_freq` dumps on the way, the best round
-at the end. The multi-process collectives come with multi-GPU training
-(ROADMAP.md 1.7), the obs spans and the preemption guard with ROADMAP.md
-1.12 and 1.5.
+at the end. `train()` runs under the preemption guard
+(resilience/preempt.py): a SIGTERM or SIGINT is deferred to the next
+iteration callback, which dumps the current weights through the ordinary
+dump and raises `Preempted`; the relaunch (`--resume auto`) warm-starts
+from them through continue_train. The multi-process collectives come with
+multi-GPU training (ROADMAP.md 1.7), the obs spans with ROADMAP.md 1.12.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from .models import FFMModel, FMModel, LinearModel, MulticlassLinearModel, \
     load_field_dict
 from .optimize import LBFGSConfig, inv_hessian_vp, minimize_lbfgs
 from .optimize.blocked import make_rows, make_sum, make_value_and_grad
+from .resilience import trainer_guard
 
 log = logging.getLogger("ytklearn_tpu_torch.train")
 
@@ -106,7 +110,13 @@ class HoagTrainer:
         # the field dict the ingest used, so n_fields matches ds.field
         return FFMModel(p, dim, n_fields=len(self._fields()), device=dev)
 
+    _guard = None  # PreemptionGuard while train() runs
+
     def train(self, ingest: Optional[IngestResult] = None) -> TrainResult:
+        with trainer_guard(self):
+            return self._train(ingest)
+
+    def _train(self, ingest: Optional[IngestResult]) -> TrainResult:
         p = self.params
         t0 = time.time()
         ts = self.time_stats = {}
@@ -227,6 +237,16 @@ class HoagTrainer:
                          time.time() - t0, rec["avg_loss"],
                          f" test avg loss={rec['test_loss']:.6f}"
                          if "test_loss" in rec else "")
+                if self._guard is not None and self._guard.triggered:
+                    # the iteration boundary is the convex safe point: the
+                    # current weights are the checkpoint the relaunch warm-
+                    # starts from; checked before the periodic dump, so
+                    # the grace window never pays for two dumps
+                    self._dump(model, state.w, ingest,
+                               precision(state.w, _l2v))
+                    self._guard.preempt(p.model.data_path,
+                                        family=self.model_name,
+                                        iteration=it)
                 # periodic checkpoint (reference dump_freq block :647-660)
                 if (p.model.dump_freq > 0 and it > 0
                         and it % p.model.dump_freq == 0):
