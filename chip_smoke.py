@@ -22,8 +22,10 @@ both ingests, softmax with K trees a round, l1 with the approximate LAD
 refine, the other losses, the host samplers and continue_train, and
 GBST through `cli train` and `cli serve` for every family (slice 12,
 plain torch, no new kernel), and the host GBDT engine and resilience
-(slice 13, plain torch, no new kernel). Every phase prints its wall
-time, and the run its total.
+(slice 13, plain torch, no new kernel), and `cli serve` as the reference
+runs it by default: hot reload, rollback and pin, AIMD batching, the
+prediction cache, 429 with Retry-After and the obs planes (slice 14, no
+new kernel). Every phase prints its wall time, and the run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -218,7 +220,29 @@ time, and the run its total.
      give-up, the dataset equal); FM and gbmlr SIGTERM at their first
      dump (exit 143) then `--resume auto` (rc 0); `--max-restarts 1`
      after one injected `error` at a dump commit, ending byte-identical;
- 19. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 19. (slice 14, its main path) right after the binned serving phase,
+     `phase_serve_ops`: `python -m ytklearn_tpu_torch.cli serve` as a
+     subprocess at the reference's defaults (AIMD at 100 ms, quality
+     sampling 0.05, the SLO burn sentinel) with `--watch-interval 0.5`,
+     YTK_TRACE_SAMPLE=0.05 and YTK_OBS=1 (the counters are no-ops
+     without it, in both packages), serving phase_slice's 500-tree model
+     and, as `--extra-model binned`, the model `cli train` wrote with its
+     `.sketch.json`, both on the fused rung (the rung is one process-wide
+     knob); 8 clients of 1-64-row requests for SERVE_OPS_SECONDS, the
+     fused model's text replaced atomically by a second 500-tree model
+     after SERVE_OPS_SWAP_S; every response bit-equal to the host
+     GBDTPredictor of the version it names, no failed request, only v2
+     after v2 first answered; /admin/rollback (v1, pinned), again (v2),
+     /admin/unpin, a 404 for an unknown name; /metrics (serve.reload >=
+     1, serve.rollback = 2, the AIMD block, per-model requests summing to
+     serve.requests, a PSI for the `cli train` model); /admin/traces
+     non-empty; SIGTERM drains, exit 0; client-clock p50/p99 and the
+     reload's warm_ms from the server's log. Then in this process both
+     rungs side by side (K6 and K7): a 4096-row cache answers a repeat
+     bit-identically with `cached: true`, and max_queue 4 sheds a flood
+     with 429s whose Retry-After is an integer; both kernels' launches
+     counted there;
+ 20. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -240,6 +264,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 SEED = 20261016
@@ -2366,6 +2391,349 @@ def phase_serve_binned(tmp, model_path, card):
     return launches, p50
 
 
+SERVE_OPS_THREADS = 8
+SERVE_OPS_SECONDS = 10.0
+SERVE_OPS_SWAP_S = 3.0
+SERVE_OPS_WATCH_S = 0.5
+SERVE_OPS_TRACE_SAMPLE = 0.05
+SERVE_OPS_POOL = 2048  # rows a model; requests are slices of the pool
+FLOOD_CLIENTS = 24  # concurrent 64-row requests against max_queue 4
+
+
+def http_json(method, port, path, payload=None, timeout=60):
+    """(status, headers, body) of one request; HTTP errors are answers."""
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def serve_ops_traffic(port, pools, deadline, swap_at, swap):
+    """SERVE_OPS_THREADS clients POST 1-64-row requests until `deadline`,
+    three in four to the fused model; the calling thread runs `swap()` at
+    `swap_at`. Returns one record a request."""
+    import numpy as np
+
+    records = []
+    lock = threading.Lock()
+    errors = []
+
+    def client(i):
+        rng = np.random.RandomState(SEED + 100 + i)
+        mine = []
+        try:
+            while time.perf_counter() < deadline:
+                name = "default" if rng.rand() < 0.75 else "binned"
+                pool = pools[name]
+                n = int(rng.randint(1, 65))
+                lo = int(rng.randint(0, len(pool) - n))
+                t0 = time.perf_counter()
+                status, _h, out = http_json("POST", port, "/predict",
+                                            {"rows": pool[lo:lo + n],
+                                             "model": name})
+                t1 = time.perf_counter()
+                if status != 200:
+                    errors.append((status, out))
+                    return
+                mine.append({"model": name, "lo": lo, "n": n, "t0": t0,
+                             "t1": t1, "version": out["version"],
+                             "scores": out["scores"]})
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        with lock:
+            records.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_OPS_THREADS)]
+    for t in threads:
+        t.start()
+    time.sleep(max(0.0, swap_at - time.perf_counter()))
+    t_swap = time.perf_counter()
+    swap()
+    for t in threads:
+        t.join(timeout=120)
+        check(not t.is_alive(), "a serve_ops client hung")
+    check(not errors, f"serve_ops requests failed: {errors[:3]}")
+    return records, t_swap
+
+
+def phase_serve_ops(tmp, model, cli_model, card):
+    """`cli serve` as the JAX package runs it by default, on the card: the
+    500-tree model of phase_slice and, as --extra-model, the model `cli
+    train` wrote (with its port-written `.sketch.json`), under 8 clients
+    for SERVE_OPS_SECONDS, the fused model's text replaced atomically by a
+    second 500-tree model after SERVE_OPS_SWAP_S; every response bit-equal
+    to the host GBDTPredictor of the version it names; then rollback, pin
+    and unpin over /admin, /metrics, /admin/traces and the SIGTERM drain.
+    The rung is one process-wide knob in both packages, so the process
+    serves both models on the fused rung (YTK_SERVE_FUSED=1); the binned
+    rung of the `cli train` model serves beside the fused one in this
+    process, where a ServeApp with max_queue 4 sheds with a Retry-After
+    and one with a 4096-row cache answers a repeat bit-identically."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.scripts.time_walk import random_model
+    from ytklearn_tpu_torch.serve import (
+        BatchPolicy,
+        CompiledScorer,
+        ModelRegistry,
+        ServeApp,
+        kernels,
+    )
+
+    names = [f"f{i}" for i in range(N_FEATURES)]
+    rng = np.random.RandomState(SEED + 11)
+    conf = write_model(tmp, model, "ops")
+    path = os.path.join(tmp, "ops.model")
+    v2 = random_model(np.random.RandomState(SEED + 12), N_TREES, DEPTH,
+                      names, base=0.4321)
+    conf_v2 = write_model(tmp, v2, "ops_v2")
+    bconf = serve_conf(cli_model, tmp, "ops_binned")
+    check(os.path.exists(cli_model + ".sketch.json"),
+          "cli train wrote no .sketch.json beside its model")
+    host = {("default", 1): create_predictor("gbdt", hocon.load(conf)),
+            ("default", 2): create_predictor("gbdt", hocon.load(conf_v2)),
+            ("binned", 1): create_predictor("gbdt", hocon.load(bconf))}
+    with open(cli_model) as f:
+        bsplits = split_values(GBDTModel.loads(f.read()))
+    pools = {"default": random_rows(rng, SERVE_OPS_POOL, names,
+                                    split_values(model)),
+             "binned": random_rows(rng, SERVE_OPS_POOL, names, bsplits)}
+    env = dict(os.environ, YTK_SERVE_FUSED="1", YTK_OBS="1",
+               YTK_TRACE_SAMPLE=str(SERVE_OPS_TRACE_SAMPLE),
+               PYTHONPATH=REPO)
+    env.pop("YTK_SERVE_BINNED", None)
+    err_path = os.path.join(tmp, "ops_serve.err")
+    cmd = [sys.executable, "-m", "ytklearn_tpu_torch.cli", "serve", conf,
+           "gbdt", "--host", "127.0.0.1", "--port", "0",
+           "--watch-interval", str(SERVE_OPS_WATCH_S),
+           "--extra-model", f"binned:gbdt:{bconf}"]
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True, cwd=REPO)
+    rc = None
+    try:
+        banner = json.loads(proc.stdout.readline())
+        port = banner["port"]
+        print(f"serve_ops: `cli serve` up in {time.perf_counter() - t0:.3f} "
+              f"s, banner {json.dumps(banner)} [{card}]", flush=True)
+        check("wall_t0" in banner and banner["rung"]["backend"] ==
+              "fused-cuda", f"banner {banner}")
+
+        def swap():
+            tmp_text = path + ".next"
+            with open(tmp_text, "w") as f:
+                f.write(v2.dumps())
+            os.replace(tmp_text, path)
+
+        start = time.perf_counter()
+        records, t_swap = serve_ops_traffic(
+            port, pools, start + SERVE_OPS_SECONDS,
+            start + SERVE_OPS_SWAP_S, swap)
+        wall = time.perf_counter() - start
+        # every response against the host walk of the version it names:
+        # a row's score does not depend on its request, so each version
+        # walks its pool once and every response is held to its slice
+        for key in sorted({(r["model"], r["version"]) for r in records}):
+            check(key in host, f"a response named {key}")
+            want = host[key].batch_scores(pools[key[0]])
+            mine = [r for r in records if (r["model"], r["version"]) == key]
+            got = np.asarray([s for r in mine for s in r["scores"]])
+            check(np.array_equal(got, np.concatenate(
+                [want[r["lo"]:r["lo"] + r["n"]] for r in mine])),
+                  f"{key}: responses differ from the host GBDTPredictor")
+        fused = [r for r in records if r["model"] == "default"]
+        first_v2 = min((r["t1"] for r in fused if r["version"] == 2),
+                       default=None)
+        check(first_v2 is not None, "the fused model never reloaded")
+        late_v1 = [r for r in fused if r["version"] == 1
+                   and r["t0"] > first_v2]
+        check(not late_v1, f"{len(late_v1)} v1 answers after v2 answered")
+        lat = sorted((r["t1"] - r["t0"]) * 1e3 for r in records)
+        n_rows = sum(r["n"] for r in records)
+        p50 = statistics.median(lat)
+        p99 = lat[min(len(lat) - 1, int(math.ceil(0.99 * len(lat))) - 1)]
+        print(f"serve_ops: {len(records)} requests, {n_rows} rows in "
+              f"{wall:.3f} s under {SERVE_OPS_THREADS} clients (1-64 rows, "
+              f"3 in 4 fused); client-clock p50 {p50:.4f} ms, p99 "
+              f"{p99:.4f} ms; v2 first answered {first_v2 - t_swap:.3f} s "
+              f"after the swap; every response bit-equal to the host "
+              f"GBDTPredictor of its version [{card}]", flush=True)
+
+        # rollback pins and is undoable; unpin; an unknown name is a 404
+        st, _h, out = http_json("POST", port, "/admin/rollback",
+                                {"model": "default"})
+        check(st == 200 and out["version"] == 1 and out["pinned"],
+              f"first rollback {st} {out}")
+        rows = pools["default"][:16]
+        st, _h, out = http_json("POST", port, "/predict",
+                                {"rows": rows, "model": "default"})
+        check(st == 200 and out["version"] == 1 and np.array_equal(
+            np.asarray(out["scores"]), host[("default", 1)].batch_scores(
+                rows)), f"after the rollback: {st} version "
+              f"{out.get('version')}")
+        st, _h, out = http_json("POST", port, "/admin/rollback",
+                                {"model": "default"})
+        check(st == 200 and out["version"] == 2, f"second rollback {out}")
+        st, _h, out = http_json("POST", port, "/admin/unpin",
+                                {"model": "default"})
+        check(st == 200 and out["pinned"] is False, f"unpin {st} {out}")
+        st, _h, out = http_json("POST", port, "/admin/rollback",
+                                {"model": "nope"})
+        check(st == 404 and out["type"] == "unknown_model",
+              f"rollback of an unknown name: {st} {out}")
+
+        st, _h, m = http_json("GET", port, "/metrics?models=1&quality=1")
+        check(st == 200, f"/metrics answered {st}")
+        c = m["counters"]
+        fams = m["model_metrics"]["models"]
+        fam_requests = sum(f["counters"].get("requests", 0.0)
+                           for f in fams.values())
+        qual = m["quality"]["models"].get("binned@v1", {})
+        psi = {k: v["psi"] for k, v in qual.get("features", {}).items()
+               if "psi" in v}
+        rungs = {n: e["rung"]["backend"] for n, e in m["models"].items()}
+        batching = m["batching"].get("default", {})
+        print(f"serve_ops: /metrics serve.reload {c.get('serve.reload')}, "
+              f"serve.rollback {c.get('serve.rollback')}, serve.requests "
+              f"{c.get('serve.requests')} (per-model sum {fam_requests}), "
+              f"batching {json.dumps(batching)}, rungs {rungs}, binned "
+              f"quality psi_max {qual.get('psi_max')} over "
+              f"{qual.get('rows_sampled')} sampled rows, latency "
+              f"{json.dumps(m['latency'])} (server clock) [{card}]",
+              flush=True)
+        check(c.get("serve.reload", 0) >= 1, "no serve.reload counted")
+        check(c.get("serve.rollback") == 2, "serve.rollback != 2")
+        check(batching.get("slo_ms") == 100.0 and batching.get(
+            "max_batch") in banner["ladder"], f"AIMD block {batching}")
+        check(set(rungs.values()) == {"fused-cuda"}, f"rungs {rungs}")
+        check(fam_requests == c.get("serve.requests"),
+              "per-model requests do not sum to serve.requests")
+        check(not qual.get("no_baseline", True) and psi,
+              f"no PSI for the binned model: {qual}")
+        st, _h, tr = http_json("GET", port, "/admin/traces")
+        check(st == 200 and tr["exemplars"], "/admin/traces is empty")
+        hops = {}
+        for ex in tr["exemplars"]:
+            for hop in ex["hops"]:
+                hops.setdefault(hop["name"], []).append(hop["dur_ms"])
+        hop_txt = ", ".join(
+            f"{k} p50 {statistics.median(v):.4f} max {max(v):.4f}"
+            for k, v in sorted(hops.items()))
+        print(f"serve_ops: /admin/traces {len(tr['exemplars'])} exemplars "
+              f"at sample {tr['sample']}; hop ms (server clock): {hop_txt} "
+              f"[{card}]", flush=True)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    with open(err_path) as f:
+        err_text = f.read()
+    warm = [line.split("warmed in ")[1].split(" ms")[0]
+            for line in err_text.splitlines() if "hot-reloaded" in line]
+    print(f"serve_ops: SIGTERM drained, rc {rc}; reload warm_ms {warm} "
+          f"(the watcher thread's build + warm of every rung) [{card}]",
+          flush=True)
+    check(rc == 0, f"cli serve exited {rc}: {err_text[-2000:]}")
+    check(warm, "no hot reload logged")
+
+    # in this process: both rungs side by side, the cache, then the 429
+    def both_rungs():
+        registry = ModelRegistry(device="cuda")
+        os.environ["YTK_SERVE_FUSED"] = "1"
+        try:
+            registry.load("default", "gbdt", hocon.load(conf_v2))
+            os.environ["YTK_SERVE_BINNED"] = "1"
+            registry.load("binned", "gbdt", hocon.load(bconf))
+        finally:
+            os.environ.pop("YTK_SERVE_FUSED", None)
+            os.environ.pop("YTK_SERVE_BINNED", None)
+        return registry
+
+    cpu = CompiledScorer(create_predictor("gbdt", hocon.load(bconf)),
+                         mode="binned", device="cpu")
+    app = ServeApp(both_rungs(), BatchPolicy(max_batch=512, max_wait_ms=2.0),
+                   host="127.0.0.1", port=0, slo_ms=100.0,
+                   cache_rows=4096).start()
+    kernels.heap_walk.launches = 0
+    kernels.binned_walk.launches = 0
+    try:
+        rows = pools["binned"][:64]
+        st, _h, a = http_json("POST", app.port, "/predict",
+                              {"rows": rows, "model": "binned"})
+        st2, _h, b = http_json("POST", app.port, "/predict",
+                               {"rows": rows, "model": "binned"})
+        m = app.metrics_payload()
+        rungs = {n: e["rung"]["backend"] for n, e in m["models"].items()}
+    finally:
+        app.stop(drain=True, timeout=30.0)
+    check(st == st2 == 200 and b.get("cached") is True
+          and "cached" not in a and a["scores"] == b["scores"]
+          and np.array_equal(np.asarray(a["scores"]), cpu.score_batch(rows)),
+          "the cached repeat is not bit-identical to the cold answer")
+    check(rungs == {"default": "fused-cuda", "binned": "binned-cuda"},
+          f"rungs {rungs}")
+    app = ServeApp(both_rungs(), BatchPolicy(max_batch=512, max_wait_ms=2.0,
+                                             max_queue=4),
+                   host="127.0.0.1", port=0, slo_ms=100.0).start()
+    shed, resets = [], []
+    try:
+        for _round in range(5):  # until the flood has shed
+            def flood(i):
+                for k in range(6):
+                    lo = (64 * (6 * i + k)) % (len(pools["default"]) - 64)
+                    try:
+                        s, h, out = http_json(
+                            "POST", app.port, "/predict",
+                            {"rows": pools["default"][lo:lo + 64],
+                             "model": "default" if k % 2 else "binned"})
+                    except OSError:
+                        # the listener's accept backlog (the stdlib's 5)
+                        # overflowed: a refused connection, not an answer
+                        resets.append(i)
+                        continue
+                    if s == 429:
+                        shed.append(h.get("Retry-After"))
+                    elif s != 200:
+                        shed.append(f"status {s}: {out}")
+
+            threads = [threading.Thread(target=flood, args=(i,))
+                       for i in range(FLOOD_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            if shed:
+                break
+    finally:
+        app.stop(drain=True, timeout=30.0)
+    k6, k7 = kernels.heap_walk.launches, kernels.binned_walk.launches
+    print(f"serve_ops: in process, rungs {rungs}; the cached repeat "
+          f"bit-identical; max_queue 4: {len(shed)} of "
+          f"{FLOOD_CLIENTS * 6 * (_round + 1)} flood requests shed with "
+          f"Retry-After {sorted(set(shed))} ({len(resets)} connections "
+          f"refused at the accept backlog); launches heap_walk {k6}, binned_walk {k7} "
+          f"(this process; the `cli serve` process counts its own) "
+          f"[{card}]", flush=True)
+    check(shed and all(str(v).isdigit() for v in shed),
+          f"no 429 with an integer Retry-After: {shed[:4]}")
+    check(k6 > 0 and k7 > 0, "a serving kernel did not launch")
+    return k6, k7
+
+
 def phase_repro(card):
     """The small l2 configuration in bf16, twice on the card and once on
     the CPU: do the card's float atomics give the same trees run to run?"""
@@ -4272,6 +4640,9 @@ def main() -> int:
             "cli_train", phase_cli_train, tmp, card)
         k7_launches, _k7_p50 = timed("serve_binned", phase_serve_binned,
                                      tmp, cli_model, card)
+        # slice 14: `cli serve` at the reference's defaults, hot reload,
+        # rollback, the obs planes; both serving rungs in this process
+        timed("serve_ops", phase_serve_ops, tmp, model, cli_model, card)
         k7_time = timed("binned_timing", phase_binned_timing, cli_model,
                         model, card)
         torch.cuda.empty_cache()

@@ -657,3 +657,40 @@ def test_sticky_cuda_errors_are_not_restarted(monkeypatch, capsys, data_dir,
     assert cli.is_sticky_cuda_error(RuntimeError(
         "hist launch failed: CUDA error 710 (device-side assert triggered)"))
     assert not cli.is_sticky_cuda_error(RuntimeError("CUDA out of memory"))
+
+
+def test_trainer_guard_installs_the_recorder_first(monkeypatch, tmp_path):
+    """trainer_guard installs the flight recorder's hooks before the
+    preemption guard (with obs collecting), so the guard hands SIGTERM
+    back to the recorder at train end; the evidence lands in the obs
+    registry and ring, and a preemption writes a flight dump."""
+    from ytklearn_tpu_torch import obs
+    from ytklearn_tpu_torch.obs import recorder
+    from ytklearn_tpu_torch.resilience import Preempted, trainer_guard
+
+    monkeypatch.setenv("YTK_PREEMPT", "1")
+    monkeypatch.setenv("YTK_FLIGHT_DIR", str(tmp_path))
+    recorder.uninstall()  # whatever an earlier test left installed
+    was = obs.enabled()
+    obs.configure(enabled=True)
+    before = signal.getsignal(signal.SIGTERM)
+    trainer = type("T", (), {})()
+    try:
+        with pytest.raises(Preempted):
+            with trainer_guard(trainer) as guard:
+                assert recorder.installed()
+                assert signal.getsignal(signal.SIGTERM) == guard._handler
+                os.kill(os.getpid(), signal.SIGTERM)
+                assert guard.triggered
+                guard.preempt(str(tmp_path / "ckpt"), rounds=1)
+        assert signal.getsignal(signal.SIGTERM) == \
+            recorder._sigterm_handler
+        assert resilience.counters() == {"preempt.exits": 1}
+        names = [e["name"] for e in obs.REGISTRY.ring]
+        assert "preempt.checkpoint" in names
+        assert recorder.last_dump_path().startswith(str(tmp_path))
+    finally:
+        recorder.uninstall()
+        recorder._state.dir = None
+        obs.configure(enabled=was)
+    assert signal.getsignal(signal.SIGTERM) == before

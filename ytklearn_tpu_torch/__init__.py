@@ -7,6 +7,8 @@ heap-walk CUDA kernel, GBDT training on the device engine
 (``gbdt/trainer.py``), whose histograms and routing run hand-written CUDA
 kernels (``gbdt/csrc/``), and the convex families (linear,
 multiclass_linear, FM, FFM: ``train.py``, ``models/``, ``optimize/``) in
-plain PyTorch. Entry points run on ``cuda`` unless the caller
+plain PyTorch, and ``cli serve`` at the JAX package's defaults (hot
+reload, rollback, AIMD batching, the obs planes serving reads:
+``obs/``). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``. See ROADMAP.md for what comes next.
 """

@@ -31,11 +31,18 @@ could only fail again. Multi-process and multi-GPU runs and the
 trace/profile planes raise NotImplementedError naming their ROADMAP.md
 item.
 
-`serve` loads any family `train` writes into a ModelRegistry on
-`--device` (default `cuda`), warms every ladder rung, starts the HTTP
-app, and prints one JSON banner line with the bound port and the rung
-(its precision: YTK_SERVE_PRECISION) on stdout. SIGTERM drains and exits
-0.
+`serve` is the JAX package's single-process `cli serve` at its defaults:
+it loads any family `train` writes (and every `--extra-model`) into a
+ModelRegistry on `--device` (default `cuda`), warms every ladder rung,
+starts the model-file watcher (hot reload every YTK_SERVE_WATCH_S = 5 s),
+starts the HTTP app with the AIMD batch-size controller (YTK_SERVE_SLO_MS
+= 100), the SLO burn sentinel, the drift monitor (YTK_QUALITY_SAMPLE =
+0.05), request trace sampling (YTK_TRACE_SAMPLE = 0.01), /metrics,
+/admin/{traces,rollback,pin,unpin} and 429 with Retry-After, and prints
+one JSON banner line with the bound port, `wall_t0` and the rung (its
+precision: YTK_SERVE_PRECISION) on stdout. SIGTERM drains and exits 0.
+`--replicas*` other than 0 (the fleet, ROADMAP.md 1.6) and YTK_PROF (the
+profiling plane, 1.12) raise NotImplementedError.
 The other subcommands of the JAX package's CLI come with their slices
 (ROADMAP.md).
 """
@@ -263,20 +270,45 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
     return 0
 
 
+def _setup_trace(trace_out: str) -> None:
+    """--trace-out: enable obs + register the Chrome-trace export."""
+    if trace_out:
+        from . import obs
+
+        obs.configure(enabled=True, trace_path=trace_out)
+
+
+def _flush_trace(trace_out: str) -> None:
+    """Write the trace now — *_main may be driven in-process (no atexit)."""
+    if trace_out:
+        from . import obs
+
+        obs.flush()
+
+
 def serve_main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="ytklearn-tpu-torch-serve",
         description="Online prediction server: batch scorer with a padded "
-        "shape ladder and dynamic micro-batching with backpressure",
+        "shape ladder, dynamic micro-batching with backpressure and AIMD "
+        "batch sizing, and fingerprint-watch hot model reload",
     )
     ap.add_argument("config_path")
     ap.add_argument("model_name", choices=MODEL_NAMES)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8080,
                     help="listen port (0 picks an ephemeral port)")
+    ap.add_argument("--name", default=SERVE_NAME,
+                    help="registry name for this model (the default target "
+                    "of /predict requests without a \"model\" field)")
+    ap.add_argument("--extra-model", action="append", default=[],
+                    metavar="NAME:MODEL_NAME:CONFIG_PATH",
+                    help="load an additional model into the registry "
+                    "(repeatable); requests address it via the \"model\" "
+                    "field")
     ap.add_argument("--ladder", default="",
                     help='batch-shape ladder, e.g. "1,8,64,512" (default; '
-                    "env YTK_SERVE_LADDER)")
+                    "env YTK_SERVE_LADDER); every rung is warmed at load")
     ap.add_argument("--max-batch", type=int, default=512,
                     help="max rows coalesced into one scorer call")
     ap.add_argument("--max-wait-ms", type=float, default=2.0,
@@ -284,32 +316,110 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--max-queue", type=int, default=2048,
                     help="pending-request bound; beyond it requests are shed "
                     "with a typed 429")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="default per-request deadline (0 = none); expired "
+                    "requests fail with 504 before wasting scorer time")
+    ap.add_argument("--watch-interval", type=float, default=None,
+                    help="model-file fingerprint poll seconds for hot reload "
+                    "(default 5; 0 disables; env YTK_SERVE_WATCH_S)")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="serving fleet size; anything but 0 is not ported "
+                    "yet (env YTK_SERVE_REPLICAS)")
+    ap.add_argument("--replicas-min", type=int, default=None,
+                    help="fleet autoscaler floor; not ported yet (env "
+                    "YTK_SERVE_REPLICAS_MIN)")
+    ap.add_argument("--replicas-max", type=int, default=None,
+                    help="fleet autoscaler ceiling; not ported yet (env "
+                    "YTK_SERVE_REPLICAS_MAX)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="p99 latency SLO in ms for the AIMD batch-size "
+                    "controller (0 disables AIMD and restores the fixed "
+                    "--max-batch/--max-wait-ms; env YTK_SERVE_SLO_MS, "
+                    "default 100)")
+    ap.add_argument("--cache-rows", type=int, default=None,
+                    help="bounded LRU prediction-cache rows, keyed on "
+                    "(model fingerprint, feature row); 0 disables (env "
+                    "YTK_SERVE_CACHE_ROWS)")
+    ap.add_argument("--replica-id", type=int, default=None,
+                    help="this process is replica N (stamps obs identity "
+                    "for postmortems)")
+    ap.add_argument("--set", action="append", dest="sets",
+                    metavar="KEY=VALUE", help="config override, repeatable")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace/Perfetto JSON at shutdown")
     ap.add_argument("--device", default="cuda",
                     help="device to score on: cuda (default) or cpu")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     _setup_logging(args.verbose)
 
+    from .config import knobs
+
+    replicas = (args.replicas if args.replicas is not None
+                else knobs.get_int("YTK_SERVE_REPLICAS"))
+    slo_ms = (args.slo_ms if args.slo_ms is not None
+              else knobs.get_float("YTK_SERVE_SLO_MS"))
+    cache_rows = (args.cache_rows if args.cache_rows is not None
+                  else knobs.get_int("YTK_SERVE_CACHE_ROWS"))
+    r_min = (args.replicas_min if args.replicas_min is not None
+             else knobs.get_int("YTK_SERVE_REPLICAS_MIN")) or 0
+    r_max = (args.replicas_max if args.replicas_max is not None
+             else knobs.get_int("YTK_SERVE_REPLICAS_MAX")) or 0
+    if replicas != 0 or r_max > 0 or r_min > 0:
+        raise _not_ported("--replicas / --replicas-min / --replicas-max "
+                          "(and their YTK_SERVE_REPLICAS* knobs)",
+                          "1.6, the serving fleet")
+    _setup_trace(args.trace_out)
+
+    from . import obs
     from .config import hocon
     from .serve import BatchPolicy, ModelRegistry, ServeApp, parse_ladder
 
+    if args.replica_id is not None:
+        # every obs event / flight dump / metrics scrape from this process
+        # names its replica
+        obs.set_identity(replica_id=args.replica_id)
+
+    cfg = _apply_overrides(hocon.load(args.config_path), args.sets)
     ladder = parse_ladder(args.ladder) if args.ladder else None
-    registry = ModelRegistry(ladder=ladder, device=args.device)
-    registry.load(SERVE_NAME, args.model_name, hocon.load(args.config_path))
+    registry = ModelRegistry(ladder=ladder,
+                             watch_interval_s=args.watch_interval,
+                             device=args.device)
+    registry.load(args.name, args.model_name, cfg)
+    for spec in args.extra_model:
+        try:
+            xname, xmodel, xconf = spec.split(":", 2)
+        except ValueError:
+            ap.error(f"--extra-model {spec!r}: expected "
+                     "NAME:MODEL_NAME:CONFIG_PATH")
+        if xmodel not in MODEL_NAMES:
+            ap.error(f"--extra-model {spec!r}: unknown model family "
+                     f"{xmodel!r} (choices: {', '.join(MODEL_NAMES)})")
+        registry.load(xname, xmodel,
+                      _apply_overrides(hocon.load(xconf), args.sets))
+    registry.start_watching()
     policy = BatchPolicy(
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         max_queue=args.max_queue,
+        default_deadline_ms=args.deadline_ms,
     )
-    app = ServeApp(registry, policy, host=args.host, port=args.port).start()
+    app = ServeApp(
+        registry, policy, host=args.host, port=args.port,
+        slo_ms=slo_ms, cache_rows=cache_rows, replica_id=args.replica_id,
+    ).start()
     app.install_signal_handlers()
-    scorer = registry.get(SERVE_NAME).scorer
+    scorer = registry.get(args.name).scorer
     print(json.dumps({
-        "serving": SERVE_NAME,
+        "serving": args.name,
         "model": args.model_name,
         "host": args.host,
         "port": app.port,
+        "replica_id": args.replica_id,
         "ladder": list(scorer.ladder),
+        # this process's obs clock origin on the wall clock: trace hop
+        # offsets + wall_t0 align across processes (obs/trace.py)
+        "wall_t0": obs.core.WALL_T0,
         "rung": scorer.rung_info(),
     }), flush=True)
     try:
@@ -322,6 +432,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
             app._drain_thread.join()
     except KeyboardInterrupt:
         app.stop(drain=True)
+    _flush_trace(args.trace_out)
     return 0
 
 

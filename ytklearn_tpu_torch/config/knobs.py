@@ -3,7 +3,8 @@
 Same names, types and defaults as the JAX package's registry
 (``ytklearn_tpu/config/knobs.py``), cut to the knobs the GBDT serving path,
 the GBDT device-engine trainer, the convex families' blocked evaluation,
-the text ingest, the host binning and the resilience layer read. Every
+the text ingest, the host binning, the resilience layer, the obs planes
+and the serving app read. Every
 read goes through the typed accessors below, which re-read
 ``os.environ`` on each call, so a test or an operator may set a knob at run
 time.
@@ -112,6 +113,144 @@ _knob("YTK_PREEMPT", "bool", True,
       "round/iteration boundary, emergency checkpoint, exit 128+signum "
       "(`--resume auto` re-enters training); `0` keeps raw signal "
       "semantics")
+
+# -- obs planes and serving (same defaults as ytklearn_tpu/config/knobs.py) --
+_knob("YTK_OBS", "str", None,
+      "`1` enables obs collection without export; `0` force-disables "
+      "(wins over the trace-path knobs)")
+_knob("YTK_OBS_JAX", "bool", False,
+      "the JAX package's XLA trace annotations; the port has no "
+      "counterpart and refuses the knob when it is set")
+_knob("YTK_TRACE", "str", None,
+      "enable obs + write a Chrome-trace/Perfetto JSON to this path at exit")
+_knob("YTK_TRACE_JSONL", "str", None,
+      "enable obs + write the JSONL event stream to this path at exit")
+_knob("YTK_TRACE_SAMPLE", "float", 0.01,
+      "serve-side request-tracing head-sample rate: the fraction of "
+      "/predict requests whose per-hop spans are recorded and kept as "
+      "exemplars (deterministic counter-hashed draws; `0` disables the "
+      "tracing plane, `1` = always-on — see "
+      "[observability.md](observability.md))")
+_knob("YTK_TRACE_SEED", "int", 0,
+      "seed for the deterministic trace head sampler (same seed + same "
+      "request order = same kept set)")
+_knob("YTK_TRACE_EXEMPLARS", "int", 256,
+      "per-process exemplar-ring capacity (kept request traces), exported "
+      "at `/admin/traces`; shed/504/SLO-violating requests are always "
+      "retained, head-sampled ones ride the ring too")
+_knob("YTK_OBS_HISTORY_N", "int", 256,
+      "per-metric time-series ring length for the metrics history plane "
+      "(`/metrics?history=1`); `0` disables history sampling")
+_knob("YTK_OBS_HISTORY_S", "float", 1.0,
+      "metrics-history sampling interval in seconds (the obs heartbeat "
+      "sampler thread snapshots every counter/gauge this often)")
+_knob("YTK_PROF", "str", None,
+      "profiling plane (ytkprof); not ported yet (ROADMAP.md 1.12): the "
+      "serving app refuses to start when it is set to anything but `0`")
+_knob("YTK_QUALITY_SAMPLE", "float", 0.05,
+      "model-quality plane row-sample rate: the fraction of served rows "
+      "whose feature values and scores feed the per-model drift sketches "
+      "(deterministic counter-hashed draws; `0` disables the plane, `1` "
+      "= every row — see [observability.md](observability.md) "
+      "\"Model-quality plane\")")
+_knob("YTK_QUALITY_SEED", "int", 0,
+      "seed for the deterministic quality row sampler (same seed + same "
+      "row order = same sampled set)")
+_knob("YTK_QUALITY_B", "int", 64,
+      "entry budget per weighted-GK quality sketch (training sidecar and "
+      "serve-side streaming sketches; bounds both memory and the "
+      "/metrics?quality=1 export size)")
+_knob("YTK_QUALITY_EVAL_S", "float", 5.0,
+      "quality-evaluator tick interval in seconds: each tick drains the "
+      "sampled-row buffers into the sketches, recomputes PSI/KS and "
+      "calibration drift, and feeds the drift sentinels")
+_knob("YTK_MODEL_METRICS_MAX", "int", 32,
+      "named per-model metric-family budget for the mesh-obs accounting "
+      "plane (`serve.model.<name>.*` counters, latency rings, burn "
+      "sentinels); names past the budget — and 404 name floods — land "
+      "in the shared `__overflow__` bucket, so label cardinality is "
+      "bounded by construction — see "
+      "[observability.md](observability.md) \"Per-model accounting\"")
+_knob("YTK_HEALTH", "bool", True,
+      "run-health sentinels (NaN/divergence/ingest-rate); `0` reduces every "
+      "check to one attribute load")
+_knob("YTK_HEALTH_STRICT", "bool", False,
+      "escalate sentinel hits to HealthError naming the flight dump "
+      "(unattended production runs)")
+_knob("YTK_HEALTH_INGEST_TOL", "float", 0.01,
+      "ingest error-rate threshold (fraction) for the parse sentinel")
+_knob("YTK_SLO_BURN_WINDOW", "int", 256,
+      "requests per SLO burn-rate window: the `health.slo_burn` sentinel "
+      "judges the violation rate once per full window")
+_knob("YTK_SLO_BURN_BUDGET", "float", 0.1,
+      "SLO error budget as a windowed violation-rate fraction: when more "
+      "than this fraction of a window's requests exceed the SLO (or are "
+      "shed/504'd), `health.slo_burn` fires (strict mode escalates)")
+_knob("YTK_HEALTH_DRIFT_PSI", "float", 0.25,
+      "per-feature population-stability-index threshold for the serving "
+      "drift sentinel: consecutive quality-evaluator ticks with any "
+      "feature's PSI above it fire `health.drift` (0.1/0.25 are the "
+      "conventional watch/act levels)")
+_knob("YTK_HEALTH_DRIFT_KS", "float", 0.35,
+      "per-feature Kolmogorov-Smirnov distance threshold for the serving "
+      "drift sentinel (fires `health.drift` alongside the PSI test)")
+_knob("YTK_HEALTH_DRIFT_WINDOWS", "int", 2,
+      "consecutive over-threshold quality-evaluator ticks required before "
+      "`health.drift` / `health.calibration` fire (one noisy tick cannot "
+      "page anyone); the streak re-arms after each fire")
+_knob("YTK_HEALTH_DRIFT_MIN_ROWS", "int", 200,
+      "minimum sampled rows before the drift/calibration sentinels judge "
+      "a model (a two-request warmup is not a distribution)")
+_knob("YTK_HEALTH_CALIBRATION_TOL", "float", 0.1,
+      "calibration-drift tolerance: absolute |mean predicted score - "
+      "training-sidecar mean| (on the prediction scale) above which "
+      "`health.calibration` fires")
+_knob("YTK_FLIGHT", "bool", True,
+      "flight-recorder auto-install in trainers; `0` opts out")
+_knob("YTK_FLIGHT_N", "int", 4096,
+      "flight-recorder event-ring capacity")
+_knob("YTK_FLIGHT_DIR", "str", "flight_dumps",
+      "flight-dump directory (default: `flight_dumps/`, which is "
+      "gitignored — a crash dump must never end up committed)")
+_knob("YTK_SERVE_WATCH_S", "float", 5.0,
+      "serving hot-reload fingerprint poll interval in seconds "
+      "(`0` disables the watcher)")
+_knob("YTK_SERVE_REPLICAS", "int", 0,
+      "serving fleet size: replica worker processes behind the front "
+      "(`0` = single-process serving, `-1` = one per device, or per core "
+      "on CPU; CLI `--replicas` overrides — see [serving.md](serving.md))")
+_knob("YTK_SERVE_SLO_MS", "float", 100.0,
+      "serving p99 latency SLO in ms — the target the AIMD batch-size "
+      "controller searches under (`0` disables the controller and "
+      "restores the fixed `--max-batch`/`--max-wait-ms` knobs)")
+_knob("YTK_SERVE_SLO_MODELS", "str", None,
+      "per-model SLO overrides for the mesh-obs burn sentinels, "
+      "`name:ms,name2:ms` (e.g. `ctr:25,ranker:100`); listed models get "
+      "their own `health.slo_burn` budget at that SLO, unlisted models "
+      "inherit the app-wide `--slo-ms` default — see "
+      "[observability.md](observability.md) \"Per-model accounting\"")
+_knob("YTK_SERVE_CACHE_ROWS", "int", 0,
+      "bounded LRU prediction-cache capacity in rows, keyed on (model "
+      "fingerprint, feature-row hash); hits bypass the batcher queue and "
+      "are bit-identical to the scored path (`0` disables)")
+_knob("YTK_SERVE_AIMD_INC", "int", 8,
+      "AIMD additive-increase step in rows per clean adjustment window "
+      "(the raw target then snaps DOWN to a compiled ladder rung)")
+_knob("YTK_SERVE_AIMD_BACKOFF", "float", 0.5,
+      "AIMD multiplicative backoff factor applied to the raw batch "
+      "target on a p99-SLO violation (must be in (0, 1))")
+_knob("YTK_SERVE_AIMD_WINDOW", "int", 16,
+      "batches per AIMD adjustment window: the controller judges the "
+      "window's worst observed request latency against the SLO once per "
+      "window, so one straggler cannot collapse the batch size")
+_knob("YTK_SERVE_REPLICAS_MIN", "int", 0,
+      "fleet autoscaler floor: minimum replica slots the autoscaler may "
+      "reap down to (`0` = follow `--replicas`; CLI `--replicas-min` "
+      "overrides — see [serving.md](serving.md) autoscaling)")
+_knob("YTK_SERVE_REPLICAS_MAX", "int", 0,
+      "fleet autoscaler ceiling: maximum replica slots the autoscaler "
+      "may grow to (`0` = follow `--replicas`, which disarms "
+      "autoscaling; CLI `--replicas-max` overrides)")
 
 _FALSY = ("0", "false", "no", "off")
 

@@ -408,6 +408,7 @@ class HostEngine:
         w_np = np.ascontiguousarray(_host(train.weight), np.float32)
         bins = build_bins(X, w_np, p, names)
         self._bins_sidecar = (list(names or []), bins)
+        self._quality_features = self._build_quality_features(train)
         B = bins.max_bins
 
         def bins_on_device(Xs):
@@ -504,6 +505,10 @@ class HostEngine:
                 self._dump_model(model)
         ts["train"] = time.time() - t_train0
         ts["host_syncs"] = self.host_syncs
+        if test_state is not None:
+            self._stash_quality_scores(test_state[3], test_state[2])
+        else:
+            self._stash_quality_scores(scores, weight)
         self._dump_model(model)
         return self._finalize_host(model, scores, y, weight, test_state,
                                    eval_set, round_log)

@@ -54,8 +54,14 @@ Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
 versions). Not ported, each raising NotImplementedError with its
 ROADMAP.md item: a mesh (1.7, with the column-sharded feature-parallel
 maker), and on CUDA trees of more nodes than the histogram kernels'
-shared-memory lookup holds (1.8). The quality sidecar is an obs-plane
-item (1.12).
+shared-memory lookup holds (1.8).
+
+Every dump writes the model-quality sidecar `<model>.sketch.json`
+(obs/quality.py) before the model text, as the JAX trainer does: per-
+feature GK summaries and presence rates of the training matrix, built at
+binning time, and, at the final dump, the score distribution of the
+held-out set (else of the training rows). A served model is judged
+against it by the drift monitor.
 """
 
 from __future__ import annotations
@@ -74,6 +80,13 @@ from ..device import resolve_device
 from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
 from ..losses import GBDT_TRAINABLE, create_loss
+from ..obs import span as obs_span
+from ..obs.quality import (
+    build_score_block,
+    build_training_sketch,
+    dump_quality_sidecar,
+    quality_sidecar_path,
+)
 from ..resilience import chaos_point, trainer_guard
 from . import prng
 from .engine import GrowSpec, grow, make_gain_fns, ordered_cumsum, \
@@ -221,6 +234,8 @@ class GBDTTrainer(HostEngine):
         self._efb_plan: Optional[BundlePlan] = None
         self._missing_fill = None
         self._bins_sidecar = None
+        self._quality_features: Optional[dict] = None
+        self._quality_scores: Optional[np.ndarray] = None
         self.sync_log: List[Tuple[int, float]] = []
         self.time_stats: Dict[str, float] = {}
 
@@ -319,6 +334,7 @@ class GBDTTrainer(HostEngine):
                          self._efb_plan.summary(), budget)
         plan = self._efb_plan
         self._bins_sidecar = (list(train.feature_names or []), bins)
+        self._quality_features = self._build_quality_features(train)
         # a resumed model's trees split on original features: with EFB its
         # score replay walks the pre-bundle matrices (trainer.py:462, :508)
         resume = p.model.continue_train
@@ -737,10 +753,38 @@ class GBDTTrainer(HostEngine):
             if self._missing_fill is not None:
                 tree.default_left[nid] = bool(self._missing_fill[fid] <= cond)
 
+    def _build_quality_features(self, train: GBDTData) -> Optional[dict]:
+        """Feature block of the `<model>.sketch.json` quality sidecar:
+        per-feature GK summaries + presence rates of the real training
+        rows, built once at binning time while the matrix is alive
+        (reference gbdt/trainer.py:1806)."""
+        names = list(train.feature_names or [])
+        if not names:
+            return None
+        n_real = getattr(train, "n_real", None) or train.X.shape[0]
+        with obs_span("gbdt.quality_sketch", features=len(names)):
+            return build_training_sketch(
+                _host(train.X)[:n_real], names,
+                weight=_host(train.weight)[:n_real],
+            )
+
+    def _stash_quality_scores(self, scores, weight) -> None:
+        """Score distribution for the quality sidecar: the trained
+        ensemble's predictions over the held-out set when there is one
+        (else the training rows), padded and zero-weight rows left out."""
+        try:
+            preds = _host(self.loss.predict(scores))
+            w = _host(weight)[: preds.shape[0]]
+            self._quality_scores = preds[w > 0]
+        except Exception as e:  # noqa: BLE001 — sidecar evidence, never the run
+            log.warning("quality score stash failed (%s: %s); the sketch "
+                        "sidecar will carry no score block",
+                        type(e).__name__, e)
+
     def _dump_model(self, model: GBDTModel) -> None:
-        """Sidecar first, then the model text (atomic), then the feature
-        importance file: a fingerprint-watch reload of the model always
-        finds edges at least as fresh."""
+        """Sidecars first (bin edges, quality sketch), then the model text
+        (atomic), then the feature importance file: a fingerprint-watch
+        reload of the model always finds sidecars at least as fresh."""
         p = self.params
         if not p.model.data_path:
             raise ValueError("model.data_path is required to dump the model")
@@ -752,6 +796,14 @@ class GBDTTrainer(HostEngine):
                 dump_bin_edges(self.fs, bin_edges_path(p.model.data_path),
                                names, bins, split_type=p.split_type,
                                model_digest=digest)
+        if self._quality_features is not None:
+            payload = dict(self._quality_features)
+            if self._quality_scores is not None:
+                payload["score"] = build_score_block(self._quality_scores)
+            dump_quality_sidecar(
+                self.fs, quality_sidecar_path(p.model.data_path), payload,
+                model_digest=digest,
+            )
         with self.fs.atomic_open(p.model.data_path) as f:
             f.write(model_text)
         if p.model.feature_importance_path:
@@ -768,6 +820,12 @@ class GBDTTrainer(HostEngine):
         self._append_trees_from_bufs(model, bufs, dd.bins, names,
                                      len(model.trees), rounds * self.K)
         if not p.just_evaluate:
+            # held-out predictions (else train) feed the quality sidecar's
+            # score block before the final dump lands
+            if scores_t is not None:
+                self._stash_quality_scores(scores_t, dd.w_t)
+            else:
+                self._stash_quality_scores(scores, dd.weight)
             self._dump_model(model)
         res = GBDTResult(
             model=model,

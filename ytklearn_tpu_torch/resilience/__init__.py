@@ -15,38 +15,45 @@ Three pillars over the atomic dumps (``io/fs.py::atomic_open``):
 
 Knobs: YTK_CHAOS, YTK_RETRY_{MAX,BASE_S,MAX_S}, YTK_PREEMPT.
 
-The reference records its evidence in its obs plane (counters, flight-ring
-events, the flight recorder's dumps). The port has no obs plane yet
-(ROADMAP.md 1.12): the layer counts into the one map below, under the
-reference's counter names (`chaos.injected`, `chaos.injected.<site>`,
+The evidence lands in the obs plane (``obs/``) under the JAX package's
+names: the counters `chaos.injected`, `chaos.injected.<site>`,
 `io.retry.attempts`, `io.retry.<site>`, `io.retry.recovered`,
-`io.retry.giveup`, `preempt.exits`), and logs each event.
+`io.retry.giveup` and `preempt.exits` in the obs registry, and the events
+`chaos.inject`, `io.retry`, `io.retry.recovered`, `io.retry.giveup` and
+`preempt.checkpoint` in its flight ring; each is logged as well. The
+counters are written whether or not obs collection is on (in the JAX
+package they land only while it is), so `counters()` always holds the
+layer's evidence.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Dict
 
-_COUNTERS: Dict[str, int] = {}
-_COUNTERS_LOCK = threading.Lock()
+from ..obs.core import REGISTRY
+
+#: the counter namespaces of this layer
+COUNTER_PREFIXES = ("chaos.", "io.retry.", "preempt.")
 
 
 def inc(name: str, by: int = 1) -> None:
-    """Add `by` to counter `name`."""
-    with _COUNTERS_LOCK:
-        _COUNTERS[name] = _COUNTERS.get(name, 0) + by
+    """Add `by` to the obs registry's counter `name`."""
+    REGISTRY.inc(name, float(by))
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot of every counter."""
-    with _COUNTERS_LOCK:
-        return dict(_COUNTERS)
+    """A snapshot of this layer's counters in the obs registry."""
+    snap = REGISTRY.snapshot()["counters"]
+    return {k: int(v) for k, v in snap.items()
+            if k.startswith(COUNTER_PREFIXES)}
 
 
 def reset_counters() -> None:
-    with _COUNTERS_LOCK:
-        _COUNTERS.clear()
+    """Drop this layer's counters from the obs registry."""
+    with REGISTRY._lock:
+        for k in [k for k in REGISTRY.counters
+                  if k.startswith(COUNTER_PREFIXES)]:
+            del REGISTRY.counters[k]
 
 
 from .chaos import (  # noqa: E402,F401

@@ -23,12 +23,13 @@ Kinds:
             flushes; only what is on disk survives
 
 Every injected fault counts `chaos.injected` and `chaos.injected.<site>`
-(the package's counter map) and is logged BEFORE it acts.
+(obs registry), drops a `chaos.inject` event into the flight ring and is
+logged BEFORE it acts.
 
 The sites of the JAX package's catalog whose seams the port does not have
 yet keep their entries, so a spec that names them parses as it does
 there: `collective.host` (ROADMAP.md 1.7), `continual.copy` and
-`continual.promote` (1.11), `serve.load` and `serve.worker` (1.6).
+`continual.promote` (1.11).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 from ..config import knobs
+from ..obs import event as obs_event
 from . import inc
 
 log = logging.getLogger("ytklearn_tpu_torch.resilience")
@@ -57,8 +59,8 @@ FAULT_SITES: Dict[str, str] = {
                       "port yet)",
     "continual.promote": "continual promotion/restore replace (not in the "
                          "port yet)",
-    "serve.load": "serve registry warm load (not in the port yet)",
-    "serve.worker": "serve replica worker hot path (not in the port yet)",
+    "serve.load": "serve registry warm load (initial load + hot reload)",
+    "serve.worker": "serve /predict hot path (ServeApp.predict)",
 }
 
 KINDS = ("oserror", "error", "sigterm", "kill")
@@ -191,6 +193,7 @@ def _inject(site: str, kind: str, n: int) -> None:
     # to take the process down
     inc("chaos.injected")
     inc(f"chaos.injected.{site}")
+    obs_event("chaos.inject", site=site, kind=kind, call=n)
     log.warning("chaos: injecting %s at %s (call %d)", kind, site, n)
     if kind == "oserror":
         raise ChaosOSError(

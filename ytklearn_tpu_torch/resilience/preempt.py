@@ -33,6 +33,7 @@ import threading
 from typing import Dict, Iterator, Optional
 
 from ..config import knobs
+from ..obs import event as obs_event, recorder
 from . import inc
 
 log = logging.getLogger("ytklearn_tpu_torch.resilience")
@@ -122,8 +123,15 @@ class PreemptionGuard:
     def preempt(self, checkpoint: str = "", **attrs) -> None:
         """Count and log the exit, then raise `Preempted`. Call it after the
         emergency checkpoint's dump, so the resume finds a complete
-        model."""
+        model; the flight dump (when the recorder is installed) carries
+        the chaos/retry/preempt event trail for the postmortem."""
         inc("preempt.exits")
+        obs_event(
+            "preempt.checkpoint", signum=self.signum,
+            checkpoint=checkpoint, **attrs,
+        )
+        if recorder.installed():
+            recorder.dump("preempt")
         log.warning("preempted (signal %d, %s): emergency checkpoint %s; "
                     "rerun with --resume auto to continue", self.signum,
                     " ".join(f"{k}={v}" for k, v in attrs.items()),
@@ -150,8 +158,12 @@ def preemption_guard(enabled: Optional[bool] = None
 
 @contextlib.contextmanager
 def trainer_guard(trainer) -> Iterator[Optional[PreemptionGuard]]:
-    """The trainer-entry hook: installs the guard and sets
-    `trainer._guard` for the loop's boundary checks."""
+    """The trainer-entry hook: the flight recorder's hooks first, then the
+    guard, with `trainer._guard` set for the loop's boundary checks. The
+    order is LIFO: the guard uninstalls at train end and must hand the
+    signals back to the recorder's handlers, not the other way round (a
+    recorder installed second would chain to a dead guard handler)."""
+    recorder.auto_install()
     with preemption_guard() as guard:
         trainer._guard = guard
         try:

@@ -20,6 +20,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional, TypeVar
 
 from ..config import knobs
+from ..obs import event as obs_event
 from . import inc
 from .chaos import ChaosError, site_draw
 
@@ -84,12 +85,20 @@ def _backoff_or_reraise(e: BaseException, attempt: int, policy: RetryPolicy,
         raise
     if attempt >= policy.max_attempts:
         inc("io.retry.giveup")
+        obs_event(
+            "io.retry.giveup", site=site, attempts=attempt,
+            error=f"{type(e).__name__}: {e}"[:200],
+        )
         log.error("retry[%s]: giving up after %d attempts: %s: %s",
                   site, attempt, type(e).__name__, e)
         raise
     delay = policy.delay_s(attempt, site)
     inc("io.retry.attempts")
     inc(f"io.retry.{site}")
+    obs_event(
+        "io.retry", site=site, attempt=attempt,
+        delay_s=round(delay, 4), error=type(e).__name__,
+    )
     log.warning("retry[%s]: attempt %d/%d failed%s (%s: %s); backing off "
                 "%.3fs", site, attempt, policy.max_attempts, context,
                 type(e).__name__, e, delay)
@@ -98,6 +107,7 @@ def _backoff_or_reraise(e: BaseException, attempt: int, policy: RetryPolicy,
 
 def _record_recovered(site: str, attempt: int) -> None:
     inc("io.retry.recovered")
+    obs_event("io.retry.recovered", site=site, attempts=attempt)
     log.info("retry[%s]: recovered on attempt %d", site, attempt)
 
 

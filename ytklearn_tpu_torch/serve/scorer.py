@@ -66,6 +66,8 @@ import torch
 
 from ..config import knobs
 from ..device import resolve_device
+from ..obs import inc as obs_inc, span as obs_span
+from ..obs import trace as obs_trace
 from ..gbdt.binning import bin_edges_path, load_bin_edges, model_text_digest
 from ..predict.continuous import (
     FFMPredictor,
@@ -167,8 +169,10 @@ class CompiledScorer:
     def warmup(self) -> None:
         """Score every ladder rung once on the device: builds the kernel
         and settles allocations at load time, not on a request."""
-        for rung in self.ladder:
-            self._exec(np.full((rung, self.dim), self._fill, np.float64))
+        with obs_span("serve.warmup", rungs=len(self.ladder)):
+            for rung in self.ladder:
+                self._exec(np.full((rung, self.dim), self._fill, np.float64))
+                obs_inc("serve.scorer.warmup_rungs")
 
     @property
     def backend(self) -> str:
@@ -198,8 +202,14 @@ class CompiledScorer:
     def featurize(self, rows: Sequence[Dict[str, float]]) -> np.ndarray:
         """Request dicts -> dense (B, dim) float64: raw values with NaN for
         absent features (gbdt), else what each row's `prep_row` gives, 0
-        for absent features and 1 in the bias column."""
-        return self._pipeline.featurize(rows)
+        for absent features and 1 in the bias column. The hash and
+        transform replay of the non-GBDT families get their own
+        `serve.transform` trace hop inside `serve.assemble`."""
+        pipe = self._pipeline
+        if pipe.identity:
+            return pipe.featurize(rows)
+        with obs_trace.batch_hop("serve.transform", rows=len(rows)):
+            return pipe.featurize(rows)
 
     def score_batch(self, rows: Sequence[Dict[str, float]]) -> np.ndarray:
         """Raw scores, shape (B,) or (B, K) — the batch_scores contract."""
@@ -213,6 +223,18 @@ class CompiledScorer:
         self, rows: Sequence[Dict[str, float]]
     ) -> Tuple[np.ndarray, np.ndarray]:
         return self._run(rows)
+
+    def prof_snapshot(self) -> dict:
+        """The `/metrics?prof=1` block of this scorer: per-rung execute
+        time attribution is the profiling plane's (ROADMAP.md 1.12), so
+        the rungs dict stays empty, as the JAX package's is with the
+        plane off."""
+        return {
+            "mode": self.mode,
+            "backend": self.backend,
+            "ladder": list(self.ladder),
+            "rungs": {},
+        }
 
     # -- execution --------------------------------------------------------
 
@@ -240,7 +262,10 @@ class CompiledScorer:
         return s.cpu().numpy(), p.cpu().numpy()
 
     def _run(self, rows) -> Tuple[np.ndarray, np.ndarray]:
-        X = self.featurize(rows)
+        # batch assembly hop: the cached no-op unless the micro-batch
+        # carries a sampled request trace (obs/trace.py)
+        with obs_trace.batch_hop("serve.assemble", rows=len(rows)):
+            X = self.featurize(rows)
         B = X.shape[0]
         max_rung = self.ladder[-1]
         out_s: List[np.ndarray] = []
@@ -253,7 +278,16 @@ class CompiledScorer:
                 chunk = np.concatenate(
                     [chunk, np.full((pad, self.dim), self._fill, np.float64)]
                 )
-            s, p = self._exec(chunk)
+            with obs_span("serve.score", rung=rung, rows=rung - pad):
+                # ladder-rung execution hop, tagged with the effective rung
+                with obs_trace.batch_hop(
+                    "serve.execute", rung=rung, mode=self.mode,
+                    backend=self.backend,
+                ):
+                    s, p = self._exec(chunk)
+            obs_inc("serve.scorer.batches")
+            obs_inc("serve.scorer.rows", rung - pad)
+            obs_inc("serve.scorer.pad_rows", pad)
             out_s.append(s[: rung - pad])
             out_p.append(p[: rung - pad])
         if not out_s:
