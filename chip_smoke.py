@@ -227,21 +227,29 @@ new kernel). Every phase prints its wall time, and the run its total.
      YTK_TRACE_SAMPLE=0.05 and YTK_OBS=1 (the counters are no-ops
      without it, in both packages), serving phase_slice's 500-tree model
      and, as `--extra-model binned`, the model `cli train` wrote with its
-     `.sketch.json`, both on the fused rung (the rung is one process-wide
-     knob); 8 clients of 1-64-row requests for SERVE_OPS_SECONDS, the
-     fused model's text replaced atomically by a second 500-tree model
-     after SERVE_OPS_SWAP_S; every response bit-equal to the host
-     GBDTPredictor of the version it names, no failed request, only v2
-     after v2 first answered; /admin/rollback (v1, pinned), again (v2),
-     /admin/unpin, a 404 for an unknown name; /metrics (serve.reload >=
-     1, serve.rollback = 2, the AIMD block, per-model requests summing to
-     serve.requests, a PSI for the `cli train` model); /admin/traces
+     `.sketch.json`, both on the fused rung; 8 clients of 1-64-row
+     requests for SERVE_OPS_SECONDS, the fused model's text replaced
+     atomically by a second 500-tree model after SERVE_OPS_SWAP_S; every
+     response bit-equal to the host GBDTPredictor of the version it
+     names, no failed request, only v2 after v2 first answered;
+     /admin/rollback (v1, pinned), again (v2), /admin/unpin, a 404 for an
+     unknown name; /metrics (serve.reload >= 1, serve.rollback = 2, the
+     AIMD block, per-model requests summing to serve.requests, a PSI for
+     the `cli train` model, and K6's launches as serve.scorer.batches,
+     held to the batches, requests and rows served); /admin/traces
      non-empty; SIGTERM drains, exit 0; client-clock p50/p99 and the
-     reload's warm_ms from the server's log. Then in this process both
-     rungs side by side (K6 and K7): a 4096-row cache answers a repeat
-     bit-identically with `cached: true`, and max_queue 4 sheds a flood
-     with 429s whose Retry-After is an integer; both kernels' launches
-     counted there;
+     reload's warm_ms from the server's log. The rung is one process-wide
+     knob, so a second `cli serve` (YTK_SERVE_BINNED=1) serves a copy of
+     the `cli train` model on K7: its text rewritten with new leaf values
+     (v2, thresholds: the sidecar names the old text), then its bin-edge
+     sidecar with the new text's digest (v3, edges), each a hot reload;
+     every response bit-equal to the binned rung's plain version of its
+     files, K7's launches from /metrics as above, exit 0 on SIGTERM. Then
+     in this process both rungs side by side (K6 and K7), both registries
+     built before any count is read: a 4096-row cache answers a repeat
+     bit-identically with `cached: true` (one K7 launch for the cold
+     request, none for the repeat), and max_queue 4 sheds a flood with
+     429s whose Retry-After is an integer, the flood launching both;
  20. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
@@ -2462,67 +2470,85 @@ def serve_ops_traffic(port, pools, deadline, swap_at, swap):
     return records, t_swap
 
 
-def phase_serve_ops(tmp, model, cli_model, card):
-    """`cli serve` as the JAX package runs it by default, on the card: the
-    500-tree model of phase_slice and, as --extra-model, the model `cli
-    train` wrote (with its port-written `.sketch.json`), under 8 clients
-    for SERVE_OPS_SECONDS, the fused model's text replaced atomically by a
-    second 500-tree model after SERVE_OPS_SWAP_S; every response bit-equal
-    to the host GBDTPredictor of the version it names; then rollback, pin
-    and unpin over /admin, /metrics, /admin/traces and the SIGTERM drain.
-    The rung is one process-wide knob in both packages, so the process
-    serves both models on the fused rung (YTK_SERVE_FUSED=1); the binned
-    rung of the `cli train` model serves beside the fused one in this
-    process, where a ServeApp with max_queue 4 sheds with a Retry-After
-    and one with a 4096-row cache answers a repeat bit-identically."""
+def start_cli_serve(args, env, err_path):
+    """`python -m ytklearn_tpu_torch.cli serve *args` in a process of its
+    own, its log to `err_path`: (process, banner)."""
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ytklearn_tpu_torch.cli", "serve", *args],
+            env=env, stdout=subprocess.PIPE, stderr=err, text=True, cwd=REPO)
+    try:
+        return proc, json.loads(proc.stdout.readline())
+    except BaseException:
+        stop_cli_serve(proc, err_path)
+        raise
+
+
+def stop_cli_serve(proc, err_path):
+    """SIGTERM (the server's drain), then (exit code, the process's log,
+    the warm_ms of each hot reload it logged)."""
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after 60 s"
+    proc.stdout.close()
+    with open(err_path) as f:
+        err_text = f.read()
+    warm = [line.split("warmed in ")[1].split(" ms")[0]
+            for line in err_text.splitlines() if "hot-reloaded" in line]
+    return rc, err_text, warm
+
+
+def cli_serve_launches(c, served_rows, what):
+    """The kernel launches of a `cli serve` process on a kernel rung, from
+    its /metrics counters: each scored batch (serve.scorer.batches; warm
+    runs count apart, serve.scorer.warmup_rungs) is one launch of the
+    rung's kernel. Held to the traffic: at least one, no fewer than the
+    batcher's batches, no more batches than requests, and every row the
+    clients were served scored once."""
+    k = c.get("serve.scorer.batches", 0.0)
+    b = c.get("serve.batches", 0.0)
+    check(0 < b <= k and b <= c.get("serve.requests", 0.0),
+          f"{what}: serve.scorer.batches {k}, serve.batches {b}, "
+          f"serve.requests {c.get('serve.requests')}")
+    check(c.get("serve.scorer.rows") == c.get("serve.request_rows")
+          == served_rows, f"{what}: scored {c.get('serve.scorer.rows')} "
+          f"rows, requested {c.get('serve.request_rows')}, the clients "
+          f"were served {served_rows}")
+    return int(k)
+
+
+def serve_ops_fused(tmp, model, bconf, pools, host, card):
+    """The `cli serve` process of phase_serve_ops on the fused rung (K6):
+    phase_slice's model and, as --extra-model, the `cli train` model,
+    under 8 clients with a hot reload, then /admin, /metrics and
+    /admin/traces. Returns the K6 launches of its traffic."""
     import numpy as np
 
-    from ytklearn_tpu_torch.config import hocon
-    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
-    from ytklearn_tpu_torch.predict import create_predictor
     from ytklearn_tpu_torch.scripts.time_walk import random_model
-    from ytklearn_tpu_torch.serve import (
-        BatchPolicy,
-        CompiledScorer,
-        ModelRegistry,
-        ServeApp,
-        kernels,
-    )
 
     names = [f"f{i}" for i in range(N_FEATURES)]
-    rng = np.random.RandomState(SEED + 11)
     conf = write_model(tmp, model, "ops")
     path = os.path.join(tmp, "ops.model")
     v2 = random_model(np.random.RandomState(SEED + 12), N_TREES, DEPTH,
                       names, base=0.4321)
     conf_v2 = write_model(tmp, v2, "ops_v2")
-    bconf = serve_conf(cli_model, tmp, "ops_binned")
-    check(os.path.exists(cli_model + ".sketch.json"),
-          "cli train wrote no .sketch.json beside its model")
-    host = {("default", 1): create_predictor("gbdt", hocon.load(conf)),
-            ("default", 2): create_predictor("gbdt", hocon.load(conf_v2)),
-            ("binned", 1): create_predictor("gbdt", hocon.load(bconf))}
-    with open(cli_model) as f:
-        bsplits = split_values(GBDTModel.loads(f.read()))
-    pools = {"default": random_rows(rng, SERVE_OPS_POOL, names,
-                                    split_values(model)),
-             "binned": random_rows(rng, SERVE_OPS_POOL, names, bsplits)}
+    host[("default", 1)] = create_host(conf)
+    host[("default", 2)] = create_host(conf_v2)
     env = dict(os.environ, YTK_SERVE_FUSED="1", YTK_OBS="1",
                YTK_TRACE_SAMPLE=str(SERVE_OPS_TRACE_SAMPLE),
                PYTHONPATH=REPO)
     env.pop("YTK_SERVE_BINNED", None)
     err_path = os.path.join(tmp, "ops_serve.err")
-    cmd = [sys.executable, "-m", "ytklearn_tpu_torch.cli", "serve", conf,
-           "gbdt", "--host", "127.0.0.1", "--port", "0",
-           "--watch-interval", str(SERVE_OPS_WATCH_S),
-           "--extra-model", f"binned:gbdt:{bconf}"]
     t0 = time.perf_counter()
-    with open(err_path, "w") as err:
-        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                stderr=err, text=True, cwd=REPO)
-    rc = None
+    proc, banner = start_cli_serve(
+        [conf, "gbdt", "--host", "127.0.0.1", "--port", "0",
+         "--watch-interval", str(SERVE_OPS_WATCH_S),
+         "--extra-model", f"binned:gbdt:{bconf}"], env, err_path)
     try:
-        banner = json.loads(proc.stdout.readline())
         port = banner["port"]
         print(f"serve_ops: `cli serve` up in {time.perf_counter() - t0:.3f} "
               f"s, banner {json.dumps(banner)} [{card}]", flush=True)
@@ -2559,10 +2585,10 @@ def phase_serve_ops(tmp, model, cli_model, card):
                    and r["t0"] > first_v2]
         check(not late_v1, f"{len(late_v1)} v1 answers after v2 answered")
         lat = sorted((r["t1"] - r["t0"]) * 1e3 for r in records)
-        n_rows = sum(r["n"] for r in records)
+        served_rows = sum(r["n"] for r in records)
         p50 = statistics.median(lat)
         p99 = lat[min(len(lat) - 1, int(math.ceil(0.99 * len(lat))) - 1)]
-        print(f"serve_ops: {len(records)} requests, {n_rows} rows in "
+        print(f"serve_ops: {len(records)} requests, {served_rows} rows in "
               f"{wall:.3f} s under {SERVE_OPS_THREADS} clients (1-64 rows, "
               f"3 in 4 fused); client-clock p50 {p50:.4f} ms, p99 "
               f"{p99:.4f} ms; v2 first answered {first_v2 - t_swap:.3f} s "
@@ -2581,6 +2607,7 @@ def phase_serve_ops(tmp, model, cli_model, card):
             np.asarray(out["scores"]), host[("default", 1)].batch_scores(
                 rows)), f"after the rollback: {st} version "
               f"{out.get('version')}")
+        served_rows += len(rows)
         st, _h, out = http_json("POST", port, "/admin/rollback",
                                 {"model": "default"})
         check(st == 200 and out["version"] == 2, f"second rollback {out}")
@@ -2606,6 +2633,8 @@ def phase_serve_ops(tmp, model, cli_model, card):
         print(f"serve_ops: /metrics serve.reload {c.get('serve.reload')}, "
               f"serve.rollback {c.get('serve.rollback')}, serve.requests "
               f"{c.get('serve.requests')} (per-model sum {fam_requests}), "
+              f"serve.batches {c.get('serve.batches')}, "
+              f"serve.scorer.batches {c.get('serve.scorer.batches')}, "
               f"batching {json.dumps(batching)}, rungs {rungs}, binned "
               f"quality psi_max {qual.get('psi_max')} over "
               f"{qual.get('rows_sampled')} sampled rows, latency "
@@ -2615,7 +2644,9 @@ def phase_serve_ops(tmp, model, cli_model, card):
         check(c.get("serve.rollback") == 2, "serve.rollback != 2")
         check(batching.get("slo_ms") == 100.0 and batching.get(
             "max_batch") in banner["ladder"], f"AIMD block {batching}")
+        # both models on K6: every scored batch of the traffic is a launch
         check(set(rungs.values()) == {"fused-cuda"}, f"rungs {rungs}")
+        k6 = cli_serve_launches(c, served_rows, "fused `cli serve`")
         check(fam_requests == c.get("serve.requests"),
               "per-model requests do not sum to serve.requests")
         check(not qual.get("no_baseline", True) and psi,
@@ -2633,29 +2664,192 @@ def phase_serve_ops(tmp, model, cli_model, card):
               f"at sample {tr['sample']}; hop ms (server clock): {hop_txt} "
               f"[{card}]", flush=True)
     finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            rc = proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        proc.stdout.close()
-    with open(err_path) as f:
-        err_text = f.read()
-    warm = [line.split("warmed in ")[1].split(" ms")[0]
-            for line in err_text.splitlines() if "hot-reloaded" in line]
+        rc, err_text, warm = stop_cli_serve(proc, err_path)
     print(f"serve_ops: SIGTERM drained, rc {rc}; reload warm_ms {warm} "
-          f"(the watcher thread's build + warm of every rung) [{card}]",
-          flush=True)
+          f"(the watcher thread's build + warm of every rung); K6 launches "
+          f"of the traffic {k6} (serve.scorer.batches) [{card}]", flush=True)
     check(rc == 0, f"cli serve exited {rc}: {err_text[-2000:]}")
     check(warm, "no hot reload logged")
+    return k6
 
-    # in this process: both rungs side by side, the cache, then the 429
+
+def create_host(conf):
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.predict import create_predictor
+
+    return create_predictor("gbdt", hocon.load(conf))
+
+
+def binned_on_cpu(conf):
+    """The binned rung's plain version over the model files as they stand
+    now: what a response of the binned rung must equal bit for bit."""
+    from ytklearn_tpu_torch.serve import CompiledScorer
+
+    return CompiledScorer(create_host(conf), mode="binned", device="cpu")
+
+
+def serve_ops_binned(tmp, cli_model, pool, card):
+    """The `cli train` model on the binned rung (K7) under `cli serve`, in a
+    process of its own (the rung is one process-wide knob in both
+    packages): its text is rewritten (new leaf values), then its bin-edge
+    sidecar (the new text's digest), in the trainer's order. Each rewrite
+    is one hot reload: v2 on thresholds (the sidecar names the old text,
+    so the reload falls back to the ensemble's splits, bit-equal to the
+    host GBDTPredictor), v3 on the new edges. Every response is held to
+    the binned rung's plain version of the files of the version it names.
+    Returns the K7 launches of its traffic."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.gbdt.binning import model_text_digest
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+
+    bdir = os.path.join(tmp, "ops_binned")
+    os.makedirs(bdir)
+    path = os.path.join(bdir, "m.model")
+    for suffix in ("", ".bins.json", ".sketch.json"):
+        if os.path.exists(cli_model + suffix):
+            shutil.copy(cli_model + suffix, path + suffix)
+    conf = serve_conf(path, tmp, "ops_binned_solo")
+    want = {1: binned_on_cpu(conf)}
+    check(want[1].bin_mode == "edges", "the `cli train` model's bin-edge "
+          "sidecar does not pair with its text")
+    with open(path) as f:
+        v2 = GBDTModel.loads(f.read())
+    for t in v2.trees:
+        t.leaf_value = [0.75 * v for v in t.leaf_value]
+    v2_text = v2.dumps()
+    env = dict(os.environ, YTK_SERVE_BINNED="1", YTK_OBS="1",
+               PYTHONPATH=REPO)
+    env.pop("YTK_SERVE_FUSED", None)
+    err_path = os.path.join(tmp, "ops_binned.err")
+    t0 = time.perf_counter()
+    proc, banner = start_cli_serve(
+        [conf, "gbdt", "--host", "127.0.0.1", "--port", "0",
+         "--watch-interval", str(SERVE_OPS_WATCH_S)], env, err_path)
+    records, stages = [], []
+    try:
+        port = banner["port"]
+        check(banner["rung"]["backend"] == "binned-cuda"
+              and banner["rung"].get("bin_mode") == "edges",
+              f"binned banner {banner}")
+        print(f"serve_ops binned: `cli serve` up in "
+              f"{time.perf_counter() - t0:.3f} s, rung "
+              f"{json.dumps(banner['rung'])} [{card}]", flush=True)
+
+        def stage(version, mode):
+            """Wait for `version` to serve, then 8 requests of 1-64 rows;
+            returns the seconds it took to answer."""
+            t_wait = time.perf_counter()
+            deadline = t_wait + 30.0
+            while True:
+                st, _h, m = http_json("GET", port, "/metrics")
+                entry = m["models"]["default"] if st == 200 else {}
+                if entry.get("version") == version:
+                    break
+                check(time.perf_counter() < deadline,
+                      f"v{version} did not load: {st} {entry}")
+                time.sleep(0.05)
+            waited = time.perf_counter() - t_wait
+            rung = entry["rung"]
+            check((rung["backend"], rung.get("bin_mode")) ==
+                  ("binned-cuda", mode), f"v{version} rung {rung}")
+            rng = np.random.RandomState(SEED + 20 + version)
+            for _ in range(8):
+                n = int(rng.randint(1, 65))
+                lo = int(rng.randint(0, len(pool) - n))
+                st, _h, out = http_json("POST", port, "/predict",
+                                        {"rows": pool[lo:lo + n]})
+                check(st == 200, f"binned /predict answered {st}: {out}")
+                records.append((out["version"], lo, n, out["scores"]))
+            stages.append(f"v{version} {mode} after {waited:.3f} s")
+
+        stage(1, "edges")
+        with open(path + ".next", "w") as f:
+            f.write(v2_text)
+        os.replace(path + ".next", path)
+        want[2] = create_host(conf)
+        stage(2, "thresholds")
+        with open(path + ".bins.json") as f:
+            side = json.load(f)
+        side["model_digest"] = model_text_digest(v2_text)
+        with open(path + ".bins.json.next", "w") as f:
+            json.dump(side, f)
+        os.replace(path + ".bins.json.next", path + ".bins.json")
+        want[3] = binned_on_cpu(conf)
+        check(want[3].bin_mode == "edges", "the rewritten sidecar does not "
+              "pair with the new text")
+        stage(3, "edges")
+        for version, scorer in sorted(want.items()):
+            ref = (scorer.batch_scores(pool) if version == 2
+                   else scorer.score_batch(pool))
+            mine = [r for r in records if r[0] == version]
+            check(len(mine) == 8 and all(
+                np.array_equal(np.asarray(r[3]), ref[r[1]:r[1] + r[2]])
+                for r in mine), f"binned v{version}: responses differ from "
+                  "the binned rung's plain version of its files")
+        st, _h, m = http_json("GET", port, "/metrics")
+        c = m["counters"]
+        check(c.get("serve.reload") == 2, f"binned serve.reload "
+              f"{c.get('serve.reload')} (two rewrites)")
+        served_rows = sum(r[2] for r in records)
+        k7 = cli_serve_launches(c, served_rows, "binned `cli serve`")
+    finally:
+        rc, err_text, warm = stop_cli_serve(proc, err_path)
+    print(f"serve_ops binned: {'; '.join(stages)}; 24 requests, "
+          f"{served_rows} rows, each bit-equal to the binned rung's plain "
+          f"version of its files (v2's to the host GBDTPredictor too); "
+          f"reload warm_ms {warm}; K7 launches of the traffic {k7} "
+          f"(serve.scorer.batches); SIGTERM rc {rc} [{card}]", flush=True)
+    check(rc == 0, f"binned cli serve exited {rc}: {err_text[-2000:]}")
+    check(len(warm) == 2, f"binned hot reloads logged: {warm}")
+    return k7
+
+
+def phase_serve_ops(tmp, model, cli_model, card):
+    """`cli serve` as the JAX package runs it by default, on the card. The
+    rung is one process-wide knob in both packages, so two processes:
+    serve_ops_fused (phase_slice's 500-tree model and, as --extra-model,
+    the model `cli train` wrote with its port-written `.sketch.json`, on
+    K6, under 8 clients with a hot reload, rollback, pin and unpin,
+    /metrics, /admin/traces and the SIGTERM drain) and serve_ops_binned
+    (the `cli train` model on K7, reloaded on a rewrite of its text and
+    then of its bin-edge sidecar). Then in this process both rungs side
+    by side: a ServeApp with a 4096-row cache answers a repeat
+    bit-identically without a launch, and one with max_queue 4 sheds a
+    flood with a Retry-After. Every launch count is of its own traffic."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.serve import (
+        BatchPolicy,
+        ModelRegistry,
+        ServeApp,
+        kernels,
+    )
+
+    names = [f"f{i}" for i in range(N_FEATURES)]
+    rng = np.random.RandomState(SEED + 11)
+    bconf = serve_conf(cli_model, tmp, "ops_binned")
+    check(os.path.exists(cli_model + ".sketch.json"),
+          "cli train wrote no .sketch.json beside its model")
+    host = {("binned", 1): create_host(bconf)}
+    with open(cli_model) as f:
+        bsplits = split_values(GBDTModel.loads(f.read()))
+    pools = {"default": random_rows(rng, SERVE_OPS_POOL, names,
+                                    split_values(model)),
+             "binned": random_rows(rng, SERVE_OPS_POOL, names, bsplits)}
+    k6_cli = serve_ops_fused(tmp, model, bconf, pools, host, card)
+    k7_cli = serve_ops_binned(tmp, cli_model, pools["binned"], card)
+
+    # in this process: both rungs side by side, the cache, then the 429;
+    # both registries are built (and warmed) before any count is read
     def both_rungs():
         registry = ModelRegistry(device="cuda")
         os.environ["YTK_SERVE_FUSED"] = "1"
         try:
-            registry.load("default", "gbdt", hocon.load(conf_v2))
+            registry.load("default", "gbdt",
+                          hocon.load(os.path.join(tmp, "ops_v2.conf")))
             os.environ["YTK_SERVE_BINNED"] = "1"
             registry.load("binned", "gbdt", hocon.load(bconf))
         finally:
@@ -2663,34 +2857,41 @@ def phase_serve_ops(tmp, model, cli_model, card):
             os.environ.pop("YTK_SERVE_BINNED", None)
         return registry
 
-    cpu = CompiledScorer(create_predictor("gbdt", hocon.load(bconf)),
-                         mode="binned", device="cpu")
-    app = ServeApp(both_rungs(), BatchPolicy(max_batch=512, max_wait_ms=2.0),
+    cpu = binned_on_cpu(bconf)
+    cached_reg, flood_reg = both_rungs(), both_rungs()
+    app = ServeApp(cached_reg, BatchPolicy(max_batch=512, max_wait_ms=2.0),
                    host="127.0.0.1", port=0, slo_ms=100.0,
                    cache_rows=4096).start()
-    kernels.heap_walk.launches = 0
-    kernels.binned_walk.launches = 0
     try:
         rows = pools["binned"][:64]
+        kernels.heap_walk.launches = 0
+        kernels.binned_walk.launches = 0
         st, _h, a = http_json("POST", app.port, "/predict",
                               {"rows": rows, "model": "binned"})
+        cold = (kernels.heap_walk.launches, kernels.binned_walk.launches)
         st2, _h, b = http_json("POST", app.port, "/predict",
                                {"rows": rows, "model": "binned"})
+        warm = (kernels.heap_walk.launches, kernels.binned_walk.launches)
         m = app.metrics_payload()
         rungs = {n: e["rung"]["backend"] for n, e in m["models"].items()}
     finally:
         app.stop(drain=True, timeout=30.0)
+    check(rungs == {"default": "fused-cuda", "binned": "binned-cuda"},
+          f"rungs {rungs}")
     check(st == st2 == 200 and b.get("cached") is True
           and "cached" not in a and a["scores"] == b["scores"]
           and np.array_equal(np.asarray(a["scores"]), cpu.score_batch(rows)),
           "the cached repeat is not bit-identical to the cold answer")
-    check(rungs == {"default": "fused-cuda", "binned": "binned-cuda"},
-          f"rungs {rungs}")
-    app = ServeApp(both_rungs(), BatchPolicy(max_batch=512, max_wait_ms=2.0,
-                                             max_queue=4),
+    check(cold == (0, 1) and warm == cold, f"launches (heap_walk, "
+          f"binned_walk): cold request {cold}, after the cached repeat "
+          f"{warm}; want one K7 launch, then none")
+    app = ServeApp(flood_reg, BatchPolicy(max_batch=512, max_wait_ms=2.0,
+                                          max_queue=4),
                    host="127.0.0.1", port=0, slo_ms=100.0).start()
     shed, resets = [], []
     try:
+        kernels.heap_walk.launches = 0
+        kernels.binned_walk.launches = 0
         for _round in range(5):  # until the flood has shed
             def flood(i):
                 for k in range(6):
@@ -2722,16 +2923,17 @@ def phase_serve_ops(tmp, model, cli_model, card):
         app.stop(drain=True, timeout=30.0)
     k6, k7 = kernels.heap_walk.launches, kernels.binned_walk.launches
     print(f"serve_ops: in process, rungs {rungs}; the cached repeat "
-          f"bit-identical; max_queue 4: {len(shed)} of "
+          f"bit-identical, launches (K6, K7) {cold} for the cold request "
+          f"and none for the repeat; max_queue 4: {len(shed)} of "
           f"{FLOOD_CLIENTS * 6 * (_round + 1)} flood requests shed with "
           f"Retry-After {sorted(set(shed))} ({len(resets)} connections "
-          f"refused at the accept backlog); launches heap_walk {k6}, binned_walk {k7} "
-          f"(this process; the `cli serve` process counts its own) "
-          f"[{card}]", flush=True)
+          f"refused at the accept backlog); the flood's launches heap_walk "
+          f"{k6}, binned_walk {k7}; the `cli serve` processes' traffic K6 "
+          f"{k6_cli}, K7 {k7_cli} [{card}]", flush=True)
     check(shed and all(str(v).isdigit() for v in shed),
           f"no 429 with an integer Retry-After: {shed[:4]}")
-    check(k6 > 0 and k7 > 0, "a serving kernel did not launch")
-    return k6, k7
+    check(k6 > 0 and k7 > 0, "the flood launched no serving kernel")
+    return k6_cli, k7_cli
 
 
 def phase_repro(card):

@@ -150,24 +150,36 @@ def test_drift_and_calibration_sentinels_as_the_reference(both_obs, seed):
         jhealth.root_health_counters(_counters(jobs))
 
 
-def test_training_checks_as_the_reference(both_obs):
-    cases = [("check_loss", ("s", v)) for v in (1.0, float("nan"),
-                                                float("inf"))]
-    cases += [("check_ingest", ("s", e, r)) for e, r in
-              ((0, 10), (2, 50), (5, 200), (1, 1000))]
-    cases += [("check_tree", ("s", n, g)) for n, g in
-              ((1, []), (5, [1.0, float("nan")]), (7, [0.5, 0.25]))]
-    for fn, args in cases:
-        assert getattr(health, fn)(*args) == getattr(jhealth, fn)(*args)
-    pg, jpg = health.ProgressGuard("p", window=3), jhealth.ProgressGuard(
-        "p", window=3)
-    for v in (5.0, 4.0, 4.0, 4.0, 4.0, 3.0, 3.0, 3.0, 3.0, float("nan")):
-        assert pg.update(v) == jpg.update(v)
+_STRICT_CASES = {
+    "slo_burn": (lambda h: h.SLOBurnSentinel("serve.predict", 50.0,
+                                             window=4, budget=0.0),
+                 lambda s, i: s.observe(80.0 + i)),
+    "drift": (lambda h: h.DriftSentinel("serve.quality", 0.25, 0.35, 2, 200),
+              lambda s, i: s.observe(0.5 + 0.01 * i, 0.1, 500)),
+    "calibration": (lambda h: h.CalibrationSentinel("serve.quality", 0.1, 2,
+                                                    200),
+                    lambda s, i: s.observe(0.3, 500)),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_STRICT_CASES))
+def test_strict_mode_escalates_a_serving_sentinel_as_the_reference(
+        both_obs, tmp_path, kind):
+    make, feed = _STRICT_CASES[kind]
+    hits = []
+    with mock.patch.dict(os.environ, {"YTK_HEALTH_STRICT": "1",
+                                      "YTK_FLIGHT_DIR": str(tmp_path)}):
+        for h in (health, jhealth):
+            s = make(h)
+            for i in range(12):
+                try:
+                    feed(s, i)
+                except h.HealthError as e:
+                    hits.append((i, str(e).split(" (flight dump")[0]))
+                    break
+    assert len(hits) == 2 and hits[0] == hits[1], hits
+    assert hits[0][1].startswith(f"health.{kind} at serve.")
     assert _counters(obs) == _counters(jobs)
-    with mock.patch.dict(os.environ, {"YTK_HEALTH_STRICT": "1"}), \
-            mock.patch.dict(os.environ, {"YTK_FLIGHT_DIR": "/nonexistent"}):
-        with pytest.raises(health.HealthError):
-            health.check_loss("s", float("nan"))
 
 
 def test_record_memory_gauges_on_the_cpu(both_obs):
@@ -298,14 +310,7 @@ def test_spans_counters_and_the_chrome_and_jsonl_exports(both_obs,
             obs.inc("c", 2.0)
         obs.gauge("g", 3.5)
         obs.event("mark", a=1)
-    obs.record_collective("all_reduce", x, "data")
-    assert obs.snapshot() == {
-        "counters": {"c": 2.0, "collectives.all_reduce.calls": 1.0,
-                     "collectives.all_reduce.bytes": 24.0},
-        "gauges": {"g": 3.5}}
-    jobs.record_collective("all_reduce", np.arange(6.0, dtype=np.float32),
-                           "data")
-    assert jobs.snapshot()["counters"]["collectives.all_reduce.bytes"] == 24
+    assert obs.snapshot() == {"counters": {"c": 2.0}, "gauges": {"g": 3.5}}
     ev = obs.REGISTRY.events
     assert [e["name"] for e in ev][:3] == ["inner", "mark", "outer"]
     assert ev[0]["depth"] == 1 and ev[2]["depth"] == 0

@@ -172,13 +172,11 @@ _knob("YTK_MODEL_METRICS_MAX", "int", 32,
       "bounded by construction — see "
       "[observability.md](observability.md) \"Per-model accounting\"")
 _knob("YTK_HEALTH", "bool", True,
-      "run-health sentinels (NaN/divergence/ingest-rate); `0` reduces every "
+      "run-health sentinels (SLO burn, drift, calibration); `0` reduces every "
       "check to one attribute load")
 _knob("YTK_HEALTH_STRICT", "bool", False,
       "escalate sentinel hits to HealthError naming the flight dump "
       "(unattended production runs)")
-_knob("YTK_HEALTH_INGEST_TOL", "float", 0.01,
-      "ingest error-rate threshold (fraction) for the parse sentinel")
 _knob("YTK_SLO_BURN_WINDOW", "int", 256,
       "requests per SLO burn-rate window: the `health.slo_burn` sentinel "
       "judges the violation rate once per full window")

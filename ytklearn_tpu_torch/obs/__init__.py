@@ -43,7 +43,6 @@ from .core import (  # noqa: F401
     flush,
     gauge,
     inc,
-    record_collective,
     reset,
     set_identity,
     settle,

@@ -325,13 +325,13 @@ def reset() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Collective-call recording (parallel/collectives.py hooks)
+# Device settling for span(settle=...)
 # ---------------------------------------------------------------------------
 
 
 def _cuda_devices(x, out: set) -> None:
-    """Collect the CUDA devices of every tensor in `x` (nested containers
-    walked like `_leaf_bytes`)."""
+    """Collect the CUDA devices of every tensor in `x` and of the tensors
+    in its nested lists, tuples and dicts."""
     dev = getattr(x, "device", None)
     if dev is not None and getattr(dev, "type", None) == "cuda":
         out.add(dev)
@@ -354,48 +354,6 @@ def settle(x) -> None:
 
         for d in devs:
             torch.cuda.synchronize(d)
-
-
-def _leaf_bytes(x) -> int:
-    """Byte size of a tensor or array (`nbytes`, else shape times the
-    dtype's itemsize) or of a list/tuple/dict of them."""
-    nbytes = getattr(x, "nbytes", None)
-    if isinstance(nbytes, int):
-        return nbytes
-    shape = getattr(x, "shape", None)
-    dtype = getattr(x, "dtype", None)
-    if shape is not None and dtype is not None:
-        try:
-            return int(math.prod(shape)) * int(dtype.itemsize)
-        except Exception:  # noqa: BLE001 — dtypes without itemsize count 0
-            return 0
-    if isinstance(x, dict):
-        return sum(_leaf_bytes(v) for v in x.values())
-    if isinstance(x, (tuple, list)):
-        return sum(_leaf_bytes(v) for v in x)
-    return 0
-
-
-def record_collective(verb: str, x, axis_name: str) -> None:
-    """Count a collective verb + its operand bytes (a tensor's `nbytes`)
-    and drop a zero-duration span into the trace — the census of the
-    program's collective surface a multi-GPU run (ROADMAP.md 1.7) feeds."""
-    if not _state.enabled:
-        return
-    nbytes = _leaf_bytes(x)
-    REGISTRY.inc(f"collectives.{verb}.calls", 1.0)
-    REGISTRY.inc(f"collectives.{verb}.bytes", float(nbytes))
-    REGISTRY.add_event(
-        {
-            "name": f"collectives.{verb}",
-            "ph": "X",
-            "ts": _now(),
-            "dur": 0.0,
-            "tid": threading.get_ident(),
-            "depth": len(REGISTRY._stack()),
-            "args": {"axis": axis_name, "bytes": nbytes, "traced": True},
-        }
-    )
 
 
 # ---------------------------------------------------------------------------

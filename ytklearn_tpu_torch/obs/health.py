@@ -2,22 +2,12 @@
 ``obs/health.py``).
 
 The obs core records evidence; this module *interprets* it at the few
-places the host already syncs with the device — so a diverging L-BFGS run,
-a NaN loss, an empty boosted tree, or a rotten input file
-raises a flag (or, in strict mode, a `HealthError` carrying a flight-dump
-path) instead of finishing with garbage numbers.
+places the host already syncs with the device — so a burning SLO or a
+drifting input raises a flag (or, in strict mode, a `HealthError` carrying
+a flight-dump path) instead of passing unseen.
 
 Sentinels (all fire `health.*` counters + an `obs.event`, and log):
 
-  check_loss(site, value)        NaN/inf detection on an already-fetched
-                                 host float; strict -> HealthError
-  ProgressGuard(site, window)    no-progress divergence: `window`
-                                 consecutive checks without relative
-                                 improvement fires `health.divergence`
-  check_ingest(site, errors, rows)  parse error-rate threshold
-                                 (YTK_HEALTH_INGEST_TOL, default 1%)
-  check_tree(site, n_nodes, gains)  empty-tree / NaN-gain detection on the
-                                 host-side tree conversion
   SLOBurnSentinel(site, slo_ms)  serving SLO burn-rate: windowed request
                                  violation rate over the error budget
                                  fires `health.slo_burn`
@@ -40,8 +30,9 @@ Telemetry:
                                  always) as `mem.*` gauges
 
 The JAX package's compile watchers (install_trace_counters and
-RetraceSentinel, over jax.monitoring) come with the profiler (ROADMAP.md
-1.12).
+RetraceSentinel, over jax.monitoring) come with the profiler, and its
+training sentinels (check_loss, ProgressGuard, check_ingest, check_tree and
+YTK_HEALTH_INGEST_TOL) with the trainers that call them (ROADMAP.md 1.12).
 
 Knobs:
   YTK_HEALTH=0            opt out of every sentinel (checks become one
@@ -49,7 +40,6 @@ Knobs:
   YTK_HEALTH_STRICT=1     escalate sentinel hits to HealthError (message
                           names the flight dump; read per-hit so tests and
                           operators can flip it at runtime)
-  YTK_HEALTH_INGEST_TOL   ingest error-rate threshold (fraction, 0.01)
 
 Counters fire only while obs collection is enabled (`inc` is a no-op
 otherwise); detection itself — and strict escalation — work either way,
@@ -63,17 +53,12 @@ import logging
 import math
 import os
 import threading
-from typing import Optional, Sequence
+from typing import Optional
 
 from . import core, recorder
 from ..config import knobs
 
 log = logging.getLogger("ytklearn_tpu_torch.obs.health")
-
-#: sites with fewer parsed lines than this never trip the ingest sentinel
-#: (a 10-line smoke file with one typo is not a pipeline regression)
-INGEST_MIN_LINES = 100
-
 
 class HealthError(RuntimeError):
     """A sentinel hit under YTK_HEALTH_STRICT=1. `dump_path` names the
@@ -85,12 +70,11 @@ class HealthError(RuntimeError):
 
 
 class _HealthState:
-    __slots__ = ("on", "strict", "ingest_tol")
+    __slots__ = ("on", "strict")
 
     def __init__(self):
         self.on = knobs.get_bool("YTK_HEALTH")
         self.strict: Optional[bool] = None  # None -> read env per hit
-        self.ingest_tol = knobs.get_float("YTK_HEALTH_INGEST_TOL")
 
 
 _state = _HealthState()
@@ -103,15 +87,12 @@ def enabled() -> bool:
 def configure_health(
     on: Optional[bool] = None,
     strict: Optional[bool] = None,
-    ingest_tol: Optional[float] = None,
 ) -> None:
     """Runtime override of the YTK_HEALTH* env knobs (tests; operators)."""
     if on is not None:
         _state.on = bool(on)
     if strict is not None:
         _state.strict = bool(strict)
-    if ingest_tol is not None:
-        _state.ingest_tol = float(ingest_tol)
 
 
 def _strict() -> bool:
@@ -134,118 +115,6 @@ def _fire(kind: str, site: str, msg: str, escalate: bool = True, **args) -> None
             f"health.{kind} at {site}: {msg} (flight dump: {path or 'unavailable'})",
             dump_path=path,
         )
-
-
-def check_loss(site: str, value: float, **args) -> bool:
-    """NaN/inf sentinel on an already-materialized loss. True = healthy."""
-    if not _state.on:
-        return True
-    if math.isfinite(value):
-        return True
-    _fire("nan", site, f"non-finite loss {value!r}", value=repr(value), **args)
-    return False
-
-
-class ProgressGuard:
-    """No-progress divergence detection over a sliding window of loss
-    fetches: `window` consecutive updates without `rel_tol` relative
-    improvement over the best-seen value fires `health.divergence` once
-    (then re-arms, so a long plateau fires once per window, not per step).
-
-    Observability-only by design: a plateau can be legitimate (the
-    optimizer's own convergence test is the stopping authority), so even
-    strict mode only flags it — escalation is reserved for NaN/inf.
-    """
-
-    __slots__ = ("site", "window", "rel_tol", "best", "stalled")
-
-    def __init__(self, site: str, window: int = 10, rel_tol: float = 1e-7):
-        self.site = site
-        self.window = window
-        self.rel_tol = rel_tol
-        self.best = math.inf
-        self.stalled = 0
-
-    def update(self, value: float, **args) -> bool:
-        """True = still making progress (or health off / not yet stalled)."""
-        if not _state.on:
-            return True
-        if not math.isfinite(value):
-            return True  # check_loss owns the NaN path
-        if self.best == math.inf or value < self.best - self.rel_tol * max(
-            abs(self.best), 1.0
-        ):
-            self.best = value
-            self.stalled = 0
-            return True
-        self.stalled += 1
-        if self.stalled < self.window:
-            return True
-        _fire(
-            "divergence",
-            self.site,
-            f"no loss improvement in {self.stalled} checks "
-            f"(best {self.best:.6g}, latest {value:.6g})",
-            escalate=False,
-            best=self.best,
-            latest=value,
-            stalled=self.stalled,
-            **args,
-        )
-        self.stalled = 0  # re-arm
-        return False
-
-
-def check_ingest(site: str, errors: int, rows: int, **args) -> bool:
-    """Parse error-rate sentinel. `max_error_tol` (an absolute count from
-    the reference config) stays the hard abort; this catches the *rate*
-    regression under it — a feed that is 5% garbage but below the absolute
-    cap. True = healthy."""
-    if not _state.on:
-        return True
-    total = errors + rows
-    if total < INGEST_MIN_LINES or errors == 0:
-        return True
-    rate = errors / total
-    if rate <= _state.ingest_tol:
-        return True
-    _fire(
-        "ingest_errors",
-        site,
-        f"{errors}/{total} lines bad ({100 * rate:.2f}% > "
-        f"{100 * _state.ingest_tol:.2f}% tolerance)",
-        errors=errors,
-        rows=rows,
-        rate=round(rate, 5),
-        **args,
-    )
-    return False
-
-
-def check_tree(site: str, n_nodes: int, gains: Sequence[float], **args) -> bool:
-    """Boosted-tree sanity on the host conversion: an empty tree (no
-    split found — the learner has stopped learning) or a NaN gain (the
-    split statistics went rotten upstream). True = healthy."""
-    if not _state.on:
-        return True
-    ok = True
-    if n_nodes <= 1:
-        # warning-level like divergence: boosting can legitimately
-        # saturate into stump trees (round_num oversized for the data) —
-        # escalating would abort mid-conversion and discard a valid model
-        _fire("empty_tree", site, "tree has no splits", escalate=False, **args)
-        ok = False
-    bad = [g for g in gains if not math.isfinite(g)]
-    if bad:
-        _fire(
-            "nan",
-            site,
-            f"{len(bad)} non-finite split gain(s)",
-            bad_gains=len(bad),
-            **args,
-        )
-        ok = False
-    return ok
 
 
 class SLOBurnSentinel:
