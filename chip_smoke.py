@@ -641,6 +641,13 @@ def phase_slice(tmp, card):
     return launches, model, p50
 
 
+def fmt_kernel(device_ms):
+    """A walk kernel's own time, or why it was not measured."""
+    from ytklearn_tpu_torch.scripts.time_walk import TRACE_EMPTY
+
+    return TRACE_EMPTY if device_ms is None else f"{device_ms:.6f} ms"
+
+
 def phase_timings(model, card):
     """Per rung: kernel, plain walk and stacked rung on the card. A call's
     time is CUDA events around 50 calls back to back, as every kernel's
@@ -700,7 +707,7 @@ def phase_timings(model, card):
         out[B] = (ms, plain_ms, bound_ms, bound_by, device_ms)
         print(f"timing: rung {B} ({ht.nodes.shape[0]} padded trees, depth "
               f"{ht.depth}): heap_walk a call {ms:.6f} ms, kernel "
-              f"{device_ms:.6f} ms (device), plain walk "
+              f"{fmt_kernel(device_ms)} (device), plain walk "
               f"{plain_ms:.6f} ms, stacked rung {stacked_ms:.6f} ms, fused "
               f"rung with sigmoid {fused_ms:.6f} ms, bound {bound_ms:.6f} ms "
               f"({bound_by}) [{card}]", flush=True)
@@ -2821,6 +2828,8 @@ def phase_serve_ops(tmp, model, cli_model, card):
 
     from ytklearn_tpu_torch.config import hocon
     from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.obs import quality as obs_quality
+    from ytklearn_tpu_torch.obs.heartbeat import stop_history_sampler
     from ytklearn_tpu_torch.serve import (
         BatchPolicy,
         ModelRegistry,
@@ -2921,6 +2930,10 @@ def phase_serve_ops(tmp, model, cli_model, card):
                 break
     finally:
         app.stop(drain=True, timeout=30.0)
+        # the serving planes' process-wide threads, which a server leaves
+        # running, end with the phase
+        obs_quality.stop_quality_evaluator()
+        stop_history_sampler()
     k6, k7 = kernels.heap_walk.launches, kernels.binned_walk.launches
     print(f"serve_ops: in process, rungs {rungs}; the cached repeat "
           f"bit-identical, launches (K6, K7) {cold} for the cold request "
@@ -3245,7 +3258,7 @@ def phase_binned_timing(served_model_path, model500, card):
             print(f"timing: binned_walk rung {B}, {label} model "
                   f"({heap.feat.shape[0]} padded trees, depth {heap.depth}, "
                   f"{table.mode} {table.dtype} table): a call {ms:.6f} ms, "
-                  f"kernel {device_ms:.6f} ms (device), plain "
+                  f"kernel {fmt_kernel(device_ms)} (device), plain "
                   f"{plain_ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}); "
                   f"no single PyTorch call computes it [{card}]", flush=True)
     return out["served", LADDER[-1]]
@@ -4842,11 +4855,11 @@ def main() -> int:
             "cli_train", phase_cli_train, tmp, card)
         k7_launches, _k7_p50 = timed("serve_binned", phase_serve_binned,
                                      tmp, cli_model, card)
+        k7_time = timed("binned_timing", phase_binned_timing, cli_model,
+                        model, card)
         # slice 14: `cli serve` at the reference's defaults, hot reload,
         # rollback, the obs planes; both serving rungs in this process
         timed("serve_ops", phase_serve_ops, tmp, model, cli_model, card)
-        k7_time = timed("binned_timing", phase_binned_timing, cli_model,
-                        model, card)
         torch.cuda.empty_cache()
         # slice 13: the host engine over the same text, then resilience
         t0 = time.perf_counter()

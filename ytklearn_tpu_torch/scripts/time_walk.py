@@ -85,39 +85,70 @@ def binned(rng, feat, split, dleft, B, dtype):
     return b.astype(dtype), packed, sentinel
 
 
+#: traces kernel_ms makes before it gives up, and the idle seconds on each
+#: side of the traced calls
+TRACE_TRIES = 3
+TRACE_PAD_S = 0.02
+
+
 def kernel_ms(dev, fn, chain):
     """The kernel's own time: the median duration of the device events
     named *walk* (the walk kernels) over `chain` calls traced by
     torch.profiler, after a warm-up call. Back-to-back calls of a kernel
     of a few microseconds are bound by the wrapper's host work, which the
-    events around them (Timer) measure instead. None on the CPU."""
+    events around them (Timer) measure instead. None on the CPU.
+
+    Fifty such calls take about 2 ms, and a trace that short has, late in
+    a long process on the card, come back without one device event. So
+    the traced window is padded with TRACE_PAD_S of idle time on each
+    side, a trace with no walk kernel is taken again, up to TRACE_TRIES
+    times, and then the kernel's own time is not measured: None, with a
+    line on standard error saying what the traces held."""
     if dev.type != "cuda":
         fn()
         return None
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(chain):
-            fn()
-        torch.cuda.synchronize(dev)
-    us = sorted(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == DeviceType.CUDA and "walk" in e.name)
-    # the tracer may drop the odd event; it never adds one
-    if not 0 < len(us) <= chain:
-        raise RuntimeError(f"time_walk: traced {len(us)} walk kernels over "
-                           f"{chain} calls")
-    return us[len(us) // 2] / 1e3
+    seen = []
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            for _ in range(chain):
+                fn()
+            torch.cuda.synchronize(dev)
+            time.sleep(TRACE_PAD_S)
+        cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = sorted(e.time_range.end - e.time_range.start for e in cuda
+                    if "walk" in e.name)
+        # the tracer may drop the odd event; it never adds one
+        if len(us) > chain:
+            raise RuntimeError(f"time_walk: traced {len(us)} walk kernels "
+                               f"over {chain} calls")
+        if us:
+            return us[len(us) // 2] / 1e3
+        seen.append(len(cuda))
+    print(f"time_walk: kernel time not measured: {TRACE_TRIES} traces of "
+          f"{chain} calls held no walk kernel ({seen} device events in "
+          "all)", file=sys.stderr, flush=True)
+    return None
+
+
+#: a kernel time on the card whose traces held no walk kernel (kernel_ms)
+TRACE_EMPTY = "not measured (no walk kernel traced)"
 
 
 def fmt_pair(kms, cms):
     """A kernel's device time and the time of a call, back to back."""
-    if kms is None:
+    if cms is None:
         return NOT_MEASURED
-    return f"{kms:.6f} ms (call {cms:.6f} ms)"
+    kernel = TRACE_EMPTY if kms is None else f"{kms:.6f} ms"
+    return f"{kernel} (call {cms:.6f} ms)"
 
 
 class Cases:
@@ -362,9 +393,11 @@ def main(argv=None) -> int:
                     ok = torch.equal(run(plan=plan), want)
                     exact = exact and ok
                     ms = kernel_ms(dev, lambda: run(plan=plan), 50)
+                    shown = (TRACE_EMPTY if ms is None and dev.type == "cuda"
+                             else fmt_ms(ms))
                     print(f"time_walk sweep: rung {B} {label} rows "
                           f"{plan['rows']} chunk {plan['chunk']} threads "
-                          f"{plan['threads']}: {fmt_ms(ms)} (exact: {ok}) "
+                          f"{plan['threads']}: {shown} (exact: {ok}) "
                           f"[{card}]", flush=True)
     run, plain, _ = cases.k6("chain", CHAIN_TREES, CHAIN_TREES, d500, 1)
     ok = torch.equal(run(), plain())
