@@ -25,7 +25,9 @@ plain torch, no new kernel), and the host GBDT engine and resilience
 (slice 13, plain torch, no new kernel), and `cli serve` as the reference
 runs it by default: hot reload, rollback and pin, AIMD batching, the
 prediction cache, 429 with Retry-After and the obs planes (slice 14, no
-new kernel). Every phase prints its wall time, and the run its total.
+new kernel), and continual training: `cli retrain` against a model `cli
+serve` serves under traffic, `cli predict` and `cli convert` (slice 15,
+no new kernel). Every phase prints its wall time, and the run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -190,8 +192,8 @@ new kernel). Every phase prints its wall time, and the run its total.
      trees; gbsdt, gbhmlr, gbhsdt K = 8, 3 trees; a random_forest run; a
      continue_train run, 3 + 2 trees; lr 0.3, rates 0.8) at GBST_ITERS
      L-BFGS iterations a tree on the card: trees, seconds a tree, ingest
-     against training, test AUC above 0.6, gbmlr's CPU run printed
-     beside; then each again at GBST_HELD_ITERS on the card and the CPU,
+     against training, test AUC above 0.6; then each again at
+     GBST_HELD_ITERS on the card and the CPU,
      held together (statuses and iterations equal, losses at rtol 1e-4,
      AUC within 1e-4); then serves linear, multiclass_linear, FM, FFM,
      gbmlr and gbhsdt on cuda (ModelRegistry + ServeApp, what `cli serve`
@@ -250,7 +252,30 @@ new kernel). Every phase prints its wall time, and the run its total.
      bit-identically with `cached: true` (one K7 launch for the cold
      request, none for the repeat), and max_queue 4 sheds a flood with
      429s whose Retry-After is an integer, the flood launching both;
- 20. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 20. (slice 15, its main path) right after phase_serve_ops,
+     `phase_continual`: a `cli serve` process (fused rung, K6,
+     --watch-interval 0.5) serves a copy of the `cli train` model under 8
+     paced clients of 1-64 held-out rows; in this process `cli retrain
+     gbdt` on 2^20 fresh Higgs-shaped lines of a new seed (written by 8
+     spawned processes) with a 2^17-line held-out file and 10 extra
+     rounds promotes v2 (rc 0, `.version.json`, the archive `.v1`), its
+     candidate launching K1, K3 and K5 (K2, K4 not) at least once a new
+     tree and its gate K6 once a scored batch (2 x 2^17 / 512), no scorer
+     fallback; a candidate on 2^17 label-flipped lines is rejected by the
+     band (exit 1 under YTK_CONTINUAL_STRICT=1); `cli retrain --rollback`
+     restores v1. Every response is bit-equal to the host walk of one
+     model version (one a server version), none fails, v2 answers within
+     10 watch periods of its promotion, the rejection leaves v2 serving
+     and the rollback v1. Card against CPU, while the server starts: an
+     int8 retrain (2^14 lines, 3 + 2 rounds) whose dumps are
+     byte-identical; `retrain linear --mode ftrl` on the convex phase's
+     2^17 lines, bootstrap then warm, twice on the card (bit-equal) and
+     the bootstrap on the CPU (weights at rtol 1e-5 plus 1e-5 of the
+     largest |w|); `cli predict gbdt` of the incumbent over 4096 held-out
+     lines (raw scores bit-equal to the host walk, predictions at rtol
+     1e-14 of the CPU's, leaf ids equal); `cli convert` of a libsvm
+     file, then `cli train` on it;
+ 21. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -2191,8 +2216,13 @@ def phase_binned_kernel(model, card):
 def write_ytk_text(path, X, y, rng):
     """ytklearn text lines `1###label###f0:v,...`, 1% of them with one
     feature left out (a missing value)."""
-    Xh = X.cpu().double().numpy()
-    yh = y.cpu().numpy().astype(int).tolist()
+    write_ytk_lines(path, X.cpu().double().numpy(),
+                    y.cpu().numpy().astype(int), rng)
+
+
+def write_ytk_lines(path, Xh, yh, rng):
+    """write_ytk_text on host arrays (float64 X, int y)."""
+    yh = [int(v) for v in yh]
     F = Xh.shape[1]
     fmt = "1###%d###" + ",".join(f"f{j}:%.9g" for j in range(F)) + "\n"
     blank = (rng.rand(len(Xh)) < 0.01).tolist()
@@ -2477,13 +2507,18 @@ def serve_ops_traffic(port, pools, deadline, swap_at, swap):
     return records, t_swap
 
 
-def start_cli_serve(args, env, err_path):
+def spawn_cli_serve(args, env, err_path):
     """`python -m ytklearn_tpu_torch.cli serve *args` in a process of its
-    own, its log to `err_path`: (process, banner)."""
+    own, its log to `err_path`; its banner is the first line it prints."""
     with open(err_path, "w") as err:
-        proc = subprocess.Popen(
+        return subprocess.Popen(
             [sys.executable, "-m", "ytklearn_tpu_torch.cli", "serve", *args],
             env=env, stdout=subprocess.PIPE, stderr=err, text=True, cwd=REPO)
+
+
+def start_cli_serve(args, env, err_path):
+    """spawn_cli_serve, then its banner: (process, banner)."""
+    proc = spawn_cli_serve(args, env, err_path)
     try:
         return proc, json.loads(proc.stdout.readline())
     except BaseException:
@@ -4065,8 +4100,8 @@ GBST_RUNS = (
 GBST_ITERS = 15  # L-BFGS iterations a tree on the main path
 #: iterations a tree where a card run is held to its CPU run: L-BFGS on
 #: the soft mixture is chaotic in f32 sum order past about that many
-#: (PERF.md section 6), so the main path's 15 are printed beside
-#: the CPU's and held only to the sanity bounds
+#: (PERF.md section 6), so the main path's 15 are held only to the sanity
+#: bounds
 GBST_HELD_ITERS = 6
 GBST_RTOL = 1e-4  # tests/test_torch_gbst.py's tolerances
 
@@ -4150,9 +4185,8 @@ def phase_gbst_cli(card, tmp):
     random_forest run and a continue_train run (3 + 2 trees), each at
     learning_rate 0.3, instance and feature rates 0.8 and GBST_ITERS
     L-BFGS iterations a tree on the card: trees, seconds a tree, ingest
-    against training, test AUC above 0.6; gbmlr's CPU run at the same
-    iterations printed beside it. Each run again at GBST_HELD_ITERS, card
-    held to CPU (gbst_held). No kernel wrapper's count moves. Returns the
+    against training, test AUC above 0.6. Each run again at
+    GBST_HELD_ITERS, card held to CPU (gbst_held). No kernel wrapper's count moves. Returns the
     card's gbmlr and gbhsdt configs (their dumps stay in `tmp`)."""
     from ytklearn_tpu_torch.scripts.convex_synth import write_gbst_case
 
@@ -4184,19 +4218,6 @@ def phase_gbst_cli(card, tmp):
               f"{run}: did not train ({line})")
         if run in ("gbmlr", "gbhsdt"):
             served[variant] = used
-        if run == "gbmlr":
-            _, cres, cts, _ = gbst_cli(cfg, variant, "cpu", tag, tmp,
-                                       GBST_ITERS, more)
-            gbst_line(run, "cpu", cres, cts, card)
-            rel = max(abs(a - b) / abs(b) for a, b in zip(
-                res.per_tree_loss + [res.train_loss, res.test_loss],
-                cres.per_tree_loss + [cres.train_loss, cres.test_loss]))
-            print(f"gbst cli {run}: at {GBST_ITERS} iterations a tree the "
-                  f"card's losses lie {rel:.3g} (largest relative) from "
-                  f"the CPU's, AUC {res.test_metrics['auc']:.6f} against "
-                  f"{cres.test_metrics['auc']:.6f}: not held (L-BFGS on "
-                  f"the mixture is chaotic in f32 sum order); held at "
-                  f"{GBST_HELD_ITERS} below [{card}]", flush=True)
         _, hres, _, _ = gbst_cli(cfg, variant, "cuda", tag, tmp,
                                  GBST_HELD_ITERS, more)
         _, hcres, _, _ = gbst_cli(cfg, variant, "cpu", tag, tmp,
@@ -4719,6 +4740,651 @@ def phase_resilience(card, small):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- slice 15: continual training -----------------------------------------------
+
+CONT_ROWS = 1 << 20  # fresh lines of the promoted candidate
+CONT_HOLDOUT = 1 << 17  # held-out lines of the gate
+CONT_FLIP_ROWS = 1 << 17  # label-flipped lines of the rejected candidate
+CONT_EXTRA = 10  # extra boosting rounds a retrain
+CONT_SEED = 20261018
+CONT_WATCH_S = 0.5
+CONT_THINK_S = 0.05  # a client's pause between requests
+CONT_POOL = 2048  # held-out rows the clients send, 1-64 at a time
+CONT_PREDICT_ROWS = 1 << 12  # held-out lines through `cli predict`
+CONT_FTRL_TEST = 2048  # held-out lines of the FTRL retrains' gate
+CONT_SMALL = (1 << 14, 1 << 12)  # the int8 card-against-CPU retrain
+CONT_SMALL_ROUNDS = (3, 2)  # bootstrap rounds, then extra rounds
+CONT_WRITERS = 8  # processes formatting the fresh text
+
+
+def _write_part(args):
+    path, Xh, yh, seed = args
+    import numpy as np
+
+    write_ytk_lines(path, Xh, yh, np.random.RandomState(seed))
+    return path
+
+
+def write_text_parallel(sets):
+    """write_ytk_lines for each (directory, X, y, seed) of `sets`, into
+    CONT_WRITERS part files a directory, formatted by CONT_WRITERS spawned
+    processes (the text is formatted in Python); the ingest reads a
+    directory whole."""
+    import multiprocessing
+
+    jobs = []
+    for dirpath, Xh, yh, seed in sets:
+        os.makedirs(dirpath, exist_ok=True)
+        step = -(-len(Xh) // CONT_WRITERS)
+        jobs += [(os.path.join(dirpath, f"part-{i:05d}"), Xh[lo:lo + step],
+                  yh[lo:lo + step], seed + i)
+                 for i, lo in enumerate(range(0, len(Xh), step))]
+    with multiprocessing.get_context("spawn").Pool(CONT_WRITERS) as pool:
+        pool.map(_write_part, jobs, chunksize=1)
+    return [dirpath for dirpath, *_ in sets]
+
+
+def continual_traffic(port, pool, stop, records, errors):
+    """SERVE_OPS_THREADS clients POST 1-64 held-out rows until `stop` is
+    set, CONT_THINK_S apart; each answer goes into `records` as it comes
+    (wall and perf clocks)."""
+    import numpy as np
+
+    def client(i):
+        rng = np.random.RandomState(CONT_SEED + 100 + i)
+        t0 = None
+        try:
+            while not stop.is_set():
+                n = int(rng.randint(1, 65))
+                lo = int(rng.randint(0, len(pool) - n))
+                t0 = time.perf_counter()
+                status, _h, out = http_json("POST", port, "/predict",
+                                            {"rows": pool[lo:lo + n]})
+                if status != 200:
+                    errors.append((status, out, t0))
+                    return
+                records.append({"lo": lo, "n": n, "t0": t0,
+                                "t1": time.perf_counter(),
+                                "wall": time.time(),
+                                "version": out["version"],
+                                "scores": out["scores"]})
+                stop.wait(CONT_THINK_S)
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append((repr(e), t0))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_OPS_THREADS)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def cli_quiet(argv, env=None):
+    """cli.main(argv) in this process, stdout captured, `env` set for the
+    call -> (rc, the last JSON line printed)."""
+    import io
+    from unittest import mock
+
+    from ytklearn_tpu_torch import cli
+
+    buf = io.StringIO()
+    with mock.patch.dict(os.environ, env or {}), \
+            contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return rc, json.loads(lines[-1]) if lines else None
+
+
+def copy_model(src, dst):
+    """The model text and its sidecars, as the trainer wrote them."""
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    for suffix in ("", ".bins.json", ".sketch.json"):
+        if os.path.exists(src + suffix):
+            shutil.copyfile(src + suffix, dst + suffix)
+
+
+def read_holdout(path, n):
+    """The first n lines of a text file as feature dicts."""
+    from ytklearn_tpu_torch.config.params import DelimParams
+    from ytklearn_tpu_torch.predict import parse_feature_kvs
+
+    d = DelimParams()
+    rows = []
+    with open(path) as f:
+        for line in f:
+            rows.append(parse_feature_kvs(line.rstrip("\n").split("###")[2],
+                                          d))
+            if len(rows) == n:
+                break
+    return rows
+
+
+def wait_for_version(records, before, watch_s, periods=20):
+    """Until a response names a server version past `before` (at most
+    `periods` watch periods), then two periods more of traffic."""
+    deadline = time.perf_counter() + periods * watch_s
+    while time.perf_counter() < deadline and not any(
+            r["version"] > before for r in list(records)):
+        time.sleep(watch_s / 5)
+    time.sleep(2 * watch_s)
+
+
+def held_versions(records, host, pool):
+    """Each response against the host walks: every server version must
+    answer with one model text's scores, bit for bit. Returns {server
+    version: text tag} and the records in time order."""
+    import numpy as np
+
+    want = {tag: h.batch_scores(pool) for tag, h in host.items()}
+    fits = {}  # server version -> the model versions all its answers fit
+    for r in records:
+        got = np.asarray(r["scores"])
+        tags = {t for t, w in want.items()
+                if np.array_equal(got, w[r["lo"]:r["lo"] + r["n"]])}
+        fits[r["version"]] = fits.get(r["version"], tags) & tags
+    for v, tags in fits.items():
+        check(tags, f"server version {v}'s answers fit no one model "
+              f"version's host walk")
+    of = {v: sorted(tags)[0] for v, tags in fits.items()}
+    for r in records:
+        r["tag"] = of[r["version"]]
+    return of, sorted(records, key=lambda r: r["t1"])
+
+
+def phase_continual(tmp, cli_model, card):
+    """Slice 15's main path, `cli retrain gbdt` on the card against a GBDT
+    incumbent that `cli serve` serves under traffic: a copy of
+    phase_cli_train's model (20 trees, F = 28, 255 bins and leaves, loss
+    policy, bf16) served on the fused rung (K6) by a `cli serve` process
+    with --watch-interval CONT_WATCH_S under 8 clients, then in this
+    process: (1) a retrain on CONT_ROWS fresh Higgs-shaped lines from a new
+    seed with a CONT_HOLDOUT-line held-out file and CONT_EXTRA extra
+    rounds promotes v2 (`.version.json`, the archive `.v1`, rc 0), the
+    candidate's training launching K1, K3 and K5 (not K2 or K4) at least
+    once a tree and the gate's held-out scoring K6 once a scored batch of
+    the incumbent's and the candidate's, no scorer fallback; the server
+    answers with v2's text within a few watch periods; (2) a candidate
+    trained on CONT_FLIP_ROWS label-flipped lines is rejected by the band
+    (its gate on the held-out file's first part, 2^14 lines), exit 1
+    under YTK_CONTINUAL_STRICT=1, and the server stays on v2;
+    (3) `cli retrain --rollback` brings v1's files back and the server
+    with them. Every response of the traffic is bit-equal to the host walk
+    of one model version, the same one for all of a server version's
+    responses, and no request fails. Card against CPU, run while the
+    server starts (continual_card_cpu): an int8 retrain (bootstrap, then
+    extra rounds on fresh lines) whose dumps are byte-identical; `retrain
+    linear --mode ftrl` on the convex phase's 2^17 lines (bootstrap and
+    warm twice on the card, bit-equal; the bootstrap on the CPU, weights
+    at rtol 1e-5 plus 1e-5 of the largest |w|); `cli predict gbdt` of the
+    incumbent over the held-out file's first CONT_PREDICT_ROWS lines (raw
+    scores bit-equal to the host walk, predictions at rtol 1e-14 of the
+    CPU's, leaf ids equal); `cli convert` of a libsvm file, then `cli
+    train` on its output. Returns the candidate's and the gate's
+    launches."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch import obs
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.gbdt.data import GBDTIngest
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.scripts.bench_gbdt import gen_higgs_like
+    from ytklearn_tpu_torch.serve import kernels
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "continual")
+    live = os.path.join(d, "live", "gbdt.model")
+    copy_model(cli_model, live)
+    with open(live) as f:
+        v1_text = f.read()
+    sconf = serve_conf(live, d, "serve")
+    env = dict(os.environ, YTK_SERVE_FUSED="1", YTK_OBS="1",
+               PYTHONPATH=REPO)
+    env.pop("YTK_SERVE_BINNED", None)
+    err_path = os.path.join(d, "serve.err")
+    t_spawn = time.perf_counter()
+    # the server starts while this process writes the data
+    proc = spawn_cli_serve(
+        [sconf, "gbdt", "--host", "127.0.0.1", "--port", "0",
+         "--watch-interval", str(CONT_WATCH_S)], env, err_path)
+    stop = threading.Event()
+    records, errors, threads = [], [], []
+    marks = {}
+    try:
+        # the fresh lines, the held-out file and the flipped lines, from a
+        # seed of their own
+        t0 = time.perf_counter()
+        train, test = gen_higgs_like(CONT_ROWS, CONT_HOLDOUT, N_FEATURES,
+                                     CONT_SEED)
+        Xh, yh = train.X.cpu().double().numpy(), train.y.cpu().numpy()
+        fresh, holdout, flipped = write_text_parallel([
+            (os.path.join(d, "fresh"), Xh, yh, CONT_SEED),
+            (os.path.join(d, "holdout"), test.X.cpu().double().numpy(),
+             test.y.cpu().numpy(), CONT_SEED + 50),
+            (os.path.join(d, "flipped"), Xh[:CONT_FLIP_ROWS],
+             1 - yh[:CONT_FLIP_ROWS], CONT_SEED + 60)])
+        del train, test
+        t_write = time.perf_counter() - t0
+        # the card-against-CPU checks need no server: they run while it
+        # starts (`cli predict` on the incumbent, v1)
+        continual_card_cpu(d, live, holdout, card)
+        banner = json.loads(proc.stdout.readline())
+        t_up = time.perf_counter() - t_spawn
+        check(banner["rung"]["backend"] == "fused-cuda", f"banner {banner}")
+        pool = read_holdout(os.path.join(holdout, "part-00000"), CONT_POOL)
+        threads = continual_traffic(banner["port"], pool, stop, records,
+                                    errors)
+        rconf = os.path.join(d, "retrain.conf")
+        rcfg = hocon.load(CONF)
+        for key, val in (("model.data_path", live),
+                         ("model.feature_importance_path", live + ".imp"),
+                         ("optimization.round_num", CLI_ROUNDS),
+                         ("optimization.max_depth", CLI_DEPTH)):
+            hocon.set_path(rcfg, key, val)
+        with open(rconf, "w") as f:
+            json.dump(rcfg, f)  # JSON is HOCON
+        argv = ["retrain", "gbdt", rconf, "--data", fresh, "--test",
+                holdout, "--extra-rounds", str(CONT_EXTRA)]
+        knobs = {}
+        for knob in ("net/ipv4/tcp_abort_on_overflow", "net/core/somaxconn"):
+            try:
+                with open(f"/proc/sys/{knob}") as f:
+                    knobs[knob] = f.read().strip()
+            except OSError:
+                knobs[knob] = "not readable"
+        print(f"continual: the host's listen settings {knobs} [{card}]",
+              flush=True)
+        print(f"continual: `cli serve` up {t_up:.3f} s after its spawn "
+              f"(the writing overlaps it); wrote "
+              f"{CONT_ROWS} + {CONT_HOLDOUT} + {CONT_FLIP_ROWS} lines in "
+              f"{t_write:.3f} s ({CONT_WRITERS} processes, host); python -m "
+              f"ytklearn_tpu_torch.cli {' '.join(argv)} [{card}]",
+              flush=True)
+
+        # (1) the promotion, its kernels counted over the call alone
+        time.sleep(CONT_WATCH_S)
+        before_v = max((r["version"] for r in list(records)), default=1)
+        zero_kernel_counts()
+        kernels.heap_walk.launches = 0
+        obs.reset()
+        with Recorder(GBDTTrainer, "train") as trained, \
+                Recorder(GBDTIngest, "load") as ingest:
+            t0 = time.perf_counter()
+            rc, res = cli_quiet(argv, {"YTK_SERVE_FUSED": "1"})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        marks["promoted"] = time.perf_counter()
+        counts = kernel_counts()
+        k6 = kernels.heap_walk.launches
+        c = obs.snapshot()["counters"]
+        spans = {}
+        for e in obs.REGISTRY.events:
+            if e["name"].startswith("continual.") and "dur" in e:
+                spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"]
+        trainer = trained.calls[0][0]
+        ts = trainer.time_stats
+        with open(live + ".version.json") as f:
+            vinfo = json.load(f)
+        with open(live) as f:
+            v2_text = f.read()
+        trees = res.get("trained", {}).get("trees")
+        print(f"continual: retrain rc {rc}, {wall:.3f} s (wall) [{card}]; "
+              f"{json.dumps(res)}", flush=True)
+        print(f"continual: candidate ingest {ingest.calls[0][1]:.3f} s "
+              f"(parse + fill, host), "
+              f"preprocess {ts.get('preprocess', 0.0):.3f} s, rounds "
+              f"{ts.get('train', 0.0):.3f} s; spans (s, summed) "
+              f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}; "
+              f"launches hist {counts['hist']}, hist_gather "
+              f"{counts['hist_gather']}, route {counts['route']}, hist_q "
+              f"{counts['hist_q']}, hist_gather_q {counts['hist_gather_q']}, "
+              f"heap_walk (the gate) {k6} for serve.scorer.batches "
+              f"{c.get('serve.scorer.batches')}; gate_eval_fallback "
+              f"{c.get('continual.gate_eval_fallback', 0)} [{card}]",
+              flush=True)
+        check(rc == 0 and res["promoted"] and res["version"] == 2,
+              f"the retrain did not promote v2: {res}")
+        check(vinfo["version"] == 2 and vinfo["archives"] == [1]
+              and os.path.exists(live + ".v1")
+              and open(live + ".v1").read() == v1_text,
+              f"version record {vinfo}, or the archive .v1")
+        check(trees == CLI_ROUNDS + CONT_EXTRA
+              and trainer.hist_precision == "bf16",
+              f"the candidate has {trees} trees")
+        new = CONT_EXTRA
+        check(counts["hist"] >= new and counts["route"] >= new
+              and counts["hist_gather"] > 0 and counts["hist_q"] == 0
+              and counts["hist_gather_q"] == 0,
+              f"the candidate did not launch K1, K3 and K5 only: {counts}")
+        batches = 2 * -(-CONT_HOLDOUT // LADDER[-1])
+        check(k6 == c.get("serve.scorer.batches") == batches,
+              f"the gate launched K6 {k6} times for "
+              f"{c.get('serve.scorer.batches')} scored batches, want "
+              f"{batches}")
+        check(c.get("continual.gate_eval_fallback", 0) == 0,
+              "the gate fell back to the host walk")
+        check(res["gate"]["holdout_rows"] == CONT_HOLDOUT
+              and res["gate"]["candidate_loss"]
+              <= res["gate"]["incumbent_loss"], f"gate {res['gate']}")
+        wait_for_version(records, before_v, CONT_WATCH_S)
+
+        # (2) a label-flipped candidate, strict: rejected, v2 stays
+        marks["reject0"] = time.perf_counter()
+        t0 = time.perf_counter()
+        part = os.path.join(holdout, "part-00000")
+        rc2, rej = cli_quiet(argv[:4] + [flipped, "--test", part]
+                             + argv[7:],
+                             {"YTK_SERVE_FUSED": "1",
+                              "YTK_CONTINUAL_STRICT": "1"})
+        print(f"continual: the label-flipped candidate: rc {rc2}, "
+              f"{time.perf_counter() - t0:.3f} s (wall); {json.dumps(rej)} "
+              f"[{card}]", flush=True)
+        check(rc2 == 1 and rej["promoted"] is False and rej["strict"]
+              and any("outside the band" in r for r in rej["reasons"]),
+              f"the flipped candidate was not rejected by the band: {rej}")
+        with open(live) as f:
+            check(f.read() == v2_text, "the rejection touched the model")
+        time.sleep(2 * CONT_WATCH_S)  # a watch period past the rejection
+        marks["reject1"] = time.perf_counter()
+        before_v = max(r["version"] for r in list(records))
+
+        # (3) the rollback: v1's files, and the server with them
+        marks["rollback"] = time.perf_counter()
+        rc3, rb = cli_quiet(["retrain", "gbdt", rconf, "--rollback"])
+        check(rc3 == 0 and rb["rolled_back"] and rb["version"] == 1,
+              f"rollback {rb}")
+        with open(live) as f:
+            check(f.read() == v1_text, "the rollback did not restore v1")
+        wait_for_version(records, before_v, CONT_WATCH_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+            check(not t.is_alive(), "a client hung")
+        # the server's K6 launches: one a scored batch of the traffic
+        st, _h, m = http_json("GET", banner["port"], "/metrics")
+        check(st == 200, f"/metrics answered {st}")
+        k6_serve = cli_serve_launches(
+            m["counters"], sum(r["n"] for r in records),
+            "the continual phase's `cli serve`")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        rc_s, err_text, warm = stop_cli_serve(proc, err_path)
+    check(not errors, f"requests failed (error, sent at): {errors[:3]}; "
+          f"marks {marks}")
+    check(rc_s == 0, f"cli serve exited {rc_s}: {err_text[-2000:]}")
+    host = {}
+    for tag, text in (("v1", v1_text), ("v2", v2_text)):
+        path = os.path.join(d, tag, "gbdt.model")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text)
+        host[tag] = create_host(serve_conf(path, d, f"host_{tag}"))
+    of, recs = held_versions(records, host, pool)
+    first_v2 = min((r for r in recs if r["tag"] == "v2"),
+                   key=lambda r: r["t1"], default=None)
+    check(first_v2 is not None, "the server never answered with v2")
+    swap_s = first_v2["wall"] - vinfo["promoted_at"]
+    between = [r["tag"] for r in recs
+               if marks["reject0"] <= r["t0"] and r["t1"] <= marks["reject1"]]
+    after_rb = [r for r in recs if r["t0"] > marks["rollback"]]
+    back = min((r["t1"] for r in after_rb if r["tag"] == "v1"), default=None)
+    check(between and set(between) == {"v2"},
+          f"answers during the rejection: {sorted(set(between))}")
+    check(back is not None and not [r for r in after_rb if r["tag"] == "v2"
+                                    and r["t0"] > back],
+          "the server did not stay on v1 after the rollback")
+    # sent after v2 first answered, answered before the rollback began (a
+    # request that straddles the rollback may be scored on either side)
+    late_v1 = [(r["version"], r["t0"], r["t1"]) for r in recs
+               if r["tag"] == "v1" and r["t0"] > first_v2["t1"]
+               and r["t1"] < marks["rollback"]]
+    check(not late_v1, f"v1 answered after v2 had, before the rollback: "
+          f"(server version, sent, answered) {late_v1[:3]}, v2 first "
+          f"answered at {first_v2['t1']}, the rollback began at "
+          f"{marks['rollback']}")
+    check(swap_s <= 10 * CONT_WATCH_S,
+          f"v2 answered {swap_s:.3f} s after its promotion")
+    lat = sorted((r["t1"] - r["t0"]) * 1e3 for r in recs)
+    print(f"continual: {len(recs)} requests, {sum(r['n'] for r in recs)} "
+          f"rows under {SERVE_OPS_THREADS} clients ({CONT_THINK_S} s "
+          f"apart), no failure; server versions {json.dumps(of)}; v2 first "
+          f"answered {swap_s:.3f} s after promoted_at, v1 again "
+          f"{back - marks['rollback']:.3f} s after the rollback began; "
+          f"client-clock p50 {statistics.median(lat):.4f} ms, p99 "
+          f"{lat[min(len(lat) - 1, int(math.ceil(0.99 * len(lat))) - 1)]:.4f}"
+          f" ms; reload warm_ms {warm}; the server's K6 launches "
+          f"{k6_serve} (serve.scorer.batches); every response bit-equal to "
+          f"the host walk of its version [{card}]", flush=True)
+    print(f"continual: {time.perf_counter() - t_phase:.3f} s (wall) in all "
+          f"[{card}]", flush=True)
+    return counts, k6
+
+
+def _small_retrain(d, who, device, data, extra):
+    """An int8 retrain of the small Higgs-shaped set on `device`."""
+    from ytklearn_tpu_torch import continual
+    from ytklearn_tpu_torch.config import hocon
+
+    cfg = hocon.load(CONF)
+    model = os.path.join(d, who, "gbdt.model")
+    for key, val in (("data.train.data_path", data),
+                     ("data.test.data_path", os.path.join(d, "small_test")),
+                     ("model.data_path", model),
+                     ("model.feature_importance_path", model + ".imp"),
+                     ("optimization.round_num", CONT_SMALL_ROUNDS[0]),
+                     ("optimization.max_depth", 6)):
+        hocon.set_path(cfg, key, val)
+    res = continual.retrain("gbdt", cfg, device=device, extra_rounds=extra,
+                            hist_precision="int8")
+    with open(model) as f:
+        return res, f.read()
+
+
+def _model_text(path):
+    """Every part file of a dumped convex model, concatenated."""
+    out = []
+    for part in sorted(os.listdir(path)):
+        with open(os.path.join(path, part)) as f:
+            out.append(f.read())
+    return "".join(out)
+
+
+def continual_card_cpu(d, live, holdout, card):
+    """phase_continual's card-against-CPU checks (see there); `live` is
+    the served incumbent, `holdout` the held-out directory."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.scripts.bench_gbdt import gen_higgs_like
+    from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case
+
+    t0 = time.perf_counter()
+    # int8 retrain: bootstrap, then extra rounds on fresh lines
+    n, n_test = CONT_SMALL
+    rng = np.random.RandomState(CONT_SEED + 7)
+    tr, te = gen_higgs_like(n, n_test, N_FEATURES, CONT_SEED + 7)
+    tr2, _ = gen_higgs_like(n, 1, N_FEATURES, CONT_SEED + 8)
+    for name, data in (("small_a", tr), ("small_test", te),
+                       ("small_b", tr2)):
+        write_ytk_text(os.path.join(d, name), data.X, data.y, rng)
+    zero_kernel_counts()
+    texts = {}
+    for who, device in (("int8_cuda", "cuda"), ("int8_cpu", "cpu")):
+        boot, t_boot = _small_retrain(d, who, device,
+                                      os.path.join(d, "small_a"), 0)
+        warm, t_warm = _small_retrain(d, who, device,
+                                      os.path.join(d, "small_b"),
+                                      CONT_SMALL_ROUNDS[1])
+        texts[who] = (t_boot, t_warm, boot, warm)
+        if device == "cuda":
+            counts = kernel_counts()
+    (cb, cw, cboot, cwarm), (pb, pw, pboot, pwarm) = (texts["int8_cuda"],
+                                                      texts["int8_cpu"])
+    print(f"continual: int8 retrain at {n} + {n_test} lines in "
+          f"{time.perf_counter() - t0:.3f} s (wall), "
+          f"{CONT_SMALL_ROUNDS[0]} + {CONT_SMALL_ROUNDS[1]} rounds: card "
+          f"promoted {cboot.promoted}/{cwarm.promoted} (v{cwarm.version}), "
+          f"cpu {pboot.promoted}/{pwarm.promoted}; card dumps byte-identical "
+          f"to the CPU's: bootstrap {cb == pb}, warm {cw == pw}; card "
+          f"launches hist_q {counts['hist_q']}, hist_gather_q "
+          f"{counts['hist_gather_q']}, route {counts['route']} [{card}]",
+          flush=True)
+    check(cwarm.promoted and pwarm.promoted and cwarm.version == 2
+          and cb == pb and cw == pw,
+          "the int8 card retrain is not the CPU retrain byte for byte")
+    check(counts["hist_q"] > 0 and counts["route"] > 0
+          and counts["hist"] == 0, f"int8 launches {counts}")
+
+    # FTRL on the convex phase's linear lines: twice on the card, once on
+    # the CPU
+    t1 = time.perf_counter()
+    name, family, lines, kw = CONVEX_DATA[0]
+    cfg = write_convex_case(os.path.join(d, "ftrl"), family, lines,
+                            lines // 8, CONVEX_SEED, **kw)
+    cfg["continual"] = {"ftrl": {"alpha": 1.0, "l2": 1e-4},
+                        "batch_rows": 8192, "band": 0.5}
+    # the gate on the test file's first CONT_FTRL_TEST lines: the linear
+    # scorer's featurized rows are dense (rows x 50001)
+    test = cfg["data"]["test"]["data_path"]
+    with open(test) as f:
+        head = [line for _, line in zip(range(CONT_FTRL_TEST), f)]
+    with open(test + ".head", "w") as f:
+        f.writelines(head)
+    cfg["data"]["test"]["data_path"] = test + ".head"
+    from ytklearn_tpu_torch.continual import online
+
+    real_pass = online.ftrl_pass
+    states = []
+
+    def ftrl_pass(*a, **kw):
+        state = real_pass(*a, **kw)
+        states.append(state.w.cpu().numpy())
+        return state
+
+    texts, ftrl_out, ws = {}, {}, {}
+    online.ftrl_pass = ftrl_pass
+    try:
+        for who, device, passes in (("card_a", "cuda", 2),
+                                    ("card_b", "cuda", 2), ("cpu", "cpu", 1)):
+            c = json.loads(json.dumps(cfg))
+            c["model"]["data_path"] = os.path.join(d, f"ftrl_{who}", "model")
+            conf = os.path.join(d, f"ftrl_{who}.conf")
+            with open(conf, "w") as f:
+                json.dump(c, f)
+            outs = []
+            del states[:]
+            # a bootstrap pass, then (on the card) a warm one
+            for _step in range(passes):
+                rc, out = cli_quiet(["retrain", family, conf, "--mode",
+                                     "ftrl", "--device", device])
+                check(rc == 0 and out["promoted"], f"ftrl retrain {out}")
+                outs.append(out)
+            ftrl_out[who], ws[who] = outs, list(states)
+            texts[who] = _model_text(c["model"]["data_path"])
+    finally:
+        online.ftrl_pass = real_pass
+    same = (texts["card_a"] == texts["card_b"] and all(
+        np.array_equal(x, y) for x, y in zip(ws["card_a"], ws["card_b"])))
+    # the bootstrap pass from zeros, card against CPU: float32 gradient
+    # sums in another order part a weight whose z sums cancel, so rtol
+    # 1e-5 plus 1e-5 of the largest |w|
+    va, vc = ws["card_a"][0], ws["cpu"][0]
+    scale = float(np.max(np.abs(vc)))
+    gap = float(np.max(np.abs(va - vc)))
+    close = bool(np.allclose(va, vc, rtol=1e-5, atol=1e-5 * scale))
+    print(f"continual: retrain {family} --mode ftrl on {lines} lines "
+          f"in {time.perf_counter() - t1:.3f} s (wall; bootstrap, then "
+          f"warm on the card; bootstrap on the CPU), the "
+          f"gate on {CONT_FTRL_TEST} held-out lines: avg loss card "
+          f"{[o['trained']['avg_loss'] for o in ftrl_out['card_a']]}, cpu "
+          f"{[o['trained']['avg_loss'] for o in ftrl_out['cpu']]}; the two "
+          f"card runs bit-equal (both passes' weights, the dumps): {same}; "
+          f"the bootstrap pass's {va.size} weights within rtol 1e-5 plus "
+          f"1e-5 of the largest |w| ({scale:.6g}) of the CPU's: {close} "
+          f"(largest gap {gap:.3g}) [{card}]", flush=True)
+    check(same and close and len(ws["card_a"]) == 2,
+          "FTRL on the card is not repeatable or parts from the CPU's")
+
+    # cli predict over the held-out file's first lines, on the incumbent
+    t1 = time.perf_counter()
+    pfile = os.path.join(d, "predict.txt")
+    with open(pfile, "w") as g:
+        n_lines = 0
+        for part in sorted(os.listdir(holdout)):
+            with open(os.path.join(holdout, part)) as f:
+                for line in f:
+                    if n_lines < CONT_PREDICT_ROWS:
+                        g.write(line)
+                        n_lines += 1
+    pconf = serve_conf(live, d, "predict")
+    host = create_host(pconf)
+    want = host.batch_scores(read_holdout(pfile, CONT_PREDICT_ROWS))
+    got = {}
+    for tag, extra in (("raw_cuda", ["--device", "cuda", "--set",
+                                     "optimization.loss_function=l2"]),
+                       ("cuda", ["--device", "cuda"]),
+                       ("cpu", ["--device", "cpu"]),
+                       ("leaf_cuda", ["--device", "cuda", "--predict-type",
+                                      "leafid"]),
+                       ("leaf_cpu", ["--device", "cpu", "--predict-type",
+                                     "leafid"])):
+        rc, out = cli_quiet(["predict", pconf, "gbdt", pfile, "--suffix",
+                             f"_{tag}", "--set",
+                             "optimization.round_num=0"] + extra)
+        check(rc == 0, f"cli predict {tag}")
+        with open(pfile + f"_{tag}") as f:
+            got[tag] = f.read().splitlines()
+    raw = np.asarray([float(v) for v in got["raw_cuda"]])
+    pc = np.asarray([float(v) for v in got["cuda"]])
+    pp = np.asarray([float(v) for v in got["cpu"]])
+    sig = 1.0 / (1.0 + np.exp(-want))
+    print(f"continual: cli predict gbdt over {CONT_PREDICT_ROWS} held-out "
+          f"lines, five runs in {time.perf_counter() - t1:.3f} s: raw scores bit-equal to the host walk "
+          f"{np.array_equal(raw, want)}; predictions on the card within "
+          f"rtol 1e-14 of the CPU's {np.allclose(pc, pp, rtol=1e-14, atol=0)}"
+          f" and of the host's sigmoid "
+          f"{np.allclose(pc, sig, rtol=1e-14, atol=0)}; leaf ids equal "
+          f"{got['leaf_cuda'] == got['leaf_cpu']} [{card}]", flush=True)
+    check(np.array_equal(raw, want)
+          and np.allclose(pc, pp, rtol=1e-14, atol=0)
+          and np.allclose(pc, sig, rtol=1e-14, atol=0)
+          and got["leaf_cuda"] == got["leaf_cpu"]
+          and len(got["leaf_cuda"]) == CONT_PREDICT_ROWS,
+          "cli predict on the card parts from the host walk or the CPU")
+
+    # cli convert, then cli train on its output
+    lib = os.path.join(d, "small.libsvm")
+    Xs, ys = tr.X[:4096].cpu().double().numpy(), tr.y[:4096].cpu().numpy()
+    with open(lib, "w") as f:
+        for x, y in zip(Xs.tolist(), ys.tolist()):
+            f.write(("+1" if y > 0 else "-1") + " " + " ".join(
+                f"{j + 1}:{v:.6g}" for j, v in enumerate(x)) + "\n")
+    conv = os.path.join(d, "small.ytk")
+    rc, out = cli_quiet(["convert", "binary_classification@-1,+1", lib,
+                         conv])
+    check(rc == 0 and out["lines"] == 4096, f"cli convert {out}")
+    lconf = os.path.join(d, "converted.conf")
+    with open(lconf, "w") as f:
+        json.dump({"data": {"train": {"data_path": conv}},
+                   "model": {"data_path": os.path.join(d, "converted")},
+                   "loss": {"loss_function": "sigmoid",
+                            "evaluate_metric": ["auc"],
+                            "regularization": {"l2": [1e-3]}},
+                   "optimization": {"line_search": {"lbfgs": {
+                       "convergence": {"max_iter": 10}}}}}, f)
+    rc, out = cli_quiet(["train", "linear", lconf, "--device", "cuda"])
+    print(f"continual: cli convert wrote {out and 4096} lines; cli train "
+          f"linear on them: rc {rc}, train AUC "
+          f"{out['train_metrics']['auc']:.6f} [{card}]", flush=True)
+    check(rc == 0 and out["train_metrics"]["auc"] > 0.5,
+          f"cli train on the converted file: {out}")
+    torch.cuda.empty_cache()
+    print(f"continual: card against CPU {time.perf_counter() - t0:.3f} s "
+          f"(wall) [{card}]", flush=True)
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -4860,6 +5526,9 @@ def main() -> int:
         # slice 14: `cli serve` at the reference's defaults, hot reload,
         # rollback, the obs planes; both serving rungs in this process
         timed("serve_ops", phase_serve_ops, tmp, model, cli_model, card)
+        torch.cuda.empty_cache()
+        # slice 15: `cli retrain` against that model served under traffic
+        timed("continual", phase_continual, tmp, cli_model, card)
         torch.cuda.empty_cache()
         # slice 13: the host engine over the same text, then resilience
         t0 = time.perf_counter()

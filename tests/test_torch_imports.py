@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "gbdt.route", "gbdt.state", "gbdt.trainer", "io.fs",
               "io.reader", "scripts.tune_hist_kernel", "scripts.tune_hist",
               "scripts.micro_hist_gather", "scripts.tune_gbdt",
-              "scripts.time_hist"):
+              "scripts.time_hist", "continual", "continual.driver",
+              "continual.gates", "continual.online", "optimize.ftrl",
+              "io.libsvm", "predict.base"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -1,6 +1,9 @@
 """Command-line entry points of the port.
 
   python -m ytklearn_tpu_torch.cli train <model_name> <config_path> [options]
+  python -m ytklearn_tpu_torch.cli retrain <model_name> <config_path> [options]
+  python -m ytklearn_tpu_torch.cli predict <config_path> <model_name> <file_dir>
+  python -m ytklearn_tpu_torch.cli convert <mode> <input_path> <output_path>
   python -m ytklearn_tpu_torch.cli serve <config_path> <model_name> [options]
 
 `train` is the reference's bin/local_optimizer.sh: it parses the HOCON
@@ -43,8 +46,20 @@ one JSON banner line with the bound port, `wall_t0` and the rung (its
 precision: YTK_SERVE_PRECISION) on stdout. SIGTERM drains and exits 0.
 `--replicas*` other than 0 (the fleet, ROADMAP.md 1.6) and YTK_PROF (the
 profiling plane, 1.12) raise NotImplementedError.
-The other subcommands of the JAX package's CLI come with their slices
-(ROADMAP.md).
+
+`retrain` is the continual-training driver (continual/): it warm-starts a
+candidate on `--data` in a shadow path on `--device` (default `cuda`),
+gates it on the health sentinels and the held-out loss over `--test`
+against the serving incumbent, promotes it atomically on a pass (the
+serving watcher swaps it in), and prints one JSON record; `--rollback`
+restores the newest archive; `--mode ftrl` streams one FTRL-proximal pass
+(convex families). A strict rejection (YTK_CONTINUAL_STRICT=1) exits 1.
+`predict` is the offline batch predictor (bin/predict.sh, Predicts.java):
+it writes `<file><suffix>` result files in any save mode and predict type
+and prints the weighted average loss; the activation and the loss run on
+`--device` (default `cuda`). `convert` is bin/libsvm_convert_2_ytklearn.sh
+(io/libsvm.py). `--devices` > 1 (ROADMAP.md 1.7) and `--trace-out` (1.12)
+raise NotImplementedError in both.
 """
 
 from __future__ import annotations
@@ -270,6 +285,190 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
     return 0
 
 
+def predict_main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="ytklearn-tpu-torch-predict",
+        description="Offline batch prediction "
+        "(reference: bin/predict.sh + predictor/Predicts.java:36-54)",
+    )
+    ap.add_argument("config_path")
+    ap.add_argument("model_name", choices=MODEL_NAMES)
+    ap.add_argument("file_dir", help="file or directory of data to predict")
+    ap.add_argument("--transform", action="store_true")
+    ap.add_argument("--transform-script", default="bin/transform.py")
+    ap.add_argument("--save-mode", default="predict_result_only",
+                    choices=("predict_result_only", "label_and_predict",
+                             "predict_as_feature"))
+    ap.add_argument("--suffix", default="_predict")
+    ap.add_argument("--max-error-tol", type=int, default=100)
+    ap.add_argument("--eval-metric", default="", help='e.g. "auc,mae"')
+    ap.add_argument("--predict-type", default="value",
+                    choices=("value", "leafid"))
+    ap.add_argument("--set", action="append", dest="sets",
+                    metavar="KEY=VALUE")
+    ap.add_argument("--trace-out", default="",
+                    help="Chrome-trace output (not ported yet)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the activation and the loss: cuda "
+                    "(default) or cpu")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    _setup_logging(args.verbose)
+    if args.trace_out:
+        raise _not_ported("--trace-out", "1.12, the obs planes")
+
+    from .config import hocon
+    from .predict import batch_predict_from_files, create_predictor
+
+    cfg = _apply_overrides(hocon.load(args.config_path), args.sets)
+    predictor = create_predictor(args.model_name, cfg)
+    K = int(cfg.get("k", -1)) if args.model_name == "multiclass_linear" else -1
+    avg_loss = batch_predict_from_files(
+        predictor,
+        args.model_name,
+        args.file_dir,
+        need_py_transform=args.transform,
+        py_transform_script=args.transform_script,
+        result_save_mode=args.save_mode,
+        result_file_suffix=args.suffix,
+        max_error_tol=args.max_error_tol,
+        eval_metric_str=args.eval_metric,
+        predict_type_str=args.predict_type,
+        K=K,
+        device=args.device,
+    )
+    print(json.dumps({"model": args.model_name, "avg_loss": avg_loss}),
+          flush=True)
+    return 0
+
+
+def convert_main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="ytklearn-tpu-torch-convert",
+        description="libsvm -> ytklearn format (reference: "
+        "bin/libsvm_convert_2_ytklearn.sh + utils/LibsvmConvertTool.java)",
+    )
+    ap.add_argument("mode", help='binary_classification@l0,l1 | '
+                                 'multi_classification@l0,l1,... | regression')
+    ap.add_argument("input_path")
+    ap.add_argument("output_path")
+    ap.add_argument("--x-delim", default="###")
+    ap.add_argument("--y-delim", default=",")
+    ap.add_argument("--features-delim", default=",")
+    ap.add_argument("--feature-name-val-delim", default=":")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    from .io.libsvm import convert_libsvm
+
+    cnt = convert_libsvm(
+        args.mode,
+        args.input_path,
+        args.output_path,
+        x_delim=args.x_delim,
+        y_delim=args.y_delim,
+        features_delim=args.features_delim,
+        feature_name_val_delim=args.feature_name_val_delim,
+    )
+    print(json.dumps({"lines": cnt, "output": args.output_path}), flush=True)
+    return 0
+
+
+def retrain_main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="ytklearn-tpu-torch-retrain",
+        description="Continual training driver: warm-start a candidate on "
+        "new data in a shadow path, validate it against the health gates "
+        "and a held-out metric band versus the serving incumbent, and "
+        "promote it atomically only on a pass; the serving registry's "
+        "fingerprint watcher swaps the promoted model in under traffic",
+    )
+    ap.add_argument("model_name", choices=MODEL_NAMES)
+    ap.add_argument("config_path")
+    ap.add_argument("--data", default="",
+                    help="fresh training data path(s) (comma-separated); "
+                    "overrides data.train.data_path")
+    ap.add_argument("--test", default="",
+                    help="held-out data path(s) for the metric gate; "
+                    "overrides data.test.data_path")
+    ap.add_argument("--mode", default="", choices=("", "warm", "ftrl"),
+                    help="warm = full warm-start refit (default); ftrl = "
+                    "one FTRL-proximal online pass (convex families)")
+    ap.add_argument("--extra-rounds", type=int, default=-1,
+                    help="extra boosting rounds for GBDT/GBST warm starts "
+                    "(default: continual.extra_rounds)")
+    ap.add_argument("--rollback", action="store_true",
+                    help="restore the newest archived version over the "
+                    "served path instead of retraining")
+    ap.add_argument("--transform", action="store_true",
+                    help="enable the python line-transform hook")
+    ap.add_argument("--transform-script", default="bin/transform.py")
+    ap.add_argument("--device", default="cuda",
+                    help="device to train and gate on: cuda (default) or "
+                    "cpu")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="GPUs to train on; more than one is not ported yet")
+    ap.add_argument("--set", action="append", dest="sets",
+                    metavar="KEY=VALUE", help="config override, repeatable")
+    ap.add_argument("--trace-out", default="",
+                    help="Chrome-trace output (not ported yet)")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    _setup_logging(args.verbose)
+    if args.devices > 1:
+        raise _not_ported("--devices > 1", "1.7, multi-GPU data-parallel GBDT")
+    if args.trace_out:
+        raise _not_ported("--trace-out", "1.12, the obs planes")
+
+    from .config import hocon
+    from .continual import RetrainRejected, retrain, rollback
+
+    cfg = _apply_overrides(hocon.load(args.config_path), args.sets)
+    if args.data:
+        cfg = hocon.set_path(cfg, "data.train.data_path", args.data)
+    if args.test:
+        cfg = hocon.set_path(cfg, "data.test.data_path", args.test)
+
+    if args.rollback:
+        res = rollback(args.model_name, cfg)
+        print(json.dumps(res.to_json()), flush=True)
+        return 0
+
+    hook = None
+    if args.transform:
+        from .io.reader import load_transform_hook
+
+        hook = load_transform_hook(args.transform_script)
+    from .resilience import Preempted
+
+    try:
+        res = retrain(
+            args.model_name, cfg,
+            mode=args.mode or None,
+            extra_rounds=args.extra_rounds if args.extra_rounds >= 0 else None,
+            transform_hook=hook,
+            device=args.device,
+        )
+    except Preempted as e:
+        # the candidate's training was preempted: the incumbent keeps
+        # serving, the lock is released, and the next run retrains
+        logging.getLogger("ytklearn_tpu_torch.cli").warning(
+            "%s; exiting %d", e, e.exit_code)
+        return e.exit_code
+    except RetrainRejected as e:
+        # YTK_CONTINUAL_STRICT=1: a rejection fails the surrounding
+        # pipeline, with a clean JSON record on stdout all the same
+        print(json.dumps({
+            "promoted": False,
+            "strict": True,
+            "reasons": e.report.reasons,
+        }), flush=True)
+        return 1
+    print(json.dumps(res.to_json()), flush=True)
+    return 0
+
+
 def _setup_trace(trace_out: str) -> None:
     """--trace-out: enable obs + register the Chrome-trace export."""
     if trace_out:
@@ -439,17 +638,18 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: python -m ytklearn_tpu_torch.cli {train,serve} ...")
+        print("usage: python -m ytklearn_tpu_torch.cli "
+              "{train,retrain,predict,convert,serve} ...")
         return 0 if argv else 2
     cmd, rest = argv[0], argv[1:]
-    if cmd == "train":
-        return train_main(rest)
-    if cmd == "serve":
-        return serve_main(rest)
-    print(f"unknown command {cmd!r}; the port has: train, serve "
-          "(retrain/predict/convert come with their slices)",
-          file=sys.stderr)
-    return 2
+    commands = {"train": train_main, "retrain": retrain_main,
+                "predict": predict_main, "convert": convert_main,
+                "serve": serve_main}
+    if cmd not in commands:
+        print(f"unknown command {cmd!r}; expected "
+              "train|retrain|predict|convert|serve", file=sys.stderr)
+        return 2
+    return commands[cmd](rest)
 
 
 if __name__ == "__main__":

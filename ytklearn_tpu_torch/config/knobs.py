@@ -113,6 +113,32 @@ _knob("YTK_PREEMPT", "bool", True,
       "round/iteration boundary, emergency checkpoint, exit 128+signum "
       "(`--resume auto` re-enters training); `0` keeps raw signal "
       "semantics")
+_knob("YTK_RETRAIN_LOCK_TTL_S", "float", 900.0,
+      "retrain lockfile heartbeat staleness (seconds) after which a new "
+      "retrain auto-reclaims the lock; same-host dead owners are "
+      "reclaimed immediately")
+
+# -- continual training (same defaults as ytklearn_tpu/config/knobs.py:
+# 266-285) -------------------------------------------------------------------
+_knob("YTK_GATE_COMPILED", "bool", True,
+      "route the continual gate's held-out eval through CompiledScorer "
+      "(the serving rungs on the device); `0` keeps the host row walk")
+_knob("YTK_CONTINUAL_BAND", "float", 0.0,
+      "relative held-out-loss tolerance for retrain promotion: a candidate "
+      "passes the metric gate when loss <= incumbent * (1 + band); 0 = "
+      "must be no worse (config `continual.band` overrides per run)")
+_knob("YTK_CONTINUAL_KEEP", "int", 2,
+      "archived incumbent versions kept next to the model path for "
+      "`retrain --rollback`")
+_knob("YTK_CONTINUAL_STRICT", "bool", False,
+      "escalate a rejected retrain candidate to a non-zero exit "
+      "(unattended freshness pipelines; default records the rejection "
+      "and keeps the incumbent)")
+_knob("YTK_CONTINUAL_DRIFT_URL", "str", None,
+      "serving base URL (e.g. `http://127.0.0.1:8080`) the retrain "
+      "driver fetches `/metrics?quality=1` from: the serve-side drift "
+      "snapshot is recorded as an ADVISORY gate input (never pass/fail) "
+      "in the gate report and result JSON")
 
 # -- obs planes and serving (same defaults as ytklearn_tpu/config/knobs.py) --
 _knob("YTK_OBS", "str", None,
@@ -172,11 +198,13 @@ _knob("YTK_MODEL_METRICS_MAX", "int", 32,
       "bounded by construction — see "
       "[observability.md](observability.md) \"Per-model accounting\"")
 _knob("YTK_HEALTH", "bool", True,
-      "run-health sentinels (SLO burn, drift, calibration); `0` reduces every "
-      "check to one attribute load")
+      "run-health sentinels (NaN/divergence/ingest-rate, SLO burn, drift, "
+      "calibration); `0` reduces every check to one attribute load")
 _knob("YTK_HEALTH_STRICT", "bool", False,
       "escalate sentinel hits to HealthError naming the flight dump "
       "(unattended production runs)")
+_knob("YTK_HEALTH_INGEST_TOL", "float", 0.01,
+      "ingest error-rate threshold (fraction) for the parse sentinel")
 _knob("YTK_SLO_BURN_WINDOW", "int", 256,
       "requests per SLO burn-rate window: the `health.slo_burn` sentinel "
       "judges the violation rate once per full window")

@@ -4,8 +4,8 @@ The fields of ``ytklearn_tpu/config/params.py`` that the port reads, with
 the same config paths, defaults and ``???`` handling, so one config file
 drives both packages: ``GBDTParams`` (the GBDT predictor, ingest and
 device-engine trainer) and ``CommonParams`` (the convex families: linear,
-multiclass_linear, FM, FFM) with their blocks. The ``continual.*`` block
-comes with continual training (ROADMAP.md 1.11).
+multiclass_linear, FM, FFM) with their blocks, and on both the
+``continual.*`` block of the retrain driver (``ContinualParams``).
 """
 
 from __future__ import annotations
@@ -315,6 +315,35 @@ class RandomParams:
 
 
 @dataclass
+class ContinualParams:
+    """The continual-training block (`continual.*`; the JAX package's,
+    config/params.py:288-315): what `cli retrain` reads."""
+
+    mode: str = "warm"  # warm (full warm-start refit) | ftrl (online pass)
+    extra_rounds: int = 10  # extra boosting rounds per GBDT/GBST retrain
+    band: float = -1.0  # held-out loss tolerance; < 0 -> YTK_CONTINUAL_BAND
+    # FTRL-proximal hyperparameters (McMahan et al., KDD 2013)
+    ftrl_alpha: float = 0.1
+    ftrl_beta: float = 1.0
+    ftrl_l1: float = 0.0
+    ftrl_l2: float = 0.0
+    batch_rows: int = 8192  # streaming minibatch rows of the FTRL pass
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "ContinualParams":
+        return cls(
+            mode=str(_opt(cfg, "continual.mode", "warm")),
+            extra_rounds=int(_opt(cfg, "continual.extra_rounds", 10)),
+            band=float(_opt(cfg, "continual.band", -1.0)),
+            ftrl_alpha=float(_opt(cfg, "continual.ftrl.alpha", 0.1)),
+            ftrl_beta=float(_opt(cfg, "continual.ftrl.beta", 1.0)),
+            ftrl_l1=float(_opt(cfg, "continual.ftrl.l1", 0.0)),
+            ftrl_l2=float(_opt(cfg, "continual.ftrl.l2", 0.0)),
+            batch_rows=int(_opt(cfg, "continual.batch_rows", 8192)),
+        )
+
+
+@dataclass
 class CommonParams:
     """The convex and GBST families' blocks (reference:
     param/CommonParams.java:40-45) and the root-level scalars they read:
@@ -332,6 +361,7 @@ class CommonParams:
     line_search: LineSearchParams = field(default_factory=LineSearchParams)
     hyper: HyperParams = field(default_factory=HyperParams)
     random: RandomParams = field(default_factory=RandomParams)
+    continual: ContinualParams = field(default_factory=ContinualParams)
     k: Any = None
     bias_need_latent_factor: bool = False
     instance_sample_rate: float = 1.0
@@ -356,6 +386,7 @@ class CommonParams:
             line_search=LineSearchParams.from_config(cfg),
             hyper=HyperParams.from_config(cfg),
             random=RandomParams.from_config(cfg),
+            continual=ContinualParams.from_config(cfg),
             k=_opt(cfg, "k", None),
             bias_need_latent_factor=bool(
                 _opt(cfg, "bias_need_latent_factor", False)),
@@ -444,6 +475,7 @@ class GBDTParams:
     split_type: str = "mean"  # mean | median
     approximate: List[ApproximateSpec] = field(default_factory=list)
     missing_value: str = "value"  # mean | quantile[@q] | value[@v]
+    continual: ContinualParams = field(default_factory=ContinualParams)
 
     @classmethod
     def from_config(cls, cfg: dict) -> "GBDTParams":
@@ -491,6 +523,7 @@ class GBDTParams:
             split_type=str(_opt(cfg, "feature.split_type", "mean")),
             approximate=appr,
             missing_value=str(_opt(cfg, "feature.missing_value", "value")),
+            continual=ContinualParams.from_config(cfg),
         )
 
     @property

@@ -80,7 +80,7 @@ from ..device import resolve_device
 from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
 from ..losses import GBDT_TRAINABLE, create_loss
-from ..obs import span as obs_span
+from ..obs import health, span as obs_span
 from ..obs.quality import (
     build_score_block,
     build_training_sketch,
@@ -603,6 +603,7 @@ class GBDTTrainer(HostEngine):
                 # of the round before comes after that round's dump
                 chaos_point("gbdt.sync")
                 tl = float(state[3][rnd])
+                self._health_sync(rnd, tl)
                 self.sync_log.append((rnd, time.time() - t0))
                 msg = f"[round={rnd}] {time.time() - t0:.1f}s train loss={tl:.6f}"
                 if state[1] is not None:
@@ -698,6 +699,14 @@ class GBDTTrainer(HostEngine):
         if self._efb_plan is not None:
             ts["efb_cols_saved"] = float(F - self._efb_plan.n_cols)
 
+    def _health_sync(self, rnd: int, tl: float) -> None:
+        """The sentinel at a sync read: a NaN/inf train loss (strict mode
+        aborts the run with the flight-dump path). The reference's retrace
+        alarm beside it comes with the retrace sentinel (ROADMAP.md 1.12)."""
+        if not health.enabled():
+            return
+        health.check_loss("gbdt.sync", tl, round=rnd)
+
     # -- trees and the dump ---------------------------------------------------
 
     def _append_trees_from_bufs(self, model: GBDTModel, bufs,
@@ -711,8 +720,13 @@ class GBDTTrainer(HostEngine):
         host = {k: v[have:want].cpu().numpy()
                 for k, v in bufs.items() if k != "wlog"}
         for i in range(want - have):
-            model.trees.append(self._arrays_to_tree(
-                {k: v[i] for k, v in host.items()}, bins, names))
+            tree = self._arrays_to_tree({k: v[i] for k, v in host.items()},
+                                        bins, names)
+            # tree sanity on the fetched arrays: an empty tree means
+            # boosting stopped learning, a NaN gain rotten split statistics
+            health.check_tree("gbdt.tree", len(tree.gain), tree.gain,
+                              tree=have + i)
+            model.trees.append(tree)
 
     def _arrays_to_tree(self, d: Dict[str, np.ndarray], bins, names) -> Tree:
         nn = int(d["n_nodes"])

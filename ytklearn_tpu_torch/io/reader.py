@@ -39,6 +39,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
 import numpy as np
 
 from ..config.params import CommonParams, DelimParams
+from ..obs import health, inc as obs_inc
 from . import native
 from .feature_hash import FeatureHash
 from .fs import LocalFileSystem
@@ -267,6 +268,7 @@ class DataIngest:
         ys = dict(self.params.data.y_sampling)
         rows: List[ParsedLine] = []
         errors = 0
+        subsampled = 0  # parse-valid lines dropped by y_sampling
         for raw in lines:
             if not raw.strip():
                 continue
@@ -288,6 +290,7 @@ class DataIngest:
                         if rate is not None:
                             pl.weight *= (1.0 / rate) if rate <= 1.0 else rate
                             if self.rng.random() > rate:
+                                subsampled += 1
                                 continue
                 except (ValueError, IndexError, OverflowError):
                     errors += 1
@@ -295,6 +298,12 @@ class DataIngest:
                         raise
                     continue
                 rows.append(pl)
+        obs_inc("ingest.rows_parsed", len(rows))
+        obs_inc("ingest.error_lines", errors)
+        # the rate sentinel under the absolute max_error_tol cap; its
+        # denominator counts parse-valid lines before y_sampling drops them
+        health.check_ingest("ingest.parse", errors, len(rows) + subsampled,
+                            is_train=is_train)
         return rows
 
     # -- dict -----------------------------------------------------------
@@ -558,6 +567,7 @@ class DataIngest:
             names = list(uniq)
         keep = ~bad
         weight = blk.weights.astype(np.float64)
+        n_good = int(keep.sum())  # parse-valid lines, before y_sampling
         if is_train and p.data.y_sampling:
             # label-dependent subsampling (CoreData.yExtract): one
             # rng.random() a kept row whose label has a rate, in row order,
@@ -570,7 +580,9 @@ class DataIngest:
                 lidx = np.argmax(y == 1.0, axis=1)
                 # a K-vector without an exact 1.0 is an error line, as the
                 # Python path's labels.index(1.0) raise
-                n_errors += int((keep & ~has1).sum())
+                newly_bad = int((keep & ~has1).sum())
+                n_errors += newly_bad
+                n_good -= newly_bad
                 keep &= has1
             for i in np.flatnonzero(keep):
                 rate = ys.get(str(int(lidx[i])))
@@ -582,6 +594,10 @@ class DataIngest:
         if n_errors > max_error_tol:
             raise ValueError(f"data error lines ({n_errors}) exceed "
                              f"max_error_tol ({max_error_tol})")
+        obs_inc("ingest.rows_parsed", float(keep.sum()))
+        obs_inc("ingest.error_lines", float(n_errors))
+        health.check_ingest("ingest.parse_native", int(n_errors), n_good,
+                            is_train=is_train)
         new_row = np.cumsum(keep) - 1
         occ_keep = keep[occ_row]
         return _Cols(weight=weight[keep].astype(np.float32), y=y[keep],

@@ -34,6 +34,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import health
 from .blocked import make_value_and_grad
 
 _MODES = {"sufficient_decrease": 0, "wolfe": 1, "strong_wolfe": 2}
@@ -308,8 +309,17 @@ def minimize_lbfgs(
     it = 0
     status = "max_iter"
     converged = False
+    # the sentinels read the loss the iteration already brought to the
+    # host; YTK_HEALTH=0 drops them (one attribute load)
+    health_on = health.enabled()
+    guard = health.ProgressGuard("lbfgs", window=10) if health_on else None
     for it in range(1, config.max_iter + 1):
         state = solver.iteration(state)
+        if health_on:
+            if not health.check_loss("lbfgs.loss", state.loss, it=it):
+                status = "nan_loss"
+                break
+            guard.update(state.loss, it=it)
         if not math.isfinite(state.loss):
             status = "nan_loss"
             break

@@ -1,12 +1,18 @@
 """Predictor side-stack (reference: predictor/OnlinePredictorFactory.java:32-80).
 
 `create_predictor(model_name, config)` serves every family `cli train`
-writes: the convex ones, the four GBST variants and "gbdt".
+writes: the convex ones, the four GBST variants and "gbdt";
+`batch_predict_from_files` is `cli predict` (Predicts.java:36-54).
 """
 
 from __future__ import annotations
 
-from .base import OnlinePredictor, numpy_activation
+from .base import (
+    OnlinePredictor,
+    batch_predict_from_files,
+    numpy_activation,
+    parse_feature_kvs,
+)
 from .continuous import (
     ContinuousPredictor,
     FFMPredictor,
@@ -25,8 +31,10 @@ __all__ = [
     "FFMPredictor",
     "GBDTPredictor",
     "GBSTPredictor",
+    "batch_predict_from_files",
     "create_predictor",
     "numpy_activation",
+    "parse_feature_kvs",
 ]
 
 _PREDICTORS = {

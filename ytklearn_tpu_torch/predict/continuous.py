@@ -120,7 +120,7 @@ class LinearPredictor(ContinuousPredictor):
                 return param[0]
         return 0.0
 
-    def score(self, features) -> float:
+    def score(self, features, other=None) -> float:
         s = 0.0
         for name, val in self._prep(features):
             param = self.model_map.get(name)
@@ -152,7 +152,7 @@ class MulticlassLinearPredictor(ContinuousPredictor):
             self.model_map[info[0].strip()] = np.asarray(
                 [float(v) for v in info[1:self.K]], np.float64)
 
-    def scores(self, features) -> List[float]:
+    def scores(self, features, other=None) -> List[float]:
         p = self.params.model
         s = np.zeros(self.K - 1, np.float64)
         for name, val in self._prep(features):
@@ -165,14 +165,14 @@ class MulticlassLinearPredictor(ContinuousPredictor):
                 s += w
         return list(s) + [0.0]
 
-    def score(self, features) -> float:
+    def score(self, features, other=None) -> float:
         raise ValueError("multiclass_linear is multi-output; use scores()")
 
-    def predicts(self, features) -> List[float]:
+    def predicts(self, features, other=None) -> List[float]:
         out = self._activation(np.asarray(self.scores(features)))
         return [float(v) for v in out]
 
-    def predict(self, features) -> float:
+    def predict(self, features, other=None) -> float:
         raise ValueError("multiclass_linear is multi-output; use predicts()")
 
     def loss_value(self, features, label) -> float:
@@ -194,7 +194,7 @@ class FMPredictor(ContinuousPredictor):
             self.model_map[info[0].strip()] = np.asarray(
                 [float(v) for v in info[1:2 + self.sok]], np.float64)
 
-    def score(self, features) -> float:
+    def score(self, features, other=None) -> float:
         p = self.params.model
         wx = 0.0
         S = np.zeros(self.sok, np.float64)
@@ -242,7 +242,7 @@ class FFMPredictor(ContinuousPredictor):
         fd = self.params.data.delim.field_delim
         return self.field_map.get(name.split(fd)[0], -1)
 
-    def score(self, features) -> float:
+    def score(self, features, other=None) -> float:
         p = self.params.model
         wx = 0.0
         rows = []  # (field, val, V (n_fields, k))

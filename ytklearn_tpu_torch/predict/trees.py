@@ -27,7 +27,11 @@ from .continuous import ContinuousPredictor
 
 
 class GBDTPredictor(OnlinePredictor):
-    """Serves the GBDT text model on feature dicts."""
+    """Serves the GBDT text model on feature dicts; `other` is the
+    sample-dependent base prediction (one, or one a class group), added as
+    its score after the trees."""
+
+    supports_leaf = True
 
     def __init__(self, config, fs: Optional[LocalFileSystem] = None):
         super().__init__(config, fs)
@@ -62,7 +66,7 @@ class GBDTPredictor(OnlinePredictor):
             nid = tree.left[nid] if go_left else tree.right[nid]
         return nid
 
-    def score(self, features) -> float:
+    def score(self, features, other=None) -> float:
         if self.K > 1:
             raise ValueError("multiclass gbdt: use scores()")
         s = 0.0
@@ -71,18 +75,29 @@ class GBDTPredictor(OnlinePredictor):
             s += t.leaf_value[self._tree_walk(t, features)]
         if self.learn_type == "random_forest":
             s /= max(self.use_rounds, 1)
-        return s + self.model.base_prediction
+        s += self.model.base_prediction
+        if other is not None:
+            s += float(self.loss.pred2score(float(other)))
+        return s
 
-    def scores(self, features) -> List[float]:
+    def scores(self, features, other=None) -> List[float]:
         if self.K == 1:
-            return [self.score(features)]
+            return [self.score(features, other)]
         s = [0.0] * self.K
         for i in range(self.use_rounds * self.K):
             t = self.model.trees[i]
             s[i % self.K] += t.leaf_value[self._tree_walk(t, features)]
         if self.learn_type == "random_forest":
             s = [v / max(self.use_rounds, 1) for v in s]
-        return [v + self.model.base_prediction for v in s]
+        s = [v + self.model.base_prediction for v in s]
+        if other is not None:
+            # the per-group sample-dependent base (reference:
+            # GBDTOnlinePredictor.batchPredictFromFiles:361-369)
+            others = (other if isinstance(other, (list, tuple))
+                      else [other] * self.K)
+            s = [v + float(self.loss.pred2score(float(o)))
+                 for v, o in zip(s, others)]
+        return s
 
     def predict_leaf(self, features: Dict[str, float]) -> List[int]:
         """Leaf node id per tree (reference: GBDTOnlinePredictor.predictLeaf:258)."""
@@ -99,7 +114,10 @@ class GBSTPredictor(ContinuousPredictor):
     linear experts (gbmlr, gbhmlr) or scalar leaves (gbsdt, gbhsdt).
     predict_leaf returns each tree's argmax gate (reference
     GBMLROnlinePredictor.predictLeaf). The text parser is its own, apart
-    from GBSTModel.load_tree, as in the reference."""
+    from GBSTModel.load_tree, as in the reference. `other`, the
+    sample-dependent base prediction, adds its score to the base score."""
+
+    supports_leaf = True
 
     def __init__(self, variant: str, config, fs=None):
         if variant not in GBST_NAMES:
@@ -208,9 +226,12 @@ class GBSTPredictor(ContinuousPredictor):
             feats.append((p.bias_feature_name, 1.0))
         return feats
 
-    def score(self, features) -> float:
+    def score(self, features, other=None) -> float:
         feats = self._feats_with_bias(features)
         z = self.base_score
+        if other is not None:
+            # reference: GBMLROnlinePredictor lbias += pred2Score(other)
+            z += float(self.loss.pred2score(float(other)))
         for t in range(self.n_trees):
             z += self.lr * self._tree_fx_and_leaf(t, feats)[0]
         if self.is_rf:

@@ -28,8 +28,7 @@ logged BEFORE it acts.
 
 The sites of the JAX package's catalog whose seams the port does not have
 yet keep their entries, so a spec that names them parses as it does
-there: `collective.host` (ROADMAP.md 1.7), `continual.copy` and
-`continual.promote` (1.11).
+there: `collective.host` (ROADMAP.md 1.7).
 """
 
 from __future__ import annotations
@@ -55,10 +54,10 @@ FAULT_SITES: Dict[str, str] = {
     "io.dump": "atomic dump commit (LocalFileSystem.atomic_open replace)",
     "collective.host": "host-side collective (not in the port yet)",
     "gbdt.sync": "GBDT round-boundary loss read (device engine)",
-    "continual.copy": "continual shadow/archive file copy (not in the "
-                      "port yet)",
-    "continual.promote": "continual promotion/restore replace (not in the "
-                         "port yet)",
+    "continual.copy": "continual shadow/archive file copy "
+                      "(continual/driver.py::_copy_file)",
+    "continual.promote": "continual promotion/restore replace "
+                         "(continual/driver.py::_replace_file)",
     "serve.load": "serve registry warm load (initial load + hot reload)",
     "serve.worker": "serve /predict hot path (ServeApp.predict)",
 }

@@ -84,6 +84,12 @@ log = logging.getLogger(__name__)
 DEFAULT_LADDER = (1, 8, 64, 512)
 
 
+class LoweringRefused(TypeError):
+    """The scorer has no lowering for the predictor's family: the one
+    refusal a caller may answer with the host row walk (the continual
+    gate does, and counts it)."""
+
+
 def parse_ladder(spec: Optional[str] = None) -> Tuple[int, ...]:
     """YTK_SERVE_LADDER="1,8,64,512" -> sorted unique rung tuple."""
     if spec is None:
@@ -315,7 +321,7 @@ class CompiledScorer:
             FFMPredictor: self._lower_ffm,
         }.get(type(pred))
         if lower is None:
-            raise TypeError(f"no lowering for {type(pred).__name__}")
+            raise LoweringRefused(f"no lowering for {type(pred).__name__}")
         if (self.precision == "bf16" and self.device.type == "cuda"
                 and torch.backends.cuda.matmul.allow_tf32):
             raise RuntimeError(

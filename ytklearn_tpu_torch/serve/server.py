@@ -80,6 +80,15 @@ from .registry import ModelRegistry, NoPreviousVersion
 log = logging.getLogger(__name__)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """The stdlib's threading server with a listen backlog of 128 in place
+    of its 5: a connection that finds the accept queue full may be reset
+    while the accept thread waits for the interpreter (the JAX package
+    keeps the stdlib's 5)."""
+
+    request_queue_size = 128
+
+
 class _LatencyWindow:
     """Bounded ring of recent request latencies -> percentiles.
 
@@ -686,7 +695,7 @@ class ServeApp:
                         return
                 _reply(200, out)
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self._httpd = _HTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         self._serve_thread = threading.Thread(
             target=self._httpd.serve_forever, name="ytk-serve-http",

@@ -34,6 +34,7 @@ from .models import FFMModel, FMModel, LinearModel, MulticlassLinearModel, \
     load_field_dict
 from .optimize import LBFGSConfig, inv_hessian_vp, minimize_lbfgs
 from .optimize.blocked import make_rows, make_sum, make_value_and_grad
+from .obs import health
 from .resilience import trainer_guard
 
 log = logging.getLogger("ytklearn_tpu_torch.train")
@@ -222,14 +223,22 @@ class HoagTrainer:
             l1, l2 = (hoag_l1, hoag_l2) if hoag_mode else rounds[round_idx]
             l1_vec, l2_vec = model.reg_vectors(l1, l2)
             start_w = w0 if p.hyper.restart else carry_w
+            # the convex loop's sentinel on the TEST loss, which the L-BFGS
+            # sentinels (on the train loss) cannot see
+            guard = health.ProgressGuard("train.convex_test", window=12)
 
-            def callback(it, state, _l1=l1, _l2=l2, _l2v=l2_vec):
+            def callback(it, state, _l1=l1, _l2=l2, _l2v=l2_vec,
+                         _guard=guard):
                 rec = {"iter": it, "l1": _l1, "l2": _l2,
                        "loss": state.loss,
                        "avg_loss": state.loss / g_weight,
                        "pure_loss": state.pure_loss}
                 if test_b is not None:
                     rec["test_loss"] = test_avg(state.w)
+                if health.enabled() and "test_loss" in rec:
+                    health.check_loss("train.convex_test", rec["test_loss"],
+                                      iter=it)
+                    _guard.update(rec["test_loss"], iter=it)
                 if it % 5 == 0 or it <= 1:
                     evaluate(state.w, rec)
                 history.append(rec)
