@@ -27,15 +27,19 @@ runs it by default: hot reload, rollback and pin, AIMD batching, the
 prediction cache, 429 with Retry-After and the obs planes (slice 14, no
 new kernel), and continual training: `cli retrain` against a model `cli
 serve` serves under traffic, `cli predict` and `cli convert` (slice 15,
-no new kernel). Every phase prints its wall time, and the run its total.
+no new kernel), and the serving fleet: `cli serve --replicas 2` and an
+autoscaling `--replicas-min 1 --replicas-max 2` fleet whose replica
+processes launch K6 and K7 on the one card (slice 16, no new kernel).
+Every phase prints its wall time, and the run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
   2. builds the five kernel libraries (serve/csrc/heap_walk.cu: K6, K7;
      gbdt/csrc/hist.cu: K2, K4; gbdt/csrc/hist_float.cu: K1, K3;
      gbdt/csrc/route.cu: K5; gbdt/csrc/hist_u8.cu: K8) from the checkout,
-     one nvcc each, and the host text parser (io/csrc/ytk_parse.cpp, g++),
-     all started together, and prints each build's time and ptxas' report;
+     one nvcc each, the host text parser (io/csrc/ytk_parse.cpp, g++) and
+     the host serving library (serve/csrc/ytk_serve.cpp, g++), all
+     started together, and prints each build's time and ptxas' report;
   3. holds K6 against its plain PyTorch version and against the stacked
      rung, and K7 against its plain version on uint8 and uint16 bins of
      the same rows, all on the card, with torch.equal (tolerance: exact)
@@ -275,7 +279,27 @@ no new kernel). Every phase prints its wall time, and the run its total.
      lines (raw scores bit-equal to the host walk, predictions at rtol
      1e-14 of the CPU's, leaf ids equal); `cli convert` of a libsvm
      file, then `cli train` on it;
- 21. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 21. (slice 16, its main path) right after phase_continual,
+     `phase_fleet` on the `cli train` model: the native host library
+     (serve/csrc/ytk_serve.cpp, built with the kernels in step 2) holds
+     `bin_rows`' native entry bit-equal to its numpy loop on the served
+     rows and `native_binned_scores` bit-equal to K7 on the card on the
+     same bins; then `python -m ytklearn_tpu_torch.cli serve --replicas
+     2` on cuda (fused rung, K6 in each replica process) under 8 clients
+     of 1-64 rows: each replica's K6 launches from its own /metrics held
+     to the rows the front's answers say it scored, then under traffic a
+     kill -9 of replica 0 (restarted by the front), a hot reload to v2
+     seen by both replicas and a fleet-wide /admin/rollback to v1; every
+     response bit-equal to the host walk of its version, none fails, the
+     front's flight dump at SIGTERM names the death and the restart;
+     then `cli serve --replicas-min 1 --replicas-max 2` on the binned
+     rung (K7, native binning) under 16 clients of 64 rows grows to 2
+     and, idle, drains back to 1 (SCALE_KNOBS), each replica's K7
+     launches from its own /metrics, every response bit-equal to the
+     binned rung's CPU version, never above 2 slots; prints the `fleet`
+     line (client p50/p99 at 1 and 2 replicas, spawn to ready, the
+     restart, the grow and the drain);
+ 22. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -5385,6 +5409,444 @@ def continual_card_cpu(d, live, holdout, card):
           f"(wall) [{card}]", flush=True)
 
 
+# -- slice 16: the serving fleet ----------------------------------------------
+
+FLEET_CLIENTS = 8
+FLEET_WATCH_S = 0.5
+FLEET_POOL = 2048  # rows; requests are 1-64-row slices of the pool
+FLEET_COUNT_S = 3.0  # traffic of the launch count, before the kill
+FLEET_STEP_S = 1.0  # traffic between the kill, reload and rollback steps
+SCALE_CLIENTS = 16  # 64-row requests, enough backlog to grow the fleet
+SCALE_AT_TWO_S = 3.0  # traffic once the second replica is ready
+#: the autoscaling fleet's knobs: a tick every 0.25 s, grow after two
+#: ticks over 128 queued or in-flight rows a replica, reap after twelve
+#: ticks under 8 (3 s idle), the SLO signals off (--slo-ms 0)
+SCALE_KNOBS = {"YTK_SERVE_SCALE_INTERVAL_S": "0.25",
+               "YTK_SERVE_SCALE_UP_BACKLOG": "128",
+               "YTK_SERVE_SCALE_DOWN_BACKLOG": "8",
+               "YTK_SERVE_SCALE_UP_WINDOWS": "2",
+               "YTK_SERVE_SCALE_DOWN_WINDOWS": "12",
+               "YTK_SERVE_SCALE_UP_COOLDOWN_S": "0",
+               "YTK_SERVE_SCALE_DOWN_COOLDOWN_S": "3"}
+
+
+def fleet_traffic(port, pool, stop, records, errors, seed, clients,
+                  fixed_rows=None):
+    """`clients` threads POST slices of `pool` (1-64 rows, or
+    `fixed_rows`) to the front until `stop` is set; each answer goes into
+    `records` as it comes, with the replica that scored it."""
+    import numpy as np
+
+    def client(i):
+        rng = np.random.RandomState(seed + i)
+        t0 = None
+        try:
+            while not stop.is_set():
+                n = fixed_rows or int(rng.randint(1, 65))
+                lo = int(rng.randint(0, len(pool) - n))
+                t0 = time.perf_counter()
+                status, _h, out = http_json("POST", port, "/predict",
+                                            {"rows": pool[lo:lo + n]})
+                if status != 200:
+                    errors.append((status, out, t0))
+                    return
+                records.append({"lo": lo, "n": n, "t0": t0,
+                                "t1": time.perf_counter(),
+                                "version": out["version"],
+                                "replica": out["replica"],
+                                "scores": out["scores"]})
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append((repr(e), t0))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def join_traffic(stop, threads, errors, what):
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+        check(not t.is_alive(), f"a {what} client hung")
+    check(not errors, f"{what}: {len(errors)} failed requests: "
+          f"{errors[:3]}")
+
+
+def lat_ms(records):
+    """(p50, p99) of the records' client-clock latencies, in ms."""
+    lat = sorted((r["t1"] - r["t0"]) * 1e3 for r in records)
+    check(lat, "no request in a latency window")
+    return (statistics.median(lat),
+            lat[min(len(lat) - 1, int(math.ceil(0.99 * len(lat))) - 1)])
+
+
+def replica_launches(front_port, records, what):
+    """Each replica's kernel launches of `records`' traffic, from the
+    replica's own /metrics (its serve.scorer.batches: a launch of its
+    rung's kernel a scored batch), held to the rows the front's answers
+    say it scored. -> {replica id: launches}."""
+    _st, _h, fm = http_json("GET", front_port, "/metrics")
+    out = {}
+    for rid, info in sorted(fm["replicas"].items()):
+        check(info["state"] == "ready", f"{what}: replica {rid} {info}")
+        st, _h, rm = http_json("GET", info["port"], "/metrics")
+        check(st == 200, f"{what}: replica {rid} /metrics answered {st}")
+        rows = sum(r["n"] for r in records if str(r["replica"]) == rid)
+        out[int(rid)] = cli_serve_launches(rm["counters"], rows,
+                                           f"{what} replica {rid}")
+    return out
+
+
+def replica_versions(front_port):
+    """{replica id: the version each replica's registry serves}."""
+    _st, _h, fm = http_json("GET", front_port, "/metrics")
+    out = {}
+    for rid, info in fm["replicas"].items():
+        if info["state"] != "ready":
+            out[rid] = None
+            continue
+        st, _h, rm = http_json("GET", info["port"], "/metrics")
+        out[rid] = rm["models"]["default"]["version"] if st == 200 else None
+    return out
+
+
+def wait_until(cond, what, timeout=120.0, step=0.05):
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline, f"{what} within {timeout} s")
+        time.sleep(step)
+    return time.perf_counter()
+
+
+def flight_events(flight_dir):
+    """(reason, the ring's events) of the one flight dump in the dir."""
+    dumps = sorted(f for f in os.listdir(flight_dir)
+                   if f.startswith("flight_"))
+    check(len(dumps) == 1, f"flight dumps in {flight_dir}: {dumps}")
+    with open(os.path.join(flight_dir, dumps[0])) as f:
+        doc = json.load(f)
+    return doc["flight"]["reason"], doc["flight"]["ring"]
+
+
+def fleet_native_checks(conf, pool, card):
+    """The native host library on the served rows: `bin_rows`' native entry
+    bit-equal to its numpy loop, and `native_binned_scores` (the CPU
+    binned rung) bit-equal to K7 on the card on the same bins. Run before
+    any replica starts, so every replica finds K6/K7 built."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.serve import kernels
+
+    check(kernels.native_serve_available(),
+          "the native serve library did not build")
+    sc = binned_on_cpu(conf)
+    check(sc.backend == "binned-native", f"CPU binned rung {sc.backend}")
+    table = sc._bin_table
+    X = sc.featurize(pool)
+    def host_ms(fn):
+        """(result, median ms of 5 calls on the host clock)."""
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn(X, table)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(ts)
+
+    bins, t_native = host_ms(kernels.bin_rows)
+    plain, t_plain = host_ms(kernels.bin_rows_plain)
+    check(bins.dtype == plain.dtype and np.array_equal(bins, plain),
+          "native bin_rows differs from its numpy loop")
+    heap, why = kernels.build_heap(sc.predictor.model.trees, sc.vocab)
+    check(heap is not None, why)
+    packed = kernels.pack_heap_nodes(heap, table)
+    leaf = np.ascontiguousarray(heap.leaf)
+    native = kernels.native_binned_scores(
+        bins, packed, leaf, heap.depth, table.sentinel,
+        kernels.resolve_kernel_threads())
+    k7 = kernels.binned_walk(
+        torch.from_numpy(bins).cuda(), torch.from_numpy(packed).cuda(),
+        torch.from_numpy(leaf).cuda(), heap.depth, table.sentinel,
+        max_feat=int(heap.feat.max())).cpu().numpy()
+    check(np.array_equal(native, k7), "native_binned_scores differs from "
+          "K7 on the same bins")
+    print(f"fleet: native bin_rows bit-equal to its numpy loop on "
+          f"{len(pool)} served rows ({table.mode}, {table.dtype}; "
+          f"{t_native:.3f} ms beside {t_plain:.3f} ms, host clock, median "
+          f"of 5 calls), native_binned_scores bit-equal to K7 on those "
+          f"bins [{card}]", flush=True)
+    return {"native_bin_ms": t_native, "numpy_bin_ms": t_plain}
+
+
+def fleet_fused(d, cli_model, pool, card):
+    """`cli serve --replicas 2` on cuda, fused rung (K6): 8 clients for
+    FLEET_COUNT_S (each replica's K6 launches of that traffic from its own
+    /metrics), then under traffic a kill -9 of replica 0 and its restart, a
+    hot reload to v2 on every replica and a fleet-wide /admin/rollback to
+    v1. Every response bit-equal to the host walk of its version; no
+    request fails; the front's flight dump names the death and the
+    restart."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+
+    path = os.path.join(d, "fused", "gbdt.model")
+    copy_model(cli_model, path)
+    conf = serve_conf(path, d, "fused")
+    host = {1: create_host(conf)}
+    with open(path) as f:
+        v2 = GBDTModel.loads(f.read())
+    for t in v2.trees:
+        t.leaf_value = [0.75 * v for v in t.leaf_value]
+    flight = os.path.join(d, "fused_flight")
+    env = dict(os.environ, YTK_SERVE_FUSED="1", YTK_OBS="1",
+               PYTHONPATH=REPO, YTK_FLIGHT_DIR=flight,
+               YTK_FLIGHT_N=str(1 << 20))
+    env.pop("YTK_SERVE_BINNED", None)
+    err_path = os.path.join(d, "fused.err")
+    t0 = time.perf_counter()
+    proc, banner = start_cli_serve(
+        [conf, "gbdt", "--host", "127.0.0.1", "--port", "0", "--replicas",
+         "2", "--watch-interval", str(FLEET_WATCH_S)], env, err_path)
+    res = {"spawn_to_ready_s": time.perf_counter() - t0}
+    records, errors = [], []
+    try:
+        port = banner["port"]
+        check(banner["fleet"] is True and banner["replicas"] == 2
+              and banner["device"] == "cuda"
+              and sorted(banner["replica_ports"]) == ["0", "1"],
+              f"fleet banner {banner}")
+        for rid, p in banner["replica_ports"].items():
+            st, _h, rm = http_json("GET", p, "/metrics")
+            rung = rm["models"]["default"]["rung"]
+            check(st == 200 and rung["backend"] == "fused-cuda",
+                  f"replica {rid} rung {rung}")
+        # 1. the launch count: 8 clients, then each replica's own /metrics
+        stop = threading.Event()
+        threads = fleet_traffic(port, pool, stop, records, errors, SEED + 300,
+                                FLEET_CLIENTS)
+        time.sleep(FLEET_COUNT_S)
+        join_traffic(stop, threads, errors, "fleet")
+        counted = list(records)
+        res["launches"] = replica_launches(port, counted, "fused fleet")
+        check(all(k > 0 for k in res["launches"].values()),
+              f"a replica launched no K6: {res['launches']}")
+        res["p50_ms"], res["p99_ms"] = lat_ms(counted)
+        res["requests"] = len(counted)
+        # 2. kill -9, restart, hot reload, fleet-wide rollback, under load
+        stop = threading.Event()
+        threads = fleet_traffic(port, pool, stop, records, errors, SEED + 400,
+                                FLEET_CLIENTS)
+        time.sleep(FLEET_STEP_S)
+        _st, _h, hz = http_json("GET", port, "/healthz")
+        victim = hz["replicas"]["0"]["pid"]
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+
+        def restarted():
+            _s, _h, h = http_json("GET", port, "/healthz")
+            r = h["replicas"]["0"]
+            return r["restarts"] >= 1 and r["state"] == "ready"
+
+        res["restart_s"] = wait_until(restarted, "replica 0 restarted") \
+            - t_kill
+        t_back = time.perf_counter()
+        time.sleep(FLEET_STEP_S)
+        with open(path + ".next", "w") as f:
+            f.write(v2.dumps())
+        os.replace(path + ".next", path)
+        host[2] = create_host(conf)
+        t_swap = time.perf_counter()
+        res["reload_s"] = wait_until(
+            lambda: set(replica_versions(port).values()) == {2},
+            "both replicas on v2") - t_swap
+        time.sleep(FLEET_STEP_S)
+        st, _h, rb = http_json("POST", port, "/admin/rollback", {})
+        t_rb = time.perf_counter()
+        check(st == 200 and rb["ok"] is True
+              and sorted(rb["replicas"]) == ["0", "1"]
+              and all(v["version"] == 1 and v["pinned"]
+                      for v in rb["replicas"].values()),
+              f"fleet rollback {st} {rb}")
+        time.sleep(FLEET_STEP_S)
+        join_traffic(stop, threads, errors, "fleet")
+        for version in sorted({r["version"] for r in records}):
+            check(version in host, f"a response named v{version}")
+            want = host[version].batch_scores(pool)
+            mine = [r for r in records if r["version"] == version]
+            check(np.array_equal(
+                np.asarray([s for r in mine for s in r["scores"]]),
+                np.concatenate([want[r["lo"]:r["lo"] + r["n"]]
+                                for r in mine])),
+                  f"v{version}: fleet responses differ from the host walk")
+        check(any(r["version"] == 2 for r in records), "no v2 answer")
+        late = [r for r in records if r["t0"] > t_rb and r["version"] != 1]
+        check(not late, f"{len(late)} answers past the rollback not on v1")
+        check(any(r["replica"] == 0 and r["t0"] > t_back for r in records),
+              "the restarted replica took no traffic")
+        st, _h, fm = http_json("GET", port, "/metrics")
+        c = fm["counters"]
+        check(c.get("serve.worker.died", 0) >= 1
+              and c.get("serve.worker.restarted", 0) >= 1,
+              f"front counters {c}")
+        res["reroutes"] = c.get("serve.front.reroutes", 0.0)
+        res["total_requests"] = len(records)
+    finally:
+        rc, err_text, _warm = stop_cli_serve(proc, err_path)
+    check(rc == 0, f"fleet exited {rc}: {err_text[-2000:]}")
+    reason, ring = flight_events(flight)
+    named = {(e["name"], (e.get("args") or {}).get("replica_id"))
+             for e in ring}
+    check(reason == "sigterm" and ("serve.worker.died", 0) in named
+          and ("serve.worker.restarted", 0) in named,
+          f"the front's flight dump ({reason}) lacks replica 0's death "
+          f"and restart")
+    return res
+
+
+def fleet_autoscale(d, cli_model, pool, card):
+    """`cli serve --replicas-min 1 --replicas-max 2` on cuda, binned rung
+    (K7, rows binned by the native library): SCALE_CLIENTS clients of
+    64-row requests grow it to 2 (SCALE_KNOBS), SCALE_AT_TWO_S of traffic
+    at 2, each replica's K7 launches from its own /metrics, then idling
+    drains it back to 1. No request fails, every response bit-equal to the
+    binned rung's CPU version, and the fleet never holds more than 2
+    slots."""
+    import numpy as np
+
+    path = os.path.join(d, "binned", "gbdt.model")
+    copy_model(cli_model, path)
+    conf = serve_conf(path, d, "binned")
+    want = binned_on_cpu(conf).score_batch(pool)
+    flight = os.path.join(d, "binned_flight")
+    env = dict(os.environ, YTK_SERVE_BINNED="1", YTK_OBS="1",
+               PYTHONPATH=REPO, YTK_FLIGHT_DIR=flight,
+               YTK_FLIGHT_N=str(1 << 20), **SCALE_KNOBS)
+    env.pop("YTK_SERVE_FUSED", None)
+    err_path = os.path.join(d, "binned.err")
+    t0 = time.perf_counter()
+    proc, banner = start_cli_serve(
+        [conf, "gbdt", "--host", "127.0.0.1", "--port", "0",
+         "--replicas-min", "1", "--replicas-max", "2", "--slo-ms", "0",
+         "--watch-interval", "0"], env, err_path)
+    res = {"spawn_to_ready_s": time.perf_counter() - t0}
+    records, errors, slots = [], [], [1]
+    try:
+        port = banner["port"]
+        check(banner["replicas"] == 1 and banner["autoscale"] is True
+              and (banner["replicas_min"], banner["replicas_max"]) == (1, 2),
+              f"autoscale banner {banner}")
+        st, _h, rm = http_json("GET", banner["replica_ports"]["0"],
+                               "/metrics")
+        rung = rm["models"]["default"]["rung"]
+        check((rung["backend"], rung.get("bin_mode")) ==
+              ("binned-cuda", "edges"), f"replica rung {rung}")
+
+        def ready(n, downs=0):
+            """n slots, all ready, after `downs` reaps have completed (the
+            front counts a reap once its replica has exited)."""
+            _s, _h, m = http_json("GET", port, "/metrics")
+            slots[0] = max(slots[0], m["fleet"]["replicas"])
+            return (m["fleet"]["ready"] == n
+                    and m["fleet"]["replicas"] == n
+                    and m["counters"].get("serve.scale.down", 0) >= downs)
+
+        stop = threading.Event()
+        t_load = time.perf_counter()
+        threads = fleet_traffic(port, pool, stop, records, errors, SEED + 500,
+                                SCALE_CLIENTS, fixed_rows=64)
+        t_two = wait_until(lambda: ready(2), "the fleet grew to 2",
+                           timeout=180.0)
+        res["grow_s"] = t_two - t_load
+        time.sleep(SCALE_AT_TWO_S)
+        join_traffic(stop, threads, errors, "autoscale")
+        # read at once: the reap waits 12 idle ticks (3 s)
+        res["launches"] = replica_launches(port, records, "autoscale fleet")
+        check(sorted(res["launches"]) == [0, 1]
+              and all(k > 0 for k in res["launches"].values()),
+              f"both replicas must launch K7: {res['launches']}")
+        one = [r for r in records if r["t1"] < t_two]
+        two = [r for r in records if r["t0"] > t_two + 0.5]
+        res["p50_ms_1"], res["p99_ms_1"] = lat_ms(one)
+        res["p50_ms_2"], res["p99_ms_2"] = lat_ms(two)
+        res["requests_1"], res["requests_2"] = len(one), len(two)
+        t_idle = time.perf_counter()
+        res["shrink_s"] = wait_until(lambda: ready(1, downs=1),
+                                     "the fleet drained to 1") - t_idle
+        got = np.asarray([s for r in records for s in r["scores"]])
+        check(np.array_equal(got, np.concatenate(
+            [want[r["lo"]:r["lo"] + r["n"]] for r in records])),
+              "autoscale responses differ from the binned rung's CPU "
+              "version")
+        st, _h, out = http_json("POST", port, "/predict",
+                                {"rows": pool[:8]})
+        check(st == 200 and np.array_equal(np.asarray(out["scores"]),
+                                           want[:8]), "after the drain")
+        st, _h, fm = http_json("GET", port, "/metrics")
+        c = fm["counters"]
+        check(c.get("serve.scale.up", 0) >= 1
+              and c.get("serve.scale.down", 0) >= 1
+              and fm["autoscale"]["last_decision"]["action"] == "down",
+              f"scale counters {c}, autoscale {fm['autoscale']}")
+        check(slots[0] <= 2, f"the fleet held {slots[0]} slots, max 2")
+        res["requests"] = len(records)
+    finally:
+        rc, err_text, _warm = stop_cli_serve(proc, err_path)
+    check(rc == 0, f"autoscaling fleet exited {rc}: {err_text[-2000:]}")
+    reason, ring = flight_events(flight)
+    names = {e["name"] for e in ring}
+    check({"serve.scale.up", "serve.scale.up_ready", "serve.scale.drain",
+           "serve.scale.down_done"} <= names,
+          f"the front's flight dump ({reason}) lacks the scale events")
+    return res
+
+
+def phase_fleet(tmp, cli_model, card):
+    """Slice 16's main path, the serving fleet on the card, on
+    phase_cli_train's model (20 trees, F = 28, depth 8): the native host
+    library checked and K6/K7 built here first (fleet_native_checks), then
+    `cli serve --replicas 2` on the fused rung (fleet_fused) and `cli serve
+    --replicas-min 1 --replicas-max 2` on the binned rung
+    (fleet_autoscale), each a front process whose replicas are `cli serve`
+    processes sharing the card. Prints the `fleet` line. Returns the K6
+    and K7 launches of the replicas' traffic."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+
+    d = os.path.join(tmp, "fleet")
+    os.makedirs(d)
+    names = [f"f{i}" for i in range(N_FEATURES)]
+    with open(cli_model) as f:
+        splits = split_values(GBDTModel.loads(f.read()))
+    pool = random_rows(np.random.RandomState(SEED + 16), FLEET_POOL, names,
+                       splits)
+    native = fleet_native_checks(serve_conf(cli_model, d, "native"), pool,
+                                 card)
+    fused = fleet_fused(d, cli_model, pool, card)
+    auto = fleet_autoscale(d, cli_model, pool, card)
+    line = {"card": card, "native": native, "fused_2": fused,
+            "autoscale_binned": auto}
+    print(f"fleet: {json.dumps(line)}", flush=True)
+    print(f"fleet: 2 fused replicas up in {fused['spawn_to_ready_s']:.3f} "
+          f"s, client p50 {fused['p50_ms']:.4f} ms, p99 "
+          f"{fused['p99_ms']:.4f} ms under {FLEET_CLIENTS} clients, K6 "
+          f"launches {fused['launches']}; kill -9 to restarted "
+          f"{fused['restart_s']:.3f} s, {fused['total_requests']} requests, "
+          f"none failed, {fused['reroutes']} reroutes; autoscaling binned "
+          f"fleet: up in {auto['spawn_to_ready_s']:.3f} s, grew to 2 after "
+          f"{auto['grow_s']:.3f} s of load, p50/p99 {auto['p50_ms_1']:.4f}"
+          f"/{auto['p99_ms_1']:.4f} ms at 1 replica and "
+          f"{auto['p50_ms_2']:.4f}/{auto['p99_ms_2']:.4f} ms at 2 under "
+          f"{SCALE_CLIENTS} clients of 64 rows, drained to 1 "
+          f"{auto['shrink_s']:.3f} s after the load stopped, K7 launches "
+          f"{auto['launches']} [{card}]", flush=True)
+    return (sum(fused["launches"].values()),
+            sum(auto["launches"].values()))
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -5424,8 +5886,20 @@ def main() -> int:
                 "seconds": time.perf_counter() - t0,
                 "log": f"native parser available: {ok}"}
 
-    # one nvcc per source (and g++ for the parser), all started together
+    def build_serve_native():
+        """The host serving library (g++): binning for both binned rungs,
+        the CPU binned walk."""
+        t0 = time.perf_counter()
+        ok = kernels.native_serve_available()
+        return {"cmd": " ".join(["g++", "-fopenmp", *native.GXX_FLAGS,
+                                 "ytk_serve.cpp"]),
+                "seconds": time.perf_counter() - t0,
+                "log": f"native serve library available: {ok}"}
+
+    # one nvcc per source (and g++ for the two host libraries), all
+    # started together
     sources = {"ytk_parse.cpp": build_parser,
+               "ytk_serve.cpp": build_serve_native,
                "heap_walk.cu": kernels.build_kernel,
                "hist.cu": hist.build_kernel,
                "hist_float.cu": hist.build_float_kernel,
@@ -5530,6 +6004,8 @@ def main() -> int:
         # slice 15: `cli retrain` against that model served under traffic
         timed("continual", phase_continual, tmp, cli_model, card)
         torch.cuda.empty_cache()
+        # slice 16: that model behind the serving fleet, fused and binned
+        timed("fleet", phase_fleet, tmp, cli_model, card)
         # slice 13: the host engine over the same text, then resilience
         t0 = time.perf_counter()
         small = timed("host_engine", phase_host_engine, card,

@@ -38,7 +38,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "scripts.micro_hist_gather", "scripts.tune_gbdt",
               "scripts.time_hist", "continual", "continual.driver",
               "continual.gates", "continual.online", "optimize.ftrl",
-              "io.libsvm", "predict.base"):
+              "io.libsvm", "predict.base", "serve.fleet",
+              "serve.fleet.front", "serve.fleet.worker",
+              "serve.fleet.autoscaler", "scripts.chaos_drill",
+              "obs.quality"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

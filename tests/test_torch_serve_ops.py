@@ -445,15 +445,29 @@ def test_cli_serve_accepts_every_reference_flag():
     assert theirs <= ours and ours - theirs == {"--device"}
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["--replicas", "2"], {}), (["--replicas-max", "3"], {}),
-    (["--replicas-min", "1"], {}), ([], {"YTK_SERVE_REPLICAS": "-1"}),
+@pytest.mark.parametrize("argv,env,want", [
+    (["--replicas", "2"], {}, (2, 0, 0)),
+    (["--replicas-max", "3"], {}, (0, 0, 3)),
+    (["--replicas-min", "1"], {}, (0, 1, 0)),
+    ([], {"YTK_SERVE_REPLICAS": "-1"}, (-1, 0, 0)),
 ])
-def test_cli_serve_fleet_flags_raise_by_roadmap_item(tmp_path, argv, env):
+def test_cli_serve_fleet_flags_raise_by_roadmap_item(tmp_path, argv, env,
+                                                     want):
+    """The fleet flags and knobs no longer raise (ROADMAP.md 1.6 is
+    ported): each one routes `cli serve` to the fleet front with the
+    reference's (replicas, min, max) reading, and nothing is refused."""
+    seen = {}
+
+    def fake_fleet(args, replicas, slo_ms, cache_rows, r_min=0, r_max=0):
+        seen["got"] = (replicas, r_min, r_max)
+        seen["device"] = args.device
+        return 0
+
     with mock.patch.dict(os.environ, env), \
-            pytest.raises(NotImplementedError, match="1.6, the serving"):
-        cli.serve_main([str(tmp_path / "x.conf"), "gbdt", "--device", "cpu",
-                        *argv])
+            mock.patch.object(cli, "_serve_fleet_main", fake_fleet):
+        rc = cli.serve_main([str(tmp_path / "x.conf"), "gbdt", "--device",
+                             "cpu", *argv])
+    assert rc == 0 and seen == {"got": want, "device": "cpu"}
 
 
 def test_cli_serve_defaults_arm_the_reference_planes(tmp_path):

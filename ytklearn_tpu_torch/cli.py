@@ -44,8 +44,16 @@ starts the HTTP app with the AIMD batch-size controller (YTK_SERVE_SLO_MS
 /admin/{traces,rollback,pin,unpin} and 429 with Retry-After, and prints
 one JSON banner line with the bound port, `wall_t0` and the rung (its
 precision: YTK_SERVE_PRECISION) on stdout. SIGTERM drains and exits 0.
-`--replicas*` other than 0 (the fleet, ROADMAP.md 1.6) and YTK_PROF (the
-profiling plane, 1.12) raise NotImplementedError.
+`--replicas N` (or a `--replicas-min`/`--replicas-max` band) starts the
+fleet instead: a front process that spawns N replica workers, each this
+single-process server on `--device` (`python -m ytklearn_tpu_torch.cli
+serve ... --replicas 0 --device D --replica-id I`), balances requests on
+least-queued rows, reroutes around and restarts dead replicas, fans
+/admin/* out, merges /metrics, and autoscales within the band
+(serve/fleet/). Its banner names `fleet`, `replicas`, `replica_ports` and
+`wall_t0`; with YTK_OBS=1 it dumps its flight ring (the replicas' deaths,
+restarts and scale decisions) into YTK_FLIGHT_DIR at SIGTERM. YTK_PROF (the profiling plane, ROADMAP.md 1.12) raises
+NotImplementedError.
 
 `retrain` is the continual-training driver (continual/): it warm-starts a
 candidate on `--data` in a shadow path on `--device` (default `cuda`),
@@ -522,14 +530,17 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
                     help="model-file fingerprint poll seconds for hot reload "
                     "(default 5; 0 disables; env YTK_SERVE_WATCH_S)")
     ap.add_argument("--replicas", type=int, default=None,
-                    help="serving fleet size; anything but 0 is not ported "
-                    "yet (env YTK_SERVE_REPLICAS)")
+                    help="serving fleet size: N > 0 starts a front process "
+                    "owning N replica workers on --device; 0 serves in "
+                    "this process; -1 one replica per GPU (cuda) or per "
+                    "two cores (cpu) (env YTK_SERVE_REPLICAS)")
     ap.add_argument("--replicas-min", type=int, default=None,
-                    help="fleet autoscaler floor; not ported yet (env "
+                    help="fleet autoscaler floor (default: --replicas; env "
                     "YTK_SERVE_REPLICAS_MIN)")
     ap.add_argument("--replicas-max", type=int, default=None,
-                    help="fleet autoscaler ceiling; not ported yet (env "
-                    "YTK_SERVE_REPLICAS_MAX)")
+                    help="fleet autoscaler ceiling; above the floor it arms "
+                    "load-driven autoscaling (default: --replicas, a fixed "
+                    "fleet; env YTK_SERVE_REPLICAS_MAX)")
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="p99 latency SLO in ms for the AIMD batch-size "
                     "controller (0 disables AIMD and restores the fixed "
@@ -560,15 +571,17 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
               else knobs.get_float("YTK_SERVE_SLO_MS"))
     cache_rows = (args.cache_rows if args.cache_rows is not None
                   else knobs.get_int("YTK_SERVE_CACHE_ROWS"))
+    # autoscaling band (0 / unset = follow --replicas = fixed fleet); a
+    # band alone is enough to go fleet mode: `--replicas-max 4` on a
+    # default single-process invocation serves one replica that can grow
     r_min = (args.replicas_min if args.replicas_min is not None
              else knobs.get_int("YTK_SERVE_REPLICAS_MIN")) or 0
     r_max = (args.replicas_max if args.replicas_max is not None
              else knobs.get_int("YTK_SERVE_REPLICAS_MAX")) or 0
-    if replicas != 0 or r_max > 0 or r_min > 0:
-        raise _not_ported("--replicas / --replicas-min / --replicas-max "
-                          "(and their YTK_SERVE_REPLICAS* knobs)",
-                          "1.6, the serving fleet")
     _setup_trace(args.trace_out)
+    if replicas != 0 or r_max > 0 or r_min > 0:
+        return _serve_fleet_main(args, replicas, slo_ms, cache_rows,
+                                 r_min, r_max)
 
     from . import obs
     from .config import hocon
@@ -631,6 +644,99 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
             app._drain_thread.join()
     except KeyboardInterrupt:
         app.stop(drain=True)
+    _flush_trace(args.trace_out)
+    return 0
+
+
+def _serve_fleet_main(args, replicas: int, slo_ms, cache_rows,
+                      r_min: int = 0, r_max: int = 0) -> int:
+    """`serve --replicas N`: a front process owning N worker subprocesses,
+    each the port's single-process `cli serve` on `--device`."""
+    from . import obs
+    from .device import resolve_device
+    from .serve import (
+        BatchPolicy,
+        FleetFront,
+        default_replica_count,
+        serve_worker_argv,
+    )
+
+    # `cuda` with no GPU raises here, before any replica is spawned: no
+    # replica ever serves on the CPU unless --device cpu asks for it
+    resolve_device(args.device)
+    if replicas < 0:
+        replicas = default_replica_count(args.device)
+    if replicas == 0:
+        # reached via a bare autoscaling band (--replicas-max without
+        # --replicas): start at the floor and let load grow the fleet
+        replicas = max(1, r_min)
+    worker_flags = []
+    for flag, val in (
+        ("--name", args.name),
+        ("--ladder", args.ladder),
+        ("--max-batch", args.max_batch),
+        ("--max-wait-ms", args.max_wait_ms),
+        ("--max-queue", args.max_queue),
+        ("--deadline-ms", args.deadline_ms),
+        ("--watch-interval", args.watch_interval),
+        ("--slo-ms", slo_ms),
+        ("--cache-rows", cache_rows),
+    ):
+        if val not in (None, ""):
+            worker_flags += [flag, str(val)]
+    for s in args.sets or []:
+        worker_flags += ["--set", s]
+    for spec in args.extra_model or []:
+        # every replica serves the full model set (shared-nothing fleet:
+        # any replica can answer any named-model request)
+        worker_flags += ["--extra-model", spec]
+    if args.verbose:
+        worker_flags.append("--verbose")
+    front = FleetFront(
+        serve_worker_argv(args.config_path, args.model_name, worker_flags,
+                          device=args.device),
+        replicas,
+        policy=BatchPolicy(
+            max_batch=args.max_batch,
+            max_wait_ms=min(args.max_wait_ms, 1.0),
+            max_queue=args.max_queue,
+            default_deadline_ms=args.deadline_ms,
+        ),
+        host=args.host,
+        port=args.port,
+        slo_ms=slo_ms,
+        replicas_min=(r_min or None),
+        replicas_max=(r_max or None),
+    )
+    front.start().serve_http()
+    front.install_signal_handlers()
+    # with obs on, the front keeps the flight ring (the serve.worker.* and
+    # serve.scale.* evidence of its replicas) and dumps it at SIGTERM
+    # before its own drain runs: installed after the drain handler, the
+    # recorder's handler chains to it, as in a trainer's guard
+    obs.recorder.auto_install()
+    print(json.dumps({
+        "serving": args.name,
+        "model": args.model_name,
+        "host": args.host,
+        "port": front.port,
+        "device": args.device,
+        "replicas": front.n_replicas,
+        "replicas_min": front.replicas_min,
+        "replicas_max": front.replicas_max,
+        "autoscale": front.autoscaler is not None,
+        "fleet": True,
+        "replica_ports": {
+            str(rid): h.port for rid, h in sorted(front.handles.items())
+        },
+        "wall_t0": obs.core.WALL_T0,
+    }), flush=True)
+    try:
+        while (front._serve_thread is not None
+               and front._serve_thread.is_alive()):
+            front._serve_thread.join(timeout=1.0)
+    except KeyboardInterrupt:
+        front.stop(drain=True)
     _flush_trace(args.trace_out)
     return 0
 

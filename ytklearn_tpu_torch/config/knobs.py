@@ -91,7 +91,9 @@ _knob("YTK_EFB_CONFLICT", "int", 0,
 # -- ingest and host binning (same defaults as ytklearn_tpu/config/knobs.py:
 # 79-83; the port reads YTK_NO_NATIVE at every dispatch, not once) --------
 _knob("YTK_NO_NATIVE", "bool", False,
-      "disable the native C++ text parser (the Python parser runs)")
+      "disable the native C++ text parser (the Python parser runs) and "
+      "the native serve library (host binning and the CPU binned rung "
+      "take their numpy and plain-torch versions)")
 _knob("YTK_SKETCH_ROWS", "int", 1 << 25,
       "rows above which host quantile binning streams through the weighted "
       "quantile sketch instead of the full-sort path")
@@ -232,7 +234,8 @@ _knob("YTK_HEALTH_CALIBRATION_TOL", "float", 0.1,
       "training-sidecar mean| (on the prediction scale) above which "
       "`health.calibration` fires")
 _knob("YTK_FLIGHT", "bool", True,
-      "flight-recorder auto-install in trainers; `0` opts out")
+      "flight-recorder auto-install in trainers and the serving fleet's "
+      "front; `0` opts out")
 _knob("YTK_FLIGHT_N", "int", 4096,
       "flight-recorder event-ring capacity")
 _knob("YTK_FLIGHT_DIR", "str", "flight_dumps",
@@ -277,6 +280,34 @@ _knob("YTK_SERVE_REPLICAS_MAX", "int", 0,
       "fleet autoscaler ceiling: maximum replica slots the autoscaler "
       "may grow to (`0` = follow `--replicas`, which disarms "
       "autoscaling; CLI `--replicas-max` overrides)")
+_knob("YTK_SERVE_KERNEL_THREADS", "int", 0,
+      "row-parallel threads for the native serve library's binning and "
+      "CPU binned scoring (0 = min(8, cores); batches under 64 rows stay "
+      "single-threaded)")
+_knob("YTK_SERVE_SCALE_INTERVAL_S", "float", 1.0,
+      "autoscaler decision-tick interval in seconds (each tick samples "
+      "the windowed load signals and advances the hysteresis streaks)")
+_knob("YTK_SERVE_SCALE_UP_BACKLOG", "float", 256.0,
+      "scale-up backlog threshold in queued+in-flight rows PER READY "
+      "REPLICA: a tick above it (or any shed / p99-over-SLO / slo-burn "
+      "fire) counts as overloaded")
+_knob("YTK_SERVE_SCALE_DOWN_BACKLOG", "float", 16.0,
+      "scale-down backlog threshold in rows per ready replica: a tick "
+      "below it with zero sheds and p99 comfortably inside the SLO "
+      "counts as idle (the gap up to the scale-up threshold is the "
+      "hysteresis band)")
+_knob("YTK_SERVE_SCALE_UP_WINDOWS", "int", 3,
+      "consecutive overloaded ticks required before the autoscaler "
+      "grows the fleet (one bursty tick cannot spawn a replica)")
+_knob("YTK_SERVE_SCALE_DOWN_WINDOWS", "int", 10,
+      "consecutive idle ticks required before the autoscaler reaps a "
+      "replica (drain-based: fenced, completed/rerouted, then SIGTERM)")
+_knob("YTK_SERVE_SCALE_UP_COOLDOWN_S", "float", 5.0,
+      "seconds after a scale-up before the next scale-up may fire (new "
+      "capacity must land and be judged before growing again)")
+_knob("YTK_SERVE_SCALE_DOWN_COOLDOWN_S", "float", 30.0,
+      "seconds after ANY scale decision before a scale-down may fire "
+      "(capacity a spike just paid for is never reaped immediately)")
 
 _FALSY = ("0", "false", "no", "off")
 

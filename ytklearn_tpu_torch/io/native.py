@@ -51,22 +51,33 @@ _lib = None
 _build_failed = False
 
 
+def build_host_library(src: str, so: str,
+                       flag_sets: Sequence[Sequence[str]]) -> bool:
+    """Compile `src` with g++ into `so`, trying each flag set in turn until
+    one builds: into a pid-suffixed temp file, then promoted with
+    `os.replace`, so a concurrent loader never sees a torn library."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    for flags in flag_sets:
+        try:
+            subprocess.run(["g++", *flags, src, "-o", tmp], check=True,
+                           capture_output=True, timeout=120)
+        except (subprocess.SubprocessError, OSError) as e:
+            err = getattr(e, "stderr", b"")
+            log.warning("g++ build of %s failed (%s): %s",
+                        os.path.basename(src), e,
+                        err.decode()[:500] if err else "")
+            continue
+        os.replace(tmp, so)
+        return True
+    if os.path.exists(tmp):
+        os.unlink(tmp)
+    return False
+
+
 def _build() -> bool:
-    """Compile the parser into a pid-suffixed temp file, then promote it."""
-    os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = ["g++", *GXX_FLAGS, _SRC, "-o", tmp]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (subprocess.SubprocessError, OSError) as e:
-        err = getattr(e, "stderr", b"")
-        log.warning("native parser build failed (%s); the Python parser "
-                    "runs instead: %s", e, err.decode()[:500] if err else "")
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        return False
-    os.replace(tmp, _SO)
-    return True
+    """Compile the parser; on failure the Python parser runs instead."""
+    return build_host_library(_SRC, _SO, [GXX_FLAGS])
 
 
 def _load():

@@ -33,11 +33,12 @@ can't). Three pieces:
                        score distribution), feeding the `health.drift` /
                        `health.calibration` sentinels (obs/health.py) and
                        the `/metrics?quality=1` export.
-  fleet merge          the JAX package's fleet front merges replicas'
-                       serve-side summaries into one drift view; it comes
-                       with the serving fleet (ROADMAP.md 1.6), and
-                       `/metrics?quality=1` with sketches already carries
-                       what it reads.
+  fleet merge          the fleet front (serve/fleet/front.py) scrapes
+                       every replica's `/metrics?quality=1` (with
+                       sketches) and `merge_quality_payloads` merges the
+                       serve-side GK summaries via `merge_summaries` into
+                       one fleet-level drift view: PSI/KS over the union
+                       distribution, not averaged.
 
 Missing-sidecar behavior is loud but non-fatal: a model without
 `<model>.sketch.json` (legacy dump, non-GBDT family) serves normally with
@@ -71,6 +72,7 @@ from ..config import knobs
 from ..gbdt.quantile_sketch import (
     Summary,
     WeightedQuantileSketch,
+    merge_summaries,
     prune_summary,
 )
 
@@ -797,6 +799,123 @@ class QualityMonitor:
             "sketch_b": self.b,
             "models": models,
         }
+
+
+# ---------------------------------------------------------------------------
+# Fleet merge: per-replica serve-side summaries -> one fleet drift view
+# ---------------------------------------------------------------------------
+
+
+def merge_quality_payloads(per_replica: Dict[str, dict]) -> dict:
+    """Merge replica `/metrics?quality=1` payloads (with sketches) into
+    the fleet-level view: per (model, version), every replica's
+    serve-side GK summary merges via `merge_summaries` — associative and
+    commutative, so replica order cannot change the answer (test-pinned)
+    — and fleet PSI/KS are computed over the MERGED distribution against
+    the shared baseline. Returns {"fleet": {model_key: {...}},
+    "replicas": {rid: {model_key: compact}}}."""
+    fleet: Dict[str, dict] = {}
+    compact: Dict[str, dict] = {}
+    merged_sketch: Dict[str, Dict[str, Summary]] = {}
+    merged_score: Dict[str, Summary] = {}
+    baselines: Dict[str, dict] = {}
+    for rid in sorted(per_replica):
+        payload = per_replica[rid] or {}
+        rep_compact: Dict[str, dict] = {}
+        for key, m in (payload.get("models") or {}).items():
+            rep_compact[key] = {
+                "psi_max": m.get("psi_max"),
+                "ks_max": m.get("ks_max"),
+                "rows_sampled": m.get("rows_sampled"),
+                "no_baseline": m.get("no_baseline", False),
+            }
+            # ONE dict shape for both branches: replicas can legitimately
+            # disagree on no_baseline for the same key (one spawned before
+            # the sidecar landed, one after) — a shape split here was a
+            # KeyError that took /metrics?quality=1 down fleet-wide
+            f = fleet.setdefault(key, {
+                "model": m.get("model"), "version": m.get("version"),
+                "no_baseline": True, "rows_seen": 0, "rows_sampled": 0,
+                "replicas": 0, "score_sum": 0.0, "score_n": 0,
+            })
+            f["rows_seen"] += int(m.get("rows_seen") or 0)
+            f["rows_sampled"] += int(m.get("rows_sampled") or 0)
+            if m.get("no_baseline"):
+                continue
+            # any replica WITH a baseline makes the fleet view a real one
+            f["no_baseline"] = False
+            f["replicas"] += 1
+            f["score_sum"] += float(m.get("score_sum") or 0.0)
+            f["score_n"] += int(m.get("score_n") or 0)
+            if key not in baselines and m.get("baseline"):
+                baselines[key] = m
+            sketches = merged_sketch.setdefault(key, {})
+            for name, sj in (m.get("sketches") or {}).items():
+                s = summary_from_json(sj)
+                prev = sketches.get(name)
+                sketches[name] = s if prev is None else merge_summaries(prev, s)
+            if m.get("score_sketch"):
+                s = summary_from_json(m["score_sketch"])
+                prev = merged_score.get(key)
+                merged_score[key] = (
+                    s if prev is None else merge_summaries(prev, s)
+                )
+        compact[rid] = rep_compact
+    for key, f in fleet.items():
+        if f.get("no_baseline"):
+            # every replica served this key baseline-less: drop the
+            # accumulator fields that only mean something with a baseline
+            f.pop("replicas", None)
+            f.pop("score_sum", None)
+            f.pop("score_n", None)
+            continue
+        base_m = baselines.get(key)
+        if base_m is None:
+            continue
+        feats_out: Dict[str, dict] = {}
+        psi_max = ks_max = 0.0
+        worst: List[Tuple[float, str]] = []
+        for name, bj in (base_m.get("baseline") or {}).items():
+            base_s = summary_from_json(bj)
+            serve_s = merged_sketch.get(key, {}).get(name)
+            if serve_s is None or serve_s.total <= 0:
+                continue
+            p = psi_summaries(base_s, serve_s)
+            k = ks_summaries(base_s, serve_s)
+            rec = {"rows": int(serve_s.total)}
+            if p is not None:
+                rec["psi"] = round(p, 4)
+                psi_max = max(psi_max, p)
+                worst.append((p, name))
+            if k is not None:
+                rec["ks"] = round(k, 4)
+                ks_max = max(ks_max, k)
+            feats_out[name] = rec
+        worst.sort(reverse=True)
+        f["features"] = feats_out
+        f["psi_max"] = round(psi_max, 4)
+        f["ks_max"] = round(ks_max, 4)
+        f["worst_features"] = [name for _p, name in worst[:3]]
+        score_s = merged_score.get(key)
+        base_score = base_m.get("baseline_score")
+        score_rec: Dict[str, object] = {
+            "baseline_mean": base_m.get("baseline_score_mean"),
+        }
+        if f["score_n"] > 0:
+            mean_pred = f["score_sum"] / f["score_n"]
+            score_rec["mean_pred"] = round(mean_pred, 6)
+            if base_m.get("baseline_score_mean") is not None:
+                score_rec["calibration_delta"] = round(
+                    abs(mean_pred - float(base_m["baseline_score_mean"])), 6
+                )
+        if score_s is not None and base_score:
+            p = psi_summaries(summary_from_json(base_score), score_s)
+            if p is not None:
+                score_rec["psi"] = round(p, 4)
+        f["score"] = score_rec
+        f.pop("score_sum", None)
+        f.pop("score_n", None)
+    return {"fleet": fleet, "replicas": compact}
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,9 @@ at sampling rates of 1; convex families resume as an L-BFGS warm start
 from the checkpoint weights; GBST at the last finished tree.
 
 A second SIGINT escalates to the previous handler (a double Ctrl-C still
-kills a hung run); SIGTERM stays deferred. The reference's trainer guard
-also installs its flight recorder; the port has none yet (ROADMAP.md
-1.12), so `trainer_guard` installs the guard only.
+kills a hung run); SIGTERM stays deferred. `trainer_guard` installs the
+flight recorder's hooks (`obs/recorder.py::auto_install`) before the
+guard, as the reference's does.
 """
 
 from __future__ import annotations

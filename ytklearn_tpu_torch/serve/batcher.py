@@ -193,9 +193,14 @@ class MicroBatcher:
         policy: Optional[BatchPolicy] = None,
         controller=None,
         model_scope: Optional[str] = None,
+        trace_site: str = "serve",
     ):
         self.score_fn = score_fn
         self.policy = policy or BatchPolicy()
+        # hop-name prefix for request traces through this batcher:
+        # "serve" inside a replica/solo server, "front" for the fleet
+        # front's per-replica forwarders (queue hop = f"{site}.queue")
+        self.trace_site = trace_site
         # mesh-obs family scope (obs/model_metrics.py): when set, the shed
         # and deadline-expiry counters are mirrored per model at the SAME
         # sites as their global twins — the exact-conservation identity
@@ -322,7 +327,7 @@ class MicroBatcher:
                     # expired requests too (the 504's trace must SHOW the
                     # queue is where its deadline went)
                     req.trace.hop_at(
-                        "serve.queue", req.t_enq, now,
+                        self.trace_site + ".queue", req.t_enq, now,
                         rows=len(req.rows),
                     )
                 if req.deadline is not None and now > req.deadline:

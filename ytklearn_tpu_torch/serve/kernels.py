@@ -56,7 +56,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import knobs
 from ..cuda_build import KernelLibrary, find_nvcc  # noqa: F401 (re-export)
+from ..io.native import GXX_FLAGS, build_host_library
 
 log = logging.getLogger(__name__)
 
@@ -312,8 +314,33 @@ def bin_rows(X: np.ndarray, table: BinTable) -> np.ndarray:
     """(B, F) raw f64 rows (NaN = missing) -> (B, F) bin indices in the
     table's dtype, binned once per batch on the host; missing values get
     the sentinel. Thresholds: bin = #edges < value. Edges: the training
-    nearest-representative rule, in f64 (the reference's searchsorted
-    path, ytklearn_tpu/serve/kernels.py:287-303)."""
+    nearest-representative rule, in f64. The native entry
+    (`ytk_serve_bin_*`, the reference's bin_rows,
+    ytklearn_tpu/serve/kernels.py:262-286) runs the same f64 comparisons;
+    `bin_rows_plain` is its numpy version, taken under YTK_NO_NATIVE (read
+    at every call) or when the library does not build. The two are
+    bit-equal."""
+    X = np.ascontiguousarray(X, np.float64)
+    B, F = X.shape
+    lib = _native()
+    if lib is None or F != len(table.values):
+        return bin_rows_plain(X, table)
+    edges, offsets, counts = table.flat()
+    out = np.empty((B, F), table.dtype)
+    fn = (lib.ytk_serve_bin_u8 if table.dtype == np.uint8
+          else lib.ytk_serve_bin_u16)
+    nt = 1 if B < 64 else resolve_kernel_threads()
+    fn(
+        X.ctypes.data, B, F, edges.ctypes.data, offsets.ctypes.data,
+        counts.ctypes.data, 0 if table.mode == "thresholds" else 1,
+        table.sentinel, out.ctypes.data, nt,
+    )
+    return out
+
+
+def bin_rows_plain(X: np.ndarray, table: BinTable) -> np.ndarray:
+    """`bin_rows` as a numpy loop over features (the reference's
+    searchsorted path, ytklearn_tpu/serve/kernels.py:287-303)."""
     X = np.ascontiguousarray(X, np.float64)
     B, F = X.shape
     nan = np.isnan(X)
@@ -703,3 +730,133 @@ _LIBRARY = KernelLibrary(
 #: compile csrc/heap_walk.cu now: {cmd, seconds, log}; raises on failure
 build_kernel = _LIBRARY.build
 _load = _LIBRARY.load
+
+
+# ---------------------------------------------------------------------------
+# The native serve library (csrc/ytk_serve.cpp, a copy of the reference's
+# native/ytk_serve.cpp): host binning for both binned rungs and the CPU
+# binned walk. Built with g++ at first use into csrc/build/, cached by
+# source mtime, the io/native.py idiom. It is a host library and reaches
+# no GPU.
+# ---------------------------------------------------------------------------
+
+_SERVE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                          "ytk_serve.cpp")
+_SERVE_SO = os.path.join(os.path.dirname(_SERVE_SRC), "build",
+                         "libytk_serve.so")
+
+_native_lock = threading.Lock()
+_native_lib = None
+_native_failed = False
+
+
+def _build_native() -> bool:
+    """OpenMP first (row-parallel), then without (the pragma is ignored:
+    one thread, the same results)."""
+    return build_host_library(_SERVE_SRC, _SERVE_SO,
+                              [("-fopenmp", *GXX_FLAGS), GXX_FLAGS])
+
+
+def _load_native():
+    """The loaded library, built first when missing or stale; None when the
+    build or the load failed (remembered: no second compile)."""
+    global _native_lib, _native_failed
+    with _native_lock:
+        if _native_lib is not None or _native_failed:
+            return _native_lib
+        try:
+            stale = (not os.path.exists(_SERVE_SO)
+                     or os.path.getmtime(_SERVE_SO)
+                     < os.path.getmtime(_SERVE_SRC))
+        except OSError:
+            stale = True
+        if stale and not _build_native():
+            _native_failed = True
+            return None
+        try:
+            lib = ctypes.CDLL(_SERVE_SO)
+        except OSError as e:
+            log.warning("native serve library load failed: %s", e)
+            _native_failed = True
+            return None
+        for name in ("ytk_serve_score_u8", "ytk_serve_score_u16"):
+            fn = getattr(lib, name)
+            fn.restype = None
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
+            ]
+        for name in ("ytk_serve_bin_u8", "ytk_serve_bin_u16"):
+            fn = getattr(lib, name)
+            fn.restype = None
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                ctypes.c_int32,
+            ]
+        _native_lib = lib
+        return _native_lib
+
+
+def _native():
+    """The library for this call: None under YTK_NO_NATIVE (read at every
+    call, unlike the reference, which latches its first answer) or when
+    it does not build."""
+    if knobs.get_bool("YTK_NO_NATIVE"):
+        return None
+    return _load_native()
+
+
+def native_serve_available() -> bool:
+    """The library builds and loads, and YTK_NO_NATIVE is off now."""
+    return _native() is not None
+
+
+def resolve_kernel_threads() -> int:
+    """YTK_SERVE_KERNEL_THREADS, or min(8, cores): rows parallelize
+    embarrassingly, but a serving box shares its cores with the batcher
+    and HTTP threads, so the default stays bounded."""
+    n = knobs.get_int("YTK_SERVE_KERNEL_THREADS") or 0
+    if n > 0:
+        return n
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+def native_binned_scores(
+    bins: np.ndarray, packed: np.ndarray, leaf: np.ndarray, depth: int,
+    sentinel: int, n_threads: int,
+) -> np.ndarray:
+    """(B,) raw f64 ensemble sums from (B, F) u8/u16 bins on the host (the
+    reference's native_binned_scores, ytklearn_tpu/serve/kernels.py:
+    600-625): the per-row fold is ascending trees in f64, as
+    binned_walk's, so the two are bit-equal on the same bins."""
+    lib = _native()
+    if lib is None:
+        raise RuntimeError("native serve library unavailable")
+    if bins.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"bins dtype {bins.dtype} not u8/u16")
+    bins = np.ascontiguousarray(bins)
+    packed = np.ascontiguousarray(packed, np.int32)
+    leaf = np.ascontiguousarray(leaf, np.float64)
+    B, F = bins.shape
+    T, H = packed.shape
+    LL = leaf.shape[1]
+    # the walk indexes rows by the packed feat ids and leaves by the heap
+    # slots: check both before passing pointers
+    if leaf.shape[0] != T or H != 2 * LL - 1 or (1 << depth) != LL:
+        raise ValueError(f"packed {packed.shape}, leaf {leaf.shape} and "
+                         f"depth {depth} are not one heap layout")
+    if T and int((packed & ((1 << FEAT_BITS) - 1)).max()) >= F:
+        raise ValueError(f"a packed feature id is past the {F} bin columns")
+    out = np.zeros((B,), np.float64)
+    fn = (lib.ytk_serve_score_u8 if bins.dtype == np.uint8
+          else lib.ytk_serve_score_u16)
+    nt = 1 if B < 64 else n_threads
+    fn(
+        bins.ctypes.data, B, F, packed.ctypes.data, leaf.ctypes.data,
+        T, H, LL, depth, sentinel, out.ctypes.data, nt,
+    )
+    return out

@@ -182,9 +182,11 @@ class CompiledScorer:
 
     @property
     def backend(self) -> str:
-        if self.mode in ("fused", "binned"):
+        if self.mode == "binned":
+            return f"binned-{self._binned_where}"
+        if self.mode == "fused":
             where = "cuda" if self.device.type == "cuda" else "plain"
-            return f"{self.mode}-{where}"
+            return f"fused-{where}"
         return "stacked-torch"
 
     def rung_info(self) -> Dict[str, object]:
@@ -668,6 +670,30 @@ class CompiledScorer:
                                             sentinel, max_feat=max_feat))
 
         self._binned = binned
+        self._binned_where = "cuda" if dev.type == "cuda" else "plain"
+        if dev.type == "cpu":
+            # the reference's CPU ladder: the native walk, else the plain
+            # one under YTK_NO_NATIVE or with no toolchain. On CUDA the
+            # rung launches K7 or raises.
+            if kernels.native_serve_available():
+                threads = kernels.resolve_kernel_threads()
+                leaf_np = np.ascontiguousarray(heap.leaf)
+
+                def binned_native(chunk: np.ndarray):
+                    bins = kernels.bin_rows(chunk, table)
+                    s = kernels.native_binned_scores(
+                        bins, packed, leaf_np, depth, sentinel, threads)
+                    return tail(torch.from_numpy(s))
+
+                self._binned = binned_native
+                self._binned_where = "native"
+            elif not knobs.get_bool("YTK_NO_NATIVE"):
+                # the reference's binned_native_to_xla: still the binned
+                # rung, on the slower plain walk, and counted
+                obs_inc("serve.downgrade.total")
+                obs_inc("serve.downgrade.binned_native_to_plain")
+                log.warning("serve rung downgrade binned_native_to_plain: "
+                            "native serve library unavailable (toolchain?)")
         self.mode = "binned"
         self.bin_mode = table.mode
         self.bin_dtype = str(np.dtype(table.dtype))
