@@ -29,8 +29,10 @@ new kernel), and continual training: `cli retrain` against a model `cli
 serve` serves under traffic, `cli predict` and `cli convert` (slice 15,
 no new kernel), and the serving fleet: `cli serve --replicas 2` and an
 autoscaling `--replicas-min 1 --replicas-max 2` fleet whose replica
-processes launch K6 and K7 on the one card (slice 16, no new kernel).
-Every phase prints its wall time, and the run its total.
+processes launch K6 and K7 on the one card (slice 16, no new kernel),
+and the profiling plane: `cli train --profile --trace-out`, YTK_PROF=1
+`cli serve` and scripts/prof_drill.py on the card (slice 17, no new
+kernel). Every phase prints its wall time, and the run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -299,7 +301,25 @@ Every phase prints its wall time, and the run its total.
      binned rung's CPU version, never above 2 slots; prints the `fleet`
      line (client p50/p99 at 1 and 2 replicas, spawn to ready, the
      restart, the grow and the drain);
- 22. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 22. (slice 17, its main path) right after phase_fleet, `phase_profile`
+     on phase_cli_train's config and text: `cli train gbdt --profile DIR
+     --trace-out T` in this process (the report: each phase's wall and
+     the coverage of the run, at least 0.9; the kernel table of the
+     gbdt.train capture with device ms, whose K1, K3 and K5 rows count
+     exactly their wrappers' launches; the build ledger; each phase's
+     memory peak; the device's busy share over gbdt.train; a capture
+     with no device event fails), the same training without the flags
+     and with `--profile` alone (the rounds' wall of the three: the
+     plane's overhead, with and without a capture), a `YTK_PROF=1 cli
+     serve` process on the fused rung under requests at every ladder
+     rung (/metrics?prof=1: every rung filled, its rows the rows sent, a
+     load of K6's library and K6's instantiation in the ledger, no
+     unexpected retrace), a fresh process whose armed fused scorer sees
+     a binned scorer's first K7 launch (health.retrace naming the
+     culprit program and kernel), and scripts/prof_drill.py on the card
+     (every check hard; the ledger holds the loads of the parser's and
+     the kernels' libraries and the kernels' instantiations);
+ 23. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -2284,6 +2304,18 @@ class Recorder:
         setattr(self.cls, self.method, self.orig)
 
 
+def cli_train_argv(paths, model):
+    """`cli train gbdt` of the Higgs config on the text at `paths`, dumping
+    `model`: phase_cli_train's command line."""
+    return ["train", "gbdt", CONF,
+            "--set", f"data.train.data_path={paths['train']}",
+            "--set", f"data.test.data_path={paths['test']}",
+            "--set", f"model.data_path={model}",
+            "--set", f"model.feature_importance_path={model}.imp",
+            "--set", f"optimization.round_num={CLI_ROUNDS}",
+            "--set", f"optimization.max_depth={CLI_DEPTH}"]
+
+
 def phase_cli_train(tmp, card):
     """`python -m ytklearn_tpu_torch.cli train gbdt <conf>` on the card, run
     in this process (cli.main with the same arguments) so that the kernels'
@@ -2310,13 +2342,7 @@ def phase_cli_train(tmp, card):
     del train, test
     torch.cuda.empty_cache()
     model = os.path.join(tmp, "cli", "gbdt.model")
-    argv = ["train", "gbdt", CONF,
-            "--set", f"data.train.data_path={paths['train']}",
-            "--set", f"data.test.data_path={paths['test']}",
-            "--set", f"model.data_path={model}",
-            "--set", f"model.feature_importance_path={model}.imp",
-            "--set", f"optimization.round_num={CLI_ROUNDS}",
-            "--set", f"optimization.max_depth={CLI_DEPTH}"]
+    argv = cli_train_argv(paths, model)
     print(f"cli train: wrote {CLI_ROWS} + {CLI_TEST_ROWS} text lines in "
           f"{time.perf_counter() - t0:.3f} s (host) [{card}]; python -m "
           f"ytklearn_tpu_torch.cli {' '.join(argv)}", flush=True)
@@ -5847,6 +5873,269 @@ def phase_fleet(tmp, cli_model, card):
             sum(auto["launches"].values()))
 
 
+#: requests a ladder rung: (rows, repeats); every rung of LADDER filled
+PROF_REQUESTS = ((1, 8), (5, 4), (8, 4), (40, 4), (64, 4), (300, 2),
+                 (512, 2))
+#: the libraries the profiling drill's path loads (or builds), and the
+#: kernels it launches, each a first instantiation in its process
+PROF_DRILL_LIBS = ("libytk_parse.so", "libytk_hist_float.so",
+                   "libytk_route.so", "libytk_heap_walk.so")
+PROF_DRILL_KERNELS = ("hist", "route", "heap_walk")
+
+
+def plant_retrace(model):
+    """Run in a fresh process (phase_profile): with the profiling plane on,
+    a fused scorer on `model` warms up (K6's first launch, credited) and
+    arms its retrace sentinel; then a binned scorer built without warmup
+    scores a batch: K7's first launch in the process, a kernel
+    instantiation the fused scorer did not warm, under the ledger label
+    `serve.rung.<rung>`; the fused scorer's next batch fires
+    health.retrace. Prints one JSON line: the retrace events before and
+    after the plant, the counters, the ledger."""
+    import numpy as np
+
+    from ytklearn_tpu_torch import obs
+    from ytklearn_tpu_torch.obs import profiler
+    from ytklearn_tpu_torch.predict import create_predictor
+    from ytklearn_tpu_torch.serve.scorer import CompiledScorer
+
+    profiler.configure_profiler(on=True, mem_interval=0.0)
+    pred = create_predictor("gbdt", {
+        "model": {"data_path": model},
+        "optimization": {"loss_function": "sigmoid", "round_num": 1000}})
+    rng = np.random.RandomState(SEED + 17)
+    rows = [{f"f{j}": float(rng.randn()) for j in range(N_FEATURES)}
+            for _ in range(12)]
+    fused = CompiledScorer(pred, mode="fused", device="cuda")
+    fused.score_batch(rows)  # steady state: no build
+
+    def retraces():
+        return [e.get("args", {}) for e in obs.REGISTRY.events
+                if e["name"] == "health.retrace"]
+
+    before = retraces()
+    binned = CompiledScorer(pred, mode="binned", device="cuda",
+                            warmup=False)
+    binned.score_batch(rows)
+    fused.score_batch(rows)
+    print(json.dumps({
+        "before": before, "after": retraces(),
+        "rungs": [fused.rung_info(), binned.rung_info()],
+        "counters": obs.snapshot()["counters"],
+        "ledger": profiler.LEDGER.snapshot(),
+    }), flush=True)
+
+
+def prof_serve(tmp, model, card):
+    """A `YTK_PROF=1 cli serve` process on the fused rung under requests at
+    every ladder rung (PROF_REQUESTS, one client): its /metrics?prof=1."""
+    conf = serve_conf(model, tmp, "prof_serve")
+    rows = read_holdout(os.path.join(tmp, "test.txt"),
+                        max(n for n, _ in PROF_REQUESTS))
+    env = dict(os.environ, YTK_SERVE_FUSED="1", YTK_PROF="1",
+               PYTHONPATH=REPO)
+    env.pop("YTK_SERVE_BINNED", None)
+    err_path = os.path.join(tmp, "prof_serve.err")
+    proc, banner = start_cli_serve(
+        [conf, "gbdt", "--host", "127.0.0.1", "--port", "0"], env, err_path)
+    try:
+        check(banner["rung"]["backend"] == "fused-cuda", f"banner {banner}")
+        port = banner["port"]
+        sent = 0
+        for n, repeats in PROF_REQUESTS:
+            for _ in range(repeats):
+                out = post(port, {"rows": rows[:n]})
+                check(len(out["scores"]) == n, f"{n} rows scored "
+                      f"{len(out['scores'])}")
+                sent += n
+        _s, _h, m = http_json("GET", port, "/metrics?prof=1")
+    finally:
+        rc, err_text, _warm = stop_cli_serve(proc, err_path)
+    check(rc == 0, f"YTK_PROF cli serve exited {rc}: {err_text[-2000:]}")
+    return m, sent
+
+
+def phase_profile(tmp, model, card):
+    """The profiling plane on the card (slice 17): `cli train gbdt
+    --profile DIR --trace-out T` in this process on phase_cli_train's
+    config and text, the same training without the flags and with the
+    plane on but no capture (the plane's overhead), a `YTK_PROF=1 cli
+    serve` process, a planted kernel instantiation in a fresh process, and
+    scripts/prof_drill.py; every check hard."""
+    import io
+
+    from ytklearn_tpu_torch import cli, obs
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+    from ytklearn_tpu_torch.obs import profiler
+
+    paths = {k: os.path.join(tmp, f"{k}.txt") for k in ("train", "test")}
+    pdir = os.path.join(tmp, "prof")
+    prof_dir = os.path.join(pdir, "captures")
+    trace_out = os.path.join(pdir, "trace.json")
+    argv = cli_train_argv(paths, os.path.join(pdir, "gbdt.model"))
+    # the subprocesses start while this process trains: they wait for
+    # nothing of it, and the drill and the plant hold no measurement
+    drill_rec = os.path.join(pdir, "drill.json")
+    os.makedirs(pdir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for k in ("YTK_PROF", "YTK_SERVE_FUSED", "YTK_SERVE_BINNED"):
+        env.pop(k, None)
+    runs = {}
+    obs_was = obs.enabled()
+    try:
+        for tag, extra in (("plain", []), ("plane", ["--profile"]),
+                           ("profiled", ["--profile", prof_dir,
+                                         "--trace-out", trace_out])):
+            if extra:
+                # every kernel row in the table, not the top 10
+                profiler.configure_profiler(topk=64)
+            zero_kernel_counts()
+            out = io.StringIO()
+            with Recorder(GBDTTrainer, "train") as trained, \
+                    contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                rc = cli.main(argv + extra)
+                wall = time.perf_counter() - t0
+            res = json.loads(out.getvalue().strip().splitlines()[-1])
+            check(rc == 0 and res["trees"] == CLI_ROUNDS,
+                  f"cli train {tag}: rc {rc}, {res}")
+            runs[tag] = (kernel_counts(), trained.calls[0][0].time_stats,
+                         wall, res)
+            if tag == "plane":  # the next run's report is its own
+                profiler.configure_profiler(on=False)
+                profiler.reset_profiler()
+    finally:
+        profiler.configure_profiler(on=False, capture_dir=None, topk=10)
+        obs.configure(enabled=obs_was, trace_path=None)
+    counts, ts, wall, res = runs["profiled"]
+    _pcounts, pts, pwall, pres = runs["plain"]
+    _ncounts, nts, nwall, _nres = runs["plane"]
+    with open(os.path.join(prof_dir, "ytkprof.json")) as f:
+        rep = json.load(f)
+    profiler.reset_profiler()
+    obs.reset()
+    top = dict(rep, kernels=dict(rep["kernels"],
+                                 top_kernels=rep["kernels"]["top_kernels"][:12]))
+    print("profile: the report of `cli train gbdt --profile DIR "
+          f"--trace-out T` (its top 12 kernels) [{card}]:\n"
+          f"{profiler.format_report(top)}", flush=True)
+    cov = rep["phase_coverage"]
+    check(cov >= 0.9, f"phase coverage {cov} of the cli train run < 0.9")
+    check({"gbdt.load", "gbdt.preprocess", "gbdt.train", "gbdt.finalize"}
+          <= set(rep["phases"]), f"phases {list(rep['phases'])}")
+    kern = rep["kernels"]
+    win = [w for w in kern["windows"] if w["phase"] == "gbdt.train"]
+    check(len(win) == 1 and win[0]["device"] and win[0]["device_busy_ms"] > 0,
+          f"the gbdt.train capture traced no device event: {kern['windows']}")
+    busy = win[0]["device_busy_ms"] / win[0]["window_ms"]
+    table = {k["name"]: k for k in kern["top_kernels"]}
+    for name, k in (("hist", "K1"), ("hist_gather", "K3"), ("route", "K5")):
+        row = table.get(name)
+        check(row is not None and row["ms"] > 0
+              and row["count"] == counts[name],
+              f"kernel table row of {k} ({name}) {row} against its "
+              f"wrapper's {counts[name]} launches; table {sorted(table)}")
+    krows = ", ".join(f"{n} {table[n]['ms']:.3f} ms x{table[n]['count']} "
+                      f"({100 * table[n]['share']:.1f}%)"
+                      for n in ("hist", "hist_gather", "route"))
+    print(f"profile: gbdt.train capture: device busy "
+          f"{win[0]['device_busy_ms']:.3f} of {win[0]['window_ms']:.3f} ms "
+          f"({100 * busy:.2f}%), device total {kern['device_total_ms']:.3f}"
+          f" ms; {krows}; launches hist {counts['hist']}, hist_gather "
+          f"{counts['hist_gather']}, route {counts['route']} [{card}]",
+          flush=True)
+    with open(trace_out) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    check({"gbdt.train", "gbdt.round", "gbdt.sync", "ingest.parse"} <= names,
+          f"--trace-out holds no trainer spans: {sorted(names)[:20]}")
+    print(f"profile: rounds {ts['train']:.3f} s profiled (phase "
+          f"gbdt.train {rep['phases']['gbdt.train']['wall_s']:.3f} s with the"
+          f" capture's start and export), {nts['train']:.3f} s with the "
+          f"plane on and no capture (`--profile`), {pts['train']:.3f} s "
+          f"plain: overhead x{ts['train'] / pts['train']:.3f} and "
+          f"x{nts['train'] / pts['train']:.3f}; the cli run {wall:.3f} s "
+          f"profiled, {nwall:.3f} s with the plane, {pwall:.3f} s plain; "
+          f"test AUC {res['test_metrics']['auc']:.6f} and "
+          f"{pres['test_metrics']['auc']:.6f} [{card}]", flush=True)
+
+    # a fresh process for the plant and one for the drill, beside the
+    # serving process
+    plant = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; chip_smoke.plant_retrace(sys.argv[1])",
+         model], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    drill = subprocess.Popen(
+        [sys.executable, "-m", "ytklearn_tpu_torch.scripts.prof_drill",
+         "--record", drill_rec], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        m, sent = prof_serve(tmp, model, card)
+    finally:
+        p_out, p_err = plant.communicate(timeout=600)
+        d_out, d_err = drill.communicate(timeout=600)
+    prof = m["prof"]
+    rungs = prof["models"]["default"]["rungs"]
+    c = m["counters"]
+    print(f"profile: YTK_PROF cli serve, {sent} rows in "
+          f"{sum(r for _, r in PROF_REQUESTS)} requests; /metrics?prof=1 "
+          f"rungs {json.dumps(rungs)}; compile.retraces.unexpected "
+          f"{c.get('compile.retraces.unexpected', 0)}; ledger "
+          f"{json.dumps(prof['compile']['by_program'])} [{card}]",
+          flush=True)
+    check(prof["enabled"] and set(rungs) == {str(r) for r in LADDER}
+          and all(v["calls"] > 0 for v in rungs.values())
+          and sum(v["rows"] for v in rungs.values()) == sent,
+          f"/metrics?prof=1 rungs {rungs} against {sent} rows sent")
+    check(c.get("compile.retraces.unexpected", 0) == 0
+          and c.get("health.retrace", 0) == 0,
+          f"retraces over steady serving: {c}")
+    kinds = {(e["kind"], e.get("kernel")) for e in prof["compile"]["entries"]}
+    check(("load", "libytk_heap_walk.so") in kinds
+          and ("instantiate", "heap_walk[]") in kinds,
+          f"the serving ledger lacks K6's load or instantiation: {kinds}")
+
+    check(plant.returncode == 0, f"plant: rc {plant.returncode}: "
+          f"{p_err[-3000:]}")
+    planted = json.loads(p_out.strip().splitlines()[-1])
+    after = planted["after"]
+    culprits = [cu for a in after for cu in a.get("culprits", [])]
+    print(f"profile: planted K7 instantiation in a fresh process: rungs "
+          f"{planted['rungs'][0]['backend']} then "
+          f"{planted['rungs'][1]['backend']}; health.retrace before "
+          f"{len(planted['before'])}, after {len(after)}: {json.dumps(after)}"
+          f" [{card}]", flush=True)
+    check(not planted["before"] and len(after) == 1
+          and any(cu["program"].startswith("serve.rung.")
+                  and cu.get("kernel", "").startswith("binned_walk[")
+                  for cu in culprits),
+          f"the planted instantiation did not fire health.retrace with its "
+          f"culprit: {planted}")
+
+    summary = (d_out.strip().splitlines() or [""])[0]
+    print(f"profile: prof_drill: {summary}", flush=True)
+    check(drill.returncode == 0, f"prof_drill: rc {drill.returncode}: "
+          f"{summary[:2000]} {d_err[-2000:]}")
+    with open(drill_rec) as f:
+        drec = json.load(f)
+    entries = drec["ledger"]["entries"]
+    done = {e.get("kernel") for e in entries if e["kind"] in ("load", "build")}
+    inst = {e.get("kernel", "").split("[")[0] for e in entries
+            if e["kind"] == "instantiate"}
+    check(drec["ok"] and set(PROF_DRILL_LIBS) <= done
+          and set(PROF_DRILL_KERNELS) <= inst,
+          f"prof_drill: ok {drec['ok']}, failures {drec['failures']}, "
+          f"libraries {sorted(done)}, instantiations {sorted(inst)}")
+    dwin = drec["prof"]["kernels"]["windows"][0]
+    led = ", ".join(f"{e['kind']} {e.get('kernel')} {e['ms']:.3f} ms "
+                    f"({e['program']})" for e in entries)
+    print(f"profile: prof_drill ok, coverage {drec['phase_coverage']}, "
+          f"gbdt.train busy {dwin['device_busy_ms']:.3f} of "
+          f"{dwin['window_ms']:.3f} ms; serve rungs "
+          f"{json.dumps(drec['serve']['rungs'])}; ledger: {led} [{card}]",
+          flush=True)
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -6006,6 +6295,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # slice 16: that model behind the serving fleet, fused and binned
         timed("fleet", phase_fleet, tmp, cli_model, card)
+        torch.cuda.empty_cache()
+        # slice 17: the profiling plane over phase_cli_train's config
+        timed("profile", phase_profile, tmp, cli_model, card)
         # slice 13: the host engine over the same text, then resilience
         t0 = time.perf_counter()
         small = timed("host_engine", phase_host_engine, card,

@@ -28,7 +28,8 @@ import pytest
 from ytklearn_tpu import cli as jcli
 from ytklearn_tpu.gbdt.tree import GBDTModel as JModel
 from ytklearn_tpu.predict import create_predictor as jax_create_predictor
-from ytklearn_tpu_torch import cli
+from ytklearn_tpu_torch import cli, obs
+from ytklearn_tpu_torch.obs import profiler
 from ytklearn_tpu_torch.gbdt import trainer as ptrainer
 from ytklearn_tpu_torch.gbdt.binning import model_text_digest
 from ytklearn_tpu_torch.predict import create_predictor
@@ -177,18 +178,47 @@ def test_jax_predictor_scores_the_port_dump(runs):
     (["--profile"], "1.12"),
 ])
 def test_unported_options_raise_by_item(extra, match, runs):
-    """The 1.7 and 1.12 options raise by their item. The two that item 1.5
+    """The 1.7 options raise by their item. Those that items 1.5 and 1.12
     lifted train one round on the CPU and return 0: `--max-restarts 1` with
-    nothing failing, `--resume auto` with no model there (a cold start)."""
-    if match == "1.5":
+    nothing failing, `--resume auto` with no model there (a cold start),
+    `--trace-out T` writing a Chrome trace that loads and holds the run's
+    spans, and `--profile DIR` writing the ytkprof report (the trainer's
+    phases, coverage of the run) and a torch.profiler capture of the
+    rounds into DIR."""
+    if match in ("1.5", "1.12"):
         tag = extra[0].strip("-")
+        out = runs["tmp"] / f"{tag}.out"
+        if extra == ["--profile"]:
+            extra = extra + [str(out)]
+        elif extra[0] == "--trace-out":
+            extra = [extra[0], str(out)]
         args = _args(runs["tmp"], tag) + [
             "--set", "optimization.round_num=1", "--device", "cpu"] + extra
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            assert cli.main(["train"] + args) == 0
-        assert _json_line(buf.getvalue())["trees"] == 1
-        assert (runs["tmp"] / tag / "gbdt.model").exists()
+        try:
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["train"] + args) == 0
+            assert _json_line(buf.getvalue())["trees"] == 1
+            assert (runs["tmp"] / tag / "gbdt.model").exists()
+            if extra[0] == "--trace-out":
+                doc = json.loads(out.read_text())
+                names = {e["name"] for e in doc["traceEvents"]}
+                assert {"gbdt.train", "gbdt.round", "gbdt.sync",
+                        "ingest.parse"} <= names
+            elif extra[0] == "--profile":
+                rep = json.loads((out / "ytkprof.json").read_text())
+                assert rep["schema"] == "ytkprof"
+                assert {"gbdt.load", "gbdt.preprocess", "gbdt.train",
+                        "gbdt.finalize"} <= set(rep["phases"])
+                assert 0.5 < rep["phase_coverage"] <= 1.0
+                assert rep["kernels"]["parsed"] == 1
+                assert rep["kernels"]["top_kernels"]
+                assert list(out.glob("gbdt.train_*/trace.json"))
+        finally:
+            profiler.configure_profiler(on=False, capture_dir=None)
+            profiler.reset_profiler()
+            obs.configure(enabled=False, trace_path=None)
+            obs.reset()
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {match}"):
         cli.main(["train", "gbdt", CONF] + extra)

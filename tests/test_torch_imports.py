@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "io.libsvm", "predict.base", "serve.fleet",
               "serve.fleet.front", "serve.fleet.worker",
               "serve.fleet.autoscaler", "scripts.chaos_drill",
-              "obs.quality"):
+              "obs.quality", "obs.profiler", "scripts.prof_drill",
+              "scripts.obs_report"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -423,12 +423,24 @@ def test_latency_helpers_equal_the_reference():
     ({"YTK_PROF": "1"}, "YTK_PROF"),
 ])
 def test_unported_obs_knobs_raise(env, match):
-    code = ("import ytklearn_tpu_torch.obs as o, ytklearn_tpu_torch.serve "
-            "as s; s.ServeApp(s.ModelRegistry(device='cpu'))")
+    """YTK_OBS_JAX has no counterpart and raises. YTK_PROF, refused until
+    ROADMAP.md 1.12, now arms the profiling plane: the app starts, and
+    its `/metrics?prof=1` block says so, with the ledger and phases."""
+    code = ("import json, ytklearn_tpu_torch.obs as o, "
+            "ytklearn_tpu_torch.serve as s; "
+            "a = s.ServeApp(s.ModelRegistry(device='cpu')); "
+            "print(json.dumps(a.metrics_payload(prof=True)['prof']))")
     full = {k: v for k, v in os.environ.items()
             if not k.startswith(("JAX_", "XLA_"))}
     full.update(env, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=full,
                          capture_output=True, text=True, timeout=120)
+    if match == "YTK_PROF":
+        assert out.returncode == 0, out.stderr
+        prof = json.loads(out.stdout.strip().splitlines()[-1])
+        assert prof["enabled"] is True
+        assert set(prof) == {"enabled", "models", "compile", "phases"}
+        assert prof["compile"]["compiles"] == 0
+        return
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and match in out.stderr

@@ -24,7 +24,7 @@ import pytest
 
 from ytklearn_tpu import cli as jcli
 from ytklearn_tpu.io.libsvm import convert_libsvm as jconvert
-from ytklearn_tpu_torch import cli
+from ytklearn_tpu_torch import cli, obs
 from ytklearn_tpu_torch.io.libsvm import convert_libsvm
 from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case, \
     write_gbst_case
@@ -174,10 +174,26 @@ def test_sample_dependent_base_equals_the_reference(tmp_path, family):
 
 
 def test_predict_refusals(tmp_path, model_case):
+    """`--trace-out`, refused until ROADMAP.md 1.12, now writes a Chrome
+    trace of the batch predict that loads and holds its spans, and the
+    result files are the ones a run without it writes."""
     family, cfg, conf, data = model_case
-    for bad in (["--trace-out", str(tmp_path / "t.json")],):
-        with pytest.raises(NotImplementedError, match="1.12"):
-            cli.main(["predict", str(conf), family, str(data)] + bad)
+    path = tmp_path / "t.json"
+    try:
+        for who, extra in (("plain", []), ("traced", ["--trace-out",
+                                                       str(path)])):
+            rc, _ = _quiet(lambda a: cli.main(["predict"] + a),
+                           [str(conf), family, str(data), "--suffix",
+                            f"_{who}", "--device", "cpu"] + extra)
+            assert rc == 0
+    finally:
+        obs.configure(enabled=False, trace_path=None)
+        obs.reset()
+    doc = json.loads(path.read_text())
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert {"predict.score_file", "predict.activate"} <= names
+    assert (data.parent / (data.name + "_traced")).read_text() == \
+        (data.parent / (data.name + "_plain")).read_text()
 
 
 # -- cli convert ----------------------------------------------------------------

@@ -12,8 +12,11 @@ and random_forest; `loss.just_evaluate` stops after the first fit.
 SIGTERM or SIGINT is deferred to the next tree boundary, where every
 finished tree is on disk already, and `Preempted` is raised; the relaunch
 (`--resume auto`) continues at the last finished tree and ends with the
-uninterrupted run's trees. The multi-process streams come with ROADMAP.md
-1.7.
+uninterrupted run's trees. The obs spans are the convex trainer's:
+`train.load` (the ingest), one `train.round` a tree fit (with the L-BFGS
+phases and spans inside) and `train.evaluate`, with the `mem.train.load.*`
+and `mem.train.train.*` gauges. The multi-process streams come with
+ROADMAP.md 1.7.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from .io.reader import DataIngest, IngestResult
 from .models.gbst import GBSTModel
 from .optimize import LBFGSConfig, minimize_lbfgs
 from .optimize.blocked import make_rows
+from .obs import health, span as obs_span
 from .resilience import trainer_guard
 
 log = logging.getLogger("ytklearn_tpu_torch.boost")
@@ -83,10 +87,13 @@ class GBSTTrainer:
         p = self.params
         t0 = time.time()
         ts = self.time_stats = {}
+        health.install_trace_counters()
         if ingest is None:
-            ingest = DataIngest(p, fs=self.fs,
-                                transform_hook=self.transform_hook).load()
+            with obs_span("train.load", model=self.variant):
+                ingest = DataIngest(p, fs=self.fs,
+                                    transform_hook=self.transform_hook).load()
         ts["load"] = time.time() - t0
+        health.record_memory("train.load")
         ts["parser"] = ingest.parser
         ds, ds_t = ingest.train, ingest.test
         model = GBSTModel(p, ds.dim, self.variant, device=self.device)
@@ -165,13 +172,14 @@ class GBSTTrainer:
             gmask = self._put(gmask_np)
             w_eff = self._put(np.asarray(ds.weight) * inst * compensate)
             w0 = self._put(model.init_weights(tree_seed=tree))
-            res = minimize_lbfgs(
-                model.pure_loss, w0, cfg,
-                batch=(idx, val, z, gmask, y, w_eff),
-                l1_vec=l1_vec, l2_vec=l2_vec, g_weight=g_weight,
-                callback=((lambda it, st: True) if p.loss.just_evaluate
-                          else None),
-                row_chunk=row_chunk, row_mask=model.batch_row_mask)
+            with obs_span("train.round", round=tree):
+                res = minimize_lbfgs(
+                    model.pure_loss, w0, cfg,
+                    batch=(idx, val, z, gmask, y, w_eff),
+                    l1_vec=l1_vec, l2_vec=l2_vec, g_weight=g_weight,
+                    callback=((lambda it, st: True) if p.loss.just_evaluate
+                              else None),
+                    row_chunk=row_chunk, row_mask=model.batch_row_mask)
             out.per_tree_loss.append(res.loss / g_weight)
             out.per_tree_iter.append(res.n_iter)
             out.per_tree_status.append(res.status)
@@ -202,17 +210,20 @@ class GBSTTrainer:
         n_div = max(out.n_trees, 1)
         ens = self._ensemble(z, n_div)
         out.train_loss = _ensemble_loss(loss_fn, ens, y, weight) / g_weight
-        if eval_set is not None:
-            out.train_metrics = eval_set.evaluate(loss_fn.predict(ens), y,
-                                                  weight)
-        if ds_t is not None:
-            ens_t = self._ensemble(z_t, n_div)
-            out.test_loss = _ensemble_loss(loss_fn, ens_t, y_t, weight_t) \
-                / max(g_weight_test, 1e-12)
+        with obs_span("train.evaluate"):
             if eval_set is not None:
-                out.test_metrics = eval_set.evaluate(loss_fn.predict(ens_t),
-                                                     y_t, weight_t)
+                out.train_metrics = eval_set.evaluate(loss_fn.predict(ens),
+                                                      y, weight)
+            if ds_t is not None:
+                ens_t = self._ensemble(z_t, n_div)
+                out.test_loss = _ensemble_loss(loss_fn, ens_t, y_t,
+                                               weight_t) \
+                    / max(g_weight_test, 1e-12)
+                if eval_set is not None:
+                    out.test_metrics = eval_set.evaluate(
+                        loss_fn.predict(ens_t), y_t, weight_t)
         ts["train"] = time.time() - t0 - ts["load"]
+        health.record_memory("train.train")
         log.info("boosting done: %d trees, train loss %.6f, metrics %s; "
                  "load %.1fs, train %.1fs", out.n_trees, out.train_loss,
                  out.train_metrics, ts["load"], ts["train"])

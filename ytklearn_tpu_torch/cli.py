@@ -30,9 +30,13 @@ times. A preempted run (SIGTERM/SIGINT, deferred to the trainer's next
 boundary, which dumps first) exits 128 + signum and is never retried; a
 CUDA error that poisons the process's context (an illegal address, a
 device-side assert) is re-raised at once, since an in-process restart
-could only fail again. Multi-process and multi-GPU runs and the
-trace/profile planes raise NotImplementedError naming their ROADMAP.md
-item.
+could only fail again. `--trace-out T` writes a Chrome-trace/Perfetto
+JSON of the run's obs spans; `--profile [DIR]` arms the profiling plane
+(obs/profiler.py: phase accounting, the build ledger, memory watermarks),
+logs its report at the end and, with DIR, captures a torch.profiler trace
+of each capture phase (the GBDT rounds, the L-BFGS iterations) into DIR
+and writes the report there as `ytkprof.json`. Multi-process and
+multi-GPU runs raise NotImplementedError naming their ROADMAP.md item.
 
 `serve` is the JAX package's single-process `cli serve` at its defaults:
 it loads any family `train` writes (and every `--extra-model`) into a
@@ -52,8 +56,10 @@ least-queued rows, reroutes around and restarts dead replicas, fans
 /admin/* out, merges /metrics, and autoscales within the band
 (serve/fleet/). Its banner names `fleet`, `replicas`, `replica_ports` and
 `wall_t0`; with YTK_OBS=1 it dumps its flight ring (the replicas' deaths,
-restarts and scale decisions) into YTK_FLIGHT_DIR at SIGTERM. YTK_PROF (the profiling plane, ROADMAP.md 1.12) raises
-NotImplementedError.
+restarts and scale decisions) into YTK_FLIGHT_DIR at SIGTERM. YTK_PROF=1
+arms the profiling plane in the server (and, through the environment, in
+every replica): `/metrics?prof=1` then answers each rung's settled
+execute time and rows, the build ledger and the phases.
 
 `retrain` is the continual-training driver (continual/): it warm-starts a
 candidate on `--data` in a shadow path on `--device` (default `cuda`),
@@ -66,8 +72,8 @@ restores the newest archive; `--mode ftrl` streams one FTRL-proximal pass
 it writes `<file><suffix>` result files in any save mode and predict type
 and prints the weighted average loss; the activation and the loss run on
 `--device` (default `cuda`). `convert` is bin/libsvm_convert_2_ytklearn.sh
-(io/libsvm.py). `--devices` > 1 (ROADMAP.md 1.7) and `--trace-out` (1.12)
-raise NotImplementedError in both.
+(io/libsvm.py). Both take `--trace-out T` (a Chrome trace of the run);
+`--devices` > 1 (ROADMAP.md 1.7) raises NotImplementedError in retrain.
 """
 
 from __future__ import annotations
@@ -75,8 +81,10 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
-from typing import List, Optional
+import time
+from typing import List, Optional, Tuple
 
 MODEL_NAMES = (
     "linear",
@@ -154,8 +162,6 @@ def _refuse_unported(args) -> None:
          "1.7, multi-GPU data-parallel GBDT"),
         (args.devices > 1, "--devices > 1",
          "1.7, multi-GPU data-parallel GBDT"),
-        (bool(args.trace_out), "--trace-out", "1.12, the obs planes"),
-        (args.profile is not None, "--profile", "1.12, the obs planes"),
     ):
         if bad:
             raise _not_ported(what, item)
@@ -189,13 +195,21 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--set", action="append", dest="sets",
                     metavar="KEY=VALUE", help="config override, repeatable")
     ap.add_argument("--trace-out", default="",
-                    help="Chrome-trace output (not ported yet)")
+                    help="write a Chrome-trace/Perfetto JSON of the run to "
+                    "this path (YTK_TRACE=path everywhere else)")
     ap.add_argument("--profile", nargs="?", const="", default=None,
-                    metavar="DIR", help="profiling plane (not ported yet)")
+                    metavar="DIR",
+                    help="arm the ytkprof profiling plane: phase and "
+                    "device-time accounting, build ledger, memory "
+                    "watermarks; with DIR also capture torch.profiler "
+                    "traces and write the report (ytkprof.json) into it "
+                    "(YTK_PROF everywhere else)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     _setup_logging(args.verbose)
     _refuse_unported(args)
+    _setup_trace(args.trace_out)
+    _setup_profile(args.profile)
 
     from .config import hocon
 
@@ -219,13 +233,19 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     from .resilience import Preempted
 
     restarts = max(args.max_restarts, 0)
+    t0 = time.perf_counter()
     for attempt in range(restarts + 1):
         try:
-            return _train_once(args.model_name, cfg, hook, args.device)
+            rc, wall = _train_once(args.model_name, cfg, hook, args.device)
+            _flush_trace(args.trace_out)
+            _flush_profile(args.profile, wall)
+            return rc
         except Preempted as e:
             # not a failure: the checkpoint is on disk, and a restart here
             # would eat the grace period; the relaunch resumes it
             log.warning("%s; exiting %d", e, e.exit_code)
+            _flush_trace(args.trace_out)
+            _flush_profile(args.profile, time.perf_counter() - t0)
             return e.exit_code
         except KeyboardInterrupt:
             raise
@@ -239,7 +259,9 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     return 1  # unreachable
 
 
-def _train_once(name: str, cfg: dict, hook, device) -> int:
+def _train_once(name: str, cfg: dict, hook, device) -> Tuple[int, float]:
+    """Train one attempt and print its JSON line: (0, the seconds of the
+    trainer's train(), the wall the profiling plane decomposes)."""
     from .io.fs import create_filesystem
 
     fs = create_filesystem(str(cfg.get("fs_scheme", "local")))
@@ -247,8 +269,11 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
         from .boost import GBSTTrainer
         from .config.params import CommonParams
 
-        res = GBSTTrainer(CommonParams.from_config(cfg), name, fs=fs,
-                          transform_hook=hook, device=device).train()
+        trainer = GBSTTrainer(CommonParams.from_config(cfg), name, fs=fs,
+                              transform_hook=hook, device=device)
+        t0 = time.perf_counter()
+        res = trainer.train()
+        wall = time.perf_counter() - t0
         print(json.dumps({
             "model": name,
             "trees": res.n_trees,
@@ -257,13 +282,16 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
             "train_metrics": res.train_metrics,
             "test_metrics": res.test_metrics,
         }), flush=True)
-        return 0
+        return 0, wall
     if name != "gbdt":
         from .config.params import CommonParams
         from .train import HoagTrainer
 
-        res = HoagTrainer(CommonParams.from_config(cfg), name, fs=fs,
-                          transform_hook=hook, device=device).train()
+        trainer = HoagTrainer(CommonParams.from_config(cfg), name, fs=fs,
+                              transform_hook=hook, device=device)
+        t0 = time.perf_counter()
+        res = trainer.train()
+        wall = time.perf_counter() - t0
         print(json.dumps({
             "model": name,
             "n_iter": res.n_iter,
@@ -273,15 +301,18 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
             "train_metrics": res.train_metrics,
             "test_metrics": res.test_metrics,
         }), flush=True)
-        return 0
+        return 0, wall
 
     from .config.params import GBDTParams
     from .gbdt.trainer import GBDTTrainer
 
     # the trainer loads data.train/test through GBDTIngest and records the
     # parser and the load's seconds in its time_stats
-    res = GBDTTrainer(GBDTParams.from_config(cfg), device=device, fs=fs,
-                      transform_hook=hook).train()
+    trainer = GBDTTrainer(GBDTParams.from_config(cfg), device=device, fs=fs,
+                          transform_hook=hook)
+    t0 = time.perf_counter()
+    res = trainer.train()
+    wall = time.perf_counter() - t0
     print(json.dumps({
         "model": name,
         "trees": len(res.model.trees),
@@ -290,7 +321,7 @@ def _train_once(name: str, cfg: dict, hook, device) -> int:
         "train_metrics": res.train_metrics,
         "test_metrics": res.test_metrics,
     }), flush=True)
-    return 0
+    return 0, wall
 
 
 def predict_main(argv: Optional[List[str]] = None) -> int:
@@ -315,15 +346,15 @@ def predict_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--set", action="append", dest="sets",
                     metavar="KEY=VALUE")
     ap.add_argument("--trace-out", default="",
-                    help="Chrome-trace output (not ported yet)")
+                    help="write a Chrome-trace/Perfetto JSON of the batch "
+                    "predict to this path")
     ap.add_argument("--device", default="cuda",
                     help="device of the activation and the loss: cuda "
                     "(default) or cpu")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     _setup_logging(args.verbose)
-    if args.trace_out:
-        raise _not_ported("--trace-out", "1.12, the obs planes")
+    _setup_trace(args.trace_out)
 
     from .config import hocon
     from .predict import batch_predict_from_files, create_predictor
@@ -345,6 +376,7 @@ def predict_main(argv: Optional[List[str]] = None) -> int:
         K=K,
         device=args.device,
     )
+    _flush_trace(args.trace_out)
     print(json.dumps({"model": args.model_name, "avg_loss": avg_loss}),
           flush=True)
     return 0
@@ -420,14 +452,13 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--set", action="append", dest="sets",
                     metavar="KEY=VALUE", help="config override, repeatable")
     ap.add_argument("--trace-out", default="",
-                    help="Chrome-trace output (not ported yet)")
+                    help="write a Chrome-trace/Perfetto JSON of the retrain")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     _setup_logging(args.verbose)
     if args.devices > 1:
         raise _not_ported("--devices > 1", "1.7, multi-GPU data-parallel GBDT")
-    if args.trace_out:
-        raise _not_ported("--trace-out", "1.12, the obs planes")
+    _setup_trace(args.trace_out)
 
     from .config import hocon
     from .continual import RetrainRejected, retrain, rollback
@@ -440,6 +471,7 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
 
     if args.rollback:
         res = rollback(args.model_name, cfg)
+        _flush_trace(args.trace_out)
         print(json.dumps(res.to_json()), flush=True)
         return 0
 
@@ -463,6 +495,7 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
         # serving, the lock is released, and the next run retrains
         logging.getLogger("ytklearn_tpu_torch.cli").warning(
             "%s; exiting %d", e, e.exit_code)
+        _flush_trace(args.trace_out)
         return e.exit_code
     except RetrainRejected as e:
         # YTK_CONTINUAL_STRICT=1: a rejection fails the surrounding
@@ -472,7 +505,9 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
             "strict": True,
             "reasons": e.report.reasons,
         }), flush=True)
+        _flush_trace(args.trace_out)
         return 1
+    _flush_trace(args.trace_out)
     print(json.dumps(res.to_json()), flush=True)
     return 0
 
@@ -491,6 +526,38 @@ def _flush_trace(trace_out: str) -> None:
         from . import obs
 
         obs.flush()
+
+
+def _setup_profile(profile: Optional[str]) -> None:
+    """--profile [DIR]: arm the ytkprof profiling plane (phase accounting,
+    build ledger, memory-watermark sampler); with DIR, also capture
+    torch.profiler traces per capture phase into it (YTK_PROF everywhere
+    else)."""
+    if profile is None:
+        return
+    from .obs import profiler
+
+    if profile:
+        profiler.configure_profiler(on=True, capture_dir=profile)
+    else:
+        profiler.configure_profiler(on=True)
+
+
+def _flush_profile(profile: Optional[str], wall_s: float) -> None:
+    """--profile: log the plane's report over `wall_s` (the trainer's
+    train(), or the attempt's wall at a preemption); with DIR also write it
+    there as ytkprof.json."""
+    if profile is None:
+        return
+    from .obs import profiler
+
+    rep = profiler.report(wall_s=wall_s)
+    logging.getLogger("ytklearn_tpu_torch.cli").info(
+        "ytkprof report:\n%s", profiler.format_report(rep))
+    if profile:
+        os.makedirs(profile, exist_ok=True)
+        with open(os.path.join(profile, "ytkprof.json"), "w") as f:
+            json.dump(rep, f, indent=1)
 
 
 def serve_main(argv: Optional[List[str]] = None) -> int:

@@ -75,6 +75,9 @@ _knob("YTK_FUSED", "bool", True,
       "the rows first and runs the full-scan kernel on them)")
 _knob("YTK_FUSED_MAX_ROWS", "int", 1 << 18,
       "max gathered rows per fused-kernel call")
+_knob("YTK_PROFILE_DIR", "str", None,
+      "write a torch.profiler Chrome trace (CPU and CUDA activity) of the "
+      "GBDT device engine's rounds into this directory")
 _knob("YTK_GOSS_A", "float", 1.0,
       "GOSS top-gradient-magnitude keep fraction per tree; a value < 1 "
       "enables gradient-based one-side sampling")
@@ -173,8 +176,22 @@ _knob("YTK_OBS_HISTORY_S", "float", 1.0,
       "metrics-history sampling interval in seconds (the obs heartbeat "
       "sampler thread snapshots every counter/gauge this often)")
 _knob("YTK_PROF", "str", None,
-      "profiling plane (ytkprof); not ported yet (ROADMAP.md 1.12): the "
-      "serving app refuses to start when it is set to anything but `0`")
+      "profiling plane (ytkprof): `1` arms phase accounting, the build "
+      "ledger (library builds and loads, first kernel instantiations), "
+      "and the memory-watermark sampler; a *path* additionally captures "
+      "a `torch.profiler` Chrome trace (CPU and CUDA activity) for "
+      "capture-opted phases into that directory; unset/`0` = off with "
+      "zero new per-call work on the span hot path")
+_knob("YTK_PROF_TOPK", "int", 10,
+      "rows kept in the ytkprof top-k kernel table (per parsed capture "
+      "and in the `ytkprof` report schema)")
+_knob("YTK_PROF_MEM_S", "float", 0.5,
+      "memory-watermark sampler interval in seconds (the CUDA caching "
+      "allocator's bytes in use and peak + host RSS into bounded rings, "
+      "peaks attributed to the enclosing profiler phase)")
+_knob("YTK_PROF_LEDGER_N", "int", 512,
+      "build-ledger ring capacity: the newest N builds, loads and kernel "
+      "instantiations kept with program label, signature, and ms")
 _knob("YTK_QUALITY_SAMPLE", "float", 0.05,
       "model-quality plane row-sample rate: the fraction of served rows "
       "whose feature values and scores feed the per-model drift sketches "

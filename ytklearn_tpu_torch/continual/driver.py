@@ -25,10 +25,12 @@ One call does the whole freshness cycle:
                inspection, and a `continual.rejected` obs event names
                every failed gate.
 
-The reference's `compile_credit` (XLA retraces of an in-process server)
-has no counterpart here until the retrace sentinel (ROADMAP.md 1.12); the
-driver still drops `health.retrace` from the health delta, as the
-reference does. Multi-GPU candidate training waits for ROADMAP.md 1.7.
+The candidate's training and the gates' scoring run under the serving
+scorer's `compile_credit`: their library builds and first kernel
+launches are expected work, so a `CompiledScorer` armed in the same
+process keeps its zero-steady-state-retrace contract, and the driver
+drops `health.retrace` from the health delta, as the reference does.
+Multi-GPU candidate training waits for ROADMAP.md 1.7.
 """
 
 from __future__ import annotations
@@ -690,13 +692,20 @@ def _retrain_locked(
     vinfo = read_version(fs, data_path)
     version = int(vinfo.get("version", 1))
 
+    # builds below (candidate training, holdout scoring) are expected
+    # work, not serving retraces: when serving runs in the same process,
+    # credit them so armed CompiledScorers keep their zero-steady-state-
+    # retrace contract (serve/scorer.py)
+    from ..serve.scorer import compile_credit
+
     # ---- incumbent held-out loss (measured NOW, on the same files) ------
     incumbent_loss: Optional[float] = None
     if incumbent and test_paths:
-        incumbent_loss, _ = holdout_loss(
-            create_predictor(model_name, _eval_cfg(cfg, family), fs),
-            test_paths, device=device,
-        )
+        with compile_credit():
+            incumbent_loss, _ = holdout_loss(
+                create_predictor(model_name, _eval_cfg(cfg, family), fs),
+                test_paths, device=device,
+            )
     elif not test_paths:
         log.warning(
             "no data.test.data_path configured: the metric gate cannot "
@@ -742,10 +751,11 @@ def _retrain_locked(
     health_before = health_counters()
     obs_inc("continual.retrains")
     with obs_span("continual.train_candidate", mode=mode, model=model_name):
-        trained = _train_candidate(
-            model_name, family, shadow_cfg, fs, mode, transform_hook, device,
-            hist_precision,
-        )
+        with compile_credit():
+            trained = _train_candidate(
+                model_name, family, shadow_cfg, fs, mode, transform_hook,
+                device, hist_precision,
+            )
     if candidate_hook is not None:
         candidate_hook(shadow_path)
 
@@ -753,10 +763,12 @@ def _retrain_locked(
     candidate_loss: Optional[float] = None
     holdout_rows = 0
     if test_paths:
-        candidate_loss, holdout_rows = holdout_loss(
-            create_predictor(model_name, _eval_cfg(shadow_cfg, family), fs),
-            test_paths, device=device,
-        )
+        with compile_credit():
+            candidate_loss, holdout_rows = holdout_loss(
+                create_predictor(model_name, _eval_cfg(shadow_cfg, family),
+                                 fs),
+                test_paths, device=device,
+            )
     if lock is not None and not lock._owned():
         # this run stalled past the TTL and a peer reclaimed the lock —
         # abort before gating: the shadow may now be interleaved with the

@@ -35,6 +35,7 @@ from ..config.params import GBDTParams
 from ..io import native
 from ..io.fs import LocalFileSystem
 from ..io.reader import parse_line, shard_plan, shard_read_lines
+from ..obs import inc as obs_inc, span as obs_span
 
 log = logging.getLogger("ytklearn_tpu_torch.ingest")
 
@@ -333,7 +334,10 @@ class GBDTIngest:
         """(train, test or None): both parsed, filled with the training
         data's fill values."""
         p = self.params
-        train = self._parse(p.data.train_paths, p.data.train_max_error_tol)
+        with obs_span("ingest.parse", split="train", path="gbdt"):
+            train = self._parse(p.data.train_paths,
+                                p.data.train_max_error_tol)
+        obs_inc("ingest.rows", train.n_real)
         if train.n_real == 0:
             raise ValueError(
                 f"empty training data ({len(p.data.train_paths)} path(s))")
@@ -342,8 +346,11 @@ class GBDTIngest:
         _apply_fill(train.X, fill)
         test = None
         if p.data.test_paths:
-            test = self._parse(p.data.test_paths, p.data.test_max_error_tol,
-                               fmap=self._fmap, frozen=True)
+            with obs_span("ingest.parse", split="test", path="gbdt"):
+                test = self._parse(p.data.test_paths,
+                                   p.data.test_max_error_tol,
+                                   fmap=self._fmap, frozen=True)
+            obs_inc("ingest.rows", test.n_real)
             test.missing_fill = fill
             _apply_fill(test.X, fill)
         return train, test

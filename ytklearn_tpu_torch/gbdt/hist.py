@@ -57,14 +57,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..cuda_build import KernelLibrary
+from ..cuda_build import KernelLibrary, launching
 
 #: rows are padded to a multiple of this (the reference's Pallas sample
 #: block; the int8 scale's qmax counts the padded rows)
@@ -681,7 +680,6 @@ _FLOAT_LIBRARY = KernelLibrary(os.path.join(_CSRC, "hist_float.cu"),
 #: compile csrc/hist_float.cu (K1, K3) now: {cmd, seconds, log}; raises on
 #: failure
 build_float_kernel = _FLOAT_LIBRARY.build
-_count_lock = threading.Lock()
 
 
 @lru_cache(maxsize=None)
@@ -775,6 +773,7 @@ def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
     scratch = torch.empty(scratch_len, dtype=torch.int32, device=dev)
     out = torch.empty((N, F, B, 3), dtype=torch.int32, device=dev)
     lib = _LIBRARY.load()
+    name = "hist_gather_q" if gather else "hist_q"
     args = (
         Q_KINDS.index(plan["kind"]), eb, int(gather), int(pack_vec),
         int(scan_vec), int(words), bins.data_ptr(), n_bins_rows,
@@ -785,14 +784,16 @@ def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
         plan["smem"], pack_chunks, pack_rpc, pack_threads, pack_smem,
         red_rows, n_store, out.data_ptr(), scratch.data_ptr(),
     )
-    if dev.index == torch.cuda.current_device():
-        rc = lib.ytk_hist_q(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
+    with launching(wrapper, name, plan["kind"], eb, int(pack_vec),
+                   int(scan_vec)):
+        if dev.index == torch.cuda.current_device():
             rc = lib.ytk_hist_q(*args,
                                 torch.cuda.current_stream().cuda_stream)
-    _LIBRARY.check(rc, "hist_gather_q" if gather else "hist_q")
-    _count(wrapper)
+        else:
+            with torch.cuda.device(dev):
+                rc = lib.ytk_hist_q(*args,
+                                    torch.cuda.current_stream().cuda_stream)
+        _LIBRARY.check(rc, name)
     return out
 
 
@@ -841,15 +842,16 @@ def _launch_float(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos,
         plan["smem"], *red_shape, red_rows, out.data_ptr(),
         scratch.data_ptr(),
     ]
-    if dev.index == torch.cuda.current_device():
-        rc = lib.ytk_hist_float(*args,
-                                torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
+    name = "hist_gather" if gather else "hist"
+    with launching(wrapper, name, kind, eb, int(vec)):
+        if dev.index == torch.cuda.current_device():
             rc = lib.ytk_hist_float(*args,
                                     torch.cuda.current_stream().cuda_stream)
-    _FLOAT_LIBRARY.check(rc, "hist_gather" if gather else "hist")
-    _count(wrapper)
+        else:
+            with torch.cuda.device(dev):
+                rc = lib.ytk_hist_float(
+                    *args, torch.cuda.current_stream().cuda_stream)
+        _FLOAT_LIBRARY.check(rc, name)
     return out
 
 
@@ -870,11 +872,6 @@ def _check_gather(what, rows, idx, pos_g, g, h, B, max_nodes) -> None:
         raise ValueError(f"{what}: rows must be (n_rows, F), got "
                          f"{tuple(rows.shape)}")
     _check_lengths(what, idx.shape[0], B, max_nodes, pos_g=pos_g, g=g, h=h)
-
-
-def _count(wrapper) -> None:
-    with _count_lock:
-        wrapper.launches += 1
 
 
 def _plan_of(plan, node_ids, F: int, B: int, max_nodes: int, n: int,
@@ -1244,21 +1241,21 @@ def hist_q_u8(bins_t, pos, gq, hq, node_ids, B: int, *,
     if n == 0 or N == 0 or F == 0:
         return out
     lib = _U8_LIBRARY.load()
-    with torch.cuda.device(dev):
+    vec = int(all(_aligned(t, 16) for t in (pos, gq, hq))
+              and plan["rows_per_block"] % 4 == 0)
+    bins_vec = int(_aligned(bins_t, 16) and n % 16 == 0
+                   and plan["rows_per_block"] % 16 == 0)
+    with launching(hist_q_u8, "hist_q_u8", plan["W"], vec, bins_vec), \
+            torch.cuda.device(dev):
         rc = lib.ytk_hist_q_u8(
             bins_t.data_ptr(), n, pos.data_ptr(), gq.data_ptr(),
             hq.data_ptr(), node_ids.data_ptr(), N, F, B, plan["W"],
             plan["mtw"], plan["kt"], plan["n_ntiles"], plan["n_mgroups"], plan["fg"],
             plan["n_fgroups"], plan["n_chunks"], plan["rows_per_block"],
-            plan["regions"], plan["ring"],
-            int(all(_aligned(t, 16) for t in (pos, gq, hq))
-                and plan["rows_per_block"] % 4 == 0),
-            int(_aligned(bins_t, 16) and n % 16 == 0
-                and plan["rows_per_block"] % 16 == 0),
+            plan["regions"], plan["ring"], vec, bins_vec,
             plan["blocks"], plan["smem"], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _U8_LIBRARY.check(rc, "hist_q_u8")
-    _count(hist_q_u8)
+        _U8_LIBRARY.check(rc, "hist_q_u8")
     return out
 
 

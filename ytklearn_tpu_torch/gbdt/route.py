@@ -28,12 +28,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import Optional, Tuple
 
 import torch
 
-from ..cuda_build import KernelLibrary
+from ..cuda_build import KernelLibrary, launching
 from .hist import SMEM_MAX, _sm_count
 
 #: default upper bound of a slot's member range (no bound)
@@ -123,7 +122,6 @@ _LIBRARY = KernelLibrary(
 )
 #: compile csrc/route.cu now: {cmd, seconds, log}; raises on failure
 build_kernel = _LIBRARY.build
-_count_lock = threading.Lock()
 
 
 
@@ -173,7 +171,8 @@ def route_wave(bins_t, pos, valid, nid, feat, slot, lch, rch, lo=None,
     vec = pos.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     plan = route_plan(NW, n, _sm_count(pos.device.index), vec)
     lib = _LIBRARY.load()
-    with torch.cuda.device(pos.device):
+    with launching(route_wave, "route", bins_t.element_size(), int(vec)), \
+            torch.cuda.device(pos.device):
         rc = lib.ytk_route(
             bins_t.element_size(), bins_t.data_ptr(), n, F, pos.data_ptr(),
             (ctypes.c_void_p * 8)(*[0 if t is None else t.data_ptr()
@@ -185,9 +184,7 @@ def route_wave(bins_t, pos, valid, nid, feat, slot, lch, rch, lo=None,
             plan["blocks"], plan["smem"],
             torch.cuda.current_stream().cuda_stream,
         )
-    _LIBRARY.check(rc, "route")
-    with _count_lock:
-        route_wave.launches += 1
+        _LIBRARY.check(rc, "route")
     return out
 
 

@@ -56,6 +56,21 @@ ROADMAP.md item: a mesh (1.7, with the column-sharded feature-parallel
 maker), and on CUDA trees of more nodes than the histogram kernels'
 shared-memory lookup holds (1.8).
 
+Observability (the JAX trainer's): the device engine's run is four
+profiler phases (obs/profiler.py), `gbdt.load` (when train() loads the
+data), `gbdt.preprocess`, `gbdt.train` (capture=True: with a capture dir,
+a torch.profiler trace of the rounds) and `gbdt.finalize`, each followed
+by `health.record_memory`; the spans `gbdt.round` (one a round),
+`gbdt.sync` (one a sync read) and `gbdt.efb.plan`; `time_stats` mirrored
+into the `gbdt.stat.*` gauges. There is no `gbdt.compile` phase: the port
+has no compile probe, so the kernel libraries' loads and the kernels'
+first launches (a "compile" here, obs/health.py) happen in the first
+round and land in the build ledger under the label `gbdt.round`. The
+retrace sentinel arms at the first sync and checks at each later one.
+YTK_PROFILE_DIR writes a torch.profiler trace of the rounds (skipped and
+counted when another capture holds the profiler), closed at a
+preemption too.
+
 Every dump writes the model-quality sidecar `<model>.sketch.json`
 (obs/quality.py) before the model text, as the JAX trainer does: per-
 feature GK summaries and presence rates of the training matrix, built at
@@ -80,7 +95,8 @@ from ..device import resolve_device
 from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
 from ..losses import GBDT_TRAINABLE, create_loss
-from ..obs import health, span as obs_span
+from ..obs import gauge as obs_gauge, health, inc as obs_inc, profiler, \
+    span as obs_span
 from ..obs.quality import (
     build_score_block,
     build_training_sketch,
@@ -328,7 +344,8 @@ class GBDTTrainer(HostEngine):
         self._efb_plan = None
         if self.efb:
             budget = knobs.get_int("YTK_EFB_CONFLICT")
-            self._efb_plan = build_bundle_plan(X_t, bins, budget, B)
+            with obs_span("gbdt.efb.plan", F=X_t.shape[0]):
+                self._efb_plan = build_bundle_plan(X_t, bins, budget, B)
             if self._efb_plan is not None:
                 log.info("EFB: %s (conflict budget %d)",
                          self._efb_plan.summary(), budget)
@@ -584,6 +601,16 @@ class GBDTTrainer(HostEngine):
         p = self.params
         sync_every = max(1, (p.round_num - start) // 20)
         self.sync_log = []
+        # retrace alarm: the kernels are built and first launched in the
+        # first round, so a build counted after the FIRST sync is an
+        # unexpected one; with ytkprof on the sentinel arms and checks
+        # with the round state's signature (late-binding over `state`)
+        self._retrace = health.RetraceSentinel("gbdt.rounds")
+        self._retrace_sig = (
+            (lambda: profiler.abstract_signature(state))
+            if profiler.enabled() else None
+        )
+        self._start_round_profile()
         t_train0 = time.time()
         for rnd in range(start, p.round_num):
             if self._guard is not None and self._guard.triggered:
@@ -592,7 +619,11 @@ class GBDTTrainer(HostEngine):
                 # re-enters at `rnd` (every round's key is round-indexed)
                 self._preempt_checkpoint(model, state[2], dd.bins, names,
                                          rnd)
-            state = self._round(rnd, dd, spec, state)
+            with obs_span("gbdt.round", round=rnd), profiler.LEDGER.program(
+                    "gbdt.round",
+                    sig_fn=lambda: profiler.abstract_signature(state)):
+                state = self._round(rnd, dd, spec, state)
+            obs_inc("gbdt.rounds")
             if p.model.dump_freq > 0 and (rnd + 1) % p.model.dump_freq == 0:
                 self._append_trees_from_bufs(model, state[2], dd.bins, names,
                                              len(model.trees),
@@ -602,13 +633,16 @@ class GBDTTrainer(HostEngine):
                 # after the round's dump, as the reference's lagged read
                 # of the round before comes after that round's dump
                 chaos_point("gbdt.sync")
-                tl = float(state[3][rnd])
+                obs_inc("gbdt.syncs")
+                with obs_span("gbdt.sync", round=rnd):
+                    tl = float(state[3][rnd])
                 self._health_sync(rnd, tl)
                 self.sync_log.append((rnd, time.time() - t0))
                 msg = f"[round={rnd}] {time.time() - t0:.1f}s train loss={tl:.6f}"
                 if state[1] is not None:
                     msg += f" test loss={float(state[4][rnd]):.6f}"
                 log.info(msg)
+        self._stop_round_profile()
         ts = self.time_stats
         ts["train"] = time.time() - t_train0
         if self.sync_log:
@@ -630,8 +664,26 @@ class GBDTTrainer(HostEngine):
         self._append_trees_from_bufs(model, bufs, bins, names,
                                      len(model.trees), rnd * self.K)
         self._dump_model(model)
+        # the Preempted raise skips the post-loop stop: close the rounds'
+        # trace here or the very run being profiled loses it
+        self._stop_round_profile()
         self._guard.preempt(self.params.model.data_path, family="gbdt",
                             rounds=rnd, trees=len(model.trees))
+
+    def _start_round_profile(self) -> None:
+        """YTK_PROFILE_DIR: a torch.profiler trace of the rounds, when the
+        process's one profiler slot is free (else skipped and counted)."""
+        profile_dir = knobs.get_str("YTK_PROFILE_DIR")
+        self._round_cap = (profiler.start_capture(profile_dir,
+                                                  "YTK_PROFILE_DIR")
+                           if profile_dir else None)
+
+    def _stop_round_profile(self) -> None:
+        cap, self._round_cap = getattr(self, "_round_cap", None), None
+        path = cap.stop() if cap is not None else None
+        if path is not None:
+            log.info("torch profiler trace of the rounds written to %s",
+                     path)
 
     # -- entry --------------------------------------------------------------
 
@@ -649,12 +701,17 @@ class GBDTTrainer(HostEngine):
         p = self.params
         t0 = time.time()
         ts = self.time_stats = {}
+        health.install_trace_counters()
         if train is None:
             ingest = GBDTIngest(p, self.fs, transform_hook=self.transform_hook)
-            train, test = ingest.load()
+            with profiler.phase("gbdt.load"):
+                train, test = ingest.load()
             ts["parser"] = ingest.parser
         ts["load"] = time.time() - t0
-        dd = self._prep_device_inputs(train, test)
+        health.record_memory("gbdt.load")
+        with profiler.phase("gbdt.preprocess", F=train.n_features):
+            dd = self._prep_device_inputs(train, test)
+        health.record_memory("gbdt.preprocess")
         self.dev_inputs = dd  # kept for a caller that times the kernels
         ts["preprocess"] = time.time() - t0 - ts["load"]
         # GOSS sizes its counts on the real share of the padded rows
@@ -673,15 +730,25 @@ class GBDTTrainer(HostEngine):
         state = (scores, scores_t, bufs, loss_buf, tloss_buf)
         rounds = start
         if not p.just_evaluate:
-            state = self._run_rounds(dd, spec, state, model, names, t0,
-                                     start)
+            with profiler.phase("gbdt.train", capture=True,
+                                rounds=p.round_num - start):
+                state = self._run_rounds(dd, spec, state, model, names, t0,
+                                         start)
+            health.record_memory("gbdt.train")
             rounds = p.round_num
         scores, scores_t, bufs, loss_buf, tloss_buf = state
         self.wave_log = bufs["wlog"].cpu().numpy()
         self._sampling_stats(ts, spec, train.n_features)
         t_fin = time.time()
-        out = self._finalize(model, dd, state, names, start, rounds)
+        with profiler.phase("gbdt.finalize"):
+            out = self._finalize(model, dd, state, names, start, rounds)
         ts["finalize"] = time.time() - t_fin
+        health.record_memory("gbdt.finalize")
+        # every scalar time_stat mirrored into the registry (gbdt.stat.*):
+        # the one snapshot benchmarks and production runs report from
+        for k, v in ts.items():
+            if isinstance(v, (bool, int, float)):
+                obs_gauge(f"gbdt.stat.{k}", float(v))
         return out
 
     def _sampling_stats(self, ts: Dict, spec: GrowSpec, F: int) -> None:
@@ -700,12 +767,19 @@ class GBDTTrainer(HostEngine):
             ts["efb_cols_saved"] = float(F - self._efb_plan.n_cols)
 
     def _health_sync(self, rnd: int, tl: float) -> None:
-        """The sentinel at a sync read: a NaN/inf train loss (strict mode
-        aborts the run with the flight-dump path). The reference's retrace
-        alarm beside it comes with the retrace sentinel (ROADMAP.md 1.12)."""
+        """Sentinels at a sync read: a NaN/inf train loss (strict mode
+        aborts the run with the flight-dump path) and the unexpected-
+        rebuild alarm — armed at the first sync, checked at every later
+        one."""
         if not health.enabled():
             return
         health.check_loss("gbdt.sync", tl, round=rnd)
+        sig_fn = getattr(self, "_retrace_sig", None)
+        sig = sig_fn() if sig_fn is not None else None
+        if self._retrace.baseline is None:
+            self._retrace.arm(sig=sig)
+        else:
+            self._retrace.check(sig=sig, round=rnd)
 
     # -- trees and the dump ---------------------------------------------------
 

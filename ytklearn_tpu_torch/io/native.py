@@ -31,8 +31,9 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 import numpy as np
 
@@ -75,6 +76,34 @@ def build_host_library(src: str, so: str,
     return False
 
 
+def open_host_library(src: str, so: str, build: Callable[[], bool]):
+    """The library at `so` through ctypes, built first by `build()` when
+    it is missing or older than `src`; None when the build or the load
+    fails. A build is reported to the obs build watcher with its seconds,
+    a load of a library built before as a load."""
+    from ..obs import health
+
+    try:
+        stale = (not os.path.exists(so)
+                 or os.path.getmtime(so) < os.path.getmtime(src))
+    except OSError:
+        stale = True
+    name = os.path.basename(so)
+    t0 = time.perf_counter()
+    if stale:
+        if not build():
+            return None
+        health.note_compile("build", name, time.perf_counter() - t0)
+    try:
+        lib = ctypes.CDLL(so)
+    except OSError as e:
+        log.warning("%s load failed: %s", name, e)
+        return None
+    if not stale:
+        health.note_compile("load", name, time.perf_counter() - t0)
+    return lib
+
+
 def _build() -> bool:
     """Compile the parser; on failure the Python parser runs instead."""
     return build_host_library(_SRC, _SO, [GXX_FLAGS])
@@ -87,18 +116,8 @@ def _load():
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        try:
-            stale = (not os.path.exists(_SO)
-                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC))
-        except OSError:
-            stale = True
-        if stale and not _build():
-            _build_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(_SO)
-        except OSError as e:
-            log.warning("native parser load failed: %s", e)
+        lib = open_host_library(_SRC, _SO, _build)
+        if lib is None:
             _build_failed = True
             return None
         lib.ytk_parse.restype = ctypes.c_void_p

@@ -39,7 +39,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
 import numpy as np
 
 from ..config.params import CommonParams, DelimParams
-from ..obs import health, inc as obs_inc
+from ..obs import health, inc as obs_inc, span as obs_span
 from . import native
 from .feature_hash import FeatureHash
 from .fs import LocalFileSystem
@@ -488,21 +488,29 @@ class DataIngest:
         def read(paths: Sequence[str]) -> Iterator[str]:
             return shard_read_lines(self.fs, p.data, paths)
 
-        train_rows = self.parse_rows(read(p.data.train_paths),
-                                     p.data.train_max_error_tol,
-                                     is_train=True)
-        fmap = self._resolve_feature_map(
-            lambda: _counts_from_rows(train_rows))
-        nodes = self.compute_transform_nodes(train_rows, fmap)
-        if nodes:
-            self.write_transform_sidecar(nodes, fmap)
-        train = self.to_dataset(train_rows, fmap, nodes)
+        with obs_span("ingest.parse", split="train", path="python"):
+            train_rows = self.parse_rows(read(p.data.train_paths),
+                                         p.data.train_max_error_tol,
+                                         is_train=True)
+        with obs_span("ingest.dict"):
+            fmap = self._resolve_feature_map(
+                lambda: _counts_from_rows(train_rows))
+        with obs_span("ingest.transform"):
+            nodes = self.compute_transform_nodes(train_rows, fmap)
+            if nodes:
+                self.write_transform_sidecar(nodes, fmap)
+        with obs_span("ingest.materialize", split="train"):
+            train = self.to_dataset(train_rows, fmap, nodes)
+        obs_inc("ingest.rows", train.n_real)
         test = None
         if p.data.test_paths:
-            test_rows = self.parse_rows(read(p.data.test_paths),
-                                        p.data.test_max_error_tol,
-                                        is_train=False)
-            test = self.to_dataset(test_rows, fmap, nodes)
+            with obs_span("ingest.parse", split="test", path="python"):
+                test_rows = self.parse_rows(read(p.data.test_paths),
+                                            p.data.test_max_error_tol,
+                                            is_train=False)
+            with obs_span("ingest.materialize", split="test"):
+                test = self.to_dataset(test_rows, fmap, nodes)
+            obs_inc("ingest.rows", test.n_real)
         K = max(self.n_labels, 2)
         y_real = np.zeros(K, np.int64)
         y_weight = np.zeros(K, np.float64)
@@ -659,15 +667,18 @@ class DataIngest:
         """The loadFlow over the native parser (reference io/reader.py:859):
         the same pipeline and results as _load_python, vectorised."""
         p = self.params
-        train = self._parse_cols(p.data.train_paths,
-                                 p.data.train_max_error_tol, is_train=True)
+        with obs_span("ingest.parse", split="train", path="native"):
+            train = self._parse_cols(p.data.train_paths,
+                                     p.data.train_max_error_tol,
+                                     is_train=True)
 
         def counts() -> Dict[str, int]:
             c = np.bincount(train.occ_name, minlength=len(train.names))
             return {nm: int(c[i]) for i, nm in enumerate(train.names)
                     if c[i] > 0}
 
-        fmap = self._resolve_feature_map(counts)
+        with obs_span("ingest.dict"):
+            fmap = self._resolve_feature_map(counts)
         nodes: Dict[int, TransformNode] = {}
         if p.feature.transform.switch_on:
             nn = len(train.names)
@@ -688,13 +699,18 @@ class DataIngest:
             nodes = self.nodes_from_stats(stats, fmap)
             if nodes:
                 self.write_transform_sidecar(nodes, fmap)
-        train_ds = self._cols_to_dataset(train, fmap, nodes)
+        with obs_span("ingest.materialize", split="train"):
+            train_ds = self._cols_to_dataset(train, fmap, nodes)
+        obs_inc("ingest.rows", train_ds.n_real)
         test_ds = None
         if p.data.test_paths:
-            test = self._parse_cols(p.data.test_paths,
-                                    p.data.test_max_error_tol,
-                                    is_train=False)
-            test_ds = self._cols_to_dataset(test, fmap, nodes)
+            with obs_span("ingest.parse", split="test", path="native"):
+                test = self._parse_cols(p.data.test_paths,
+                                        p.data.test_max_error_tol,
+                                        is_train=False)
+            with obs_span("ingest.materialize", split="test"):
+                test_ds = self._cols_to_dataset(test, fmap, nodes)
+            obs_inc("ingest.rows", test_ds.n_real)
         K = max(self.n_labels, 2)
         y_real = np.zeros(K, np.int64)
         y_weight = np.zeros(K, np.float64)

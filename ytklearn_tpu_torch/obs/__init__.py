@@ -27,9 +27,13 @@ read).
   model_metrics     per-model counters, latency rings and burn sentinels
   quality           `<model>.sketch.json` baselines and the serve-side
                     drift/calibration monitor; YTK_QUALITY_*
-
-Not ported yet (ROADMAP.md 1.12): the profiling plane (YTK_PROF), the
-jax.monitoring compile watchers, and the trainers' spans and sentinels.
+  profiler          ytkprof: phase accounting with settled wall time and
+                    per-phase torch.profiler captures (device time per
+                    span, a top-k kernel table naming the port's kernels),
+                    the build ledger (library builds and loads, first
+                    kernel instantiations -> named retrace culprits), a
+                    memory-watermark sampler with phase-attributed peaks;
+                    YTK_PROF / YTK_PROF_* knobs
 """
 
 from .core import (  # noqa: F401
@@ -62,18 +66,7 @@ from .heartbeat import (  # noqa: F401
     start_history_sampler,
     stop_history_sampler,
 )
-from . import health, recorder, trace  # noqa: F401
+from . import health, profiler, recorder, trace  # noqa: F401
 from .health import HealthError, SLOBurnSentinel  # noqa: F401
 from .trace import TRACE_HEADER, configure_tracing  # noqa: F401
 
-
-def refuse_profiler() -> None:
-    """YTK_PROF arms the JAX package's profiling plane, which the port does
-    not have yet: a serving app refuses to start under it."""
-    from ..config import knobs
-
-    raw = knobs.get_str("YTK_PROF")
-    if raw not in (None, "", "0"):
-        raise NotImplementedError(
-            "YTK_PROF (the profiling plane) is not ported yet "
-            "(ROADMAP.md 1.12, the obs planes)")

@@ -24,8 +24,11 @@ Env knobs (read once at import; `configure()` overrides at runtime):
   YTK_OBS=1             enable collection without any export
   YTK_OBS=0             force-disable (wins over the path knobs)
 
-The JAX package's YTK_OBS_JAX (XLA trace annotations around spans) has no
-counterpart here: setting it raises NotImplementedError.
+While the profiling plane is on (obs/profiler.py, YTK_PROF), every span
+also opens a `torch.profiler.record_function` of its name, so the plane's
+torch.profiler captures attribute device time to spans. The JAX package's
+YTK_OBS_JAX (XLA trace annotations around spans) has no counterpart here:
+setting it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -188,12 +191,13 @@ def set_identity(**kw) -> None:
 
 
 class _State:
-    __slots__ = ("enabled", "trace_path", "jsonl_path")
+    __slots__ = ("enabled", "trace_path", "jsonl_path", "torch_annotations")
 
     def __init__(self):
         self.enabled = False
         self.trace_path: Optional[str] = None
         self.jsonl_path: Optional[str] = None
+        self.torch_annotations = False
 
 
 _state = _State()
@@ -231,12 +235,13 @@ class Span:
     device-settled timing for spans that enqueue async device work.
     """
 
-    __slots__ = ("name", "args", "t0", "_settle")
+    __slots__ = ("name", "args", "t0", "_settle", "_ann")
 
     def __init__(self, name: str, args: dict, settle=None):
         self.name = name
         self.args = args
         self._settle = settle
+        self._ann = None
 
     def add(self, **kw) -> "Span":
         self.args.update(kw)
@@ -244,6 +249,8 @@ class Span:
 
     def __enter__(self) -> "Span":
         REGISTRY._stack().append(self.name)
+        if _state.torch_annotations:
+            self._ann = annotate(self.name)
         self.t0 = _now()
         return self
 
@@ -257,6 +264,9 @@ class Span:
             except Exception:  # noqa: BLE001
                 pass
         t1 = _now()
+        if self._ann is not None:
+            self._ann.__exit__(exc_type, exc, tb)
+            self._ann = None
         stack = REGISTRY._stack()
         if stack:
             stack.pop()
@@ -343,6 +353,25 @@ def _cuda_devices(x, out: set) -> None:
             _cuda_devices(v, out)
 
 
+def annotate(name: str):
+    """An entered `torch.profiler.record_function(name)`: the range a
+    profiler capture shows under `name` (exit it when the range ends)."""
+    from torch.profiler import record_function
+
+    ann = record_function(name)
+    ann.__enter__()
+    return ann
+
+
+def settle_all() -> None:
+    """Wait for the work queued on the current CUDA device, when this
+    process has a CUDA context (never creates one)."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
 def settle(x) -> None:
     """Wait for the work queued on the devices of `x` (a tensor or a
     container of them); CPU tensors are already settled. The counterpart
@@ -387,8 +416,10 @@ def configure(
     enabled: Optional[bool] = None,
     trace_path=_UNSET,
     jsonl_path=_UNSET,
+    torch_annotations: Optional[bool] = None,
 ) -> None:
-    """Runtime configuration (the CLI's --trace-out lands here).
+    """Runtime configuration (the CLI's --trace-out lands here;
+    `torch_annotations` is the profiling plane's switch).
 
     Setting a non-empty export path implies enabled=True unless `enabled`
     is explicitly passed as False in the same call."""
@@ -402,6 +433,8 @@ def configure(
             enabled = True
     if enabled is not None:
         _state.enabled = bool(enabled)
+    if torch_annotations is not None:
+        _state.torch_annotations = bool(torch_annotations)
     if _state.trace_path or _state.jsonl_path:
         _ensure_atexit()
 

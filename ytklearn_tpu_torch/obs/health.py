@@ -1,9 +1,10 @@
-"""Run-health sentinels + memory telemetry (the JAX package's
+"""Run-health sentinels + memory/rebuild telemetry (the JAX package's
 ``obs/health.py``).
 
 The obs core records evidence; this module *interprets* it at the few
 places the host already syncs with the device — so a diverging L-BFGS run,
-a NaN loss, an empty boosted tree, or a rotten input file
+a NaN loss, an empty boosted tree, a rebuild in a steady loop, or a
+rotten input file
 raises a flag (or, in strict mode, a `HealthError` carrying a flight-dump
 path) instead of finishing with garbage numbers.
 
@@ -38,10 +39,24 @@ Telemetry:
                                  (torch.cuda.max_memory_allocated and
                                  memory_stats() on a CUDA device; host RSS
                                  always) as `mem.*` gauges
+  install_trace_counters()       the build watcher -> `compile.traces.*`
+                                 counters: every library build and kernel
+                                 instantiation (`backend_compile`, its
+                                 seconds `backend_compile_secs`) and every
+                                 load of a library built before
+                                 (`cache_hits`), reported by the build
+                                 sites through note_compile()
+  RetraceSentinel(site)          warmup-armed: a build counted after arm()
+                                 fires `health.retrace` — the unexpected-
+                                 rebuild alarm for steady loops
 
-The JAX package's compile watchers (install_trace_counters and
-RetraceSentinel, over jax.monitoring) come with the profiler (ROADMAP.md
-1.12). The training sentinels sit where the reference's do: the GBDT
+What a "compile" is in the port (the JAX package counts XLA backend
+compiles): the port is eager PyTorch and its kernels take their shapes as
+arguments, so a new shape is never one. A compile is an nvcc or g++
+build of a library (cuda_build.py, io/native.py), or the first launch in
+the process of a kernel instantiation (the kernel plus its plan kind or
+template arguments, cuda_build.launching), which pays the lazy module
+load. The training sentinels sit where the reference's do: the GBDT
 trainer's loss read and tree conversion, both parsers of DataIngest, the
 L-BFGS iteration loop and HoagTrainer's test-loss callback.
 
@@ -526,9 +541,14 @@ def _cuda_memory() -> Optional[dict]:
 
         if not torch.cuda.is_available():
             return None
+        from .profiler import MEM
+
         stats = torch.cuda.memory_stats()
+        # the profiling plane resets the peak at its phase boundaries and
+        # keeps the largest it read
         return {
-            "peak_bytes_in_use": torch.cuda.max_memory_allocated(),
+            "peak_bytes_in_use": max(torch.cuda.max_memory_allocated(),
+                                     MEM.peak_seen),
             "bytes_in_use": stats.get("allocated_bytes.all.current"),
         }
     # a broken CUDA runtime falls back to host RSS below
@@ -557,3 +577,120 @@ def record_memory(phase: str) -> None:
         core.gauge(f"mem.{phase}.host_rss_peak_bytes", rss)
         core.gauge("mem.host_rss_peak_bytes", rss)
 
+
+
+_trace_counters_installed = False
+
+
+def install_trace_counters() -> None:
+    """Route the build watcher (note_compile) into `compile.traces.*`
+    counters (idempotent; costs one enabled() check a report when obs is
+    off).
+
+      compile.traces.backend_compile        library builds and first
+                                            kernel instantiations
+      compile.traces.backend_compile_secs   their cumulative seconds
+      compile.traces.cache_hits             loads of a library built before
+    """
+    global _trace_counters_installed
+    _trace_counters_installed = True
+
+
+def note_compile(kind: str, what: str, seconds: float) -> None:
+    """The build watcher's one entry point: `kind` "build" (nvcc or g++),
+    "load" (a library built before, loaded: a cache hit) or "instantiate"
+    (the first launch in the process of a kernel instantiation); `what`
+    names the library or the instantiation. Feeds the `compile.traces.*`
+    counters once install_trace_counters() ran and the profiling plane's
+    build ledger while it is on."""
+    if _trace_counters_installed and core.enabled():
+        if kind == "load":
+            core.inc("compile.traces.cache_hits")
+        else:
+            core.inc("compile.traces.backend_compile")
+            core.inc("compile.traces.backend_compile_secs", seconds)
+    from . import profiler
+
+    profiler.LEDGER.on_compile(seconds, kind=kind, kernel=what)
+
+
+class RetraceSentinel:
+    """Unexpected-rebuild alarm for steady-state loops: arm() after warmup
+    (first sync), then every check() that sees the global
+    `compile.traces.backend_compile` counter above the armed baseline
+    fires `health.retrace` + `compile.retraces.unexpected` and re-baselines.
+    Needs install_trace_counters() + obs enabled (otherwise the counter
+    never moves and check() is a dict lookup).
+
+    Culprit naming: pass the call's abstract signature
+    (`profiler.abstract_signature(...)`) to arm()/check() and the fired
+    event carries `changed` — the argument/dim diff vs the armed entry.
+    When the profiling plane is on, the event additionally carries
+    `culprits`: the build-ledger entries (program label, the kernel
+    instantiation or library, per-program signature diff) that landed
+    between arm and the tripping check, so the postmortem names *which
+    program* rebuilt even when the loop's own arguments never changed."""
+
+    __slots__ = ("site", "baseline", "sig", "_ledger_seq")
+
+    def __init__(self, site: str):
+        self.site = site
+        self.baseline: Optional[float] = None
+        self.sig = None
+        self._ledger_seq = 0
+
+    @staticmethod
+    def _compiles() -> float:
+        return core.REGISTRY.counters.get("compile.traces.backend_compile", 0.0)
+
+    @staticmethod
+    def _ledger():
+        from . import profiler
+
+        return profiler.LEDGER if profiler.enabled() else None
+
+    def arm(self, sig=None) -> None:
+        if _state.on:
+            self.baseline = self._compiles()
+            if sig is not None:
+                self.sig = sig
+            led = self._ledger()
+            if led is not None:
+                self._ledger_seq = led.mark()
+
+    def check(self, sig=None, **args) -> bool:
+        if not _state.on or self.baseline is None:
+            return True
+        cur = self._compiles()
+        if cur <= self.baseline:
+            return True
+        n = cur - self.baseline
+        self.baseline = cur
+        core.inc("compile.retraces.unexpected", n)
+        from . import profiler
+
+        if sig is not None:
+            changed = profiler.signature_diff(self.sig, sig)
+            if changed:
+                args["changed"] = changed
+            self.sig = sig
+        led = self._ledger()
+        if led is not None:
+            culprits = [
+                {k: e[k] for k in ("program", "kernel", "ms", "changed")
+                 if k in e}
+                for e in led.entries_since(self._ledger_seq)
+                if e.get("kind") != "load"
+            ]
+            if culprits:
+                args["culprits"] = culprits
+            self._ledger_seq = led.mark()
+        _fire(
+            "retrace",
+            self.site,
+            f"{n:.0f} unexpected build(s) after warmup",
+            escalate=False,
+            compiles=n,
+            **args,
+        )
+        return False

@@ -238,6 +238,18 @@ def _dump(reason: str, exc: Optional[BaseException]) -> str:
     except Exception:  # noqa: BLE001
         pass
     try:
+        from . import profiler as _profiler
+
+        prof = _profiler.flight_block()
+        if prof is not None:
+            # an OOM/crash postmortem names the allocating phase: phase
+            # wall table, build-ledger tail, phase-attributed memory peak
+            # watermarks (None — and absent — when ytkprof is off)
+            flight["prof"] = prof
+    # the flight dump must land even when the profiling plane is broken
+    except Exception:  # noqa: BLE001
+        pass
+    try:
         from . import model_metrics as _model_metrics
 
         mm = _model_metrics.flight_block()

@@ -1120,9 +1120,9 @@ class FleetFront:
             if quality and "quality" in m:
                 info["quality"] = m["quality"]
             if prof and "prof" in m:
-                # per-replica per-rung kernel-time attribution: the
-                # profiling plane is not ported (ROADMAP.md 1.12), so
-                # every replica answers enabled:false with empty rungs
+                # per-replica per-rung kernel-time attribution (ytkprof;
+                # enabled:false with empty rungs unless the replicas run
+                # under YTK_PROF)
                 info["prof"] = m["prof"]
             if models and "model_metrics" in m:
                 # per-model block (raw rings included — the

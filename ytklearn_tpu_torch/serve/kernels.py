@@ -57,8 +57,8 @@ import numpy as np
 import torch
 
 from ..config import knobs
-from ..cuda_build import KernelLibrary, find_nvcc  # noqa: F401 (re-export)
-from ..io.native import GXX_FLAGS, build_host_library
+from ..cuda_build import KernelLibrary, find_nvcc, launching  # noqa: F401 (re-export)
+from ..io.native import GXX_FLAGS, build_host_library, open_host_library
 
 log = logging.getLogger(__name__)
 
@@ -527,7 +527,6 @@ def _default_plan(B: int, T: int, depth: int, F: int, bin_bytes: int,
     return walk_plan(B, T, depth, F, bin_bytes, sm)
 
 
-_count_lock = threading.Lock()
 
 
 def heap_walk(X, nodes, leaf, depth: int, max_feat: Optional[int] = None,
@@ -584,15 +583,13 @@ def heap_walk(X, nodes, leaf, depth: int, max_feat: Optional[int] = None,
     if plan is None:
         plan = _default_plan(B, T, depth, F, 8, X.device.index)
     lib = _load()
-    with torch.cuda.device(X.device):
+    with launching(heap_walk, "heap_walk"), torch.cuda.device(X.device):
         rc = lib.ytk_heap_walk_f64(
             X.data_ptr(), B, F, nodes.data_ptr(), leaf.data_ptr(), T, depth,
             plan["rows"], plan["chunk"], plan["threads"], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _LIBRARY.check(rc, "heap_walk")
-    with _count_lock:
-        heap_walk.launches += 1
+        _LIBRARY.check(rc, "heap_walk")
     return out
 
 
@@ -691,16 +688,15 @@ def binned_walk(bins, packed, leaf, depth: int, sentinel: int,
         plan = _default_plan(B, T, depth, F, bins.element_size(),
                              bins.device.index)
     lib = _load()
-    with torch.cuda.device(bins.device):
+    with launching(binned_walk, "binned_walk", bins.element_size()), \
+            torch.cuda.device(bins.device):
         rc = lib.ytk_binned_walk(
             bins.element_size(), bins.data_ptr(), B, F, packed.data_ptr(),
             leaf.data_ptr(), T, depth, sentinel, plan["rows"], plan["chunk"],
             plan["threads"], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _LIBRARY.check(rc, "binned_walk")
-    with _count_lock:
-        binned_walk.launches += 1
+        _LIBRARY.check(rc, "binned_walk")
     return out
 
 
@@ -764,19 +760,8 @@ def _load_native():
     with _native_lock:
         if _native_lib is not None or _native_failed:
             return _native_lib
-        try:
-            stale = (not os.path.exists(_SERVE_SO)
-                     or os.path.getmtime(_SERVE_SO)
-                     < os.path.getmtime(_SERVE_SRC))
-        except OSError:
-            stale = True
-        if stale and not _build_native():
-            _native_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(_SERVE_SO)
-        except OSError as e:
-            log.warning("native serve library load failed: %s", e)
+        lib = open_host_library(_SERVE_SRC, _SERVE_SO, _build_native)
+        if lib is None:
             _native_failed = True
             return None
         for name in ("ytk_serve_score_u8", "ytk_serve_score_u16"):

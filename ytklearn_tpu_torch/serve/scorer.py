@@ -53,12 +53,24 @@ and count no downgrade. A kernel that fails to build or launch raises.
 Warmup scores every rung once on the device. Featurization is the shared
 TransformPipeline: identity assembly with a NaN fill for GBDT; bias drop,
 hashing, vocab assembly and the transform replay for the rest.
+
+Warmup launches every rung's kernel once, so each kernel instantiation the
+ladder needs is built before traffic (a "compile" in the port: a library
+build or load, or the first launch of a kernel instantiation, obs/
+health.py); the RetraceSentinel armed after it fires `health.retrace` on
+any build a steady-state batch causes. While the profiling plane is on
+(YTK_PROF), each rung's settled execute time and rows are kept for
+`/metrics?prof=1` (prof_snapshot), and every build lands in the build
+ledger under `serve.rung.<rung>`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
+import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,7 +78,9 @@ import torch
 
 from ..config import knobs
 from ..device import resolve_device
+from ..obs import health as obs_health
 from ..obs import inc as obs_inc, span as obs_span
+from ..obs import profiler
 from ..obs import trace as obs_trace
 from ..gbdt.binning import bin_edges_path, load_bin_edges, model_text_digest
 from ..predict.continuous import (
@@ -82,6 +96,45 @@ from . import kernels
 log = logging.getLogger(__name__)
 
 DEFAULT_LADDER = (1, 8, 64, 512)
+
+#: builds attributed to scorer warmups (process-wide, GIL-guarded). The
+#: retrace sentinel watches a process-global build counter; without this
+#: credit, warming a replacement scorer (hot reload) or a second model
+#: would falsely fire health.retrace on every already-armed scorer. While
+#: a warmup is in progress its builds have landed in the global counter
+#: but not yet in the credit, so armed scorers skip checks for the
+#: duration and re-baseline on their next batch (_warmups_in_progress).
+_warmup_compile_credit = 0.0
+_warmups_in_progress = 0
+
+
+class _LadderRetraceSentinel(obs_health.RetraceSentinel):
+    """RetraceSentinel that discounts builds other scorers' warmups did."""
+
+    @staticmethod
+    def _compiles() -> float:
+        return obs_health.RetraceSentinel._compiles() - _warmup_compile_credit
+
+
+@contextlib.contextmanager
+def compile_credit():
+    """Attribute every build inside the block to a known-good cause so
+    armed scorers don't count them as steady-state serving retraces. Used
+    by scorer warmups, and by the continual retrain driver when a
+    candidate trains in-process next to live serving: training builds are
+    expected, a /predict-path build still is not."""
+    global _warmup_compile_credit, _warmups_in_progress
+    before = obs_health.RetraceSentinel._compiles()
+    _warmups_in_progress += 1
+    try:
+        yield
+    finally:
+        # credit BEFORE dropping the in-progress flag, so once the flag
+        # clears the subtraction is already settled
+        _warmup_compile_credit += (
+            obs_health.RetraceSentinel._compiles() - before
+        )
+        _warmups_in_progress -= 1
 
 
 class LoweringRefused(TypeError):
@@ -167,18 +220,42 @@ class CompiledScorer:
                 nodes=predictor.transform_nodes,
                 transform_on=pp.feature.transform.switch_on,
             )
+        # a build after warmup is a bug (the ladder exists to prevent
+        # one); the sentinel makes one fire health.retrace loudly
+        obs_health.install_trace_counters()
+        self._sentinel = _LadderRetraceSentinel("serve.scorer")
+        self._warm = False
+        self._rearm_pending = False
+        # ytkprof per-rung attribution: settled execute seconds + row
+        # counts per ladder rung (written only when the plane is on; read
+        # by /metrics?prof=1 via prof_snapshot)
+        self._prof_lock = threading.Lock()
+        self._rung_stats: Dict[int, dict] = {}
         if warmup:
             self.warmup()
 
     # -- public API -------------------------------------------------------
 
     def warmup(self) -> None:
-        """Score every ladder rung once on the device: builds the kernel
-        and settles allocations at load time, not on a request."""
-        with obs_span("serve.warmup", rungs=len(self.ladder)):
-            for rung in self.ladder:
-                self._exec(np.full((rung, self.dim), self._fill, np.float64))
-                obs_inc("serve.scorer.warmup_rungs")
+        """Score every ladder rung once on the device: builds and loads the
+        kernel and settles allocations at load time, not on a request;
+        then arm the retrace sentinel. The builds this causes are credited,
+        so scorers already armed (hot reload warms the replacement while
+        the old one still serves) don't count them as retraces."""
+        with compile_credit():
+            with obs_span("serve.warmup", rungs=len(self.ladder)):
+                for rung in self.ladder:
+                    X = np.full((rung, self.dim), self._fill, np.float64)
+                    # ledger label (no-op unless ytkprof is on): the
+                    # rung's builds land named with their batch signature
+                    with profiler.LEDGER.program(
+                        "serve.rung.%d" % rung,
+                        sig_fn=lambda x=X: profiler.abstract_signature(x),
+                    ):
+                        self._exec(X)
+                    obs_inc("serve.scorer.warmup_rungs")
+        self._sentinel.arm()
+        self._warm = True
 
     @property
     def backend(self) -> str:
@@ -232,16 +309,40 @@ class CompiledScorer:
     ) -> Tuple[np.ndarray, np.ndarray]:
         return self._run(rows)
 
+    def _note_rung(self, rung: int, rows: int, exec_s: float) -> None:
+        with self._prof_lock:
+            st = self._rung_stats.get(rung)
+            if st is None:
+                st = self._rung_stats[rung] = {
+                    "calls": 0, "rows": 0, "exec_s": 0.0,
+                }
+            st["calls"] += 1
+            st["rows"] += rows
+            st["exec_s"] += exec_s
+
     def prof_snapshot(self) -> dict:
-        """The `/metrics?prof=1` block of this scorer: per-rung execute
-        time attribution is the profiling plane's (ROADMAP.md 1.12), so
-        the rungs dict stays empty, as the JAX package's is with the
-        plane off."""
+        """Per-rung settled execute-time attribution (ytkprof; the
+        `/metrics?prof=1` export): each ladder rung's device-settled
+        seconds, calls, real rows and per-row cost. Empty rungs dict when
+        the plane was never on."""
+        with self._prof_lock:
+            rungs = {
+                str(r): {
+                    "calls": v["calls"],
+                    "rows": v["rows"],
+                    "exec_s": round(v["exec_s"], 6),
+                    "ms_per_row": (
+                        round(1000.0 * v["exec_s"] / v["rows"], 6)
+                        if v["rows"] else None
+                    ),
+                }
+                for r, v in sorted(self._rung_stats.items())
+            }
         return {
             "mode": self.mode,
             "backend": self.backend,
             "ladder": list(self.ladder),
-            "rungs": {},
+            "rungs": rungs,
         }
 
     # -- execution --------------------------------------------------------
@@ -275,6 +376,7 @@ class CompiledScorer:
         with obs_trace.batch_hop("serve.assemble", rows=len(rows)):
             X = self.featurize(rows)
         B = X.shape[0]
+        prof_on = profiler.enabled()  # one check per batch, not per chunk
         max_rung = self.ladder[-1]
         out_s: List[np.ndarray] = []
         out_p: List[np.ndarray] = []
@@ -292,12 +394,40 @@ class CompiledScorer:
                     "serve.execute", rung=rung, mode=self.mode,
                     backend=self.backend,
                 ):
-                    s, p = self._exec(chunk)
+                    if prof_on:
+                        # settled per-rung attribution: _exec copies the
+                        # result to the host, so this wall interval IS the
+                        # rung's kernel + copy time; a build inside lands
+                        # named in the ledger with the chunk signature
+                        t_exec = time.perf_counter()
+                        with profiler.LEDGER.program(
+                            "serve.rung.%d" % rung,
+                            sig_fn=lambda c=chunk: (
+                                profiler.abstract_signature(c)
+                            ),
+                        ):
+                            s, p = self._exec(chunk)
+                        self._note_rung(
+                            rung, rung - pad, time.perf_counter() - t_exec
+                        )
+                    else:
+                        s, p = self._exec(chunk)
             obs_inc("serve.scorer.batches")
             obs_inc("serve.scorer.rows", rung - pad)
             obs_inc("serve.scorer.pad_rows", pad)
             out_s.append(s[: rung - pad])
             out_p.append(p[: rung - pad])
+        if self._warm:
+            if _warmups_in_progress:
+                # another scorer is mid-warmup: its builds are in the
+                # global counter but not yet credited — don't judge, and
+                # take a fresh baseline once the dust settles
+                self._rearm_pending = True
+            elif self._rearm_pending:
+                self._sentinel.arm()
+                self._rearm_pending = False
+            else:
+                self._sentinel.check(rows=B)
         if not out_s:
             shape = (0,) if self.n_outputs == 1 else (0, self.n_outputs)
             return np.empty(shape, np.float64), np.empty(shape, np.float64)

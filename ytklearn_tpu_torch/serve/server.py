@@ -22,10 +22,12 @@ Endpoints (JSON in/out):
                    `?history=1` adds the per-metric time-series rings,
                    `?models=1` adds the mesh-obs per-model accounting
                    table (scoped counters, latency, burn-sentinel state,
-                   cache occupancy); `?quality=1` the drift plane;
-                   `?prof=1` answers enabled:false with empty blocks (the
-                   profiling plane is ROADMAP.md 1.12, and YTK_PROF
-                   refuses to start the app)
+                   cache occupancy, and each model's per-rung `prof`
+                   attribution while the profiling plane is on);
+                   `?quality=1` the drift plane; `?prof=1` the profiling
+                   plane (YTK_PROF): per-model per-rung settled execute
+                   time, the build ledger and the phases (enabled:false
+                   with empty blocks when the plane is off)
   GET /admin/traces  the request-trace exemplar ring: head-sampled +
                    tail-retained (shed/504/SLO-violating) per-hop traces
                    (obs/trace.py, YTK_TRACE_SAMPLE)
@@ -55,7 +57,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..obs import enabled as obs_enabled, inc as obs_inc, snapshot as obs_snapshot, span as obs_span
-from ..obs import refuse_profiler
+from ..obs import profiler as obs_profiler
 from ..obs import health as obs_health
 from ..obs import model_metrics as obs_models
 from ..obs import quality as obs_quality
@@ -135,7 +137,6 @@ class ServeApp:
         cache_rows: Optional[int] = None,
         replica_id: Optional[int] = None,
     ):
-        refuse_profiler()
         self.registry = registry
         self.policy = policy or BatchPolicy()
         self.host = host
@@ -497,6 +498,11 @@ class ServeApp:
                 occupancy = self.cache.scope_rows()
                 for s, mb in block["models"].items():
                     mb["cache_rows"] = occupancy.get(s, 0)
+            if obs_profiler.enabled():
+                for n, entry in entries.items():
+                    mb = block["models"].get(self.models.scope_name(n))
+                    if mb is not None:
+                        mb["prof"] = entry.scorer.prof_snapshot()
             out["model_metrics"] = block
         if history:
             # metrics history plane: bounded per-metric (ts, value) rings
@@ -512,18 +518,17 @@ class ServeApp:
                 if self.quality.enabled() else {}
             )
         if prof:
-            # the profiling plane is not ported (ROADMAP.md 1.12; YTK_PROF
-            # refuses to start the app): the block the JAX package answers
-            # with YTK_PROF unset — enabled:false, empty blocks
+            # ytkprof plane (obs/profiler.py): per-model per-rung settled
+            # execute-time attribution + the process build ledger —
+            # enabled:false with empty blocks when YTK_PROF is off
             out["prof"] = {
-                "enabled": False,
+                "enabled": obs_profiler.enabled(),
                 "models": {
                     n: entry.scorer.prof_snapshot()
                     for n, entry in entries.items()
                 },
-                "compile": {"compiles": 0, "total_ms": 0.0,
-                            "by_program": {}, "entries": []},
-                "phases": {},
+                "compile": obs_profiler.LEDGER.snapshot(limit=16),
+                "phases": obs_profiler.phases_snapshot(),
             }
         return out
 

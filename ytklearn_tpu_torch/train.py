@@ -11,8 +11,13 @@ at the end. `train()` runs under the preemption guard
 (resilience/preempt.py): a SIGTERM or SIGINT is deferred to the next
 iteration callback, which dumps the current weights through the ordinary
 dump and raises `Preempted`; the relaunch (`--resume auto`) warm-starts
-from them through continue_train. The multi-process collectives come with
-multi-GPU training (ROADMAP.md 1.7), the obs spans with ROADMAP.md 1.12.
+from them through continue_train. The obs spans are the JAX trainer's:
+`train.load` (the ingest), `train.round` (one L-BFGS solve; its phases
+`lbfgs.first_eval` and `lbfgs.iterations` and the `lbfgs.iteration` spans
+inside) and `train.evaluate` (the metrics), with `mem.train.load.*` and
+`mem.train.train.*` gauges and the `train.phase.*` mirror of time_stats.
+The multi-process collectives come with multi-GPU training (ROADMAP.md
+1.7).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from .models import FFMModel, FMModel, LinearModel, MulticlassLinearModel, \
     load_field_dict
 from .optimize import LBFGSConfig, inv_hessian_vp, minimize_lbfgs
 from .optimize.blocked import make_rows, make_sum, make_value_and_grad
-from .obs import health
+from .obs import gauge as obs_gauge, health, inc as obs_inc, span as obs_span
 from .resilience import trainer_guard
 
 log = logging.getLogger("ytklearn_tpu_torch.train")
@@ -121,9 +126,12 @@ class HoagTrainer:
         p = self.params
         t0 = time.time()
         ts = self.time_stats = {}
+        health.install_trace_counters()
         if ingest is None:
-            ingest = self._ingest()
+            with obs_span("train.load", model=self.model_name):
+                ingest = self._ingest()
         ts["load"] = time.time() - t0
+        health.record_memory("train.load")
         ts["parser"] = ingest.parser
         log.info("load flow done in %.1fs (%s parser): %d train rows, dim %d",
                  ts["load"], ingest.parser, ingest.train.n_real,
@@ -166,11 +174,12 @@ class HoagTrainer:
         def evaluate(w, sink: Dict) -> None:
             if eval_set is None:
                 return
-            sink["train_metrics"] = eval_set.evaluate(
-                predicts(w, *train_b), train_b[-2], train_b[-1])
-            if test_b is not None:
-                sink["test_metrics"] = eval_set.evaluate(
-                    predicts(w, *test_b), test_b[-2], test_b[-1])
+            with obs_span("train.evaluate"):
+                sink["train_metrics"] = eval_set.evaluate(
+                    predicts(w, *train_b), train_b[-2], train_b[-1])
+                if test_b is not None:
+                    sink["test_metrics"] = eval_set.evaluate(
+                        predicts(w, *test_b), test_b[-2], test_b[-1])
 
         def test_avg(w) -> float:
             return float(loss_sum(w, *test_b)) / max(g_weight_test, 1e-12)
@@ -263,12 +272,15 @@ class HoagTrainer:
                                precision(state.w, _l2v))
                 return bool(p.loss.just_evaluate)
 
-            res = minimize_lbfgs(
-                model.pure_loss,
-                torch.as_tensor(np.asarray(start_w, np.float32)).to(
-                    self.device),
-                cfg, batch=train_b, l1_vec=l1_vec, l2_vec=l2_vec,
-                g_weight=g_weight, callback=callback, row_chunk=row_chunk)
+            obs_inc("train.rounds")
+            with obs_span("train.round", round=round_idx):
+                res = minimize_lbfgs(
+                    model.pure_loss,
+                    torch.as_tensor(np.asarray(start_w, np.float32)).to(
+                        self.device),
+                    cfg, batch=train_b, l1_vec=l1_vec, l2_vec=l2_vec,
+                    g_weight=g_weight, callback=callback,
+                    row_chunk=row_chunk)
             carry_w = _host(res.w)
             # round selection: the test loss, else the pure train loss (the
             # regularized one would always prefer the smallest penalty);
@@ -339,6 +351,15 @@ class HoagTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         ts["train"] = time.time() - t0 - ts["load"]
+        health.record_memory("train.train")
+        if res.n_iter > 0 and ts["train"] > 0:
+            ts["iters_per_sec"] = res.n_iter / ts["train"]
+        # phase stats mirrored into the obs registry (one source of truth
+        # for bench/report surfaces; time_stats stays the in-process view)
+        for k, v in ts.items():
+            if isinstance(v, (int, float)):
+                obs_gauge(f"train.phase.{k}", v)
+        obs_inc("train.iterations_total", res.n_iter)
         log.info("training done: %s after %d iters, avg loss %.6f, metrics "
                  "%s; load %.1fs, train %.1fs", res.status, res.n_iter,
                  out.avg_loss, out.train_metrics, ts["load"], ts["train"])
