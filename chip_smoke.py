@@ -32,7 +32,10 @@ autoscaling `--replicas-min 1 --replicas-max 2` fleet whose replica
 processes launch K6 and K7 on the one card (slice 16, no new kernel),
 and the profiling plane: `cli train --profile --trace-out`, YTK_PROF=1
 `cli serve` and scripts/prof_drill.py on the card (slice 17, no new
-kernel). Every phase prints its wall time, and the run its total.
+kernel), and GBDT across ranks: `cli train gbdt --coordinator` and
+`--devices` over NCCL and gloo, and the cross-check against the golden
+tree (slice 18, no new kernel). Every phase prints its wall time, and the
+run its total.
 
   1. prints the card (nvidia-smi name and power limit), the torch and CUDA
      versions, `nvcc --version` and whether ninja is on PATH;
@@ -113,8 +116,6 @@ kernel). Every phase prints its wall time, and the run its total.
      holds each round's tree against `grow` on the unbundled matrix from
      the same gradients, the bundled K2 and K1 histograms and K5 with the
      members' real lo/hi (int32 and int64) against their plain versions;
-     and `python -m ytklearn_tpu_torch.scripts.bench_gbdt` runs once in a
-     fresh process, its JSON on a line of its own;
   9. times each training kernel at the full-width shapes (CUDA events,
      median of repeats) beside its bound, its plain version and one
      scatter_add_ call; then the int8 width phase of slice 6: K2 over every
@@ -169,12 +170,10 @@ kernel). Every phase prints its wall time, and the run its total.
      N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on waves
      of 64 and 100 slots (3N > 256: two n-tiles) with a duplicated id and
      pads, and against K2 in K8's layout;
- 14. runs the tuning tools in this process, the main path of slice 4:
-     tune_hist_kernel at the reference's size with its full variant list
-     (K2, K1 and K8 across launch shapes, then K8 == K2 with torch.equal;
-     K8's launches are counted over this run), micro_hist_gather at two
-     budgets (K4 == gather-then-K2, exact) and tune_gbdt cut to waves 32
-     and 64 in int8 at 2^21 rows and 6 trees;
+ 14. runs the tuning tool tune_hist_kernel in this process, the main path
+     of slice 4, at the reference's size with its full variant list (K2,
+     K1 and K8 across launch shapes, then K8 == K2 with torch.equal; K8's
+     launches are counted over this run);
  15. times K8 at the tune shape beside its bytes bound, its tensor-core
      floor (mma_floor_ms), its plain version and one scatter_add_, then K8
      and K2 on waves of 1 to 64 slots that hold every row;
@@ -319,7 +318,24 @@ kernel). Every phase prints its wall time, and the run its total.
      culprit program and kernel), and scripts/prof_drill.py on the card
      (every check hard; the ledger holds the loads of the parser's and
      the kernels' libraries and the kernels' instantiations);
- 23. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 23. (slice 18, its main path) right after phase_profile, `phase_dist`
+     on the same config and text at DIST_ROUNDS int8 trees: the one-rank
+     `cli train gbdt` in this process, then as subprocesses `--coordinator`
+     at world size 1 (NCCL; model and bin sidecar byte-identical to one
+     rank), `--devices 2 --rank-devices cuda:0,cuda:0` (two ranks sharing
+     the card over gloo, bins built once by the launcher; the int8 dump
+     byte-identical to one rank) and two `--coordinator` processes on
+     cuda:0 over gloo (each its lines_avg shard; rank 0's train loss
+     within DIST_LOSS_RTOL of one process, its model scored by `cli
+     predict`, rank 1 dumping nothing); every rank launches K2 and K5 and
+     merges histograms (psum_scatter, pargmax), and prints its backend,
+     seconds, K2/K4/K5 launches and collective census; then
+     scripts/cross_check.py's card arm (full scan K2, partitioned, fused
+     K4) equal to the JAX package's golden tree; then `tree_maker =
+     "feature"` on `--devices 2` sharing the card (the columns sharded,
+     K1 at f32 on each rank) against one rank's level-wise host engine on
+     2^18 + 2^15 of the lines, loss and test AUC within DIST_FP_RTOL;
+ 24. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -1694,29 +1710,6 @@ def phase_efb(card):
     print(f"kernel check hist_q on the bundled matrix ({F} x {nb}, N = 64), "
           f"tolerance exact (torch.equal): True [{card}]", flush=True)
     return err
-
-
-def phase_bench_script(card):
-    """scripts/bench_gbdt.py as a user runs it, in a fresh process: bench.py's
-    cell with its GOSS default; its JSON line is printed here."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "ytklearn_tpu_torch.scripts.bench_gbdt"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    check(out.returncode == 0,
-          f"bench_gbdt exited {out.returncode}: {out.stderr[-2000:]}")
-    rec = json.loads(out.stdout.strip().splitlines()[-1])
-    print(f"bench_gbdt: {wall:.3f} s (wall, a fresh process) [{card}]",
-          flush=True)
-    print(json.dumps(rec), flush=True)
-    check(rec["band"] == "ok" and rec["goss"] == "a=0.2,b=0.125"
-          and rec["goss_rows_per_tree"] == goss_kept_rows(TRAIN_ROWS, *GOSS),
-          f"bench_gbdt: {rec}")
-    return rec
 
 
 def bound_ms(nbytes, int_ops):
@@ -3415,23 +3408,16 @@ def phase_u8_kernels(card):
 
 
 def phase_tools(card):
-    """The tuning tools in this process, as `python -m
-    ytklearn_tpu_torch.scripts.<tool>` runs them: the main path of slice 4.
-    Every launch count is zeroed just before the tools and read just after
-    them: tune_hist_kernel runs K1, K2 and K8, micro_hist_gather K2 and K4,
-    tune_gbdt K2, K4 and K5."""
-    from ytklearn_tpu_torch.scripts import (
-        micro_hist_gather,
-        tune_gbdt,
-        tune_hist_kernel,
-    )
+    """The histogram tuning tool in this process, as `python -m
+    ytklearn_tpu_torch.scripts.tune_hist_kernel` runs it: the main path of
+    slice 4 (K1, K2 and K8). Every launch count is zeroed just before it
+    and read just after. (The informational sweeps micro_hist_gather and
+    tune_gbdt left this script to make room for the multi-rank phase; each
+    runs alone as `python -m ytklearn_tpu_torch.scripts.<tool>`.)"""
+    from ytklearn_tpu_torch.scripts import tune_hist_kernel
 
     for name, mod, argv in (
         ("tune_hist_kernel", tune_hist_kernel, []),
-        ("micro_hist_gather", micro_hist_gather, ["--divs", "8,64",
-                                                  "--repeats", "3"]),
-        ("tune_gbdt", tune_gbdt, ["--rows", str(1 << 21), "--trees", "6",
-                                  "--configs", "32:int8,64:int8"]),
     ):
         t0 = time.perf_counter()
         if name == "tune_hist_kernel":
@@ -3441,12 +3427,12 @@ def phase_tools(card):
               f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
         check(rc == 0, f"{name} exited {rc}")
     counts = kernel_counts()
-    ran = ("hist", "hist_q", "hist_gather_q", "route", "hist_q_u8")
-    print(f"tools: launches over the three tools: "
+    ran = ("hist", "hist_q", "hist_q_u8")
+    print(f"tools: launches of tune_hist_kernel: "
           f"{', '.join(f'{k} {counts[k]}' for k in ran)} [{card}]",
           flush=True)
     check(all(counts[k] > 0 for k in ran),
-          f"the tools did not launch each of their kernels: {counts}")
+          f"the tool did not launch each of its kernels: {counts}")
     return counts["hist_q_u8"]
 
 
@@ -6136,6 +6122,257 @@ def phase_profile(tmp, model, card):
           flush=True)
 
 
+DIST_ROUNDS = 10  # phase_dist's trees (the Higgs config's width: 255
+#                  leaves, 255 bins, F = 28), int8 so the dumps can be equal
+DIST_LOSS_RTOL = 0.05  # merged bins (tests/test_multiprocess.py:139-152)
+DIST_PREDICT_ROWS = 4096
+DIST_TIMEOUT_S = 420
+#: the feature-parallel part: text lines, trees, depth (level-wise)
+DIST_FP = ((1 << 18, 1 << 15), 3, 6)
+DIST_FP_RTOL = 1e-4  # tests/test_feature_parallel.py's loss and AUC bands
+
+
+def dist_argv(paths, model):
+    """phase_dist's `cli train gbdt` (phase_cli_train's config and text,
+    DIST_ROUNDS int8 trees)."""
+    return (cli_train_argv(paths, model)[:-4]
+            + ["--set", f"optimization.round_num={DIST_ROUNDS}",
+               "--set", f"optimization.max_depth={CLI_DEPTH}",
+               "--hist-precision", "int8"])
+
+
+def run_cli_procs(argvs, tmp, tag):
+    """`python -m ytklearn_tpu_torch.cli <argv>` for each argv, all at once
+    (stderr to files: a rank blocked on a full pipe while its peer waits in
+    a collective would hang the group) -> (the JSON lines, seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    procs, errs = [], []
+    for i, argv in enumerate(argvs):
+        ef = open(os.path.join(tmp, f"{tag}.{i}.err"), "w+")
+        errs.append(ef)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "ytklearn_tpu_torch.cli"] + argv,
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=ef, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=DIST_TIMEOUT_S)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for i, (p, ef) in enumerate(zip(procs, errs)):
+        ef.seek(0)
+        err = ef.read()
+        ef.close()
+        check(p.returncode == 0,
+              f"{tag} process {i} exited {p.returncode}: {err[-3000:]}")
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs], wall
+
+
+def same_files(a, b):
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def fmt_census(c):
+    return ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                     + (f" ({v['staged']} staged)" if v.get("staged") else "")
+                     for k, v in sorted(c.items()))
+
+
+def phase_dist(tmp, card):
+    """GBDT across ranks (slice 18) on phase_cli_train's Higgs-shaped text
+    at full width (F = 28, 255 bins, 255 leaves), DIST_ROUNDS int8 trees:
+    the one-rank `cli train gbdt` in this process, then (1) `--coordinator`
+    at world size 1 over NCCL, its dump byte-identical; (2) `--devices 2`
+    with both ranks on cuda:0 over gloo (one launcher, bins built once),
+    its int8 dump byte-identical to the one-rank dump; (3) two
+    `--coordinator` processes on cuda:0 over gloo, each ingesting its
+    lines_avg shard: rank 0's train loss within DIST_LOSS_RTOL of one
+    process, its model scored by `cli predict`, rank 1 dumping nothing;
+    (4) scripts/cross_check.py's card arm (full scan K2, partitioned,
+    fused K4) equal to the golden tree; (5) `tree_maker = "feature"` on
+    `--devices 2` sharing the card (the host engine on every rank, the
+    columns sharded: K1 at f32 over each rank's columns) against one
+    rank's level-wise host engine, loss and test AUC within DIST_FP_RTOL.
+    Prints each part's backend, seconds, per-rank K2/K4/K5 (K1 in part 5)
+    launches and collective census."""
+    from ytklearn_tpu_torch.gbdt.launch import free_port
+    from ytklearn_tpu_torch.scripts import cross_check
+
+    paths = {k: os.path.join(tmp, f"{k}.txt") for k in ("train", "test")}
+    d = os.path.join(tmp, "dist")
+    base = os.path.join(d, "one", "gbdt.model")
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    rc, one = cli_quiet(dist_argv(paths, base))
+    t_one = time.perf_counter() - t0
+    c1 = kernel_counts()
+    check(rc == 0 and one["trees"] == DIST_ROUNDS, f"one rank: {rc} {one}")
+    print(f"dist: one rank, in this process: {t_one:.3f} s, train loss "
+          f"{one['train_loss']:.6f}, test AUC "
+          f"{one['test_metrics']['auc']:.6f}; launches hist_q "
+          f"{c1['hist_q']}, hist_gather_q {c1['hist_gather_q']}, route "
+          f"{c1['route']} [{card}]", flush=True)
+    check(c1["hist_q"] > 0 and c1["route"] > 0 and c1["hist"] == 0,
+          f"one rank did not run K2 and K5 only: {c1}")
+
+    def ranks_line(part, reps, wall):
+        for r in reps:
+            ln = r["launches"]
+            print(f"dist {part}: rank {r['rank']} on {r['device']}, backend "
+                  f"{r['backend']}, {r['seconds']:.3f} s in train(); "
+                  f"launches hist_q {ln['hist_q']}, hist_gather_q "
+                  f"{ln['hist_gather_q']}, route {ln['route']}; "
+                  f"collectives: {fmt_census(r['collectives'])} [{card}]",
+                  flush=True)
+            check(ln["hist_q"] > 0 and ln["route"] > 0 and ln["hist"] == 0,
+                  f"dist {part}: rank {r['rank']} did not run K2 and K5: "
+                  f"{ln}")
+            check(r["collectives"].get("psum_scatter", {}).get("calls", 0)
+                  > 0 and r["collectives"].get("pargmax", {}).get(
+                      "calls", 0) > 0,
+                  f"dist {part}: rank {r['rank']} ran no histogram merge")
+        print(f"dist {part}: {wall:.3f} s (wall, the processes' start and "
+              f"the text parse included) beside {t_one:.3f} s for one rank "
+              f"in this process [{card}]", flush=True)
+
+    # (1) NCCL at world size 1
+    m1 = os.path.join(d, "nccl1", "gbdt.model")
+    (r1,), w1 = run_cli_procs([dist_argv(paths, m1) + [
+        "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+        "--process-id", "0"]], d, "nccl1")
+    check(r1["rank"]["backend"] == "nccl", f"world 1 ran {r1['rank']}")
+    ranks_line("(1) --coordinator, world 1", [r1["rank"]], w1)
+    eq1 = same_files(base, m1) and same_files(base + ".bins.json",
+                                              m1 + ".bins.json")
+    print(f"dist (1): dump and bin sidecar byte-identical to one rank: {eq1}"
+          f" [{card}]", flush=True)
+    check(eq1, "the NCCL world-1 dump is not the one-rank dump")
+
+    # (2) --devices 2, both ranks on cuda:0 over gloo
+    m2 = os.path.join(d, "dev2", "gbdt.model")
+    (r2,), w2 = run_cli_procs([dist_argv(paths, m2) + [
+        "--devices", "2", "--rank-devices", "cuda:0,cuda:0"]], d, "dev2")
+    check([r["backend"] for r in r2["ranks"]] == ["gloo", "gloo"],
+          f"--devices 2 on one card: {r2['ranks']}")
+    ranks_line("(2) --devices 2 on cuda:0", r2["ranks"], w2)
+    eq2 = same_files(base, m2)
+    print(f"dist (2): int8 dump byte-identical to one rank: {eq2}; train "
+          f"loss {r2['train_loss']:.6f} beside {one['train_loss']:.6f}; "
+          f"two ranks sharing one card are expected no faster than one "
+          f"[{card}]", flush=True)
+    check(eq2, "the two-rank --devices dump is not the one-rank dump")
+
+    # (3) two --coordinator processes on cuda:0 over gloo
+    port = free_port()
+    m3 = [os.path.join(d, f"coord{r}", "gbdt.model") for r in range(2)]
+    r3, w3 = run_cli_procs([dist_argv(paths, m3[r]) + [
+        "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+        "--process-id", str(r)] for r in range(2)], d, "coord2")
+    ranks_line("(3) two --coordinator processes",
+               [r["rank"] for r in r3], w3)
+    rel = abs(r3[0]["train_loss"] - one["train_loss"]) / one["train_loss"]
+    print(f"dist (3): rank 0 train loss {r3[0]['train_loss']:.6f}, one "
+          f"process {one['train_loss']:.6f} (rel {rel:.6f}, band "
+          f"{DIST_LOSS_RTOL}); test AUC {r3[0]['test_metrics']['auc']:.6f}"
+          f" [{card}]", flush=True)
+    check(rel <= DIST_LOSS_RTOL, f"two processes' loss rel {rel}")
+    check(os.path.exists(m3[0]) and not os.path.exists(m3[1]),
+          "rank 0 must dump and rank 1 must not")
+    pfile = os.path.join(d, "predict.txt")
+    with open(paths["test"]) as f, open(pfile, "w") as g:
+        for i, line in enumerate(f):
+            if i >= DIST_PREDICT_ROWS:
+                break
+            g.write(line)
+    rc, pred = cli_quiet(["predict", serve_conf(m3[0], d, "dist"), "gbdt",
+                          pfile, "--set", "optimization.round_num=0"])
+    with open(pfile + "_predict") as f:
+        preds = [float(v) for v in f.read().split()]
+    print(f"dist (3): cli predict of rank 0's model over "
+          f"{DIST_PREDICT_ROWS} test lines: rc {rc}, {pred} [{card}]",
+          flush=True)
+    check(rc == 0 and len(preds) == DIST_PREDICT_ROWS
+          and all(0.0 < v < 1.0 for v in preds), "cli predict of rank 0")
+
+    # (4) the cross-check's card arm
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    sigs = cross_check.card_arm("cuda")
+    c4 = kernel_counts()
+    with open(cross_check.GOLDEN) as f:
+        golden = json.load(f)
+    ok4 = {k: cross_check.matches(v, golden) for k, v in sigs.items()}
+    print(f"dist (4): cross_check card arm {ok4} in "
+          f"{time.perf_counter() - t0:.3f} s; launches hist_q "
+          f"{c4['hist_q']}, hist_gather_q {c4['hist_gather_q']}, route "
+          f"{c4['route']} [{card}]", flush=True)
+    check(all(ok4.values()) and c4["hist_gather_q"] > 0,
+          f"cross_check card arm: {ok4}, {c4}")
+
+    # (5) the feature-parallel maker, two ranks sharing the card
+    (n_fp, nt_fp), fp_rounds, fp_depth = DIST_FP
+    small = {k: os.path.join(d, f"fp_{k}.txt") for k in ("train", "test")}
+    for k, n_lines in (("train", n_fp), ("test", nt_fp)):
+        with open(paths[k]) as f, open(small[k], "w") as g:
+            for i, line in enumerate(f):
+                if i >= n_lines:
+                    break
+                g.write(line)
+
+    def fp_argv(model):
+        return (cli_train_argv(small, model)[:-4]
+                + ["--set", "optimization.tree_maker=feature",
+                   "--set", "optimization.tree_grow_policy=level",
+                   "--set", f"optimization.max_depth={fp_depth}",
+                   "--set", f"optimization.round_num={fp_rounds}"])
+
+    mf1 = os.path.join(d, "fp1", "gbdt.model")
+    rc, fp1 = cli_quiet(fp_argv(mf1))
+    check(rc == 0 and fp1["trees"] == fp_rounds, f"fp one rank: {fp1}")
+    mf2 = os.path.join(d, "fp2", "gbdt.model")
+    (r5,), w5 = run_cli_procs([fp_argv(mf2) + [
+        "--devices", "2", "--rank-devices", "cuda:0,cuda:0"]], d, "fp2")
+    for r in r5["ranks"]:
+        ln = r["launches"]
+        print(f"dist (5) feature-parallel: rank {r['rank']} on {r['device']}"
+              f", backend {r['backend']}, engine {r['engine']}, "
+              f"{r['seconds']:.3f} s in train(); launches hist {ln['hist']}"
+              f" (K1, f32), route {ln['route']}; collectives: "
+              f"{fmt_census(r['collectives'])} [{card}]", flush=True)
+        check(r["engine"] == "host" and ln["hist"] > 0,
+              f"dist (5): rank {r['rank']} ran no K1: {r}")
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+
+    with open(mf1) as f, open(mf2) as g:
+        t1, t2 = GBDTModel.loads(f.read()).trees, GBDTModel.loads(
+            g.read()).trees
+    same = sum(a.feat == b.feat and a.left == b.left and a.right == b.right
+               for a, b in zip(t1, t2))
+    rel5 = abs(r5["train_loss"] - fp1["train_loss"]) / fp1["train_loss"]
+    auc5 = abs(r5["test_metrics"]["auc"] - fp1["test_metrics"]["auc"])
+    print(f"dist (5): {n_fp} + {nt_fp} lines, {fp_rounds} level-wise trees"
+          f" of depth {fp_depth}: {w5:.3f} s (wall) for the two ranks; train"
+          f" loss {r5['train_loss']:.6f} beside one rank's "
+          f"{fp1['train_loss']:.6f} (rel {rel5:.2e}), test AUC delta "
+          f"{auc5:.2e}; {same} of {len(t1)} trees of the same structure "
+          f"(K1 adds f32 with atomics, the host engine in float64) "
+          f"[{card}]", flush=True)
+    check(rel5 <= DIST_FP_RTOL and auc5 <= DIST_FP_RTOL,
+          f"feature-parallel against one rank: rel {rel5}, AUC {auc5}")
+    return {"one": c1, "devices2": [r["launches"] for r in r2["ranks"]],
+            "coord2": [r["rank"]["launches"] for r in r3],
+            "feature2": [r["launches"] for r in r5["ranks"]]}
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -6276,7 +6513,6 @@ def main() -> int:
     for k, v in efb_err.items():
         errs[k] = max(errs[k], v)
     torch.cuda.empty_cache()
-    timed("bench_script", phase_bench_script, card)
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_cli_")
     try:
@@ -6298,6 +6534,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         # slice 17: the profiling plane over phase_cli_train's config
         timed("profile", phase_profile, tmp, cli_model, card)
+        torch.cuda.empty_cache()
+        # slice 18: GBDT across ranks over the same text
+        timed("dist", phase_dist, tmp, card)
+        torch.cuda.empty_cache()
         # slice 13: the host engine over the same text, then resilience
         t0 = time.perf_counter()
         small = timed("host_engine", phase_host_engine, card,

@@ -178,13 +178,39 @@ def test_jax_predictor_scores_the_port_dump(runs):
     (["--profile"], "1.12"),
 ])
 def test_unported_options_raise_by_item(extra, match, runs):
-    """The 1.7 options raise by their item. Those that items 1.5 and 1.12
-    lifted train one round on the CPU and return 0: `--max-restarts 1` with
-    nothing failing, `--resume auto` with no model there (a cold start),
-    `--trace-out T` writing a Chrome trace that loads and holds the run's
-    spans, and `--profile DIR` writing the ytkprof report (the trainer's
-    phases, coverage of the run) and a torch.profiler capture of the
-    rounds into DIR."""
+    """The options items 1.5, 1.7 and 1.12 lifted train one round on the
+    CPU and return 0: `--max-restarts 1` with nothing failing, `--resume
+    auto` with no model there (a cold start), `--coordinator` as a one-rank
+    gloo group and `--devices 2` as two gloo ranks (rank 0 dumps; the JSON
+    line carries the ranks' reports; any other family under them still
+    raises by item 1.7b), `--trace-out T` writing a Chrome trace that loads
+    and holds the run's spans, and `--profile DIR` writing the ytkprof
+    report (the trainer's phases, coverage of the run) and a
+    torch.profiler capture of the rounds into DIR."""
+    if match == "1.7":
+        tag = extra[0].strip("-")
+        if extra[0] == "--coordinator":
+            from ytklearn_tpu_torch.gbdt.launch import free_port
+
+            extra = ["--coordinator", f"127.0.0.1:{free_port()}",
+                     "--num-processes", "1", "--process-id", "0"]
+        args = _args(runs["tmp"], tag) + [
+            "--set", "optimization.round_num=1", "--device", "cpu"] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["train"] + args) == 0
+        line = _json_line(buf.getvalue())
+        assert line["trees"] == 1
+        assert (runs["tmp"] / tag / "gbdt.model").exists()
+        if tag == "devices":
+            assert [r["rank"] for r in line["ranks"]] == [0, 1]
+            assert {r["backend"] for r in line["ranks"]} == {"gloo"}
+        else:
+            assert line["rank"]["backend"] == "gloo"
+            assert line["rank"]["collectives"]["psum_scatter"]["calls"] > 0
+        with pytest.raises(NotImplementedError, match="ROADMAP.md 1.7b"):
+            cli.main(["train", "linear", CONF] + extra)
+        return
     if match in ("1.5", "1.12"):
         tag = extra[0].strip("-")
         out = runs["tmp"] / f"{tag}.out"

@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "serve.fleet.front", "serve.fleet.worker",
               "serve.fleet.autoscaler", "scripts.chaos_drill",
               "obs.quality", "obs.profiler", "scripts.prof_drill",
-              "scripts.obs_report"):
+              "scripts.obs_report", "parallel", "parallel.mesh",
+              "parallel.collectives", "gbdt.feature_parallel", "gbdt.launch",
+              "scripts.cross_check"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -306,25 +306,12 @@ def test_wave_log_and_spec(l2_run):
     assert ptr.time_stats["train"] > 0
 
 
-# (case number, params, constructor arguments, ROADMAP item); the numbers
-# keep each case the name it has always had (kw3-kw5, GOSS and the sample
-# rates, went when they were ported; kw7 and kw8, huber and softmax, train
-# now: test_lifted_refusals_train_as_the_reference; kw2, kw6 and kw9, the
-# host engine, precise LAD and the feature maker, train on the host engine:
-# test_host_engine_refusals_train_as_the_reference)
-_UNPORTED = [
-    (10, {}, {"mesh": object()}, "1.7"),
-]
-
-
-@pytest.mark.parametrize("kw,ctor,match", [c[1:] for c in _UNPORTED], ids=[
-    f"kw{i}-ctor{i}-{m}" for i, _, _, m in _UNPORTED])
-def test_unported_features_raise_by_name(kw, ctor, match):
-    p = GBDTParams(approximate=[ApproximateSpec()], **kw)
-    args = {"device": "cpu", "hist_precision": "int8"}
-    args.update(ctor)
-    with pytest.raises(NotImplementedError, match=match):
-        GBDTTrainer(p, **args)
+# The trainer's refusals went as their items were ported: kw3-kw5, GOSS
+# and the sample rates; kw7 and kw8, huber and softmax, train now
+# (test_lifted_refusals_train_as_the_reference); kw2, kw6 and kw9, the host
+# engine, precise LAD and the feature maker, train on the host engine
+# (test_host_engine_refusals_train_as_the_reference); kw10, a mesh, trains
+# on N ranks (tests/test_torch_mesh_gbdt.py).
 
 
 _HOST_LIFTED = [

@@ -35,8 +35,27 @@ JSON of the run's obs spans; `--profile [DIR]` arms the profiling plane
 (obs/profiler.py: phase accounting, the build ledger, memory watermarks),
 logs its report at the end and, with DIR, captures a torch.profiler trace
 of each capture phase (the GBDT rounds, the L-BFGS iterations) into DIR
-and writes the report there as `ytkprof.json`. Multi-process and
-multi-GPU runs raise NotImplementedError naming their ROADMAP.md item.
+and writes the report there as `ytkprof.json`. `--hist-precision` picks
+the GBDT histograms (bf16, the default as in the JAX CLI; f32; int8).
+
+GBDT trains on more than one device in the reference's two modes, one
+rank a process and a device:
+  `--devices N` (N > 1): one launcher parses and bins the whole data once
+    and starts N ranks on cuda:0..N-1 (`--device cpu`: N gloo ranks on the
+    CPU; `--rank-devices D0,D1,...` places them, two ranks may share a
+    card); each trains on its contiguous row shard and rank 0 dumps
+    (gbdt/launch.py). The JSON line adds "ranks": each rank's device,
+    backend, kernel launches, collective census and seconds. Fewer GPUs
+    than N exits as the reference does.
+  `--coordinator host:port --num-processes P --process-id r`: this process
+    is rank r of P, reads its line shard (io/reader.py::shard_plan), merges
+    bins, feature dict and fills with the others, and trains; rank 0
+    dumps; `--max-restarts` is off (restart the whole launch). The JSON
+    line adds "rank", this rank's report.
+The backend is NCCL when every rank has a GPU of its own, gloo on the CPU
+and when ranks share a card (YTK_DIST_BACKEND overrides), with a finite
+timeout (YTK_DIST_TIMEOUT_S). Every other family under either flag raises
+NotImplementedError naming ROADMAP.md 1.7b.
 
 `serve` is the JAX package's single-process `cli serve` at its defaults:
 it loads any family `train` writes (and every `--extra-model`) into a
@@ -73,7 +92,7 @@ it writes `<file><suffix>` result files in any save mode and predict type
 and prints the weighted average loss; the activation and the loss run on
 `--device` (default `cuda`). `convert` is bin/libsvm_convert_2_ytklearn.sh
 (io/libsvm.py). Both take `--trace-out T` (a Chrome trace of the run);
-`--devices` > 1 (ROADMAP.md 1.7) raises NotImplementedError in retrain.
+`--devices` > 1 (ROADMAP.md 1.7b) raises NotImplementedError in retrain.
 """
 
 from __future__ import annotations
@@ -154,17 +173,51 @@ def is_sticky_cuda_error(exc: BaseException) -> bool:
     return "CUDA" in text and any(m in text for m in STICKY_CUDA_ERRORS)
 
 
+#: the ROADMAP.md item of the multi-device runs still to port
+MULTI_DEVICE_ITEM = "1.7b, multi-GPU convex families and GBST"
+
+
 def _refuse_unported(args) -> None:
     """Every train option this port does not run yet raises by its
-    ROADMAP.md item, before anything loads."""
-    for bad, what, item in (
-        (bool(args.coordinator), "multi-process training (--coordinator)",
-         "1.7, multi-GPU data-parallel GBDT"),
-        (args.devices > 1, "--devices > 1",
-         "1.7, multi-GPU data-parallel GBDT"),
+    ROADMAP.md item, before anything loads: more than one device or
+    process for any family but gbdt."""
+    if args.model_name == "gbdt":
+        return
+    for bad, what in (
+        (bool(args.coordinator),
+         f"multi-process {args.model_name} training (--coordinator)"),
+        (args.devices > 1, f"{args.model_name} with --devices > 1"),
     ):
         if bad:
-            raise _not_ported(what, item)
+            raise _not_ported(what, MULTI_DEVICE_ITEM)
+
+
+def _make_mesh(n_devices: int, device: str,
+               rank_devices: str = "") -> Optional[List[str]]:
+    """--devices N: the N ranks' devices, or None for one device
+    (reference cli.py:73-82). cuda: cuda:0..N-1, and fewer GPUs than N
+    exits; cpu: N ranks on the CPU; `rank_devices` (a comma list of N)
+    places them, a card may hold more than one rank."""
+    if rank_devices:
+        devs = [d.strip() for d in rank_devices.split(",") if d.strip()]
+        if len(devs) != max(n_devices, 1):
+            raise SystemExit(f"--rank-devices names {len(devs)} devices, "
+                             f"--devices asks for {n_devices}")
+        return devs if len(devs) > 1 else None
+    if n_devices <= 1:
+        return None
+    if device.startswith("cuda"):
+        import torch
+
+        avail = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if n_devices > avail:
+            raise SystemExit(f"requested {n_devices} devices, only {avail} "
+                             "available")
+        return [f"cuda:{i}" for i in range(n_devices)]
+    if device != "cpu":
+        raise SystemExit(f"--devices: unsupported device {device!r}")
+    return ["cpu"] * n_devices
 
 
 def train_main(argv: Optional[List[str]] = None) -> int:
@@ -181,7 +234,14 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="device to train on: cuda (default) or cpu")
     ap.add_argument("--devices", type=int, default=0,
-                    help="GPUs to train on; more than one is not ported yet")
+                    help="devices to train a GBDT on, one rank each: a "
+                    "launcher parses and bins once and starts the ranks")
+    ap.add_argument("--rank-devices", default="",
+                    help="with --devices N: the N ranks' devices, comma "
+                    "separated (default cuda:0..N-1, or cpu)")
+    ap.add_argument("--hist-precision", default="bf16",
+                    choices=("bf16", "f32", "int8"),
+                    help="GBDT histogram precision (default bf16)")
     ap.add_argument("--max-restarts", type=int, default=0,
                     help="on a failed attempt, restart training in this "
                     "process from the last dump (model.continue_train), "
@@ -190,8 +250,12 @@ def train_main(argv: Optional[List[str]] = None) -> int:
                     help="auto: resume from the dump at model.data_path "
                     "when there is one, else start cold")
     ap.add_argument("--coordinator", default="",
-                    help="host:port of a multi-process rendezvous (not "
-                    "ported yet)")
+                    help="host:port of the rendezvous of a multi-process "
+                    "GBDT run (rank 0's process group store; a file:// URL "
+                    "serves ranks on one host); use with --num-processes "
+                    "and --process-id")
+    ap.add_argument("--num-processes", type=int, default=0)
+    ap.add_argument("--process-id", type=int, default=-1)
     ap.add_argument("--set", action="append", dest="sets",
                     metavar="KEY=VALUE", help="config override, repeatable")
     ap.add_argument("--trace-out", default="",
@@ -233,35 +297,83 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     from .resilience import Preempted
 
     restarts = max(args.max_restarts, 0)
+    ranks = _make_mesh(args.devices, args.device, args.rank_devices)
+    mesh = None
+    if args.coordinator:
+        if ranks is not None:
+            raise SystemExit("--coordinator runs one rank a process: drop "
+                             "--devices/--rank-devices")
+        from .parallel.mesh import distributed_initialize_if_needed, \
+            make_mesh, rank_device
+
+        distributed_initialize_if_needed(
+            coordinator=args.coordinator, world_size=args.num_processes,
+            rank=args.process_id, device=args.device)
+        mesh = make_mesh(rank_device(args.device, args.process_id,
+                                     args.num_processes),
+                         shared_ingest=False)
+        if restarts and mesh.world > 1:
+            # a rank re-entering training alone would desync the group's
+            # collectives: recovery restarts the whole launch
+            log.warning("--max-restarts is per-process and unsafe in "
+                        "multi-process mode; disabled: restart the launcher "
+                        "to resume from the last checkpoint")
+            restarts = 0
     t0 = time.perf_counter()
-    for attempt in range(restarts + 1):
-        try:
-            rc, wall = _train_once(args.model_name, cfg, hook, args.device)
-            _flush_trace(args.trace_out)
-            _flush_profile(args.profile, wall)
-            return rc
-        except Preempted as e:
-            # not a failure: the checkpoint is on disk, and a restart here
-            # would eat the grace period; the relaunch resumes it
-            log.warning("%s; exiting %d", e, e.exit_code)
-            _flush_trace(args.trace_out)
-            _flush_profile(args.profile, time.perf_counter() - t0)
-            return e.exit_code
-        except KeyboardInterrupt:
-            raise
-        except Exception as e:
-            if attempt >= restarts or is_sticky_cuda_error(e):
+    try:
+        for attempt in range(restarts + 1):
+            try:
+                if ranks is not None:
+                    rc, wall = _train_devices(cfg, hook, ranks,
+                                              args.hist_precision)
+                else:
+                    rc, wall = _train_once(args.model_name, cfg, hook,
+                                           args.device, args.hist_precision,
+                                           mesh)
+                _flush_trace(args.trace_out)
+                _flush_profile(args.profile, wall)
+                return rc
+            except Preempted as e:
+                # not a failure: the checkpoint is on disk, and a restart
+                # here would eat the grace period; the relaunch resumes it
+                log.warning("%s; exiting %d", e, e.exit_code)
+                _flush_trace(args.trace_out)
+                _flush_profile(args.profile, time.perf_counter() - t0)
+                return e.exit_code
+            except KeyboardInterrupt:
                 raise
-            log.exception("training attempt %d/%d failed; restarting with "
-                          "model.continue_train=true", attempt + 1,
-                          restarts + 1)
-            cfg = hocon.set_path(cfg, "model.continue_train", True)
+            except Exception as e:
+                if attempt >= restarts or is_sticky_cuda_error(e):
+                    raise
+                log.exception("training attempt %d/%d failed; restarting "
+                              "with model.continue_train=true", attempt + 1,
+                              restarts + 1)
+                cfg = hocon.set_path(cfg, "model.continue_train", True)
+    finally:
+        if mesh is not None:
+            from .parallel.mesh import release_mesh
+
+            release_mesh()
     return 1  # unreachable
 
 
-def _train_once(name: str, cfg: dict, hook, device) -> Tuple[int, float]:
+def _train_devices(cfg: dict, hook, devices: List[str],
+                   hist_precision: str) -> Tuple[int, float]:
+    """`--devices N`: the launcher (gbdt/launch.py) and its JSON line."""
+    from .gbdt.launch import run_devices
+
+    t0 = time.perf_counter()
+    out = run_devices(cfg, devices, hook=hook, hist_precision=hist_precision)
+    wall = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0, wall
+
+
+def _train_once(name: str, cfg: dict, hook, device,
+                hist_precision: str = "bf16", mesh=None) -> Tuple[int, float]:
     """Train one attempt and print its JSON line: (0, the seconds of the
-    trainer's train(), the wall the profiling plane decomposes)."""
+    trainer's train(), the wall the profiling plane decomposes). `mesh`:
+    this process's rank under --coordinator (gbdt only)."""
     from .io.fs import create_filesystem
 
     fs = create_filesystem(str(cfg.get("fs_scheme", "local")))
@@ -306,21 +418,21 @@ def _train_once(name: str, cfg: dict, hook, device) -> Tuple[int, float]:
     from .config.params import GBDTParams
     from .gbdt.trainer import GBDTTrainer
 
+    from .gbdt.launch import rank_report, result_record
+
     # the trainer loads data.train/test through GBDTIngest and records the
     # parser and the load's seconds in its time_stats
-    trainer = GBDTTrainer(GBDTParams.from_config(cfg), device=device, fs=fs,
-                          transform_hook=hook)
+    trainer = GBDTTrainer(GBDTParams.from_config(cfg),
+                          device=device if mesh is None else mesh.device,
+                          fs=fs, transform_hook=hook,
+                          hist_precision=hist_precision, mesh=mesh)
     t0 = time.perf_counter()
     res = trainer.train()
     wall = time.perf_counter() - t0
-    print(json.dumps({
-        "model": name,
-        "trees": len(res.model.trees),
-        "train_loss": res.train_loss,
-        "test_loss": res.test_loss,
-        "train_metrics": res.train_metrics,
-        "test_metrics": res.test_metrics,
-    }), flush=True)
+    out = result_record(res)
+    if mesh is not None:
+        out["rank"] = rank_report(trainer, mesh, wall)
+    print(json.dumps(out), flush=True)
     return 0, wall
 
 
@@ -457,7 +569,7 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
     _setup_logging(args.verbose)
     if args.devices > 1:
-        raise _not_ported("--devices > 1", "1.7, multi-GPU data-parallel GBDT")
+        raise _not_ported("retrain --devices > 1", MULTI_DEVICE_ITEM)
     _setup_trace(args.trace_out)
 
     from .config import hocon

@@ -10,6 +10,8 @@ The counterpart of the device path of ``ytklearn_tpu/gbdt/binning.py``:
                        rows), each column's spec by name or glob, numpy's
                        RandomState(20170425) over the columns in order
   quantile_bins_device sample_by_quantile with one sort per feature (:725)
+  merge_quantile_candidates, merge_bins_multihost, build_bins_global
+                       the multi-process merges (:210-370)
   build_bins_maybe_device  the single-quantile-spec bin builder on the
                        device, else build_bins on the host (:789)
   bin_matrix_device    value -> nearest-representative bin, (F, n) (:824)
@@ -29,8 +31,11 @@ values[i] >= v; if i >= 1 and v < midpoint(values[i-1], values[i]) then
 i - 1 (a value exactly at a midpoint rounds up); NaN and values above the
 last representative go to the last bin. The midpoint compare runs in f32.
 
-The multi-process bin merges (merge_bins_multihost, build_bins_global) come
-with multi-GPU training (ROADMAP.md 1.7).
+The multi-process merges (:210-370): merge_quantile_candidates (per-process
+candidate sets as one weighted sketch), merge_bins_multihost (set union,
+exact union, GK-summary merge or the candidate fallback, feature by
+feature, over host_allgather_objects) and build_bins_global (build_bins,
+then the merge under `--coordinator`; build_bins alone otherwise).
 """
 
 from __future__ import annotations
@@ -209,6 +214,122 @@ def build_bins(X: np.ndarray, weight: np.ndarray, params: GBDTParams,
     out = _to_feature_bins(per_feature)
     out.exact = exact
     return out
+
+
+def merge_quantile_candidates(values_list: List[np.ndarray],
+                              mass_list: List[float], max_cnt: int
+                              ) -> np.ndarray:
+    """Per-process quantile candidate sets merged into global candidates
+    (reference :210): each set's points carry mass total_i / len(values_i),
+    and max_cnt even ranks of the merged multiset, each point at the centre
+    of its mass interval, are the candidates (the reference's GK summary
+    merge + query, SampleManager.java:129-143)."""
+    vals = np.concatenate([np.asarray(v, np.float64) for v in values_list])
+    mass = np.concatenate([
+        np.full(len(v), m / max(len(v), 1), np.float64)
+        for v, m in zip(values_list, mass_list)
+    ])
+    order = np.argsort(vals, kind="stable")
+    sv, sm = vals[order], mass[order]
+    cw = np.cumsum(sm)
+    total = cw[-1]
+    ranks = (np.arange(1, max_cnt + 1) / max_cnt) * total
+    pos = np.searchsorted(cw - 0.5 * sm, ranks, side="left").clip(
+        0, len(sv) - 1)
+    return np.unique(sv[pos].astype(np.float32))
+
+
+def merge_bins_multihost(local: FeatureBins, local_exact: np.ndarray,
+                         local_mass: np.ndarray, max_cnt_arr: np.ndarray,
+                         discrete: np.ndarray,
+                         local_summaries: Optional[Dict[int, object]] = None
+                         ) -> FeatureBins:
+    """Cross-process merge of per-feature bin candidates (reference :240).
+
+    discrete[f] (a non-quantile sampler) merges by set union. A quantile
+    feature stays an exact union while every process kept all its distinct
+    values and the union fits max_cnt; else, when every process brought a
+    GK summary of it, the summaries merge with bounded rank error; else
+    merge_quantile_candidates. One process: `local` as it is."""
+    from ..parallel.collectives import host_allgather_objects
+
+    payload = (
+        [local.values[f, : local.counts[f]] for f in range(len(local.counts))],
+        local_exact,
+        local_mass,
+        local_summaries or {},
+    )
+    gathered = host_allgather_objects(payload)
+    if len(gathered) == 1:
+        return local
+    from .quantile_sketch import merge_summaries
+
+    per_feature: List[np.ndarray] = []
+    for f in range(len(local.counts)):
+        sets = [g[0][f] for g in gathered]
+        exacts = [bool(g[1][f]) for g in gathered]
+        masses = [float(g[2][f]) for g in gathered]
+        union = np.unique(np.concatenate(sets))
+        if discrete[f] or (all(exacts) and len(union) <= int(max_cnt_arr[f])):
+            per_feature.append(union.astype(np.float32))
+        elif all(f in g[3] for g in gathered):
+            merged = gathered[0][3][f]
+            for g in gathered[1:]:
+                merged = merge_summaries(merged, g[3][f])
+            per_feature.append(merged.query_values(int(max_cnt_arr[f])))
+        else:
+            per_feature.append(
+                merge_quantile_candidates(sets, masses, int(max_cnt_arr[f])))
+    return _to_feature_bins(per_feature)
+
+
+def build_bins_global(X: np.ndarray, weight: np.ndarray, params: GBDTParams,
+                      feature_names: Optional[Sequence[str]] = None,
+                      seed: int = 20170425) -> FeatureBins:
+    """build_bins, then under `--coordinator` the cross-process merge
+    (reference :293): every quantile feature brings a GK summary pruned to
+    4 max_cnt entries (a locally exact shard too: another's may not be)."""
+    from ..parallel.mesh import process_count
+
+    local = build_bins(X, weight, params, feature_names, seed)
+    if process_count() == 1:
+        return local
+    from .quantile_sketch import Summary, WeightedQuantileSketch, \
+        prune_summary
+
+    F = X.shape[1]
+    names = feature_names or [str(i) for i in range(F)]
+    exact = np.zeros((F,), bool)
+    discrete = np.zeros((F,), bool)
+    mass = np.zeros((F,), np.float64)
+    max_cnt_arr = np.zeros((F,), np.int64)
+    summaries: Dict[int, object] = {}
+    sketch_rows = knobs.get_int("YTK_SKETCH_ROWS")
+    for f in range(F):
+        spec = _spec_for(f, names[f], params.approximate)
+        max_cnt_arr[f] = spec.max_cnt
+        if spec.type == "sample_by_quantile":
+            exact[f] = bool(local.exact[f]) if local.exact is not None \
+                else False
+            w = (np.power(np.maximum(weight, 0.0), spec.alpha)
+                 if spec.use_sample_weight else np.ones_like(weight))
+            mass[f] = float(np.sum(w))
+            b = max(4 * int(spec.max_cnt), 256)
+            col = X[:, f]
+            if len(col) > sketch_rows:
+                sk = WeightedQuantileSketch(b=b)
+                cs = 1 << 22
+                for i in range(0, len(col), cs):
+                    sk.push(col[i: i + cs], w[i: i + cs])
+                summaries[f] = prune_summary(sk.summary(), b)
+            else:
+                summaries[f] = prune_summary(Summary.from_exact(col, w), b)
+        else:
+            discrete[f] = True
+            exact[f] = True
+            mass[f] = float(len(X))
+    return merge_bins_multihost(local, exact, mass, max_cnt_arr, discrete,
+                                summaries)
 
 
 def _weight_tensor(weight: Optional[Array], device) -> Optional[torch.Tensor]:

@@ -19,6 +19,13 @@ YTK_NO_NATIVE is on at that call; `_parse_python` is the Python parser.
 Both give the same rows, errors and columns; the native path parses
 values as float32, as the JAX package's native path does. `parser` names
 the one the last `_parse` ran.
+
+Under `--coordinator` each process parses its shard (io/reader.py::
+shard_plan) and `load` merges over host_allgather_objects what the
+reference merges (data.py:315-435): an empty shard raises on every rank,
+the first-seen feature dicts become one sorted name -> column map, and the
+`mean` fill (exact) and `quantile` fill (per-process quantile grids merged
+as weighted sketches) are global.
 """
 
 from __future__ import annotations
@@ -58,6 +65,24 @@ class GBDTData:
     @property
     def n_features(self) -> int:
         return int(self.X.shape[1])
+
+    def pad_rows(self, multiple: int) -> "GBDTData":
+        """Zero rows (weight 0, label 0) up to a multiple of `multiple`;
+        n_real stays (reference data.py:43)."""
+        n = self.n
+        target = (n + multiple - 1) // multiple * multiple
+        if target == n:
+            return self
+        pad = target - n
+        X, y, w = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+                   for a in (self.X, self.y, self.weight))
+        return GBDTData(
+            X=np.pad(X, ((0, pad), (0, 0))),
+            y=np.pad(y, ((0, pad),) + ((0, 0),) * (y.ndim - 1)),
+            weight=np.pad(w, (0, pad)),
+            n_real=self.n_real, feature_names=self.feature_names,
+            missing_fill=self.missing_fill,
+        )
 
 
 class GBDTIngest:
@@ -317,18 +342,74 @@ class GBDTIngest:
         if base == "value":
             v = float(arg) if arg else 0.0
             return np.full((X.shape[1],), v, np.float32)
+        from ..parallel.collectives import host_allgather_objects
+        from ..parallel.mesh import process_count
+
         if base == "mean":
-            tot = np.nansum(X, axis=0, dtype=np.float64)
-            cnt = np.sum(~np.isnan(X), axis=0, dtype=np.int64)
+            # exact across processes: the sums and counts are gathered
+            sums = np.nansum(X, axis=0, dtype=np.float64)
+            cnts = np.sum(~np.isnan(X), axis=0, dtype=np.int64)
+            merged = host_allgather_objects((sums, cnts))
+            tot = np.sum([m[0] for m in merged], axis=0)
+            cnt = np.sum([m[1] for m in merged], axis=0)
             with np.errstate(invalid="ignore", divide="ignore"):
                 fill = np.where(cnt > 0, tot / np.maximum(cnt, 1), 0.0)
             return fill.astype(np.float32)
         if base == "quantile":
             q = float(arg) if arg else 0.5
+            if process_count() == 1:
+                with np.errstate(invalid="ignore", all="ignore"):
+                    fill = np.nanquantile(X, q, axis=0)
+                return np.nan_to_num(fill, nan=0.0).astype(np.float32)
+            # local quantile grids merge as weighted sketches (approximate,
+            # as the reference's GK summaries are)
+            from .binning import merge_quantile_candidates
+
+            grid = np.linspace(0.0, 1.0, 257)
             with np.errstate(invalid="ignore", all="ignore"):
-                fill = np.nanquantile(X, q, axis=0)
-            return np.nan_to_num(fill, nan=0.0).astype(np.float32)
+                local = np.nanquantile(X, grid, axis=0)  # (257, F)
+            cnts = np.sum(~np.isnan(X), axis=0, dtype=np.int64)
+            merged = host_allgather_objects((local, cnts))
+            fill = np.zeros((X.shape[1],), np.float32)
+            for f in range(X.shape[1]):
+                pairs = []
+                for m in merged:
+                    vals = m[0][:, f]
+                    vals = vals[~np.isnan(vals)]
+                    mass = float(m[1][f])
+                    if len(vals) and mass > 0:
+                        pairs.append((vals, mass))
+                if not pairs:
+                    continue
+                cand = merge_quantile_candidates(
+                    [pr[0] for pr in pairs], [pr[1] for pr in pairs], 257)
+                fill[f] = cand[min(int(q * (len(cand) - 1) + 0.5),
+                                   len(cand) - 1)]
+            return fill
         raise ValueError(f"unknown missing_value strategy: {spec!r}")
+
+    def _merge_fmap_multihost(self, train: GBDTData) -> GBDTData:
+        """The processes' first-seen feature dicts as one sorted name ->
+        column map, the local matrix remapped to it (reference data.py:373,
+        DataFlow.handleLocalIdx:413-446). One process: as it is."""
+        from ..parallel.collectives import host_allgather_objects
+
+        gathered = host_allgather_objects(sorted(self._fmap))
+        if len(gathered) == 1:
+            return train
+        names = sorted(set().union(*[set(g) for g in gathered]))
+        if len(names) > self.F:
+            raise ValueError(
+                f"max_feature_dim({self.F}) smaller than global feature "
+                f"number {len(names)}")
+        gmap = {n: i for i, n in enumerate(names)}
+        X = np.full_like(train.X, np.nan)
+        for name, old in self._fmap.items():
+            X[:, gmap[name]] = train.X[:, old]
+        self._fmap = gmap
+        return GBDTData(X=X, y=train.y, weight=train.weight,
+                        n_real=train.n_real,
+                        feature_names=self._names_from_fmap(gmap))
 
     def load(self) -> Tuple[GBDTData, Optional[GBDTData]]:
         """(train, test or None): both parsed, filled with the training
@@ -338,9 +419,21 @@ class GBDTIngest:
             train = self._parse(p.data.train_paths,
                                 p.data.train_max_error_tol)
         obs_inc("ingest.rows", train.n_real)
+        from ..parallel.collectives import host_allgather_objects
+
+        # raise on every rank: a lone raise would leave the peers blocked
+        # in the next collective
+        counts = host_allgather_objects(train.n_real)
+        if len(counts) > 1 and min(counts) == 0:
+            raise ValueError(
+                f"process(es) {[i for i, c in enumerate(counts) if c == 0]} "
+                f"got an empty training shard ({p.data.unassigned_mode} over "
+                f"{len(p.data.train_paths)} path(s)): use lines_avg sharding "
+                "or fewer processes")
         if train.n_real == 0:
             raise ValueError(
                 f"empty training data ({len(p.data.train_paths)} path(s))")
+        train = self._merge_fmap_multihost(train)
         fill = self.compute_missing_fill(train.X)
         train.missing_fill = fill
         _apply_fill(train.X, fill)

@@ -50,8 +50,30 @@ rows are compacted in order into a fit matrix that every histogram pass
 runs on; the full matrix rides along as `aux[0]` for the final leaf
 assignment. EFB (`ranges`): a bundled column's split boundary counts its
 member's default rows on the left (split_kernel's closed form) and routes
-only the member's own bins right (K5's `lo`/`hi`). A mesh is not ported
-(ROADMAP.md 1.7).
+only the member's own bins right (K5's `lo`/`hi`).
+
+Ranks (`mesh`, the reference's shard_map path, engine.py:338-460). Every
+rank feeds its local rows to the same kernels as one device; the partial
+histograms are summed by `psum_scatter` over the feature axis, so each
+rank owns a contiguous slice of F / world features of every node
+histogram (the reduce-scatter ownership of HistogramBuilder.java:95),
+enumerates splits on that slice only, and the best split per node is
+merged with `pargmax_tuple` (the lowest rank, that is the lowest global
+feature block, wins a tie: the one-device first-max). The int8 scales are
+one global pair (pmax of max|g| and max|h|) and qmax comes from the
+global row count; the root totals are rank 0's (the others add zero);
+GOSS draws with fold_in(key, rank) and keeps the top share of each shard;
+EFB range tables are sliced per rank for enumeration and used whole for
+routing. The frontier is replicated after every merge, so every decision
+that changes the number of waves is the same on every rank, and every
+wave runs the same collectives: a rank's own gather rung (its local
+budget against the global row need, the reference's conservative rule)
+changes no collective. Row counts in the wave log are per shard. F must
+be a multiple of the world (the trainer pads features with masked
+all-zero columns). A one-rank mesh runs every collective too (their sums
+of one rank are exact, so it grows the one-device tree bit for bit): NCCL
+at world size 1 is a real path; only GOSS's fold_in waits for a second
+rank.
 """
 
 from __future__ import annotations
@@ -64,6 +86,7 @@ import numpy as np
 import torch
 
 from . import prng
+from ..parallel import collectives as coll
 from .hist import BMG_DEFAULT, BM_DEFAULT, compact_indices, hist_wave, \
     hist_wave_gather, hist_wave_q
 from .route import route_wave
@@ -164,7 +187,7 @@ def make_gain_fns(l1: float, l2: float, min_h: float, max_abs: float):
     return gain, node_value
 
 
-def split_kernel(hist, feat_mask, cfg, ranges=None):
+def split_kernel(hist, feat_mask, cfg, ranges=None, node_tot=None):
     """Best split per node from (N, F, B, 3) f32 histograms.
 
     Returns per node: (loss_chg, flat_idx, slot_left, GL, HL, CL, GR, HR,
@@ -177,7 +200,12 @@ def split_kernel(hist, feat_mask, cfg, ranges=None):
     holds slot s. A boundary inside member j counts j's default rows (node
     total less j's nonzero-range sum) on the left, `lo - 1` stands for the
     member's default bin, and has_prev looks only inside the member's
-    range or at that default bin. With [0, B-1] the correction is zero."""
+    range or at that default bin. With [0, B-1] the correction is zero.
+
+    node_tot: optional (N, 2) node totals (G, H) for the node's own gain;
+    by default feature 0's bin sums. A rank that owns a slice of the
+    features takes rank 0's (global feature 0's), so its gains are the
+    one-device gains bit for bit."""
     l1, l2, min_h, max_abs = cfg
     N, F, B, _ = hist.shape
     dev = hist.device
@@ -221,7 +249,10 @@ def split_kernel(hist, feat_mask, cfg, ranges=None):
 
     # node totals: every active row hits every feature, so feature 0's
     # bin-sum is the node total
-    root_gain = gain(Gt[:, 0:1, 0], Ht[:, 0:1, 0])  # (N, 1)
+    if node_tot is None:
+        root_gain = gain(Gt[:, 0:1, 0], Ht[:, 0:1, 0])  # (N, 1)
+    else:
+        root_gain = gain(node_tot[:, 0:1], node_tot[:, 1:2])
     loss_chg = gain(GL, HL) + gain(GR, HR) - root_gain[:, :, None]
     loss_chg = torch.where(valid, loss_chg,
                            torch.full_like(loss_chg, float("-inf")))
@@ -341,12 +372,20 @@ def float_order_key(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
-def _quantize(g, h, n: int):
+def _quantize(g, h, n: int, mesh=None):
     """Per-tree symmetric int8 quantization (reference engine.py:583-604):
-    qmax shrinks above ~16.9M rows so no int32 sum can overflow."""
+    qmax shrinks above ~16.9M rows so no int32 sum can overflow. Under a
+    mesh `n` is the local row count, qmax comes from n x world, and the
+    scales are one global pair, so the quantized partials sum exactly."""
+    if mesh is not None:
+        n = n * mesh.world  # the global row count
     qmax = float(min(127, (2 ** 31 - 1) // max(n, 1)))
-    gmax = torch.clamp_min(torch.max(torch.abs(g)), 1e-12)
-    hmax = torch.clamp_min(torch.max(torch.abs(h)), 1e-12)
+    gmax = torch.max(torch.abs(g))
+    hmax = torch.max(torch.abs(h))
+    if mesh is not None:
+        gmax, hmax = coll.pmax(torch.stack([gmax, hmax]), mesh).unbind()
+    gmax = torch.clamp_min(gmax, 1e-12)
+    hmax = torch.clamp_min(hmax, 1e-12)
     gq = torch.clamp(torch.round(g * (qmax / gmax)), -qmax, qmax)
     hq = torch.clamp(torch.round(h * (qmax / hmax)), -qmax, qmax)
     # the reference writes the inverse scale as 1 / (qmax / max|g|); XLA's
@@ -417,7 +456,7 @@ def goss_sample(spec: GrowSpec, bins_t, include, g, h, key):
 
 
 def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
-         ranges=None):
+         ranges=None, mesh=None):
     """Grow one tree.
 
     bins_t (F, n) u8|i32 transposed bin matrix, include (n,) bool rows
@@ -430,32 +469,79 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
     histogram pass [rows_scanned, rows_needed, splits, hist_width,
     rows_sampled]. With GOSS (0 < goss_a < 1) pos is the leaf assignment of
     the compacted fit rows and the full matrix is routed as aux[0]: the
-    train rows' positions are aux_pos[0], the caller's sets aux_pos[1:]."""
+    train rows' positions are aux_pos[0], the caller's sets aux_pos[1:].
+
+    mesh: this rank's parallel.Mesh; bins_t, include, g, h and aux are its
+    local rows, feat_mask and ranges global (F = spec.F columns, a
+    multiple of the world)."""
     if spec.hist_mode not in ("int8", "mxu"):
         raise ValueError(f"hist_mode must be int8|mxu, got {spec.hist_mode!r}")
     dev = bins_t.device
     M, NW, F, B = spec.max_nodes, spec.wave, spec.F, spec.B
+    world = 1 if mesh is None else mesh.world
+    if F % world:
+        raise ValueError(f"grow: {F} features do not split over {world} "
+                         "ranks (pad them)")
+    F_loc = F // world
+    f_lo = 0 if mesh is None else mesh.rank * F_loc
     cfg = (spec.l1, spec.l2, spec.min_h, spec.max_abs)
     _, node_value = make_gain_fns(*cfg)
     i32, f32 = torch.int32, torch.float32
+    ranges_loc = None
     if ranges is not None:
         ranges = tuple(torch.as_tensor(r, device=dev).to(i32)
                        for r in ranges)
         if ranges[0].shape != (F, B) or ranges[1].shape != (F, B):
             raise ValueError(f"grow: ranges must be two ({F}, {B}) tables")
+        # a slot range lives within its column's own bin axis, so the
+        # owned F-slice needs no offset
+        ranges_loc = tuple(r[f_lo:f_lo + F_loc] for r in ranges)
+    fmask_loc = feat_mask[f_lo:f_lo + F_loc]
+
+    if mesh is not None:
+        def combine(partial):
+            """(N, F, B, 3) local partial -> the owned F-slice, summed."""
+            return coll.psum_scatter(partial, mesh, scatter_dimension=1)
+
+        def best_splits(hists):
+            """split_kernel on the owned slice, then the global merge; the
+            local flat index moves to global (f, slot) coordinates. The
+            nodes' own gains take rank 0's totals (global feature 0's), as
+            one device does: another feature's bin sums may round apart."""
+            tot = ordered_sum(hists[:, 0, :, :2], dim=1)  # (N, 2)
+            out = split_kernel(hists, fmask_loc, cfg, ranges_loc,
+                               node_tot=coll.from_rank0(tot, mesh))
+            gflat = (out[1] + f_lo * B).to(i32)
+            chg, payload = coll.pargmax_tuple(out[0], (gflat,) + out[2:],
+                                              mesh)
+            return (chg,) + payload
+    else:
+        def combine(partial):
+            return partial
+
+        def best_splits(hists):
+            return split_kernel(hists, fmask_loc, cfg, ranges_loc)
 
     goss_rows = None
     if 0.0 < spec.goss_a < 1.0:
         aux = (bins_t,) + tuple(aux)
+        key = prng.PRNGKey(0) if key is None else key
+        if world > 1:
+            # independent, deterministic draws per shard
+            key = prng.fold_in(key, mesh.rank)
         bins_t, include, g, h, kept = goss_sample(
-            spec, bins_t, include, g, h,
-            prng.PRNGKey(0) if key is None else key)
+            spec, bins_t, include, g, h, key)
         goss_rows = kept.to(f32)
     n = bins_t.shape[1]
     pos = torch.zeros(n, dtype=i32, device=dev)
     aux_pos = [torch.zeros(bt.shape[1], dtype=i32, device=dev) for bt in aux]
     if goss_rows is None:
         goss_rows = include.sum(dtype=f32)
+    inv_shards = 1.0 / world
+    if mesh is not None:
+        # the wave log carries the shards' mean kept count: the per-shard
+        # units of its other row columns
+        goss_rows = coll.psum(goss_rows, mesh) * inv_shards
 
     rungs = _budget_rungs(spec, n) if spec.partition else []
     bins_rows = None
@@ -466,28 +552,29 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
             bins_rows = bins_rows.to(torch.uint8)
 
     if spec.hist_mode == "int8":
-        G_, H_, inv = _quantize(g, h, n)
+        G_, H_, inv = _quantize(g, h, n, mesh)
 
         def hist_full(bt, pos_v, g_v, h_v, ids):
-            return hist_wave_q(bt, pos_v, g_v, h_v, ids, B,
-                               max_nodes=M).to(f32) * inv
+            return combine(hist_wave_q(bt, pos_v, g_v, h_v, ids, B,
+                                       max_nodes=M)).to(f32) * inv
 
         def hist_gather(idx, pg, gg, hg, ids):
-            return hist_wave_gather(bins_rows, idx, pg, gg, hg, ids, B,
-                                    max_nodes=M).to(f32) * inv
+            return combine(hist_wave_gather(
+                bins_rows, idx, pg, gg, hg, ids, B,
+                max_nodes=M)).to(f32) * inv
     else:
         # raw f32 gradients: the kernels round each row's g/h to bf16 (when
         # use_bf16) after the gather, as the reference does, and sum in f32
         G_, H_ = g, h
 
         def hist_full(bt, pos_v, g_v, h_v, ids):
-            return hist_wave(bt, pos_v, g_v, h_v, ids, B, max_nodes=M,
-                             use_bf16=spec.use_bf16)
+            return combine(hist_wave(bt, pos_v, g_v, h_v, ids, B,
+                                     max_nodes=M, use_bf16=spec.use_bf16))
 
         def hist_gather(idx, pg, gg, hg, ids):
-            return hist_wave_gather(bins_rows, idx, pg, gg, hg, ids, B,
-                                    mode="mxu", max_nodes=M,
-                                    use_bf16=spec.use_bf16)
+            return combine(hist_wave_gather(
+                bins_rows, idx, pg, gg, hg, ids, B, mode="mxu",
+                max_nodes=M, use_bf16=spec.use_bf16))
 
     def hist_call(pos_fit, ids):
         """Full-scan histogram (K2 or K1): root, slow start, big-wave
@@ -530,15 +617,19 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
 
     ids0 = torch.zeros(1, dtype=i32, device=dev)
     pos_fit = torch.where(include, pos, -1)
-    hist0 = hist_call(pos_fit, ids0)  # (1, F, B, 3)
+    hist0 = hist_call(pos_fit, ids0)  # (1, F_loc, B, 3)
     root_ghc = ordered_sum(hist0[0, 0], dim=0)  # feature 0 bin-sum = totals
+    if mesh is not None:
+        # each rank sums a different owned feature's column, which may
+        # round apart: rank 0's totals, the others adding zero
+        root_ghc = coll.from_rank0(root_ghc, mesh)
     tr.hess[0] = root_ghc[1]
     tr.cnt[0] = root_ghc[2]
     tr.leaf[0] = node_value(root_ghc[0], root_ghc[1]) * spec.lr
-    pool = torch.zeros((M + 1, F, B, 3), dtype=f32, device=dev)
+    pool = torch.zeros((M + 1, F_loc, B, 3), dtype=f32, device=dev)
     pool[0] = hist0[0]
 
-    out0 = split_kernel(hist0, feat_mask, cfg, ranges)
+    out0 = best_splits(hist0)
     fr = _Frontier(
         chg=full(M1, float("-inf"), f32), flat=full(M1, 0, i32),
         slotl=full(M1, 0, i32), GL=full(M1, 0.0, f32), HL=full(M1, 0.0, f32),
@@ -552,7 +643,7 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
     MW = wave_log_rows(M)
     wlog = torch.zeros((MW, 5), dtype=f32, device=dev)
     wlog[0] = torch.stack([
-        torch.tensor(float(n), device=dev), root_ghc[2],
+        torch.tensor(float(n), device=dev), root_ghc[2] * inv_shards,
         torch.zeros((), device=dev), torch.ones((), device=dev), goss_rows,
     ])
     st = {"tr": tr, "fr": fr, "pool": pool, "pos": pos, "aux_pos": aux_pos,
@@ -583,7 +674,10 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
 
     def probe():
         """(any node can split, rows the next wave's histograms need):
-        the phase conditions, read on the host (one sync)."""
+        the phase conditions, read on the host (one sync). Under a mesh
+        both come from the replicated frontier, so every rank takes the
+        same waves; `need` is the global row count held against a local
+        budget, which every rank's own rows fit (the reference's rule)."""
         tr, fr, leaves = st["tr"], st["fr"], st["leaves"]
         ok = can_split(fr, tr, leaves)
         sel, sel_ok = select(ok, fr, tr, NW)
@@ -667,8 +761,7 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
         # frontier refresh for the 2*nw children
         child_ids = torch.cat([small, big]).long()
         child_ok = torch.cat([sel_ok, sel_ok])
-        out = split_kernel(torch.cat([h_small, h_big], dim=0), feat_mask,
-                           cfg, ranges)
+        out = best_splits(torch.cat([h_small, h_big], dim=0))
         cids = torch.where(child_ok, child_ids, M)
         fr.chg[scatter_id] = float("-inf")
         for arr, val in zip(fr[:9], out):
@@ -677,7 +770,7 @@ def grow(spec: GrowSpec, bins_t, include, g, h, feat_mask, aux=(), key=None,
         fr.active[cids] = True
 
         need = torch.sum(torch.where(sel_ok, torch.minimum(CLs, CRs),
-                                     torch.zeros_like(CLs)))
+                                     torch.zeros_like(CLs))) * inv_shards
         if st["wcnt"] < MW:
             st["wlog"][st["wcnt"]] = torch.stack([
                 torch.tensor(float(n if hist_rows is None else hist_rows),

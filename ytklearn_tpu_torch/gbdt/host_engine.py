@@ -6,8 +6,11 @@ host loop (``ytklearn_tpu/gbdt/trainer.py:1349-1800``).
 and `engine="auto"` sends precise LAD (l1 with `lad_refine_appr = false`)
 and `tree_maker = "feature"` here, as the reference does (on one device
 the feature-parallel maker is the level-wise or loss-wise maker, by
-`tree_grow_policy`; its column-sharded form waits for a mesh, ROADMAP.md
-1.7). Per round: predictions -> (g, h) -> a row and a feature mask from
+`tree_grow_policy`; under `--devices` N > 1 it is the column-sharded maker
+of gbdt/feature_parallel.py). Under `--devices` every rank runs this
+engine on the whole data, its rows padded to a multiple of the world as
+the reference's one-process mesh pads them, and only rank 0 dumps. Per
+round: predictions -> (g, h) -> a row and a feature mask from
 one `np.random.RandomState(20170425)` drawn `rand(n)`, `rand(F)` every
 round from the first trained round on -> K trees, each grown
 
@@ -399,6 +402,13 @@ class HostEngine:
             train, test = ingest.load()
             ts["parser"] = ingest.parser
         ts["load"] = time.time() - t0
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            # the reference's one-process mesh pads the rows (:1544)
+            train = train.pad_rows(mesh.world)
+            test = test.pad_rows(mesh.world) if test is not None else None
+        feature_parallel = (p.tree_maker == "feature" and mesh is not None
+                            and mesh.world > 1)
         dev = self.device
         X = _host(train.X)
         n, F = X.shape
@@ -418,6 +428,16 @@ class HostEngine:
 
         bins_t = bins_on_device(X)
         del X
+        if feature_parallel:
+            from .feature_parallel import shard_features
+
+            # this rank's columns; the maker is level-wise only, as the
+            # reference's FeatureParallelTreeMakerByLevel
+            bins_fp, F_pad = shard_features(mesh, bins_t)
+            if p.tree_grow_policy != "level":
+                log.info("tree_maker=feature grows level-wise (reference "
+                         "maker is ByLevel); ignoring tree_grow_policy=%r",
+                         p.tree_grow_policy)
         y = to_tensor(train.y, torch.float32, dev)
         weight = to_tensor(train.weight, torch.float32, dev)
         log.info("host engine: %d rows, %d features, %d max bins", n, F, B)
@@ -470,10 +490,18 @@ class HostEngine:
                 h = hs[:, grp] if K > 1 else hs
                 g = torch.where(live, g * weight, 0.0)
                 h = torch.where(live, h * weight, 0.0)
-                grow = (self.build_tree_loss_wise
-                        if p.tree_grow_policy == "loss"
-                        else self.build_tree_level_wise)
-                tree = grow(bins_t, g, h, pos0, F, B, fmask_dev, names)
+                if feature_parallel:
+                    from .feature_parallel import \
+                        build_tree_level_feature_parallel
+
+                    tree = build_tree_level_feature_parallel(
+                        self, mesh, bins_fp, F_pad, g, h, pos0, F, B,
+                        fmask_dev, names)
+                else:
+                    grow = (self.build_tree_loss_wise
+                            if p.tree_grow_policy == "loss"
+                            else self.build_tree_level_wise)
+                    tree = grow(bins_t, g, h, pos0, F, B, fmask_dev, names)
                 if lad:
                     self._refine_lad(tree, bins_t, y_np, scores, w_np)
                 add = self._tree_scores_dev(tree, bins_t)

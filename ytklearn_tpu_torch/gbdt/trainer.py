@@ -51,10 +51,30 @@ run's byte for byte. A sync round's loss read is the `gbdt.sync` chaos
 site.
 
 Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
-versions). Not ported, each raising NotImplementedError with its
-ROADMAP.md item: a mesh (1.7, with the column-sharded feature-parallel
-maker), and on CUDA trees of more nodes than the histogram kernels'
-shared-memory lookup holds (1.8).
+versions). Not ported, raising NotImplementedError with its ROADMAP.md
+item: on CUDA trees of more nodes than the histogram kernels' shared-memory
+lookup holds (1.8).
+
+Ranks (`mesh`, a parallel.Mesh; reference trainer.py:250-263, :284-326,
+:343-348, :445-549, :1212-1230, :1544-1565, :1837). Each rank trains on
+its contiguous row shard, padded so the shards are equal (BM_DEFAULT rows
+a rank on the card, 8 on the CPU), through engine.grow's sharded path;
+the feature axis pads to a multiple of the world with masked all-zero
+columns. With one rank (and one ingesting process) the bins are built on
+the device as above; with more, on the host: `--devices` (shared ingest)
+builds them once over every row (or takes the launcher's, with its EFB
+plan), `--coordinator` merges each process's through build_bins_global,
+and turns EFB off loudly (`gbdt.efb.downgrade`). The row draw is the
+global one, sliced; the base score is the global weighted mean; the
+losses, the LAD refine, the eval metrics and the quality sidecar's score
+block see every rank's rows; a continue_train model is read on process 0
+and handed to the others; a preemption is agreed on by every rank at the
+round start; only rank 0 dumps. The host engine runs under `--devices`
+only, each rank on the whole data (rows padded to a multiple of the
+world, as the reference's one-process mesh does), and `tree_maker =
+"feature"` there grows with the column-sharded maker
+(gbdt/feature_parallel.py); under `--coordinator` it is refused, as in
+the reference.
 
 Observability (the JAX trainer's): the device engine's run is four
 profiler phases (obs/profiler.py), `gbdt.load` (when train() loads the
@@ -82,6 +102,7 @@ against it by the drift monitor.
 from __future__ import annotations
 
 import logging
+import signal
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -95,8 +116,10 @@ from ..device import resolve_device
 from ..eval import EvalSet
 from ..io.fs import LocalFileSystem
 from ..losses import GBDT_TRAINABLE, create_loss
-from ..obs import gauge as obs_gauge, health, inc as obs_inc, profiler, \
-    span as obs_span
+from ..obs import event as obs_event, gauge as obs_gauge, health, \
+    inc as obs_inc, profiler, span as obs_span
+from ..parallel import collectives as coll
+from ..parallel.mesh import equal_row_target, local_rows, put_row_sharded
 from ..obs.quality import (
     build_score_block,
     build_training_sketch,
@@ -112,6 +135,7 @@ from .binning import (
     FeatureBins,
     bin_edges_path,
     bin_matrix_device,
+    build_bins_global,
     build_bins_maybe_device,
     build_bundle_plan,
     bundle_bin_matrix_t,
@@ -134,10 +158,6 @@ _TREE_FIELDS = ("feat", "slot", "slot_r", "left", "right", "leaf", "gain",
                 "hess", "cnt")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 @dataclass
 class _DevInputs:
     """Device-resident training inputs prepared once per run."""
@@ -155,6 +175,10 @@ class _DevInputs:
     w_t: Optional[torch.Tensor]
     nt_score: int
     ranges: Optional[tuple] = None  # EFB (range_lo, range_hi) (F, B) i32
+    # the engine's feature axis: F padded to a multiple of the world
+    F_prog: int = 0
+    # the share of real rows among the padded ones GOSS sizes on
+    goss_scale: float = 1.0
     # continue_train with EFB: the pre-bundle (F, n_pad) bins of the train
     # (and test) rows for the score replay, freed right after it
     replay_bins: Optional[list] = None
@@ -192,9 +216,12 @@ class GBDTTrainer(HostEngine):
         self.fs = fs or LocalFileSystem()
         self.transform_hook = transform_hook  # for train() without data
         p = params
-        if mesh is not None:
-            raise _not_ported("multi-GPU training (mesh)",
-                              "1.7, multi-GPU data-parallel GBDT")
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            self.device = resolve_device(mesh.device)
+        #: set by the --devices launcher: (FeatureBins, BundlePlan or None)
+        #: built once over every row
+        self.shared_prep = None
         if engine not in ("auto", "device", "host"):
             raise ValueError(f"engine must be auto|device|host, got {engine!r}")
         self.K = p.num_tree_in_group
@@ -258,6 +285,20 @@ class GBDTTrainer(HostEngine):
     def _cfg(self):
         p = self.params
         return (p.l1, p.l2, p.min_child_hessian_sum, p.max_abs_leaf_val)
+
+    @property
+    def _world(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world
+
+    @property
+    def _n_proc(self) -> int:
+        """Processes with an ingest of their own (jax.process_count)."""
+        m = self.mesh
+        return 1 if m is None or m.shared_ingest else m.world
+
+    @property
+    def _is_rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
 
     # -- spec and inputs ----------------------------------------------------
 
@@ -332,6 +373,12 @@ class GBDTTrainer(HostEngine):
 
     def _prep_device_inputs(self, train: GBDTData, test: Optional[GBDTData]
                             ) -> _DevInputs:
+        if self._world == 1 and self._n_proc == 1:
+            return self._prep_single(train, test)
+        return self._prep_ranks(train, test)
+
+    def _prep_single(self, train: GBDTData, test: Optional[GBDTData]
+                     ) -> _DevInputs:
         p = self.params
         self._missing_fill = train.missing_fill
         X_t = self._transposed(train.X)
@@ -380,7 +427,118 @@ class GBDTTrainer(HostEngine):
             bins=bins, bins_t=bins_t, y=y, weight=weight, real_mask=real_mask,
             n_score=n_pad, F=bins_t.shape[0], B=B, aux_bins=aux_bins,
             y_t=y_t, w_t=w_t, nt_score=nt_pad, ranges=ranges,
-            replay_bins=replay,
+            replay_bins=replay, F_prog=bins_t.shape[0],
+            goss_scale=min(1.0, train.n_real / max(n_pad, 1)),
+        )
+
+    def _prep_ranks(self, train: GBDTData, test: Optional[GBDTData]
+                    ) -> _DevInputs:
+        """This rank's inputs: host bins (the launcher's, or
+        build_bins_global), the EFB plan (off under --coordinator), and
+        the rank's padded row shard binned on its device (reference
+        trainer.py:445-549)."""
+        p = self.params
+        mesh = self.mesh
+        self._missing_fill = train.missing_fill
+        names = train.feature_names
+        F = train.n_features
+        X = _host(train.X)
+        w_np = np.ascontiguousarray(_host(train.weight), np.float32)
+        if self.shared_prep is not None:
+            bins, plan = self.shared_prep
+        else:
+            log.info("building bins (%d features)...", F)
+            bins = build_bins_global(X[: train.n], w_np, p, names)
+            plan = None
+        B_real = bins.max_bins
+        B = max(8, 1 << (B_real - 1).bit_length())
+        if self.efb and self._n_proc > 1:
+            log.warning("EFB disabled: multi-process runs would need a "
+                        "cross-process conflict merge; training unbundled")
+            obs_inc("gbdt.efb.downgrade")
+            obs_event("gbdt.efb.downgrade", reason="multi_process")
+            plan = None
+        elif self.efb and self.shared_prep is None:
+            budget = knobs.get_int("YTK_EFB_CONFLICT")
+            with obs_span("gbdt.efb.plan", F=F):
+                plan = build_bundle_plan(
+                    torch.from_numpy(np.ascontiguousarray(X.T)), bins,
+                    budget, B)
+        elif not self.efb:
+            plan = None
+        if plan is not None:
+            log.info("EFB: %s", plan.summary())
+        self._efb_plan = plan
+        self._bins_sidecar = (list(names or []), bins)
+        # only rank 0 dumps, so only rank 0 sketches the training rows
+        self._quality_features = (self._build_quality_features(train)
+                                   if self._is_rank0 else None)
+        F_cols = plan.n_cols if plan is not None else F
+        F_prog = -(-F_cols // mesh.world) * mesh.world
+        resume = p.model.continue_train
+        mult = BM_DEFAULT if self.device.type == "cuda" else 8
+
+        def shard(Xs, n_rows):
+            """(this rank's bins (F_prog, n_loc), pre-bundle bins or None,
+            global row offset, n_loc, the padded row count). Only the
+            rank's rows of X are read and binned."""
+            n_pad = equal_row_target(n_rows, mesh, mult)
+            lo, hi = (local_rows(n_pad, mesh) if mesh.shared_ingest
+                      else (0, n_pad))
+            real = max(0, min(hi, n_rows) - lo)
+            Xr = to_tensor(np.asarray(Xs[lo: lo + real]), torch.float32,
+                           self.device).t().contiguous()
+            raw = bin_matrix_device(Xr, bins)
+            del Xr
+            bt = bundle_bin_matrix_t(raw, plan) if plan is not None else raw
+            # padded rows and padded features: bin 0 (reference pad_inputs)
+            bt = torch.nn.functional.pad(
+                bt, (0, (hi - lo) - real, 0, F_prog - bt.shape[0]))
+            if B <= 256:
+                bt = bt.to(torch.uint8)
+            keep = None
+            if resume and plan is not None:
+                keep = torch.nn.functional.pad(raw, (0, (hi - lo) - real))
+            return bt, keep, lo, hi - lo, n_pad
+
+        def rows(a, n_pad):
+            """This rank's rows of a per-row array padded with zeros."""
+            a = np.asarray(_host(a), np.float32)
+            pad = ((0, n_pad - a.shape[0]),) + ((0, 0),) * (a.ndim - 1)
+            return put_row_sharded(np.pad(a, pad), mesh)
+
+        bins_t, raw, lo, n_loc, n_pad = shard(X, train.n)
+        del X
+        replay = [raw] if raw is not None else None
+        y = rows(train.y, n_pad)
+        weight = rows(train.weight, n_pad)
+        idx = torch.arange(n_loc, device=self.device) + lo
+        real_mask = idx < train.n_real
+        aux_bins, y_t, w_t, nt_loc = (), None, None, 0
+        if test is not None:
+            bt, raw_t, _lo, nt_loc, nt_pad = shard(_host(test.X), test.n)
+            aux_bins = (bt,)
+            if replay is not None:
+                replay.append(raw_t)
+            y_t = rows(test.y, nt_pad)
+            w_t = rows(test.weight, nt_pad)
+        log.info("rank %d of %d: rows [%d, %d) of %d, %d features (%d "
+                 "engine columns), %d bins (pad %d), backend %s", mesh.rank,
+                 mesh.world, lo, lo + n_loc, train.n, F, F_prog, B_real, B,
+                 mesh.backend)
+        ranges = None
+        if plan is not None:
+            ranges = tuple(torch.from_numpy(r).to(self.device)
+                           for r in plan.range_tables(B, F_pad=F_prog))
+        # GOSS sizes on the real share of the padded rows: the global
+        # share under one ingest, this process's under --coordinator
+        n_ingest = n_loc * (mesh.world if mesh.shared_ingest else 1)
+        return _DevInputs(
+            bins=bins, bins_t=bins_t, y=y, weight=weight,
+            real_mask=real_mask, n_score=n_loc, F=F_cols, B=B,
+            aux_bins=aux_bins, y_t=y_t, w_t=w_t, nt_score=nt_loc,
+            ranges=ranges, replay_bins=replay, F_prog=F_prog,
+            goss_scale=min(1.0, train.n_real / max(n_ingest, 1)),
         )
 
     def _base_score(self, train: GBDTData) -> np.ndarray:
@@ -388,6 +546,18 @@ class GBDTTrainer(HostEngine):
         class under softmax) or of uniform_base_prediction (reference
         trainer.py:1211-1246)."""
         p = self.params
+        if p.sample_dependent_base_prediction and self._n_proc > 1:
+            # the global weighted label mean over the process shards
+            w = _host(train.weight)[: train.n_real]
+            y = np.asarray(_host(train.y)[: train.n_real])
+            wy = ((w[:, None] * y).sum(axis=0) if self.K > 1
+                  else float(np.dot(w, y)))
+            merged = coll.host_allgather_objects((wy, float(np.sum(w))))
+            mean = np.sum([m[0] for m in merged], axis=0) / max(
+                float(np.sum([m[1] for m in merged])), 1e-12)
+            if self.K > 1:
+                return np.asarray(self.loss.pred2score(mean), np.float32)
+            return np.float32(self.loss.pred2score(float(mean)))
         if p.sample_dependent_base_prediction:
             # in the arrays' own dtype, as the reference averages
             y = _host(train.y)[: train.n_real]
@@ -474,11 +644,21 @@ class GBDTTrainer(HostEngine):
         len(trees) // K (reference trainer.py:269-312). No dump: a fresh
         run."""
         p = self.params
-        if not p.model.continue_train or not self.fs.exists(
-                p.model.data_path):
+        if not p.model.continue_train:
             return model, 0
-        with self.fs.open(p.model.data_path) as f:
-            model = GBDTModel.loads(f.read())
+
+        def read():
+            if not self.fs.exists(p.model.data_path):
+                return None
+            with self.fs.open(p.model.data_path) as f:
+                return f.read()
+
+        # process 0 reads and hands its text on: the dumps are rank 0's,
+        # so another process's storage may not hold them
+        text = coll.load_on_rank0(read)
+        if text is None:
+            return model, 0
+        model = GBDTModel.loads(text)
         if names:
             index = {n: i for i, n in enumerate(names)}
             for t in model.trees:
@@ -537,14 +717,18 @@ class GBDTTrainer(HostEngine):
         features derives no key."""
         p = self.params
         include = dd.real_mask
+        pad = dd.F_prog - dd.F  # padded features are never sampled
         if p.instance_sample_rate >= 1.0 and p.feature_sample_rate >= 1.0:
-            return include, torch.ones(dd.F, dtype=torch.bool,
-                                       device=self.device)
+            fmask = torch.ones(dd.F, dtype=torch.bool, device=self.device)
+            return include, torch.nn.functional.pad(fmask, (0, pad))
         kf, ki, _ = self._round_keys(rnd)
         if p.instance_sample_rate < 1.0:
             rate = float(np.float32(p.instance_sample_rate))
-            include = include & (prng.uniform(ki, dd.n_score,
-                                              device=self.device) <= rate)
+            # the global draw over every rank's rows, this rank's slice
+            lo = (0 if self.mesh is None else self.mesh.rank) * dd.n_score
+            u = prng.uniform(ki, dd.n_score * self._world,
+                             device=self.device)[lo: lo + dd.n_score]
+            include = include & (u <= rate)
         if p.feature_sample_rate < 1.0:
             rate = float(np.float32(p.feature_sample_rate))
             fmask = prng.uniform(kf, dd.F) <= rate
@@ -552,7 +736,7 @@ class GBDTTrainer(HostEngine):
             fmask = fmask.to(self.device)
         else:
             fmask = torch.ones(dd.F, dtype=torch.bool, device=self.device)
-        return include, fmask
+        return include, torch.nn.functional.pad(fmask, (0, pad))
 
     def _round(self, rnd: int, dd: _DevInputs, spec: GrowSpec, state):
         """grads -> K trees, one a class group on its column of g and h ->
@@ -570,13 +754,15 @@ class GBDTTrainer(HostEngine):
                 torch.where(live, g * dd.weight, 0.0),
                 torch.where(live, h * dd.weight, 0.0), fmask,
                 aux=dd.aux_bins, key=self._goss_key(rnd, grp),
-                ranges=dd.ranges)
+                ranges=dd.ranges, mesh=self.mesh)
             if 0.0 < spec.goss_a < 1.0:
                 # grow fitted the sampled rows; the train rows come back first
                 pos, aux_pos = aux_pos[0], aux_pos[1:]
             if self.refine_lad:
+                # the medians are global: every rank refines on every row
                 tr = tr._replace(leaf=_lad_refine(
-                    tr, pos, dd.y, scores, dd.weight, dd.real_mask,
+                    tr, *(self._gather(a) for a in (
+                        pos, dd.y, scores, dd.weight, dd.real_mask)),
                     self.params.learning_rate))
             # in place: the round's gradients are taken already
             (scores[:, grp] if K > 1 else scores).add_(tr.leaf[pos.long()])
@@ -588,10 +774,31 @@ class GBDTTrainer(HostEngine):
                 bufs[name][t_idx] = getattr(tr, name)
             bufs["n_nodes"][t_idx] = tr.n_nodes
             bufs["wlog"][t_idx] = wlog
-        loss_buf[rnd] = _wavg_loss(self.loss, scores, dd.y, dd.weight)
+        loss_buf[rnd] = _wavg_loss(self.loss, scores, dd.y, dd.weight,
+                                   self.mesh)
         if scores_t is not None:
-            tloss_buf[rnd] = _wavg_loss(self.loss, scores_t, dd.y_t, dd.w_t)
+            tloss_buf[rnd] = _wavg_loss(self.loss, scores_t, dd.y_t, dd.w_t,
+                                        self.mesh)
         return scores, scores_t, bufs, loss_buf, tloss_buf
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a row-sharded tensor, in rank order (the
+        tensor itself without a mesh)."""
+        if self.mesh is None:
+            return t
+        if t.dtype == torch.bool:
+            return coll.all_gather(t.to(torch.uint8), self.mesh).bool()
+        return coll.all_gather(t, self.mesh)
+
+    def _preempt_now(self) -> bool:
+        """The guard's flag, agreed on by every rank at a round start (a
+        signal that reached one rank stops them all at the same round)."""
+        hit = self._guard is not None and self._guard.triggered
+        if self.mesh is None:
+            return hit
+        flag = torch.tensor([int(hit)], dtype=torch.int32,
+                            device=self.device)
+        return bool(coll.pmax(flag, self.mesh).item())
 
     def _run_rounds(self, dd, spec, state, model, names, t0: float,
                     start: int = 0):
@@ -613,7 +820,7 @@ class GBDTTrainer(HostEngine):
         self._start_round_profile()
         t_train0 = time.time()
         for rnd in range(start, p.round_num):
-            if self._guard is not None and self._guard.triggered:
+            if self._preempt_now():
                 # the round start is the safe preemption point: the dump
                 # holds exactly the finished rounds, and the resumed run
                 # re-enters at `rnd` (every round's key is round-indexed)
@@ -667,6 +874,11 @@ class GBDTTrainer(HostEngine):
         # the Preempted raise skips the post-loop stop: close the rounds'
         # trace here or the very run being profiled loses it
         self._stop_round_profile()
+        if self._guard is None or not self._guard.triggered:
+            # a peer rank's signal: stop at the same round as it does
+            from ..resilience import Preempted
+
+            raise Preempted(int(signal.SIGTERM), self.params.model.data_path)
         self._guard.preempt(self.params.model.data_path, family="gbdt",
                             rounds=rnd, trees=len(model.trees))
 
@@ -694,6 +906,11 @@ class GBDTTrainer(HostEngine):
         with trainer_guard(self):
             if self.engine == "device":
                 return self._train_device(train, test)
+            if self._n_proc > 1:
+                raise ValueError(
+                    "multi-process GBDT training requires the device engine "
+                    "(host-loop makers read per-row device state eagerly); "
+                    f"got engine={self.engine!r}")
             return self._train_host(train, test)
 
     def _train_device(self, train: Optional[GBDTData],
@@ -715,8 +932,7 @@ class GBDTTrainer(HostEngine):
         self.dev_inputs = dd  # kept for a caller that times the kernels
         ts["preprocess"] = time.time() - t0 - ts["load"]
         # GOSS sizes its counts on the real share of the padded rows
-        spec = self._grow_spec(dd.F, dd.B, goss_scale=min(
-            1.0, train.n_real / max(dd.n_score, 1)))
+        spec = self._grow_spec(dd.F_prog, dd.B, goss_scale=dd.goss_scale)
         self.grow_spec = spec
         base = self._base_score(train)
         # np.mean, as the reference takes it: a -0.0 base (sigmoid at 0.5)
@@ -874,6 +1090,8 @@ class GBDTTrainer(HostEngine):
         (atomic), then the feature importance file: a fingerprint-watch
         reload of the model always finds sidecars at least as fresh."""
         p = self.params
+        if not self._is_rank0:
+            return  # rank 0 dumps (reference: GBDTOptimizer.java:434-437)
         if not p.model.data_path:
             raise ValueError("model.data_path is required to dump the model")
         model_text = model.dumps(with_stats=True)
@@ -910,15 +1128,20 @@ class GBDTTrainer(HostEngine):
         if not p.just_evaluate:
             # held-out predictions (else train) feed the quality sidecar's
             # score block before the final dump lands
+            # every rank's rows (a collective under a mesh)
             if scores_t is not None:
-                self._stash_quality_scores(scores_t, dd.w_t)
+                self._stash_quality_scores(self._gather(scores_t),
+                                           self._gather(dd.w_t))
             else:
-                self._stash_quality_scores(scores, dd.weight)
+                self._stash_quality_scores(self._gather(scores),
+                                           self._gather(dd.weight))
             self._dump_model(model)
         res = GBDTResult(
             model=model,
-            train_loss=float(_wavg_loss(self.loss, scores, dd.y, dd.weight)),
-            test_loss=(float(_wavg_loss(self.loss, scores_t, dd.y_t, dd.w_t))
+            train_loss=float(_wavg_loss(self.loss, scores, dd.y, dd.weight,
+                                        self.mesh)),
+            test_loss=(float(_wavg_loss(self.loss, scores_t, dd.y_t, dd.w_t,
+                                        self.mesh))
                        if scores_t is not None else None),
         )
         loss_np = loss_buf.cpu().numpy()
@@ -929,20 +1152,30 @@ class GBDTTrainer(HostEngine):
                 rec["test_loss"] = float(tloss_np[rnd])
             res.round_log.append(rec)
         if p.eval_metric:
+            # the metrics see every rank's rows (n_score x world,
+            # reference :549, :595)
+            g = self._gather
             ev = EvalSet(p.eval_metric, K=max(self.K, 2))
-            res.train_metrics = ev.evaluate(self.loss.predict(scores), dd.y,
-                                            dd.weight)
+            res.train_metrics = ev.evaluate(self.loss.predict(g(scores)),
+                                            g(dd.y), g(dd.weight))
             if scores_t is not None:
-                res.test_metrics = ev.evaluate(self.loss.predict(scores_t),
-                                               dd.y_t, dd.w_t)
+                res.test_metrics = ev.evaluate(
+                    self.loss.predict(g(scores_t)), g(dd.y_t), g(dd.w_t))
         self.final_scores = (scores, scores_t)
         return res
 
 
-def _wavg_loss(loss, scores, y, weight) -> torch.Tensor:
+def _wavg_loss(loss, scores, y, weight, mesh=None) -> torch.Tensor:
+    """The weighted mean loss; under a mesh over every rank's rows (the
+    weighted sum and the weight summed by one psum)."""
     per = loss.loss(scores, y)
     per = torch.where(weight > 0, per, torch.zeros_like(per))
-    return torch.sum(weight * per) / torch.clamp_min(torch.sum(weight), 1e-12)
+    if mesh is None:
+        return torch.sum(weight * per) / torch.clamp_min(torch.sum(weight),
+                                                         1e-12)
+    num, den = coll.psum(torch.stack([torch.sum(weight * per),
+                                      torch.sum(weight)]), mesh).unbind()
+    return num / torch.clamp_min(den, 1e-12)
 
 
 def _lad_refine(tr, pos, y, scores, weight, real_mask, lr) -> torch.Tensor:

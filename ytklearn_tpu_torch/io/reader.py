@@ -23,8 +23,8 @@ the same rows, dict, labels and rng draws; the native parser reads values
 as float32 (the Python one as float64), so transform stats and hashed
 sums may differ in their last digits, as in the JAX package.
 
-The port runs one process, so every plan reads every line; the multi-process
-line and file shards come with multi-GPU training (ROADMAP.md 1.7).
+Under `--coordinator` each process reads its shard_plan: every line with
+`data.assigned`, else every world-th file (files_avg) or line (lines_avg).
 """
 
 from __future__ import annotations
@@ -82,9 +82,23 @@ def load_transform_hook(path: str) -> Callable[[bytes], List[str]]:
 
 
 def shard_plan(fs, data_params, paths) -> Tuple[Sequence[str], int, int]:
-    """This process's read plan: (paths, divisor, remainder). One process
-    reads everything, whether `data.assigned` or not: (paths, 1, 0)."""
-    return paths, 1, 0
+    """This process's read plan: (paths, divisor, remainder), the one
+    source of the assigned / files_avg / lines_avg dispatch (reference
+    :263-277, DataFlow.java:391-410) that the Python reader and the native
+    parser both read through. One ingesting process (no mesh, or the
+    shared ingest of `--devices`) or `data.assigned` reads everything;
+    under `--coordinator` files_avg takes every world-th file of the
+    sorted listing from its rank, lines_avg every world-th line."""
+    from ..parallel.mesh import process_count, process_index
+
+    n_proc = process_count()
+    proc = process_index()
+    if data_params.assigned or n_proc == 1:
+        return paths, 1, 0
+    if data_params.unassigned_mode == "files_avg":
+        files = sorted(fs.recur_get_paths(paths))
+        return files[proc::n_proc], 1, 0
+    return paths, n_proc, proc
 
 
 def shard_read_lines(fs, data_params, paths) -> Iterator[str]:

@@ -6,6 +6,7 @@ read).
                                      `settle` synchronises a tensor's CUDA
                                      device before the end timestamp
   inc(name, value=1.0)               counter add
+  record_collective(verb, nbytes, axis)  one collective call in the census
   gauge(name, value)                 gauge set
   event(name, **attrs)               instant trace marker
   heartbeat(name, every_s=30)        rate-limited structured progress logger
@@ -47,6 +48,7 @@ from .core import (  # noqa: F401
     flush,
     gauge,
     inc,
+    record_collective,
     reset,
     set_identity,
     settle,

@@ -326,6 +326,30 @@ def event(name: str, **args) -> None:
     REGISTRY.add_event(ev)
 
 
+def record_collective(verb: str, nbytes: int, axis_name: str,
+                      staged: bool = False) -> None:
+    """Count one collective call and its operand bytes
+    (`collectives.<verb>.calls` / `.bytes`) and drop a zero-duration span
+    into the trace (reference obs/core.py:345-400). The reference counts
+    at trace time, once per compiled program; the port has no trace, so
+    every executed call counts. `staged`: the call went through host
+    memory (gloo on a card). No-op when obs is disabled."""
+    if not _state.enabled:
+        return
+    REGISTRY.inc(f"collectives.{verb}.calls", 1.0)
+    REGISTRY.inc(f"collectives.{verb}.bytes", float(nbytes))
+    REGISTRY.add_event({
+        "name": f"collectives.{verb}",
+        "ph": "X",
+        "ts": _now(),
+        "dur": 0.0,
+        "tid": threading.get_ident(),
+        "depth": len(REGISTRY._stack()),
+        "args": {"axis": axis_name, "bytes": int(nbytes),
+                 "staged": bool(staged)},
+    })
+
+
 def snapshot() -> dict:
     return REGISTRY.snapshot()
 

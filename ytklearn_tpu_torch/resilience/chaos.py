@@ -26,9 +26,10 @@ Every injected fault counts `chaos.injected` and `chaos.injected.<site>`
 (obs registry), drops a `chaos.inject` event into the flight ring and is
 logged BEFORE it acts.
 
-The sites of the JAX package's catalog whose seams the port does not have
-yet keep their entries, so a spec that names them parses as it does
-there: `collective.host` (ROADMAP.md 1.7).
+`collective.host` fires in parallel/collectives.py::host_allgather_objects
+(and so in load_on_rank0, equal_row_target and the multi-process ingest and
+binning merges): fatal by design, never retried, since a rank that
+re-entered a collective alone would desync the group.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ FAULT_SITES: Dict[str, str] = {
     "io.read": "ingest/model text read (LocalFileSystem.read_lines, native "
                "parser byte reads)",
     "io.dump": "atomic dump commit (LocalFileSystem.atomic_open replace)",
-    "collective.host": "host-side collective (not in the port yet)",
+    "collective.host": "host-side collective "
+                       "(parallel/collectives.py::host_allgather_objects)",
     "gbdt.sync": "GBDT round-boundary loss read (device engine)",
     "continual.copy": "continual shadow/archive file copy "
                       "(continual/driver.py::_copy_file)",
