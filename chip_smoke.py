@@ -116,6 +116,8 @@ run its total.
      holds each round's tree against `grow` on the unbundled matrix from
      the same gradients, the bundled K2 and K1 histograms and K5 with the
      members' real lo/hi (int32 and int64) against their plain versions;
+     and `python -m ytklearn_tpu_torch.scripts.bench_gbdt` runs once in a
+     fresh process, its JSON on a line of its own;
   9. times each training kernel at the full-width shapes (CUDA events,
      median of repeats) beside its bound, its plain version and one
      scatter_add_ call; then the int8 width phase of slice 6: K2 over every
@@ -170,10 +172,12 @@ run its total.
      N = 1, 7, 32 and 64 slots (F = 28, B = 256, a ragged n) and on waves
      of 64 and 100 slots (3N > 256: two n-tiles) with a duplicated id and
      pads, and against K2 in K8's layout;
- 14. runs the tuning tool tune_hist_kernel in this process, the main path
-     of slice 4, at the reference's size with its full variant list (K2,
-     K1 and K8 across launch shapes, then K8 == K2 with torch.equal; K8's
-     launches are counted over this run);
+ 14. runs the tuning tools in this process, the main path of slice 4:
+     tune_hist_kernel at the reference's size with its full variant list
+     (K2, K1 and K8 across launch shapes, then K8 == K2 with torch.equal;
+     K8's launches are counted over this run), micro_hist_gather at two
+     budgets (K4 == gather-then-K2, exact) and tune_gbdt cut to waves 32
+     and 64 in int8 at 2^21 rows and 6 trees;
  15. times K8 at the tune shape beside its bytes bound, its tensor-core
      floor (mma_floor_ms), its plain version and one scatter_add_, then K8
      and K2 on waves of 1 to 64 slots that hold every row;
@@ -193,7 +197,7 @@ run its total.
      whether two trainings dump byte-identical texts;
  17. (slice 12, its main path) keeps those convex models, writes the FM
      case's data again at 2^17 + 2^14 and 2^15 + 2^12 lines and runs
-     `cli train` in this process for each of GBST_RUNS (gbmlr K = 8, 5
+     `cli train` in this process for each of GBST_RUNS (gbmlr K = 8, 3
      trees; gbsdt, gbhmlr, gbhsdt K = 8, 3 trees; a random_forest run; a
      continue_train run, 3 + 2 trees; lr 0.3, rates 0.8) at GBST_ITERS
      L-BFGS iterations a tree on the card: trees, seconds a tree, ingest
@@ -212,7 +216,7 @@ run its total.
      same 2^20 + 2^17 text lines (HOST_RUNS: level-wise sigmoid with
      `tree_maker = "feature"`, 20 trees, train loss below 0.65 and test
      AUC above HOST_AUC_FLOOR, bench.py's band printed; loss-wise l1 with
-     `lad_refine_appr = false`, 10 trees, the loss falling every round):
+     `lad_refine_appr = false`, 5 trees, the loss falling every round):
      seconds and host syncs a tree, ingest and host binning against the
      rounds; then both at HOST_SMALL lines on cuda twice and on the CPU,
      whose dumps must be byte-identical; no kernel wrapper's count moves.
@@ -334,7 +338,7 @@ run its total.
      K4) equal to the JAX package's golden tree; then `tree_maker =
      "feature"` on `--devices 2` sharing the card (the columns sharded,
      K1 at f32 on each rank) against one rank's level-wise host engine on
-     2^18 + 2^15 of the lines, loss and test AUC within DIST_FP_RTOL;
+     2^17 + 2^14 of the lines, loss and test AUC within DIST_FP_RTOL;
  24. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
@@ -1712,6 +1716,29 @@ def phase_efb(card):
     return err
 
 
+def phase_bench_script(card):
+    """scripts/bench_gbdt.py as a user runs it, in a fresh process: bench.py's
+    cell with its GOSS default; its JSON line is printed here."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ytklearn_tpu_torch.scripts.bench_gbdt"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"bench_gbdt exited {out.returncode}: {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"bench_gbdt: {wall:.3f} s (wall, a fresh process) [{card}]",
+          flush=True)
+    print(json.dumps(rec), flush=True)
+    check(rec["band"] == "ok" and rec["goss"] == "a=0.2,b=0.125"
+          and rec["goss_rows_per_tree"] == goss_kept_rows(TRAIN_ROWS, *GOSS),
+          f"bench_gbdt: {rec}")
+    return rec
+
+
 def bound_ms(nbytes, int_ops):
     """The larger of: `nbytes` over HBM bandwidth, `int_ops` int32
     operations over the CUDA-core rate."""
@@ -2250,6 +2277,10 @@ def phase_binned_kernel(model, card):
     return max_err
 
 
+CONT_WRITERS = 8  # processes formatting the text of a large write
+TEXT_PARALLEL_ROWS = 1 << 18  # rows from which write_ytk_lines spawns them
+
+
 def write_ytk_text(path, X, y, rng):
     """ytklearn text lines `1###label###f0:v,...`, 1% of them with one
     feature left out (a missing value)."""
@@ -2257,20 +2288,44 @@ def write_ytk_text(path, X, y, rng):
                     y.cpu().numpy().astype(int), rng)
 
 
-def write_ytk_lines(path, Xh, yh, rng):
-    """write_ytk_text on host arrays (float64 X, int y)."""
-    yh = [int(v) for v in yh]
+def _format_lines(args):
+    """The text of write_ytk_lines for rows Xh, labels yh and each row's
+    left-out feature (`drop`, -1 for none)."""
+    Xh, yh, drop = args
     F = Xh.shape[1]
     fmt = "1###%d###" + ",".join(f"f{j}:%.9g" for j in range(F)) + "\n"
+    out = []
+    for row, y, j in zip(Xh.tolist(), yh, drop):
+        if j >= 0:
+            out.append(f"1###{y}###" + ",".join(
+                f"f{k}:{row[k]:.9g}" for k in range(F) if k != j) + "\n")
+        else:
+            out.append(fmt % (y, *row))
+    return "".join(out)
+
+
+def write_ytk_lines(path, Xh, yh, rng):
+    """write_ytk_text on host arrays (float64 X, int y). From
+    TEXT_PARALLEL_ROWS rows on, CONT_WRITERS spawned processes format
+    contiguous slices, written in order: the same bytes, the random draws
+    all made here first."""
+    yh = [int(v) for v in yh]
+    F = Xh.shape[1]
     blank = (rng.rand(len(Xh)) < 0.01).tolist()
+    drop = [rng.randint(F) if b else -1 for b in blank]
+    if len(Xh) < TEXT_PARALLEL_ROWS:
+        parts = [_format_lines((Xh, yh, drop))]
+    else:
+        import multiprocessing
+
+        step = -(-len(Xh) // CONT_WRITERS)
+        jobs = [(Xh[lo:lo + step], yh[lo:lo + step], drop[lo:lo + step])
+                for lo in range(0, len(Xh), step)]
+        with multiprocessing.get_context("spawn").Pool(CONT_WRITERS) as pool:
+            parts = pool.map(_format_lines, jobs, chunksize=1)
     with open(path, "w") as f:
-        for i, row in enumerate(Xh.tolist()):
-            if blank[i]:
-                j = rng.randint(F)
-                f.write(f"1###{yh[i]}###" + ",".join(
-                    f"f{k}:{row[k]:.9g}" for k in range(F) if k != j) + "\n")
-            else:
-                f.write(fmt % (yh[i], *row))
+        for part in parts:
+            f.write(part)
 
 
 class Recorder:
@@ -3408,16 +3463,23 @@ def phase_u8_kernels(card):
 
 
 def phase_tools(card):
-    """The histogram tuning tool in this process, as `python -m
-    ytklearn_tpu_torch.scripts.tune_hist_kernel` runs it: the main path of
-    slice 4 (K1, K2 and K8). Every launch count is zeroed just before it
-    and read just after. (The informational sweeps micro_hist_gather and
-    tune_gbdt left this script to make room for the multi-rank phase; each
-    runs alone as `python -m ytklearn_tpu_torch.scripts.<tool>`.)"""
-    from ytklearn_tpu_torch.scripts import tune_hist_kernel
+    """The tuning tools in this process, as `python -m
+    ytklearn_tpu_torch.scripts.<tool>` runs them: the main path of slice 4.
+    Every launch count is zeroed just before the tools and read just after
+    them: tune_hist_kernel runs K1, K2 and K8, micro_hist_gather K2 and K4,
+    tune_gbdt K2, K4 and K5."""
+    from ytklearn_tpu_torch.scripts import (
+        micro_hist_gather,
+        tune_gbdt,
+        tune_hist_kernel,
+    )
 
     for name, mod, argv in (
         ("tune_hist_kernel", tune_hist_kernel, []),
+        ("micro_hist_gather", micro_hist_gather, ["--divs", "8,64",
+                                                  "--repeats", "3"]),
+        ("tune_gbdt", tune_gbdt, ["--rows", str(1 << 21), "--trees", "6",
+                                  "--configs", "32:int8,64:int8"]),
     ):
         t0 = time.perf_counter()
         if name == "tune_hist_kernel":
@@ -3427,12 +3489,12 @@ def phase_tools(card):
               f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
         check(rc == 0, f"{name} exited {rc}")
     counts = kernel_counts()
-    ran = ("hist", "hist_q", "hist_q_u8")
-    print(f"tools: launches of tune_hist_kernel: "
+    ran = ("hist", "hist_q", "hist_gather_q", "route", "hist_q_u8")
+    print(f"tools: launches over the three tools: "
           f"{', '.join(f'{k} {counts[k]}' for k in ran)} [{card}]",
           flush=True)
     check(all(counts[k] > 0 for k in ran),
-          f"the tool did not launch each of its kernels: {counts}")
+          f"the tools did not launch each of their kernels: {counts}")
     return counts["hist_q_u8"]
 
 
@@ -4125,7 +4187,7 @@ GBST_DATA = {"big": (1 << 17, 1 << 14), "small": (1 << 15, 1 << 12)}
 GBST_SHAPE = dict(vocab=20000, nnz=16, l2=1e-3)
 #: (run, variant, data, trees, extra config, continue_train trees)
 GBST_RUNS = (
-    ("gbmlr", "gbmlr", "big", 5, {}, 0),
+    ("gbmlr", "gbmlr", "big", 3, {}, 0),
     ("gbsdt", "gbsdt", "small", 3, {}, 0),
     ("gbhmlr", "gbhmlr", "small", 3, {}, 0),
     ("gbhsdt", "gbhsdt", "small", 3, {}, 0),
@@ -4215,7 +4277,7 @@ def gbst_held(run, res, cres):
 
 
 def phase_gbst_cli(card, tmp):
-    """Slice 12's main path: `cli train` for gbmlr (K = 8, 5 trees, 2^17 +
+    """Slice 12's main path: `cli train` for gbmlr (K = 8, 3 trees, 2^17 +
     2^14 lines: dim 20001 x 15 weights, a (rows, 17, 15) gather a pass),
     gbsdt, gbhmlr and gbhsdt (K = 8, 3 trees, 2^15 + 2^12 lines), a
     random_forest run and a continue_train run (3 + 2 trees), each at
@@ -4388,7 +4450,7 @@ def phase_serve_families(card, models):
 HOST_RUNS = (
     ("level sigmoid feature", 20,
      {"tree_maker": "feature", "tree_grow_policy": "level"}),
-    ("loss l1 precise", 10,
+    ("loss l1 precise", 5,
      {"loss_function": "l1", "lad_refine_appr": False,
       "tree_grow_policy": "loss"}),
 )
@@ -4790,7 +4852,6 @@ CONT_PREDICT_ROWS = 1 << 12  # held-out lines through `cli predict`
 CONT_FTRL_TEST = 2048  # held-out lines of the FTRL retrains' gate
 CONT_SMALL = (1 << 14, 1 << 12)  # the int8 card-against-CPU retrain
 CONT_SMALL_ROUNDS = (3, 2)  # bootstrap rounds, then extra rounds
-CONT_WRITERS = 8  # processes formatting the fresh text
 
 
 def _write_part(args):
@@ -6128,7 +6189,7 @@ DIST_LOSS_RTOL = 0.05  # merged bins (tests/test_multiprocess.py:139-152)
 DIST_PREDICT_ROWS = 4096
 DIST_TIMEOUT_S = 420
 #: the feature-parallel part: text lines, trees, depth (level-wise)
-DIST_FP = ((1 << 18, 1 << 15), 3, 6)
+DIST_FP = ((1 << 17, 1 << 14), 3, 6)
 DIST_FP_RTOL = 1e-4  # tests/test_feature_parallel.py's loss and AUC bands
 
 
@@ -6513,6 +6574,7 @@ def main() -> int:
     for k, v in efb_err.items():
         errs[k] = max(errs[k], v)
     torch.cuda.empty_cache()
+    timed("bench_script", phase_bench_script, card)
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_cli_")
     try:

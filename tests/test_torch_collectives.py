@@ -176,3 +176,18 @@ def test_census_counts_every_call(ranks, world):
     assert c["pargmax"]["calls"] == 4
     assert c["pargmax"]["bytes"] == 3 * 3 * 16 + 2 * 16
     assert all(v["staged"] == 0 for v in c.values())
+    assert "host_allgather" not in c
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_census_counts_host_allgather(ranks, world):
+    """host_allgather_objects counts in the same census as the tensor
+    verbs: two calls (the gather and load_on_rank0's), their pickled bytes,
+    none staged."""
+    import pickle
+
+    for r, res in enumerate(ranks[world]):
+        want = (len(pickle.dumps({"rank": r, "s": "x" * r}))
+                + len(pickle.dumps("read by 0" if r == 0 else None)))
+        assert res["census_host"] == {"calls": 2, "bytes": want,
+                                      "staged": 0}

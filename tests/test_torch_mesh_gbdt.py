@@ -13,12 +13,13 @@ test_feature_parallel.py's cases at N = 2 and 4).
   within rel 1e-5;
   GOSS (a = 0.5, b = 0) at the engine: the N-rank tree equals one rank
   grown on the hand-computed union of each shard's top half by |g|
-  (test_goss_mesh8_matches_manual_union), leaf assignment included;
+  (test_goss_mesh8_matches_manual_union) and the JAX engine's sharded
+  grow on a mesh of N devices, leaf assignment included;
   f32, both policies: loss within rel 1e-3 and AUC within 0.005 of one
-  rank (test_engine_sharded_f32_quality's band);
+  rank and of the JAX mesh-N run (test_engine_sharded_f32_quality's band);
   feature-parallel (tree_maker = "feature", columns sharded over the
-  ranks): the data-parallel level-wise trees at test_feature_parallel.py's
-  tolerances.
+  ranks): the data-parallel level-wise trees and the JAX package's
+  feature-parallel mesh-N trees at test_feature_parallel.py's tolerances.
 
 The ranks run once a world size (tests/torch_mp_worker.py)."""
 
@@ -82,6 +83,8 @@ def _one_rank(name, tmp_path_factory, monkeypatch):
 
 
 def _jax_mesh(name, world, tmp_path, monkeypatch):
+    """The JAX package's mesh-N run of a case (the feature-parallel case on
+    the engine its trainer picks, as test_feature_parallel.py runs it)."""
     kind, over, tkw, env = GBDT_CASES[name]
     X, y = case_data(kind)
     p = case_params(JParams, JSpec, JModel, kind, over,
@@ -89,7 +92,8 @@ def _jax_mesh(name, world, tmp_path, monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     kw = dict(tkw)
-    kw.setdefault("engine", "device")
+    if name != "feature":
+        kw.setdefault("engine", "device")
     return JTrainer(p, mesh=make_mesh(world), **kw).train(
         train=JData(X=X, y=y, weight=np.ones(len(y), np.float32),
                     n_real=len(y),
@@ -167,6 +171,45 @@ def test_goss_ranks_equal_manual_union(ranks, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_goss_ranks_equal_jax_mesh(ranks, world):
+    """Per-shard GOSS against the JAX package's engine on a mesh of `world`
+    devices (test_goss_mesh8_matches_manual_union's sharded grow, key
+    PRNGKey(0); b = 0 draws nothing): splits, children, counts and the
+    rows' final nodes equal (int8 sums exact); leaf values as the port's
+    one-device trees are held to the JAX package's (XLA reorders the f32
+    leaf arithmetic: rtol 1e-5 plus 1e-5 of the largest |leaf|)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ytklearn_tpu.gbdt.engine import GrowSpec as JGrowSpec, \
+        make_grow_tree
+
+    bins, g, h, _keep, F, B = goss_case(world)
+    spec = JGrowSpec(F=F, B=B, max_nodes=15, wave=2, policy="loss",
+                     max_depth=10, max_leaves=8, lr=0.3, l1=0.0, l2=1.0,
+                     min_h=1.0, max_abs=0.0, min_split_loss=0.0,
+                     min_split_samples=0.0, force_dense=True,
+                     hist_mode="int8", goss_a=0.5, goss_b=0.0)
+    growN = make_grow_tree(spec, mesh=make_mesh(world))
+    tr, _p, aux_pos, _w = jax.jit(
+        lambda *a: growN(*a, key=jax.random.PRNGKey(0)))(
+        jnp.asarray(bins), jnp.ones((len(g),), bool), jnp.asarray(g),
+        jnp.asarray(h), jnp.ones((F,), bool))
+    leaf = np.asarray(tr.leaf)
+    for res in ranks[world]:
+        got = res["goss"]
+        for k in ("feat", "slot", "slot_r", "left", "right", "cnt"):
+            np.testing.assert_array_equal(got[k], np.asarray(getattr(tr, k)),
+                                          err_msg=k)
+        np.testing.assert_allclose(got["leaf"], leaf, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(leaf).max()))
+        assert got["n_nodes"] == int(tr.n_nodes)
+    np.testing.assert_array_equal(
+        np.concatenate([r["goss"]["pos"] for r in ranks[world]]),
+        np.asarray(aux_pos[0]))
+
+
+@pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("name", ["f32_level", "f32_loss"])
 def test_f32_ranks_quality(ranks, world, name, tmp_path_factory,
                            monkeypatch):
@@ -179,6 +222,44 @@ def test_f32_ranks_quality(ranks, world, name, tmp_path_factory,
 
 
 @pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["f32_level", "f32_loss"])
+def test_f32_ranks_quality_jax_mesh(ranks, world, name, tmp_path,
+                                    monkeypatch):
+    """f32 on N ranks against the JAX package's mesh-N f32 run, both
+    policies, at test_engine_sharded_f32_quality's band (loss rel 1e-3,
+    AUC within 0.005): each side adds its f32 partial sums in its own
+    order."""
+    want = _jax_mesh(name, world, tmp_path, monkeypatch)
+    got = ranks[world][0][name]
+    assert got["train_loss"] == pytest.approx(want.train_loss, rel=1e-3)
+    assert got["auc"] == pytest.approx(want.train_metrics["auc"], abs=0.005)
+
+
+def _assert_fp_trees(got, want):
+    """test_feature_parallel.py's tolerances."""
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert a["feat"] == b["feat"]
+        assert a["left"] == b["left"] and a["right"] == b["right"]
+        np.testing.assert_allclose(a["split"], b["split"], rtol=1e-6)
+        np.testing.assert_allclose(a["leaf_value"], b["leaf_value"],
+                                   rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_feature_parallel_matches_jax_mesh(ranks, world, tmp_path,
+                                           monkeypatch):
+    """The port's feature-parallel maker on N ranks against the JAX
+    package's on a mesh of N devices (tree_maker = "feature"), at
+    test_feature_parallel.py's tolerances."""
+    want = _jax_mesh("feature", world, tmp_path, monkeypatch)
+    got = ranks[world][0]["feature"]
+    _assert_fp_trees(got["trees"], tree_fields(want.model))
+    assert got["train_loss"] == pytest.approx(want.train_loss, rel=1e-4)
+    assert got["auc"] == pytest.approx(want.train_metrics["auc"], abs=1e-4)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_feature_parallel_matches_data_parallel(ranks, world,
                                                 tmp_path_factory,
                                                 monkeypatch):
@@ -186,14 +267,7 @@ def test_feature_parallel_matches_data_parallel(ranks, world,
     maker's trees (test_feature_parallel.py's tolerances)."""
     one = _one_rank("feature", tmp_path_factory, monkeypatch)
     got = ranks[world][0]["feature"]
-    want = tree_fields(one.model)
-    assert len(got["trees"]) == len(want) == 3
-    for a, b in zip(got["trees"], want):
-        assert a["feat"] == b["feat"]
-        assert a["left"] == b["left"] and a["right"] == b["right"]
-        np.testing.assert_allclose(a["split"], b["split"], rtol=1e-6)
-        np.testing.assert_allclose(a["leaf_value"], b["leaf_value"],
-                                   rtol=2e-4, atol=1e-6)
+    _assert_fp_trees(got["trees"], tree_fields(one.model))
     assert got["train_loss"] == pytest.approx(one.train_loss, rel=1e-4)
     assert got["auc"] == pytest.approx(one.train_metrics["auc"], abs=1e-4)
     for r, res in enumerate(ranks[world]):

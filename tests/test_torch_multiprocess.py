@@ -2,8 +2,10 @@
 processes, each ingesting its lines_avg shard, joined over gloo on the
 CPU, against one process (tests/test_multiprocess.py::
 test_two_process_gbdt_matches_single: the merged bins are approximate by
-design, so the loss is held within rel 0.05); only rank 0 writes the
-model, and it reloads. The multi-process pieces underneath are held to the
+design, so the loss is held within rel 0.05) and against the JAX
+package's two processes on the same shards (tests/mp_worker.py: equal
+splits, the loss within rel 1e-5); only rank 0 writes the model, and it
+reloads. The multi-process pieces underneath are held to the
 JAX package's exactly, with the other processes' payloads fed through the
 host gather: merge_quantile_candidates, merge_bins_multihost,
 build_bins_global, the ingest's global missing-value fills, and
@@ -25,6 +27,7 @@ from ytklearn_tpu.config.params import ApproximateSpec as JSpec, \
     DataParams as JDataParams, GBDTParams as JParams
 from ytklearn_tpu.gbdt import binning as jbin
 from ytklearn_tpu.gbdt.data import GBDTIngest as JIngest
+from ytklearn_tpu.gbdt.tree import GBDTModel as JModel
 from ytklearn_tpu.io.fs import LocalFileSystem as JFS
 from ytklearn_tpu.io.reader import shard_plan as jshard_plan
 
@@ -74,7 +77,11 @@ def _argv(conf, model):
             "--set", f"model.data_path={model}"]
 
 
-def test_two_process_cli_matches_single(tmp_path):
+@pytest.fixture(scope="module")
+def two_process(tmp_path_factory):
+    """One `cli train gbdt` process and two `--coordinator` processes on the
+    case (the JSON lines and the working directory)."""
+    tmp_path = tmp_path_factory.mktemp("two_process")
     conf = _write_case(tmp_path)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -107,14 +114,22 @@ def test_two_process_cli_matches_single(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+    err_text = []
     for r, (p, ef) in enumerate(zip(procs, errs)):
         ef.seek(0)
         err = ef.read()
         ef.close()
         assert p.returncode == 0, f"rank {r}:\n{err[-3000:]}"
+        err_text.append(err)
+    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    return single, res, err_text, tmp_path
+
+
+def test_two_process_cli_matches_single(two_process):
+    single, res, errs, tmp_path = two_process
+    for err in errs:
         # --max-restarts is disabled under --coordinator, loudly
         assert "--max-restarts is per-process and unsafe" in err
-    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
     for r, rec in enumerate(res):
         assert rec["rank"]["rank"] == r and rec["rank"]["backend"] == "gloo"
         assert rec["trees"] == single["trees"] == 3
@@ -128,6 +143,35 @@ def test_two_process_cli_matches_single(tmp_path):
     assert not (tmp_path / "r1").exists()
     m = GBDTModel.loads((tmp_path / "r0" / "m.model").read_text())
     assert len(m.trees) == 3
+
+
+def test_two_process_cli_matches_jax_two_process(two_process):
+    """The port's two `--coordinator` processes against the JAX package's
+    two processes (tests/mp_worker.py's gbdt mode, jax.distributed over
+    the CPU) on the same lines and config: each process reads the same
+    lines_avg shard and the bin merges are the reference's exactly, so the
+    trees' split features, split values and children are equal; leaf
+    values as the port's one-device trees are held to the JAX package's
+    (rtol 1e-5 plus 1e-5 of the tree's largest value); the loss within
+    rel 1e-5."""
+    from test_multiprocess import _run
+
+    _single, res, _errs, tmp_path = two_process
+    want = _run("gbdt", tmp_path, 2)
+    wm = JModel.loads(want["model_text"])
+    gm = GBDTModel.loads((tmp_path / "r0" / "m.model").read_text())
+    assert len(gm.trees) == len(wm.trees) == 3
+    for a, b in zip(gm.trees, wm.trees):
+        assert list(a.feat) == list(b.feat)
+        assert list(a.left) == list(b.left)
+        assert list(a.right) == list(b.right)
+        np.testing.assert_array_equal(np.asarray(a.split, np.float64),
+                                      np.asarray(b.split, np.float64))
+        scale = max(float(np.abs(np.asarray(b.leaf_value)).max()), 1e-30)
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                                   atol=1e-5 * scale)
+    assert res[0]["train_loss"] == pytest.approx(want["train_loss"],
+                                                 rel=1e-5)
 
 
 def test_non_gbdt_families_refuse_both_flags(tmp_path):

@@ -161,13 +161,15 @@ def tree_fields(model) -> list:
 def _collectives(rank, world, mesh):
     import torch
 
+    from ytklearn_tpu_torch.obs import collective_census, \
+        reset_collective_census
     from ytklearn_tpu_torch.parallel import collectives as coll
     from ytklearn_tpu_torch.parallel.mesh import Mesh, equal_row_target
 
     inp = coll_inputs(world)
     t = {k: torch.from_numpy(np.ascontiguousarray(v[rank]))
          for k, v in inp.items()}
-    coll.reset_census()
+    reset_collective_census()
     out = {
         "psum_f": coll.psum(t["f"], mesh),
         "psum_i": coll.psum(t["i"], mesh),
@@ -185,7 +187,7 @@ def _collectives(rank, world, mesh):
         out[f"pargmax_{name}"] = (best, pf, pi)
     best, (pf,) = coll.pargmax_tuple(t["inf_score"], (t["inf_pay"],), mesh)
     out["pargmax_inf"] = (best, pf)
-    out["census"] = coll.census()
+    out["census"] = collective_census()
     # the host verbs, as --coordinator ranks run them
     own = Mesh(rank=rank, world=world, device=torch.device("cpu"),
                backend=mesh.backend, shared_ingest=False)
@@ -195,6 +197,7 @@ def _collectives(rank, world, mesh):
     out["allgather_objects"] = coll.host_allgather_objects(
         {"rank": rank, "s": "x" * rank})
     out["load_on_rank0"] = coll.load_on_rank0(lambda: f"read by {rank}")
+    out["census_host"] = collective_census().get("host_allgather")
     out["equal_row_target"] = equal_row_target(100 + 37 * rank, own, 8)
     out["equal_row_target_shared"] = equal_row_target(1000, mesh, 8)
     from ytklearn_tpu_torch.resilience import ChaosError, reset_chaos

@@ -53,8 +53,8 @@ rank a process and a device:
     dumps; `--max-restarts` is off (restart the whole launch). The JSON
     line adds "rank", this rank's report.
 The backend is NCCL when every rank has a GPU of its own, gloo on the CPU
-and when ranks share a card (YTK_DIST_BACKEND overrides), with a finite
-timeout (YTK_DIST_TIMEOUT_S). Every other family under either flag raises
+and when ranks share a card, with a finite timeout
+(parallel/mesh.py::TIMEOUT_S). Every other family under either flag raises
 NotImplementedError naming ROADMAP.md 1.7b.
 
 `serve` is the JAX package's single-process `cli serve` at its defaults:

@@ -101,15 +101,6 @@ _knob("YTK_SKETCH_ROWS", "int", 1 << 25,
       "rows above which host quantile binning streams through the weighted "
       "quantile sketch instead of the full-sort path")
 
-# -- multi-rank runs (the port's own: torch.distributed has no JAX twin) ----
-_knob("YTK_DIST_BACKEND", "str", "auto",
-      "process-group backend of a multi-rank run: `auto` (NCCL when every "
-      "rank has a GPU of its own, gloo on the CPU and when ranks share a "
-      "card), `nccl` or `gloo`")
-_knob("YTK_DIST_TIMEOUT_S", "float", 600.0,
-      "seconds a collective may wait for its peers before the process "
-      "group fails the run (a desync fails loudly instead of hanging)")
-
 # -- resilience (same defaults as ytklearn_tpu/config/knobs.py:243-256) -----
 _knob("YTK_CHAOS", "str", None,
       "deterministic fault injection spec `site:kind:rate:seed[,...]` "

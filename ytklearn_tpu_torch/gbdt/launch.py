@@ -192,7 +192,7 @@ def _wait(procs) -> List[int]:
 def rank_report(trainer, mesh, seconds: float) -> Dict:
     """A rank's device, backend, kernel launches, collective census and
     seconds."""
-    from ..parallel import collectives as coll
+    from ..obs import collective_census
     from . import engine, hist, route
 
     return {
@@ -206,7 +206,7 @@ def rank_report(trainer, mesh, seconds: float) -> Dict:
             "route": route.route_wave.launches,
             "host_syncs": engine.grow.host_syncs,
         },
-        "collectives": coll.census(),
+        "collectives": collective_census(),
         "seconds": seconds,
     }
 

@@ -7,6 +7,7 @@ read).
                                      device before the end timestamp
   inc(name, value=1.0)               counter add
   record_collective(verb, nbytes, axis)  one collective call in the census
+  collective_census() / reset_collective_census()  the census per verb
   gauge(name, value)                 gauge set
   event(name, **attrs)               instant trace marker
   heartbeat(name, every_s=30)        rate-limited structured progress logger
@@ -42,6 +43,7 @@ from .core import (  # noqa: F401
     REGISTRY,
     Registry,
     Span,
+    collective_census,
     configure,
     enabled,
     event,
@@ -50,6 +52,7 @@ from .core import (  # noqa: F401
     inc,
     record_collective,
     reset,
+    reset_collective_census,
     set_identity,
     settle,
     snapshot,

@@ -329,15 +329,19 @@ def event(name: str, **args) -> None:
 def record_collective(verb: str, nbytes: int, axis_name: str,
                       staged: bool = False) -> None:
     """Count one collective call and its operand bytes
-    (`collectives.<verb>.calls` / `.bytes`) and drop a zero-duration span
-    into the trace (reference obs/core.py:345-400). The reference counts
-    at trace time, once per compiled program; the port has no trace, so
-    every executed call counts. `staged`: the call went through host
-    memory (gloo on a card). No-op when obs is disabled."""
-    if not _state.enabled:
-        return
+    (`collectives.<verb>.calls` / `.bytes`, and `.staged` when the call
+    went through host memory: gloo on a card) and, when obs is on, drop a
+    zero-duration span into the trace (reference obs/core.py:345-400). The
+    reference counts at trace time, once per compiled program; the port
+    has no trace, so every executed call counts. The counters are the
+    collective census and count with obs off too: a rank's report reads
+    them (`collective_census`)."""
     REGISTRY.inc(f"collectives.{verb}.calls", 1.0)
     REGISTRY.inc(f"collectives.{verb}.bytes", float(nbytes))
+    if staged:
+        REGISTRY.inc(f"collectives.{verb}.staged", 1.0)
+    if not _state.enabled:
+        return
     REGISTRY.add_event({
         "name": f"collectives.{verb}",
         "ph": "X",
@@ -348,6 +352,27 @@ def record_collective(verb: str, nbytes: int, axis_name: str,
         "args": {"axis": axis_name, "bytes": int(nbytes),
                  "staged": bool(staged)},
     })
+
+
+def collective_census() -> Dict[str, Dict[str, int]]:
+    """{verb: {"calls", "bytes", "staged"}} from record_collective's
+    counters since the last reset."""
+    out: Dict[str, Dict[str, int]] = {}
+    for name, v in REGISTRY.snapshot()["counters"].items():
+        parts = name.split(".")
+        if len(parts) == 3 and parts[0] == "collectives":
+            c = out.setdefault(parts[1], {"calls": 0, "bytes": 0,
+                                          "staged": 0})
+            c[parts[2]] = int(v)
+    return out
+
+
+def reset_collective_census() -> None:
+    """Drop record_collective's counters (the rest of the registry stays)."""
+    with REGISTRY._lock:
+        for name in [k for k in REGISTRY.counters
+                     if k.startswith("collectives.")]:
+            del REGISTRY.counters[name]
 
 
 def snapshot() -> dict:

@@ -20,47 +20,26 @@ reduce-scatter support differs between torch builds, so under gloo
 psum_scatter is an all_reduce followed by the rank's slice (the same sums;
 integer sums exact either way).
 
-The census: every verb calls obs.record_collective (the registry's
-`collectives.<verb>.{calls,bytes}` when obs is on) and adds to this
-module's own always-on `census()` (calls, operand bytes and staged calls
-per verb), which a rank reports beside its kernel launch counts.
+The census: every verb calls obs.record_collective, whose always-on
+counters `collectives.<verb>.{calls,bytes,staged}` are the one record of
+calls, operand bytes and staged calls per verb; obs.collective_census
+reads them for a rank's report beside its kernel launch counts.
 """
 
 from __future__ import annotations
 
 import pickle
-import threading
 from typing import Dict, Sequence, Tuple
 
 import torch
 
 from ..obs import record_collective
-from .mesh import Mesh, process_count, process_index
-
-_census_lock = threading.Lock()
-_CENSUS: Dict[str, Dict[str, int]] = {}
-
-
-def census() -> Dict[str, Dict[str, int]]:
-    """{verb: {"calls", "bytes", "staged"}} since the last reset."""
-    with _census_lock:
-        return {k: dict(v) for k, v in _CENSUS.items()}
-
-
-def reset_census() -> None:
-    with _census_lock:
-        _CENSUS.clear()
+from .mesh import DATA_AXIS, Mesh, process_count, process_index
 
 
 def _count(verb: str, tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
     nbytes = sum(int(t.numel()) * t.element_size() for t in tensors)
-    staged = int(mesh.staged)
-    with _census_lock:
-        c = _CENSUS.setdefault(verb, {"calls": 0, "bytes": 0, "staged": 0})
-        c["calls"] += 1
-        c["bytes"] += nbytes
-        c["staged"] += staged
-    record_collective(verb, nbytes, mesh.axis_name, staged=bool(staged))
+    record_collective(verb, nbytes, mesh.axis_name, staged=mesh.staged)
 
 
 def _dist():
@@ -211,21 +190,15 @@ def host_allgather_objects(obj):
     ones a flaky network or a dying peer breaks. No retry: a rank that
     re-entered a collective alone would desync the group, so a fault here
     is fatal by design and the flight event names it."""
-    from ..obs import inc as obs_inc, span as obs_span
+    from ..obs import span as obs_span
     from ..resilience import chaos_point
 
     chaos_point("collective.host")
     if process_count() == 1:
         return [obj]
     nbytes = len(pickle.dumps(obj))
-    obs_inc("collectives.host_allgather.calls", 1.0)
-    obs_inc("collectives.host_allgather.bytes", float(nbytes))
-    with _census_lock:
-        c = _CENSUS.setdefault("host_allgather",
-                               {"calls": 0, "bytes": 0, "staged": 0})
-        c["calls"] += 1
-        c["bytes"] += nbytes
     with obs_span("collectives.host_allgather", bytes=nbytes):
+        record_collective("host_allgather", nbytes, DATA_AXIS)
         out = [None] * process_count()
         _dist().all_gather_object(out, obj)
         return out

@@ -8,12 +8,12 @@ one rank is one process and one device, joined by `torch.distributed`:
                         the backend, and whether the ranks share one
                         ingest (`shared_ingest`)
   choose_backend        NCCL when every rank has a GPU of its own, gloo on
-                        the CPU and when ranks share a card (YTK_DIST_BACKEND
-                        overrides); chosen before the group exists
+                        the CPU and when ranks share a card; chosen before
+                        the group exists, never switched
   distributed_initialize_if_needed  init_process_group from a coordinator
                         `host:port` (or YTKLEARN_TPU_DISTRIBUTED=1 and
                         torch's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK),
-                        with a finite timeout (YTK_DIST_TIMEOUT_S)
+                        with a finite timeout (TIMEOUT_S)
   make_mesh             the Mesh of the initialized group, registered as
                         this process's mesh
   process_count, process_index  the reference's jax.process_count/index:
@@ -40,9 +40,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import knobs
-
 DATA_AXIS = "data"
+#: seconds a collective waits for its peers before the group fails the run
+#: (a desync fails loudly instead of hanging)
+TIMEOUT_S = 600.0
 
 log = logging.getLogger("ytklearn_tpu_torch.parallel")
 
@@ -83,14 +84,8 @@ def process_index() -> int:
 
 def choose_backend(devices: Sequence[torch.device]) -> str:
     """The backend for ranks on `devices`: NCCL when every rank has a GPU
-    of its own, gloo on the CPU and when two ranks share a card. The knob
-    YTK_DIST_BACKEND (`nccl` | `gloo`) overrides `auto`."""
-    want = (knobs.get_str("YTK_DIST_BACKEND") or "auto").lower()
-    if want in ("nccl", "gloo"):
-        return want
-    if want != "auto":
-        raise ValueError(
-            f"YTK_DIST_BACKEND must be auto|nccl|gloo, got {want!r}")
+    of its own, gloo on the CPU and when two ranks share a card (NCCL
+    cannot join two ranks on one device)."""
     devs = [torch.device(d) for d in devices]
     if not devs or any(d.type != "cuda" for d in devs):
         return "gloo"
@@ -126,8 +121,7 @@ def coordinator_backend(device: torch.device, world: int) -> str:
 
 
 def _timeout() -> datetime.timedelta:
-    return datetime.timedelta(
-        seconds=float(knobs.get_float("YTK_DIST_TIMEOUT_S")))
+    return datetime.timedelta(seconds=TIMEOUT_S)
 
 
 def distributed_initialize_if_needed(coordinator: str = "",
