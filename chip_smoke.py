@@ -182,7 +182,7 @@ run its total.
      floor (mma_floor_ms), its plain version and one scatter_add_, then K8
      and K2 on waves of 1 to 64 slots that hold every row;
  16. (slice 10, its main path) writes seeded synthetic text files
-     (CONVEX_DATA: 2^17 lines for linear and FM, 2^15 for multiclass and
+     (CONVEX_DATA: 2^16 lines for linear and FM, 2^15 for multiclass and
      FFM) and runs `cli train` in this process for each of CONVEX_RUNS on
      the card and on the CPU: linear with L1 (OWL-QN), linear grid,
      multiclass_linear softmax K = 5, FM k = [1, 8], FFM over 8 fields,
@@ -196,7 +196,7 @@ run its total.
      L-BFGS iterations, the loss falling over accepted iterations, and
      whether two trainings dump byte-identical texts;
  17. (slice 12, its main path) keeps those convex models, writes the FM
-     case's data again at 2^17 + 2^14 and 2^15 + 2^12 lines and runs
+     case's data again at 2^16 + 2^13 and 2^15 + 2^12 lines and runs
      `cli train` in this process for each of GBST_RUNS (gbmlr K = 8, 3
      trees; gbsdt, gbhmlr, gbhsdt K = 8, 3 trees; a random_forest run; a
      continue_train run, 3 + 2 trees; lr 0.3, rates 0.8) at GBST_ITERS
@@ -339,7 +339,21 @@ run its total.
      "feature"` on `--devices 2` sharing the card (the columns sharded,
      K1 at f32 on each rank) against one rank's level-wise host engine on
      2^17 + 2^14 of the lines, loss and test AUC within DIST_FP_RTOL;
- 24. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+ 24. (slice 19, its main path) right after phase_dist,
+     `phase_dist_convex`: `cli train linear` and `cli train fm` at the FM
+     cell's width (38 features and the bias, dim about 2^18, rank 8) and
+     gbmlr on one rank in this process, while, as subprocesses, each runs
+     under `--coordinator` at world size 1 (NCCL; dumps byte-identical to
+     one rank), on `--devices 2` with both ranks on cuda:0 over gloo (the
+     one-rank iterations and status, losses at rtol 1e-4, test AUC within
+     1e-4; gbmlr at GBST_HELD_ITERS), and linear as two `--coordinator`
+     processes on their lines_avg shards (within rel 1e-3 of one); then
+     `cli retrain gbdt` (int8) of phase_cli_train's text cut to 2^18 +
+     2^15 lines on one device and with the candidate on two ranks sharing
+     the card: each rank launches K2 and K5, the gate K6, and the two
+     candidates are the same bytes; each part prints its seconds, backend
+     and collective census;
+ 25. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
      `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
      card line, and last the result line {"ok": true, "device": {...}}.
 
@@ -3570,10 +3584,10 @@ def phase_u8_timing(card):
 CONVEX_SEED = 1010
 #: (data, family, train lines, write_convex_case keywords)
 CONVEX_DATA = (
-    ("linear", "linear", 1 << 17, dict(vocab=50000, nnz=12)),
+    ("linear", "linear", 1 << 16, dict(vocab=50000, nnz=12)),
     ("multiclass", "multiclass_linear", 1 << 15,
      dict(vocab=200, nnz=10, K=5)),
-    ("fm", "fm", 1 << 17, dict(vocab=20000, nnz=16, k=8)),
+    ("fm", "fm", 1 << 16, dict(vocab=20000, nnz=16, k=8)),
     ("ffm", "ffm", 1 << 15, dict(vocab=2000, nnz=12, n_fields=8, k=4)),
 )
 #: (run, data, l1, l2, max_iter, hyper block)
@@ -4183,7 +4197,7 @@ def phase_objectives_int8(card):
 
 #: GBST on the FM case's data (CONVEX_DATA "fm": convex_synth binary lines,
 #: vocab 20000, 16 non-zeros a row, CONVEX_SEED): (lines, test lines)
-GBST_DATA = {"big": (1 << 17, 1 << 14), "small": (1 << 15, 1 << 12)}
+GBST_DATA = {"big": (1 << 16, 1 << 13), "small": (1 << 15, 1 << 12)}
 GBST_SHAPE = dict(vocab=20000, nnz=16, l2=1e-3)
 #: (run, variant, data, trees, extra config, continue_train trees)
 GBST_RUNS = (
@@ -4277,8 +4291,8 @@ def gbst_held(run, res, cres):
 
 
 def phase_gbst_cli(card, tmp):
-    """Slice 12's main path: `cli train` for gbmlr (K = 8, 3 trees, 2^17 +
-    2^14 lines: dim 20001 x 15 weights, a (rows, 17, 15) gather a pass),
+    """Slice 12's main path: `cli train` for gbmlr (K = 8, 3 trees, 2^16 +
+    2^13 lines: dim 20001 x 15 weights, a (rows, 17, 15) gather a pass),
     gbsdt, gbhmlr and gbhsdt (K = 8, 3 trees, 2^15 + 2^12 lines), a
     random_forest run and a continue_train run (3 + 2 trees), each at
     learning_rate 0.3, instance and feature rates 0.8 and GBST_ITERS
@@ -5010,7 +5024,7 @@ def phase_continual(tmp, cli_model, card):
     responses, and no request fails. Card against CPU, run while the
     server starts (continual_card_cpu): an int8 retrain (bootstrap, then
     extra rounds on fresh lines) whose dumps are byte-identical; `retrain
-    linear --mode ftrl` on the convex phase's 2^17 lines (bootstrap and
+    linear --mode ftrl` on the convex phase's 2^16 lines (bootstrap and
     warm twice on the card, bit-equal; the bootstrap on the CPU, weights
     at rtol 1e-5 plus 1e-5 of the largest |w|); `cli predict gbdt` of the
     incumbent over the held-out file's first CONT_PREDICT_ROWS lines (raw
@@ -6206,6 +6220,11 @@ def run_cli_procs(argvs, tmp, tag):
     """`python -m ytklearn_tpu_torch.cli <argv>` for each argv, all at once
     (stderr to files: a rank blocked on a full pipe while its peer waits in
     a collective would hang the group) -> (the JSON lines, seconds)."""
+    return finish_cli_procs(start_cli_procs(argvs, tmp, tag))
+
+
+def start_cli_procs(argvs, tmp, tag):
+    """run_cli_procs's processes, started; finish_cli_procs waits."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
@@ -6217,6 +6236,13 @@ def run_cli_procs(argvs, tmp, tag):
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "ytklearn_tpu_torch.cli"] + argv,
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=ef, text=True))
+    return procs, errs, t0, tag
+
+
+def finish_cli_procs(started):
+    """Wait for start_cli_procs's processes -> (the JSON lines, seconds
+    since they started); a failed process fails the run."""
+    procs, errs, t0, tag = started
     outs = []
     try:
         for p in procs:
@@ -6434,6 +6460,258 @@ def phase_dist(tmp, card):
             "feature2": [r["launches"] for r in r5["ranks"]]}
 
 
+# -- slice 19: the convex families and GBST across ranks ----------------------
+
+#: the FM cell's width (bench.py:367-422: 38 features and the bias a row,
+#: dim 2^18, rank 8), its depth cut to these text lines (train, test)
+DCONV_LINES = (1 << 16, 1 << 13)
+DCONV_ITERS = 10  # L-BFGS iterations of the linear and FM runs
+DCONV_GBST = ((1 << 15, 1 << 12), 2)  # gbmlr's lines and trees (K = 8)
+#: `cli retrain gbdt`: phase_cli_train's text cut to these lines (train,
+#: held-out), int8 trees, depth
+DCONV_RETRAIN = ((1 << 18, 1 << 15), 5, 6)
+DCONV_RTOL = 1e-4  # tests/test_torch_mesh_convex.py's tolerances
+DCONV_MP_RTOL = 1e-3  # tests/test_multiprocess.py's two-process bound
+
+
+def head_lines(src, dst, n):
+    """The first n lines of `src` into `dst`."""
+    with open(src) as f, open(dst, "w") as g:
+        for i, line in enumerate(f):
+            if i >= n:
+                break
+            g.write(line)
+
+
+def dconv_argv(d, family, cfg, tag, extra=()):
+    """`cli train <family>` of `cfg` dumping into d/tag/model."""
+    c = json.loads(json.dumps(cfg))
+    c["model"]["data_path"] = os.path.join(d, tag, "model")
+    conf = os.path.join(d, f"{tag}.conf")
+    with open(conf, "w") as f:
+        json.dump(c, f)
+    return ["train", family, conf] + list(extra)
+
+
+def same_tree(a, b):
+    """Every file under directory `a` is in `b` with the same bytes."""
+    files = sorted(os.path.relpath(os.path.join(r, f), a)
+                   for r, _d, fs in os.walk(a) for f in fs)
+    return bool(files) and all(
+        same_files(os.path.join(a, p), os.path.join(b, p)) for p in files)
+
+
+def phase_dist_convex(tmp, card):
+    """The convex families and GBST across ranks (slice 19): `cli train
+    linear` and `cli train fm` at the FM cell's width (DCONV_LINES lines
+    of 38 features and the bias, dim about 2^18, rank 8, DCONV_ITERS
+    L-BFGS iterations) in this process on one rank while one batch of
+    processes runs: (a) each under `--coordinator` at world size 1 over NCCL,
+    its dump byte-identical to the one-rank dump; (b) each on `--devices
+    2` with both ranks on cuda:0 over gloo: the same iterations and
+    status, the loss at rtol DCONV_RTOL and test AUC within 1e-4 of one
+    rank; (c) gbmlr on `--devices 2` at GBST_HELD_ITERS against one rank
+    (trees equal, losses at DCONV_RTOL); (d) two `--coordinator` linear
+    processes, each ingesting its lines_avg shard: the loss within
+    DCONV_MP_RTOL of one process, rank 1 dumping nothing; then (e) `cli
+    retrain gbdt` (continual.retrain, int8) of phase_cli_train's text cut
+    to DCONV_RETRAIN on one device and on two ranks sharing the card: the
+    two ranks launch K2 and K5 each, the gate in this process launches
+    K6, and both promote the same bytes. No kernel of the port runs on
+    the convex and GBST paths (the wrappers' counts in this process stay
+    where they were). Prints each part's seconds, backend and collective
+    census."""
+    from unittest import mock
+
+    from ytklearn_tpu_torch import continual
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.gbdt.launch import free_port
+    from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case, \
+        write_gbst_case
+    from ytklearn_tpu_torch.serve import kernels
+
+    d = os.path.join(tmp, "dist_convex")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    (n, n_test), ((gn, gn_test), g_trees) = DCONV_LINES, DCONV_GBST
+    fm = write_convex_case(os.path.join(d, "fm_data"), "fm", n, n_test,
+                           CONVEX_SEED, vocab=(1 << 18) - 1, nnz=38, k=8,
+                           max_iter=DCONV_ITERS)
+    fm["optimization"]["line_search"]["lbfgs"]["convergence"]["eps"] = 1e-7
+    lin = json.loads(json.dumps(fm))
+    del lin["k"]
+    gb = write_gbst_case(os.path.join(d, "gbst_data"), gn, gn_test,
+                         CONVEX_SEED, K=8, tree_num=g_trees,
+                         learning_rate=0.3, instance_sample_rate=0.8,
+                         feature_sample_rate=0.8,
+                         max_iter=GBST_HELD_ITERS, **GBST_SHAPE)
+    gb["loss"]["evaluate_metric"] = ["auc"]
+    gb["optimization"]["line_search"]["lbfgs"]["convergence"]["eps"] = 1e-7
+    print(f"dist_convex: text written in {time.perf_counter() - t0:.3f} s "
+          f"({n} + {n_test} lines of 38 features, {gn} + {gn_test} GBST "
+          f"lines) [{card}]", flush=True)
+    runs = {"linear": ("linear", lin), "fm": ("fm", fm),
+            "gbmlr": ("gbmlr", gb)}
+    # (a), (b), (c) and (d) in one batch of processes, started first; the
+    # one-rank runs go in this process while they start
+    mp = json.loads(json.dumps(lin))
+    mp["data"]["assigned"] = False
+    mp["data"]["unassigned_mode"] = "lines_avg"
+    port_mp = free_port()
+    batch = {}
+    for name in ("linear", "fm"):
+        family, cfg = runs[name]
+        batch[f"{name}_nccl1"] = dconv_argv(d, family, cfg, f"{name}_nccl1", [
+            "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+            "1", "--process-id", "0"])
+    for name in ("linear", "fm", "gbmlr"):
+        family, cfg = runs[name]
+        batch[f"{name}_dev2"] = dconv_argv(d, family, cfg, f"{name}_dev2", [
+            "--devices", "2", "--rank-devices", "cuda:0,cuda:0"])
+    for r in range(2):
+        batch[f"linear_coord2_r{r}"] = dconv_argv(
+            d, "linear", mp, f"linear_coord2_r{r}", [
+                "--coordinator", f"127.0.0.1:{port_mp}", "--num-processes",
+                "2", "--process-id", str(r)])
+    started = start_cli_procs(list(batch.values()), d, "dconv")
+    before = launch_counts()
+    one = {}
+    for name, (family, cfg) in runs.items():
+        t1 = time.perf_counter()
+        rc, line = cli_quiet(dconv_argv(d, family, cfg, f"{name}_one"))
+        one[name] = line
+        check(rc == 0 and line["model"] == family, f"{name} one rank: "
+              f"{line}")
+        print(f"dist_convex: {name} on one rank, in this process: "
+              f"{time.perf_counter() - t1:.3f} s, {line} [{card}]",
+              flush=True)
+    check(launch_counts() == before,
+          "a kernel wrapper launched on the convex or GBST path")
+
+    outs, wall = finish_cli_procs(started)
+    got = dict(zip(batch, outs))
+    print(f"dist_convex (a)-(d): {len(batch)} processes at once, "
+          f"{wall:.3f} s (wall, their start and parse included) [{card}]",
+          flush=True)
+
+    def rank_lines(part, reps):
+        for r in reps:
+            print(f"dist_convex {part}: rank {r['rank']} on {r['device']}, "
+                  f"backend {r['backend']}, {r['seconds']:.3f} s in train();"
+                  f" collectives: {fmt_census(r['collectives'])} [{card}]",
+                  flush=True)
+            check(r["collectives"].get("psum", {}).get("calls", 0) > 0,
+                  f"dist_convex {part}: rank {r['rank']} ran no psum")
+
+    for name in ("linear", "fm"):
+        # (a) NCCL at world size 1
+        g = got[f"{name}_nccl1"]
+        rank_lines(f"(a) {name} --coordinator, world 1", [g["rank"]])
+        check(g["rank"]["backend"] == "nccl", f"(a) {name}: {g['rank']}")
+        eq = same_tree(os.path.join(d, f"{name}_one", "model"),
+                       os.path.join(d, f"{name}_nccl1", "model"))
+        print(f"dist_convex (a) {name}: n_iter {g['n_iter']}, avg_loss "
+              f"{g['avg_loss']!r} beside one rank's "
+              f"{one[name]['avg_loss']!r}; dump byte-identical to one rank:"
+              f" {eq} [{card}]", flush=True)
+        check(eq, f"(a) {name}: the NCCL world-1 dump is not the one-rank "
+              "dump")
+    for name in ("linear", "fm", "gbmlr"):
+        # (b), (c) two ranks sharing the card
+        g, o = got[f"{name}_dev2"], one[name]
+        rank_lines(f"({'c' if name == 'gbmlr' else 'b'}) {name} "
+                   "--devices 2 on cuda:0", g["ranks"])
+        check([r["backend"] for r in g["ranks"]] == ["gloo", "gloo"],
+              f"{name} --devices 2: {g['ranks']}")
+        if name == "gbmlr":
+            pairs = [(g["train_loss"], o["train_loss"]),
+                     (g["test_loss"], o["test_loss"])]
+            same = g["trees"] == o["trees"] == g_trees
+        else:
+            pairs = [(g["avg_loss"], o["avg_loss"]),
+                     (g["test_loss"], o["test_loss"])]
+            same = (g["n_iter"], g["status"]) == (o["n_iter"], o["status"])
+        rel = max(abs(a - b) / abs(b) for a, b in pairs)
+        dauc = abs(g["test_metrics"]["auc"] - o["test_metrics"]["auc"])
+        print(f"dist_convex ({'c' if name == 'gbmlr' else 'b'}) {name} on "
+              f"two ranks: {g} beside one rank's {o}: losses rel "
+              f"{rel:.3e}, test AUC delta {dauc:.3e} [{card}]", flush=True)
+        check(same and rel <= DCONV_RTOL and dauc <= 1e-4,
+              f"{name} --devices 2 against one rank: rel {rel}, AUC "
+              f"{dauc}, {g} {o}")
+    # (d) two --coordinator processes, each on its lines_avg shard
+    g0, g1 = got["linear_coord2_r0"], got["linear_coord2_r1"]
+    rank_lines("(d) two --coordinator linear processes",
+               [g0["rank"], g1["rank"]])
+    rel = abs(g0["avg_loss"] - one["linear"]["avg_loss"]) \
+        / one["linear"]["avg_loss"]
+    print(f"dist_convex (d): rank 0 avg_loss {g0['avg_loss']!r} (rank 1 "
+          f"{g1['avg_loss']!r}), one process {one['linear']['avg_loss']!r}"
+          f" (rel {rel:.3e}, band {DCONV_MP_RTOL}); n_iter {g0['n_iter']} "
+          f"[{card}]", flush=True)
+    check(g0["avg_loss"] == g1["avg_loss"] and rel <= DCONV_MP_RTOL
+          and g0["n_iter"] == one["linear"]["n_iter"],
+          f"two --coordinator processes: {g0} {g1}")
+    check(os.path.exists(os.path.join(d, "linear_coord2_r0", "model"))
+          and not os.path.exists(os.path.join(d, "linear_coord2_r1")),
+          "rank 0 must dump and rank 1 must not")
+
+    # (e) cli retrain gbdt on two ranks sharing the card
+    (rn, rn_test), r_rounds, r_depth = DCONV_RETRAIN
+    rt = {k: os.path.join(d, f"rt_{k}.txt") for k in ("train", "test")}
+    head_lines(os.path.join(tmp, "train.txt"), rt["train"], rn)
+    head_lines(os.path.join(tmp, "test.txt"), rt["test"], rn_test)
+    res = {}
+    for tag, devices in (("one", None), ("two", ["cuda:0", "cuda:0"])):
+        cfg = hocon.load(CONF)
+        model = os.path.join(d, f"rt_{tag}", "gbdt.model")
+        for key, val in (("data.train.data_path", rt["train"]),
+                         ("data.test.data_path", rt["test"]),
+                         ("model.data_path", model),
+                         ("model.feature_importance_path", model + ".imp"),
+                         ("optimization.round_num", r_rounds),
+                         ("optimization.max_depth", r_depth)):
+            hocon.set_path(cfg, key, val)
+        zero_kernel_counts()
+        k6 = kernels.heap_walk.launches
+        t1 = time.perf_counter()
+        # the gate scores on the fused rung (K6), as phase_continual's
+        with mock.patch.dict(os.environ, {"YTK_SERVE_FUSED": "1"}):
+            r = continual.retrain("gbdt", cfg, device="cuda",
+                                  devices=devices, hist_precision="int8")
+        secs = time.perf_counter() - t1
+        c = kernel_counts()
+        k6 = kernels.heap_walk.launches - k6
+        res[tag] = (r, model, c, secs, k6)
+        print(f"dist_convex (e) retrain gbdt, {tag} "
+              f"{'rank' if devices is None else 'ranks on cuda:0'}: "
+              f"{secs:.3f} s, promoted {r.promoted} v{r.version}, trained "
+              f"{r.trained}, held-out loss {r.gate.candidate_loss!r}; this "
+              f"process launched hist_q {c['hist_q']}, hist_gather_q "
+              f"{c['hist_gather_q']}, route {c['route']}, heap_walk (K6, "
+              f"the gate) {k6} [{card}]", flush=True)
+        check(r.promoted and k6 > 0, f"retrain gbdt {tag}: {r.to_json()}")
+    r2, _m2, c2, _s2, _k6 = res["two"]
+    rank_lines("(e) retrain gbdt --devices 2", r2.ranks)
+    for rep in r2.ranks:
+        ln = rep["launches"]
+        print(f"dist_convex (e): rank {rep['rank']} launched hist_q (K2) "
+              f"{ln['hist_q']}, hist_gather_q (K4) {ln['hist_gather_q']}, "
+              f"route (K5) {ln['route']} [{card}]", flush=True)
+        check(ln["hist_q"] > 0 and ln["route"] > 0 and ln["hist"] == 0,
+              f"retrain rank {rep['rank']} did not run K2 and K5: {ln}")
+    check(c2["hist_q"] == 0 and c2["route"] == 0,
+          f"the two-rank retrain trained in this process: {c2}")
+    eq = same_files(res["one"][1], res["two"][1])
+    print(f"dist_convex (e): the two-rank candidate, promoted, "
+          f"byte-identical to the one-device candidate: {eq} [{card}]",
+          flush=True)
+    check(eq, "retrain --devices 2: the candidate is not the one-device "
+          "candidate")
+    return {"retrain_ranks": [rep["launches"] for rep in r2.ranks],
+            "retrain_gate_k6": res["two"][4]}
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -6599,6 +6877,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         # slice 18: GBDT across ranks over the same text
         timed("dist", phase_dist, tmp, card)
+        torch.cuda.empty_cache()
+        # slice 19: the convex families and GBST across ranks, then a
+        # retrain of that text on two ranks
+        timed("dist_convex", phase_dist_convex, tmp, card)
         torch.cuda.empty_cache()
         # slice 13: the host engine over the same text, then resilience
         t0 = time.perf_counter()

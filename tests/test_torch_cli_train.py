@@ -33,7 +33,8 @@ from ytklearn_tpu_torch.obs import profiler
 from ytklearn_tpu_torch.gbdt import trainer as ptrainer
 from ytklearn_tpu_torch.gbdt.binning import model_text_digest
 from ytklearn_tpu_torch.predict import create_predictor
-from ytklearn_tpu_torch.scripts.convex_synth import write_gbst_case
+from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case, \
+    write_gbst_case
 from test_torch_engine import split_margins
 
 CONF = "experiment/higgs/local_gbdt.conf"
@@ -182,8 +183,8 @@ def test_unported_options_raise_by_item(extra, match, runs):
     CPU and return 0: `--max-restarts 1` with nothing failing, `--resume
     auto` with no model there (a cold start), `--coordinator` as a one-rank
     gloo group and `--devices 2` as two gloo ranks (rank 0 dumps; the JSON
-    line carries the ranks' reports; any other family under them still
-    raises by item 1.7b), `--trace-out T` writing a Chrome trace that loads
+    line carries the ranks' reports; since item 1.7b a linear model trains
+    under both as well), `--trace-out T` writing a Chrome trace that loads
     and holds the run's spans, and `--profile DIR` writing the ytkprof
     report (the trainer's phases, coverage of the run) and a
     torch.profiler capture of the rounds into DIR."""
@@ -208,8 +209,26 @@ def test_unported_options_raise_by_item(extra, match, runs):
         else:
             assert line["rank"]["backend"] == "gloo"
             assert line["rank"]["collectives"]["psum_scatter"]["calls"] > 0
-        with pytest.raises(NotImplementedError, match="ROADMAP.md 1.7b"):
-            cli.main(["train", "linear", CONF] + extra)
+        # the convex families take both flags too (item 1.7b)
+        d = runs["tmp"] / f"linear_{tag}"
+        conf = d / "c.conf"
+        cfg = write_convex_case(str(d), "linear", 200, 50, 3, max_iter=2)
+        conf.write_text(json.dumps(cfg))
+        if tag == "coordinator":
+            from ytklearn_tpu_torch.gbdt.launch import free_port
+
+            extra = ["--coordinator", f"127.0.0.1:{free_port()}",
+                     "--num-processes", "1", "--process-id", "0"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["train", "linear", str(conf), "--device",
+                             "cpu"] + extra) == 0
+        line = _json_line(buf.getvalue())
+        assert line["n_iter"] == 2 and (d / "model").exists()
+        if tag == "devices":
+            assert [r["rank"] for r in line["ranks"]] == [0, 1]
+        else:
+            assert line["rank"]["collectives"]["psum"]["calls"] > 0
         return
     if match in ("1.5", "1.12"):
         tag = extra[0].strip("-")

@@ -4,8 +4,14 @@ same inputs over an N-device slice of the 8-device CPU mesh
 (tests/test_collectives.py's cases at N = 2 and 4): integer results and
 pargmax_tuple exactly, float sums at rtol 1e-6. Also the host verbs
 (host_allgather_objects, load_on_rank0, equal_row_target), the census and
-the `collective.host` chaos seam. The ranks run once a world size
-(tests/torch_mp_worker.py)."""
+the `collective.host` chaos seam, and the metrics across ranks
+(EvalSet(mesh=...): each rank's accumulators psummed, weight-0 padding
+rows on the last rank): the psummed AUC histogram is the one-rank
+histogram exactly for unit and integer weights, so the AUC is the
+one-rank AUC; the pointwise metrics and the confusion accuracy within
+rtol 1e-5 (f32 sums in another order); pointwise_sums and
+pointwise_finalize against the JAX package's, padding rows included. The
+ranks run once a world size (tests/torch_mp_worker.py)."""
 
 import numpy as np
 import pytest
@@ -17,7 +23,8 @@ from jax.sharding import PartitionSpec as P
 from ytklearn_tpu.parallel import DATA_AXIS, collectives as jcoll, make_mesh
 from ytklearn_tpu.parallel.mesh import shard_map_compat
 
-from torch_mp_worker import coll_inputs, run_ranks
+from torch_mp_worker import EVAL_METRICS, coll_inputs, eval_inputs, \
+    run_ranks
 
 WORLDS = (2, 4)
 
@@ -191,3 +198,75 @@ def test_census_counts_host_allgather(ranks, world):
                 + len(pickle.dumps("read by 0" if r == 0 else None)))
         assert res["census_host"] == {"calls": 2, "bytes": want,
                                       "staged": 0}
+
+
+def _one_rank_eval():
+    import torch
+
+    from ytklearn_tpu_torch.eval import EvalSet
+
+    t = {k: torch.from_numpy(v) for k, v in eval_inputs().items()}
+    ev = EvalSet(EVAL_METRICS)
+    return {
+        "eval_binary": ev.evaluate(t["pred"], t["y"], t["w_int"]),
+        "eval_reg": ev.evaluate(t["pred"], t["y_reg"], t["w_unit"]),
+        "eval_multi": EvalSet(["auc", "confusion_matrix"], K=5).evaluate(
+            t["prob"], t["onehot"], t["w_int"]),
+    }
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("w", ["w_unit", "w_int"])
+def test_psummed_auc_histogram_is_one_rank_histogram(ranks, world, w):
+    from ytklearn_tpu_torch.eval import auc_histogram
+    import torch
+
+    inp = eval_inputs()
+    want = auc_histogram(*(torch.from_numpy(inp[k])
+                           for k in ("pred", "y", w))).numpy()
+    for rec in ranks[world]:
+        np.testing.assert_array_equal(rec[f"auc_hist_{w}"], want)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", ["eval_binary", "eval_reg", "eval_multi"])
+def test_evalset_over_ranks_is_one_rank(ranks, world, case):
+    want = _one_rank_eval()[case]
+    for rec in ranks[world]:
+        got = rec[case]
+        assert got == ranks[world][0][case]  # the same bits on every rank
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if k == "auc":
+                assert got[k] == v
+            else:
+                np.testing.assert_allclose(got[k], v, rtol=1e-5)
+            # mape divides by the label: binary labels' zeros make it
+            # inf on one rank too; the padding rows never do
+            assert np.isfinite(got[k]) == np.isfinite(v)
+
+
+@pytest.mark.parametrize("kind", ["rmse", "mae", "mape", "smape"])
+def test_pointwise_sums_match_jax(kind):
+    """Padding rows (weight 0, label 0) contribute nothing, also to mape
+    and smape, which divide by the label."""
+    import torch
+
+    from ytklearn_tpu.eval import metrics as jm
+    from ytklearn_tpu_torch.eval import pointwise_finalize, pointwise_sums
+
+    inp = eval_inputs()
+    pad = 5
+    pred = np.concatenate([inp["pred"], np.zeros(pad, np.float32)])
+    y = np.concatenate([inp["y_reg"], np.zeros(pad, np.float32)])
+    w = np.concatenate([inp["w_int"], np.zeros(pad, np.float32)])
+    got = pointwise_sums(torch.from_numpy(pred), torch.from_numpy(y),
+                         torch.from_numpy(w), kind)
+    with jax.enable_x64(False):
+        want = jm.pointwise_sums(jnp.asarray(pred), jnp.asarray(y),
+                                 jnp.asarray(w), kind)
+        want_fin = float(jm.pointwise_finalize(want, kind))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(float(pointwise_finalize(got, kind)),
+                               want_fin, rtol=1e-5)

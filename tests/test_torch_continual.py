@@ -410,6 +410,44 @@ def test_gbdt_int8_warm_start_grows_the_reference_trees(tmp_path, data_dir,
         (tmp_path / "jax" / "g.model.v1").read_text().count("tree")
 
 
+@pytest.mark.parametrize("family", ["linear", "gbdt"])
+def test_retrain_on_two_ranks_decides_as_one_device(tmp_path, data_dir,
+                                                    family):
+    """`retrain --devices 2` on the CPU (the candidate on two gloo ranks
+    through the train launcher, the gates in this process): over a
+    bootstrap and a warm retrain the same promote or reject decisions and
+    version records as one device, every rank's report in the result; the
+    GBDT int8 candidate, promoted, byte for byte the one-device model."""
+    out = {}
+    for tag, devices in (("one", None), ("two", ["cpu", "cpu"])):
+        model = tmp_path / tag / ("g.model" if family == "gbdt"
+                                  else "lr.model")
+        rec = []
+        for i, train in enumerate(("1.train", "2.train")):
+            if family == "gbdt":
+                cfg = _gbdt_cfg(data_dir, model, "g" + train, 4)
+                kw = {"extra_rounds": 3, "hist_precision": "int8"}
+            else:
+                cfg = _linear_cfg(data_dir, model, train="d" + train,
+                                  max_iter=2 if i == 0 else 12, band=0.02)
+                kw = {}
+            r = pcont.retrain(family, cfg, device="cpu", devices=devices,
+                              **kw)
+            rec.append((r.promoted, r.version, r.gate.passed,
+                        r.gate.reasons, _version_fields(pcont.read_version(
+                            LocalFileSystem(), str(model))),
+                        [x["rank"] for x in r.ranks]))
+        out[tag] = (rec, model)
+    (one, m1), (two, m2) = out["one"], out["two"]
+    assert [x[:5] for x in one] == [x[:5] for x in two]
+    assert [x[5] for x in one] == [[], []]
+    assert [x[5] for x in two] == [[0, 1], [0, 1]]
+    if family == "gbdt":
+        assert m2.read_bytes() == m1.read_bytes()
+        assert (m2.parent / "g.model.v1").read_bytes() == \
+            (m1.parent / "g.model.v1").read_bytes()
+
+
 # -- the lock ------------------------------------------------------------------
 
 
@@ -504,8 +542,13 @@ def test_cli_retrain_rollback_and_strict(tmp_path, data_dir, capsys):
                            "cpu", "--set", "continual.band=-1"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 1 and out["promoted"] is False and out["strict"]
-    with pytest.raises(NotImplementedError, match="1.7"):
-        cli.main(["retrain", "linear", str(conf), "--devices", "2"])
+    # --devices 2 (refused until ROADMAP.md 1.7b): the candidate trains on
+    # two gloo ranks, the gate runs here
+    assert cli.main(["retrain", "linear", str(conf), "--device", "cpu",
+                     "--devices", "2", "--set", "continual.band=0.5"]) == 0
+    r5 = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [r["rank"] for r in r5["ranks"]] == [0, 1]
+    assert r5["trained"]["n_iter"] == 2 and "gate" in r5
     # --trace-out (refused until ROADMAP.md 1.12): a Chrome trace of the
     # retrain that loads and holds the driver's and the trainer's spans
     trace = tmp_path / "t.json"

@@ -44,7 +44,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "obs.quality", "obs.profiler", "scripts.prof_drill",
               "scripts.obs_report", "parallel", "parallel.mesh",
               "parallel.collectives", "gbdt.feature_parallel", "gbdt.launch",
-              "scripts.cross_check"):
+              "scripts.cross_check", "parallel.launch", "train_launch",
+              "train", "boost", "optimize.blocked", "optimize.lbfgs",
+              "models.base"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

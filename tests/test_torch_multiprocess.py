@@ -9,7 +9,17 @@ reloads. The multi-process pieces underneath are held to the
 JAX package's exactly, with the other processes' payloads fed through the
 host gather: merge_quantile_candidates, merge_bins_multihost,
 build_bins_global, the ingest's global missing-value fills, and
-io/reader.py::shard_plan in every mode."""
+io/reader.py::shard_plan in every mode.
+
+The convex families and GBST the same way: `cli train linear|gbmlr
+--coordinator` as two processes on tests/mp_worker.py's lines and config,
+within rel 1e-3 of one process (tests/test_multiprocess.py's bound) and
+of the JAX package's two processes; tests/torch_mp_worker.py's linear and
+gbst modes (mp_worker.py's runs in the port) give the CLI's numbers; at
+world size 1 `--coordinator` dumps the one-process text byte for byte;
+and DataIngest's merges (the feature counts, the transform statistics,
+process 0's choice of the dict's source) equal the JAX package's with
+the host gather fed by hand."""
 
 import contextlib
 import io
@@ -41,6 +51,8 @@ from ytklearn_tpu_torch.gbdt.data import GBDTIngest
 from ytklearn_tpu_torch.gbdt.tree import GBDTModel
 from ytklearn_tpu_torch.io.fs import LocalFileSystem
 from ytklearn_tpu_torch.io.reader import shard_plan
+
+from torch_mp_worker import mp_params, run_ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -175,13 +187,42 @@ def test_two_process_cli_matches_jax_two_process(two_process):
 
 
 def test_non_gbdt_families_refuse_both_flags(tmp_path):
-    """Every other family under --devices or --coordinator raises by ROADMAP
-    item 1.7b before anything loads."""
+    """Every other family trains under --devices and --coordinator (where
+    both raised before they were ported): two gloo ranks of one launcher,
+    and a one-process gloo group; each JSON line carries the ranks'
+    reports and rank 0's dump is there."""
+    from ytklearn_tpu_torch.scripts.convex_synth import write_convex_case, \
+        write_gbst_case
+
     for name in ("linear", "fm", "gbmlr"):
-        for extra in (["--devices", "2"],
-                      ["--coordinator", "127.0.0.1:1"]):
-            with pytest.raises(NotImplementedError, match="1.7b"):
-                cli.main(["train", name, "no.conf"] + extra)
+        d = tmp_path / name
+        if name == "gbmlr":
+            cfg = write_gbst_case(str(d), 300, 80, 3, K=2, tree_num=1,
+                                  max_iter=3)
+        else:
+            cfg = write_convex_case(str(d), name, 300, 80, 3, max_iter=3)
+        conf = d / "c.conf"
+        conf.write_text(json.dumps(cfg))
+        for tag, extra in (("devices", ["--devices", "2"]),
+                           ("coordinator", [
+                               "--coordinator", "file://" + str(d / "rdv"),
+                               "--num-processes", "1", "--process-id",
+                               "0"])):
+            model = d / tag / "model"
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert cli.main(["train", name, str(conf), "--device", "cpu",
+                                 "--set", f"model.data_path={model}"]
+                                + extra) == 0
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            assert line["model"] == name and model.exists()
+            if tag == "devices":
+                assert [r["rank"] for r in line["ranks"]] == [0, 1]
+                assert all(r["collectives"]["psum"]["calls"] > 0
+                           for r in line["ranks"])
+            else:
+                assert line["rank"]["backend"] == "gloo"
+                assert line["rank"]["collectives"]["psum"]["calls"] > 0
 
 
 def test_merge_quantile_candidates_equal_reference():
@@ -313,3 +354,300 @@ def test_shard_plan_equals_reference(tmp_path, monkeypatch, P, assigned,
         backend="gloo", shared_ingest=True))
     assert shard_plan(LocalFileSystem(), DataParams(
         assigned=assigned, unassigned_mode=mode), paths) == (paths, 1, 0)
+
+
+# -- the convex families and GBST across processes -------------------------
+
+SPARSE = {"linear": "linear", "gbmlr": "gbst"}  # family -> mp_worker mode
+
+
+def _sparse_conf(tmp_path, name):
+    """mp_worker.py's CommonParams of the mode as a `cli train` config."""
+    cfg = {
+        "data": {"train": {"data_path": str(tmp_path / "train.ytk")},
+                 "test": {"data_path": ""}, "assigned": False,
+                 "unassigned_mode": "lines_avg"},
+        "model": {"data_path": ""},
+        "loss": {"loss_function": "sigmoid", "evaluate_metric": []},
+        "optimization": {"line_search": {"lbfgs": {"convergence": {
+            "max_iter": 10 if name == "linear" else 6}}}},
+    }
+    if name == "gbmlr":
+        cfg.update({"k": 2, "tree_num": 2})
+    conf = tmp_path / f"{name}.conf"
+    conf.write_text(json.dumps(cfg))
+    return conf
+
+
+def _sparse_argv(conf, name, model):
+    return ["train", name, str(conf), "--device", "cpu",
+            "--set", f"model.data_path={model}"]
+
+
+@pytest.fixture(scope="module")
+def two_sparse(tmp_path_factory):
+    """For linear and gbmlr: one `cli train` process (here), two
+    `--coordinator` processes, one `--coordinator` process at world size 1,
+    tests/torch_mp_worker.py's mode at two ranks, and the JAX package's two
+    processes (tests/mp_worker.py), on test_multiprocess.py's lines."""
+    from test_multiprocess import _run, _write_data
+
+    tmp_path = tmp_path_factory.mktemp("two_sparse")
+    _write_data(tmp_path)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = {}
+    procs = []
+    for name in SPARSE:
+        conf = _sparse_conf(tmp_path, name)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(_sparse_argv(conf, name,
+                                         tmp_path / name / "one")) == 0
+        out[name] = {"one": json.loads(
+            buf.getvalue().strip().splitlines()[-1])}
+        for world in (2, 1):
+            rdv = "file://" + str(tmp_path / f"{name}.w{world}.rdv")
+            for r in range(world):
+                # stderr to files: a rank blocked on a full pipe while its
+                # peer waits in a collective would hang the group
+                ef = open(tmp_path / f"{name}.w{world}.r{r}.err", "w+")
+                argv = _sparse_argv(conf, name,
+                                    tmp_path / name / f"w{world}r{r}")
+                procs.append((name, world, r, ef, subprocess.Popen(
+                    [sys.executable, "-m", "ytklearn_tpu_torch.cli"] + argv
+                    + ["--coordinator", rdv, "--num-processes", str(world),
+                       "--process-id", str(r)],
+                    stdout=subprocess.PIPE, stderr=ef, env=env, text=True,
+                    cwd=REPO)))
+    try:
+        # the JAX processes run while the port's do
+        for name, mode in SPARSE.items():
+            out[name]["jax2"] = _run(mode, tmp_path, 2)
+        for name, world, r, ef, p in procs:
+            o, _ = p.communicate(timeout=300)
+            ef.seek(0)
+            err = ef.read()
+            assert p.returncode == 0, f"{name} w{world} r{r}:\n{err[-3000:]}"
+            out[name][f"w{world}r{r}"] = json.loads(
+                o.strip().splitlines()[-1])
+    finally:
+        for *_, ef, p in procs:
+            ef.close()
+            if p.poll() is None:
+                p.kill()
+    for name, mode in SPARSE.items():
+        d = tmp_path_factory.mktemp(f"worker_{mode}")
+        (d / "train.ytk").write_text((tmp_path / "train.ytk").read_text())
+        out[name]["worker"] = run_ranks(mode, 2, str(d))
+    return out, tmp_path
+
+
+def _loss(rec):
+    return rec["avg_loss"] if "avg_loss" in rec else rec["train_loss"]
+
+
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_two_process_sparse_cli_matches_single(two_sparse, name):
+    """Two processes on their lines_avg shards within rel 1e-3 of one
+    process (test_multiprocess.py's bound); the ranks report the same
+    global numbers; rank 0 dumps, rank 1 does not."""
+    out, tmp_path = two_sparse
+    r0, r1 = out[name]["w2r0"], out[name]["w2r1"]
+    assert _loss(r0) == _loss(r1)
+    assert [r0["rank"]["rank"], r1["rank"]["rank"]] == [0, 1]
+    assert r0["rank"]["collectives"]["host_allgather"]["calls"] >= 2
+    assert _loss(r0) == pytest.approx(_loss(out[name]["one"]), rel=1e-3)
+    if name == "linear":
+        assert r0["n_iter"] == out[name]["one"]["n_iter"] == 10
+    else:
+        assert r0["trees"] == out[name]["one"]["trees"] == 2
+    assert (tmp_path / name / "w2r0").exists()
+    assert not (tmp_path / name / "w2r1").exists()
+
+
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_two_process_sparse_cli_matches_jax_two_process(two_sparse, name):
+    out, _ = two_sparse
+    want = out[name]["jax2"]
+    key = "avg_loss" if name == "linear" else "train_loss"
+    assert _loss(out[name]["w2r0"]) == pytest.approx(want[key], rel=1e-3)
+
+
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_torch_mp_worker_modes_match_cli(two_sparse, name):
+    """torch_mp_worker.py's linear and gbst modes are mp_worker.py's runs:
+    the CLI config above parses to their params, and their two ranks give
+    the two CLI processes' numbers."""
+    from ytklearn_tpu_torch.config import hocon
+    from ytklearn_tpu_torch.config.params import CommonParams
+
+    out, tmp = two_sparse
+    want = mp_params(CommonParams, str(tmp), SPARSE[name], 2)
+    cfg = hocon.set_path(json.loads((tmp / f"{name}.conf").read_text()),
+                         "model.data_path", want.model.data_path)
+    got = CommonParams.from_config(cfg)
+    got.raw = want.raw = None
+    assert got == want
+    for rec in out[name]["worker"]:
+        assert _loss(rec) == _loss(out[name]["w2r0"])
+
+
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_coordinator_world1_dumps_one_process_text(two_sparse, name):
+    """A one-rank group's psums return their input and its chunking is
+    one process's: the dump is the one-process dump byte for byte."""
+    out, tmp_path = two_sparse
+    one, w1 = tmp_path / name / "one", tmp_path / name / "w1r0"
+    files = sorted(p.relative_to(one) for p in one.rglob("*") if p.is_file())
+    assert files
+    for rel in files:
+        assert (w1 / rel).read_bytes() == (one / rel).read_bytes(), rel
+    assert _loss(out[name]["w1r0"]) == _loss(out[name]["one"])
+
+
+# -- DataIngest's merges against the JAX package's -------------------------
+
+
+def _ingest_shards(tmp_path, P):
+    """P processes' lines: overlapping feature names, values to
+    standardise."""
+    rng = np.random.RandomState(12)
+    paths = []
+    for r in range(P):
+        lines = []
+        for _ in range(60 + 15 * r):
+            names = rng.choice(12 + 4 * r, 4, replace=False)
+            feats = ",".join(f"g{j}:{rng.randn() * (1 + r):.4f}"
+                             for j in names)
+            lines.append(f"1###{rng.randint(2)}###{feats}")
+        path = tmp_path / f"shard{r}.txt"
+        path.write_text("\n".join(lines) + "\n")
+        paths.append(str(path))
+    return paths
+
+
+def _ingest_cfg(tmp_path, path, dict_path=""):
+    # assigned: each process reads the whole file it is given
+    return {"data": {"train": {"data_path": path},
+                     "test": {"data_path": ""}, "assigned": True},
+            "model": {"data_path": str(tmp_path / "m"),
+                      "need_dict": bool(dict_path), "dict_path": dict_path},
+            "feature": {"filter_threshold": 2,
+                        "transform": {"switch_on": True,
+                                      "mode": "standardization"}}}
+
+
+def _processes(monkeypatch, P, r):
+    """This process is r of P, for the mesh and the collectives."""
+    for mod in (pmesh, pcoll):
+        monkeypatch.setattr(mod, "process_count", lambda: P)
+        monkeypatch.setattr(mod, "process_index", lambda: r)
+
+
+def _fed_ingests(monkeypatch, gather_mod, P, make, load):
+    """Each process's DataIngest `load` (_load_python or _load_fast) with
+    the host gather fed by hand:
+    a first pass records each process's payloads in call order, then the
+    k-th gather of every process returns every process's k-th payload."""
+    payloads = []
+    for r in range(P):
+        rec = []
+
+        def first(obj, rec=rec):
+            rec.append(obj)
+            return [obj]
+
+        monkeypatch.setattr(gather_mod, "host_allgather_objects", first)
+        getattr(make(r), load)()
+        payloads.append(rec)
+    out = []
+    for r in range(P):
+        k = iter(range(len(payloads[0])))
+
+        def every(obj, k=k):
+            i = next(k)
+            return [pl[i] for pl in payloads]
+
+        monkeypatch.setattr(gather_mod, "host_allgather_objects", every)
+        out.append(getattr(make(r), load)())
+    return out, payloads
+
+
+@pytest.mark.parametrize("P", [2, 3])
+@pytest.mark.parametrize("native", [False, True])
+def test_ingest_merges_equal_reference(tmp_path, monkeypatch, P, native):
+    """The feature dict from every process's counts and the transform
+    nodes from every process's statistics (the reference's _merge_counts
+    and nodes_from_stats union) equal the JAX package's, both parsers; so
+    do the ELL rows; every process ends with the same dict. Only process 0
+    writes the transform sidecar."""
+    from ytklearn_tpu.config.params import CommonParams as JCommon
+    from ytklearn_tpu.io import reader as jreader
+    from ytklearn_tpu_torch.config.params import CommonParams
+    from ytklearn_tpu_torch.io import reader as preader
+
+    load = "_load_fast" if native else "_load_python"
+    paths = _ingest_shards(tmp_path, P)
+    monkeypatch.setattr(jax, "process_count", lambda: P)
+    want, wpay = _fed_ingests(monkeypatch, jcoll, P, lambda r: (
+        jreader.DataIngest(JCommon.from_config(_ingest_cfg(tmp_path / "j",
+                                                           paths[r])))),
+        load)
+    _processes(monkeypatch, P, 0)
+    got, gpay = _fed_ingests(monkeypatch, pcoll, P, lambda r: (
+        _processes(monkeypatch, P, r)
+        or preader.DataIngest(CommonParams.from_config(_ingest_cfg(
+            tmp_path / f"p{r}", paths[r])))), load)
+    # process 0's dict-source choice, the counts, the statistics: the
+    # payloads themselves agree
+    assert len(gpay[0]) == len(wpay[0]) == 3
+    for g, w in zip(gpay, wpay):
+        assert g[:2] == w[:2]
+        assert set(g[2]) == set(w[2])
+    for g, w in zip(got, want):
+        assert g.feature_map == w.feature_map
+        assert set(g.transform_nodes) == set(w.transform_nodes)
+        for i, node in w.transform_nodes.items():
+            assert str(g.transform_nodes[i]) == str(node)
+        np.testing.assert_array_equal(g.train.idx, w.train.idx)
+        np.testing.assert_array_equal(g.train.val, w.train.val)
+    for g in got[1:]:
+        assert g.feature_map == got[0].feature_map
+    side = [(tmp_path / f"p{r}" / "m_feature_transform_stat").exists()
+            for r in range(P)]
+    assert side == [True] + [False] * (P - 1)
+
+
+def test_dict_source_is_process0s_choice(tmp_path, monkeypatch):
+    """need_dict with a dict file only process 0's storage holds: process 0
+    picks the branch and reads the names, every process takes them (the
+    reference's load_on_rank0), and the dict equals the JAX package's."""
+    from ytklearn_tpu.config.params import CommonParams as JCommon
+    from ytklearn_tpu.io import reader as jreader
+    from ytklearn_tpu_torch.config.params import CommonParams
+    from ytklearn_tpu_torch.io import reader as preader
+
+    paths = _ingest_shards(tmp_path, 2)
+    dict_file = tmp_path / "names.dict"
+    dict_file.write_text("g3\ng1\ng7\n")
+    jres = jreader.DataIngest(JCommon.from_config(_ingest_cfg(
+        tmp_path / "j", paths[0], str(dict_file)))).load()
+    # process 1: the gather hands it process 0's values (the branch, then
+    # the names); its own storage has no dict file
+    sent = [[str(dict_file)], ["g3", "g1", "g7"]]
+    calls = []
+
+    def from_rank0(obj):
+        calls.append(obj)
+        i = len(calls) - 1
+        # later gathers (the transform statistics) see two equal processes
+        return [sent[i], obj] if i < len(sent) else [obj, obj]
+
+    _processes(monkeypatch, 2, 1)
+    monkeypatch.setattr(pcoll, "host_allgather_objects", from_rank0)
+    cfg = _ingest_cfg(tmp_path / "p1", paths[1], str(tmp_path / "absent"))
+    pres = preader.DataIngest(CommonParams.from_config(cfg)).load()
+    assert calls[:2] == [None, None]  # process 1 read nothing itself
+    assert pres.feature_map == jres.feature_map

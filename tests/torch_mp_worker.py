@@ -1,6 +1,7 @@
 """One gloo rank of the port's multi-rank CPU tests (tests/test_torch_
-collectives.py, tests/test_torch_mesh_gbdt.py): the reference's
-mp_worker.py pattern, one python process a rank.
+collectives.py, test_torch_mesh_gbdt.py, test_torch_mesh_convex.py,
+test_torch_mesh_gbst.py, test_torch_multiprocess.py): the reference's mp_worker.py pattern, one
+python process a rank.
 
     python tests/torch_mp_worker.py <rank> <world> <rendezvous> <mode> <dir>
 
@@ -9,6 +10,12 @@ joins a gloo group of `world` ranks at the rendezvous (a file:// URL in
 case of `mode` and pickles its results to <workdir>/<mode>.rank<r>.pkl.
 It imports the port only; the data makers below are shared with the tests,
 which feed the same arrays to the JAX package.
+
+Modes: `collectives`, `gbdt` and `convex` (every case of
+<workdir>/cases.json, the convex families and GBST) run the reference's
+one-process mesh: each rank sees every row and keeps its block. `linear`
+and `gbst` mirror the reference's tests/mp_worker.py: each rank is a
+process that ingests its lines_avg shard of <workdir>/train.ytk.
 """
 
 from __future__ import annotations
@@ -51,6 +58,37 @@ def coll_inputs(world: int, seed: int = 7):
         "inf_pay": np.where(np.arange(world)[:, None] == 1, 42.0,
                             -np.inf).astype(np.float32).repeat(4, 1),
     }
+
+
+EVAL_METRICS = ["auc", "rmse", "mae", "mape", "smape", "confusion_matrix"]
+
+
+def eval_inputs(n=1003, K=5, seed=9):
+    """Metric inputs of n rows: binary predictions and labels with unit
+    and integer weights, positive regression labels (mape divides by
+    them), and (n, K) class probabilities with one-hot labels."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(n, K).astype(np.float32)
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    return {
+        "pred": rng.rand(n).astype(np.float32),
+        "y": (rng.rand(n) < 0.4).astype(np.float32),
+        "y_reg": (1.0 + rng.rand(n)).astype(np.float32),
+        "w_unit": np.ones(n, np.float32),
+        "w_int": rng.randint(1, 4, n).astype(np.float32),
+        "prob": prob.astype(np.float32),
+        "onehot": np.eye(K, dtype=np.float32)[rng.randint(0, K, n)],
+    }
+
+
+def eval_block(arr, rank: int, world: int):
+    """This rank's contiguous block of the rows padded with zeros (weight
+    0, label 0) to a multiple of the world."""
+    n = len(arr)
+    k = -(-n // world)
+    out = np.zeros((k * world,) + arr.shape[1:], arr.dtype)
+    out[:n] = arr
+    return out[rank * k:(rank + 1) * k]
 
 
 def engine_data(n=1600, F=6, seed=5):
@@ -188,6 +226,7 @@ def _collectives(rank, world, mesh):
     best, (pf,) = coll.pargmax_tuple(t["inf_score"], (t["inf_pay"],), mesh)
     out["pargmax_inf"] = (best, pf)
     out["census"] = collective_census()
+    out.update(_eval(rank, world, mesh))
     # the host verbs, as --coordinator ranks run them
     own = Mesh(rank=rank, world=world, device=torch.device("cpu"),
                backend=mesh.backend, shared_ingest=False)
@@ -214,6 +253,30 @@ def _collectives(rank, world, mesh):
         reset_chaos()
     pm._CURRENT = mesh
     return {k: _np(v) for k, v in out.items()}
+
+
+def _eval(rank, world, mesh):
+    """The metrics over every rank's block of eval_inputs: the psummed AUC
+    histograms and EvalSet(mesh=...)."""
+    import torch
+
+    from ytklearn_tpu_torch.eval import EvalSet, auc_histogram
+    from ytklearn_tpu_torch.parallel import collectives as coll
+
+    t = {k: torch.from_numpy(eval_block(v, rank, world))
+         for k, v in eval_inputs().items()}
+    out = {}
+    for w in ("w_unit", "w_int"):
+        out[f"auc_hist_{w}"] = coll.psum(
+            auc_histogram(t["pred"], t["y"], t[w]), mesh)
+    ev = EvalSet(EVAL_METRICS)
+    out["eval_binary"] = ev.evaluate(t["pred"], t["y"], t["w_int"],
+                                     mesh=mesh)
+    out["eval_reg"] = ev.evaluate(t["pred"], t["y_reg"], t["w_unit"],
+                                  mesh=mesh)
+    out["eval_multi"] = EvalSet(["auc", "confusion_matrix"], K=5).evaluate(
+        t["prob"], t["onehot"], t["w_int"], mesh=mesh)
+    return out
 
 
 def _np(v):
@@ -281,6 +344,119 @@ def _gbdt(rank, world, mesh, workdir):
     return out
 
 
+def train_record(res) -> dict:
+    """What the tests compare of a TrainResult or a BoostResult."""
+    out = {k: getattr(res, k) for k in (
+        "n_iter", "status", "avg_loss", "test_loss", "n_trees",
+        "train_loss", "train_metrics", "test_metrics") if hasattr(res, k)}
+    if hasattr(res, "history"):
+        out["history"] = [r["avg_loss"] for r in res.history]
+    return out
+
+
+def _convex(rank, world, mesh, workdir):
+    """Every case of cases.json ({name: [family, cfg]}) trained on this
+    rank's block of the rows, each rank pointed at <name>.w<world>.r<rank>
+    (only rank 0 dumps)."""
+    import json
+
+    from ytklearn_tpu_torch.train_launch import make_trainer
+
+    with open(os.path.join(workdir, "cases.json")) as f:
+        cases = json.load(f)
+    out = {}
+    for name, (family, cfg) in cases.items():
+        cfg["model"]["data_path"] = os.path.join(
+            workdir, f"{name}.w{world}.r{rank}", "model")
+        out[name] = train_record(make_trainer(family, cfg, device="cpu",
+                                              mesh=mesh).train())
+    # a SIGTERM that reaches the last rank alone stops every rank at the
+    # same boundary (after iteration 2; before tree 1)
+    for name, marker in (("linear", "[iter=2]"), ("gbmlr", "[tree=0]")):
+        if name not in cases:
+            continue
+        family, cfg = cases[name]
+        out[f"preempt_{name}"] = _preempted(
+            rank, world, mesh, workdir, f"preempt_{name}", family,
+            json.loads(json.dumps(cfg)), marker)
+    return out
+
+
+def _preempted(rank, world, mesh, workdir, name, family, cfg, marker):
+    """`name` trained with a SIGTERM sent to the last rank alone when its
+    trainer logs `marker` -> (its Preempted exit code or None, the
+    iteration or tree the guard stopped at)."""
+    import logging
+    import signal
+
+    from ytklearn_tpu_torch.resilience import Preempted
+    from ytklearn_tpu_torch.train_launch import make_trainer
+
+    class Kill(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith(marker):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    cfg["model"]["data_path"] = os.path.join(
+        workdir, f"{name}.w{world}.r{rank}", "model")
+    handler = Kill()
+    logger = logging.getLogger("ytklearn_tpu_torch")
+    logger.setLevel(logging.INFO)
+    if rank == world - 1:
+        logger.addHandler(handler)
+    stops = []
+
+    class Stops(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("preempted (signal"):
+                stops.append(record.getMessage())
+
+    seen = Stops()
+    logger.addHandler(seen)
+    try:
+        make_trainer(family, cfg, device="cpu", mesh=mesh).train()
+        return None, stops
+    except Preempted as e:
+        return e.exit_code, stops
+    finally:
+        logger.removeHandler(handler)
+        logger.removeHandler(seen)
+
+
+def mp_params(cls, workdir: str, mode: str, world: int):
+    """tests/mp_worker.py's CommonParams of `mode` (linear or gbst) for
+    either package (the class passed in)."""
+    p = cls()
+    p.data.train_paths = [os.path.join(workdir, "train.ytk")]
+    p.data.test_paths = []
+    p.data.assigned = False
+    p.data.unassigned_mode = "lines_avg"
+    p.model.data_path = os.path.join(workdir, f"{mode}_torch_mp{world}")
+    p.loss.loss_function = "sigmoid"
+    p.loss.evaluate_metric = []
+    if mode == "linear":
+        p.line_search.lbfgs_max_iter = 10
+    else:
+        p.line_search.lbfgs_max_iter = 6
+        p.k = 2
+        p.tree_num = 2
+    return p
+
+
+def _mp(mode, world, mesh, workdir):
+    """tests/mp_worker.py's linear or gbst run on this process's shard."""
+    from ytklearn_tpu_torch.boost import GBSTTrainer
+    from ytklearn_tpu_torch.config.params import CommonParams
+    from ytklearn_tpu_torch.train import HoagTrainer
+
+    p = mp_params(CommonParams, workdir, mode, world)
+    if mode == "linear":
+        res = HoagTrainer(p, "linear", device="cpu", mesh=mesh).train()
+    else:
+        res = GBSTTrainer(p, "gbmlr", device="cpu", mesh=mesh).train()
+    return train_record(res)
+
+
 def main(argv):
     rank, world, rdv, mode, workdir = (int(argv[0]), int(argv[1]), argv[2],
                                        argv[3], argv[4])
@@ -288,13 +464,23 @@ def main(argv):
     from ytklearn_tpu_torch.parallel.mesh import \
         distributed_initialize_if_needed, make_mesh, release_mesh
 
+    if mode in ("convex", "linear", "gbst"):
+        # small batches: one thread a rank keeps the ranks off each
+        # other's cores
+        import torch
+
+        torch.set_num_threads(1)
     distributed_initialize_if_needed(coordinator=rdv,
                                      world_size=world, rank=rank,
                                      device="cpu", backend="gloo")
     try:
-        mesh = make_mesh("cpu", shared_ingest=True)
+        mesh = make_mesh("cpu", shared_ingest=mode not in ("linear", "gbst"))
         if mode == "collectives":
             res = _collectives(rank, world, mesh)
+        elif mode == "convex":
+            res = _convex(rank, world, mesh, workdir)
+        elif mode in ("linear", "gbst"):
+            res = _mp(mode, world, mesh, workdir)
         else:
             res = _gbdt(rank, world, mesh, workdir)
         with open(os.path.join(workdir, f"{mode}.rank{rank}.pkl"),

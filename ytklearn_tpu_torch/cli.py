@@ -38,24 +38,25 @@ of each capture phase (the GBDT rounds, the L-BFGS iterations) into DIR
 and writes the report there as `ytkprof.json`. `--hist-precision` picks
 the GBDT histograms (bf16, the default as in the JAX CLI; f32; int8).
 
-GBDT trains on more than one device in the reference's two modes, one
-rank a process and a device:
-  `--devices N` (N > 1): one launcher parses and bins the whole data once
-    and starts N ranks on cuda:0..N-1 (`--device cpu`: N gloo ranks on the
-    CPU; `--rank-devices D0,D1,...` places them, two ranks may share a
-    card); each trains on its contiguous row shard and rank 0 dumps
-    (gbdt/launch.py). The JSON line adds "ranks": each rank's device,
-    backend, kernel launches, collective census and seconds. Fewer GPUs
-    than N exits as the reference does.
+Every family trains on more than one device in the reference's two
+modes, one rank a process and a device:
+  `--devices N` (N > 1): one launcher parses (and for GBDT bins) the whole
+    data once and starts N ranks on cuda:0..N-1 (`--device cpu`: N gloo
+    ranks on the CPU; `--rank-devices D0,D1,...` places them, two ranks
+    may share a card); each trains on its contiguous row shard and rank 0
+    dumps (parallel/launch.py with gbdt/launch.py or train_launch.py).
+    The JSON line adds "ranks": each rank's device, backend, collective
+    census, health sentinel counts and seconds (GBDT: also its engine and
+    kernel launches). Fewer GPUs than N exits as the reference does.
   `--coordinator host:port --num-processes P --process-id r`: this process
     is rank r of P, reads its line shard (io/reader.py::shard_plan), merges
-    bins, feature dict and fills with the others, and trains; rank 0
-    dumps; `--max-restarts` is off (restart the whole launch). The JSON
-    line adds "rank", this rank's report.
+    the feature dict and transform statistics (GBDT: also bins and fills)
+    with the others, and trains; rank 0 dumps; `--max-restarts` is off
+    (restart the whole launch). The JSON line adds "rank", this rank's
+    report.
 The backend is NCCL when every rank has a GPU of its own, gloo on the CPU
 and when ranks share a card, with a finite timeout
-(parallel/mesh.py::TIMEOUT_S). Every other family under either flag raises
-NotImplementedError naming ROADMAP.md 1.7b.
+(parallel/mesh.py::TIMEOUT_S).
 
 `serve` is the JAX package's single-process `cli serve` at its defaults:
 it loads any family `train` writes (and every `--extra-model`) into a
@@ -86,13 +87,16 @@ gates it on the health sentinels and the held-out loss over `--test`
 against the serving incumbent, promotes it atomically on a pass (the
 serving watcher swaps it in), and prints one JSON record; `--rollback`
 restores the newest archive; `--mode ftrl` streams one FTRL-proximal pass
-(convex families). A strict rejection (YTK_CONTINUAL_STRICT=1) exits 1.
+(convex families). `--devices N` (with `--rank-devices`) trains the
+candidate on N ranks through the `train` launcher; the lock, the gates,
+promotion and rollback stay in the retrain process on `--device`, and
+`--mode ftrl` runs in it on one device whatever `--devices` says. A
+strict rejection (YTK_CONTINUAL_STRICT=1) exits 1.
 `predict` is the offline batch predictor (bin/predict.sh, Predicts.java):
 it writes `<file><suffix>` result files in any save mode and predict type
 and prints the weighted average loss; the activation and the loss run on
 `--device` (default `cuda`). `convert` is bin/libsvm_convert_2_ytklearn.sh
-(io/libsvm.py). Both take `--trace-out T` (a Chrome trace of the run);
-`--devices` > 1 (ROADMAP.md 1.7b) raises NotImplementedError in retrain.
+(io/libsvm.py). Both take `--trace-out T` (a Chrome trace of the run).
 """
 
 from __future__ import annotations
@@ -116,7 +120,6 @@ MODEL_NAMES = (
     "gbhsdt",
     "gbdt",
 )
-GBST_NAMES = ("gbmlr", "gbsdt", "gbhmlr", "gbhsdt")
 #: registry name of the served model (the default target of /predict)
 SERVE_NAME = "default"
 
@@ -147,10 +150,6 @@ def _apply_overrides(cfg: dict, sets: List[str]) -> dict:
     return cfg
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 #: messages of the CUDA errors that leave the context unusable: every later
 #: call in the process fails too, so a restart in the process cannot help
 STICKY_CUDA_ERRORS = (
@@ -171,25 +170,6 @@ def is_sticky_cuda_error(exc: BaseException) -> bool:
     """True for an error whose CUDA context cannot recover in-process."""
     text = str(exc)
     return "CUDA" in text and any(m in text for m in STICKY_CUDA_ERRORS)
-
-
-#: the ROADMAP.md item of the multi-device runs still to port
-MULTI_DEVICE_ITEM = "1.7b, multi-GPU convex families and GBST"
-
-
-def _refuse_unported(args) -> None:
-    """Every train option this port does not run yet raises by its
-    ROADMAP.md item, before anything loads: more than one device or
-    process for any family but gbdt."""
-    if args.model_name == "gbdt":
-        return
-    for bad, what in (
-        (bool(args.coordinator),
-         f"multi-process {args.model_name} training (--coordinator)"),
-        (args.devices > 1, f"{args.model_name} with --devices > 1"),
-    ):
-        if bad:
-            raise _not_ported(what, MULTI_DEVICE_ITEM)
 
 
 def _make_mesh(n_devices: int, device: str,
@@ -234,8 +214,8 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="device to train on: cuda (default) or cpu")
     ap.add_argument("--devices", type=int, default=0,
-                    help="devices to train a GBDT on, one rank each: a "
-                    "launcher parses and bins once and starts the ranks")
+                    help="devices to train on, one rank each: a launcher "
+                    "parses (GBDT: and bins) once and starts the ranks")
     ap.add_argument("--rank-devices", default="",
                     help="with --devices N: the N ranks' devices, comma "
                     "separated (default cuda:0..N-1, or cpu)")
@@ -251,7 +231,7 @@ def train_main(argv: Optional[List[str]] = None) -> int:
                     "when there is one, else start cold")
     ap.add_argument("--coordinator", default="",
                     help="host:port of the rendezvous of a multi-process "
-                    "GBDT run (rank 0's process group store; a file:// URL "
+                    "run (rank 0's process group store; a file:// URL "
                     "serves ranks on one host); use with --num-processes "
                     "and --process-id")
     ap.add_argument("--num-processes", type=int, default=0)
@@ -271,7 +251,6 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     _setup_logging(args.verbose)
-    _refuse_unported(args)
     _setup_trace(args.trace_out)
     _setup_profile(args.profile)
 
@@ -324,8 +303,8 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         for attempt in range(restarts + 1):
             try:
                 if ranks is not None:
-                    rc, wall = _train_devices(cfg, hook, ranks,
-                                              args.hist_precision)
+                    rc, wall = _train_devices(args.model_name, cfg, hook,
+                                              ranks, args.hist_precision)
                 else:
                     rc, wall = _train_once(args.model_name, cfg, hook,
                                            args.device, args.hist_precision,
@@ -357,13 +336,26 @@ def train_main(argv: Optional[List[str]] = None) -> int:
     return 1  # unreachable
 
 
-def _train_devices(cfg: dict, hook, devices: List[str],
-                   hist_precision: str) -> Tuple[int, float]:
-    """`--devices N`: the launcher (gbdt/launch.py) and its JSON line."""
-    from .gbdt.launch import run_devices
+def run_devices(name: str, cfg: dict, devices: List[str], hook=None,
+                hist_precision: str = "bf16") -> dict:
+    """`name` trained on len(devices) ranks by the launcher
+    (parallel/launch.py): rank 0's result with every rank's report."""
+    if name == "gbdt":
+        from .gbdt.launch import run_devices as gbdt_devices
 
+        return gbdt_devices(cfg, devices, hook=hook,
+                            hist_precision=hist_precision)
+    from .train_launch import run_devices as sparse_devices
+
+    return sparse_devices(name, cfg, devices, hook=hook)
+
+
+def _train_devices(name: str, cfg: dict, hook, devices: List[str],
+                   hist_precision: str) -> Tuple[int, float]:
+    """`--devices N`: the launcher and its JSON line."""
     t0 = time.perf_counter()
-    out = run_devices(cfg, devices, hook=hook, hist_precision=hist_precision)
+    out = run_devices(name, cfg, devices, hook=hook,
+                      hist_precision=hist_precision)
     wall = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
     return 0, wall
@@ -373,58 +365,35 @@ def _train_once(name: str, cfg: dict, hook, device,
                 hist_precision: str = "bf16", mesh=None) -> Tuple[int, float]:
     """Train one attempt and print its JSON line: (0, the seconds of the
     trainer's train(), the wall the profiling plane decomposes). `mesh`:
-    this process's rank under --coordinator (gbdt only)."""
-    from .io.fs import create_filesystem
-
-    fs = create_filesystem(str(cfg.get("fs_scheme", "local")))
-    if name in GBST_NAMES:
-        from .boost import GBSTTrainer
-        from .config.params import CommonParams
-
-        trainer = GBSTTrainer(CommonParams.from_config(cfg), name, fs=fs,
-                              transform_hook=hook, device=device)
-        t0 = time.perf_counter()
-        res = trainer.train()
-        wall = time.perf_counter() - t0
-        print(json.dumps({
-            "model": name,
-            "trees": res.n_trees,
-            "train_loss": res.train_loss,
-            "test_loss": res.test_loss,
-            "train_metrics": res.train_metrics,
-            "test_metrics": res.test_metrics,
-        }), flush=True)
-        return 0, wall
+    this process's rank under --coordinator; the line then adds "rank",
+    this rank's report."""
     if name != "gbdt":
-        from .config.params import CommonParams
-        from .train import HoagTrainer
+        from .train_launch import make_trainer, result_record
 
-        trainer = HoagTrainer(CommonParams.from_config(cfg), name, fs=fs,
-                              transform_hook=hook, device=device)
+        trainer = make_trainer(name, cfg, hook, device=device, mesh=mesh)
         t0 = time.perf_counter()
         res = trainer.train()
         wall = time.perf_counter() - t0
-        print(json.dumps({
-            "model": name,
-            "n_iter": res.n_iter,
-            "status": res.status,
-            "avg_loss": res.avg_loss,
-            "test_loss": res.test_loss,
-            "train_metrics": res.train_metrics,
-            "test_metrics": res.test_metrics,
-        }), flush=True)
+        out = result_record(name, res)
+        if mesh is not None:
+            from .parallel.launch import rank_report
+
+            out["rank"] = rank_report(mesh, wall)
+        print(json.dumps(out), flush=True)
         return 0, wall
 
     from .config.params import GBDTParams
-    from .gbdt.trainer import GBDTTrainer
-
     from .gbdt.launch import rank_report, result_record
+    from .gbdt.trainer import GBDTTrainer
+    from .io.fs import create_filesystem
 
     # the trainer loads data.train/test through GBDTIngest and records the
     # parser and the load's seconds in its time_stats
     trainer = GBDTTrainer(GBDTParams.from_config(cfg),
                           device=device if mesh is None else mesh.device,
-                          fs=fs, transform_hook=hook,
+                          fs=create_filesystem(str(cfg.get("fs_scheme",
+                                                           "local"))),
+                          transform_hook=hook,
                           hist_precision=hist_precision, mesh=mesh)
     t0 = time.perf_counter()
     res = trainer.train()
@@ -560,7 +529,12 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
                     help="device to train and gate on: cuda (default) or "
                     "cpu")
     ap.add_argument("--devices", type=int, default=0,
-                    help="GPUs to train on; more than one is not ported yet")
+                    help="devices to train the candidate on, one rank each "
+                    "(the train launcher); --mode ftrl runs in this "
+                    "process on one device whatever this says")
+    ap.add_argument("--rank-devices", default="",
+                    help="with --devices N: the N ranks' devices, comma "
+                    "separated (default cuda:0..N-1, or cpu)")
     ap.add_argument("--set", action="append", dest="sets",
                     metavar="KEY=VALUE", help="config override, repeatable")
     ap.add_argument("--trace-out", default="",
@@ -568,8 +542,6 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     _setup_logging(args.verbose)
-    if args.devices > 1:
-        raise _not_ported("retrain --devices > 1", MULTI_DEVICE_ITEM)
     _setup_trace(args.trace_out)
 
     from .config import hocon
@@ -601,6 +573,7 @@ def retrain_main(argv: Optional[List[str]] = None) -> int:
             extra_rounds=args.extra_rounds if args.extra_rounds >= 0 else None,
             transform_hook=hook,
             device=args.device,
+            devices=_make_mesh(args.devices, args.device, args.rank_devices),
         )
     except Preempted as e:
         # the candidate's training was preempted: the incumbent keeps

@@ -30,7 +30,13 @@ scorer's `compile_credit`: their library builds and first kernel
 launches are expected work, so a `CompiledScorer` armed in the same
 process keeps its zero-steady-state-retrace contract, and the driver
 drops `health.retrace` from the health delta, as the reference does.
-Multi-GPU candidate training waits for ROADMAP.md 1.7.
+
+`devices` (a list of N rank devices) trains a warm candidate on N ranks
+through the `cli train` launcher (parallel/launch.py) from the shadow
+config; its ranks' health sentinel counts join the health gate, and the
+lock, both gates, promotion and rollback stay in this process on
+`device`. `mode=ftrl` takes no ranks, as in the reference
+(continual/online.py streams one device): it runs here, on `device`.
 """
 
 from __future__ import annotations
@@ -99,6 +105,7 @@ class RetrainResult:
     mode: str = "warm"
     trained: Dict[str, float] = field(default_factory=dict)  # family metrics
     rolled_back: bool = False
+    ranks: List[dict] = field(default_factory=list)  # --devices reports
 
     def to_json(self) -> dict:
         def _finite(v):
@@ -128,6 +135,8 @@ class RetrainResult:
                 out["gate"]["drift_advisory"] = self.gate.advisory
         if self.trained:
             out["trained"] = {k: _finite(v) for k, v in self.trained.items()}
+        if self.ranks:
+            out["ranks"] = self.ranks
         return out
 
 
@@ -547,13 +556,32 @@ def _gbst_finished_trees(fs: FileSystem, data_path: str) -> int:
     return 0
 
 
+def _summary(family: str, rec: dict) -> Dict[str, float]:
+    """The family's summary metrics from a `cli train` JSON record."""
+    keys = ("n_iter", "avg_loss") if family == "convex" \
+        else ("trees", "train_loss")
+    out = {k: float(rec[k]) for k in keys}
+    if rec.get("test_loss") is not None:
+        out["test_loss"] = rec["test_loss"]
+    return out
+
+
 def _train_candidate(
     model_name: str, family: str, cfg: dict, fs: FileSystem, mode: str,
     transform_hook, device, hist_precision: Optional[str],
+    devices: Optional[List[str]] = None, ranks: Optional[list] = None,
 ) -> Dict[str, float]:
     """Run the warm-start (or FTRL) candidate training against the shadow
-    config on `device`; returns the family's summary metrics for the
-    result JSON."""
+    config on `device`, or on the ranks of `devices` (their reports go
+    into `ranks`); returns the family's summary metrics for the result
+    JSON."""
+    if devices and mode != "ftrl":
+        from ..cli import run_devices
+
+        rec = run_devices(model_name, cfg, devices, hook=transform_hook,
+                          hist_precision=hist_precision or "bf16")
+        ranks.extend(rec["ranks"])
+        return _summary(family, rec)
     if family == "gbdt":
         from ..gbdt.data import GBDTIngest
         from ..gbdt.trainer import GBDTTrainer
@@ -611,6 +639,7 @@ def retrain(
     candidate_hook: Optional[Callable[[str], None]] = None,
     device=None,
     hist_precision: Optional[str] = None,
+    devices: Optional[List[str]] = None,
 ) -> RetrainResult:
     """Train a warm-started candidate on the config's (new) data, gate it
     against the incumbent, and atomically promote on pass.
@@ -619,7 +648,8 @@ def retrain(
     SERVING model; `data.train.data_path` should point at the fresh data.
     The candidate trains, and the gate scores, on `device` (cuda unless
     the caller passes "cpu"); `hist_precision` picks a GBDT candidate's
-    histograms (the trainer's default, bf16, when None).
+    histograms (the trainer's default, bf16, when None); `devices` (more
+    than one) trains a warm candidate on that many ranks.
     `candidate_hook(shadow_data_path)` runs after candidate training and
     before gating: the canary seam (tests inject a corrupted candidate
     through it). Raises RetrainRejected instead of returning a rejected
@@ -648,7 +678,7 @@ def retrain(
         return _retrain_locked(
             model_name, family, params, cfg, fs, mode, extra_rounds,
             transform_hook, candidate_hook, device, hist_precision,
-            lock=lock,
+            lock=lock, devices=devices,
         )
     finally:
         if not obs_was_enabled:
@@ -671,6 +701,7 @@ def _retrain_locked(
     device,
     hist_precision: Optional[str],
     lock: Optional["RetrainLock"] = None,
+    devices: Optional[List[str]] = None,
 ) -> RetrainResult:
     t0 = time.time()
     cp = params.continual
@@ -750,11 +781,12 @@ def _retrain_locked(
 
     health_before = health_counters()
     obs_inc("continual.retrains")
+    ranks: List[dict] = []
     with obs_span("continual.train_candidate", mode=mode, model=model_name):
         with compile_credit():
             trained = _train_candidate(
                 model_name, family, shadow_cfg, fs, mode, transform_hook,
-                device, hist_precision,
+                device, hist_precision, devices, ranks,
             )
     if candidate_hook is not None:
         candidate_hook(shadow_path)
@@ -782,6 +814,11 @@ def _retrain_locked(
             "aborting before the gate — the incumbent keeps serving"
         )
     health_hits = health_delta(health_before)
+    for rep in ranks:
+        # the ranks' own sentinels (each rank process counts from zero)
+        for k, v in rep.get("health", {}).items():
+            if v > 0:
+                health_hits[k] = health_hits.get(k, 0.0) + v
     # health.retrace is a serving-health signal: an in-process server's
     # retrace sentinel may fire it during this window, which is the
     # server's to report, not a fact about the candidate
@@ -808,7 +845,7 @@ def _retrain_locked(
         result = RetrainResult(
             promoted=False, version=version, gate=gate,
             model_path=data_path, shadow_path=shadow_path, mode=mode,
-            trained=trained,
+            trained=trained, ranks=ranks,
         )
         if knobs.get_bool("YTK_CONTINUAL_STRICT"):
             raise RetrainRejected(gate)
@@ -868,7 +905,7 @@ def _retrain_locked(
     return RetrainResult(
         promoted=True, version=new_version, gate=gate,
         model_path=data_path, shadow_path=shadow_path, mode=mode,
-        trained=trained,
+        trained=trained, ranks=ranks,
     )
 
 

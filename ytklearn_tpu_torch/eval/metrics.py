@@ -6,8 +6,9 @@
                  multiclass (pred (n, K)) is micro-averaged over the
                  (sample, class) pairs
   rmse / mae / mape / smape
-                 weighted pointwise means; zero-weight rows are masked
-                 before weighting
+                 weighted pointwise means (pointwise_sums, then
+                 pointwise_finalize); zero-weight rows are masked before
+                 weighting
   confusion_matrix[@threshold]
                  the (K, K) weighted count matrix (rows the true class);
                  EvalSet reports its accuracy
@@ -16,11 +17,19 @@
                  the sigmoid test loss under that name)
 
 Sums run in the dtype of the weights, as in the reference.
+
+Every metric is a local accumulator and a finalize step: the AUC slot
+histogram, the pointwise (sum, weight sum) pair and the confusion counts.
+`EvalSet.evaluate(..., mesh=)` psums each rank's accumulators
+(parallel/collectives.py) before it finalizes, the reference's
+allreduceArray (AucEvaluator.java:96); predictions are never gathered.
+With integer weights the psummed AUC histogram is the one-rank histogram
+while every slot sums below 2^24 (f32 integer sums are exact).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,12 +91,24 @@ _POINTWISE_ROWS: Dict[str, Callable] = {
 }
 
 
+def pointwise_sums(pred, y, weight, kind: str) -> torch.Tensor:
+    """The local (weighted sum, weight sum) pair. Zero-weight rows (mesh
+    padding) are masked before the row metric is weighted: mape and smape
+    divide by the label, and a padding row's y = 0 would make inf * 0 =
+    NaN of the sum."""
+    row = _POINTWISE_ROWS[kind](y, pred)
+    row = torch.where(weight > 0, row, torch.zeros_like(row))
+    return torch.stack([torch.sum(row * weight), torch.sum(weight)])
+
+
+def pointwise_finalize(sums, kind: str) -> torch.Tensor:
+    v = sums[0] / sums[1]
+    return torch.sqrt(v) if kind == "rmse" else v
+
+
 def pointwise(pred, y, weight=None, kind: str = "rmse") -> torch.Tensor:
     w = torch.ones_like(pred) if weight is None else weight
-    row = _POINTWISE_ROWS[kind](y, pred)
-    row = torch.where(w > 0, row, torch.zeros_like(row))
-    v = torch.sum(row * w) / torch.sum(w)
-    return torch.sqrt(v) if kind == "rmse" else v
+    return pointwise_finalize(pointwise_sums(pred, y, w, kind), kind)
 
 
 def confusion_counts(pred, y, weight, K: int = 2, threshold: float = 0.5):
@@ -105,6 +126,10 @@ def confusion_counts(pred, y, weight, K: int = 2, threshold: float = 0.5):
     return m.reshape(K, K)
 
 
+def confusion_accuracy(m) -> torch.Tensor:
+    return torch.sum(torch.diagonal(m)) / torch.sum(m)
+
+
 def confusion_matrix(pred, y, weight=None, K: int = 2,
                      threshold: float = 0.5) -> Dict[str, torch.Tensor]:
     """The matrix, per-class precision and recall, and the accuracy
@@ -120,7 +145,7 @@ def confusion_matrix(pred, y, weight=None, K: int = 2,
         "matrix": m,
         "precision": diag / torch.where(col == 0, one, col),
         "recall": diag / torch.where(row == 0, one, row),
-        "accuracy": torch.sum(diag) / torch.sum(m),
+        "accuracy": confusion_accuracy(m),
     }
 
 
@@ -129,34 +154,72 @@ def _parse_metric(name: str) -> Tuple[str, Optional[float]]:
     return base.lower(), (float(arg) if arg else None)
 
 
-def create_evaluator_fns(metric_names: Sequence[str],
-                         K: int = 2) -> Dict[str, Callable]:
-    fns: Dict[str, Callable] = {}
+def _auc_hist(pred, y, w, slots: int):
+    """The local weighted AUC histogram; a (n, K) prediction's (sample,
+    class) pairs each score y[:, k] == 1 with the sample's weight."""
+    if pred.ndim == 2:
+        K = pred.shape[1]
+        pred, y = pred.reshape(-1), y.reshape(-1)
+        w = torch.repeat_interleave(w, K)
+    return auc_histogram(pred, y, w, slots)
+
+
+def create_evaluator_fns(metric_names: Sequence[str], K: int = 2
+                         ) -> Dict[str, Tuple[Callable, Callable]]:
+    """metric name -> (local accumulator fn(pred, y, weight), finalize fn
+    of the accumulator) (reference: eval/EvaluatorFactory.java:52-64)."""
+    fns: Dict[str, Tuple[Callable, Callable]] = {}
     for name in metric_names:
         base, arg = _parse_metric(name)
         if base == "auc":
             slots = int(arg) if arg else DEFAULT_AUC_SLOTS
-            fns[name] = lambda p, y, w, s=slots: auc(p, y, w, s)[0]
+            fns[name] = (lambda p, y, w, s=slots: _auc_hist(p, y, w, s),
+                         auc_from_histogram)
         elif base in _POINTWISE_ROWS:
-            fns[name] = lambda p, y, w, k=base: pointwise(p, y, w, k)
+            fns[name] = (lambda p, y, w, k=base: pointwise_sums(p, y, w, k),
+                         lambda sums, k=base: pointwise_finalize(sums, k))
         elif base == "confusion_matrix":
             thr = arg if arg is not None else 0.5
-            fns[name] = lambda p, y, w, t=thr: confusion_matrix(
-                p, y, w, K, t)["accuracy"]
+            fns[name] = (lambda p, y, w, t=thr: confusion_counts(
+                p, y, w, K, t), confusion_accuracy)
         else:
             raise ValueError(f"unknown evaluate_metric: {name!r}")
     return fns
 
 
+def _psum_all(accs: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Every accumulator summed over the ranks, one psum a dtype."""
+    from ..parallel.collectives import psum
+
+    out: List[Optional[torch.Tensor]] = [None] * len(accs)
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, a in enumerate(accs):
+        groups.setdefault(a.dtype, []).append(i)
+    for idx in groups.values():
+        flat = psum(torch.cat([accs[i].reshape(-1) for i in idx]), mesh)
+        off = 0
+        for i in idx:
+            n = accs[i].numel()
+            out[i] = flat[off:off + n].reshape(accs[i].shape)
+            off += n
+    return out
+
+
 class EvalSet:
     """Run the configured metrics on (pred, y, weight) tensors; K classes
-    for the confusion matrix."""
+    for the confusion matrix. With `mesh`, every rank passes its own rows
+    and gets the metrics of all ranks' rows (the same numbers on every
+    rank; each rank must call it at the same point: it is a collective)."""
 
     def __init__(self, metric_names: Sequence[str], K: int = 2):
         self.metric_names = list(metric_names)
         self.fns = create_evaluator_fns(metric_names, K)
 
-    def evaluate(self, pred, y, weight=None) -> Dict[str, float]:
+    def evaluate(self, pred, y, weight=None, mesh=None) -> Dict[str, float]:
         w = (torch.ones(pred.shape[:1], dtype=torch.float32,
                         device=pred.device) if weight is None else weight)
-        return {name: float(fn(pred, y, w)) for name, fn in self.fns.items()}
+        accs = [local(pred, y, w) for local, _ in self.fns.values()]
+        if mesh is not None and accs:
+            accs = _psum_all(accs, mesh)
+        return {name: float(fin(acc)) for (name, (_, fin)), acc
+                in zip(self.fns.items(), accs)}

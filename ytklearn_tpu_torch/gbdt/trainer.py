@@ -794,11 +794,7 @@ class GBDTTrainer(HostEngine):
         """The guard's flag, agreed on by every rank at a round start (a
         signal that reached one rank stops them all at the same round)."""
         hit = self._guard is not None and self._guard.triggered
-        if self.mesh is None:
-            return hit
-        flag = torch.tensor([int(hit)], dtype=torch.int32,
-                            device=self.device)
-        return bool(coll.pmax(flag, self.mesh).item())
+        return hit if self.mesh is None else coll.any_rank(hit, self.mesh)
 
     def _run_rounds(self, dd, spec, state, model, names, t0: float,
                     start: int = 0):

@@ -24,11 +24,21 @@ as float32 (the Python one as float64), so transform stats and hashed
 sums may differ in their last digits, as in the JAX package.
 
 Under `--coordinator` each process reads its shard_plan: every line with
-`data.assigned`, else every world-th file (files_avg) or line (lines_avg).
+`data.assigned`, else every world-th file (files_avg) or line (lines_avg),
+and the processes merge what the dict and the transform need through the
+host gather (parallel/collectives.py::host_allgather_objects, the
+`collective.host` seam and the census see each): the feature counts
+(`_merge_counts`), the feature statistics (`nodes_from_stats`), and a
+dict file read by process 0 alone (`load_feature_map`, after process 0
+chose the dict's source in `_resolve_feature_map`: a branch chosen by
+each process from its own view of the storage could leave process 0 in
+one collective and its peers in another). Only process 0 writes the
+transform sidecar.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import random
@@ -131,6 +141,14 @@ class FeatureStat:
         if v < self.min:
             self.min = v
 
+    def merge(self, o: "FeatureStat") -> None:
+        """Add another process's statistics of the same feature."""
+        self.cnt += o.cnt
+        self.sum += o.sum
+        self.sum2 += o.sum2
+        self.max = max(self.max, o.max)
+        self.min = min(self.min, o.min)
+
 
 @dataclass
 class TransformNode:
@@ -199,6 +217,46 @@ class SparseDataset:
     @property
     def n(self) -> int:
         return self.idx.shape[0]
+
+    def rows(self, lo: int, hi: int) -> "SparseDataset":
+        """Rows [lo, hi) as a dataset of hi - lo rows: those past n are
+        padding (weight 0, y 0, index 0 with value 0). `n_real` counts the
+        real rows of the slice."""
+        n = self.n
+        a, b = min(lo, n), min(hi, n)
+        pad = (hi - lo) - (b - a)
+
+        def take(arr):
+            if arr is None:
+                return None
+            part = np.array(arr[a:b])  # a copy, also of a memory map
+            if pad:
+                part = np.pad(part, ((0, pad),) + ((0, 0),) * (part.ndim - 1))
+            return part
+
+        return SparseDataset(
+            idx=take(self.idx), val=take(self.val), y=take(self.y),
+            weight=take(self.weight),
+            n_real=max(0, min(self.n_real, hi) - min(lo, self.n_real)),
+            dim=self.dim, field=take(self.field))
+
+    def pad_rows_to(self, target: int) -> "SparseDataset":
+        """Padded with weight-0 rows to `target` rows (a process's shard
+        held to the count every process pads to)."""
+        return self if target <= self.n else self.rows(0, target)
+
+    def shard(self, mesh) -> "SparseDataset":
+        """This rank's rows of a mesh, padded with weight-0 rows to the
+        count every rank holds (parallel.mesh.equal_row_target, a
+        collective under --coordinator): one ingest of every row
+        (`--devices`) gives the rank its contiguous block, an own ingest
+        (`--coordinator`) is the rank's shard already."""
+        from ..parallel.mesh import equal_row_target, local_rows
+
+        target = equal_row_target(self.n, mesh)
+        if not mesh.shared_ingest:
+            return self.pad_rows_to(target)
+        return self.rows(*local_rows(target, mesh))
 
 
 @dataclass
@@ -323,9 +381,10 @@ class DataIngest:
     # -- dict -----------------------------------------------------------
 
     def finalize_feature_map(self, counts: Dict[str, int]) -> Dict[str, int]:
-        """Count filter (threshold), sorted names, bias at 0 (reference:
-        DataFlow.reduceFeature:294)."""
+        """The processes' counts summed, the count filter (threshold),
+        sorted names, bias at 0 (reference: DataFlow.reduceFeature:294)."""
         p = self.params
+        counts = self._merge_counts(counts)
         thr = p.feature.filter_threshold
         names = sorted(n for n, c in counts.items() if c >= thr)
         fmap: Dict[str, int] = {}
@@ -339,13 +398,35 @@ class DataIngest:
             fmap[n] = i + delta
         return fmap
 
+    def _merge_counts(self, counts: Dict[str, int]) -> Dict[str, int]:
+        """Every process's counts, union-summed (the allreduceMap of
+        CoreData.globalSync:628); one process: `counts` itself."""
+        from ..parallel.collectives import host_allgather_objects
+
+        all_counts = host_allgather_objects(counts)
+        if len(all_counts) == 1:
+            return counts
+        merged: Dict[str, int] = {}
+        for c in all_counts:
+            for k, v in c.items():
+                merged[k] = merged.get(k, 0) + v
+        return merged
+
     def load_feature_map(self, dict_paths: Sequence[str]) -> Dict[str, int]:
         """Bias at 0, then the dict files' lines in sorted-path order
-        (reference: DataFlow.loadDict:244)."""
-        names: List[str] = []
-        for path in sorted(self.fs.recur_get_paths(dict_paths)):
-            with self.fs.open(path) as f:
-                names.extend(line.strip() for line in f)
+        (reference: DataFlow.loadDict:244). Process 0 reads them and the
+        others take its names: a dict is a process-0 dump, so another
+        process's storage may hold none or an older one."""
+        from ..parallel.collectives import load_on_rank0
+
+        def read_names() -> List[str]:
+            out: List[str] = []
+            for path in sorted(self.fs.recur_get_paths(dict_paths)):
+                with self.fs.open(path) as f:
+                    out.extend(line.strip() for line in f)
+            return out
+
+        names = load_on_rank0(read_names)
         p = self.params
         fmap: Dict[str, int] = {}
         if p.model.need_bias:
@@ -358,15 +439,25 @@ class DataIngest:
     def _resolve_feature_map(self, counts_fn) -> Dict[str, int]:
         """Load a dict when just_evaluate or continue_train finds the
         model's, or need_dict names one; else build it from the counts
-        that counts_fn() returns."""
+        that counts_fn() returns. Process 0 chooses the branch (the dump
+        is its own) and every process takes its choice."""
+        from ..parallel.collectives import load_on_rank0
+
         p = self.params
         model_dict = p.model.data_path + "_dict"
-        if p.loss.just_evaluate and self.fs.exists(model_dict):
-            return self.load_feature_map([model_dict])
-        if p.model.need_dict and p.model.dict_path:
-            return self.load_feature_map([p.model.dict_path])
-        if p.model.continue_train and self.fs.exists(model_dict):
-            return self.load_feature_map([model_dict])
+
+        def pick_dict_source() -> Optional[List[str]]:
+            if p.loss.just_evaluate and self.fs.exists(model_dict):
+                return [model_dict]
+            if p.model.need_dict and p.model.dict_path:
+                return [p.model.dict_path]
+            if p.model.continue_train and self.fs.exists(model_dict):
+                return [model_dict]
+            return None
+
+        src = load_on_rank0(pick_dict_source)
+        if src is not None:
+            return self.load_feature_map(src)
         return self.finalize_feature_map(counts_fn())
 
     # -- transform ------------------------------------------------------
@@ -389,7 +480,20 @@ class DataIngest:
     def nodes_from_stats(self, stats: Dict[str, FeatureStat],
                          fmap: Dict[str, int]) -> Dict[int, TransformNode]:
         """Nodes of the chosen features (include_features, else all but
-        exclude_features; never the bias)."""
+        exclude_features; never the bias), from every process's statistics
+        merged."""
+        from ..parallel.collectives import host_allgather_objects
+
+        all_stats = host_allgather_objects(stats)
+        if len(all_stats) > 1:
+            merged: Dict[str, FeatureStat] = {}
+            for st in all_stats:
+                for k, v in st.items():
+                    if k in merged:
+                        merged[k].merge(v)
+                    else:
+                        merged[k] = dataclasses.replace(v)
+            stats = merged
         p = self.params
         t = p.feature.transform
         include, exclude = set(t.include_features), set(t.exclude_features)
@@ -404,8 +508,11 @@ class DataIngest:
 
     def write_transform_sidecar(self, nodes: Dict[int, TransformNode],
                                 fmap: Dict[str, int]) -> None:
-        """`<model>_feature_transform_stat`, the reference's text format."""
-        if not nodes:
+        """`<model>_feature_transform_stat`, the reference's text format;
+        process 0 writes it (every process holds the same nodes)."""
+        from ..parallel.mesh import process_index
+
+        if not nodes or process_index() != 0:
             return
         inv = {i: n for n, i in fmap.items()}
         path = self.params.model.data_path + "_feature_transform_stat"

@@ -110,14 +110,17 @@ class ConvexModel:
         weights); models with latent gathers override it."""
         return width * 4
 
-    def suggest_row_chunk(self, n_rows: int, width: int) -> Optional[int]:
+    def suggest_row_chunk(self, n_rows: int, width: int,
+                          n_shards: int = 1) -> Optional[int]:
         """Row chunk of the blocked loss/grad/score evaluation, or None
         when the whole batch fits the budget (YTK_ROW_CHUNK,
         YTK_CHUNK_BUDGET_MB; x4: the forward intermediate and its
-        backward's)."""
+        backward's). `n_rows` is the global row count over `n_shards`
+        ranks: the chunk is a rank's, over its own rows."""
         from ..optimize.blocked import suggest_chunk
 
-        return suggest_chunk(n_rows, 4 * self.score_bytes_per_row(width))
+        return suggest_chunk(n_rows, 4 * self.score_bytes_per_row(width),
+                             n_shards=n_shards)
 
     # -- math ------------------------------------------------------------
 

@@ -273,6 +273,7 @@ def minimize_lbfgs(
     callback: Optional[Callable[[int, LBFGSState], bool]] = None,
     row_chunk: Optional[int] = None,
     row_mask: Optional[Tuple[bool, ...]] = None,
+    mesh=None,
 ) -> LBFGSResult:
     """L-BFGS/OWL-QN from w0 (a float32 tensor on the device the batch is
     on) to convergence, max_iter, a failed line search or a non-finite
@@ -281,8 +282,15 @@ def minimize_lbfgs(
     pure_loss_fn(w, *batch) returns the weighted-sum data loss. row_chunk
     evaluates loss and gradient over row chunks of that size
     (optimize/blocked.py); row_mask marks the batch entries that are
-    row-aligned (the others go whole into every chunk). callback(it, state) runs on the host once an
-    iteration (and with it = 0 before the first); returning True stops.
+    row-aligned (the others go whole into every chunk). callback(it,
+    state) runs on the host once an iteration (and with it = 0 before the
+    first); returning True stops.
+
+    With `mesh` the batch is this rank's rows and w is replicated: each
+    loss and gradient is the rank's sum psummed over the ranks
+    (blocked.make_value_and_grad), so the line search, the orthant
+    projection and every stop test see the same numbers on every rank and
+    every rank runs the same trials. The callback runs on every rank.
     """
     w0 = torch.as_tensor(w0)
     dim, dtype, dev = w0.shape[0], w0.dtype, w0.device
@@ -291,8 +299,9 @@ def minimize_lbfgs(
     reg = Reg(l1_vec=zeros if l1_vec is None else l1_vec.to(dev, dtype),
               l2_vec=zeros if l2_vec is None else l2_vec.to(dev, dtype),
               g_weight=torch.tensor(g_weight, dtype=dtype, device=dev))
-    solver = _Solver(make_value_and_grad(pure_loss_fn, row_chunk, row_mask), config,
-                     has_l1, reg, batch)
+    solver = _Solver(make_value_and_grad(pure_loss_fn, row_chunk, row_mask,
+                                         mesh),
+                     config, has_l1, reg, batch)
     obs_inc("lbfgs.runs")
     # phase + ledger label: the first evaluation takes the run's first
     # launches, so the build ledger names any build it pays, and the wall

@@ -156,6 +156,14 @@ def from_rank0(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return psum(x if mesh.rank == 0 else torch.full_like(x, zero), mesh)
 
 
+def any_rank(flag: bool, mesh: Mesh) -> bool:
+    """True on every rank when `flag` is True on any (a pmax): a signal
+    that reached one rank stops them all at the same boundary."""
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                     device=mesh.device)
+    return bool(pmax(t, mesh).item())
+
+
 def axis_index(mesh: Mesh) -> int:
     return mesh.rank
 

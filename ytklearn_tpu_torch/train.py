@@ -1,7 +1,7 @@
 """The convex families' training session (``ytklearn_tpu/train.py``;
 reference worker/TrainWorker.java:133-236, operation/HoagOperation.java
 :35-40 and the grid and HOAG rounds of optimizer/HoagOptimizer.java:
-457-902), on one device.
+457-902), on one device or on the ranks of a mesh.
 
 Ingest parses the text into padded ELL arrays on the host, the model's
 batch goes to the device once, and L-BFGS runs there (optimize/lbfgs.py).
@@ -16,8 +16,16 @@ from them through continue_train. The obs spans are the JAX trainer's:
 `lbfgs.first_eval` and `lbfgs.iterations` and the `lbfgs.iteration` spans
 inside) and `train.evaluate` (the metrics), with `mem.train.load.*` and
 `mem.train.train.*` gauges and the `train.phase.*` mirror of time_stats.
-The multi-process collectives come with multi-GPU training (ROADMAP.md
-1.7).
+
+With `mesh` (parallel/mesh.py) w is replicated and the rows are sharded:
+each rank keeps its contiguous shard of the global rows (`--devices`: one
+ingest of every row) or its own ingest (`--coordinator`), padded with
+weight-0 rows to the rows every rank holds. Every loss, gradient, metric
+and curvature sum is the rank's own sum psummed over the ranks, so the
+line search, the HOAG step, the round choice and the preemption check
+(agreed by a pmax) see the same numbers on every rank and every rank
+issues the same collectives. The warm start is process 0's read; only
+rank 0 dumps.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ from .models import FFMModel, FMModel, LinearModel, MulticlassLinearModel, \
     load_field_dict
 from .optimize import LBFGSConfig, inv_hessian_vp, minimize_lbfgs
 from .optimize.blocked import make_rows, make_sum, make_value_and_grad
+from .parallel import collectives as coll
 from .obs import gauge as obs_gauge, health, inc as obs_inc, span as obs_span
+from .parallel.mesh import process_count
 from .resilience import trainer_guard
 
 log = logging.getLogger("ytklearn_tpu_torch.train")
@@ -70,18 +80,21 @@ def _host(t) -> np.ndarray:
 
 class HoagTrainer:
     """Trainer of the convex families on `device` (cuda by default; it
-    raises without a GPU unless the caller passes "cpu")."""
+    raises without a GPU unless the caller passes "cpu"), or on this
+    rank's device of `mesh`."""
 
     def __init__(self, params: CommonParams, model_name: str = "linear",
                  fs=None, transform_hook: Optional[Callable] = None,
-                 device=None):
+                 device=None, mesh=None):
         if model_name not in CONVEX_NAMES:
             raise ValueError(f"unknown model {model_name!r}")
         self.params = params
         self.model_name = model_name
         self.fs = fs or LocalFileSystem()
         self.transform_hook = transform_hook
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self._field_map: Optional[Dict[str, int]] = None
         self.time_stats: Dict[str, object] = {}
 
@@ -116,6 +129,16 @@ class HoagTrainer:
         # the field dict the ingest used, so n_fields matches ds.field
         return FFMModel(p, dim, n_fields=len(self._fields()), device=dev)
 
+    def _device_batch(self, model, ds):
+        """The model's batch on the device: with a mesh, this rank's rows
+        padded with weight-0 rows (SparseDataset.shard)."""
+        return model.device_batch(ds if self.mesh is None
+                                  else ds.shard(self.mesh))
+
+    def _preempt_now(self) -> bool:
+        hit = self._guard is not None and self._guard.triggered
+        return hit if self.mesh is None else coll.any_rank(hit, self.mesh)
+
     _guard = None  # PreemptionGuard while train() runs
 
     def train(self, ingest: Optional[IngestResult] = None) -> TrainResult:
@@ -137,16 +160,25 @@ class HoagTrainer:
                  ts["load"], ingest.parser, ingest.train.n_real,
                  ingest.train.dim)
         model = self._make_model(ingest)
-        train_b = model.device_batch(ingest.train)
-        test_b = model.device_batch(ingest.test) if ingest.test else None
+        mesh = self.mesh
+        train_b = self._device_batch(model, ingest.train)
+        test_b = (self._device_batch(model, ingest.test) if ingest.test
+                  else None)
         g_weight = float(np.sum(ingest.train.weight))
         g_weight_test = (float(np.sum(ingest.test.weight)) if ingest.test
                          else 0.0)
+        if process_count() > 1:
+            # the global weights (CoreData.globalSync's weight allreduce)
+            g_weight = float(sum(coll.host_allgather_objects(g_weight)))
+            g_weight_test = float(sum(coll.host_allgather_objects(
+                g_weight_test)))
 
-        # continue_train / just_evaluate warm start
+        # continue_train / just_evaluate warm start: process 0 reads, the
+        # others take its weights (only rank 0 dumps)
         w0 = None
         if p.model.continue_train or p.loss.just_evaluate:
-            w0 = model.load_model(self.fs, ingest.feature_map)
+            w0 = coll.load_on_rank0(
+                lambda: model.load_model(self.fs, ingest.feature_map))
             if w0 is not None:
                 log.info("continue_train: loaded existing model")
         if w0 is None:
@@ -158,28 +190,38 @@ class HoagTrainer:
         # blocked evaluation: row chunks keep the per-row intermediates
         # (FM/FFM latent gathers) from scaling peak memory with n
         width = int(train_b[0].shape[1]) if train_b[0].ndim > 1 else 1
-        row_chunk = model.suggest_row_chunk(int(train_b[0].shape[0]), width)
+        shards = mesh.world if mesh is not None else 1
+        row_chunk = model.suggest_row_chunk(
+            int(train_b[0].shape[0]) * shards, width, n_shards=shards)
         if row_chunk is not None:
             log.info("blocked evaluation: row chunk %d", row_chunk)
-        loss_sum = make_sum(model.pure_loss, row_chunk)
-        predicts = make_rows(model.predicts, row_chunk)
+        loss_sum = make_sum(model.pure_loss, row_chunk, mesh=mesh)
+        predicts = make_rows(model.predicts, row_chunk, mesh=mesh)
 
         def precision(w, l2_vec):
             if not hasattr(model, "precision"):
                 return None
             with torch.no_grad():
-                return _host(model.precision(w, *train_b, l2_vec=l2_vec,
-                                             g_weight=g_weight))
+                if mesh is None:
+                    return _host(model.precision(w, *train_b, l2_vec=l2_vec,
+                                                 g_weight=g_weight))
+                # each rank's curvature sum, psummed; rank 0 adds the l2
+                # term once
+                reg = l2_vec if mesh.rank == 0 else torch.zeros_like(l2_vec)
+                return _host(coll.psum(model.precision(
+                    w, *train_b, l2_vec=reg, g_weight=g_weight), mesh))
 
         def evaluate(w, sink: Dict) -> None:
             if eval_set is None:
                 return
             with obs_span("train.evaluate"):
                 sink["train_metrics"] = eval_set.evaluate(
-                    predicts(w, *train_b), train_b[-2], train_b[-1])
+                    predicts(w, *train_b), train_b[-2], train_b[-1],
+                    mesh=mesh)
                 if test_b is not None:
                     sink["test_metrics"] = eval_set.evaluate(
-                        predicts(w, *test_b), test_b[-2], test_b[-1])
+                        predicts(w, *test_b), test_b[-2], test_b[-1],
+                        mesh=mesh)
 
         def test_avg(w) -> float:
             return float(loss_sum(w, *test_b)) / max(g_weight_test, 1e-12)
@@ -213,7 +255,8 @@ class HoagTrainer:
             hoag_grad_hist: List[np.ndarray] = []
             hoag_delta_hist: List[float] = []
             hoag_t_old = 0.0
-            test_vg = make_value_and_grad(model.pure_loss, row_chunk)
+            test_vg = make_value_and_grad(model.pure_loss, row_chunk,
+                                          mesh=mesh)
         else:
             if p.hyper.switch_on:
                 log.warning("unknown hyper.mode=%r (grid|hoag); running a "
@@ -255,7 +298,7 @@ class HoagTrainer:
                          time.time() - t0, rec["avg_loss"],
                          f" test avg loss={rec['test_loss']:.6f}"
                          if "test_loss" in rec else "")
-                if self._guard is not None and self._guard.triggered:
+                if self._preempt_now():
                     # the iteration boundary is the convex safe point: the
                     # current weights are the checkpoint the relaunch warm-
                     # starts from; checked before the periodic dump, so
@@ -280,7 +323,7 @@ class HoagTrainer:
                         self.device),
                     cfg, batch=train_b, l1_vec=l1_vec, l2_vec=l2_vec,
                     g_weight=g_weight, callback=callback,
-                    row_chunk=row_chunk)
+                    row_chunk=row_chunk, mesh=mesh)
             carry_w = _host(res.w)
             # round selection: the test loss, else the pure train loss (the
             # regularized one would always prefer the smallest penalty);
@@ -367,4 +410,8 @@ class HoagTrainer:
 
     def _dump(self, model, w, ingest: IngestResult,
               precision: Optional[np.ndarray]) -> None:
-        model.dump_model(self.fs, _host(w), precision, ingest.feature_map)
+        """Rank 0's dump (the reference's HoagOptimizer.java:647-660); the
+        precision, a collective, is computed on every rank before."""
+        if self.mesh is None or self.mesh.rank == 0:
+            model.dump_model(self.fs, _host(w), precision,
+                             ingest.feature_map)
