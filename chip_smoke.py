@@ -197,9 +197,9 @@ run its total.
      whether two trainings dump byte-identical texts;
  17. (slice 12, its main path) keeps those convex models, writes the FM
      case's data again at 2^16 + 2^13 and 2^15 + 2^12 lines and runs
-     `cli train` in this process for each of GBST_RUNS (gbmlr K = 8, 3
-     trees; gbsdt, gbhmlr, gbhsdt K = 8, 3 trees; a random_forest run; a
-     continue_train run, 3 + 2 trees; lr 0.3, rates 0.8) at GBST_ITERS
+     `cli train` in this process for each of GBST_RUNS (gbmlr K = 8, 2
+     trees; gbsdt, gbhmlr, gbhsdt K = 8, 2 trees; a random_forest run; a
+     continue_train run, 2 + 1 trees; lr 0.3, rates 0.8) at GBST_ITERS
      L-BFGS iterations a tree on the card: trees, seconds a tree, ingest
      against training, test AUC above 0.6; then each again at
      GBST_HELD_ITERS on the card and the CPU,
@@ -216,11 +216,11 @@ run its total.
      same 2^20 + 2^17 text lines (HOST_RUNS: level-wise sigmoid with
      `tree_maker = "feature"`, 20 trees, train loss below 0.65 and test
      AUC above HOST_AUC_FLOOR, bench.py's band printed; loss-wise l1 with
-     `lad_refine_appr = false`, 5 trees, the loss falling every round):
+     `lad_refine_appr = false`, 3 trees, the loss falling every round):
      seconds and host syncs a tree, ingest and host binning against the
      rounds; then both at HOST_SMALL lines on cuda twice and on the CPU,
      whose dumps must be byte-identical; no kernel wrapper's count moves.
-     Then the chaos drill (`phase_resilience`): the device engine at 2^20
+     Then the chaos drill (`phase_resilience`): the device engine at 2^19
      Higgs rows and 20 rounds, int8 and bf16, SIGTERM at the RES_CUT-th
      loss read (exit 143 at the next round start) and continue_train
      (int8 byte-identical to the uninterrupted run, bf16 completing with
@@ -353,9 +353,22 @@ run its total.
      the card: each rank launches K2 and K5, the gate K6, and the two
      candidates are the same bytes; each part prints its seconds, backend
      and collective census;
- 25. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
-     `device_ms`; K2, K4 and K5's launches from the GOSS bench cell), the
-     card line, and last the result line {"ok": true, "device": {...}}.
+ 25. (slice 21, after phase_repro) `phase_deep_tree`: one l2 tree of
+     DEEP_LEAVES = 30,000 leaves (59,999 nodes, past the 57,344 whose node
+     lookup fits shared memory at 256 bins, so K1-K4 take the global
+     lookup kind) over 2^17 Higgs-shaped rows, int8 and bf16 on the card
+     and on the CPU (two spawned processes beside the card's runs): the
+     int8 dumps byte-identical, bf16 train losses within OBJ_RTOL, every
+     K1-K4 call of the card runs (the first at each shape) held to its
+     plain version; K1-K4 timed in both lookup kinds at the trainer's
+     64-slot wave; the int8 model through one `cli serve` process with
+     YTK_SERVE_FUSED=1: fused refused (depth past the heap cap), stacked
+     scores bit-equal to the host walk;
+ 26. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
+     `device_ms`; K2, K4 and K5's launches from the GOSS bench cell; K1-K4
+     also `deep_launches`, `ms_shared_lookup` and `ms_global_lookup` from
+     slice 21's deep tree), the card line, and last the result line
+     {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the result line;
 without a CUDA device it exits 2 before importing the port.
@@ -831,7 +844,7 @@ GOSS_BF16_ROUNDS = 12
 #: ones, trees
 EFB_ROWS = 1 << 20
 EFB_ONEHOT = 300
-EFB_ROUNDS = 10
+EFB_ROUNDS = 6
 REPO = os.path.dirname(os.path.abspath(__file__))
 #: (F, n, B, N, bins dtype) for K2; (R, dead share) for K4; NW for K5
 HIST_SHAPES = ((28, 65536, 256, 1, "u8"), (28, 65536, 256, 64, "u8"),
@@ -4201,13 +4214,13 @@ GBST_DATA = {"big": (1 << 16, 1 << 13), "small": (1 << 15, 1 << 12)}
 GBST_SHAPE = dict(vocab=20000, nnz=16, l2=1e-3)
 #: (run, variant, data, trees, extra config, continue_train trees)
 GBST_RUNS = (
-    ("gbmlr", "gbmlr", "big", 3, {}, 0),
-    ("gbsdt", "gbsdt", "small", 3, {}, 0),
-    ("gbhmlr", "gbhmlr", "small", 3, {}, 0),
-    ("gbhsdt", "gbhsdt", "small", 3, {}, 0),
-    ("gbsdt random_forest", "gbsdt", "small", 3,
+    ("gbmlr", "gbmlr", "big", 2, {}, 0),
+    ("gbsdt", "gbsdt", "small", 2, {}, 0),
+    ("gbhmlr", "gbhmlr", "small", 2, {}, 0),
+    ("gbhsdt", "gbhsdt", "small", 2, {}, 0),
+    ("gbsdt random_forest", "gbsdt", "small", 2,
      {"type": "random_forest"}, 0),
-    ("gbhmlr continue_train 3 + 2", "gbhmlr", "small", 3, {}, 2),
+    ("gbhmlr continue_train 2 + 1", "gbhmlr", "small", 2, {}, 1),
 )
 GBST_ITERS = 15  # L-BFGS iterations a tree on the main path
 #: iterations a tree where a card run is held to its CPU run: L-BFGS on
@@ -4291,10 +4304,10 @@ def gbst_held(run, res, cres):
 
 
 def phase_gbst_cli(card, tmp):
-    """Slice 12's main path: `cli train` for gbmlr (K = 8, 3 trees, 2^16 +
+    """Slice 12's main path: `cli train` for gbmlr (K = 8, 2 trees, 2^16 +
     2^13 lines: dim 20001 x 15 weights, a (rows, 17, 15) gather a pass),
-    gbsdt, gbhmlr and gbhsdt (K = 8, 3 trees, 2^15 + 2^12 lines), a
-    random_forest run and a continue_train run (3 + 2 trees), each at
+    gbsdt, gbhmlr and gbhsdt (K = 8, 2 trees, 2^15 + 2^12 lines), a
+    random_forest run and a continue_train run (2 + 1 trees), each at
     learning_rate 0.3, instance and feature rates 0.8 and GBST_ITERS
     L-BFGS iterations a tree on the card: trees, seconds a tree, ingest
     against training, test AUC above 0.6. Each run again at
@@ -4464,7 +4477,7 @@ def phase_serve_families(card, models):
 HOST_RUNS = (
     ("level sigmoid feature", 20,
      {"tree_maker": "feature", "tree_grow_policy": "level"}),
-    ("loss l1 precise", 5,
+    ("loss l1 precise", 3,
      {"loss_function": "l1", "lad_refine_appr": False,
       "tree_grow_policy": "loss"}),
 )
@@ -4472,8 +4485,8 @@ HOST_RUNS = (
 HOST_AUC_FLOOR = 0.9
 #: card against CPU: text lines and trees a run
 HOST_SMALL = (1 << 16, 1 << 13)
-HOST_SMALL_TREES = 3
-RES_ROWS = 1 << 20  # the device engine's resume runs (Higgs rows)
+HOST_SMALL_TREES = 2
+RES_ROWS = 1 << 19  # the device engine's resume runs (Higgs rows)
 RES_ROUNDS = 20
 RES_CUT = 10  # the sync read that draws the SIGTERM (first draw < rate)
 
@@ -6712,6 +6725,298 @@ def phase_dist_convex(tmp, card):
             "retrain_gate_k6": res["two"][4]}
 
 
+# -- slice 21: GBDT trees past the histogram kernels' shared node lookup -------
+
+#: one l2 tree of DEEP_LEAVES leaves over DEEP_ROWS Higgs-shaped rows: a
+#: node capacity of 2 x 30,000 - 1 = 59,999, past the 57,344 ids whose
+#: lookup fits shared memory beside a tile of 256 bins (ROADMAP.md 1.8), so
+#: K1-K4 take the global lookup kind. The target is the rows' planted
+#: signal plus noise, a real number: a first sigmoid tree sees two
+#: gradients only, its pure nodes stop splitting, and it stopped at 10,657
+#: leaves at 2^17 rows
+DEEP_ROWS = 1 << 17
+DEEP_LEAVES = 30_000
+DEEP_SEED = 20261018
+#: the shared lookup kind's largest capacity at B = 256
+SHARED_CAP_256 = 57_344
+DEEP_SERVE_ROWS = 256
+
+
+def deep_params(path, leaves=DEEP_LEAVES):
+    """One l2 tree, loss-wise, no depth cap, any hessian past 1e-8: the
+    tree grows until its leaf cap or its rows run out."""
+    from ytklearn_tpu_torch.config.params import (
+        ApproximateSpec,
+        GBDTParams,
+        ModelParams,
+    )
+
+    return GBDTParams(
+        round_num=1, max_depth=0, max_leaf_cnt=leaves,
+        tree_grow_policy="loss", learning_rate=0.1,
+        min_child_hessian_sum=1e-8, loss_function="l2",
+        eval_metric=["rmse"], approximate=[ApproximateSpec(max_cnt=255)],
+        model=ModelParams(data_path=path, dump_freq=0))
+
+
+def deep_kernels(recorder, B, M, card, float_mode):
+    """Each histogram call the deep run recorded (the first at each shape),
+    through the global lookup kind, held to its plain version: int8
+    exactly, bf16 at the float tolerance (hist_err). Returns the largest
+    error of each kernel."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    errs = {}
+    for (name, rows, N), (calls, args, kw) in sorted(recorder.calls.items()):
+        if name == "route":
+            continue
+        check(kw.get("max_nodes") == M and hist.lookup_kind(B, M, N)
+              == "global", f"{name}: the deep run's call at N = {N} is not "
+              f"on the global lookup kind ({kw.get('max_nodes')})")
+        if name in ("hist_q", "hist"):
+            bins, pos, g, h, ids = args[:5]
+            got = (hist.hist_wave if float_mode else hist.hist_wave_q)(
+                *args, **kw)
+            want = (hist.hist_wave_plain(bins, pos, g, h, ids, B, M,
+                                         kw["use_bf16"])
+                    if float_mode else
+                    hist.hist_wave_q_plain(bins, pos, g, h, ids, B, M))
+        else:
+            brows, idx, pg, gg, hg, ids = args[:6]
+            got = hist.hist_wave_gather(*args, **kw)
+            want = (hist.hist_gather_plain(brows, idx, pg, gg, hg, ids, B, M,
+                                           kw["use_bf16"])
+                    if float_mode else
+                    hist.hist_gather_q_plain(brows, idx, pg, gg, hg, ids, B,
+                                             M))
+        what = f"in the deep run, N = {N}, {rows} rows ({calls} calls)"
+        if float_mode:
+            err = hist_err(got, want, what, name, card)
+        else:
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            err = float((got.long() - want.long()).abs().max()) \
+                if got.numel() else 0.0
+            print(f"kernel check {name} {what}, tolerance exact "
+                  f"(torch.equal): {ok}, max_abs_err {err} [{card}]",
+                  flush=True)
+            check(ok, f"{name} disagrees with its plain version {what}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        del got, want
+    recorder.calls.clear()
+    return errs
+
+
+def deep_lookup_timings(card):
+    """K1-K4 at the deep run's widest wave on the same inputs in both
+    lookup kinds: max_nodes SHARED_CAP_256 (the shared kind's largest) and
+    2 x DEEP_LEAVES - 1 (the global kind; every id below the cap, so the
+    sums are the same). Returns {kernel: (shared ms, global ms)}."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    M_g = 2 * DEEP_LEAVES - 1
+    F, B, N = N_FEATURES, 256, 64
+    gen = torch.Generator(device="cuda").manual_seed(DEEP_SEED)
+    bins, pos, gq, hq, ids, M = rand_hist_inputs(gen, F, DEEP_ROWS, B, N,
+                                                 "u8", SHARED_CAP_256)
+    check(hist.lookup_kind(B, M, N) == "shared"
+          and hist.lookup_kind(B, M_g, N) == "global",
+          f"lookup kinds at {M} and {M_g}")
+    g = torch.randn((DEEP_ROWS,), generator=gen, device="cuda")
+    h = torch.rand((DEEP_ROWS,), generator=gen, device="cuda")
+    R = 16384
+    idx, pg, gqg, hqg = compacted(pos, gq, hq, ids, R, 0.1, gen)
+    gg, hg = g[idx.long()].contiguous(), h[idx.long()].contiguous()
+    rows = bins.t().contiguous()
+    calls = {
+        "hist_q": lambda m: hist.hist_wave_q(bins, pos, gq, hq, ids, B,
+                                             max_nodes=m),
+        "hist_gather_q": lambda m: hist.hist_wave_gather(
+            rows, idx, pg, gqg, hqg, ids, B, max_nodes=m),
+        "hist": lambda m: hist.hist_wave(bins, pos, g, h, ids, B,
+                                         max_nodes=m),
+        "hist_gather": lambda m: hist.hist_wave_gather(
+            rows, idx, pg, gg, hg, ids, B, mode="mxu", max_nodes=m),
+    }
+    out = {}
+    for name, fn in calls.items():
+        a, b = fn(M), fn(M_g)
+        if name in ("hist_q", "hist_gather_q"):
+            torch.cuda.synchronize()
+            check(torch.equal(a, b), f"{name}: the two lookup kinds differ")
+        else:
+            hist_err(b, a, f"global kind against shared at N = {N}", name,
+                     card)
+        del a, b
+        ms_s = cuda_ms(lambda: fn(M), iters=20)
+        ms_g = cuda_ms(lambda: fn(M_g), iters=20)
+        out[name] = (ms_s, ms_g)
+        rows_of = R if "gather" in name else DEEP_ROWS
+        print(f"timing deep: {name} N = {N}, {rows_of} rows, F = {F}, B = "
+              f"{B}: shared lookup (max_nodes {M}) {ms_s:.6f} ms, global "
+              f"lookup (max_nodes {M_g}) {ms_g:.6f} ms, global / shared "
+              f"{ms_g / ms_s:.4f} [{card}]", flush=True)
+    return out
+
+
+def deep_data():
+    """The deep tree's rows: gen_higgs_like's features and an l2 target,
+    the planted signal plus noise, as numpy (the card and CPU runs take
+    the same arrays)."""
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.data import GBDTData
+    from ytklearn_tpu_torch.scripts.bench_gbdt import gen_higgs_like
+
+    train, _ = gen_higgs_like(DEEP_ROWS, 1, N_FEATURES, DEEP_SEED)
+    X = train.X
+    gen = torch.Generator(device="cuda").manual_seed(DEEP_SEED)
+    y = (1.5 * X[:, 0] * X[:, 1] + torch.sin(X[:, 2] * 2)
+         + 0.8 * (X[:, 3] > 0.5) - 0.5 * X[:, 4] ** 2 + 0.3 * X[:, 5]
+         * X[:, 6] + 0.5 * torch.randn((DEEP_ROWS,), generator=gen,
+                                       device="cuda"))
+    return GBDTData(X=X.cpu().numpy(), y=y.cpu().numpy(),
+                    weight=np.ones(DEEP_ROWS, np.float32), n_real=DEEP_ROWS,
+                    feature_names=train.feature_names)
+
+
+def deep_tree_run(prec, dev, data, path):
+    """One deep tree: (train loss, seconds, nodes, leaves, depth); the dump
+    at `path`. The CPU runs go through this in processes of their own,
+    half the cores each, beside the card's."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    if dev == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    t0 = time.perf_counter()
+    r = GBDTTrainer(deep_params(path), hist_precision=prec,
+                    device=dev).train(train=data)
+    tree = r.model.trees[0]
+    return (r.train_loss, time.perf_counter() - t0, tree.n_nodes(),
+            tree.leaf_cnt(), tree.max_depth())
+
+
+def phase_deep_tree(card):
+    """ROADMAP 1.8 on the card: one l2 tree of up to DEEP_LEAVES leaves
+    over DEEP_ROWS Higgs-shaped rows, past the shared node lookup's
+    capacity, in int8 and in bf16, on the card and (the reference, in two
+    processes beside the card's runs) on the CPU. int8: the dumps byte for
+    byte equal, and every K2/K4 call of the card run (the first at each
+    shape) exactly its plain version's. bf16: every K1/K3 call of the card
+    run within the float tolerance of its plain version (hist_err), and
+    the train loss within OBJ_RTOL of the CPU run's. K1-K4 launches of
+    each card run; the four kernels timed in both lookup kinds; the int8
+    model served once by `cli serve` with YTK_SERVE_FUSED=1: the fused
+    rung refuses its depth, so it serves on the stacked rung, every score
+    bit-equal to the host tree walk. Returns ({kernel: launches}, {kernel:
+    (shared ms, global ms)}, {kernel: largest error})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+    from ytklearn_tpu_torch.gbdt.tree import GBDTModel
+    from ytklearn_tpu_torch.predict import create_predictor
+
+    timings = deep_lookup_timings(card)  # before the CPU runs load the host
+    data = deep_data()
+    M = 2 * DEEP_LEAVES - 1
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_deep_")
+    launches, errs, res = {}, {}, {}
+    pool = ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu = {prec: pool.submit(deep_tree_run, prec, "cpu", data,
+                                 os.path.join(tmp, f"{prec}_cpu"))
+               for prec in ("int8", "bf16")}
+        for prec in ("int8", "bf16"):
+            rec = ShapeRecorder("int8" if prec == "int8" else "float")
+            zero_kernel_counts()
+            with rec:
+                res[prec, "cuda"] = deep_tree_run(
+                    prec, "cuda", data, os.path.join(tmp, f"{prec}_cuda"))
+            c = kernel_counts()
+            launches.update({k: c[k] for k in PRECISION_KERNELS[prec]})
+            check(all(c[k] > 0 for k in PRECISION_KERNELS[prec]),
+                  f"deep {prec}: a histogram kernel never launched {c}")
+            print(f"deep {prec}: launches K1 {c['hist']}, K3 "
+                  f"{c['hist_gather']}, K2 {c['hist_q']}, K4 "
+                  f"{c['hist_gather_q']}, K5 {c['route']} [{card}]",
+                  flush=True)
+            errs.update(deep_kernels(rec, 256, M, card, prec == "bf16"))
+            torch.cuda.empty_cache()
+        # while the CPU trees grow: the int8 model through `cli serve`,
+        # fused asked for and refused (depth past the heap kernels' cap),
+        # so stacked serves it
+        model_path = os.path.join(tmp, "int8_cuda")
+        with open(model_path) as f:
+            model = GBDTModel.loads(f.read())
+        conf = os.path.join(tmp, "deep.conf")
+        with open(conf, "w") as f:
+            f.write(f'model {{ data_path = "{model_path}" }}\n'
+                    "optimization { loss_function = l2, round_num = 1 }\n")
+        names = [f"f{i}" for i in range(N_FEATURES)]
+        rows = random_rows(np.random.RandomState(DEEP_SEED), DEEP_SERVE_ROWS,
+                           names, split_values(model))
+        env = dict(os.environ, PYTHONPATH=REPO, YTK_SERVE_FUSED="1")
+        env.pop("YTK_SERVE_BINNED", None)
+        err_path = os.path.join(tmp, "serve.log")
+        proc, banner = start_cli_serve(
+            [conf, "gbdt", "--host", "127.0.0.1", "--port", "0",
+             "--device", "cuda"], env, err_path)
+        try:
+            got = np.asarray(post(banner["port"], {"rows": rows})["scores"])
+        finally:
+            rc, _log, _warm = stop_cli_serve(proc, err_path)
+        want = create_predictor("gbdt", conf).batch_scores(rows)
+        ok = np.array_equal(got, want)
+        print(f"deep serve: cli serve of the {model.trees[0].n_nodes()}-node "
+              f"tree (depth {model.trees[0].max_depth()}), rung "
+              f"{json.dumps(banner['rung'])}; {len(rows)} rows bit-equal to "
+              f"the host tree walk {ok}; SIGTERM exit {rc} [{card}]",
+              flush=True)
+        check(banner["rung"]["mode"] == "stacked" and ok and rc == 0,
+              f"deep serve: rung {banner['rung']}, scores {ok}, exit {rc}")
+
+        for prec in ("int8", "bf16"):
+            res[prec, "cpu"] = cpu[prec].result()
+        for (prec, dev), (loss, secs, nodes, leaves, depth) in sorted(
+                res.items()):
+            print(f"deep {prec} on {dev}: {DEEP_ROWS} rows, one tree of "
+                  f"{nodes} nodes ({leaves} leaves, depth {depth}), "
+                  f"capacity {M} (lookup {hist.lookup_kind(256, M)}), "
+                  f"{secs:.3f} s (wall, the card's and CPU's runs side by "
+                  f"side), train loss {loss:.9f} [{card}]", flush=True)
+            check(nodes > SHARED_CAP_256, f"deep {prec} on {dev}: {nodes} "
+                  f"nodes, not past {SHARED_CAP_256}")
+        texts = {}
+        for dev in ("cuda", "cpu"):
+            with open(os.path.join(tmp, f"int8_{dev}"), "rb") as f:
+                texts[dev] = f.read()
+        same = texts["cuda"] == texts["cpu"]
+        print(f"deep int8: the card's dump equals the CPU's byte for byte "
+              f"{same} ({len(texts['cuda'])} bytes) [{card}]", flush=True)
+        check(same, "deep int8: the card and CPU dumps differ")
+        a, b = res["bf16", "cuda"][0], res["bf16", "cpu"][0]
+        loss_rel = abs(a - b) / abs(b)
+        print(f"deep bf16: relative train-loss difference card/CPU "
+              f"{loss_rel:.3e} (at most {OBJ_RTOL}) [{card}]", flush=True)
+        check(loss_rel <= OBJ_RTOL, "deep bf16: card and CPU losses differ")
+    finally:
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, timings, errs
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -6928,6 +7233,12 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     timed("repro", phase_repro, card)
+    # slice 21: one tree past the shared node lookup (K1-K4's global kind)
+    deep_launches, deep_ms, deep_errs = timed("deep_tree", phase_deep_tree,
+                                              card)
+    for k, v in deep_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    torch.cuda.empty_cache()
     # slice 11: softmax through cli train at full width (K1, K3, K5)
     for k, v in timed("softmax_cli", phase_softmax_cli, card).items():
         errs[k] = max(errs[k], v)
@@ -6989,6 +7300,10 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": lib_ms,
         })
+        if name in deep_ms:  # K1-K4 on slice 21's deep tree
+            rows[-1].update({"deep_launches": deep_launches[name],
+                             "ms_shared_lookup": deep_ms[name][0],
+                             "ms_global_lookup": deep_ms[name][1]})
     ms, plain_ms, bound_ms, bound_by, device_ms = k7_time
     rows.append({
         "name": "binned_walk",

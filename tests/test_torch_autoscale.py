@@ -26,6 +26,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.obs import quality as jquality
 from ytklearn_tpu.serve.fleet import autoscaler as jauto
 from ytklearn_tpu_torch import obs

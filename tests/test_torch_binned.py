@@ -26,6 +26,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import request_rows
 from ytklearn_tpu.gbdt import binning as jbinning
 from ytklearn_tpu.io.fs import LocalFileSystem as JFS

@@ -25,6 +25,7 @@ import json
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import cli as jcli
 from ytklearn_tpu.gbdt.tree import GBDTModel as JModel
 from ytklearn_tpu.predict import create_predictor as jax_create_predictor

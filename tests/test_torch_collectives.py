@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.parallel import DATA_AXIS, collectives as jcoll, make_mesh
 from ytklearn_tpu.parallel.mesh import shard_map_compat
 

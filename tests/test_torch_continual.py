@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 import ytklearn_tpu.continual as jcont
 from ytklearn_tpu import obs as jobs
 from ytklearn_tpu.gbdt import trainer as jgbdt_trainer

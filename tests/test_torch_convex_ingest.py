@@ -16,6 +16,7 @@ import copy
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import CommonParams as JParams
 from ytklearn_tpu.io import feature_hash as jfh
 from ytklearn_tpu.io.reader import DataIngest as JIngest

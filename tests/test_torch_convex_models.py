@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import CommonParams as JParams
 from ytklearn_tpu.io.fs import LocalFileSystem as JFS
 from ytklearn_tpu.models import ffm as jffm, fm as jfm, linear as jlin, \

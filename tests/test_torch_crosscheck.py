@@ -10,6 +10,7 @@ import json
 
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu_torch.scripts import cross_check
 
 

@@ -106,8 +106,12 @@ def test_hist_wrapper_refuses_bad_inputs(gen):
     with pytest.raises(ValueError, match="pos must have shape"):
         hist.hist_wave_q(bins, pos[:500].contiguous(), gq[:500].contiguous(),
                          hq[:500].contiguous(), ids, 16, max_nodes=9)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8"):
-        hist.hist_wave_q(bins, pos, gq, hq, ids, 256, max_nodes=60000)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b"):
+        hist.hist_wave_q(bins, pos, gq, hq, ids, 1 << 15, max_nodes=9)
+    # a tree past the shared lookup's cap runs (the global lookup kind)
+    got = hist.hist_wave_q(bins, pos, gq, hq, ids, 16, max_nodes=60000)
+    assert torch.equal(got, hist.hist_wave_q_plain(bins, pos, gq, hq, ids,
+                                                   16, 60000))
 
 
 def test_route_wrapper_refuses_a_bad_out(gen):
@@ -837,6 +841,26 @@ def test_explicit_plans_on_the_card(gen):
 
 #: the largest tree whose node lookup fits beside a 1 x 1 tile at B = 256
 CAP_256 = 57_344
+#: a tree past it (K1-K4's global lookup kind)
+PAST_CAP = 65_535
+
+
+def _past_cap(gen, pos, ids, N, M):
+    """A wave of a tree past the shared lookup's cap: ids near M, a
+    duplicated id, a pad and an id past M; the rows' positions drawn from
+    the ids, a tenth dead (-1) and some at or past M (no node)."""
+    ids = (M - 1 - torch.randperm(4 * N, generator=gen, device="cuda")[:N]
+           ).to(torch.int32)
+    ids[N - 1] = ids[1]
+    ids[0] = -2
+    ids[2] = M + 9
+    n = pos.shape[0]
+    pick = torch.randint(0, N, (n,), generator=gen, device="cuda")
+    pos = ids[pick].clone()
+    r = torch.rand((n,), generator=gen, device="cuda")
+    pos[r < 0.1] = -1
+    pos[(r >= 0.1) & (r < 0.12)] = M
+    return pos.contiguous(), ids
 
 
 def _float_case(gen, F, n, B, N, M, dtype="u8", root=False, dup=False):
@@ -861,7 +885,7 @@ def _k1_plans(N, F, B, M):
 
 @pytest.mark.parametrize("case", [
     "root", "dense", "ragged_unaligned", "ragged_views", "int32_b1024",
-    "dup_wave", "cap",
+    "dup_wave", "cap", "past_cap",
 ])
 @pytest.mark.parametrize("use_bf16", [True, False])
 def test_k1_kinds_match_plain(gen, case, use_bf16):
@@ -877,10 +901,14 @@ def test_k1_kinds_match_plain(gen, case, use_bf16):
         "int32_b1024": (3, 20000, 1024, 100, 4096, "i32"),
         "dup_wave": (28, 70004, 256, 64, 509, "u8"),
         "cap": (28, 70004, 256, 64, CAP_256, "u8"),
+        "past_cap": (28, 70004, 256, 64, PAST_CAP, "u8"),
     }[case]
     bins, pos, g, h, ids = _float_case(gen, F, n, B, N, M, dt,
                                        root=case == "root",
                                        dup=case == "dup_wave")
+    if case == "past_cap":
+        pos, ids = _past_cap(gen, pos, ids, N, M)
+        assert hist.lookup_kind(B, M, N) == "global"
     if case == "ragged_unaligned":
         # a bins_t view whose rows start one byte past an aligned address
         big = torch.empty(F * n + 1, dtype=torch.uint8, device="cuda")
@@ -905,7 +933,8 @@ def test_k1_kinds_match_plain(gen, case, use_bf16):
 
 
 @pytest.mark.parametrize("case", ["f7_rows", "int32_b1024", "dup_wave",
-                                  "cap", "dead_and_out_of_range", "empty"])
+                                  "cap", "dead_and_out_of_range", "empty",
+                                  "past_cap"])
 @pytest.mark.parametrize("use_bf16", [True, False])
 def test_k3_matches_plain(gen, case, use_bf16):
     """K3 over gathered rows: F = 7 rows (a row is not whole 32-bit words),
@@ -918,9 +947,12 @@ def test_k3_matches_plain(gen, case, use_bf16):
         "cap": (28, 70004, 256, 64, CAP_256, "u8", 8192),
         "dead_and_out_of_range": (28, 70004, 256, 64, 509, "u8", 4099),
         "empty": (28, 1000, 256, 64, 509, "u8", 0),
+        "past_cap": (28, 70004, 256, 64, PAST_CAP, "u8", 8192),
     }[case]
     bins, pos, g, h, ids = _float_case(gen, F, n, B, N, M, dt,
                                        dup=case == "dup_wave")
+    if case == "past_cap":
+        pos, ids = _past_cap(gen, pos, ids, N, M)
     rows = bins.t().contiguous()
     idx = torch.randint(0, n, (R,), generator=gen, device="cuda",
                         dtype=torch.int32)
@@ -1001,8 +1033,12 @@ def _q_case(gen, case):
         "int32_b1024": (3, 20000, 1024, 100, 4096, "i32"),
         "dup_wave": (28, 70004, 256, 64, 509, "u8"),
         "cap": (28, 70004, 256, 64, CAP_256, "u8"),
+        "past_cap": (28, 70004, 256, 64, PAST_CAP, "u8"),
     }[case]
     bins, pos, gq, hq, ids = _inputs(gen, F, n, B, N, dt, M)
+    if case == "past_cap":
+        pos, ids = _past_cap(gen, pos, ids, N, M)
+        assert hist.lookup_kind(B, M, N) == "global"
     if case == "root":  # every live row in the one slot
         ids[0] = 3
         pos = torch.where(pos < 0, pos, 3).to(torch.int32)
@@ -1022,7 +1058,7 @@ def _q_case(gen, case):
 
 
 Q_CASES = ["root", "n7", "n64", "sparse64", "ragged_unaligned",
-           "ragged_views", "int32_b1024", "dup_wave", "cap"]
+           "ragged_views", "int32_b1024", "dup_wave", "cap", "past_cap"]
 
 
 @pytest.mark.parametrize("case", Q_CASES)
@@ -1047,7 +1083,8 @@ def test_k2_kinds_match_plain(gen, case):
 
 @pytest.mark.parametrize("case", Q_CASES[:4] + ["int32_b1024", "dup_wave",
                                                 "cap", "dead_and_out_of_range",
-                                                "f7_rows", "empty"])
+                                                "f7_rows", "empty",
+                                                "past_cap"])
 def test_k4_kinds_match_plain(gen, case):
     """K4 over gathered rows at q_plan's plan and at each kind, exact: the
     root wave, N = 7 and 64, a sparse wave, int32 bins, a duplicated id and

@@ -30,6 +30,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.gbdt import engine as jengine
 from ytklearn_tpu_torch.gbdt import engine, state
 

@@ -29,6 +29,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import build_gbdt, request_rows
 from ytklearn_tpu import obs as jobs
 from ytklearn_tpu.serve import BatchPolicy as JPolicy

@@ -13,6 +13,7 @@ leaf. The port zeroes the weighted gradients of weight-0 rows instead;
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu_torch.config.params import ApproximateSpec, GBDTParams, \
     ModelParams
 from ytklearn_tpu_torch.gbdt.data import GBDTData

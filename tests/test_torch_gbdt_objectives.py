@@ -38,6 +38,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import ApproximateSpec as JSpec
 from ytklearn_tpu.config.params import GBDTParams as JParams
 from ytklearn_tpu.config.params import ModelParams as JModelParams

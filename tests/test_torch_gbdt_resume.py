@@ -12,6 +12,7 @@ the original features.
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import ApproximateSpec as JSpec
 from ytklearn_tpu.config.params import GBDTParams as JParams
 from ytklearn_tpu.config.params import ModelParams as JModelParams

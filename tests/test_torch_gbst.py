@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import boost as jboost
 from ytklearn_tpu.config.params import CommonParams as JParams
 from ytklearn_tpu.io.fs import LocalFileSystem as JFS

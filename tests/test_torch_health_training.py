@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import obs as jobs
 from ytklearn_tpu.config.params import CommonParams as JCommon
 from ytklearn_tpu.gbdt import trainer as jtrainer

@@ -19,6 +19,7 @@ import torch
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.gbdt import hist as jhist
 from ytklearn_tpu_torch.gbdt import hist
 
@@ -268,12 +269,22 @@ def test_tile_plan_covers_the_histogram_and_fits(N, F, B, M, n):
 
 @pytest.mark.parametrize("B,M", [(1 << 15, 8), (256, 57_345)])
 def test_tile_plan_refuses_a_tile_past_shared_memory(B, M):
-    """Too many bins, or a node lookup too large for shared memory (a
-    tree of more than 57,344 nodes at B = 256), is named as not ported."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8"):
-        hist.tile_plan(1, 1, B, M, 100, sm_count=132)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        hist.check_tile_fits(B, M)
+    """Too many bins for one slot x feature tile is named as not ported
+    (ROADMAP.md 1.8b); a node lookup too large for shared memory (a tree
+    of more than 57,344 nodes at B = 256) takes the global lookup kind,
+    whose tile holds no lookup."""
+    if B * 12 > hist.SMEM_MAX:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b"):
+            hist.tile_plan(1, 1, B, M, 100, sm_count=132)
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            hist.check_tile_fits(B)
+        return
+    assert hist.lookup_kind(B, M) == "global"
+    assert hist.lookup_kind(B, M - 1) == "shared"
+    hist.check_tile_fits(B)
+    plan = hist.tile_plan(1, 1, B, M, 100, sm_count=132)
+    assert plan["smem"] == 12 * B and (plan["fg"], plan["ng"]) == (1, 1)
+    assert hist.check_plan(plan, 1, 1, B, M, 100) == plan
 
 
 def test_tile_plan_takes_the_largest_lookup_that_fits():

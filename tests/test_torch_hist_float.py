@@ -19,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.gbdt import hist as jhist
 from ytklearn_tpu_torch.gbdt import hist
 

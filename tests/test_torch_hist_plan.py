@@ -2,14 +2,16 @@
 the CPU: every plan covers each (slot, feature) of the histogram and each
 row once, fits one block's shared memory, keeps its grid in range, and
 passes its own checker; the checker refuses, before any launch, a plan
-that does not cover, does not fit or has bad threads (ValueError), and
-past the node lookup's cap raises check_tile_fits' NotImplementedError.
+that does not cover, does not fit or has bad threads (ValueError). Past
+the shared node lookup's cap the plans take the global lookup kind; past
+one tile's bins they raise check_tile_fits' NotImplementedError.
 The plans are pure integer arithmetic, so every check is exact."""
 
 import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu_torch.gbdt import hist
 
 SM = 132
@@ -86,14 +88,34 @@ def test_float_plan_covers_fits_and_checks(N, F, B, nodes, rows, gather):
 @pytest.mark.parametrize("B", BS)
 @pytest.mark.parametrize("gather", [False, True])
 def test_past_the_cap_raises_as_check_tile_fits(B, gather):
+    """Past the shared lookup's cap the plan takes the global kind: no
+    shared memory for the lookup, every (slot, feature) and row covered,
+    its own checker passes; the cap itself keeps the shared kind. Bins
+    past one tile raise as check_tile_fits (ROADMAP.md 1.8b)."""
     M = cap(B) + 4
+    assert hist.lookup_kind(B, cap(B)) == "shared"
+    assert hist.lookup_kind(B, M) == "global"
+    plan = hist.float_plan(7, 28, B, M, 1000, SM, gather)
+    pairs, spans = _cells(plan, 7, 28, 1000)
+    assert sorted(pairs) == [(s, f) for s in range(7) for f in range(28)]
+    assert spans[0][0] == 0 and spans[-1][1] == 1000
+    need = (0 if plan["kind"] == "red"
+            else plan["ng"] * plan["fg"] * B * 12)
+    assert plan["smem"] == need == (
+        0 if plan["kind"] == "red"
+        else hist.tile_bytes(7, plan["ng"], plan["fg"], B, M))
+    assert hist.check_float_plan(plan, 7, 28, B, M, 1000, gather) == plan
+    red = hist.check_float_plan({"kind": "red", "n_chunks": 1}, 7, 28, B, M,
+                                1000, gather)
+    assert red["smem"] == 0
+    wide = 1 << 15
     with pytest.raises(NotImplementedError) as want:
-        hist.check_tile_fits(B, M)
-    for call in (lambda: hist.float_plan(7, 28, B, M, 1000, SM, gather),
+        hist.check_tile_fits(wide)
+    for call in (lambda: hist.float_plan(7, 28, wide, M, 1000, SM, gather),
                  lambda: hist.check_float_plan(
-                     {"kind": "red", "n_chunks": 1}, 7, 28, B, M, 1000,
+                     {"kind": "red", "n_chunks": 1}, 7, 28, wide, M, 1000,
                      gather)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8") \
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b") \
                 as got:
             call()
         assert str(got.value) == str(want.value)

@@ -4,9 +4,10 @@ feature) of the histogram and each row once, fits one block's shared
 memory, keeps its grid in range and each packed lane within its bits at
 |g| = |h| = 127, and passes its own checker; the checker refuses, before
 any launch, a plan that does not cover, does not fit or has bad threads
-(ValueError), and past the node lookup's cap raises check_tile_fits'
-NotImplementedError. The plans are pure integer arithmetic, so every check
-is exact."""
+(ValueError). Past the shared node lookup's cap the pack pass takes the
+global lookup kind; a wave of Q_MAX_SLOTS slots or more raises ValueError
+and bins past one tile check_tile_fits' NotImplementedError. The plans are
+pure integer arithmetic, so every check is exact."""
 
 import inspect
 
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu_torch.gbdt import engine, hist
 
 SM = 132
@@ -101,13 +103,29 @@ def test_q_plan_covers_fits_and_checks(N, F, B, nodes, rows, gather):
 @pytest.mark.parametrize("B", BS)
 @pytest.mark.parametrize("gather", [False, True])
 def test_q_past_the_cap_raises_as_check_tile_fits(B, gather):
+    """Past the shared lookup's cap the pack pass takes the global kind:
+    the pack shape holds no shared memory, the tile plan is the cap's (a
+    K2/K4 tile never held the lookup) and passes its checker. Bins past one
+    tile raise as check_tile_fits (ROADMAP.md 1.8b)."""
     M = cap(B) + 4
+    assert hist.lookup_kind(B, M) == "global"
+    plan = hist.q_plan(7, 28, B, M, 1000, SM, gather)
+    at_cap = hist.q_plan(7, 28, B, cap(B), 1000, SM, gather)
+    assert {k: v for k, v in plan.items() if k not in ("n_chunks",
+                                                       "rows_per_chunk")} \
+        == {k: v for k, v in at_cap.items() if k not in ("n_chunks",
+                                                         "rows_per_chunk")}
+    assert hist.check_q_plan(plan, 7, 28, B, M, 1000) == plan
+    assert hist._red_shape(7, B, M, 1000, SM)[3] == 0
+    assert hist._red_shape(7, B, cap(B), 1000, SM)[3] == \
+        hist._lut_bytes(cap(B), 7)
+    wide = 1 << 15
     with pytest.raises(NotImplementedError) as want:
-        hist.check_tile_fits(B, M)
-    for call in (lambda: hist.q_plan(7, 28, B, M, 1000, SM, gather),
+        hist.check_tile_fits(wide)
+    for call in (lambda: hist.q_plan(7, 28, wide, M, 1000, SM, gather),
                  lambda: hist.check_q_plan({"kind": "red", "n_chunks": 1},
-                                           7, 28, B, M, 1000)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8") \
+                                           7, 28, wide, M, 1000)):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b") \
                 as got:
             call()
         assert str(got.value) == str(want.value)
@@ -115,13 +133,22 @@ def test_q_past_the_cap_raises_as_check_tile_fits(B, gather):
 
 
 def test_the_lookup_cap_keeps_every_slot_in_the_packed_word():
-    """A wave wider than the 16-bit slot field cannot pass check_tile_fits:
-    its lookup alone (N entries) would not fit shared memory."""
+    """A wave as wide as the 16-bit slot field (0xFFFF marks a row outside
+    the wave) is refused by both int8 planners; one slot fewer plans, on
+    the global lookup kind (its lookup alone would not fit shared
+    memory)."""
     for B in (1, 16, 256):
         widest = (hist.SMEM_MAX - 12 * B) // 4
         assert widest < hist.Q_MAX_SLOTS
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="16-bit"):
             hist.q_plan(hist.Q_MAX_SLOTS, 1, B, 8, 100, SM)
+        with pytest.raises(ValueError, match="16-bit"):
+            hist.check_q_plan({"kind": "red", "n_chunks": 1},
+                              hist.Q_MAX_SLOTS, 1, B, 8, 100)
+        N = hist.Q_MAX_SLOTS - 1
+        assert hist.lookup_kind(B, 8, N) == "global"
+        plan = hist.q_plan(N, 1, B, 8, 100, SM)
+        assert hist.check_q_plan(plan, N, 1, B, 8, 100) == plan
 
 
 @pytest.mark.parametrize("g", [-127, 127])

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.gbdt import hist as jhist
 from ytklearn_tpu_torch.gbdt import hist
 

@@ -11,6 +11,7 @@ that does not. Pure integer arithmetic: every check is exact."""
 
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu_torch.gbdt import hist
 
 SM = 132

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import cli as jcli
 from ytklearn_tpu import train as jtrain
 from ytklearn_tpu.config.params import CommonParams as JParams

@@ -10,6 +10,7 @@ import sys
 
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 import ytklearn_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

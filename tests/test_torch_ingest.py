@@ -16,6 +16,7 @@ sorted order).
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import GBDTParams as JParams
 from ytklearn_tpu.gbdt.data import GBDTIngest as JIngest
 from ytklearn_tpu.io import native as jnative

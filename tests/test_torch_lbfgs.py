@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import CommonParams as JParams
 from ytklearn_tpu.models.linear import LinearModel as JLinear
 from ytklearn_tpu.optimize import lbfgs as jlb

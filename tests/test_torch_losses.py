@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import losses as jl
 from ytklearn_tpu_torch import losses as pl
 

@@ -18,6 +18,7 @@ rank 0 dumping. The ranks run once a world size (tests/torch_mp_worker.py)."""
 
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from torch_mesh_cases import CONVEX_NAMES, WORLDS, Runs, agree, \
     check_preempted, convex_cases
 

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import ApproximateSpec as JSpec, \
     GBDTParams as JParams, ModelParams as JModel
 from ytklearn_tpu.gbdt.data import GBDTData as JData

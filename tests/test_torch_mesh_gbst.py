@@ -17,6 +17,7 @@ having dumped the finished trees. The ranks run once a world size
 
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from torch_mesh_cases import GBST_VARIANTS, WORLDS, Runs, agree, \
     check_preempted, gbst_cases
 

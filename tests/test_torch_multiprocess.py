@@ -32,6 +32,7 @@ import jax
 import numpy as np
 import pytest
 
+from torch_threads import ONE_THREAD_ENV
 import ytklearn_tpu.parallel.collectives as jcoll
 from ytklearn_tpu.config.params import ApproximateSpec as JSpec, \
     DataParams as JDataParams, GBDTParams as JParams
@@ -105,6 +106,7 @@ def two_process(tmp_path_factory):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(ONE_THREAD_ENV)
     procs, errs = [], []
     for r in range(2):
         # stderr to files: a rank blocked on a full pipe while its peer waits
@@ -397,6 +399,7 @@ def two_sparse(tmp_path_factory):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(ONE_THREAD_ENV)
     out = {}
     procs = []
     for name in SPARSE:

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import CommonParams as JCommon
 from ytklearn_tpu.config.params import GBDTParams as JParams
 from ytklearn_tpu.gbdt.data import GBDTIngest as JIngest

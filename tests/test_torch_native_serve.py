@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.predict import create_predictor as jcreate
 from ytklearn_tpu.serve import CompiledScorer as JScorer
 from ytklearn_tpu.serve import kernels as jk

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import obs as jobs
 from ytklearn_tpu.obs import health as jhealth
 from ytklearn_tpu.obs import model_metrics as jmm

@@ -17,6 +17,7 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import build_gbdt, request_rows
 from ytklearn_tpu_torch import obs
 from ytklearn_tpu_torch.obs import recorder

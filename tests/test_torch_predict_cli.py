@@ -22,6 +22,7 @@ import json
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import cli as jcli
 from ytklearn_tpu.io.libsvm import convert_libsvm as jconvert
 from ytklearn_tpu_torch import cli, obs

@@ -14,6 +14,7 @@ import torch
 
 import jax
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu_torch.gbdt import prng
 
 SEEDS = [0, 20170425, 7, 2 ** 31 - 1]

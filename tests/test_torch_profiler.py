@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import build_gbdt, request_rows
 from ytklearn_tpu import obs as jobs
 from ytklearn_tpu import train as jtrain

@@ -6,6 +6,7 @@ prune, the level cascade over many chunks, and the queries."""
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.gbdt import quantile_sketch as jqs
 from ytklearn_tpu_torch.gbdt import quantile_sketch as pqs
 

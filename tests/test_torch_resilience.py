@@ -29,6 +29,7 @@ import time
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu import resilience as jres
 from ytklearn_tpu_torch import resilience
 from ytklearn_tpu_torch.cli import train_main

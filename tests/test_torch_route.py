@@ -13,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.gbdt import route as jroute
 from ytklearn_tpu_torch.gbdt import engine, route
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import build_ffm, build_fm, build_gbdt, build_gbst, \
     build_linear, build_multiclass, request_rows
 from torch_bf16_bound import bf16_bound, bf16_round

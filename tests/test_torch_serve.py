@@ -21,6 +21,7 @@ from unittest import mock
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import build_gbdt, request_rows
 from ytklearn_tpu.serve import BatchPolicy as JaxPolicy
 from ytklearn_tpu.serve import ModelRegistry as JaxRegistry

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.gbdt.tree import GBDTModel as JModel
 from ytklearn_tpu.serve import kernels as jkernels
 from ytklearn_tpu_torch.serve import kernels

@@ -24,6 +24,7 @@ from unittest import mock
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import build_gbdt, request_rows
 from ytklearn_tpu import cli as jcli
 from ytklearn_tpu import obs as jobs

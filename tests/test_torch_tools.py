@@ -17,6 +17,8 @@ import sys
 import pytest
 import torch
 
+from torch_threads import ONE_THREAD_ENV
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = {
     "tune_hist_kernel": [],
@@ -35,6 +37,7 @@ def _run(tool, *extra, args=None):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_", "BENCH_", "YTK_GOSS"))}
     env["PYTHONPATH"] = REPO
+    env.update(ONE_THREAD_ENV)
     args = ["--rows", "4096", *TOOLS[tool]] if args is None else args
     return subprocess.run(
         [sys.executable, "-m", f"ytklearn_tpu_torch.scripts.{tool}",

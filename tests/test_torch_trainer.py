@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from ytklearn_tpu.config.params import ApproximateSpec as JSpec
 from ytklearn_tpu.config.params import GBDTParams as JParams
 from ytklearn_tpu.config.params import ModelParams as JModelParams
@@ -41,7 +42,7 @@ from ytklearn_tpu.gbdt.trainer import GBDTTrainer as JTrainer
 from ytklearn_tpu.predict import create_predictor
 from ytklearn_tpu_torch.config.params import ApproximateSpec, GBDTParams, \
     ModelParams
-from ytklearn_tpu_torch.gbdt import engine, state
+from ytklearn_tpu_torch.gbdt import engine, hist, state
 from ytklearn_tpu_torch.gbdt.data import GBDTData
 from ytklearn_tpu_torch.gbdt.tree import GBDTModel
 from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
@@ -454,22 +455,29 @@ def test_default_device_needs_cuda():
         GBDTTrainer(GBDTParams(), hist_precision="int8")
 
 
-@pytest.mark.parametrize("depth,leaves,device,refused", [
-    (15, 0, "cuda", True),      # 65,535 nodes: past K2/K4's lookup
+@pytest.mark.parametrize("depth,leaves,device,past_cap", [
+    (15, 0, "cuda", True),      # 65,535 nodes: past the shared lookup
     (60, 28_673, "cuda", True),  # 57,345 nodes
     (60, 28_672, "cuda", False),  # 57,343 nodes: the largest that fits
-    (15, 0, "cpu", False),      # the plain versions take any tree
+    (15, 0, "cpu", True),       # the plain versions take any tree
 ])
 def test_trees_past_the_kernel_lookup_raise_on_cuda(depth, leaves, device,
-                                                    refused):
-    """On CUDA the spec refuses, by its ROADMAP item, a tree whose node
-    lookup does not fit K2/K4's shared memory, before any round runs."""
+                                                    past_cap):
+    """On CUDA the spec takes a tree of any size: one whose node lookup
+    does not fit K1-K4's shared memory gets the global lookup kind, and
+    the planners plan it at the card's shapes. Only bins past one
+    histogram tile are refused, by their ROADMAP item, before any round
+    runs."""
     p = GBDTParams(approximate=[ApproximateSpec()], max_depth=depth,
                    max_leaf_cnt=leaves)
     tr = GBDTTrainer(p, device="cpu", hist_precision="int8")
     tr.device = torch.device(device)  # the spec reads only the device type
-    if refused:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8"):
-            tr._grow_spec(28, 256)
-    else:
-        assert tr._grow_spec(28, 256).max_nodes >= 57_343
+    spec = tr._grow_spec(28, 256)
+    assert spec.max_nodes >= 57_343
+    assert hist.lookup_kind(256, spec.max_nodes, spec.wave) == (
+        "global" if past_cap else "shared")
+    hist.q_plan(spec.wave, 28, 256, spec.max_nodes, 10_502_144, 132)
+    hist.float_plan(spec.wave, 28, 256, spec.max_nodes, 10_502_144, 132)
+    if device == "cuda":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b"):
+            tr._grow_spec(28, 1 << 15)

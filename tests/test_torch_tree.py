@@ -8,6 +8,7 @@ for element, -0.0 sign bits included.
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401 (one torch thread a test process)
 from serve_models import build_gbdt
 from ytklearn_tpu.gbdt.tree import GBDTModel as JModel
 from ytklearn_tpu.gbdt.tree import Tree as JTree

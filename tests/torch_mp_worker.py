@@ -464,12 +464,10 @@ def main(argv):
     from ytklearn_tpu_torch.parallel.mesh import \
         distributed_initialize_if_needed, make_mesh, release_mesh
 
-    if mode in ("convex", "linear", "gbst"):
-        # small batches: one thread a rank keeps the ranks off each
-        # other's cores
-        import torch
+    # one thread a rank keeps the ranks off each other's cores
+    import torch
 
-        torch.set_num_threads(1)
+    torch.set_num_threads(1)
     distributed_initialize_if_needed(coordinator=rdv,
                                      world_size=world, rank=rank,
                                      device="cpu", backend="gloo")

@@ -28,7 +28,10 @@
 //   * pack: one pass over the rows writes a 32-bit word per row: its lowest
 //     wave slot (0xFFFF: not in the wave) and g, h as int8. The node lookup
 //     (tree node id -> lowest slot) lives in the pack kernel's shared
-//     memory, so the passes after it read 4 bytes a row, not 12, and do no
+//     memory, or, for a tree whose lookup does not fit there (hist.py's
+//     lookup_kind "global"), in one int32 table of M entries in global
+//     memory that the lookup kernel, one block launched first, fills and
+//     marks; so the passes after it read 4 bytes a row, not 12, and do no
 //     lookup; it also counts the wave's rows for the auto kind. For K4 it
 //     gathers too: each gathered row's bins go into an (F, R) feature-major
 //     copy (R padded to four rows), so K4 runs K2's tile and red kernels.
@@ -242,7 +245,8 @@ __device__ __forceinline__ void add_rows(
 }
 
 // The lookup over tree node ids [0, M): the lowest slot of each id
-// (INT_MAX: no slot), built per block.
+// (INT_MAX: no slot), built per block in shared memory, or once a launch in
+// global memory by lookup_kernel.
 __device__ __forceinline__ void build_lut(int32_t* lut, int M,
                                           const int32_t* node_ids, int N) {
   for (int i = threadIdx.x; i < M; i += blockDim.x) lut[i] = INT_MAX;
@@ -252,6 +256,14 @@ __device__ __forceinline__ void build_lut(int32_t* lut, int M,
     if (id >= 0 && id < M) atomicMin(&lut[id], i);
   }
   __syncthreads();
+}
+
+// The global lookup kind's table: one block fills it and marks the wave's
+// ids before the pack kernel reads it.
+__global__ void __launch_bounds__(1024) lookup_kernel(
+    int32_t* __restrict__ lut, int M, const int32_t* __restrict__ node_ids,
+    int N) {
+  build_lut(lut, M, node_ids, N);
 }
 
 // A gathered row's F bins into column r of the (F, n_pad) copy.
@@ -333,18 +345,21 @@ __device__ __forceinline__ void gather4_words(
 // pack: one chunk of rows [0, n_pad) a block; each row's word (rows past n
 // and rows outside the wave: DEAD), and (live != nullptr) the wave's rows
 // added into *live. GATHER (K4): row r is rows[idx[r]] (an idx outside
-// [0, n_bins_rows) adds nothing), its bins copied into gbins.
-template <typename BinT, int V, bool GATHER>
+// [0, n_bins_rows) adds nothing), its bins copied into gbins. GLUT: the
+// lookup is the global table glut, else built in shared memory.
+template <typename BinT, int V, bool GATHER, bool GLUT>
 __global__ void __launch_bounds__(1024) pack_kernel(
     const int32_t* __restrict__ pos, const float* __restrict__ g,
     const float* __restrict__ h, long long n, long long n_pad,
     const int32_t* __restrict__ idx, const BinT* __restrict__ rows,
     long long n_bins_rows, int F, int words,
     const int32_t* __restrict__ node_ids, int N, int M,
-    long long rows_per_chunk, uint32_t* __restrict__ packed,
-    BinT* __restrict__ gbins, unsigned long long* __restrict__ live) {
-  extern __shared__ int32_t lut[];
-  build_lut(lut, M, node_ids, N);
+    const int32_t* __restrict__ glut, long long rows_per_chunk,
+    uint32_t* __restrict__ packed, BinT* __restrict__ gbins,
+    unsigned long long* __restrict__ live) {
+  extern __shared__ int32_t smem_lut[];
+  const int32_t* lut = GLUT ? glut : smem_lut;
+  if constexpr (!GLUT) build_lut(smem_lut, M, node_ids, N);
   const long long r0 = (long long)blockIdx.x * rows_per_chunk;
   const long long r1 = min(n_pad, r0 + rows_per_chunk);
   const long long rn = min(n, r1);
@@ -584,6 +599,7 @@ struct Args {
       pack_smem; long long red_rows; unsigned long long* live;
   int words; uint32_t* packed; void* gbins; int32_t* out; int4* acc;
   int32_t* partial; int n_store;  // the tile's store mode: its chunks, or 0
+  int32_t* glut;  // the global lookup's table, or nullptr: the shared kind
   cudaStream_t st;
 };
 
@@ -597,16 +613,30 @@ cudaError_t allow_smem(K kern, int smem) {
       : cudaSuccess;
 }
 
-template <typename BinT, int V, bool GATHER>
+template <typename BinT, int V, bool GATHER, bool GLUT>
 int launch_pack(const Args& a) {
-  auto kern = pack_kernel<BinT, V, GATHER>;
+  if constexpr (GLUT) {
+    lookup_kernel<<<1, 1024, 0, a.st>>>(a.glut, a.M, a.node_ids, a.N);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto kern = pack_kernel<BinT, V, GATHER, GLUT>;
   cudaError_t err = allow_smem(kern, a.pack_smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<a.pack_chunks, a.pack_threads, a.pack_smem, a.st>>>(
       a.pos, a.g, a.h, a.n, a.n_pad, a.idx, (const BinT*)a.bins,
-      a.n_bins_rows, a.F, a.words, a.node_ids, a.N, a.M,
+      a.n_bins_rows, a.F, a.words, a.node_ids, a.N, a.M, a.glut,
       a.pack_rows_per_chunk, a.packed, (BinT*)a.gbins, a.live);
   return (int)cudaGetLastError();
+}
+
+template <typename BinT, bool GATHER>
+int launch_pack_kind(int pack_vec, const Args& a) {
+  if (a.glut)
+    return pack_vec ? launch_pack<BinT, 4, GATHER, true>(a)
+                    : launch_pack<BinT, 1, GATHER, true>(a);
+  return pack_vec ? launch_pack<BinT, 4, GATHER, false>(a)
+                  : launch_pack<BinT, 1, GATHER, false>(a);
 }
 
 // The resident blocks of a kernel at (threads, smem) on the current device,
@@ -676,13 +706,13 @@ int launch_finish(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// kind 0 = tile, 1 = red, 2 = auto: pack (K4: pack and gather), then the
-// tile and/or red kernel over the packed rows, then finish. pack_vec: the
-// pack's inputs four rows at a time; scan_vec: the tile and red kernels'.
+// kind 0 = tile, 1 = red, 2 = auto: pack (K4: pack and gather; the global
+// lookup kind: the lookup kernel first), then the tile and/or red kernel
+// over the packed rows, then finish. pack_vec: the pack's inputs four rows
+// at a time; scan_vec: the tile and red kernels'.
 template <typename BinT, bool GATHER>
 int launch_kind(int kind, int pack_vec, int scan_vec, const Args& a) {
-  int err = pack_vec ? launch_pack<BinT, 4, GATHER>(a)
-                     : launch_pack<BinT, 1, GATHER>(a);
+  int err = launch_pack_kind<BinT, GATHER>(pack_vec, a);
   const BinT* bins = (const BinT*)(GATHER ? a.gbins : a.bins);
   if (!err && kind != 1) {
     if (a.n_store)
@@ -722,7 +752,10 @@ extern "C" {
 // pack_rows_per_chunk a multiple of 4); scan_vec 1: the tile and red
 // kernels do (rows_per_chunk a multiple of 4; K2's bins aligned to four
 // rows and n a multiple of 4); words 1 reads a gathered row's uint8 bins as
-// 32-bit words. Returns the cudaError_t of the launches (0 = launched).
+// 32-bit words. lut: nullptr for the shared lookup kind, else the global
+// kind's table of M int32 (padded to 4), filled by the launch (pack_smem
+// then holds no lookup). Returns the cudaError_t of the launches (0 =
+// launched).
 int ytk_hist_q(int kind, int bin_bytes, int gather, int pack_vec,
                int scan_vec, int words,
                const void* bins, long long n_bins_rows, const int32_t* idx,
@@ -733,7 +766,7 @@ int ytk_hist_q(int kind, int bin_bytes, int gather, int pack_vec,
                int threads, int smem_bytes, int pack_chunks,
                long long pack_rows_per_chunk, int pack_threads,
                int pack_smem, long long red_rows, int n_store, int32_t* out,
-               void* acc, void* stream) {
+               void* acc, int32_t* lut, void* stream) {
   const size_t cells = (size_t)N * F * B;
   int4* cell = (int4*)acc;
   unsigned long long* live = (unsigned long long*)(cell + cells);
@@ -747,7 +780,7 @@ int ytk_hist_q(int kind, int bin_bytes, int gather, int pack_vec,
          B, fg, ng, n_ftiles, n_tiles, n_chunks, rows_per_chunk, threads,
          smem_bytes, pack_chunks, pack_rows_per_chunk, pack_threads,
          pack_smem, red_rows, kind == 2 ? live : nullptr, words, packed,
-         gbins, out, cell, partial, n_store, (cudaStream_t)stream};
+         gbins, out, cell, partial, n_store, lut, (cudaStream_t)stream};
   // the count is read by auto only, the cells by red and the tile's
   // atomic flush: the tile kind in store mode zeroes nothing
   if (kind != 0 || n_store == 0) {

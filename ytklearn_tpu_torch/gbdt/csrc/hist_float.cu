@@ -56,8 +56,14 @@
 // and h as float4s, four rows' bins of a feature as one 32-bit word, int32
 // bins as an int4, a gathered row's uint8 bins as 32-bit words) and issues
 // a batch of loads before the first atomic; rows that are not 16-byte
-// aligned, and the ragged tail of a chunk, take the one-row path. The node
-// lookup (tree node id -> lowest slot) lives in shared memory.
+// aligned, and the ragged tail of a chunk, take the one-row path.
+//
+// The node lookup (tree node id -> lowest slot) is of one of two kinds
+// (hist.py's lookup_kind): built in each block's shared memory over all M
+// ids, beside the tile (GLUT false: every tree whose lookup fits there with
+// one slot x feature tile), or, for larger trees, one int32 table of M
+// entries in global memory (GLUT true) that the lookup kernel, one block
+// launched first, fills and marks; every block then reads it through L2.
 //
 // Built by ytklearn_tpu_torch/cuda_build.py with nvcc for sm_90a; bound by
 // ctypes from ytklearn_tpu_torch/gbdt/hist.py.
@@ -279,8 +285,9 @@ __device__ __forceinline__ void add_chunk(
                                    lut, M, F, B, pt, bf16, words, sink);
 }
 
-// The lookup over tree node ids [0, M): the lowest slot of each id, built
-// per block (INT_MAX: no slot).
+// The lookup over tree node ids [0, M): the lowest slot of each id (INT_MAX:
+// no slot), built per block in shared memory, or once a launch in global
+// memory by lookup_kernel.
 __device__ __forceinline__ void fill_lut(int32_t* lut, int M) {
   for (int i = threadIdx.x; i < M; i += blockDim.x) lut[i] = INT_MAX;
 }
@@ -292,19 +299,31 @@ __device__ __forceinline__ void mark_lut(int32_t* lut, int M,
   }
 }
 
-// The rows of the wave (a position with a slot), added into *live: what the
-// auto kind decides by, on the device, before the tile or red kernel runs.
-template <int V>
-__global__ void __launch_bounds__(1024) count_kernel(
-    const int32_t* __restrict__ pos, long long n,
-    const int32_t* __restrict__ node_ids, int N, int M,
-    unsigned long long* __restrict__ live) {
-  extern __shared__ int32_t smem[];
-  int32_t* lut = smem;
+// The global lookup kind's table: one block fills it and marks the wave's
+// ids before the launch's other kernels read it.
+__global__ void __launch_bounds__(1024) lookup_kernel(
+    int32_t* __restrict__ lut, int M, const int32_t* __restrict__ node_ids,
+    int N) {
   fill_lut(lut, M);
   __syncthreads();
   mark_lut(lut, M, node_ids, N);
-  __syncthreads();
+}
+
+// The rows of the wave (a position with a slot), added into *live: what the
+// auto kind decides by, on the device, before the tile or red kernel runs.
+template <int V, bool GLUT>
+__global__ void __launch_bounds__(1024) count_kernel(
+    const int32_t* __restrict__ pos, long long n,
+    const int32_t* __restrict__ node_ids, int N, int M,
+    const int32_t* __restrict__ glut, unsigned long long* __restrict__ live) {
+  extern __shared__ int32_t smem[];
+  const int32_t* lut = GLUT ? glut : smem;
+  if constexpr (!GLUT) {
+    fill_lut(smem, M);
+    __syncthreads();
+    mark_lut(smem, M, node_ids, N);
+    __syncthreads();
+  }
   unsigned long long c = 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long groups = n / V;
@@ -335,32 +354,35 @@ __device__ __forceinline__ bool skip(const unsigned long long* live,
 
 // One wave of resident blocks walks the n_tiles x n_chunks items (tile
 // fastest, so the blocks at work on one chunk share its reads through L2):
-// per item, zero the tile, add the chunk's rows, flush. The lookup is built
-// once per block, and an auto launch that picks red skips one wave.
-template <typename BinT, int V>
+// per item, zero the tile, add the chunk's rows, flush. A shared lookup is
+// built once per block, and an auto launch that picks red skips one wave.
+template <typename BinT, int V, bool GLUT>
 __global__ void __launch_bounds__(1024) tile_kernel(
     const BinT* __restrict__ bins,      // (F, n)
     const int32_t* __restrict__ pos,    // (n,) node id per row, -1 = dead
     const float* __restrict__ g, const float* __restrict__ h, long long n,
     const int32_t* __restrict__ node_ids, int N,
     int M,                              // node ids < M (lookup table size)
-    int L,                              // lookup space: max(M, N), padded to 4
+    int L,                              // shared lookup: max(M, N) padded
+                                        // to 4 (GLUT: 0)
     int F, int B, int fg, int ng, int n_ftiles, int n_tiles, int n_items,
-    long long rows_per_chunk, int bf16,
+    long long rows_per_chunk, int bf16, const int32_t* __restrict__ glut,
     const unsigned long long* __restrict__ live, long long red_rows,
     float4* __restrict__ acc)           // (N, F, B) x 4, zeroed by the caller
 {
   if (skip(live, red_rows, false)) return;
   extern __shared__ int32_t smem[];
-  int32_t* lut = smem;
+  const int32_t* lut = GLUT ? glut : smem;
   Sink<false> sink{reinterpret_cast<float*>(smem + L)};
   const float* hist = sink.hist;
   const int words = ng * fg * B * 3;
   const int per_slot = fg * B;
 
-  fill_lut(lut, M);
-  __syncthreads();
-  mark_lut(lut, M, node_ids, N);
+  if constexpr (!GLUT) {
+    fill_lut(smem, M);
+    __syncthreads();
+    mark_lut(smem, M, node_ids, N);
+  }
 
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int tile = item % n_tiles;
@@ -396,23 +418,26 @@ __global__ void __launch_bounds__(1024) tile_kernel(
   }
 }
 
-template <typename BinT, int V, bool GATHER>
+template <typename BinT, int V, bool GATHER, bool GLUT>
 __global__ void __launch_bounds__(1024) red_kernel(
     const BinT* __restrict__ bins, long long n_bins_rows,
     const int32_t* __restrict__ idx, const int32_t* __restrict__ pos,
     const float* __restrict__ g, const float* __restrict__ h, long long n,
     const int32_t* __restrict__ node_ids, int N, int M, int F, int B,
     long long rows_per_chunk, int bf16, int words,
+    const int32_t* __restrict__ glut,
     const unsigned long long* __restrict__ live, long long red_rows,
     float4* __restrict__ acc)           // (N, F, B) x 4, zeroed by the caller
 {
   if (skip(live, red_rows, true)) return;
   extern __shared__ int32_t smem[];
-  int32_t* lut = smem;
-  fill_lut(lut, M);
-  __syncthreads();
-  mark_lut(lut, M, node_ids, N);
-  __syncthreads();
+  const int32_t* lut = GLUT ? glut : smem;
+  if constexpr (!GLUT) {
+    fill_lut(smem, M);
+    __syncthreads();
+    mark_lut(smem, M, node_ids, N);
+    __syncthreads();
+  }
   Part pt;
   pt.s0 = 0;
   pt.scnt = N;
@@ -461,7 +486,9 @@ struct Args {
   // the red launch of the auto kind (the red kind's own shape is above)
   int red_chunks; long long red_rows_per_chunk; int red_threads, red_smem;
   long long red_rows; unsigned long long* live;
-  int bf16, words; float* out; float* acc; cudaStream_t st;
+  int bf16, words; float* out; float* acc;
+  int32_t* glut;  // the global lookup's table, or nullptr: the shared kind
+  cudaStream_t st;
 };
 
 // Above the 48 KB every kernel may use, a kernel's dynamic shared memory
@@ -474,10 +501,10 @@ cudaError_t allow_smem(K kern, int smem) {
       : cudaSuccess;
 }
 
-template <typename BinT, int V>
+template <typename BinT, int V, bool GLUT>
 int launch_tile(const Args& a) {
-  const int L = ((a.M > a.N ? a.M : a.N) + 3) & ~3;
-  auto kern = tile_kernel<BinT, V>;
+  const int L = GLUT ? 0 : ((a.M > a.N ? a.M : a.N) + 3) & ~3;
+  auto kern = tile_kernel<BinT, V, GLUT>;
   cudaError_t err = allow_smem(kern, a.smem);
   if (err != cudaSuccess) return (int)err;
   // one wave of resident blocks over the items
@@ -495,30 +522,35 @@ int launch_tile(const Args& a) {
   kern<<<blocks, a.threads, a.smem, a.st>>>(
       (const BinT*)a.bins, a.pos, a.g, a.h, a.n, a.node_ids, a.N, a.M, L,
       a.F, a.B, a.fg, a.ng, a.n_ftiles, a.n_tiles, n_items,
-      a.rows_per_chunk, a.bf16, a.live, a.red_rows, (float4*)a.acc);
+      a.rows_per_chunk, a.bf16, a.glut, a.live, a.red_rows, (float4*)a.acc);
   return (int)cudaGetLastError();
 }
 
-template <typename BinT, int V, bool GATHER>
+template <typename BinT, int V, bool GATHER, bool GLUT>
 int launch_red(const Args& a, int chunks, long long rows_per_chunk,
                int threads, int smem) {
-  auto kern = red_kernel<BinT, V, GATHER>;
+  auto kern = red_kernel<BinT, V, GATHER, GLUT>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<chunks, threads, smem, a.st>>>(
       (const BinT*)a.bins, a.n_bins_rows, a.idx, a.pos, a.g, a.h, a.n,
       a.node_ids, a.N, a.M, a.F, a.B, rows_per_chunk, a.bf16, a.words,
-      a.live, a.red_rows, (float4*)a.acc);
+      a.glut, a.live, a.red_rows, (float4*)a.acc);
   return (int)cudaGetLastError();
 }
 
-template <int V>
+template <int V, bool GLUT>
 int launch_count(const Args& a) {
-  auto kern = count_kernel<V>;
+  auto kern = count_kernel<V, GLUT>;
   cudaError_t err = allow_smem(kern, a.red_smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<a.red_chunks, a.red_threads, a.red_smem, a.st>>>(
-      a.pos, a.n, a.node_ids, a.N, a.M, a.live);
+      a.pos, a.n, a.node_ids, a.N, a.M, a.glut, a.live);
+  return (int)cudaGetLastError();
+}
+
+int launch_lookup(const Args& a) {
+  lookup_kernel<<<1, 1024, 0, a.st>>>(a.glut, a.M, a.node_ids, a.N);
   return (int)cudaGetLastError();
 }
 
@@ -533,16 +565,17 @@ int launch_finish(const Args& a) {
 }
 
 // kind 0 = tile, 1 = red, 2 = auto (count, then tile and red, one of
-// which returns at once)
-template <typename BinT, bool GATHER>
+// which returns at once); GLUT: the lookup kernel first
+template <typename BinT, bool GATHER, bool GLUT>
 int launch_kind(int kind, int vec, const Args& a) {
-  int err = 0;
-  if (kind == 2) err = vec ? launch_count<4>(a) : launch_count<1>(a);
+  int err = GLUT ? launch_lookup(a) : 0;
+  if (!err && kind == 2)
+    err = vec ? launch_count<4, GLUT>(a) : launch_count<1, GLUT>(a);
   if (!err && kind != 1) {
     if constexpr (GATHER)
       err = (int)cudaErrorInvalidValue;  // K3 takes the red kind only
     else
-      err = vec ? launch_tile<BinT, 4>(a) : launch_tile<BinT, 1>(a);
+      err = vec ? launch_tile<BinT, 4, GLUT>(a) : launch_tile<BinT, 1, GLUT>(a);
   }
   if (!err && kind != 0) {
     const bool own = kind == 1;  // the red kind's shape, else auto's red one
@@ -550,10 +583,18 @@ int launch_kind(int kind, int vec, const Args& a) {
     const long long rpc = own ? a.rows_per_chunk : a.red_rows_per_chunk;
     const int threads = own ? a.threads : a.red_threads;
     const int smem = own ? a.smem : a.red_smem;
-    err = vec ? launch_red<BinT, 4, GATHER>(a, chunks, rpc, threads, smem)
-              : launch_red<BinT, 1, GATHER>(a, chunks, rpc, threads, smem);
+    err = vec ? launch_red<BinT, 4, GATHER, GLUT>(a, chunks, rpc, threads,
+                                                  smem)
+              : launch_red<BinT, 1, GATHER, GLUT>(a, chunks, rpc, threads,
+                                                  smem);
   }
   return err ? err : launch_finish(a);
+}
+
+template <typename BinT, bool GATHER>
+int launch_lut(int kind, int vec, const Args& a) {
+  return a.glut ? launch_kind<BinT, GATHER, true>(kind, vec, a)
+                : launch_kind<BinT, GATHER, false>(kind, vec, a);
 }
 
 }  // namespace
@@ -568,8 +609,10 @@ extern "C" {
 // whole by the finish kernel. bin_bytes 1 (uint8 bins) or 4 (int32); vec 1 takes rows four at a
 // time (pos/g/h and idx 16-byte aligned, rows_per_chunk a multiple of 4;
 // the scan's bins aligned to four rows and n a multiple of 4); words 1
-// reads a gathered row's uint8 bins as 32-bit words (the red kind).
-// Returns the cudaError_t of the launches (0 = launched).
+// reads a gathered row's uint8 bins as 32-bit words (the red kind). lut:
+// nullptr for the shared lookup kind, else the global kind's table of M
+// int32 (padded to 4), filled by the launch (smem_bytes and red_smem then
+// hold no lookup). Returns the cudaError_t of the launches (0 = launched).
 int ytk_hist_float(int kind, int bin_bytes, int gather, int vec, int bf16,
                    int words, const void* bins, long long n_bins_rows,
                    const int32_t* idx, const int32_t* pos, const float* g,
@@ -579,23 +622,23 @@ int ytk_hist_float(int kind, int bin_bytes, int gather, int vec, int bf16,
                    int threads, int smem_bytes, int red_chunks,
                    long long red_rows_per_chunk, int red_threads,
                    int red_smem, long long red_rows, float* out, float* acc,
-                   void* stream) {
+                   int32_t* lut, void* stream) {
   const size_t cells = (size_t)N * F * B * 4;
   unsigned long long* live = (unsigned long long*)(acc + cells);
   Args a{bins, n_bins_rows, idx, pos, g, h, n, node_ids, N, M, F, B, fg, ng,
          n_ftiles, n_tiles, n_chunks, rows_per_chunk, threads, smem_bytes,
          red_chunks, red_rows_per_chunk, red_threads, red_smem, red_rows,
-         kind == 2 ? live : nullptr, bf16, words, out, acc,
+         kind == 2 ? live : nullptr, bf16, words, out, acc, lut,
          (cudaStream_t)stream};
   const cudaError_t err =
       cudaMemsetAsync(acc, 0, (cells + 4) * sizeof(float), a.st);
   if (err != cudaSuccess) return (int)err;
   if (bin_bytes == 1)
-    return gather ? launch_kind<uint8_t, true>(kind, vec, a)
-                  : launch_kind<uint8_t, false>(kind, vec, a);
+    return gather ? launch_lut<uint8_t, true>(kind, vec, a)
+                  : launch_lut<uint8_t, false>(kind, vec, a);
   if (bin_bytes == 4)
-    return gather ? launch_kind<int32_t, true>(kind, vec, a)
-                  : launch_kind<int32_t, false>(kind, vec, a);
+    return gather ? launch_lut<int32_t, true>(kind, vec, a)
+                  : launch_lut<int32_t, false>(kind, vec, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -46,11 +46,16 @@ Node ids: a row belongs to every wave slot s with node_ids[s] == pos[row],
 as the reference's one-hot P = (node_ids == pos) has it: a duplicated id
 feeds each of its slots the same sums. Negative ids are pads and match
 nothing, pos = -1 rows are dead. For K1-K4 every id must be < `max_nodes`
-(the tree's node capacity, the kernel's lookup-table size), which every
-caller passes; K8 compares ids with positions and takes no capacity. The
-kernels K1-K4 keep the node lookup and one histogram tile in shared
-memory: on CUDA, a tree of more nodes than fit there (about 57k at 256
-bins) raises NotImplementedError (ROADMAP.md 1.8).
+(the tree's node capacity, the size of the node lookup), which every
+caller passes; K8 compares ids with positions and takes no capacity.
+K1-K4 find a row's slot through a lookup over the tree's node ids, of one
+of two kinds (`lookup_kind`): "shared", built in each block's shared
+memory beside the histogram tile, for every tree whose lookup fits there
+with one slot x feature tile (at 256 bins up to 57,344 nodes); or
+"global", past that, a table of max_nodes int32 in device memory that one
+block of the launch's lookup kernel fills, read through L2. One slot x
+feature tile of B bins must still fit shared memory: past about 19,000
+bins, NotImplementedError (ROADMAP.md 1.8b).
 """
 
 from __future__ import annotations
@@ -71,10 +76,10 @@ BM_DEFAULT = 16384
 #: gathered-row unit of the fused budget rungs (R is a multiple of it)
 BMG_DEFAULT = 1024
 
-_NOT_PORTED_TILE = (
-    "K1-K4 keep the node lookup and one slot x feature histogram tile in "
-    "shared memory; a lookup in global memory for larger trees is not "
-    "ported yet (ROADMAP.md 1.8, K1-K4 for trees past shared memory)"
+_NOT_PORTED_BINS = (
+    "K1-K4 keep one slot x feature histogram tile in shared memory; a tile "
+    "cut into bin ranges for wider features is not ported yet (ROADMAP.md "
+    "1.8b, K1-K4 for bins past one tile)"
 )
 #: shared memory one block of K1-K4 may use: two blocks per SM
 SMEM_PER_BLOCK = 112 * 1024
@@ -93,12 +98,47 @@ def _pad_to(x: int, m: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def lookup_table(node_ids: torch.Tensor, max_nodes: int,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the global lookup kind's kernel (`lookup_kernel`
+    in csrc/hist_float.cu and csrc/hist.cu): an int32 table of max_nodes
+    entries (padded to 4) whose entry id holds the lowest slot of id in
+    node_ids, INT32_MAX where the wave has none. Ids outside [0,
+    max_nodes) mark nothing. `table`: one to fill again, whatever an
+    earlier wave left in it, as every launch fills its table."""
+    L = _pad_to(max_nodes, 4)
+    if table is None:
+        table = torch.empty(L, dtype=torch.int32, device=node_ids.device)
+    if table.shape != (L,) or table.dtype != torch.int32:
+        raise ValueError(f"lookup table must be ({L},) int32, got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    ids = node_ids.long()
+    keep = (ids >= 0) & (ids < max_nodes)
+    table.fill_(torch.iinfo(torch.int32).max)
+    table.scatter_reduce_(0, ids[keep], torch.nonzero(keep).flatten().to(
+        torch.int32), reduce="amin")
+    return table
+
+
+def lookup_slots(table: torch.Tensor, pos: torch.Tensor, max_nodes: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A row's slot through a lookup_table, as the kernels read it: (slot
+    per row as int64, bool mask of rows in the wave); a position outside
+    [0, max_nodes) or an entry of INT32_MAX is outside the wave."""
+    p = pos.long()
+    ok = (p >= 0) & (p < max_nodes)
+    q = table[torch.where(ok, p, 0)].long()
+    ok &= q != torch.iinfo(torch.int32).max
+    return torch.where(ok, q, 0), ok
+
+
 def node_slots(pos: torch.Tensor, node_ids: torch.Tensor,
                max_nodes: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """(slot per row as int64, bool mask of rows in the wave): each row's
     lowest slot of its id, the lookup K1-K4 build in shared memory. Ids
     and positions at or past `max_nodes` match nothing; with max_nodes None
-    (K8's rule) every id >= 0 may match."""
+    (K8's rule) every id >= 0 may match. The shared lookup kind's plain
+    version; lookup_slots is the global kind's."""
     N = node_ids.shape[0]
     dev = pos.device
     ids = node_ids.long()
@@ -147,7 +187,11 @@ def _hist_plain(bin_of, pos, g, h, node_ids, F: int, B: int,
     into its id's lowest slot; every later slot of the same id then takes
     a copy of that slot's sums."""
     N = node_ids.shape[0]
-    slot, ok = node_slots(pos, node_ids, max_nodes)
+    if max_nodes is not None and lookup_kind(B, max_nodes, N) == "global":
+        slot, ok = lookup_slots(lookup_table(node_ids, max_nodes), pos,
+                                max_nodes)
+    else:
+        slot, ok = node_slots(pos, node_ids, max_nodes)
     rows = torch.nonzero(ok).flatten()
     s = slot[rows]
     if mode == "q":
@@ -224,28 +268,56 @@ def hist_q_u8_plain(bins_t, pos, gq, hq, node_ids, B: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: bytes of one bin of a slot x feature tile: three 4-byte counters
+_CELL_BYTES = 12
+
+
 def _lut_bytes(max_nodes: int, N: int) -> int:
-    """Shared bytes of K1-K4's node lookup over `max_nodes` ids (N entries
-    at least, padded to 4)."""
+    """Shared bytes of the shared lookup kind over `max_nodes` ids (N
+    entries at least, padded to 4)."""
     return _pad_to(max(max_nodes, N), 4) * 4
 
 
+def lookup_kind(B: int, max_nodes: int, N: int = 0) -> str:
+    """K1-K4's kind of node lookup (tree node id -> the wave's lowest slot
+    of it): "shared", built over every id in each block's shared memory,
+    when that fits beside one slot x one feature tile of B bins (at B =
+    256: up to 57,344 nodes), else "global", a table in device memory
+    filled once a launch."""
+    return ("shared" if _lut_bytes(max_nodes, N) + B * _CELL_BYTES
+            <= SMEM_MAX else "global")
+
+
+def _smem_lut(B: int, max_nodes: int, N: int) -> int:
+    """Shared bytes a block spends on the node lookup: the shared kind's,
+    or none."""
+    return (_lut_bytes(max_nodes, N) if lookup_kind(B, max_nodes, N)
+            == "shared" else 0)
+
+
+def _lut_len(B: int, max_nodes: int, N: int) -> int:
+    """int32 entries of a launch's global lookup table (0: the shared
+    kind)."""
+    return (_pad_to(max_nodes, 4) if lookup_kind(B, max_nodes, N)
+            == "global" else 0)
+
+
 def tile_bytes(N: int, ng: int, fg: int, B: int, max_nodes: int) -> int:
-    """Shared bytes of a K1 tile block: the node lookup and a tile of `ng`
-    slots x `fg` features x B bins of three 4-byte counters."""
-    return _lut_bytes(max_nodes, N) + ng * fg * B * 3 * 4
+    """Shared bytes of a K1 tile block: the shared node lookup (none for
+    the global kind) and a tile of `ng` slots x `fg` features x B bins of
+    three 4-byte counters."""
+    return _smem_lut(B, max_nodes, N) + ng * fg * B * _CELL_BYTES
 
 
-def check_tile_fits(B: int, max_nodes: int, N: int = 0) -> None:
-    """Raise NotImplementedError when the lookup over `max_nodes` tree
-    node ids and one slot x one feature of B bins do not fit one block's
-    shared memory (at B = 256: more than 57,344 nodes)."""
-    need = tile_bytes(N, 1, 1, B, max_nodes)
+def check_tile_fits(B: int) -> None:
+    """Raise NotImplementedError when one slot x one feature of B bins
+    does not fit one block's shared memory (B > 19,370), whatever the
+    tree's size: the global lookup kind holds any tree."""
+    need = B * _CELL_BYTES
     if need > SMEM_MAX:
         raise NotImplementedError(
-            f"a histogram tile of B={B} bins with a {max_nodes}-node lookup "
-            f"needs {need} bytes of shared memory, more than {SMEM_MAX}: "
-            + _NOT_PORTED_TILE
+            f"a histogram tile of B={B} bins needs {need} bytes of shared "
+            f"memory, more than {SMEM_MAX}: " + _NOT_PORTED_BINS
         )
 
 
@@ -259,8 +331,8 @@ def tile_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int
     where a tile of one slot in 64 would skip 63 rows in 64. A tile that
     fits half an SM's shared memory runs two blocks of 512 threads per SM;
     a larger one (64 slots of 256 bins: 196 KB) one block of 1024."""
-    check_tile_fits(B, max_nodes, N)
-    lut_bytes = _lut_bytes(max_nodes, N)
+    check_tile_fits(B)
+    lut_bytes = _smem_lut(B, max_nodes, N)
     pair = B * 3 * 4
     most = (SMEM_MAX - lut_bytes) // pair
     pairs = (SMEM_PER_BLOCK - lut_bytes) // pair
@@ -303,7 +375,7 @@ def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int,
     more shared memory than SMEM_MAX, or its threads do not make a block;
     NotImplementedError as tile_plan when no tile fits at all. `smem_of(ng,
     fg)`: the tile's shared bytes (default tile_bytes', with the lookup)."""
-    check_tile_fits(B, max_nodes, N)
+    check_tile_fits(B)
     unknown = sorted(set(plan) - set(_PLAN_KEYS))
     if unknown:
         raise ValueError(f"plan: unknown fields {unknown}; a plan names "
@@ -379,20 +451,20 @@ def _float_tile(N: int, F: int, B: int, max_nodes: int) -> Tuple[int, int]:
     wave's slots as fit with one feature (a slot tile skips the rows of
     the other slots; measured dearer than a feature tile), then as many
     features as fit, the tiles evenly filled."""
-    budget = SMEM_MAX - _lut_bytes(max_nodes, N)
-    pair = B * 3 * 4
+    budget = SMEM_MAX - _smem_lut(B, max_nodes, N)
+    pair = B * _CELL_BYTES
     st = -(-N // max(1, budget // pair))
     ng = -(-N // st)
     ft = -(-F // max(1, min(F, budget // (ng * pair))))
     return ng, -(-F // ft)
 
 
-def _red_shape(N: int, max_nodes: int, n: int, sm_count: int
+def _red_shape(N: int, B: int, max_nodes: int, n: int, sm_count: int
                ) -> Tuple[int, int, int, int]:
     """(chunks, rows a chunk, threads, shared bytes) of a red launch: one
-    wave of resident blocks of THREADS threads, the lookup their only
-    shared memory."""
-    smem = _lut_bytes(max_nodes, N)
+    wave of resident blocks of THREADS threads, the shared lookup their
+    only shared memory (the global kind: none)."""
+    smem = _smem_lut(B, max_nodes, N)
     per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024)))
     chunks = max(1, min(per_sm * sm_count, -(-n // RED_MIN_ROWS), 65535))
     rpc = _pad_to(max(1, -(-n // chunks)), 4)
@@ -402,12 +474,13 @@ def _red_shape(N: int, max_nodes: int, n: int, sm_count: int
 @lru_cache(maxsize=512)
 def _float_plan(N: int, F: int, B: int, max_nodes: int, n: int,
                 sm_count: int, gather: bool) -> Tuple[Tuple[str, object], ...]:
-    check_tile_fits(B, max_nodes, N)
+    check_tile_fits(B)
     ng, fg = _float_tile(N, F, B, max_nodes)
     n_ftiles = -(-F // fg)
     n_tiles = n_ftiles * -(-N // ng)
     if gather or n_tiles >= F * RED_WEIGHT:  # red at any share of rows
-        chunks, rpc, threads, smem = _red_shape(N, max_nodes, n, sm_count)
+        chunks, rpc, threads, smem = _red_shape(N, B, max_nodes, n,
+                                                sm_count)
         return tuple({
             "kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
             "n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
@@ -439,7 +512,9 @@ def float_plan(N: int, F: int, B: int, max_nodes: int, n: int,
     launch picks tile or red on the device by the wave's rows; "red" when
     the tiles are so many that red wins whatever the wave holds, and for
     every K3 launch: no tile, one vector atomic a row and feature, one wave
-    of blocks. Raises NotImplementedError as check_tile_fits."""
+    of blocks. Past the shared lookup's cap (lookup_kind "global") the
+    lookup takes no shared memory. Raises NotImplementedError as
+    check_tile_fits."""
     return dict(_float_plan(N, F, B, max_nodes, n, sm_count, bool(gather)))
 
 
@@ -456,9 +531,9 @@ def check_float_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     its fg and ng, if given, are F and N and its tile counts 1. Raises
     ValueError when the plan does not cover the (N, F, B) histogram over n
     rows, or needs more shared memory than SMEM_MAX, or its threads do not
-    make a block; NotImplementedError as check_tile_fits past the lookup's
-    cap."""
-    check_tile_fits(B, max_nodes, N)
+    make a block; NotImplementedError as check_tile_fits past one tile's
+    bins."""
+    check_tile_fits(B)
     unknown = sorted(set(plan) - set(_FLOAT_PLAN_KEYS))
     if unknown:
         raise ValueError(f"plan: unknown fields {unknown}; a plan names "
@@ -470,7 +545,7 @@ def check_float_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     rest = {k: v for k, v in plan.items() if k != "kind"}
     if kind != "red":
         return dict(check_plan(rest, N, F, B, max_nodes, n), kind=kind)
-    red = _check_red_fields(rest, N, F, n, _lut_bytes(max_nodes, N))
+    red = _check_red_fields(rest, N, F, n, _smem_lut(B, max_nodes, N))
     return {"kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
             "n_chunks": red["n_chunks"],
             "rows_per_chunk": red["rows_per_chunk"], "smem": red["smem"],
@@ -528,8 +603,8 @@ Q_KINDS = ("tile", "red", "auto")
 #: section 6)
 Q_RED_WEIGHT = 20.0
 #: a packed row word holds the row's slot in 16 bits (0xFFFF: not in the
-#: wave), so a wave has fewer slots; check_tile_fits' cap on the lookup
-#: keeps every wave below it
+#: wave), so a wave has fewer slots: q_plan and check_q_plan refuse a wider
+#: one (ValueError)
 Q_MAX_SLOTS = 0xFFFF
 #: a tile plan of at most this many chunks stores each item's tile whole
 #: into its chunk's partial sums (plain stores; the finish kernel adds the
@@ -545,13 +620,12 @@ Q_STORE_CHUNKS = 8
 #: gradients none ever does).
 Q_MAX_ABS = 127
 Q_MAX_ROWS = (2 ** 31 - 1) // Q_MAX_ABS
-_Q_CELL_BYTES = 12
 
 
 def q_tile_bytes(ng: int, fg: int, B: int) -> int:
     """Shared bytes of a K2 tile block: `ng` slots x `fg` features x B
     bins of three int32 counters (the packed rows need no lookup)."""
-    return ng * fg * B * _Q_CELL_BYTES
+    return ng * fg * B * _CELL_BYTES
 
 
 def _q_tile(N: int, F: int, B: int, gather: bool = False
@@ -561,7 +635,7 @@ def _q_tile(N: int, F: int, B: int, gather: bool = False
     evenly filled (_float_tile's rule without the lookup). K4 keeps one
     feature a tile: its R rows make each extra pass cheap, and the smaller
     tile flushes sooner (measured faster at N = 1-64, PERF.md section 6)."""
-    pair = B * _Q_CELL_BYTES
+    pair = B * _CELL_BYTES
     st = -(-N // max(1, SMEM_MAX // pair))
     ng = -(-N // st)
     if gather:
@@ -578,14 +652,22 @@ def _q_red(N: int, F: int, chunks: int, rpc: int, threads: int) -> dict:
             "threads": threads}
 
 
+def _check_q_slots(N: int) -> None:
+    """Every slot of a K2/K4 wave fits the packed word's 16-bit field."""
+    if N >= Q_MAX_SLOTS:
+        raise ValueError(f"a K2/K4 wave holds fewer than {Q_MAX_SLOTS} slots "
+                         f"(the packed row word's 16-bit field), got {N}")
+
+
 @lru_cache(maxsize=512)
 def _q_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
             gather: bool) -> Tuple[Tuple[str, object], ...]:
-    check_tile_fits(B, max_nodes, N)
+    check_tile_fits(B)
+    _check_q_slots(N)
     ng, fg = _q_tile(N, F, B, gather)
     n_tiles = -(-F // fg) * -(-N // ng)
     if n_tiles >= F * Q_RED_WEIGHT:  # red at any share of rows
-        chunks, rpc, threads, _ = _red_shape(N, max_nodes, n, sm_count)
+        chunks, rpc, threads, _ = _red_shape(N, B, max_nodes, n, sm_count)
         return tuple(_q_red(N, F, chunks, rpc, threads).items())
     smem = q_tile_bytes(ng, fg, B)
     threads, per_sm = ((THREADS, 2) if smem <= SMEM_PER_BLOCK
@@ -618,7 +700,9 @@ def q_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
     K2 when it takes more: the launch picks tile or red on the device by
     the wave's rows; "red" when the tiles are so many that red wins
     whatever the wave holds: no tile, integer atomics a row and feature,
-    one wave of blocks. Raises NotImplementedError as check_tile_fits."""
+    one wave of blocks. The pack pass holds the node lookup, of
+    lookup_kind's kind. Raises NotImplementedError as check_tile_fits, and
+    ValueError for a wave of Q_MAX_SLOTS slots or more."""
     return dict(_q_plan(N, F, B, max_nodes, n, sm_count, bool(gather)))
 
 
@@ -634,9 +718,10 @@ def check_q_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     slot and feature, so its fg and ng, if given, are F and N and its tile
     counts 1. Raises ValueError when the plan does not cover the (N, F, B)
     histogram over n rows, or needs more shared memory than SMEM_MAX, or
-    its threads do not make a block; NotImplementedError as check_tile_fits
-    past the lookup's cap."""
-    check_tile_fits(B, max_nodes, N)  # and so N < Q_MAX_SLOTS
+    its threads do not make a block, or the wave has Q_MAX_SLOTS slots or
+    more; NotImplementedError as check_tile_fits past one tile's bins."""
+    check_tile_fits(B)
+    _check_q_slots(N)
     unknown = sorted(set(plan) - set(_FLOAT_PLAN_KEYS))
     if unknown:
         raise ValueError(f"plan: unknown fields {unknown}; a plan names "
@@ -660,7 +745,7 @@ def _bind(lib) -> None:
     lib.ytk_hist_q.restype = ctypes.c_int
     lib.ytk_hist_q.argtypes = (
         [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, ll, vp] + [ci] * 9
-        + [ll, ci, ci, ci, ll, ci, ci, ll, ci, vp, vp, vp])
+        + [ll, ci, ci, ci, ll, ci, ci, ll, ci, vp, vp, vp, vp])
 
 
 def _bind_float(lib) -> None:
@@ -668,7 +753,7 @@ def _bind_float(lib) -> None:
     lib.ytk_hist_float.restype = ctypes.c_int
     lib.ytk_hist_float.argtypes = (
         [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, vp] + [ci] * 9
-        + [ll, ci, ci, ci, ll, ci, ci, ll, vp, vp, vp])
+        + [ll, ci, ci, ci, ll, ci, ci, ll, vp, vp, vp, vp])
 
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -721,8 +806,8 @@ def _q_shape(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
              gather: bool, eb: int, plan: Tuple[Tuple[str, object], ...]
              ) -> Tuple[int, ...]:
     """What one K2/K4 launch derives from its shapes and plan: (n_pad, the
-    pack shape's 4 fields, n_store, red_rows, the scratch's int32
-    length)."""
+    pack shape's 4 fields, n_store, red_rows, the scratch's int32 length,
+    the global lookup's int32 length (0: the shared kind))."""
     p = dict(plan)
     n_pad = _pad_to(n, 4) if gather else n
     # the tile stores its chunks' partial sums when they are few
@@ -733,12 +818,13 @@ def _q_shape(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
     # the kernels' scratch (csrc/hist.cu, ytk_hist_q): 16-byte (N, F, B)
     # cells, 16 bytes holding auto's count of the wave's rows, the n_pad
     # packed row words, (K4) the (F, n_pad) gathered bins, then the store
-    # mode's (n_store, N, F, B, 3) partial sums
+    # mode's (n_store, N, F, B, 3) partial sums; the global lookup's table
+    # after them
     scratch_len = ((N * F * B + 1) * 4 + n_pad
                    + (F * n_pad * eb // 4 if gather else 0)
                    + n_store * N * F * B * 3)
-    return (n_pad, *_red_shape(N, max_nodes, n, sm_count), n_store,
-            red_rows, scratch_len)
+    return (n_pad, *_red_shape(N, B, max_nodes, n, sm_count), n_store,
+            red_rows, scratch_len, _lut_len(B, max_nodes, N))
 
 
 def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
@@ -763,14 +849,15 @@ def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
         plan = q_plan(N, F, B, max_nodes, n, sm, gather)
     eb = bins.element_size()
     (n_pad, pack_chunks, pack_rpc, pack_threads, pack_smem, n_store,
-     red_rows, scratch_len) = _q_shape(
+     red_rows, scratch_len, lut_len) = _q_shape(
         N, F, B, max_nodes, n, sm, gather, eb, tuple(plan.items()))
     pack_vec = all(_aligned(t, 16) for t in ((pos, gq, hq, idx) if gather
                                              else (pos, gq, hq)))
     scan_vec = plan["rows_per_chunk"] % 4 == 0 and (
         gather or (n % 4 == 0 and _aligned(bins, 4 * eb)))
     words = gather and eb == 1 and F % 4 == 0 and _aligned(bins, 4)
-    scratch = torch.empty(scratch_len, dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_len + lut_len, dtype=torch.int32,
+                          device=dev)
     out = torch.empty((N, F, B, 3), dtype=torch.int32, device=dev)
     lib = _LIBRARY.load()
     name = "hist_gather_q" if gather else "hist_q"
@@ -783,9 +870,10 @@ def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
         plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
         plan["smem"], pack_chunks, pack_rpc, pack_threads, pack_smem,
         red_rows, n_store, out.data_ptr(), scratch.data_ptr(),
+        scratch[scratch_len:].data_ptr() if lut_len else None,
     )
     with launching(wrapper, name, plan["kind"], eb, int(pack_vec),
-                   int(scan_vec)):
+                   int(scan_vec), int(lut_len > 0)):
         if dev.index == torch.cuda.current_device():
             rc = lib.ytk_hist_q(*args,
                                 torch.cuda.current_stream().cuda_stream)
@@ -825,10 +913,13 @@ def _launch_float(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos,
     words = gather and eb == 1 and F % 4 == 0 and _aligned(bins, 4)
     kind = plan["kind"]
     # the kernels' scratch, zeroed by the launcher: (g, h, count, unused) a
-    # bin, 16-byte aligned, then the auto kind's count of the wave's rows
-    scratch = torch.empty(N * F * B * 4 + 4, dtype=torch.float32, device=dev)
+    # bin, 16-byte aligned, then the auto kind's count of the wave's rows;
+    # the global lookup's table after it
+    acc_len = N * F * B * 4 + 4
+    lut_len = _lut_len(B, max_nodes, N)
+    scratch = torch.empty(acc_len + lut_len, dtype=torch.float32, device=dev)
     out = torch.empty((N, F, B, 3), dtype=torch.float32, device=dev)
-    red_shape = _red_shape(N, max_nodes, n, _sm_count(dev.index))
+    red_shape = _red_shape(N, B, max_nodes, n, _sm_count(dev.index))
     # auto: red below this many rows of the wave (see RED_WEIGHT)
     red_rows = int(n * plan["n_tiles"] // (F * RED_WEIGHT))
     lib = _FLOAT_LIBRARY.load()
@@ -841,9 +932,10 @@ def _launch_float(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos,
         plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
         plan["smem"], *red_shape, red_rows, out.data_ptr(),
         scratch.data_ptr(),
+        scratch[acc_len:].data_ptr() if lut_len else None,
     ]
     name = "hist_gather" if gather else "hist"
-    with launching(wrapper, name, kind, eb, int(vec)):
+    with launching(wrapper, name, kind, eb, int(vec), int(lut_len > 0)):
         if dev.index == torch.cuda.current_device():
             rc = lib.ytk_hist_float(*args,
                                     torch.cuda.current_stream().cuda_stream)

@@ -52,8 +52,9 @@ site.
 
 Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
 versions). Not ported, raising NotImplementedError with its ROADMAP.md
-item: on CUDA trees of more nodes than the histogram kernels' shared-memory
-lookup holds (1.8).
+item: on CUDA, features of more bins than one histogram tile of shared
+memory holds (1.8b). Trees of any size train: past the histogram kernels'
+shared-memory node lookup they take its global kind (gbdt/hist.py).
 
 Ranks (`mesh`, a parallel.Mesh; reference trainer.py:250-263, :284-326,
 :343-348, :445-549, :1212-1230, :1544-1565, :1837). Each rank trains on
@@ -315,7 +316,7 @@ class GBDTTrainer(HostEngine):
                              "max_leaf_cnt")
         M = min(caps)
         if self.device.type == "cuda":
-            check_tile_fits(B, M)  # the histogram kernels' node lookup
+            check_tile_fits(B)  # one histogram tile of B bins
         NW = self.wave if self.wave is not None else 64
         NW = max(1, min(NW, (M + 1) // 2))
         partition = (not knobs.get_bool("YTK_NO_PARTITION")

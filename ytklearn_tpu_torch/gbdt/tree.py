@@ -5,7 +5,9 @@ data/gbdt/Tree.java node regexes :47-48 and recursive dump :255+,
 GBDTModel.java dumpModel:63 / loadModel:79): parse, dump, depth, the
 perfect-heap export the heap-walk kernel reads, and the training half
 (the slot interval a grown split carries until its value conversion, and
-feature importance). Text I/O is byte for byte the JAX package's.
+feature importance), and the host scores of a dense matrix
+(`Tree.predict`, `GBDTModel.predict_scores`). Text I/O is byte for byte
+the JAX package's.
 
 Text format:
     base_prediction=<f>
@@ -94,6 +96,26 @@ class Tree:
 
     def leaf_cnt(self) -> int:
         return sum(1 for i in range(self.n_nodes()) if self.is_leaf(i))
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        """Dense (n, F) raw values -> each row's f32 leaf value; NaN routes
+        to the default child (reference: Tree.java:136-168)."""
+        n = X.shape[0]
+        node = np.zeros((n,), np.int32)
+        live = np.array([not self.is_leaf(0)] * n)
+        feat = np.asarray(self.feat)
+        split = np.asarray(self.split, np.float32)
+        left = np.asarray(self.left)
+        right = np.asarray(self.right)
+        dleft = np.asarray(self.default_left)
+        leaf = np.asarray(self.leaf_value, np.float32)
+        while live.any():
+            v = X[np.arange(n), np.maximum(feat[node], 0)]
+            go_left = np.where(np.isnan(v), dleft[node], v <= split[node])
+            node = np.where(live, np.where(go_left, left[node], right[node]),
+                            node)
+            live = feat[node] >= 0
+        return leaf[node]
 
     def heap_arrays(
         self, depth: int, feat_ids: Optional[List[int]] = None
@@ -306,6 +328,19 @@ class GBDTModel:
             raise ValueError(f"expected {tree_num} trees, found {len(blocks)}")
         m.trees = [Tree.parse(b) for b in blocks]
         return m
+
+    def predict_scores(self, X: np.ndarray) -> np.ndarray:
+        """Raw f32 ensemble scores of a dense (n, F) matrix on the host:
+        (n,), or (n, K) a class group under softmax."""
+        K = self.num_tree_in_group
+        shape = (X.shape[0],) if K == 1 else (X.shape[0], K)
+        s = np.full(shape, self.base_prediction, np.float32)
+        for i, t in enumerate(self.trees):
+            if K == 1:
+                s += t.predict(X)
+            else:
+                s[:, i % K] += t.predict(X)
+        return s
 
     def feature_importance(self) -> Dict[str, Tuple[int, float]]:
         """name -> (sum_split_count, sum_gain), gain-descending, name

@@ -520,6 +520,20 @@ class DataIngest:
             for i, node in sorted(nodes.items()):
                 f.write(f"{inv[i]}###{node}\n")
 
+    def load_transform_sidecar(self, fmap: Dict[str, int]
+                               ) -> Dict[int, TransformNode]:
+        """The `<model>_feature_transform_stat` sidecar read back as
+        {feature index: node} over the names in `fmap` ({} when there is
+        none)."""
+        from ..transform.sidecar import read_sidecar
+
+        path = self.params.model.data_path + "_feature_transform_stat"
+        if not self.fs.exists(path):
+            return {}
+        named, _digest = read_sidecar(self.fs, path)
+        return {fmap[name]: node for name, node in named.items()
+                if name in fmap}
+
     # -- materialization -------------------------------------------------
 
     def to_dataset(self, rows: Sequence[ParsedLine], fmap: Dict[str, int],

@@ -94,7 +94,19 @@ class OnlinePredictor:
         return float(self._activation(self.score(features, other)))
 
     def predicts(self, features: Dict[str, float], other=None) -> List[float]:
-        return [self.predict(features, other)]
+        """The activated scores: one, or one a class of a multi-output
+        model."""
+        out = self._activation(np.asarray(self.scores(features, other)))
+        return [float(v) for v in np.atleast_1d(out)]
+
+    def loss_value(self, features: Dict[str, float], label,
+                   other=None) -> float:
+        """`loss.loss` of the scores against `label` (K-wide for a
+        multi-output model), in float64 on the CPU."""
+        return float(self.loss.loss(
+            torch.as_tensor(np.asarray(self.scores(features, other),
+                                       np.float64)),
+            torch.as_tensor(np.asarray(label, np.float64))))
 
     def predict_leaf(self, features: Dict[str, float]) -> List[int]:
         raise NotImplementedError(f"{type(self).__name__} has no leaf predict")

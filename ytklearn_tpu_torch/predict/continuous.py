@@ -15,7 +15,6 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..config.params import CommonParams
 from ..io.feature_hash import FeatureHash
@@ -56,6 +55,12 @@ class ContinuousPredictor(OnlinePredictor):
             feature_hash=self.feature_hash, nodes=self.transform_nodes,
             transform_on=p.feature.transform.switch_on)
         self._load_model()
+
+    def _transform(self, name: str, val: float) -> float:
+        """One feature's replay (reference:
+        ContinuousOnlinePredictor.transform:135-143): with the transform
+        on, a feature without a stat node maps to 0."""
+        return self.pipeline.transform_scalar(name, val)
 
     def _prep(self, features: Dict[str, float]) -> List[Tuple[str, float]]:
         """Bias removal, hashing and the transform replay."""
@@ -168,17 +173,8 @@ class MulticlassLinearPredictor(ContinuousPredictor):
     def score(self, features, other=None) -> float:
         raise ValueError("multiclass_linear is multi-output; use scores()")
 
-    def predicts(self, features, other=None) -> List[float]:
-        out = self._activation(np.asarray(self.scores(features)))
-        return [float(v) for v in out]
-
     def predict(self, features, other=None) -> float:
         raise ValueError("multiclass_linear is multi-output; use predicts()")
-
-    def loss_value(self, features, label) -> float:
-        s = torch.as_tensor(np.asarray(self.scores(features), np.float64))
-        return float(self.loss.loss(
-            s, torch.as_tensor(np.asarray(label, np.float64))))
 
 
 class FMPredictor(ContinuousPredictor):

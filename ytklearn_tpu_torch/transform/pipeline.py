@@ -13,7 +13,8 @@
                                hashing (signed collisions summed) and
                                replay, and the bias column at 1.0; or, in
                                the identity mode GBDT serving uses, raw
-                               values with a missing fill
+                               values with a missing fill;
+                               `transform_scalar`: one feature's replay
 
 Replay semantics, bit for bit the scalar `TransformNode.transform`:
 standardization `(val - mean) / stdvar` unless `stdvar < 1e-6`
@@ -168,6 +169,16 @@ class TransformPipeline:
         vals = np.fromiter((v for _, v in items), np.float64, len(items))
         out = apply_nodes(self._table, idx, vals, nodeless_zero=True)
         return [(items[i][0], float(out[i])) for i in range(len(items))]
+
+    def transform_scalar(self, name: str, val: float) -> float:
+        """One feature's replay (a predictor's `_transform`): `prep_row`'s
+        value for the name, without the drop and the hashing."""
+        if not self.transform_on:
+            return val
+        out = apply_nodes(self._table,
+                          np.asarray([self._index.get(name, 0)], np.int64),
+                          np.asarray([val], np.float64), nodeless_zero=True)
+        return float(out[0])
 
     def _resolve_hashed(self, keys: Sequence[str]
                         ) -> Tuple[np.ndarray, np.ndarray]:
