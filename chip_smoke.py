@@ -6210,11 +6210,14 @@ def phase_profile(tmp, model, card):
           flush=True)
 
 
-DIST_ROUNDS = 10  # phase_dist's trees (the Higgs config's width: 255
+DIST_ROUNDS = 5  # phase_dist's trees (the Higgs config's width: 255
 #                  leaves, 255 bins, F = 28), int8 so the dumps can be equal
 DIST_LOSS_RTOL = 0.05  # merged bins (tests/test_multiprocess.py:139-152)
 DIST_PREDICT_ROWS = 4096
 DIST_TIMEOUT_S = 420
+#: the head of phase_cli_train's text (train, test lines) the one-rank
+#: run and parts (1)-(3) read: each of their processes parses it
+DIST_LINES = (1 << 18, 1 << 15)
 #: the feature-parallel part: text lines, trees, depth (level-wise)
 DIST_FP = ((1 << 17, 1 << 14), 3, 6)
 DIST_FP_RTOL = 1e-4  # tests/test_feature_parallel.py's loss and AUC bands
@@ -6288,8 +6291,9 @@ def fmt_census(c):
 
 
 def phase_dist(tmp, card):
-    """GBDT across ranks (slice 18) on phase_cli_train's Higgs-shaped text
-    at full width (F = 28, 255 bins, 255 leaves), DIST_ROUNDS int8 trees:
+    """GBDT across ranks (slice 18) on the head (DIST_LINES) of
+    phase_cli_train's Higgs-shaped text at full width (F = 28, 255 bins,
+    255 leaves), DIST_ROUNDS int8 trees:
     the one-rank `cli train gbdt` in this process, then (1) `--coordinator`
     at world size 1 over NCCL, its dump byte-identical; (2) `--devices 2`
     with both ranks on cuda:0 over gloo (one launcher, bins built once),
@@ -6307,8 +6311,12 @@ def phase_dist(tmp, card):
     from ytklearn_tpu_torch.gbdt.launch import free_port
     from ytklearn_tpu_torch.scripts import cross_check
 
-    paths = {k: os.path.join(tmp, f"{k}.txt") for k in ("train", "test")}
+    full = {k: os.path.join(tmp, f"{k}.txt") for k in ("train", "test")}
     d = os.path.join(tmp, "dist")
+    os.makedirs(d, exist_ok=True)
+    paths = {k: os.path.join(d, f"head_{k}.txt") for k in full}
+    for k, n_lines in zip(("train", "test"), DIST_LINES):
+        head_lines(full[k], paths[k], n_lines)
     base = os.path.join(d, "one", "gbdt.model")
     zero_kernel_counts()
     t0 = time.perf_counter()
@@ -6422,11 +6430,7 @@ def phase_dist(tmp, card):
     (n_fp, nt_fp), fp_rounds, fp_depth = DIST_FP
     small = {k: os.path.join(d, f"fp_{k}.txt") for k in ("train", "test")}
     for k, n_lines in (("train", n_fp), ("test", nt_fp)):
-        with open(paths[k]) as f, open(small[k], "w") as g:
-            for i, line in enumerate(f):
-                if i >= n_lines:
-                    break
-                g.write(line)
+        head_lines(full[k], small[k], n_lines)
 
     def fp_argv(model):
         return (cli_train_argv(small, model)[:-4]
@@ -6759,22 +6763,21 @@ def deep_params(path, leaves=DEEP_LEAVES):
         model=ModelParams(data_path=path, dump_freq=0))
 
 
-def deep_kernels(recorder, B, M, card, float_mode):
-    """Each histogram call the deep run recorded (the first at each shape),
-    through the global lookup kind, held to its plain version: int8
-    exactly, bf16 at the float tolerance (hist_err). Returns the largest
-    error of each kernel."""
-    import torch
-
+def held_kernels(recorder, card, float_mode, what_of):
+    """Each histogram call a run recorded (the first at each shape) held
+    to its plain version: int8 exactly, bf16 at the float tolerance
+    (hist_err). `what_of(name, rows, N, calls, B, M)` checks the call's
+    shape and returns its description. Returns the largest error of each
+    kernel."""
     from ytklearn_tpu_torch.gbdt import hist
 
     errs = {}
     for (name, rows, N), (calls, args, kw) in sorted(recorder.calls.items()):
         if name == "route":
             continue
-        check(kw.get("max_nodes") == M and hist.lookup_kind(B, M, N)
-              == "global", f"{name}: the deep run's call at N = {N} is not "
-              f"on the global lookup kind ({kw.get('max_nodes')})")
+        gather = "gather" in name
+        B, M = args[6 if gather else 5], kw["max_nodes"]
+        what = what_of(name, rows, N, calls, B, M)
         if name in ("hist_q", "hist"):
             bins, pos, g, h, ids = args[:5]
             got = (hist.hist_wave if float_mode else hist.hist_wave_q)(
@@ -6791,22 +6794,26 @@ def deep_kernels(recorder, B, M, card, float_mode):
                     if float_mode else
                     hist.hist_gather_q_plain(brows, idx, pg, gg, hg, ids, B,
                                              M))
-        what = f"in the deep run, N = {N}, {rows} rows ({calls} calls)"
-        if float_mode:
-            err = hist_err(got, want, what, name, card)
-        else:
-            torch.cuda.synchronize()
-            ok = torch.equal(got, want)
-            err = float((got.long() - want.long()).abs().max()) \
-                if got.numel() else 0.0
-            print(f"kernel check {name} {what}, tolerance exact "
-                  f"(torch.equal): {ok}, max_abs_err {err} [{card}]",
-                  flush=True)
-            check(ok, f"{name} disagrees with its plain version {what}")
+        err = (hist_err(got, want, what, name, card) if float_mode
+               else q_err(got, want, what, name, card))
         errs[name] = max(errs.get(name, 0.0), err)
         del got, want
     recorder.calls.clear()
     return errs
+
+
+def deep_kernels(recorder, M, card, float_mode):
+    """The deep run's recorded calls (held_kernels), each on the global
+    lookup kind at capacity M."""
+    from ytklearn_tpu_torch.gbdt import hist
+
+    def what_of(name, rows, N, calls, B, m):
+        check(m == M and hist.lookup_kind(B, m, N) == "global",
+              f"{name}: the deep run's call at N = {N} is not on the global "
+              f"lookup kind ({m})")
+        return f"in the deep run, N = {N}, {rows} rows ({calls} calls)"
+
+    return held_kernels(recorder, card, float_mode, what_of)
 
 
 def deep_lookup_timings(card):
@@ -6915,8 +6922,10 @@ def phase_deep_tree(card):
     each card run; the four kernels timed in both lookup kinds; the int8
     model served once by `cli serve` with YTK_SERVE_FUSED=1: the fused
     rung refuses its depth, so it serves on the stacked rung, every score
-    bit-equal to the host tree walk. Returns ({kernel: launches}, {kernel:
-    (shared ms, global ms)}, {kernel: largest error})."""
+    bit-equal to the host tree walk. Between the card's runs and the CPU
+    results, phase_wide_bins (slice 22); finish_wide_bins after. Returns
+    ({kernel: launches}, {kernel: (shared ms, global ms)}, {kernel:
+    largest error}, phase_wide_bins' record)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -6952,8 +6961,12 @@ def phase_deep_tree(card):
                   f"{c['hist_gather']}, K2 {c['hist_q']}, K4 "
                   f"{c['hist_gather_q']}, K5 {c['route']} [{card}]",
                   flush=True)
-            errs.update(deep_kernels(rec, 256, M, card, prec == "bf16"))
+            errs.update(deep_kernels(rec, M, card, prec == "bf16"))
             torch.cuda.empty_cache()
+        # slice 22, while the CPU trees grow: features past one tile of
+        # bins on the card (their CPU runs queue behind the deep trees)
+        wide = phase_wide_bins(card, pool, tmp)
+        torch.cuda.empty_cache()
         # while the CPU trees grow: the int8 model through `cli serve`,
         # fused asked for and refused (depth past the heap kernels' cap),
         # so stacked serves it
@@ -7011,10 +7024,432 @@ def phase_deep_tree(card):
         print(f"deep bf16: relative train-loss difference card/CPU "
               f"{loss_rel:.3e} (at most {OBJ_RTOL}) [{card}]", flush=True)
         check(loss_rel <= OBJ_RTOL, "deep bf16: card and CPU losses differ")
+        finish_wide_bins(wide, tmp, card)
     finally:
         pool.shutdown(cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, timings, errs
+    return launches, timings, errs, wide
+
+
+WIDE_ROWS = 1 << 19
+WIDE_F = 8
+WIDE_LEAVES = 31
+WIDE_ROUNDS = 3
+#: waves of 8 slots after the slow start, fused budgets of n/2 and n/8
+#: rows: these shallow trees then grow most waves through K3/K4 too
+WIDE_WAVE = 8
+WIDE_LADDER = "2,8"
+WIDE_SEED = 20261019
+#: (precision, max_cnt) of the wide runs: B = 2^15 and 2^16 in int8,
+#: 2^15 in bf16
+WIDE_RUNS = (("int8", 30000), ("int8", 60000), ("bf16", 30000))
+#: the kind matrix: both widths, three waves, K1/K2 over WIDE_ROWS rows,
+#: K3/K4 over WIDE_GATHER_ROWS gathered ones
+WIDE_BINS = (1 << 15, 1 << 16)
+WIDE_WAVES = (1, 16, 64)
+WIDE_GATHER_ROWS = 1 << 15
+#: the wave whose planner's plan the kernels line reports
+WIDE_REPORT_N = 16
+
+
+def wide_data():
+    """gen_higgs_like's rows at WIDE_F continuous features and its 0/1
+    labels, as numpy (the card and the CPU take the same arrays)."""
+    import numpy as np
+
+    from ytklearn_tpu_torch.gbdt.data import GBDTData
+    from ytklearn_tpu_torch.scripts.bench_gbdt import gen_higgs_like
+
+    train, _ = gen_higgs_like(WIDE_ROWS, 1, WIDE_F, WIDE_SEED)
+    return GBDTData(X=train.X.cpu().numpy(), y=train.y.cpu().numpy(),
+                    weight=np.ones(WIDE_ROWS, np.float32),
+                    n_real=WIDE_ROWS, feature_names=train.feature_names)
+
+
+def wide_params(path, max_cnt):
+    from ytklearn_tpu_torch.config.params import (
+        ApproximateSpec,
+        GBDTParams,
+        ModelParams,
+    )
+
+    return GBDTParams(
+        round_num=WIDE_ROUNDS, max_depth=0, max_leaf_cnt=WIDE_LEAVES,
+        tree_grow_policy="loss", learning_rate=0.1,
+        min_child_hessian_sum=1.0, loss_function="sigmoid",
+        eval_metric=["auc"], approximate=[ApproximateSpec(max_cnt=max_cnt)],
+        model=ModelParams(data_path=path, dump_freq=0))
+
+
+def wide_run(prec, max_cnt, dev, data, path):
+    """One wide-bin training (YTK_LADDER = WIDE_LADDER while it runs):
+    (train loss, seconds, padded bins B, trees); the dump at `path`. The
+    CPU runs go through this in the deep phase's processes."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
+
+    if dev == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    saved = os.environ.get("YTK_LADDER")
+    os.environ["YTK_LADDER"] = WIDE_LADDER
+    try:
+        t0 = time.perf_counter()
+        tr = GBDTTrainer(wide_params(path, max_cnt), hist_precision=prec,
+                         device=dev, wave=WIDE_WAVE)
+        r = tr.train(train=data)
+        secs = time.perf_counter() - t0
+    finally:
+        os.environ.pop("YTK_LADDER", None)
+        if saved is not None:
+            os.environ["YTK_LADDER"] = saved
+    return r.train_loss, secs, tr.grow_spec.B, len(r.model.trees)
+
+
+def wide_kernels(recorder, card, float_mode):
+    """A wide run's recorded calls (held_kernels), each past one tile of
+    bins, with the plan its planner takes."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def what_of(name, rows, N, calls, B, M):
+        check(B >= 1 << 15 and hist.bin_ranges(B) > 1,
+              f"{name}: a wide call at B = {B}, not past one tile")
+        plan = (hist.float_plan if float_mode else hist.q_plan)(
+            N, WIDE_F, B, M, rows, sm, "gather" in name)
+        return (f"in a wide run, B = {B}, N = {N}, {rows} rows ({calls} "
+                f"calls), plan {plan_text(plan)}, {plan['nb']} bin ranges")
+
+    return held_kernels(recorder, card, float_mode, what_of)
+
+
+def wide_plans(name, n, sm):
+    """The planner's plan (None) and every kind its checker takes for
+    kernel `name` at this shape: K1 tile / auto / red, K2 tile / auto /
+    red, K3 red, K4 tile / auto / red; a tile of one slot x one feature x
+    one of the planner's bin ranges."""
+    from ytklearn_tpu_torch.gbdt import hist
+
+    red = {"kind": "red", "n_chunks": 2 * sm, "threads": hist.THREADS}
+    if name == "hist_gather":
+        return [None]
+    tile = {"fg": 1, "ng": 1, "threads": 2 * hist.THREADS}
+    if name == "hist_gather_q":
+        tile["n_chunks"] = min(hist.Q_STORE_CHUNKS, max(1, n // 4096))
+    else:
+        tile["rows_per_chunk"] = 1 << 16
+    return [None, dict(tile, kind="tile"), dict(tile, kind="auto"), red]
+
+
+def wide_kind_matrix(card):
+    """K1-K4 at B = 2^15 and 2^16 and waves of WIDE_WAVES slots in every
+    kind their checkers take, each call held to its plain version (int8
+    exact, f32 at the float tolerance), then timed (CUDA events) beside
+    one scatter_add_ of the same sums and the call's byte bound, with the
+    plan printed. Returns ({name: {B: report}}, {name: largest error})."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(WIDE_SEED)
+    F, n, R = WIDE_F, WIDE_ROWS, WIDE_GATHER_ROWS
+    report, errs = {}, {}
+    for B in WIDE_BINS:
+        for N in WIDE_WAVES:
+            bins, pos, gq, hq, ids, M = rand_hist_inputs(gen, F, n, B, N,
+                                                         "i32")
+            g = torch.randn((n,), generator=gen, device="cuda") * 3
+            h = torch.rand((n,), generator=gen, device="cuda")
+            idx, pg, gqg, hqg = compacted(pos, gq, hq, ids, R, 0.05, gen)
+            gg, hg = g[idx.long()].contiguous(), h[idx.long()].contiguous()
+            rows = bins.t().contiguous()
+            cases = {
+                "hist": (lambda p: hist.hist_wave(
+                    bins, pos, g, h, ids, B, max_nodes=M, use_bf16=False,
+                    plan=p),
+                    lambda: hist.hist_wave_plain(bins, pos, g, h, ids, B, M,
+                                                 False),
+                    lambda: flat_keys(lambda f, r: bins[f, r], F, B, pos, g,
+                                      h, ids, M, bf16=False),
+                    lambda: hist_bound_ms(bins, False, None, pos, ids, M,
+                                          B), n, False),
+                "hist_q": (lambda p: hist.hist_wave_q(
+                    bins, pos, gq, hq, ids, B, max_nodes=M, plan=p),
+                    lambda: hist.hist_wave_q_plain(bins, pos, gq, hq, ids, B,
+                                                   M),
+                    lambda: flat_keys(lambda f, r: bins[f, r], F, B, pos, gq,
+                                      hq, ids, M),
+                    lambda: hist_bound_ms(bins, False, None, pos, ids, M,
+                                          B), n, False),
+                "hist_gather": (lambda p: hist.hist_wave_gather(
+                    rows, idx, pg, gg, hg, ids, B, mode="mxu", max_nodes=M,
+                    use_bf16=False, plan=p),
+                    lambda: hist.hist_gather_plain(rows, idx, pg, gg, hg, ids,
+                                                   B, M, False),
+                    lambda: flat_keys(lambda f, r: rows[idx[r].long(), f], F,
+                                      B, pg, gg, hg, ids, M, bf16=False),
+                    lambda: hist_bound_ms(rows, True, idx, pg, ids, M, B), R,
+                    True),
+                "hist_gather_q": (lambda p: hist.hist_wave_gather(
+                    rows, idx, pg, gqg, hqg, ids, B, max_nodes=M, plan=p),
+                    lambda: hist.hist_gather_q_plain(rows, idx, pg, gqg, hqg,
+                                                     ids, B, M),
+                    lambda: flat_keys(lambda f, r: rows[idx[r].long(), f], F,
+                                      B, pg, gqg, hqg, ids, M),
+                    lambda: hist_bound_ms(rows, True, idx, pg, ids, M, B), R,
+                    True),
+            }
+            for name, (fn, plain, keys_of, bound, rows_of, gather) in \
+                    cases.items():
+                float_mode = name in ("hist", "hist_gather")
+                want = plain()
+                keys, vals = keys_of()
+                flat = torch.zeros(N * F * B * 3, dtype=vals.dtype,
+                                   device="cuda")
+                lib_ms = cuda_ms(lambda: flat.zero_().scatter_add_(
+                    0, keys, vals), iters=2, repeats=3)
+                del keys, vals, flat
+                b_ms, b_by = bound()
+                for p in wide_plans(name, rows_of, sm):
+                    plan = (hist.check_float_plan(p, N, F, B, M, rows_of,
+                                                  gather)
+                            if float_mode and p is not None else
+                            hist.check_q_plan(p, N, F, B, M, rows_of)
+                            if p is not None else
+                            (hist.float_plan if float_mode else hist.q_plan)(
+                                N, F, B, M, rows_of, sm, gather))
+                    what = (f"at B = {B}, N = {N}, {rows_of} rows, "
+                            f"{'the planner' if p is None else 'explicit'} "
+                            f"{plan_text(plan)}, {plan['nb']} bin ranges")
+                    got = fn(p)
+                    err = (hist_err(got, want, what, name, card)
+                           if float_mode else q_err(got, want, what, name,
+                                                    card))
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    del got
+                    ms = cuda_ms(lambda: fn(p), iters=3, repeats=3)
+                    print(f"wide: {name} B = {B} N = {N} {ms:.6f} ms, one "
+                          f"scatter_add_ {lib_ms:.6f} ms, bound {b_ms:.6f} "
+                          f"ms ({b_by}), {what} [{card}]", flush=True)
+                    if p is None and N == WIDE_REPORT_N:
+                        report.setdefault(name, {})[str(B)] = {
+                            "N": N, "ms": ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": lib_ms,
+                            "plan": plan_text(plan), "nb": plan["nb"]}
+                del want
+            del bins, pos, gq, hq, g, h, idx, pg, gqg, hqg, gg, hg, rows
+            torch.cuda.empty_cache()
+    return report, errs
+
+
+def phase_wide_bins(card, pool, tmp):
+    """ROADMAP 1.8b on the card: GBDT over features of more bins than one
+    shared-memory tile holds (K1, K2 and K4 tiles of bin ranges). Three
+    trainings of WIDE_ROUNDS trees over WIDE_ROWS Higgs-shaped rows of
+    WIDE_F continuous features: int8 at max_cnt 30,000 (B = 2^15) and
+    60,000 (2^16), bf16 at 2^15, on the card here and on the CPU in the
+    deep phase's pool (submitted first: they run once the deep CPU trees
+    are done). Every recorded K1-K4 call held to its plain version (K2/K4
+    exact, K1/K3 at HIST_RTOL); each of K1-K4 launched; then the kind
+    matrix (wide_kind_matrix). Returns what finish_wide_bins needs."""
+    import torch
+
+    from ytklearn_tpu_torch.gbdt import hist
+
+    data = wide_data()
+    cpu = {run: pool.submit(wide_run, *run, "cpu", data,
+                            os.path.join(tmp, f"wide_{run[0]}_{run[1]}_cpu"))
+           for run in WIDE_RUNS}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, errs = {}, {}, {}
+    for prec, cnt in WIDE_RUNS:
+        rec = ShapeRecorder("int8" if prec == "int8" else "float")
+        zero_kernel_counts()
+        with rec:
+            res[prec, cnt] = wide_run(prec, cnt, "cuda", data, os.path.join(
+                tmp, f"wide_{prec}_{cnt}_cuda"))
+        c = kernel_counts()
+        loss, secs, B, trees = res[prec, cnt]
+        for k in PRECISION_KERNELS[prec]:
+            launches[k] = launches.get(k, 0) + c[k]
+        print(f"wide {prec} max_cnt {cnt}: B = {B} ({B // 1024}K bins, "
+              f"tiles of {hist.bin_ranges(B)} bin ranges), {trees} trees of {WIDE_LEAVES} leaves over "
+              f"{WIDE_ROWS} rows x {WIDE_F} features on the card in "
+              f"{secs:.3f} s, train loss {loss:.9f}; launches K1 "
+              f"{c['hist']}, K3 {c['hist_gather']}, K2 {c['hist_q']}, K4 "
+              f"{c['hist_gather_q']}, K5 {c['route']} [{card}]", flush=True)
+        check(B >= 1 << 15 and trees == WIDE_ROUNDS,
+              f"wide {prec} {cnt}: B = {B}, {trees} trees")
+        check(all(c[k] > 0 for k in PRECISION_KERNELS[prec]),
+              f"wide {prec} {cnt}: a histogram kernel never launched {c}")
+        for k, v in wide_kernels(rec, card, prec != "int8").items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"wide: the three card runs in {time.perf_counter() - t0:.3f} s, "
+          f"peak device memory {peak:.3f} GiB; launches {launches} "
+          f"[{card}]", flush=True)
+    check(all(launches.get(k, 0) > 0 for k in
+              ("hist", "hist_gather", "hist_q", "hist_gather_q")),
+          f"wide: K1-K4 did not all launch at B >= 2^15: {launches}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    report, merrs = wide_kind_matrix(card)
+    for k, v in merrs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    print(f"wide: kind matrix in {time.perf_counter() - t0:.3f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB [{card}]", flush=True)
+    return {"cpu": cpu, "res": res, "launches": launches, "errs": errs,
+            "report": report}
+
+
+def finish_wide_bins(wide, tmp, card):
+    """The wide runs' CPU side, once the pool has grown them: every int8
+    dump of the card byte for byte the CPU's, the bf16 train loss within
+    OBJ_RTOL of the CPU's."""
+    for run, fut in wide["cpu"].items():
+        loss, secs, B, trees = fut.result()
+        prec, cnt = run
+        print(f"wide {prec} max_cnt {cnt} on the CPU: B = {B}, {trees} "
+              f"trees in {secs:.3f} s (in the deep phase's pool), train loss "
+              f"{loss:.9f} [{card}]", flush=True)
+        if prec == "int8":
+            texts = {}
+            for dev in ("cuda", "cpu"):
+                with open(os.path.join(tmp, f"wide_{prec}_{cnt}_{dev}"),
+                          "rb") as f:
+                    texts[dev] = f.read()
+            same = texts["cuda"] == texts["cpu"]
+            print(f"wide int8 B = {B}: the card's dump equals the CPU's byte "
+                  f"for byte {same} ({len(texts['cuda'])} bytes) [{card}]",
+                  flush=True)
+            check(same, f"wide int8 B = {B}: the card and CPU dumps differ")
+        else:
+            a = wide["res"][run][0]
+            rel = abs(a - loss) / abs(loss)
+            print(f"wide bf16 B = {B}: relative train-loss difference "
+                  f"card/CPU {rel:.3e} (at most {OBJ_RTOL}) [{card}]",
+                  flush=True)
+            check(rel <= OBJ_RTOL, f"wide bf16: card and CPU losses differ")
+
+
+ENGINE_SCRIPT_ROWS = 1 << 18
+ENGINE_SCRIPT_TIMEOUT_S = 240
+
+
+def engine_script_runs(tmp):
+    """(script, argv, extra env) of the engine's scripts: each at
+    ENGINE_SCRIPT_ROWS rows and two or three trees, ablate's b256 and goss
+    arms."""
+    n = str(ENGINE_SCRIPT_ROWS)
+    return (
+        ("profile_gbdt", [n, "2", "loss"], {}),
+        ("profile_engine", [n, "2", "16", "loss", "255", "int8"], {}),
+        ("micro_engine", [n], {}),
+        ("ablate_engine", [n, "b256", "goss"],
+         {"ABLATE_TREES": "3",
+          "ABLATE_RECORD": os.path.join(tmp, "ablate.json")}),
+    )
+
+
+def phase_engine_scripts(card):
+    """The engine's profile, micro and ablation scripts (slice 22's ports
+    of scripts/{profile_gbdt,profile_engine,micro_engine,ablate_engine}.py)
+    on the card, the four at once, each in a process of its own: exit 0,
+    the trees/s (or ms) lines, the profiler's report, the ablation record
+    with its arms and wave table, and each script's own count of kernel
+    launches: K1 or K2, and K5."""
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_scripts_")
+    try:
+        env0 = {k: v for k, v in os.environ.items()
+                if not k.startswith(("ABLATE_", "YTK_"))}
+        env0["PYTHONPATH"] = REPO
+        procs = {}
+        t0 = time.perf_counter()
+        for script, argv, extra in engine_script_runs(tmp):
+            out = open(os.path.join(tmp, f"{script}.out"), "w")
+            err = open(os.path.join(tmp, f"{script}.err"), "w")
+            procs[script] = (subprocess.Popen(
+                [sys.executable, "-m", f"ytklearn_tpu_torch.scripts.{script}",
+                 *argv], cwd=REPO, env=dict(env0, **extra), stdout=out,
+                stderr=err), out, err)
+        rcs = {}
+        for script, (p, out, err) in procs.items():
+            try:
+                rcs[script] = p.wait(timeout=ENGINE_SCRIPT_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs[script] = p.wait()
+            out.close()
+            err.close()
+        wall = time.perf_counter() - t0
+        for script, argv, _extra in engine_script_runs(tmp):
+            with open(os.path.join(tmp, f"{script}.out")) as f:
+                text = f.read()
+            with open(os.path.join(tmp, f"{script}.err")) as f:
+                etext = f.read()
+            rc = rcs[script]
+            if rc != 0:
+                print(f"engine scripts: {script} stderr tail:\n"
+                      f"{etext[-3000:]}", flush=True)
+            lines = text.splitlines()
+            counts = json.loads(next(
+                ln for ln in lines if ln.startswith("kernel launches: "))
+                [len("kernel launches: "):].rsplit(" [", 1)[0]) \
+                if rc == 0 else {}
+            if script.startswith("profile"):
+                head = next((ln for ln in lines if ln.startswith("policy=")),
+                            "")
+                try:
+                    tps = float(head.split("trees/s=")[1].split()[0])
+                except (IndexError, ValueError):  # no line, or no time
+                    tps = 0.0
+                ok = (rc == 0 and tps > 0 and "profile.run" in text
+                      and "coverage" in text and "gbdt.train" in text)
+                print(f"engine scripts: {script} {' '.join(argv)}: rc {rc}; "
+                      f"{head}; profiler report {'profile.run' in text}; "
+                      f"launches {counts} [{card}]", flush=True)
+            elif script == "micro_engine":
+                timings = [ln for ln in lines if ln.endswith(f"ms [{card}]")]
+                ok = rc == 0 and len(timings) == 4
+                for ln in timings:
+                    print(f"engine scripts: micro_engine {ln}", flush=True)
+                print(f"engine scripts: micro_engine {argv[0]}: rc {rc}; "
+                      f"launches {counts} [{card}]", flush=True)
+            else:
+                rec_path = os.path.join(tmp, "ablate.json")
+                record = {}
+                if os.path.exists(rec_path):
+                    with open(rec_path) as f:
+                        record = json.load(f)
+                cfgs = record.get("configs", {})
+                ok = (rc == 0 and sorted(cfgs) == ["b256", "goss"]
+                      and all((e["steady_trees_per_sec"] or 0.0) > 0
+                              and e["wave_columns"][0] == "rows_scanned"
+                              and e["last_tree_waves"]
+                              for e in cfgs.values()))
+                for cfg, e in cfgs.items():
+                    print(f"engine scripts: ablate_engine {cfg}: steady "
+                          f"{e['steady_trees_per_sec']} trees/s, AUC "
+                          f"{e['auc']:.6f}, scan/need {e['scan_over_need']}, "
+                          f"{len(e['last_tree_waves'])} waves in the last "
+                          f"tree's table [{card}]", flush=True)
+                print(f"engine scripts: ablate_engine {' '.join(argv)}: rc "
+                      f"{rc}; launches {counts} [{card}]", flush=True)
+            kernels_ok = ((counts.get("K1", 0) > 0 or counts.get("K2", 0) > 0)
+                          and counts.get("K5", 0) > 0)
+            check(ok and kernels_ok, f"engine scripts: {script} rc {rc}, "
+                  f"launches {counts}: {text[-2000:]}")
+        print(f"engine scripts: the four in {wall:.3f} s (wall, at once) "
+              f"[{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def timed(name, fn, *args, **kw):
@@ -7234,11 +7669,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("repro", phase_repro, card)
     # slice 21: one tree past the shared node lookup (K1-K4's global kind)
-    deep_launches, deep_ms, deep_errs = timed("deep_tree", phase_deep_tree,
-                                              card)
+    # (slice 22: the wide-bin runs inside it, while its CPU trees grow)
+    deep_launches, deep_ms, deep_errs, wide = timed(
+        "deep_tree", phase_deep_tree, card)
     for k, v in deep_errs.items():
         errs[k] = max(errs.get(k, 0.0), v)
+    for k, v in wide["errs"].items():
+        errs[k] = max(errs.get(k, 0.0), v)
     torch.cuda.empty_cache()
+    # slice 22: the engine's profile, micro and ablation scripts (after the
+    # deep phase: beside its CPU trees they slowed those more than they
+    # saved, PERF.md section 6)
+    timed("engine_scripts", phase_engine_scripts, card)
     # slice 11: softmax through cli train at full width (K1, K3, K5)
     for k, v in timed("softmax_cli", phase_softmax_cli, card).items():
         errs[k] = max(errs[k], v)
@@ -7304,6 +7746,9 @@ def main() -> int:
             rows[-1].update({"deep_launches": deep_launches[name],
                              "ms_shared_lookup": deep_ms[name][0],
                              "ms_global_lookup": deep_ms[name][1]})
+        if name in wide["report"]:  # K1-K4 past one tile (slice 22)
+            rows[-1].update({"wide_launches": wide["launches"][name],
+                             "wide_bins": wide["report"][name]})
     ms, plain_ms, bound_ms, bound_by, device_ms = k7_time
     rows.append({
         "name": "binned_walk",

@@ -75,6 +75,8 @@ def _inputs(gen, F, n, B, N, dtype, M):
     (28, 70000, 256, 1, "u8", 509), (28, 70000, 256, 64, "u8", 509),
     (5, 49152, 16, 7, "i32", 31), (3, 5000, 1024, 100, "i32", 4096),
     (6, 777, 64, 33, "u8", 100),
+    # wide: bins past one tile, each tile one of 2 (4) bin ranges
+    (4, 70004, 1 << 15, 3, "i32", 15), (2, 30000, 1 << 16, 16, "i32", 61),
 ])
 def test_hist_kernels_match_plain(gen, F, n, B, N, dtype, M):
     bins, pos, gq, hq, ids = _inputs(gen, F, n, B, N, dtype, M)
@@ -106,8 +108,10 @@ def test_hist_wrapper_refuses_bad_inputs(gen):
     with pytest.raises(ValueError, match="pos must have shape"):
         hist.hist_wave_q(bins, pos[:500].contiguous(), gq[:500].contiguous(),
                          hq[:500].contiguous(), ids, 16, max_nodes=9)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b"):
-        hist.hist_wave_q(bins, pos, gq, hq, ids, 1 << 15, max_nodes=9)
+    # bins past one tile run (tiles of bin ranges): the same sums
+    wide = hist.hist_wave_q(bins, pos, gq, hq, ids, 1 << 15, max_nodes=9)
+    assert torch.equal(wide, hist.hist_wave_q_plain(bins, pos, gq, hq, ids,
+                                                    1 << 15, 9))
     # a tree past the shared lookup's cap runs (the global lookup kind)
     got = hist.hist_wave_q(bins, pos, gq, hq, ids, 16, max_nodes=60000)
     assert torch.equal(got, hist.hist_wave_q_plain(bins, pos, gq, hq, ids,
@@ -262,6 +266,32 @@ def test_trainer_dump_on_the_card_equals_the_cpu(gen, tmp_path):
             GBDTData(X, y, np.ones(n, np.float32), n, names))
         with open(path) as f:
             text[dev] = f.read()
+    assert text["cpu"] == text["cuda"]
+
+
+def test_trainer_dump_at_wide_bins_on_the_card_equals_the_cpu(gen, tmp_path):
+    """int8 trees over features of 2^15 bins (max_cnt 30,000: tiles of
+    two bin ranges on the card): the card's dump is the CPU's byte for
+    byte."""
+    rng = np.random.RandomState(6)
+    n, F = 40000, 3
+    X = rng.randn(n, F).astype(np.float32)
+    y = ((X[:, 0] * X[:, 1] + rng.randn(n) * 0.5) > 0).astype(np.float32)
+    names = [f"f{i}" for i in range(F)]
+    text, before = {}, hist.hist_wave_q.launches
+    for dev in ("cpu", "cuda"):
+        path = str(tmp_path / f"{dev}.model")
+        p = GBDTParams(round_num=3, max_depth=6, max_leaf_cnt=15,
+                       tree_grow_policy="loss", learning_rate=0.2,
+                       loss_function="l2", eval_metric=["rmse"],
+                       approximate=[ApproximateSpec(max_cnt=30000)],
+                       model=ModelParams(data_path=path, dump_freq=0))
+        tr = GBDTTrainer(p, hist_precision="int8", device=dev, wave=8)
+        assert tr._grow_spec(F, 1 << 15).B == 1 << 15
+        tr.train(GBDTData(X, y, np.ones(n, np.float32), n, names))
+        with open(path) as f:
+            text[dev] = f.read()
+    assert hist.hist_wave_q.launches > before
     assert text["cpu"] == text["cuda"]
 
 
@@ -442,6 +472,8 @@ def _close(got, want):
 @pytest.mark.parametrize("F,n,B,N,dtype,M", [
     (28, 70000, 256, 1, "u8", 509), (28, 70000, 256, 64, "u8", 509),
     (5, 49152, 16, 7, "i32", 31), (6, 777, 64, 33, "u8", 100),
+    # wide: bins past one tile
+    (4, 70004, 1 << 15, 3, "i32", 15), (2, 30000, 1 << 16, 16, "i32", 61),
 ])
 def test_float_hist_kernels_match_plain(gen, use_bf16, F, n, B, N, dtype, M):
     bins, pos, _, _, ids = _inputs(gen, F, n, B, N, dtype, M)
@@ -876,23 +908,28 @@ def _float_case(gen, F, n, B, N, M, dtype="u8", root=False, dup=False):
 
 
 def _k1_plans(N, F, B, M):
-    """float_plan's, then each kind explicitly."""
+    """float_plan's, then each kind explicitly; past one tile's bins also
+    a tile of one more bin range than the planner's (a short last one)."""
     ng, fg = hist._float_tile(N, F, B, M)
     tile = {"ng": ng, "fg": fg, "rows_per_chunk": 8192, "threads": 1024}
-    return [None, {"kind": "red", "n_chunks": 97, "threads": 256},
-            dict(tile, kind="tile"), dict(tile, kind="auto")]
+    plans = [None, {"kind": "red", "n_chunks": 97, "threads": 256},
+             dict(tile, kind="tile"), dict(tile, kind="auto")]
+    if hist.bin_ranges(B) > 1:
+        plans.append(dict(tile, kind="tile", nb=hist.bin_ranges(B) + 1))
+    return plans
 
 
 @pytest.mark.parametrize("case", [
     "root", "dense", "ragged_unaligned", "ragged_views", "int32_b1024",
-    "dup_wave", "cap", "past_cap",
+    "dup_wave", "cap", "past_cap", "wide_15", "wide_16",
 ])
 @pytest.mark.parametrize("use_bf16", [True, False])
 def test_k1_kinds_match_plain(gen, case, use_bf16):
     """K1 at float_plan's plan and at each kind: counts exact, g/h at
     tolerance. Unaligned views and a ragged n take the one-row path; the
     auto kind picks the tile on the dense wave (about 3/4 of the rows in
-    it) and red on the sparse ones (64 of 509 nodes)."""
+    it) and red on the sparse ones (64 of 509 nodes). wide_15 / wide_16:
+    B = 2^15 / 2^16, tiles of 2 / 4 bin ranges (and one more)."""
     F, n, B, N, M, dt = {
         "root": (28, 70004, 256, 1, 9, "u8"),
         "dense": (28, 70004, 256, 32, 33, "u8"),
@@ -902,6 +939,8 @@ def test_k1_kinds_match_plain(gen, case, use_bf16):
         "dup_wave": (28, 70004, 256, 64, 509, "u8"),
         "cap": (28, 70004, 256, 64, CAP_256, "u8"),
         "past_cap": (28, 70004, 256, 64, PAST_CAP, "u8"),
+        "wide_15": (4, 70004, 1 << 15, 3, 15, "i32"),
+        "wide_16": (2, 70004, 1 << 16, 2, 9, "i32"),
     }[case]
     bins, pos, g, h, ids = _float_case(gen, F, n, B, N, M, dt,
                                        root=case == "root",
@@ -1012,14 +1051,20 @@ def test_float_kernels_raise_on_a_bad_launch(gen, monkeypatch):
 def _q_plans(N, F, B, M, n):
     """q_plan's, then each kind explicitly: a tile of the planner's shape
     with short chunks (the atomic flush) and with one or two (the store
-    mode), auto, and red."""
+    mode), auto, and red; past one tile's bins also a tile of one more bin
+    range than the planner's (a short last one), in both flush modes."""
     ng, fg = hist._q_tile(N, F, B)
     tile = {"ng": ng, "fg": fg, "threads": 1024}
     few = max(4, hist._pad_to(-(-n // 2), 4))
-    return [None, {"kind": "red", "n_chunks": 97, "threads": 256},
-            dict(tile, kind="tile", rows_per_chunk=4096),
-            dict(tile, kind="tile", rows_per_chunk=few),
-            dict(tile, kind="auto", rows_per_chunk=few)]
+    plans = [None, {"kind": "red", "n_chunks": 97, "threads": 256},
+             dict(tile, kind="tile", rows_per_chunk=4096),
+             dict(tile, kind="tile", rows_per_chunk=few),
+             dict(tile, kind="auto", rows_per_chunk=few)]
+    if hist.bin_ranges(B) > 1:
+        more = dict(tile, kind="tile", nb=hist.bin_ranges(B) + 1)
+        plans += [dict(more, rows_per_chunk=4096),
+                  dict(more, rows_per_chunk=few)]
+    return plans
 
 
 def _q_case(gen, case):
@@ -1034,6 +1079,8 @@ def _q_case(gen, case):
         "dup_wave": (28, 70004, 256, 64, 509, "u8"),
         "cap": (28, 70004, 256, 64, CAP_256, "u8"),
         "past_cap": (28, 70004, 256, 64, PAST_CAP, "u8"),
+        "wide_15": (4, 70004, 1 << 15, 3, 15, "i32"),
+        "wide_16": (2, 70004, 1 << 16, 16, 61, "i32"),
     }[case]
     bins, pos, gq, hq, ids = _inputs(gen, F, n, B, N, dt, M)
     if case == "past_cap":
@@ -1058,7 +1105,8 @@ def _q_case(gen, case):
 
 
 Q_CASES = ["root", "n7", "n64", "sparse64", "ragged_unaligned",
-           "ragged_views", "int32_b1024", "dup_wave", "cap", "past_cap"]
+           "ragged_views", "int32_b1024", "dup_wave", "cap", "past_cap",
+           "wide_15", "wide_16"]
 
 
 @pytest.mark.parametrize("case", Q_CASES)
@@ -1084,7 +1132,8 @@ def test_k2_kinds_match_plain(gen, case):
 @pytest.mark.parametrize("case", Q_CASES[:4] + ["int32_b1024", "dup_wave",
                                                 "cap", "dead_and_out_of_range",
                                                 "f7_rows", "empty",
-                                                "past_cap"])
+                                                "past_cap", "wide_15",
+                                                "wide_16"])
 def test_k4_kinds_match_plain(gen, case):
     """K4 over gathered rows at q_plan's plan and at each kind, exact: the
     root wave, N = 7 and 64, a sparse wave, int32 bins, a duplicated id and

@@ -268,23 +268,26 @@ def test_tile_plan_covers_the_histogram_and_fits(N, F, B, M, n):
 
 
 @pytest.mark.parametrize("B,M", [(1 << 15, 8), (256, 57_345)])
-def test_tile_plan_refuses_a_tile_past_shared_memory(B, M):
-    """Too many bins for one slot x feature tile is named as not ported
-    (ROADMAP.md 1.8b); a node lookup too large for shared memory (a tree
-    of more than 57,344 nodes at B = 256) takes the global lookup kind,
-    whose tile holds no lookup."""
+def test_tile_plan_cuts_a_tile_past_shared_memory_into_bin_ranges(B, M):
+    """Too many bins for one slot x feature tile: the tile holds one of
+    the fewest equal ranges of bins that fit (two of 16,384 at B = 2^15),
+    each a tile of its own, on the global lookup kind (no lookup in shared
+    memory); a node lookup too large for shared memory (a tree of more
+    than 57,344 nodes at B = 256) takes the global lookup kind, whose tile
+    holds no lookup, over one range. Both pass check_plan."""
+    plan = hist.tile_plan(1, 1, B, M, 100, sm_count=132)
+    assert hist.check_plan(plan, 1, 1, B, M, 100) == plan
+    assert (plan["fg"], plan["ng"]) == (1, 1)
     if B * 12 > hist.SMEM_MAX:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b"):
-            hist.tile_plan(1, 1, B, M, 100, sm_count=132)
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            hist.check_tile_fits(B)
+        assert hist.lookup_kind(B, M) == "global"
+        assert plan["nb"] == hist.bin_ranges(B) == 2
+        assert plan["n_tiles"] == 2
+        assert plan["smem"] == 12 * (B // 2) <= hist.SMEM_MAX
         return
     assert hist.lookup_kind(B, M) == "global"
     assert hist.lookup_kind(B, M - 1) == "shared"
-    hist.check_tile_fits(B)
-    plan = hist.tile_plan(1, 1, B, M, 100, sm_count=132)
-    assert plan["smem"] == 12 * B and (plan["fg"], plan["ng"]) == (1, 1)
-    assert hist.check_plan(plan, 1, 1, B, M, 100) == plan
+    assert plan["nb"] == hist.bin_ranges(B) == 1
+    assert plan["smem"] == 12 * B
 
 
 def test_tile_plan_takes_the_largest_lookup_that_fits():

@@ -11,7 +11,8 @@ planners then) and take the global kind past it, with the card's
 arguments; the int8 planners refuse a wave of Q_MAX_SLOTS slots. Every
 histogram's plain version at a capacity past the cap equals the one
 through node_slots, and so does a tree grown there (int8 and f32), and
-GBDTTrainer._grow_spec no longer refuses such a capacity on CUDA.
+GBDTTrainer._grow_spec no longer refuses such a capacity on CUDA, nor
+bins past one tile.
 """
 
 import json
@@ -226,28 +227,29 @@ def test_tree_past_the_cap_equals_node_slots_tree(hist_mode, monkeypatch):
     np.testing.assert_array_equal(got[2], want[2])
 
 
-@pytest.mark.parametrize("leaves,B,raises", [
+@pytest.mark.parametrize("leaves,B,wide", [
     (30_000, 256, False), (28_672, 256, False), (255, 20_000, True)])
-def test_grow_spec_on_cuda_refuses_only_bins_past_one_tile(tmp_path, leaves,
-                                                           B, raises):
+def test_grow_spec_on_cuda_plans_any_tree_and_bin_width(tmp_path, leaves, B,
+                                                        wide):
     """_grow_spec with the card's device: a leaf cap past the shared
     lookup's (2 x 30,000 - 1 nodes) gives its spec and the planners plan it
-    at the card's shapes; bins past one tile raise, naming 1.8b."""
+    at the card's shapes; so do bins past one tile (B = 20,000: two ranges
+    of 10,000 bins a tile), which no longer raise."""
     params = GBDTParams.from_config({
         "model": {"data_path": str(tmp_path / "gbdt.model")},
         "optimization": {"max_leaf_cnt": leaves, "max_depth": -1}})
     tr = GBDTTrainer(params, hist_precision="int8", device="cpu")
     tr.device = torch.device("cuda")  # the card's checks, no card needed
-    if raises:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b"):
-            tr._grow_spec(28, B)
-        return
     spec = tr._grow_spec(28, B)
     M = spec.max_nodes
     assert M == 2 * leaves - 1
     assert hist.lookup_kind(B, M, spec.wave) == (
-        "global" if M > cap(B) else "shared")
+        "global" if wide or M > cap(B) else "shared")
+    assert hist.bin_ranges(B) == (2 if wide else 1)
     for gather in (False, True):
         n = 10_502_144 if not gather else 65_536
-        hist.q_plan(spec.wave, 28, B, M, n, SM, gather)
-        hist.float_plan(spec.wave, 28, B, M, n, SM, gather)
+        qp = hist.q_plan(spec.wave, 28, B, M, n, SM, gather)
+        fp = hist.float_plan(spec.wave, 28, B, M, n, SM, gather)
+        assert hist.check_q_plan(qp, spec.wave, 28, B, M, n) == qp
+        assert hist.check_float_plan(fp, spec.wave, 28, B, M, n,
+                                     gather) == fp

@@ -4,7 +4,8 @@ row once, fits one block's shared memory, keeps its grid in range, and
 passes its own checker; the checker refuses, before any launch, a plan
 that does not cover, does not fit or has bad threads (ValueError). Past
 the shared node lookup's cap the plans take the global lookup kind; past
-one tile's bins they raise check_tile_fits' NotImplementedError.
+one tile's bins their tiles hold ranges of bins
+(tests/test_torch_hist_ranges.py holds those plans at every kind).
 The plans are pure integer arithmetic, so every check is exact."""
 
 import numpy as np
@@ -87,11 +88,13 @@ def test_float_plan_covers_fits_and_checks(N, F, B, nodes, rows, gather):
 
 @pytest.mark.parametrize("B", BS)
 @pytest.mark.parametrize("gather", [False, True])
-def test_past_the_cap_raises_as_check_tile_fits(B, gather):
+def test_past_the_cap_and_past_one_tile_plans_bin_ranges(B, gather):
     """Past the shared lookup's cap the plan takes the global kind: no
     shared memory for the lookup, every (slot, feature) and row covered,
     its own checker passes; the cap itself keeps the shared kind. Bins
-    past one tile raise as check_tile_fits (ROADMAP.md 1.8b)."""
+    past one tile (B = 2^15) plan too: K1's tiles cut into two bin ranges
+    at most (so the planner takes red), K3 red, every plan passing its
+    checker, a red plan over one range."""
     M = cap(B) + 4
     assert hist.lookup_kind(B, cap(B)) == "shared"
     assert hist.lookup_kind(B, M) == "global"
@@ -107,18 +110,14 @@ def test_past_the_cap_raises_as_check_tile_fits(B, gather):
     assert hist.check_float_plan(plan, 7, 28, B, M, 1000, gather) == plan
     red = hist.check_float_plan({"kind": "red", "n_chunks": 1}, 7, 28, B, M,
                                 1000, gather)
-    assert red["smem"] == 0
+    assert red["smem"] == 0 and red["nb"] == 1
     wide = 1 << 15
-    with pytest.raises(NotImplementedError) as want:
-        hist.check_tile_fits(wide)
-    for call in (lambda: hist.float_plan(7, 28, wide, M, 1000, SM, gather),
-                 lambda: hist.check_float_plan(
-                     {"kind": "red", "n_chunks": 1}, 7, 28, wide, M, 1000,
-                     gather)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b") \
-                as got:
-            call()
-        assert str(got.value) == str(want.value)
+    assert hist.bin_ranges(wide) == 2
+    for p in (hist.float_plan(7, 28, wide, M, 1000, SM, gather),
+              hist.check_float_plan({"kind": "red", "n_chunks": 1}, 7, 28,
+                                    wide, M, 1000, gather)):
+        assert p["kind"] == "red" and p["nb"] == 1 and p["smem"] == 0
+        assert hist.check_float_plan(p, 7, 28, wide, M, 1000, gather) == p
     hist.float_plan(7, 28, B, cap(B), 1000, SM, gather)  # the cap itself fits
 
 

@@ -5,8 +5,9 @@ memory, keeps its grid in range and each packed lane within its bits at
 |g| = |h| = 127, and passes its own checker; the checker refuses, before
 any launch, a plan that does not cover, does not fit or has bad threads
 (ValueError). Past the shared node lookup's cap the pack pass takes the
-global lookup kind; a wave of Q_MAX_SLOTS slots or more raises ValueError
-and bins past one tile check_tile_fits' NotImplementedError. The plans are
+global lookup kind; a wave of Q_MAX_SLOTS slots or more raises ValueError,
+and past one tile's bins a tile holds a range of them
+(tests/test_torch_hist_ranges.py holds those plans at every kind). The plans are
 pure integer arithmetic, so every check is exact."""
 
 import inspect
@@ -102,11 +103,13 @@ def test_q_plan_covers_fits_and_checks(N, F, B, nodes, rows, gather):
 
 @pytest.mark.parametrize("B", BS)
 @pytest.mark.parametrize("gather", [False, True])
-def test_q_past_the_cap_raises_as_check_tile_fits(B, gather):
+def test_q_past_the_cap_and_past_one_tile_plans_bin_ranges(B, gather):
     """Past the shared lookup's cap the pack pass takes the global kind:
     the pack shape holds no shared memory, the tile plan is the cap's (a
     K2/K4 tile never held the lookup) and passes its checker. Bins past one
-    tile raise as check_tile_fits (ROADMAP.md 1.8b)."""
+    tile (B = 2^15) plan tiles of one slot x one feature x one of two bin
+    ranges of 16,384 (K2 auto, K4 tile), which pass their checker, and red
+    plans over one range."""
     M = cap(B) + 4
     assert hist.lookup_kind(B, M) == "global"
     plan = hist.q_plan(7, 28, B, M, 1000, SM, gather)
@@ -120,15 +123,14 @@ def test_q_past_the_cap_raises_as_check_tile_fits(B, gather):
     assert hist._red_shape(7, B, cap(B), 1000, SM)[3] == \
         hist._lut_bytes(cap(B), 7)
     wide = 1 << 15
-    with pytest.raises(NotImplementedError) as want:
-        hist.check_tile_fits(wide)
-    for call in (lambda: hist.q_plan(7, 28, wide, M, 1000, SM, gather),
-                 lambda: hist.check_q_plan({"kind": "red", "n_chunks": 1},
-                                           7, 28, wide, M, 1000)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b") \
-                as got:
-            call()
-        assert str(got.value) == str(want.value)
+    p = hist.q_plan(7, 28, wide, M, 1000, SM, gather)
+    assert p["kind"] == ("tile" if gather else "auto")
+    assert (p["ng"], p["fg"], p["nb"]) == (1, 1, 2)
+    assert p["n_tiles"] == 7 * 28 * 2 and p["smem"] == 12 * (wide // 2)
+    assert hist.check_q_plan(p, 7, 28, wide, M, 1000) == p
+    red = hist.check_q_plan({"kind": "red", "n_chunks": 1}, 7, 28, wide, M,
+                            1000)
+    assert red["nb"] == 1 and red["smem"] == 0
     hist.q_plan(7, 28, B, cap(B), 1000, SM, gather)  # the cap itself fits
 
 

@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "parallel.collectives", "gbdt.feature_parallel", "gbdt.launch",
               "scripts.cross_check", "parallel.launch", "train_launch",
               "train", "boost", "optimize.blocked", "optimize.lbfgs",
-              "models.base"):
+              "models.base", "scripts.profile_gbdt",
+              "scripts.profile_engine", "scripts.micro_engine",
+              "scripts.ablate_engine"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -465,9 +465,9 @@ def test_trees_past_the_kernel_lookup_raise_on_cuda(depth, leaves, device,
                                                     past_cap):
     """On CUDA the spec takes a tree of any size: one whose node lookup
     does not fit K1-K4's shared memory gets the global lookup kind, and
-    the planners plan it at the card's shapes. Only bins past one
-    histogram tile are refused, by their ROADMAP item, before any round
-    runs."""
+    the planners plan it at the card's shapes. Bins past one histogram
+    tile are no longer refused: the spec takes B = 2^15 and the planners
+    plan it (tiles of two bin ranges)."""
     p = GBDTParams(approximate=[ApproximateSpec()], max_depth=depth,
                    max_leaf_cnt=leaves)
     tr = GBDTTrainer(p, device="cpu", hist_precision="int8")
@@ -478,6 +478,9 @@ def test_trees_past_the_kernel_lookup_raise_on_cuda(depth, leaves, device,
         "global" if past_cap else "shared")
     hist.q_plan(spec.wave, 28, 256, spec.max_nodes, 10_502_144, 132)
     hist.float_plan(spec.wave, 28, 256, spec.max_nodes, 10_502_144, 132)
-    if device == "cuda":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md 1\.8b"):
-            tr._grow_spec(28, 1 << 15)
+    wide = tr._grow_spec(28, 1 << 15)
+    assert wide.B == 1 << 15 and hist.bin_ranges(wide.B) == 2
+    for gather in (False, True):
+        hist.check_q_plan(hist.q_plan(wide.wave, 28, wide.B, wide.max_nodes,
+                                      65_536, 132, gather),
+                          wide.wave, 28, wide.B, wide.max_nodes, 65_536)

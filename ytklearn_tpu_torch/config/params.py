@@ -13,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, List, Tuple
 
+from . import hocon
 from .hocon import MISSING, get_path
 
 
@@ -404,6 +405,11 @@ class CommonParams:
             raw=cfg,
         )
 
+    @classmethod
+    def from_file(cls, path: str) -> "CommonParams":
+        """The params of the HOCON config file at `path`."""
+        return cls.from_config(hocon.load(path))
+
 
 @dataclass
 class ApproximateSpec:
@@ -470,6 +476,11 @@ class GBDTParams:
     class_num: int = 1
     just_evaluate: bool = False
     eval_metric: List[str] = field(default_factory=lambda: ["auc"])
+    #: metrics of the train / test scores at each sync round (device
+    #: engine: in the sync's log line) or each round (host engine: in its
+    #: round_log), as the reference's watch flags
+    watch_train: bool = False
+    watch_test: bool = False
 
     # feature block
     split_type: str = "mean"  # mean | median
@@ -520,11 +531,18 @@ class GBDTParams:
             class_num=int(_opt(cfg, f"{o}.class_num", 1)),
             just_evaluate=bool(_opt(cfg, f"{o}.just_evaluate", False)),
             eval_metric=list(_opt(cfg, f"{o}.eval_metric", ["auc"]) or []),
+            watch_train=bool(_opt(cfg, f"{o}.watch_train", False)),
+            watch_test=bool(_opt(cfg, f"{o}.watch_test", False)),
             split_type=str(_opt(cfg, "feature.split_type", "mean")),
             approximate=appr,
             missing_value=str(_opt(cfg, "feature.missing_value", "value")),
             continual=ContinualParams.from_config(cfg),
         )
+
+    @classmethod
+    def from_file(cls, path: str) -> "GBDTParams":
+        """The params of the HOCON config file at `path`."""
+        return cls.from_config(hocon.load(path))
 
     @property
     def num_tree_in_group(self) -> int:

@@ -223,3 +223,7 @@ class EvalSet:
             accs = _psum_all(accs, mesh)
         return {name: float(fin(acc)) for (name, (_, fin)), acc
                 in zip(self.fns.items(), accs)}
+
+    def format(self, results: Dict[str, float], prefix: str = "") -> str:
+        """One `<prefix> <metric> = <value>` line a result."""
+        return "\n".join(f"{prefix} {k} = {v}" for k, v in results.items())

@@ -35,8 +35,11 @@
 //     lookup; it also counts the wave's rows for the auto kind. For K4 it
 //     gathers too: each gathered row's bins go into an (F, R) feature-major
 //     copy (R padded to four rows), so K4 runs K2's tile and red kernels.
-//   * tile: a block owns a tile of ng slots x fg features of the histogram
-//     in shared memory (int32 g, h and count a bin: native ATOMS.ADD; a
+//   * tile: a block owns a tile of ng slots x fg features x a range of bt
+//     bins of the histogram in shared memory (all B bins, nb = 1, unless one
+//     slot x feature of B bins outgrows shared memory; then B is cut into
+//     nb ranges, each tile one range, and a row whose bin falls outside the
+//     tile's range adds nothing there) (int32 g, h and count a bin: native ATOMS.ADD; a
 //     64-bit (g, h) lane is a compare-and-swap loop on sm_90 and measured
 //     slower) and adds one chunk of packed rows. One wave of resident
 //     blocks walks the tiles x chunks (tile fastest, so the blocks at work
@@ -162,10 +165,11 @@ template <> struct Sink<true> {
   }
 };
 
-// The part of the histogram a block adds into: slots [s0, s0 + scnt) and
-// features [f0, f0 + fcnt) of a tile fg features wide (red: everything).
+// The part of the histogram a block adds into: slots [s0, s0 + scnt),
+// features [f0, f0 + fcnt) and bins [b0, b0 + bcnt) of a tile fg features
+// x bt bins wide (red: everything, b0 = 0 and bcnt = bt = B).
 struct Part {
-  int s0, scnt, f0, fcnt, fg;
+  int s0, scnt, f0, fcnt, fg, b0, bcnt, bt;
 };
 
 // U groups of V packed rows, group u starting at r + u * step: the rows
@@ -175,7 +179,7 @@ struct Part {
 template <typename BinT, int V, int U, bool RED>
 __device__ __forceinline__ void add_packed(
     long long r, long long step, const BinT* __restrict__ bins, long long n,
-    const uint32_t* __restrict__ packed, int B, const Part& pt,
+    const uint32_t* __restrict__ packed, const Part& pt,
     const Sink<RED>& sink) {
   // int32 bins: one feature's int4 per group at a time, to spare registers
   constexpr int FB = sizeof(BinT) == 1 ? 4 : 1;
@@ -208,10 +212,11 @@ __device__ __forceinline__ void add_packed(
         for (int j = 0; j < V; ++j) {
           const uint32_t wj = (uint32_t)w[u][j];
           const int s = (int)(wj >> 16) - pt.s0;
-          const int b = wb[u][k].get(j);
-          if ((unsigned)s >= (unsigned)pt.scnt || (unsigned)b >= (unsigned)B)
+          const int b = wb[u][k].get(j) - pt.b0;
+          if ((unsigned)s >= (unsigned)pt.scnt
+              || (unsigned)b >= (unsigned)pt.bcnt)
             continue;
-          sink.add(((size_t)s * pt.fg + fb + k) * B + b, word_g(wj),
+          sink.add(((size_t)s * pt.fg + fb + k) * pt.bt + b, word_g(wj),
                    word_h(wj));
         }
     }
@@ -224,7 +229,7 @@ __device__ __forceinline__ void add_packed(
 template <typename BinT, int V, bool RED>
 __device__ __forceinline__ void add_rows(
     long long r0, long long r1, const BinT* __restrict__ bins, long long n,
-    const uint32_t* __restrict__ packed, int B, const Part& pt,
+    const uint32_t* __restrict__ packed, const Part& pt,
     const Sink<RED>& sink) {
   const long long group = (long long)blockDim.x * V;
   long long r = r0;
@@ -233,15 +238,14 @@ __device__ __forceinline__ void add_rows(
     const long long rr = r0 + (r1 - r0) / round * round;
     for (; r < rr; r += round)
       add_packed<BinT, V, Q_UNROLL, RED>(r + (long long)threadIdx.x * V,
-                                         group, bins, n, packed, B, pt,
-                                         sink);
+                                         group, bins, n, packed, pt, sink);
     const long long rg = r0 + (r1 - r0) / V * V;
     for (long long q = r + (long long)threadIdx.x * V; q < rg; q += group)
-      add_packed<BinT, V, 1, RED>(q, 0, bins, n, packed, B, pt, sink);
+      add_packed<BinT, V, 1, RED>(q, 0, bins, n, packed, pt, sink);
     r = rg;
   }
   for (long long q = r + threadIdx.x; q < r1; q += blockDim.x)
-    add_packed<BinT, 1, 1, RED>(q, 0, bins, n, packed, B, pt, sink);
+    add_packed<BinT, 1, 1, RED>(q, 0, bins, n, packed, pt, sink);
 }
 
 // The lookup over tree node ids [0, M): the lowest slot of each id
@@ -452,6 +456,7 @@ __device__ __forceinline__ bool skip(const unsigned long long* live,
 }
 
 // One wave of resident blocks walks the n_tiles x n_chunks items (tile
+// fastest; a tile is (slot tile, bin range, feature tile), feature tile
 // fastest): per item, zero the tile, add the chunk's packed rows, flush.
 // STORE: the tile is stored whole into its chunk's part of the (n_chunks,
 // N, F, B, 3) partial sums, plain stores; else its nonzero bins are added
@@ -461,7 +466,7 @@ __global__ void __launch_bounds__(1024) tile_kernel(
     const BinT* __restrict__ bins,        // (F, n)
     const uint32_t* __restrict__ packed,  // (n,) from pack_kernel
     long long n, int N, int F, int B, int fg, int ng, int n_ftiles,
-    int n_tiles, int n_items, long long rows_per_chunk,
+    int n_tiles, int nb, int bt, int n_items, long long rows_per_chunk,
     const unsigned long long* __restrict__ live, long long red_rows,
     int4* __restrict__ acc,               // (N, F, B), zeroed by the caller
     int32_t* __restrict__ partial)        // STORE: (n_chunks, N, F, B, 3)
@@ -469,16 +474,20 @@ __global__ void __launch_bounds__(1024) tile_kernel(
   if (skip(live, red_rows, false)) return;
   extern __shared__ int32_t smem[];
   const Sink<false> sink{smem};
-  const int per_slot = fg * B;
+  const int per_slot = fg * bt;
 
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int tile = item % n_tiles;
+    const int rest = tile / n_ftiles;
     Part pt;
     pt.f0 = (tile % n_ftiles) * fg;
-    pt.s0 = (tile / n_ftiles) * ng;
+    pt.s0 = rest / nb * ng;
+    pt.b0 = rest % nb * bt;
     pt.fcnt = min(fg, F - pt.f0);
     pt.scnt = min(ng, N - pt.s0);
+    pt.bcnt = min(bt, B - pt.b0);
     pt.fg = fg;
+    pt.bt = bt;
     for (int i = threadIdx.x; i < 3 * ng * per_slot; i += blockDim.x)
       smem[i] = 0;
     __syncthreads();
@@ -486,33 +495,36 @@ __global__ void __launch_bounds__(1024) tile_kernel(
     const int chunk = item / n_tiles;
     const long long r0 = (long long)chunk * rows_per_chunk;
     add_rows<BinT, V, false>(r0, min(n, r0 + rows_per_chunk), bins, n,
-                             packed, B, pt, sink);
+                             packed, pt, sink);
     __syncthreads();
 
     if constexpr (STORE) {
-      // (slot, feature) runs of B x 3 words, each contiguous in both
-      const int run = 3 * B;
+      // (slot, feature) runs of bt x 3 words, each contiguous in both: the
+      // range's run starts at bin b0 of the partial sums' B x 3
+      const int run = 3 * bt;
       for (int i = threadIdx.x; i < pt.scnt * fg * run; i += blockDim.x) {
         const int sf = i / run;
         const int sl = sf / fg;
         const int fl = sf - sl * fg;
-        if (fl >= pt.fcnt) continue;
-        partial[(((size_t)chunk * N + pt.s0 + sl) * F + pt.f0 + fl) * run
-                + (i - sf * run)] = smem[i];
+        const int at = i - sf * run;
+        if (fl >= pt.fcnt || at >= 3 * pt.bcnt) continue;
+        partial[(((size_t)chunk * N + pt.s0 + sl) * F + pt.f0 + fl) * 3 * B
+                + 3 * pt.b0 + at] = smem[i];
       }
       __syncthreads();  // the next item zeroes the tile
       continue;
     }
-    // flush: a bin no row reached (count 0) has nothing to add
+    // flush: a bin no row reached (count 0) has nothing to add; the
+    // range's bin i is bin b0 + i of the histogram
     for (int i = threadIdx.x; i < pt.scnt * per_slot; i += blockDim.x) {
       const int c = smem[3 * i + 2];
       if (c == 0) continue;
       const int sl = i / per_slot;
       const int rem = i - sl * per_slot;
-      const int fl = rem / B;
+      const int fl = rem / bt;
       if (fl >= pt.fcnt) continue;
-      int4* dst = acc + ((size_t)(pt.s0 + sl) * F + pt.f0 + fl) * B
-                  + (rem - fl * B);
+      int4* dst = acc + ((size_t)(pt.s0 + sl) * F + pt.f0 + fl) * B + pt.b0
+                  + (rem - fl * bt);
       atomicAdd(&dst->x, smem[3 * i]);
       atomicAdd(&dst->y, smem[3 * i + 1]);
       atomicAdd(&dst->z, c);
@@ -532,10 +544,10 @@ __global__ void __launch_bounds__(1024) red_kernel(
 {
   if (skip(live, red_rows, true)) return;
   const Sink<true> sink{acc};
-  const Part pt{0, N, 0, F, F};
+  const Part pt{0, N, 0, F, F, 0, B, B};
   const long long r0 = (long long)blockIdx.x * rows_per_chunk;
   add_rows<BinT, V, true>(r0, min(n, r0 + rows_per_chunk), bins, n, packed,
-                          B, pt, sink);
+                          pt, sink);
 }
 
 // out[s] = the sums of the first slot of s's id, as int32 (g, h, count):
@@ -590,8 +602,8 @@ __global__ void finish_kernel(const int4* __restrict__ acc,
 struct Args {
   const void* bins; long long n_bins_rows; const int32_t* idx;
   const int32_t* pos; const float* g; const float* h; long long n, n_pad;
-  const int32_t* node_ids; int N, M, F, B, fg, ng, n_ftiles, n_tiles,
-      n_chunks; long long rows_per_chunk; int threads;
+  const int32_t* node_ids; int N, M, F, B, fg, ng, n_ftiles, n_tiles, nb,
+      bt, n_chunks; long long rows_per_chunk; int threads;
   int smem;
   // the pack launch, and the red launch of the auto kind (the red kind's
   // own shape is above)
@@ -682,7 +694,7 @@ int launch_tile(const Args& a, const BinT* bins) {
   const int blocks = n_items < resident ? n_items : resident;
   kern<<<blocks, a.threads, a.smem, a.st>>>(
       bins, a.packed, a.n_pad, a.N, a.F, a.B, a.fg, a.ng, a.n_ftiles,
-      a.n_tiles, n_items, a.rows_per_chunk, a.live, a.red_rows, a.acc,
+      a.n_tiles, a.nb, a.bt, n_items, a.rows_per_chunk, a.live, a.red_rows, a.acc,
       a.partial);
   return (int)cudaGetLastError();
 }
@@ -740,7 +752,10 @@ extern "C" {
 // K2 (gather 0: bins (F, n) feature-major) and K4 (gather 1: bins (n_rows,
 // F) row-major, gathered through idx). kind 0 = tile, 1 = red, 2 = auto
 // (red when the pack kernel counts fewer than red_rows rows in the wave, in
-// the pack_* shape; else the tile). n_pad: n (K2) or n rounded up to 4
+// the pack_* shape; else the tile). A tile holds ng slots x fg features x
+// one of nb ranges of bt bins (range i: bins [i * bt, min(B, (i + 1) *
+// bt)); nb = 1, bt = B for the red kind); n_tiles counts the ranges too.
+// n_pad: n (K2) or n rounded up to 4
 // (K4). acc, 16-byte aligned: the (N, F, B) scratch of 16-byte cells, 16
 // bytes whose first 8 hold auto's count, n_pad packed row words, (K4) the
 // (F, n_pad) gathered bins, then (n_store > 0) the (n_store, N, F, B, 3)
@@ -762,7 +777,8 @@ int ytk_hist_q(int kind, int bin_bytes, int gather, int pack_vec,
                const int32_t* pos, const float* gq, const float* hq,
                long long n, long long n_pad, const int32_t* node_ids, int N,
                int M, int F, int B, int fg, int ng, int n_ftiles,
-               int n_tiles, int n_chunks, long long rows_per_chunk,
+               int n_tiles, int nb, int bt, int n_chunks,
+               long long rows_per_chunk,
                int threads, int smem_bytes, int pack_chunks,
                long long pack_rows_per_chunk, int pack_threads,
                int pack_smem, long long red_rows, int n_store, int32_t* out,
@@ -777,7 +793,8 @@ int ytk_hist_q(int kind, int bin_bytes, int gather, int pack_vec,
                                        : gbins);
   if (kind == 1) n_store = 0;
   Args a{bins, n_bins_rows, idx, pos, gq, hq, n, n_pad, node_ids, N, M, F,
-         B, fg, ng, n_ftiles, n_tiles, n_chunks, rows_per_chunk, threads,
+         B, fg, ng, n_ftiles, n_tiles, nb, bt, n_chunks, rows_per_chunk,
+         threads,
          smem_bytes, pack_chunks, pack_rows_per_chunk, pack_threads,
          pack_smem, red_rows, kind == 2 ? live : nullptr, words, packed,
          gbins, out, cell, partial, n_store, lut, (cudaStream_t)stream};

@@ -26,10 +26,13 @@
 // (red.global.add.v4.f32, sm_90); a row adds only into the lowest slot of
 // its id, and a finish kernel writes the (N, F, B, 3) output, a duplicated
 // id's later slots copied from its first. Three kinds of launch:
-//   * tile (K1 only): a block owns a tile of ng slots x fg features of the
-//     histogram in shared memory, adds one chunk of rows, then adds its
-//     nonzero bins to the scratch; one wave of resident blocks walks the
-//     tiles x chunks. g and h take f32 shared atomics (on sm_90 each is a
+//   * tile (K1 only): a block owns a tile of ng slots x fg features x a
+//     range of bt bins of the histogram in shared memory, adds one chunk of
+//     rows, then adds its nonzero bins to the scratch; one wave of resident
+//     blocks walks the tiles x chunks. A tile's bins are all B (nb = 1)
+//     unless one slot x feature of B bins outgrows shared memory; then B is
+//     cut into nb ranges of bt bins, each tile one range, and a row whose
+//     bin falls outside the tile's range adds nothing there. g and h take f32 shared atomics (on sm_90 each is a
 //     compare-and-store loop, ATOMS.CAST.SPIN; one 64-bit CAS for the pair
 //     measured 2-4x slower), the count an int32 atomic. The planner takes
 //     all the wave's slots and few features a tile (bins feature-major: a
@@ -151,10 +154,11 @@ template <> struct Sink<true> {
   }
 };
 
-// The part of the histogram a block adds into: slots [s0, s0 + scnt) and
-// features [f0, f0 + fcnt) of a tile fg features wide (red: everything).
+// The part of the histogram a block adds into: slots [s0, s0 + scnt),
+// features [f0, f0 + fcnt) and bins [b0, b0 + bcnt) of a tile fg features
+// x bt bins wide (red: everything, b0 = 0 and bcnt = bt = B).
 struct Part {
-  int s0, scnt, f0, fcnt, fg;
+  int s0, scnt, f0, fcnt, fg, b0, bcnt, bt;
 };
 
 // One group of V rows starting at r (the gathered positions r.. for the
@@ -204,9 +208,9 @@ __device__ __forceinline__ void add_rows(
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           if (s[j] < 0) continue;
-          const int b = w[k].get(j);
-          if ((unsigned)b >= (unsigned)B) continue;
-          sink.add(((size_t)s[j] * pt.fg + fb + k) * B + b, gv[j], hv[j]);
+          const int b = w[k].get(j) - pt.b0;
+          if ((unsigned)b >= (unsigned)pt.bcnt) continue;
+          sink.add(((size_t)s[j] * pt.fg + fb + k) * pt.bt + b, gv[j], hv[j]);
         }
       }
     }
@@ -218,7 +222,7 @@ __device__ __forceinline__ void add_rows(
       if (s[j] < 0 || rid[j] < 0 || (long long)rid[j] >= n_bins_rows)
         continue;
       const BinT* rp = bins + (size_t)rid[j] * F + pt.f0;
-      const size_t base = (size_t)s[j] * pt.fg * B;
+      const size_t base = (size_t)s[j] * pt.fg * pt.bt;
       bool done = false;
       if constexpr (sizeof(BinT) == 1) {
         if (words) {
@@ -238,9 +242,9 @@ __device__ __forceinline__ void add_rows(
 #pragma unroll
               for (int q = 0; q < 4; ++q) {
                 const int f = (wb + k) * 4 + q;
-                const int b = (int)((w[k] >> (8 * q)) & 0xFFu);
-                if (f < pt.fcnt && b < B)
-                  sink.add(base + (size_t)f * B + b, gv[j], hv[j]);
+                const int b = (int)((w[k] >> (8 * q)) & 0xFFu) - pt.b0;
+                if (f < pt.fcnt && (unsigned)b < (unsigned)pt.bcnt)
+                  sink.add(base + (size_t)f * pt.bt + b, gv[j], hv[j]);
               }
             }
           }
@@ -252,11 +256,11 @@ __device__ __forceinline__ void add_rows(
           int b[WORD_BATCH];
 #pragma unroll
           for (int k = 0; k < WORD_BATCH; ++k)
-            b[k] = fb + k < pt.fcnt ? (int)__ldg(rp + fb + k) : -1;
+            b[k] = fb + k < pt.fcnt ? (int)__ldg(rp + fb + k) - pt.b0 : -1;
 #pragma unroll
           for (int k = 0; k < WORD_BATCH; ++k)
-            if ((unsigned)b[k] < (unsigned)B)
-              sink.add(base + (size_t)(fb + k) * B + b[k], gv[j], hv[j]);
+            if ((unsigned)b[k] < (unsigned)pt.bcnt)
+              sink.add(base + (size_t)(fb + k) * pt.bt + b[k], gv[j], hv[j]);
         }
       }
     }
@@ -353,7 +357,8 @@ __device__ __forceinline__ bool skip(const unsigned long long* live,
 }
 
 // One wave of resident blocks walks the n_tiles x n_chunks items (tile
-// fastest, so the blocks at work on one chunk share its reads through L2):
+// fastest, so the blocks at work on one chunk share its reads through L2;
+// a tile is (slot tile, bin range, feature tile), feature tile fastest):
 // per item, zero the tile, add the chunk's rows, flush. A shared lookup is
 // built once per block, and an auto launch that picks red skips one wave.
 template <typename BinT, int V, bool GLUT>
@@ -365,8 +370,10 @@ __global__ void __launch_bounds__(1024) tile_kernel(
     int M,                              // node ids < M (lookup table size)
     int L,                              // shared lookup: max(M, N) padded
                                         // to 4 (GLUT: 0)
-    int F, int B, int fg, int ng, int n_ftiles, int n_tiles, int n_items,
-    long long rows_per_chunk, int bf16, const int32_t* __restrict__ glut,
+    int F, int B, int fg, int ng, int n_ftiles, int n_tiles,
+    int nb,                             // bin ranges, each of bt bins
+    int bt, int n_items, long long rows_per_chunk, int bf16,
+    const int32_t* __restrict__ glut,
     const unsigned long long* __restrict__ live, long long red_rows,
     float4* __restrict__ acc)           // (N, F, B) x 4, zeroed by the caller
 {
@@ -375,8 +382,8 @@ __global__ void __launch_bounds__(1024) tile_kernel(
   const int32_t* lut = GLUT ? glut : smem;
   Sink<false> sink{reinterpret_cast<float*>(smem + L)};
   const float* hist = sink.hist;
-  const int words = ng * fg * B * 3;
-  const int per_slot = fg * B;
+  const int words = ng * fg * bt * 3;
+  const int per_slot = fg * bt;
 
   if constexpr (!GLUT) {
     fill_lut(smem, M);
@@ -387,13 +394,16 @@ __global__ void __launch_bounds__(1024) tile_kernel(
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int tile = item % n_tiles;
     const int ft = tile % n_ftiles;
-    const int nt = tile / n_ftiles;
+    const int rest = tile / n_ftiles;
     Part pt;
     pt.f0 = ft * fg;
-    pt.s0 = nt * ng;
+    pt.s0 = rest / nb * ng;
+    pt.b0 = rest % nb * bt;
     pt.fcnt = min(fg, F - pt.f0);
     pt.scnt = min(ng, N - pt.s0);
+    pt.bcnt = min(bt, B - pt.b0);
     pt.fg = fg;
+    pt.bt = bt;
     for (int i = threadIdx.x; i < words; i += blockDim.x) smem[L + i] = 0;
     __syncthreads();
 
@@ -403,15 +413,16 @@ __global__ void __launch_bounds__(1024) tile_kernel(
                                      lut, M, F, B, pt, bf16, 0, sink);
     __syncthreads();
 
-    // flush: a bin no row reached (count 0) has nothing to add
+    // flush: a bin no row reached (count 0) has nothing to add; the
+    // range's bin i is bin b0 + i of the histogram
     for (int i = threadIdx.x; i < pt.scnt * per_slot; i += blockDim.x) {
       const int c = reinterpret_cast<const int*>(hist)[3 * i + 2];
       if (c == 0) continue;
       const int sl = i / per_slot;
       const int rem = i - sl * per_slot;
-      const int fl = rem / B;
-      atomicAdd(acc + ((size_t)(pt.s0 + sl) * F + pt.f0 + fl) * B
-                    + (rem - fl * B),
+      const int fl = rem / bt;
+      atomicAdd(acc + ((size_t)(pt.s0 + sl) * F + pt.f0 + fl) * B + pt.b0
+                    + (rem - fl * bt),
                 make_float4(hist[3 * i], hist[3 * i + 1], (float)c, 0.f));
     }
     __syncthreads();  // the next item zeroes the tile
@@ -444,6 +455,9 @@ __global__ void __launch_bounds__(1024) red_kernel(
   pt.f0 = 0;
   pt.fcnt = F;
   pt.fg = F;
+  pt.b0 = 0;
+  pt.bcnt = B;
+  pt.bt = B;
   const long long r0 = (long long)blockIdx.x * rows_per_chunk;
   const long long r1 = min(n, r0 + rows_per_chunk);
   Sink<true> sink{acc};
@@ -481,8 +495,8 @@ __global__ void finish_kernel(const float4* __restrict__ acc,
 struct Args {
   const void* bins; long long n_bins_rows; const int32_t* idx;
   const int32_t* pos; const float* g; const float* h; long long n;
-  const int32_t* node_ids; int N, M, F, B, fg, ng, n_ftiles, n_tiles,
-      n_chunks; long long rows_per_chunk; int threads, smem;
+  const int32_t* node_ids; int N, M, F, B, fg, ng, n_ftiles, n_tiles, nb,
+      bt, n_chunks; long long rows_per_chunk; int threads, smem;
   // the red launch of the auto kind (the red kind's own shape is above)
   int red_chunks; long long red_rows_per_chunk; int red_threads, red_smem;
   long long red_rows; unsigned long long* live;
@@ -521,7 +535,7 @@ int launch_tile(const Args& a) {
   const int blocks = n_items < resident ? n_items : resident;
   kern<<<blocks, a.threads, a.smem, a.st>>>(
       (const BinT*)a.bins, a.pos, a.g, a.h, a.n, a.node_ids, a.N, a.M, L,
-      a.F, a.B, a.fg, a.ng, a.n_ftiles, a.n_tiles, n_items,
+      a.F, a.B, a.fg, a.ng, a.n_ftiles, a.n_tiles, a.nb, a.bt, n_items,
       a.rows_per_chunk, a.bf16, a.glut, a.live, a.red_rows, (float4*)a.acc);
   return (int)cudaGetLastError();
 }
@@ -604,7 +618,9 @@ extern "C" {
 // K1 (gather 0) and K3 (gather 1), kind 0 = tile (K1 only), 1 = red, 2 =
 // auto (K1 only: a count of the wave's rows, then the tile kernel, or the
 // red kernel in the red_* shape when fewer than red_rows rows are in the
-// wave). acc: the (N, F, B, 4) f32 scratch and then 16 bytes whose first 8
+// wave). A tile holds ng slots x fg features x one of nb ranges of bt bins
+// (range i: bins [i * bt, min(B, (i + 1) * bt)); nb = 1, bt = B for the red
+// kind); n_tiles counts the ranges too. acc: the (N, F, B, 4) f32 scratch and then 16 bytes whose first 8
 // hold auto's count, all zeroed here first; out (N, F, B, 3) f32 written
 // whole by the finish kernel. bin_bytes 1 (uint8 bins) or 4 (int32); vec 1 takes rows four at a
 // time (pos/g/h and idx 16-byte aligned, rows_per_chunk a multiple of 4;
@@ -618,7 +634,8 @@ int ytk_hist_float(int kind, int bin_bytes, int gather, int vec, int bf16,
                    const int32_t* idx, const int32_t* pos, const float* g,
                    const float* h, long long n, const int32_t* node_ids,
                    int N, int M, int F, int B, int fg, int ng, int n_ftiles,
-                   int n_tiles, int n_chunks, long long rows_per_chunk,
+                   int n_tiles, int nb, int bt, int n_chunks,
+                   long long rows_per_chunk,
                    int threads, int smem_bytes, int red_chunks,
                    long long red_rows_per_chunk, int red_threads,
                    int red_smem, long long red_rows, float* out, float* acc,
@@ -626,7 +643,7 @@ int ytk_hist_float(int kind, int bin_bytes, int gather, int vec, int bf16,
   const size_t cells = (size_t)N * F * B * 4;
   unsigned long long* live = (unsigned long long*)(acc + cells);
   Args a{bins, n_bins_rows, idx, pos, g, h, n, node_ids, N, M, F, B, fg, ng,
-         n_ftiles, n_tiles, n_chunks, rows_per_chunk, threads, smem_bytes,
+         n_ftiles, n_tiles, nb, bt, n_chunks, rows_per_chunk, threads, smem_bytes,
          red_chunks, red_rows_per_chunk, red_threads, red_smem, red_rows,
          kind == 2 ? live : nullptr, bf16, words, out, acc, lut,
          (cudaStream_t)stream};

@@ -53,9 +53,12 @@ of two kinds (`lookup_kind`): "shared", built in each block's shared
 memory beside the histogram tile, for every tree whose lookup fits there
 with one slot x feature tile (at 256 bins up to 57,344 nodes); or
 "global", past that, a table of max_nodes int32 in device memory that one
-block of the launch's lookup kernel fills, read through L2. One slot x
-feature tile of B bins must still fit shared memory: past about 19,000
-bins, NotImplementedError (ROADMAP.md 1.8b).
+block of the launch's lookup kernel fills, read through L2. A tile of
+K1, K2 or K4 holds a range of bins (`bin_ranges`): all B bins while one
+slot x feature of them fits shared memory (B <= 19,370), else the fewest
+equal ranges that fit, each a tile of its own, which skips the rows whose
+bin falls outside its range (2 ranges of 16,384 bins at B = 2^15, 4 at
+2^16). The red kinds need no tile and take any B.
 """
 
 from __future__ import annotations
@@ -76,11 +79,6 @@ BM_DEFAULT = 16384
 #: gathered-row unit of the fused budget rungs (R is a multiple of it)
 BMG_DEFAULT = 1024
 
-_NOT_PORTED_BINS = (
-    "K1-K4 keep one slot x feature histogram tile in shared memory; a tile "
-    "cut into bin ranges for wider features is not ported yet (ROADMAP.md "
-    "1.8b, K1-K4 for bins past one tile)"
-)
 #: shared memory one block of K1-K4 may use: two blocks per SM
 SMEM_PER_BLOCK = 112 * 1024
 SMEM_MAX = 227 * 1024
@@ -302,23 +300,38 @@ def _lut_len(B: int, max_nodes: int, N: int) -> int:
             == "global" else 0)
 
 
-def tile_bytes(N: int, ng: int, fg: int, B: int, max_nodes: int) -> int:
+def bin_ranges(B: int) -> int:
+    """The planners' bin ranges a tile: the fewest equal ranges of B bins
+    whose one slot x one feature tile fits SMEM_MAX. 1 (the whole of B)
+    up to 19,370 bins, so every plan below that is the one-range plan; 2
+    ranges of 16,384 bins at B = 2^15, 4 at 2^16. Past one range the node
+    lookup is always the global kind (lookup_kind), so a range has all of
+    SMEM_MAX."""
+    return max(1, -(-B // (SMEM_MAX // _CELL_BYTES)))
+
+
+def range_bins(B: int, nb: int) -> int:
+    """Bins of each of `nb` equal ranges of B bins: range i is [i * bt,
+    min(B, (i + 1) * bt)). Raises ValueError unless the nb ranges cover
+    the B bins with none empty (so none overlaps either)."""
+    if nb < 1 or nb > B:
+        raise ValueError(f"plan: nb ({nb}) bin ranges must be in [1, B = "
+                         f"{B}]")
+    bt = -(-B // nb)
+    if (nb - 1) * bt >= B:
+        raise ValueError(f"plan: {nb} ranges of {bt} bins leave the last of "
+                         f"B = {B} bins empty")
+    return bt
+
+
+def tile_bytes(N: int, ng: int, fg: int, B: int, max_nodes: int,
+               nb: Optional[int] = None) -> int:
     """Shared bytes of a K1 tile block: the shared node lookup (none for
-    the global kind) and a tile of `ng` slots x `fg` features x B bins of
-    three 4-byte counters."""
-    return _smem_lut(B, max_nodes, N) + ng * fg * B * _CELL_BYTES
-
-
-def check_tile_fits(B: int) -> None:
-    """Raise NotImplementedError when one slot x one feature of B bins
-    does not fit one block's shared memory (B > 19,370), whatever the
-    tree's size: the global lookup kind holds any tree."""
-    need = B * _CELL_BYTES
-    if need > SMEM_MAX:
-        raise NotImplementedError(
-            f"a histogram tile of B={B} bins needs {need} bytes of shared "
-            f"memory, more than {SMEM_MAX}: " + _NOT_PORTED_BINS
-        )
+    the global kind) and a tile of `ng` slots x `fg` features x one range
+    of B bins cut into `nb` (default bin_ranges(B)) of three 4-byte
+    counters."""
+    bt = range_bins(B, bin_ranges(B) if nb is None else nb)
+    return _smem_lut(B, max_nodes, N) + ng * fg * bt * _CELL_BYTES
 
 
 def tile_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int
@@ -330,10 +343,12 @@ def tile_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int
     first: a tile holding every slot of the wave uses every row it reads,
     where a tile of one slot in 64 would skip 63 rows in 64. A tile that
     fits half an SM's shared memory runs two blocks of 512 threads per SM;
-    a larger one (64 slots of 256 bins: 196 KB) one block of 1024."""
-    check_tile_fits(B)
+    a larger one (64 slots of 256 bins: 196 KB) one block of 1024. Past
+    one tile's bins a tile holds one of bin_ranges(B) ranges."""
     lut_bytes = _smem_lut(B, max_nodes, N)
-    pair = B * 3 * 4
+    nb = bin_ranges(B)
+    bt = range_bins(B, nb)
+    pair = bt * _CELL_BYTES
     most = (SMEM_MAX - lut_bytes) // pair
     pairs = (SMEM_PER_BLOCK - lut_bytes) // pair
     if pairs >= 1 and pairs >= min(N, most):
@@ -343,22 +358,23 @@ def tile_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int
     ng = min(N, pairs)
     fg = min(F, max(1, pairs // ng))
     n_ftiles = -(-F // fg)
-    n_tiles = n_ftiles * -(-N // ng)
+    n_tiles = n_ftiles * -(-N // ng) * nb
     # about two waves of resident blocks; a chunk at least as long as two
     # rows per counter of a slot's feature, so the flush stays small
     target = 2 * per_sm * sm_count
-    min_rows = max(2048, 2 * ng * B)
+    min_rows = max(2048, 2 * ng * bt)
     n_chunks = max(1, min(-(-target // n_tiles), -(-n // min_rows), 65535))
     rows_per_chunk = max(1, -(-n // n_chunks))
     n_chunks = max(1, -(-n // rows_per_chunk))
     return {
-        "fg": fg, "ng": ng, "n_ftiles": n_ftiles, "n_tiles": n_tiles,
-        "n_chunks": n_chunks, "rows_per_chunk": rows_per_chunk,
-        "smem": tile_bytes(N, ng, fg, B, max_nodes), "threads": threads,
+        "fg": fg, "ng": ng, "nb": nb, "n_ftiles": n_ftiles,
+        "n_tiles": n_tiles, "n_chunks": n_chunks,
+        "rows_per_chunk": rows_per_chunk,
+        "smem": tile_bytes(N, ng, fg, B, max_nodes, nb), "threads": threads,
     }
 
 
-_PLAN_KEYS = ("fg", "ng", "threads", "rows_per_chunk", "n_chunks",
+_PLAN_KEYS = ("fg", "ng", "nb", "threads", "rows_per_chunk", "n_chunks",
               "n_ftiles", "n_tiles", "smem")
 
 
@@ -367,23 +383,26 @@ def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int,
     """An explicit tile launch shape (the tile and auto kinds of K1, and of
     K2/K4 through check_q_plan), checked before any launch and completed:
     `plan` names `fg` and `ng` (features and slots of a block's tile),
-    `threads`, and `rows_per_chunk` or `n_chunks`. The fields that
-    tile_plan derives (n_ftiles, n_tiles, smem and the other of the two
-    chunk fields) may be given too, and must then be the ones the tile
-    implies, so tile_plan's output passes. Raises ValueError when the plan
-    does not cover the (N, F, B) histogram over n rows, or its tile needs
-    more shared memory than SMEM_MAX, or its threads do not make a block;
-    NotImplementedError as tile_plan when no tile fits at all. `smem_of(ng,
-    fg)`: the tile's shared bytes (default tile_bytes', with the lookup)."""
-    check_tile_fits(B)
+    `threads`, and `rows_per_chunk` or `n_chunks`; `nb`, the equal bin
+    ranges a tile holds one of, defaults to bin_ranges(B). The fields that
+    tile_plan derives (n_ftiles, n_tiles = feature tiles x slot tiles x
+    ranges, smem and the other of the two chunk fields) may be given too,
+    and must then be the ones the tile implies, so tile_plan's output
+    passes. Raises ValueError when the plan does not cover the (N, F, B)
+    histogram over n rows (its ranges each bin once), or its tile needs
+    more shared memory than SMEM_MAX, or its threads do not make a block.
+    `smem_of(ng, fg, nb)`: the tile's shared bytes (default tile_bytes',
+    with the lookup)."""
     unknown = sorted(set(plan) - set(_PLAN_KEYS))
     if unknown:
         raise ValueError(f"plan: unknown fields {unknown}; a plan names "
                          f"{', '.join(_PLAN_KEYS)}")
     fg, ng = int(plan.get("fg", 0)), int(plan.get("ng", 0))
+    nb = int(plan.get("nb", bin_ranges(B)))
     threads = int(plan.get("threads", THREADS))
     if fg < 1 or ng < 1:
         raise ValueError(f"plan: fg ({fg}) and ng ({ng}) must be >= 1")
+    bt = range_bins(B, nb)
     if threads % 32 or not 32 <= threads <= 1024:
         raise ValueError(f"plan: threads ({threads}) must be a multiple of "
                          "32 in [32, 1024]")
@@ -402,25 +421,27 @@ def check_plan(plan: dict, N: int, F: int, B: int, max_nodes: int, n: int,
     if not 1 <= chunks <= 65535:
         raise ValueError(f"plan: {chunks} chunks, not in [1, 65535]")
     n_ftiles = -(-F // fg)
-    n_tiles = n_ftiles * -(-N // ng)
+    n_tiles = n_ftiles * -(-N // ng) * nb
+    if n_tiles > 2 ** 31 - 1:
+        raise ValueError(f"plan: {n_tiles} tiles do not fit an int32")
     for name, want in (("n_ftiles", n_ftiles), ("n_tiles", n_tiles)):
         if name in plan and int(plan[name]) != want:
             raise ValueError(
                 f"plan does not cover the histogram: {name} = {plan[name]}, "
-                f"but fg = {fg}, ng = {ng} over (N, F) = ({N}, {F}) make "
-                f"{want}")
-    smem = (smem_of(ng, fg) if smem_of
-            else tile_bytes(N, ng, fg, B, max_nodes))
+                f"but fg = {fg}, ng = {ng}, nb = {nb} over (N, F, B) = "
+                f"({N}, {F}, {B}) make {want}")
+    smem = (smem_of(ng, fg, nb) if smem_of
+            else tile_bytes(N, ng, fg, B, max_nodes, nb))
     if smem > SMEM_MAX:
         raise ValueError(
-            f"plan's tile of {ng} slots x {fg} features x {B} bins needs "
+            f"plan's tile of {ng} slots x {fg} features x {bt} bins needs "
             f"{smem} bytes of shared memory, more than {SMEM_MAX}")
     if int(plan.get("smem", smem)) < smem:
         raise ValueError(f"plan: smem {plan['smem']} < the {smem} bytes "
                          "its tile needs")
-    return {"fg": fg, "ng": ng, "n_ftiles": n_ftiles, "n_tiles": n_tiles,
-            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
-            "threads": threads}
+    return {"fg": fg, "ng": ng, "nb": nb, "n_ftiles": n_ftiles,
+            "n_tiles": n_tiles, "n_chunks": chunks, "rows_per_chunk": rpc,
+            "smem": smem, "threads": threads}
 
 
 # ---------------------------------------------------------------------------
@@ -450,9 +471,10 @@ def _float_tile(N: int, F: int, B: int, max_nodes: int) -> Tuple[int, int]:
     """(ng, fg) of K1's tile beside the lookup in SMEM_MAX: as many of the
     wave's slots as fit with one feature (a slot tile skips the rows of
     the other slots; measured dearer than a feature tile), then as many
-    features as fit, the tiles evenly filled."""
+    features as fit, the tiles evenly filled; a tile's bins are one of
+    bin_ranges(B) ranges."""
     budget = SMEM_MAX - _smem_lut(B, max_nodes, N)
-    pair = B * _CELL_BYTES
+    pair = range_bins(B, bin_ranges(B)) * _CELL_BYTES
     st = -(-N // max(1, budget // pair))
     ng = -(-N // st)
     ft = -(-F // max(1, min(F, budget // (ng * pair))))
@@ -474,18 +496,18 @@ def _red_shape(N: int, B: int, max_nodes: int, n: int, sm_count: int
 @lru_cache(maxsize=512)
 def _float_plan(N: int, F: int, B: int, max_nodes: int, n: int,
                 sm_count: int, gather: bool) -> Tuple[Tuple[str, object], ...]:
-    check_tile_fits(B)
     ng, fg = _float_tile(N, F, B, max_nodes)
+    nb = bin_ranges(B)
     n_ftiles = -(-F // fg)
-    n_tiles = n_ftiles * -(-N // ng)
+    n_tiles = n_ftiles * -(-N // ng) * nb
     if gather or n_tiles >= F * RED_WEIGHT:  # red at any share of rows
         chunks, rpc, threads, smem = _red_shape(N, B, max_nodes, n,
                                                 sm_count)
         return tuple({
-            "kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
-            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": smem,
-            "threads": threads}.items())
-    smem = tile_bytes(N, ng, fg, B, max_nodes)
+            "kind": "red", "fg": F, "ng": N, "nb": 1, "n_ftiles": 1,
+            "n_tiles": 1, "n_chunks": chunks, "rows_per_chunk": rpc,
+            "smem": smem, "threads": threads}.items())
+    smem = tile_bytes(N, ng, fg, B, max_nodes, nb)
     threads, per_sm = ((THREADS, 2) if smem <= SMEM_PER_BLOCK
                        else (2 * THREADS, 1))
     resident = per_sm * sm_count
@@ -496,7 +518,7 @@ def _float_plan(N: int, F: int, B: int, max_nodes: int, n: int,
     rpc = _pad_to(max(1, -(-n // chunks)), 4)
     return tuple({
         "kind": "tile" if n_tiles == 1 else "auto", "fg": fg, "ng": ng,
-        "n_ftiles": n_ftiles, "n_tiles": n_tiles,
+        "nb": nb, "n_ftiles": n_ftiles, "n_tiles": n_tiles,
         "n_chunks": max(1, -(-n // rpc)), "rows_per_chunk": rpc,
         "smem": smem, "threads": threads}.items())
 
@@ -513,8 +535,9 @@ def float_plan(N: int, F: int, B: int, max_nodes: int, n: int,
     the tiles are so many that red wins whatever the wave holds, and for
     every K3 launch: no tile, one vector atomic a row and feature, one wave
     of blocks. Past the shared lookup's cap (lookup_kind "global") the
-    lookup takes no shared memory. Raises NotImplementedError as
-    check_tile_fits."""
+    lookup takes no shared memory. A tile holds one of `nb` =
+    bin_ranges(B) ranges of bins (1 up to 19,370 bins), and `n_tiles`
+    counts the ranges too; a red plan's `nb` is 1."""
     return dict(_float_plan(N, F, B, max_nodes, n, sm_count, bool(gather)))
 
 
@@ -527,13 +550,11 @@ def check_float_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     `ng` (check_plan checks it; auto's red launch takes float_plan's red
     shape). Derived fields (n_ftiles, n_tiles, smem, the other chunk
     field) may be given and must then be the ones the plan implies, so
-    float_plan's output passes; a red plan adds every slot and feature, so
-    its fg and ng, if given, are F and N and its tile counts 1. Raises
-    ValueError when the plan does not cover the (N, F, B) histogram over n
-    rows, or needs more shared memory than SMEM_MAX, or its threads do not
-    make a block; NotImplementedError as check_tile_fits past one tile's
-    bins."""
-    check_tile_fits(B)
+    float_plan's output passes; a red plan adds every slot, feature and
+    bin, so its fg, ng and nb, if given, are F, N and 1 and its tile counts
+    1. Raises ValueError when the plan does not cover the (N, F, B)
+    histogram over n rows, or needs more shared memory than SMEM_MAX, or
+    its threads do not make a block."""
     unknown = sorted(set(plan) - set(_FLOAT_PLAN_KEYS))
     if unknown:
         raise ValueError(f"plan: unknown fields {unknown}; a plan names "
@@ -546,23 +567,23 @@ def check_float_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     if kind != "red":
         return dict(check_plan(rest, N, F, B, max_nodes, n), kind=kind)
     red = _check_red_fields(rest, N, F, n, _smem_lut(B, max_nodes, N))
-    return {"kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
-            "n_chunks": red["n_chunks"],
+    return {"kind": "red", "fg": F, "ng": N, "nb": 1, "n_ftiles": 1,
+            "n_tiles": 1, "n_chunks": red["n_chunks"],
             "rows_per_chunk": red["rows_per_chunk"], "smem": red["smem"],
             "threads": red["threads"]}
 
 
 def _check_red_fields(rest: dict, N: int, F: int, n: int, smem: int
                       ) -> dict:
-    """A red plan's fields (K1, K3, K2, K4): every slot and feature in one
-    tile, threads that make a block, chunks that cover the n rows, and at
+    """A red plan's fields (K1, K3, K2, K4): every slot, feature and bin in
+    one tile, threads that make a block, chunks that cover the n rows, and at
     least `smem` shared bytes (the node lookup, or 0)."""
-    for name, want in (("fg", F), ("ng", N), ("n_ftiles", 1),
+    for name, want in (("fg", F), ("ng", N), ("nb", 1), ("n_ftiles", 1),
                        ("n_tiles", 1)):
         if name in rest and int(rest[name]) != want:
             raise ValueError(f"plan does not cover the histogram: a red "
-                             f"plan adds every slot and feature, so {name} "
-                             f"is {want}, not {rest[name]}")
+                             f"plan adds every slot, feature and bin, so "
+                             f"{name} is {want}, not {rest[name]}")
     threads = int(rest.get("threads", THREADS))
     if threads % 32 or not 32 <= threads <= 1024:
         raise ValueError(f"plan: threads ({threads}) must be a multiple of "
@@ -622,10 +643,13 @@ Q_MAX_ABS = 127
 Q_MAX_ROWS = (2 ** 31 - 1) // Q_MAX_ABS
 
 
-def q_tile_bytes(ng: int, fg: int, B: int) -> int:
-    """Shared bytes of a K2 tile block: `ng` slots x `fg` features x B
-    bins of three int32 counters (the packed rows need no lookup)."""
-    return ng * fg * B * _CELL_BYTES
+def q_tile_bytes(ng: int, fg: int, B: int, nb: Optional[int] = None
+                 ) -> int:
+    """Shared bytes of a K2 tile block: `ng` slots x `fg` features x one
+    range of B bins cut into `nb` (default bin_ranges(B)) of three int32
+    counters (the packed rows need no lookup)."""
+    return ng * fg * range_bins(B, bin_ranges(B) if nb is None else nb) \
+        * _CELL_BYTES
 
 
 def _q_tile(N: int, F: int, B: int, gather: bool = False
@@ -634,8 +658,9 @@ def _q_tile(N: int, F: int, B: int, gather: bool = False
     fit with one feature, then (K2) as many features as fit, the tiles
     evenly filled (_float_tile's rule without the lookup). K4 keeps one
     feature a tile: its R rows make each extra pass cheap, and the smaller
-    tile flushes sooner (measured faster at N = 1-64, PERF.md section 6)."""
-    pair = B * _CELL_BYTES
+    tile flushes sooner (measured faster at N = 1-64, PERF.md section 6).
+    A tile's bins are one of bin_ranges(B) ranges."""
+    pair = range_bins(B, bin_ranges(B)) * _CELL_BYTES
     st = -(-N // max(1, SMEM_MAX // pair))
     ng = -(-N // st)
     if gather:
@@ -647,9 +672,9 @@ def _q_tile(N: int, F: int, B: int, gather: bool = False
 def _q_red(N: int, F: int, chunks: int, rpc: int, threads: int) -> dict:
     """A K2/K4 red plan: the red kernel reads the packed rows and needs no
     shared memory (the pack pass holds the lookup)."""
-    return {"kind": "red", "fg": F, "ng": N, "n_ftiles": 1, "n_tiles": 1,
-            "n_chunks": chunks, "rows_per_chunk": rpc, "smem": 0,
-            "threads": threads}
+    return {"kind": "red", "fg": F, "ng": N, "nb": 1, "n_ftiles": 1,
+            "n_tiles": 1, "n_chunks": chunks, "rows_per_chunk": rpc,
+            "smem": 0, "threads": threads}
 
 
 def _check_q_slots(N: int) -> None:
@@ -662,14 +687,14 @@ def _check_q_slots(N: int) -> None:
 @lru_cache(maxsize=512)
 def _q_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
             gather: bool) -> Tuple[Tuple[str, object], ...]:
-    check_tile_fits(B)
     _check_q_slots(N)
     ng, fg = _q_tile(N, F, B, gather)
-    n_tiles = -(-F // fg) * -(-N // ng)
+    nb = bin_ranges(B)
+    n_tiles = -(-F // fg) * -(-N // ng) * nb
     if n_tiles >= F * Q_RED_WEIGHT:  # red at any share of rows
         chunks, rpc, threads, _ = _red_shape(N, B, max_nodes, n, sm_count)
         return tuple(_q_red(N, F, chunks, rpc, threads).items())
-    smem = q_tile_bytes(ng, fg, B)
+    smem = q_tile_bytes(ng, fg, B, nb)
     threads, per_sm = ((THREADS, 2) if smem <= SMEM_PER_BLOCK
                        else (2 * THREADS, 1))
     # one item a resident block where the tiles allow: each item's flush
@@ -681,7 +706,7 @@ def _q_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
     rpc = _pad_to(max(1, -(-n // chunks)), 4)
     return tuple({
         "kind": "tile" if n_tiles == 1 or gather else "auto", "fg": fg,
-        "ng": ng, "n_ftiles": -(-F // fg), "n_tiles": n_tiles,
+        "ng": ng, "nb": nb, "n_ftiles": -(-F // fg), "n_tiles": n_tiles,
         "n_chunks": max(1, -(-n // rpc)), "rows_per_chunk": rpc,
         "smem": smem, "threads": threads}.items())
 
@@ -701,8 +726,10 @@ def q_plan(N: int, F: int, B: int, max_nodes: int, n: int, sm_count: int,
     the wave's rows; "red" when the tiles are so many that red wins
     whatever the wave holds: no tile, integer atomics a row and feature,
     one wave of blocks. The pack pass holds the node lookup, of
-    lookup_kind's kind. Raises NotImplementedError as check_tile_fits, and
-    ValueError for a wave of Q_MAX_SLOTS slots or more."""
+    lookup_kind's kind. A tile holds one of `nb` = bin_ranges(B) ranges of
+    bins (1 up to 19,370 bins), and `n_tiles` counts the ranges too; a red
+    plan's `nb` is 1. Raises ValueError for a wave of Q_MAX_SLOTS slots or
+    more."""
     return dict(_q_plan(N, F, B, max_nodes, n, sm_count, bool(gather)))
 
 
@@ -715,12 +742,11 @@ def check_q_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     and auto's red launch take the pack shape). Derived fields (n_ftiles,
     n_tiles, smem, the other chunk field) may be given and must then be the
     ones the plan implies, so q_plan's output passes; a red plan adds every
-    slot and feature, so its fg and ng, if given, are F and N and its tile
-    counts 1. Raises ValueError when the plan does not cover the (N, F, B)
-    histogram over n rows, or needs more shared memory than SMEM_MAX, or
-    its threads do not make a block, or the wave has Q_MAX_SLOTS slots or
-    more; NotImplementedError as check_tile_fits past one tile's bins."""
-    check_tile_fits(B)
+    slot, feature and bin, so its fg, ng and nb, if given, are F, N and 1
+    and its tile counts 1. Raises ValueError when the plan does not cover
+    the (N, F, B) histogram over n rows, or needs more shared memory than
+    SMEM_MAX, or its threads do not make a block, or the wave has
+    Q_MAX_SLOTS slots or more."""
     _check_q_slots(N)
     unknown = sorted(set(plan) - set(_FLOAT_PLAN_KEYS))
     if unknown:
@@ -733,7 +759,8 @@ def check_q_plan(plan: dict, N: int, F: int, B: int, max_nodes: int,
     rest = {k: v for k, v in plan.items() if k != "kind"}
     if kind != "red":
         return dict(check_plan(rest, N, F, B, max_nodes, n,
-                               lambda ng, fg: q_tile_bytes(ng, fg, B)),
+                               lambda ng, fg, nb: q_tile_bytes(ng, fg, B,
+                                                               nb)),
                     kind=kind)
     red = _check_red_fields(rest, N, F, n, 0)
     return _q_red(N, F, red["n_chunks"], red["rows_per_chunk"],
@@ -744,7 +771,7 @@ def _bind(lib) -> None:
     ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     lib.ytk_hist_q.restype = ctypes.c_int
     lib.ytk_hist_q.argtypes = (
-        [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, ll, vp] + [ci] * 9
+        [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, ll, vp] + [ci] * 11
         + [ll, ci, ci, ci, ll, ci, ci, ll, ci, vp, vp, vp, vp])
 
 
@@ -752,7 +779,7 @@ def _bind_float(lib) -> None:
     ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     lib.ytk_hist_float.restype = ctypes.c_int
     lib.ytk_hist_float.argtypes = (
-        [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, vp] + [ci] * 9
+        [ci] * 6 + [vp, ll, vp, vp, vp, vp, ll, vp] + [ci] * 11
         + [ll, ci, ci, ci, ll, ci, ci, ll, vp, vp, vp, vp])
 
 
@@ -848,6 +875,7 @@ def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
     if plan is None:
         plan = q_plan(N, F, B, max_nodes, n, sm, gather)
     eb = bins.element_size()
+    nb = plan.get("nb", 1)  # a plan without ranges: all B bins a tile
     (n_pad, pack_chunks, pack_rpc, pack_threads, pack_smem, n_store,
      red_rows, scratch_len, lut_len) = _q_shape(
         N, F, B, max_nodes, n, sm, gather, eb, tuple(plan.items()))
@@ -867,8 +895,8 @@ def _launch_q(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos, gq,
         idx.data_ptr() if gather else None, pos.data_ptr(), gq.data_ptr(),
         hq.data_ptr(), n, n_pad, node_ids.data_ptr(), N, max_nodes, F, B,
         plan["fg"], plan["ng"], plan["n_ftiles"], plan["n_tiles"],
-        plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
-        plan["smem"], pack_chunks, pack_rpc, pack_threads, pack_smem,
+        nb, range_bins(B, nb), plan["n_chunks"],
+        plan["rows_per_chunk"], plan["threads"], plan["smem"], pack_chunks, pack_rpc, pack_threads, pack_smem,
         red_rows, n_store, out.data_ptr(), scratch.data_ptr(),
         scratch[scratch_len:].data_ptr() if lut_len else None,
     )
@@ -912,6 +940,7 @@ def _launch_float(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos,
         vec = vec and n % 4 == 0 and _aligned(bins, 4 * eb)
     words = gather and eb == 1 and F % 4 == 0 and _aligned(bins, 4)
     kind = plan["kind"]
+    nb = plan.get("nb", 1)  # a plan without ranges: all B bins a tile
     # the kernels' scratch, zeroed by the launcher: (g, h, count, unused) a
     # bin, 16-byte aligned, then the auto kind's count of the wave's rows;
     # the global lookup's table after it
@@ -929,8 +958,8 @@ def _launch_float(wrapper, gather: bool, bins, n_bins_rows: int, idx, pos,
         idx.data_ptr() if gather else None, pos.data_ptr(), g.data_ptr(),
         h.data_ptr(), n, node_ids.data_ptr(), N, max_nodes, F, B,
         plan["fg"], plan["ng"], plan["n_ftiles"], plan["n_tiles"],
-        plan["n_chunks"], plan["rows_per_chunk"], plan["threads"],
-        plan["smem"], *red_shape, red_rows, out.data_ptr(),
+        nb, range_bins(B, nb), plan["n_chunks"],
+        plan["rows_per_chunk"], plan["threads"], plan["smem"], *red_shape, red_rows, out.data_ptr(),
         scratch.data_ptr(),
         scratch[acc_len:].data_ptr() if lut_len else None,
     ]

@@ -524,6 +524,14 @@ class HostEngine:
             if test_state is not None:
                 rec["test_loss"] = float(_wavg_loss(
                     self.loss, test_state[3], test_state[1], test_state[2]))
+            if eval_set is not None:  # the watch flags (reference :1697)
+                if p.watch_train:
+                    rec["train_metrics"] = eval_set.evaluate(
+                        self.loss.predict(scores), y, weight)
+                if p.watch_test and test_state is not None:
+                    rec["test_metrics"] = eval_set.evaluate(
+                        self.loss.predict(test_state[3]), test_state[1],
+                        test_state[2])
             round_log.append(rec)
             log.info("[round=%d] %.1fs train loss=%.6f%s", rnd,
                      rec["elapsed"], rec["train_loss"],

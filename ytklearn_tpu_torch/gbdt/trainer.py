@@ -51,10 +51,10 @@ run's byte for byte. A sync round's loss read is the `gbdt.sync` chaos
 site.
 
 Runs on `cuda` unless the caller passes `device="cpu"` (the kernels' plain
-versions). Not ported, raising NotImplementedError with its ROADMAP.md
-item: on CUDA, features of more bins than one histogram tile of shared
-memory holds (1.8b). Trees of any size train: past the histogram kernels'
-shared-memory node lookup they take its global kind (gbdt/hist.py).
+versions). Trees of any size and features of any bin width train: past
+the histogram kernels' shared-memory node lookup they take its global
+kind, and past one shared-memory tile of bins their tiles hold ranges of
+bins (gbdt/hist.py).
 
 Ranks (`mesh`, a parallel.Mesh; reference trainer.py:250-263, :284-326,
 :343-348, :445-549, :1212-1230, :1544-1565, :1837). Each rank trains on
@@ -144,7 +144,7 @@ from .binning import (
     model_text_digest,
 )
 from .data import GBDTData, GBDTIngest, to_tensor
-from .hist import BM_DEFAULT, check_tile_fits
+from .hist import BM_DEFAULT
 from .host_engine import HostEngine
 from .tree import GBDTModel, Tree, unbundle_tree
 
@@ -315,8 +315,6 @@ class GBDTTrainer(HostEngine):
             raise ValueError("gbdt needs optimization.max_depth or "
                              "max_leaf_cnt")
         M = min(caps)
-        if self.device.type == "cuda":
-            check_tile_fits(B)  # one histogram tile of B bins
         NW = self.wave if self.wave is not None else 64
         NW = max(1, min(NW, (M + 1) // 2))
         partition = (not knobs.get_bool("YTK_NO_PARTITION")
@@ -797,6 +795,24 @@ class GBDTTrainer(HostEngine):
         hit = self._guard is not None and self._guard.triggered
         return hit if self.mesh is None else coll.any_rank(hit, self.mesh)
 
+    def _watch_metrics(self, watch_eval, dd, state) -> str:
+        """The watch flags' part of a sync line: the metrics of the train
+        and (with a test set) test scores (reference trainer.py:1199-1208;
+        the last round's are the finalized result's). Over ranks every
+        rank adds its rows (a collective at the sync, on every rank)."""
+        p, out = self.params, ""
+        parts = []
+        if p.watch_train:
+            parts.append(("train", state[0], dd.y, dd.weight))
+        if p.watch_test and state[1] is not None:
+            parts.append(("test", state[1], dd.y_t, dd.w_t))
+        for name, scores, y, w in parts:
+            m = watch_eval.evaluate(self.loss.predict(scores), y, w,
+                                    mesh=self.mesh)
+            out += f" {name} " + " ".join(f"{k}={v:.6f}"
+                                          for k, v in m.items())
+        return out
+
     def _run_rounds(self, dd, spec, state, model, names, t0: float,
                     start: int = 0):
         """Every round ends in host reads already (one per wave), so the
@@ -805,6 +821,9 @@ class GBDTTrainer(HostEngine):
         p = self.params
         sync_every = max(1, (p.round_num - start) // 20)
         self.sync_log = []
+        watch_eval = (EvalSet(p.eval_metric, K=max(self.K, 2))
+                      if p.eval_metric and (p.watch_train or p.watch_test)
+                      else None)
         # retrace alarm: the kernels are built and first launched in the
         # first round, so a build counted after the FIRST sync is an
         # unexpected one; with ytkprof on the sentinel arms and checks
@@ -845,6 +864,8 @@ class GBDTTrainer(HostEngine):
                 msg = f"[round={rnd}] {time.time() - t0:.1f}s train loss={tl:.6f}"
                 if state[1] is not None:
                     msg += f" test loss={float(state[4][rnd]):.6f}"
+                if watch_eval is not None and rnd != p.round_num - 1:
+                    msg += self._watch_metrics(watch_eval, dd, state)
                 log.info(msg)
         self._stop_round_profile()
         ts = self.time_stats

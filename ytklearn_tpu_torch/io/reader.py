@@ -380,6 +380,11 @@ class DataIngest:
 
     # -- dict -----------------------------------------------------------
 
+    def build_feature_map(self, rows: Sequence[ParsedLine]) -> Dict[str, int]:
+        """Count -> filter(threshold) -> sorted names -> indices, bias at 0
+        (reference: DataFlow.reduceFeature:294)."""
+        return self.finalize_feature_map(_counts_from_rows(rows))
+
     def finalize_feature_map(self, counts: Dict[str, int]) -> Dict[str, int]:
         """The processes' counts summed, the count filter (threshold),
         sorted names, bias at 0 (reference: DataFlow.reduceFeature:294)."""

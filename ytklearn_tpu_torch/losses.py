@@ -92,6 +92,10 @@ class LossFunction:
         return (self.first_derivative(score, label),
                 self.second_derivative(score, label))
 
+    def check_label(self, y) -> bool:
+        """Whether every label of `y` is one this loss takes (any here)."""
+        return True
+
 
 class Sigmoid(LossFunction):
     """Logistic loss (reference: loss/SigmoidFunction.java)."""
@@ -130,6 +134,9 @@ class Sigmoid(LossFunction):
             h = torch.where(z > self.zmax, -(g / self.zmax), h)
             h = torch.where(z < -self.zmax, g / self.zmax, h)
         return g, h
+
+    def check_label(self, y) -> bool:
+        return bool(torch.all((y >= 0.0) & (y <= 1.0)))
 
 
 class L2(LossFunction):
@@ -216,6 +223,9 @@ class Poisson(LossFunction):
 
     def grad_hess(self, pred, label):
         return pred - label, pred
+
+    def check_label(self, y) -> bool:
+        return bool(torch.all(y >= 0.0))
 
 
 class MAPE(LossFunction):
@@ -348,6 +358,10 @@ def _softmax(scores):
 
 class MulticlassLoss(LossFunction):
     is_multiclass = True
+
+    def check_label(self, y) -> bool:
+        # one-hot rows must sum to ~1 (reference: SoftmaxFunction.checkLabel)
+        return bool(torch.all(torch.abs(torch.sum(y, dim=-1) - 1.0) < 1e-3))
 
 
 class Softmax(MulticlassLoss):

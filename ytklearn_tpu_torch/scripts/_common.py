@@ -6,6 +6,7 @@ K2/K4 through check_q_plan)."""
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import statistics
 import subprocess
@@ -104,6 +105,19 @@ def device_busy(prof, top_k: int = 0):
            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:top_k]
     return busy_us / 1e3, top
+
+
+def launch_line(card: str) -> str:
+    """The process's launches of K1-K5 (each wrapper's count; 0 on the
+    CPU, where the plain versions run), as one JSON line with the card."""
+    from ..gbdt import route
+
+    counts = {"K1": hist.hist_wave.launches,
+              "K2": hist.hist_wave_q.launches,
+              "K3": hist.hist_wave_gather_mxu.launches,
+              "K4": hist.hist_wave_gather.launches,
+              "K5": route.route_wave.launches}
+    return f"kernel launches: {json.dumps(counts)} [{card}]"
 
 
 def fmt_ms(ms: Optional[float]) -> str:
