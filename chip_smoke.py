@@ -305,7 +305,8 @@ run its total.
      line (client p50/p99 at 1 and 2 replicas, spawn to ready, the
      restart, the grow and the drain);
  22. (slice 17, its main path) right after phase_fleet, `phase_profile`
-     on phase_cli_train's config and text: `cli train gbdt --profile DIR
+     on phase_cli_train's config and the head of its text (2^19 + 2^16
+     lines): `cli train gbdt --profile DIR
      --trace-out T` in this process (the report: each phase's wall and
      the coverage of the run, at least 0.9; the kernel table of the
      gbdt.train capture with device ms, whose K1, K3 and K5 rows count
@@ -322,16 +323,27 @@ run its total.
      culprit program and kernel), and scripts/prof_drill.py on the card
      (every check hard; the ledger holds the loads of the parser's and
      the kernels' libraries and the kernels' instantiations);
- 23. (slice 18, its main path) right after phase_profile, `phase_dist`
+ 22b. (slice 23, its main path) right after phase_profile,
+     `phase_serving`: the port's scripts/serve_bench.py at 500 trees,
+     depth 6 (the rung matrix: the score() loop, the stacked, fused (K6)
+     and binned (K7) rungs, each bit-identical to the host walk, none
+     downgraded, no build after warmup, the binned and bf16 bands, the
+     tracing, quality and transform arms, a binned fleet of 2), then at
+     once `--fleet --replicas 2` (its floor against the same run's
+     single-process stacked rung), `--ramp --replicas 3` and the trace,
+     drift and mesh drills, each process's every correctness field held
+     and each speed floor printed beside its value and the card;
+ 23. (slice 18, its main path) right after phase_serving, `phase_dist`
      on the same config and text at DIST_ROUNDS int8 trees: the one-rank
      `cli train gbdt` in this process, then as subprocesses `--coordinator`
      at world size 1 (NCCL; model and bin sidecar byte-identical to one
      rank), `--devices 2 --rank-devices cuda:0,cuda:0` (two ranks sharing
      the card over gloo, bins built once by the launcher; the int8 dump
      byte-identical to one rank) and two `--coordinator` processes on
-     cuda:0 over gloo (each its lines_avg shard; rank 0's train loss
-     within DIST_LOSS_RTOL of one process, its model scored by `cli
-     predict`, rank 1 dumping nothing); every rank launches K2 and K5 and
+     cuda:0 over gloo started by the port's cluster launcher (each its
+     lines_avg shard; both ranks' lines labelled in its master log; rank
+     0's train loss within DIST_LOSS_RTOL of one process, its model scored
+     by `cli predict`); every rank launches K2 and K5 and
      merges histograms (psum_scatter, pargmax), and prints its backend,
      seconds, K2/K4/K5 launches and collective census; then
      scripts/cross_check.py's card arm (full scan K2, partitioned, fused
@@ -348,8 +360,8 @@ run its total.
      one-rank iterations and status, losses at rtol 1e-4, test AUC within
      1e-4; gbmlr at GBST_HELD_ITERS), and linear as two `--coordinator`
      processes on their lines_avg shards (within rel 1e-3 of one); then
-     `cli retrain gbdt` (int8) of phase_cli_train's text cut to 2^18 +
-     2^15 lines on one device and with the candidate on two ranks sharing
+     `cli retrain gbdt` (int8) of phase_cli_train's text cut to 2^17 +
+     2^14 lines on one device and with the candidate on two ranks sharing
      the card: each rank launches K2 and K5, the gate K6, and the two
      candidates are the same bytes; each part prints its seconds, backend
      and collective census;
@@ -357,7 +369,9 @@ run its total.
      DEEP_LEAVES = 30,000 leaves (59,999 nodes, past the 57,344 whose node
      lookup fits shared memory at 256 bins, so K1-K4 take the global
      lookup kind) over 2^17 Higgs-shaped rows, int8 and bf16 on the card
-     and on the CPU (two spawned processes beside the card's runs): the
+     and on the CPU (two spawned processes of REF_CPU_THREADS threads,
+     started after phase_serving with the wide-bin runs' CPU
+     references): the
      int8 dumps byte-identical, bf16 train losses within OBJ_RTOL, every
      K1-K4 call of the card runs (the first at each shape) held to its
      plain version; K1-K4 timed in both lookup kinds at the trainer's
@@ -365,7 +379,8 @@ run its total.
      YTK_SERVE_FUSED=1: fused refused (depth past the heap cap), stacked
      scores bit-equal to the host walk;
  26. prints the `kernels` JSON line (eight kernels; K6 and K7 also carry
-     `device_ms`; K2, K4 and K5's launches from the GOSS bench cell; K1-K4
+     `device_ms` and `serve_bench_launches`, the launches of
+     phase_serving's rung matrix; K2, K4 and K5's launches from the GOSS bench cell; K1-K4
      also `deep_launches`, `ms_shared_lookup` and `ms_global_lookup` from
      slice 21's deep tree), the card line, and last the result line
      {"ok": true, "device": {...}}.
@@ -4222,11 +4237,11 @@ GBST_RUNS = (
      {"type": "random_forest"}, 0),
     ("gbhmlr continue_train 2 + 1", "gbhmlr", "small", 2, {}, 1),
 )
-GBST_ITERS = 15  # L-BFGS iterations a tree on the main path
+GBST_ITERS = 10  # L-BFGS iterations a tree on the main path
 #: iterations a tree where a card run is held to its CPU run: L-BFGS on
 #: the soft mixture is chaotic in f32 sum order past about that many
-#: (PERF.md section 6), so the main path's 15 are held only to the sanity
-#: bounds
+#: (PERF.md section 6), so the main path's GBST_ITERS are held only to the
+#: sanity bounds
 GBST_HELD_ITERS = 6
 GBST_RTOL = 1e-4  # tests/test_torch_gbst.py's tolerances
 
@@ -5948,6 +5963,11 @@ def phase_fleet(tmp, cli_model, card):
 
 
 #: requests a ladder rung: (rows, repeats); every rung of LADDER filled
+#: rows of phase_profile's kernel table: all of the capture's kernels
+PROFILE_TOPK = 1 << 12
+#: the head of phase_cli_train's text (train, test lines) the profiled
+#: `cli train` runs read
+PROFILE_LINES = (1 << 19, 1 << 16)
 PROF_REQUESTS = ((1, 8), (5, 4), (8, 4), (40, 4), (64, 4), (300, 2),
                  (512, 2))
 #: the libraries the profiling drill's path loads (or builds), and the
@@ -6032,7 +6052,8 @@ def prof_serve(tmp, model, card):
 def phase_profile(tmp, model, card):
     """The profiling plane on the card (slice 17): `cli train gbdt
     --profile DIR --trace-out T` in this process on phase_cli_train's
-    config and text, the same training without the flags and with the
+    config and the head of its text (PROFILE_LINES), the same training
+    without the flags and with the
     plane on but no capture (the plane's overhead), a `YTK_PROF=1 cli
     serve` process, a planted kernel instantiation in a fresh process, and
     scripts/prof_drill.py; every check hard."""
@@ -6042,8 +6063,12 @@ def phase_profile(tmp, model, card):
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
     from ytklearn_tpu_torch.obs import profiler
 
-    paths = {k: os.path.join(tmp, f"{k}.txt") for k in ("train", "test")}
     pdir = os.path.join(tmp, "prof")
+    os.makedirs(pdir, exist_ok=True)
+    paths = {k: os.path.join(pdir, f"head_{k}.txt") for k in ("train",
+                                                            "test")}
+    for k, n_lines in zip(("train", "test"), PROFILE_LINES):
+        head_lines(os.path.join(tmp, f"{k}.txt"), paths[k], n_lines)
     prof_dir = os.path.join(pdir, "captures")
     trace_out = os.path.join(pdir, "trace.json")
     argv = cli_train_argv(paths, os.path.join(pdir, "gbdt.model"))
@@ -6062,7 +6087,7 @@ def phase_profile(tmp, model, card):
                                          "--trace-out", trace_out])):
             if extra:
                 # every kernel row in the table, not the top 10
-                profiler.configure_profiler(topk=64)
+                profiler.configure_profiler(topk=PROFILE_TOPK)
             zero_kernel_counts()
             out = io.StringIO()
             with Recorder(GBDTTrainer, "train") as trained, \
@@ -6103,12 +6128,20 @@ def phase_profile(tmp, model, card):
           f"the gbdt.train capture traced no device event: {kern['windows']}")
     busy = win[0]["device_busy_ms"] / win[0]["window_ms"]
     table = {k["name"]: k for k in kern["top_kernels"]}
-    for name, k in (("hist", "K1"), ("hist_gather", "K3"), ("route", "K5")):
+    k_rows = ("hist", "hist_gather", "route")
+    # the port's kernels counted under their own names: their launch's
+    # annotation missed them (shown when a row below disagrees)
+    stray = [(n[:60], r["count"]) for n, r in table.items()
+             if "anonymous namespace" in n]
+    for name, k in zip(k_rows, ("K1", "K3", "K5")):
         row = table.get(name)
         check(row is not None and row["ms"] > 0
               and row["count"] == counts[name],
               f"kernel table row of {k} ({name}) {row} against its "
-              f"wrapper's {counts[name]} launches; table {sorted(table)}")
+              f"wrapper's {counts[name]} launches; the table's K1/K3/K5 "
+              f"rows {[table.get(n) for n in k_rows]} of {len(table)}, "
+              f"launches {counts}; rows of the port's kernels outside a "
+              f"launch's annotation {stray}")
     krows = ", ".join(f"{n} {table[n]['ms']:.3f} ms x{table[n]['count']} "
                       f"({100 * table[n]['share']:.1f}%)"
                       for n in ("hist", "hist_gather", "route"))
@@ -6217,7 +6250,7 @@ DIST_PREDICT_ROWS = 4096
 DIST_TIMEOUT_S = 420
 #: the head of phase_cli_train's text (train, test lines) the one-rank
 #: run and parts (1)-(3) read: each of their processes parses it
-DIST_LINES = (1 << 18, 1 << 15)
+DIST_LINES = (1 << 17, 1 << 14)
 #: the feature-parallel part: text lines, trees, depth (level-wise)
 DIST_FP = ((1 << 17, 1 << 14), 3, 6)
 DIST_FP_RTOL = 1e-4  # tests/test_feature_parallel.py's loss and AUC bands
@@ -6290,6 +6323,53 @@ def fmt_census(c):
                      for k, v in sorted(c.items()))
 
 
+LAUNCHER = os.path.join(REPO, "ytklearn_tpu_torch", "bin",
+                        "cluster_optimizer.sh")
+
+
+def launch_ranks(argv, n, d):
+    """`cli <argv>` (`train <model> <config> ...`) on n `--coordinator`
+    ranks through the port's cluster launcher -> (each rank's JSON line:
+    rank 0's from the launcher's stdout, the others' from its master log;
+    seconds; the master log's text)."""
+    from ytklearn_tpu_torch.gbdt.launch import free_port
+
+    model, conf = argv[1], argv[2]
+    log_path = os.path.join(d, "master.log")
+    env = dict(os.environ, PYTHON=sys.executable,
+               YTK_COORDINATOR_PORT=str(free_port()),
+               YTK_MASTER_LOG=log_path)
+    for k in ("YTK_SLAVE_HOSTS", "YTK_COORDINATOR_HOST"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    with open(os.path.join(d, "launcher.err"), "w+") as ef:
+        # a session of its own, so a launcher past its time is stopped
+        # with its ranks
+        p = subprocess.Popen(["bash", LAUNCHER, model, conf, str(n)]
+                             + argv[3:], cwd=REPO, env=env,
+                             stdout=subprocess.PIPE, stderr=ef, text=True,
+                             start_new_session=True)
+        try:
+            out, _ = p.communicate(timeout=DIST_TIMEOUT_S)
+        finally:
+            kill_script((p,))
+        ef.seek(0)
+        err = ef.read()
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"the launcher exited {p.returncode}: "
+          f"{err[-3000:]}")
+    with open(log_path) as f:
+        master = f.read()
+    recs = [json.loads(out.strip().splitlines()[-1])]
+    for r in range(1, n):
+        tag = f"[rank {r}] {{"
+        lines = [ln for ln in master.splitlines() if ln.startswith(tag)]
+        check(len(lines) == 1, f"rank {r}'s JSON line in the master log: "
+              f"{len(lines)}")
+        recs.append(json.loads(lines[0][len(tag) - 1:]))
+    return recs, wall, master
+
+
 def phase_dist(tmp, card):
     """GBDT across ranks (slice 18) on the head (DIST_LINES) of
     phase_cli_train's Higgs-shaped text at full width (F = 28, 255 bins,
@@ -6299,8 +6379,10 @@ def phase_dist(tmp, card):
     with both ranks on cuda:0 over gloo (one launcher, bins built once),
     its int8 dump byte-identical to the one-rank dump; (3) two
     `--coordinator` processes on cuda:0 over gloo, each ingesting its
-    lines_avg shard: rank 0's train loss within DIST_LOSS_RTOL of one
-    process, its model scored by `cli predict`, rank 1 dumping nothing;
+    lines_avg shard, started by the port's launcher
+    (`ytklearn_tpu_torch/bin/cluster_optimizer.sh`): both ranks labelled in
+    its master log, rank 0's train loss within DIST_LOSS_RTOL of one
+    process, its model scored by `cli predict`;
     (4) scripts/cross_check.py's card arm (full scan K2, partitioned,
     fused K4) equal to the golden tree; (5) `tree_maker = "feature"` on
     `--devices 2` sharing the card (the host engine on every rank, the
@@ -6379,29 +6461,37 @@ def phase_dist(tmp, card):
           f"[{card}]", flush=True)
     check(eq2, "the two-rank --devices dump is not the one-rank dump")
 
-    # (3) two --coordinator processes on cuda:0 over gloo
-    port = free_port()
-    m3 = [os.path.join(d, f"coord{r}", "gbdt.model") for r in range(2)]
-    r3, w3 = run_cli_procs([dist_argv(paths, m3[r]) + [
-        "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
-        "--process-id", str(r)] for r in range(2)], d, "coord2")
-    ranks_line("(3) two --coordinator processes",
+    # (3) two --coordinator processes on cuda:0 over gloo, started by the
+    # port's cluster launcher (rank 0 in its foreground, rank 1 beside it,
+    # both rank-labelled in one master log)
+    m3 = os.path.join(d, "coord2", "gbdt.model")
+    r3, w3, master = launch_ranks(dist_argv(paths, m3), 2, d)
+    ranks_line("(3) two --coordinator processes through the launcher",
                [r["rank"] for r in r3], w3)
+    labelled = {r: sum(ln.startswith(f"[rank {r}] ")
+                       for ln in master.splitlines()) for r in range(2)}
+    print(f"dist (3): the master log holds {labelled[0]} lines of rank 0 "
+          f"and {labelled[1]} of rank 1 [{card}]", flush=True)
+    check(labelled[0] > 0 and labelled[1] > 0,
+          f"the launcher's master log lacks a rank: {labelled}")
     rel = abs(r3[0]["train_loss"] - one["train_loss"]) / one["train_loss"]
     print(f"dist (3): rank 0 train loss {r3[0]['train_loss']:.6f}, one "
           f"process {one['train_loss']:.6f} (rel {rel:.6f}, band "
           f"{DIST_LOSS_RTOL}); test AUC {r3[0]['test_metrics']['auc']:.6f}"
-          f" [{card}]", flush=True)
+          f"; rank 1's trees {r3[1]['trees']} [{card}]", flush=True)
     check(rel <= DIST_LOSS_RTOL, f"two processes' loss rel {rel}")
-    check(os.path.exists(m3[0]) and not os.path.exists(m3[1]),
-          "rank 0 must dump and rank 1 must not")
+    # every rank gets the launcher's one command line, so both name the
+    # same model path: the one dump there is rank 0's, and the ranks'
+    # records agree on the trees
+    check(os.path.exists(m3) and r3[1]["trees"] == r3[0]["trees"],
+          "rank 0 must dump, and the ranks must agree")
     pfile = os.path.join(d, "predict.txt")
     with open(paths["test"]) as f, open(pfile, "w") as g:
         for i, line in enumerate(f):
             if i >= DIST_PREDICT_ROWS:
                 break
             g.write(line)
-    rc, pred = cli_quiet(["predict", serve_conf(m3[0], d, "dist"), "gbdt",
+    rc, pred = cli_quiet(["predict", serve_conf(m3, d, "dist"), "gbdt",
                           pfile, "--set", "optimization.round_num=0"])
     with open(pfile + "_predict") as f:
         preds = [float(v) for v in f.read().split()]
@@ -6486,7 +6576,7 @@ DCONV_ITERS = 10  # L-BFGS iterations of the linear and FM runs
 DCONV_GBST = ((1 << 15, 1 << 12), 2)  # gbmlr's lines and trees (K = 8)
 #: `cli retrain gbdt`: phase_cli_train's text cut to these lines (train,
 #: held-out), int8 trees, depth
-DCONV_RETRAIN = ((1 << 18, 1 << 15), 5, 6)
+DCONV_RETRAIN = ((1 << 17, 1 << 14), 5, 6)
 DCONV_RTOL = 1e-4  # tests/test_torch_mesh_convex.py's tolerances
 DCONV_MP_RTOL = 1e-3  # tests/test_multiprocess.py's two-process bound
 
@@ -6744,6 +6834,9 @@ DEEP_SEED = 20261018
 #: the shared lookup kind's largest capacity at B = 256
 SHARED_CAP_256 = 57_344
 DEEP_SERVE_ROWS = 256
+#: torch threads of each CPU reference process (two of them): they run
+#: beside the card's phases, so they take a quarter of the cores each
+REF_CPU_THREADS = 2
 
 
 def deep_params(path, leaves=DEEP_LEAVES):
@@ -6895,13 +6988,13 @@ def deep_data():
 def deep_tree_run(prec, dev, data, path):
     """One deep tree: (train loss, seconds, nodes, leaves, depth); the dump
     at `path`. The CPU runs go through this in processes of their own,
-    half the cores each, beside the card's."""
+    REF_CPU_THREADS threads each, beside the card's phases."""
     import torch
 
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
 
     if dev == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+        torch.set_num_threads(REF_CPU_THREADS)
     t0 = time.perf_counter()
     r = GBDTTrainer(deep_params(path), hist_precision=prec,
                     device=dev).train(train=data)
@@ -6910,7 +7003,40 @@ def deep_tree_run(prec, dev, data, path):
             tree.leaf_cnt(), tree.max_depth())
 
 
-def phase_deep_tree(card):
+def start_cpu_references(card):
+    """The CPU references of phase_deep_tree (the int8 and bf16 deep trees)
+    and of phase_wide_bins (WIDE_RUNS), started after phase_serving in two
+    spawned processes of REF_CPU_THREADS threads, so they grow beside the
+    card's phases up to the deep phase (not beside phase_profile's
+    capture or the serving bench) -> the pool, its temp dir, the two
+    phases' data and futures; each prints when it is done."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_refs_")
+    pool = ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    deep, wide = deep_data(), wide_data()
+    refs = {"pool": pool, "tmp": tmp, "t0": t0, "deep_data": deep,
+            "wide_data": wide}
+    refs["deep_cpu"] = {prec: pool.submit(deep_tree_run, prec, "cpu", deep,
+                                          os.path.join(tmp, f"{prec}_cpu"))
+                        for prec in ("int8", "bf16")}
+    refs["wide_cpu"] = {run: pool.submit(
+        wide_run, *run, "cpu", wide,
+        os.path.join(tmp, f"wide_{run[0]}_{run[1]}_cpu"))
+        for run in WIDE_RUNS}
+    for what, fut in [(f"deep {p}", f) for p, f in refs["deep_cpu"].items()] \
+            + [(f"wide {r[0]} {r[1]}", f) for r, f in refs["wide_cpu"].items()]:
+        # to the process's own stdout: a phase may be capturing sys.stdout
+        fut.add_done_callback(lambda f, what=what: print(
+            f"cpu references: {what} done {time.perf_counter() - t0:.3f} s "
+            f"after they started [{card}]", file=sys.__stdout__, flush=True))
+    return refs
+
+
+def phase_deep_tree(card, refs):
     """ROADMAP 1.8 on the card: one l2 tree of up to DEEP_LEAVES leaves
     over DEEP_ROWS Higgs-shaped rows, past the shared node lookup's
     capacity, in int8 and in bf16, on the card and (the reference, in two
@@ -6923,12 +7049,11 @@ def phase_deep_tree(card):
     model served once by `cli serve` with YTK_SERVE_FUSED=1: the fused
     rung refuses its depth, so it serves on the stacked rung, every score
     bit-equal to the host tree walk. Between the card's runs and the CPU
-    results, phase_wide_bins (slice 22); finish_wide_bins after. Returns
+    results, phase_wide_bins (slice 22); finish_wide_bins after. The CPU
+    references grow from phase_serving's end on (start_cpu_references,
+    `refs`). Returns
     ({kernel: launches}, {kernel: (shared ms, global ms)}, {kernel:
     largest error}, phase_wide_bins' record)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import numpy as np
     import torch
 
@@ -6936,17 +7061,13 @@ def phase_deep_tree(card):
     from ytklearn_tpu_torch.gbdt.tree import GBDTModel
     from ytklearn_tpu_torch.predict import create_predictor
 
-    timings = deep_lookup_timings(card)  # before the CPU runs load the host
-    data = deep_data()
+    timings = deep_lookup_timings(card)
+    data = refs["deep_data"]
     M = 2 * DEEP_LEAVES - 1
-    tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_deep_")
+    tmp = refs["tmp"]
     launches, errs, res = {}, {}, {}
-    pool = ProcessPoolExecutor(
-        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    pool, cpu = refs["pool"], refs["deep_cpu"]
     try:
-        cpu = {prec: pool.submit(deep_tree_run, prec, "cpu", data,
-                                 os.path.join(tmp, f"{prec}_cpu"))
-               for prec in ("int8", "bf16")}
         for prec in ("int8", "bf16"):
             rec = ShapeRecorder("int8" if prec == "int8" else "float")
             zero_kernel_counts()
@@ -6965,7 +7086,7 @@ def phase_deep_tree(card):
             torch.cuda.empty_cache()
         # slice 22, while the CPU trees grow: features past one tile of
         # bins on the card (their CPU runs queue behind the deep trees)
-        wide = phase_wide_bins(card, pool, tmp)
+        wide = phase_wide_bins(card, refs)
         torch.cuda.empty_cache()
         # while the CPU trees grow: the int8 model through `cli serve`,
         # fused asked for and refused (depth past the heap kernels' cap),
@@ -7000,15 +7121,20 @@ def phase_deep_tree(card):
         check(banner["rung"]["mode"] == "stacked" and ok and rc == 0,
               f"deep serve: rung {banner['rung']}, scores {ok}, exit {rc}")
 
+        t_wait = time.perf_counter()
         for prec in ("int8", "bf16"):
             res[prec, "cpu"] = cpu[prec].result()
+        print(f"deep: waited {time.perf_counter() - t_wait:.3f} s for the "
+              f"CPU trees, {time.perf_counter() - refs['t0']:.3f} s after "
+              f"they started [{card}]", flush=True)
         for (prec, dev), (loss, secs, nodes, leaves, depth) in sorted(
                 res.items()):
             print(f"deep {prec} on {dev}: {DEEP_ROWS} rows, one tree of "
                   f"{nodes} nodes ({leaves} leaves, depth {depth}), "
                   f"capacity {M} (lookup {hist.lookup_kind(256, M)}), "
-                  f"{secs:.3f} s (wall, the card's and CPU's runs side by "
-                  f"side), train loss {loss:.9f} [{card}]", flush=True)
+                  f"{secs:.3f} s (wall; the CPU's with {REF_CPU_THREADS} "
+                  f"threads beside the card's phases), train loss "
+                  f"{loss:.9f} [{card}]", flush=True)
             check(nodes > SHARED_CAP_256, f"deep {prec} on {dev}: {nodes} "
                   f"nodes, not past {SHARED_CAP_256}")
         texts = {}
@@ -7090,7 +7216,7 @@ def wide_run(prec, max_cnt, dev, data, path):
     from ytklearn_tpu_torch.gbdt.trainer import GBDTTrainer
 
     if dev == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+        torch.set_num_threads(REF_CPU_THREADS)
     saved = os.environ.get("YTK_LADDER")
     os.environ["YTK_LADDER"] = WIDE_LADDER
     try:
@@ -7246,24 +7372,21 @@ def wide_kind_matrix(card):
     return report, errs
 
 
-def phase_wide_bins(card, pool, tmp):
+def phase_wide_bins(card, refs):
     """ROADMAP 1.8b on the card: GBDT over features of more bins than one
     shared-memory tile holds (K1, K2 and K4 tiles of bin ranges). Three
     trainings of WIDE_ROUNDS trees over WIDE_ROWS Higgs-shaped rows of
     WIDE_F continuous features: int8 at max_cnt 30,000 (B = 2^15) and
     60,000 (2^16), bf16 at 2^15, on the card here and on the CPU in the
-    deep phase's pool (submitted first: they run once the deep CPU trees
-    are done). Every recorded K1-K4 call held to its plain version (K2/K4
-    exact, K1/K3 at HIST_RTOL); each of K1-K4 launched; then the kind
-    matrix (wide_kind_matrix). Returns what finish_wide_bins needs."""
+    references' pool (start_cpu_references: they run once the deep CPU
+    trees are done). Every recorded K1-K4 call held to its plain version
+    (K2/K4 exact, K1/K3 at HIST_RTOL); each of K1-K4 launched; then the
+    kind matrix (wide_kind_matrix). Returns what finish_wide_bins needs."""
     import torch
 
     from ytklearn_tpu_torch.gbdt import hist
 
-    data = wide_data()
-    cpu = {run: pool.submit(wide_run, *run, "cpu", data,
-                            os.path.join(tmp, f"wide_{run[0]}_{run[1]}_cpu"))
-           for run in WIDE_RUNS}
+    data, cpu, tmp = refs["wide_data"], refs["wide_cpu"], refs["tmp"]
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -7317,7 +7440,7 @@ def finish_wide_bins(wide, tmp, card):
         loss, secs, B, trees = fut.result()
         prec, cnt = run
         print(f"wide {prec} max_cnt {cnt} on the CPU: B = {B}, {trees} "
-              f"trees in {secs:.3f} s (in the deep phase's pool), train loss "
+              f"trees in {secs:.3f} s (in the references' pool), train loss "
               f"{loss:.9f} [{card}]", flush=True)
         if prec == "int8":
             texts = {}
@@ -7452,6 +7575,343 @@ def phase_engine_scripts(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- slice 23: the serving bench and the drills ------------------------------
+
+#: each arm's window (the scripts' --seconds; every floor keeps its default)
+SB_SECONDS = 1.0
+SB_MIXED_SECONDS = 6.0
+SB_REPLICAS = 2  # --rungs-fleet and --fleet
+SB_RAMP_REPLICAS = 3  # SCALE_MIN_PEAK's default 3 needs a ceiling of 3
+SB_RAMP_TIMEOUT_S = 90.0  # --ramp-grow-timeout and --ramp-shrink-timeout
+SB_TIMEOUT_S = 420
+TRACE_SECONDS = 3.0
+#: the drills' one speed floor each, as its failure message begins
+DRILL_FLOOR = {"trace_drill": "sampled tracing",
+               "drift_drill": "quality-sampler overhead",
+               "mesh_drill": "?models=1 scrape cost"}
+
+
+def start_script(name, args, d):
+    """`python -m ytklearn_tpu_torch.scripts.<name> <args> --record
+    <d>/<name>.json` with every floor and window knob at its default (the
+    script's own environment keeps no YTK_, SERVE_, BENCH_, SCALE_ or MESH_
+    variable of this process) -> (process, record path, stderr file, t0)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(
+        ("YTK_", "SERVE_", "BENCH_", "SCALE_", "MESH_"))}
+    env["PYTHONPATH"] = REPO
+    rec = os.path.join(d, f"{name}.json")
+    ef = open(os.path.join(d, f"{name}.err"), "w+")
+    # a session of its own: kill_script stops its replicas with it
+    p = subprocess.Popen(
+        [sys.executable, "-m", f"ytklearn_tpu_torch.scripts.{name}",
+         "--record", rec] + list(args), cwd=REPO, env=env,
+        stdout=subprocess.DEVNULL, stderr=ef, start_new_session=True)
+    return p, rec, ef, time.perf_counter()
+
+
+def kill_script(started):
+    """Kill every process left in a start_script process's session (its
+    fleet's replicas too, should it have died without stopping them)."""
+    p = started[0]
+    try:
+        os.killpg(p.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    p.wait()
+
+
+def finish_script(started, what, card):
+    """Wait for start_script's process -> (rc, the record, seconds). The
+    exit code may be 1 for a missed speed floor only: the caller holds
+    every correctness field itself."""
+    p, rec, ef, t0 = started
+    try:
+        p.wait(timeout=SB_TIMEOUT_S)
+    finally:
+        kill_script(started)
+    wall = time.perf_counter() - t0
+    ef.seek(0)
+    err = ef.read()
+    ef.close()
+    check(p.returncode in (0, 1) and os.path.exists(rec),
+          f"{what} exited {p.returncode}: {err[-3000:]}")
+    with open(rec) as f:
+        out = json.load(f)
+    fails = [ln.split("FAIL: ", 1)[1] for ln in err.splitlines()
+             if "FAIL: " in ln]
+    print(f"serving {what}: exit {p.returncode} in {wall:.3f} s (wall), "
+          f"device {out['device']}, record card {out['card']!r}; failures "
+          f"printed {fails} [{card}]", flush=True)
+    return p.returncode, out, wall
+
+
+def floors_line(what, rec, rc, card):
+    """Each speed floor beside its value and the card; a run that exited 1
+    must have missed one."""
+    missed = [f["name"] for f in rec["floors"] if not f["met"]]
+    for f in rec["floors"]:
+        print(f"serving {what} floor {f['name']}: value {f['value']}, limit "
+              f"{f['limit']}, met {f['met']} [{card}]", flush=True)
+    check(rc == 0 or missed, f"{what} exited {rc} with every floor met")
+
+
+def check_rungs(rec, rc, card):
+    """serve_bench's rung matrix at the card's width: K6 and K7 launched by
+    the fused and binned rungs, every rung bit-identical to the host walk,
+    none downgraded, no build after warmup; the bands and the transform
+    path; the binned fleet."""
+    check(rec["trees"] == N_TREES and rec["data_source"] == "synthetic",
+          f"serve_bench model: {rec['trees']} trees, {rec['data_source']}")
+    print(f"serving rungs: score() loop {rec['baseline_req_per_sec']} req/s;"
+          f" default rung x{rec['speedup_vs_score_loop']} [{card}]",
+          flush=True)
+    backends = {"default": "stacked-torch", "fused": "fused-cuda",
+                "binned": "binned-cuda"}
+    for r in rec["rungs"]:
+        print(f"serving rung {r['rung']}: {r['backend']}, {r['req_per_sec']} "
+              f"req/s, p50 {r['p50_ms']} ms, p99 {r['p99_ms']} ms, "
+              f"{r['requests']} requests, x{r['speedup_vs_default']} the "
+              f"default rung, bit-identical {r['bit_identical']}, "
+              f"downgraded {r['downgraded']}, builds after warmup "
+              f"{r['retraces_after_warmup']} [{card}]", flush=True)
+        check(r["backend"] == backends[r["rung"]] and not r["downgraded"]
+              and r["bit_identical"] and r["retraces_after_warmup"] == 0,
+              f"serve_bench rung {r['rung']}: {r}")
+    kl = rec["kernel_launches"]
+    print(f"serving rungs: the process launched K6 {kl['heap_walk']} and K7 "
+          f"{kl['binned_walk']} times [{card}]", flush=True)
+    check(kl["heap_walk"] > 0 and kl["binned_walk"] > 0,
+          f"serve_bench's rungs launched no K6 or K7: {kl}")
+    q, bands = rec["binned_quality"], rec["precision_bands"]
+    print(f"serving bands: binned max |pred diff| {q['max_abs_pred_diff']} "
+          f"(band 1e-9), boundary rows diverged "
+          f"{q['boundary_diverged_fraction']}; bf16 {bands} (band 0.1) "
+          f"[{card}]", flush=True)
+    check(q["max_abs_pred_diff"] <= 1e-9
+          and all(b <= 0.1 for b in bands.values()),
+          f"serve_bench bands: {q}, {bands}")
+    tr = rec["transform_overhead"]
+    for arm in ("tracing_overhead", "quality_overhead"):
+        o = rec[arm]
+        print(f"serving {arm}: off {o['off_req_per_sec']}, sampled "
+              f"{o['sampled_req_per_sec']}, always {o['always_req_per_sec']}"
+              f" req/s [{card}]", flush=True)
+    print(f"serving transform: raw {tr['raw_req_per_sec']}, assembled "
+          f"{tr['assembled_req_per_sec']} req/s, "
+          f"{tr.get('transform_us_per_row')} us a row, bit-identical "
+          f"{tr['assembled_bit_identical']}, builds {tr['raw_retraces']} "
+          f"[{card}]", flush=True)
+    check(tr["assembled_bit_identical"] and tr["raw_retraces"] == 0,
+          f"serve_bench transform arm: {tr}")
+    fl = rec["fleet"]
+    http = fl["front_http"]
+    print(f"serving rungs-fleet: {fl['replicas']} binned replicas, "
+          f"{fl['req_per_sec']} req/s, p50 {fl['p50_ms']} ms, p99 "
+          f"{fl['p99_ms']} ms, rungs {fl['rung_by_replica']}; front ingress "
+          f"raw splice {http['raw_splice']['rows_per_sec']} rows/s, general "
+          f"parse {http['general_parse']['rows_per_sec']} rows/s "
+          f"({http['parse_overhead_us_per_row']} us a row) [{card}]",
+          flush=True)
+    check(fl["retraces_fleet"] == 0 and fl["batches_fleet"] > 0
+          and len(fl["rung_by_replica"]) == SB_REPLICAS
+          and all(r["backend"] == "binned-cuda" and not r["downgraded"]
+                  for r in fl["rung_by_replica"].values())
+          and http["raw_splice"]["errors"] == 0
+          and http["general_parse"]["errors"] == 0
+          and http["raw_splice_requests"] > 0,
+          f"serve_bench rungs-fleet: {fl}")
+    floors_line("rungs", rec, rc, card)
+
+
+def check_fleet(rec, rc, card):
+    base, mixed, hot = rec["baseline"], rec["mixed_traffic"], rec["hot_cache"]
+    check(base["measured"] == "this run" and base["req_per_sec"] > 0,
+          f"--fleet baseline: {base}")
+    for s in rec["scaling"]:
+        print(f"serving fleet: {s['replicas']} replica(s), {s['req_per_sec']}"
+              f" req/s, p50 {s['p50_ms']} ms, p99 {s['p99_ms']} ms, builds "
+              f"{s['retraces']} [{card}]", flush=True)
+        check(s["retraces"] == 0, f"--fleet scaling: {s}")
+    print(f"serving fleet: x{rec['speedup_vs_single']} the single-process "
+          f"default rung of this run ({base['req_per_sec']} req/s); hot cache"
+          f" {hot['req_per_sec']} req/s, hit rate {hot['hit_rate']}; mixed "
+          f"{mixed['requests']} requests, {mixed['shed_429']} shed, "
+          f"{mixed['failures']} failed, versions {mixed['versions_seen']} "
+          f"[{card}]", flush=True)
+    check(hot["retraces"] == 0 and mixed["failures"] == 0
+          and mixed["shed_429"] > 0 and mixed["versions_seen"] == [1, 2]
+          and mixed["retraces_fleet"] == 0, f"--fleet mixed: {mixed}")
+    floors_line("fleet", rec, rc, card)
+
+
+def check_ramp(rec, rc, card):
+    hist = [v for _t, v in rec["history_replicas"]]
+    names = {e["name"] for e in rec["scale_events"]}
+    print(f"serving ramp: 1 -> {rec['peak_replicas']} -> "
+          f"{rec['end_replicas']} replicas (ceiling {rec['replicas_max']}), "
+          f"peak at {rec['t_peak_s']} s, {rec['requests']} requests, "
+          f"{rec['failures']} failed, {rec['shed_429']} shed in "
+          f"{rec['shed_window_s']} s, {rec['sheds_after_peak']} after the "
+          f"peak; p50 {rec['p50_ms']} ms, p99 {rec['p99_ms']} ms (at the "
+          f"peak {rec['p99_at_peak_ms']}); phases {rec['phases']} [{card}]",
+          flush=True)
+    check(rec["failures"] == 0 and rec["sheds_after_peak"] == 0
+          and rec["end_replicas"] == 1 and rec["peak_replicas"] > 1
+          and {"serve.scale.up", "serve.scale.down"} <= names
+          and hist and max(hist) > 1 and hist[-1] == 1,
+          f"--ramp: {rec['failures']} failed, {rec['sheds_after_peak']} "
+          f"sheds after the peak, end {rec['end_replicas']}, events "
+          f"{sorted(names)}, ring tail {hist[-8:]}")
+    floors_line("ramp", rec, rc, card)
+
+
+def check_drill(name, rec, rc, card):
+    """A drill's record: its failures at most its one speed floor's, and
+    its own correctness fields."""
+    floor_fails = [f for f in rec["failures"]
+                   if f.startswith(DRILL_FLOOR[name])]
+    other = [f for f in rec["failures"] if f not in floor_fails]
+    check(other == [], f"{name}: {other}")
+    if name == "trace_drill":
+        s1, s2, s3 = (rec["steps"][k] for k in ("traced_fleet", "overhead",
+                                                "slo_burn"))
+        print(f"serving trace drill: {s1['requests']} traced requests, "
+              f"client p50 {s1['client_p50_ms']} ms, p99 "
+              f"{s1['client_p99_ms']} ms; the p99 exemplar "
+              f"{s1['p99_exemplar_ms']} ms, its hops sum to "
+              f"{s1['p99_hop_sum_ms']} ms ({s1['p99_hop_share']}), replica "
+              f"hops inside front.forward "
+              f"{s1['replica_side']['inside_forward']}"
+              f"; overhead off {s2['off_req_per_sec']} / sampled "
+              f"{s2['sampled_req_per_sec']} req/s; SLO burn fired "
+              f"{s3['slo_burn_fired']}, in the dump {s3['event_in_dump']} "
+              f"[{card}]", flush=True)
+        check(s1["errors"] == 0 and 0.9 <= s1["p99_hop_share"] <= 1.1
+              and s1["replica_side"]["inside_forward"]
+              and s1["waterfall_rendered"] and s3["slo_burn_fired"]
+              and s3["event_in_dump"] and s3["slo_burn_in_report"],
+              f"trace drill: {s1}, {s3}")
+    elif name == "drift_drill":
+        st = rec["steps"]
+        quiet = st["in_distribution"]["replicas"]
+        loud = st["shifted"]["replicas"]
+        print(f"serving drift drill: in-distribution PSI "
+              f"{[r['psi_max'] for r in quiet.values()]}, fired "
+              f"{[r['drift_fired'] for r in quiet.values()]}; shifted PSI "
+              f"{[r['psi_max'] for r in loud.values()]}, fired "
+              f"{[r['drift_fired'] for r in loud.values()]}, worst "
+              f"{[r['worst_features'] for r in loud.values()]}; the front's "
+              f"merge agrees {st['fleet_merge']['agrees']}; flight fired "
+              f"{st['flight']['drift_fired']}; overhead off "
+              f"{st['overhead']['off_req_per_sec']} / sampled "
+              f"{st['overhead']['sampled_req_per_sec']} req/s; its trainer "
+              f"launched K1 {rec['kernel_launches']['hist_wave']}, K3 "
+              f"{rec['kernel_launches']['hist_wave_gather_mxu']}, K5 "
+              f"{rec['kernel_launches']['route_wave']} [{card}]", flush=True)
+        check(rec["kernel_launches"]["hist_wave"] > 0
+              and rec["kernel_launches"]["route_wave"] > 0,
+              f"the drift drill's trainer ran no K1 or K5 on the card: "
+              f"{rec['kernel_launches']}")
+        check(len(quiet) == len(loud) == rec["replicas"]
+              and not any(r["drift_fired"] for r in quiet.values())
+              and all(r["drift_fired"] and r["retraces"] == 0
+                      for r in loud.values())
+              and st["fleet_merge"]["agrees"] and st["flight"]["drift_fired"]
+              and st["flight"]["event_in_dump"], f"drift drill: {st}")
+    else:
+        iso, cons = rec["burn_isolation"], rec["conservation"]
+        print(f"serving mesh drill: the hog fired {iso['abusive_fired']} "
+              f"windows, the quiet tenants {iso['quiet_fired']}; "
+              f"conservation exact on {len(cons['per_replica'])} replicas "
+              f"{cons['ok']}; abuse {rec['traffic']['abuse']}; top talker "
+              f"{(rec['top_talkers'] or [{}])[0].get('model')}; scrape "
+              f"{rec['overhead']['plain_ms']} / {rec['overhead']['models_ms']}"
+              f" ms; flight {rec['flight']['models_in_dump']} [{card}]",
+              flush=True)
+        check(iso["ok"] and cons["ok"]
+              and len(cons["per_replica"]) == rec["replicas"]
+              and rec["flight"]["ok"], f"mesh drill: {iso}, {cons}")
+    floors_line(name, rec, rc, card)
+
+
+def phase_serving(card):
+    """The reference's serving bench and drills on the card (slice 23),
+    each its own process of the port's script: serve_bench's rung matrix at
+    500 trees, depth 6 (K6 and K7 on the fused and binned rungs) with a
+    binned fleet of SB_REPLICAS (`--rungs-fleet`) alone, then `--fleet
+    --replicas SB_REPLICAS`, `--ramp --replicas SB_RAMP_REPLICAS` and the
+    trace, drift and mesh drills at once, each fleet's replicas `cli
+    serve` processes sharing the card. Every
+    correctness field is held here; a speed floor is printed beside its
+    value, and a run may exit 1 for a missed floor only. Returns
+    serve_bench's kernel launches (K6 and K7 among them)."""
+    d = tempfile.mkdtemp(prefix="ytk_chip_smoke_serving_")
+    t0 = time.perf_counter()
+    live = []
+
+    def start(name, args, where):
+        live.append(start_script(name, args, where))
+        return live[-1]
+
+    try:
+        rc, rungs, _w = finish_script(start("serve_bench", [
+            "--seconds", str(SB_SECONDS), "--rungs-fleet",
+            str(SB_REPLICAS)], d), "serve_bench rungs", card)
+        check_rungs(rungs, rc, card)
+        # the fleet matrix, the ramp and the three drills at once: each is
+        # its own fleet on the card
+        t_d = time.perf_counter()
+        fleet = start("serve_bench", [
+            "--fleet", "--replicas", str(SB_REPLICAS), "--seconds",
+            str(SB_SECONDS), "--mixed-seconds", str(SB_MIXED_SECONDS)], d)
+        ramp = start("serve_bench", [
+            "--ramp", "--replicas", str(SB_RAMP_REPLICAS),
+            "--ramp-grow-timeout", str(SB_RAMP_TIMEOUT_S),
+            "--ramp-shrink-timeout", str(SB_RAMP_TIMEOUT_S)], d)
+        drills = {}
+        for name, args in (("trace_drill", ["--seconds",
+                                            str(TRACE_SECONDS)]),
+                           ("drift_drill", []), ("mesh_drill", [])):
+            # a directory each: the trace drill's snapshot lands beside
+            # its record
+            os.makedirs(os.path.join(d, name))
+            drills[name] = start(name, args, os.path.join(d, name))
+        done = {name: finish_script(started, name, card)
+                for name, started in drills.items()}
+        done["ramp"] = finish_script(ramp, "serve_bench --ramp", card)
+        done["fleet"] = finish_script(fleet, "serve_bench --fleet", card)
+        print(f"serving: the fleet matrix, the ramp and the three drills at "
+              f"once in {time.perf_counter() - t_d:.3f} s (wall) [{card}]",
+              flush=True)
+        for name, (rc, rec, _w) in done.items():
+            if name == "fleet":
+                check_fleet(rec, rc, card)
+            elif name == "ramp":
+                check_ramp(rec, rc, card)
+            else:
+                check_drill(name, rec, rc, card)
+    finally:
+        for started in live:
+            kill_script(started)
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"serving: bench and drills in {time.perf_counter() - t0:.3f} s "
+          f"(wall) [{card}]", flush=True)
+    return rungs["kernel_launches"]
+
+
+def stop_cpu_references(refs):
+    """Stop the references' pool and its processes (idempotent): no
+    process of the script outlives it."""
+    if not refs:
+        return
+    pool = refs["pool"]
+    for proc in list((getattr(pool, "_processes", None) or {}).values()):
+        if proc.is_alive():
+            proc.terminate()
+    pool.shutdown(wait=True, cancel_futures=True)
+    shutil.rmtree(refs["tmp"], ignore_errors=True)
+
+
 def timed(name, fn, *args, **kw):
     """Run one phase, print its wall time; return what it returns."""
     t0 = time.perf_counter()
@@ -7520,6 +7980,18 @@ def main() -> int:
         print(f"build: {name} in {build['seconds']:.3f} s [{card}]: "
               f"{build['cmd']}", flush=True)
         print(build["log"].strip(), flush=True)
+
+    refs = {}
+    try:
+        return main_phases(card, refs)
+    finally:
+        stop_cpu_references(refs)
+
+
+def main_phases(card, refs) -> int:
+    """The phases after the builds; `refs` receives the CPU references'
+    pool (start_cpu_references), which main stops whatever happens."""
+    import torch
 
     tmp = tempfile.mkdtemp(prefix="ytk_chip_smoke_")
     try:
@@ -7615,6 +8087,12 @@ def main() -> int:
         # slice 17: the profiling plane over phase_cli_train's config
         timed("profile", phase_profile, tmp, cli_model, card)
         torch.cuda.empty_cache()
+        # slice 23: the reference's serving bench and drills
+        sb_launches = timed("serving", phase_serving, card)
+        torch.cuda.empty_cache()
+        # the deep and wide phases' CPU references grow from here, beside
+        # the card's phases up to phase_deep_tree
+        refs.update(timed("cpu_references", start_cpu_references, card))
         # slice 18: GBDT across ranks over the same text
         timed("dist", phase_dist, tmp, card)
         torch.cuda.empty_cache()
@@ -7671,7 +8149,7 @@ def main() -> int:
     # slice 21: one tree past the shared node lookup (K1-K4's global kind)
     # (slice 22: the wide-bin runs inside it, while its CPU trees grow)
     deep_launches, deep_ms, deep_errs, wide = timed(
-        "deep_tree", phase_deep_tree, card)
+        "deep_tree", phase_deep_tree, card, refs)
     for k, v in deep_errs.items():
         errs[k] = max(errs.get(k, 0.0), v)
     for k, v in wide["errs"].items():
@@ -7763,7 +8241,10 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "device_ms": device_ms,
+        "serve_bench_launches": sb_launches["binned_walk"],
     })
+    # K6 on slice 23's path: serve_bench's fused rung
+    rows[0]["serve_bench_launches"] = sb_launches["heap_walk"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - T_START:.3f} s in all, the "
           f"kernel builds included (wall) [{card}]", flush=True)

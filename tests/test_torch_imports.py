@@ -17,9 +17,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ytklearn_tpu_torch")
 
 
+#: the JAX package's script modules (scripts/*.py), which the port's
+#: scripts may not import either: each keeps its own copy
+REF_SCRIPTS = {f[:-3] for f in os.listdir(os.path.join(REPO, "scripts"))
+               if f.endswith(".py")} | {"scripts"}
+
+
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "ytklearn_tpu")
+    return top in ("jax", "jaxlib", "ytklearn_tpu") or top in REF_SCRIPTS
 
 
 def _port_modules():
@@ -49,7 +55,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "train", "boost", "optimize.blocked", "optimize.lbfgs",
               "models.base", "scripts.profile_gbdt",
               "scripts.profile_engine", "scripts.micro_engine",
-              "scripts.ablate_engine"):
+              "scripts.ablate_engine", "scripts.serve_bench",
+              "scripts.trace_drill", "scripts.drift_drill",
+              "scripts.mesh_drill"):
         assert f"ytklearn_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
